@@ -1,0 +1,76 @@
+"""The port's CLI end to end on the CPU: ``python -m
+video_restore_tpu_torch.cli in.y4m out.y4m --cpu`` with RealESRGAN_x4plus
+(nf 64, 23 blocks, random weights) on a tiny clip, full frame, enhanced,
+and the refusal of flags whose subsystems are not ported yet."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from video_restore_tpu_torch import cli
+from video_restore_tpu_torch.video.y4m import Y4MReader, Y4MWriter
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def _clip(path, n=3, h=16, w=24):
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[0:h, 0:w]
+    with Y4MWriter(path, w, h, 25) as wr:
+        for t in range(n):
+            f = np.stack([xx * 255 / w, yy * 255 / h, np.full((h, w), 40 + 30 * t)], -1)
+            f = f + rng.integers(-10, 10, (h, w, 3))
+            wr.write(np.clip(f, 0, 255).astype(np.uint8))
+
+
+def test_cli_restores_clip_on_cpu(tmp_path):
+    src, dst = tmp_path / "in.y4m", tmp_path / "out.y4m"
+    _clip(src)
+    env = dict(os.environ, VRT_ALLOW_RANDOM_WEIGHTS="1")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p]
+    )
+    r = subprocess.run(
+        [
+            sys.executable, "-m", "video_restore_tpu_torch.cli",
+            str(src), str(dst), "--cpu", "--model", "RealESRGAN_x4plus",
+            "--tile-size", "0", "--enhanced", "--sharpen", "0.3",
+            "--models-dir", str(tmp_path / "models"),
+        ],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert r.returncode == 0, r.stderr[-2000:]
+    with Y4MReader(dst) as rd:
+        frames = list(rd)
+        assert (rd.info.width, rd.info.height) == (96, 64)
+    assert len(frames) == 3
+    assert all(f.shape == (64, 96, 3) and f.dtype == np.uint8 for f in frames)
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [
+        ["--batch"],
+        ["--face-enhance"],
+        ["--multihost"],
+        ["--segment-frames", "8"],
+        ["--precision", "int8"],
+        ["--tile-size", "128"],
+        ["--shard-mode", "tiles"],
+        ["--model", "RealESRGAN_x4_v3"],
+    ],
+)
+def test_unported_flags_exit_1(tmp_path, capsys, flags):
+    src = tmp_path / "in.y4m"
+    _clip(src, n=1)
+    rc = cli.main([str(src), str(tmp_path / "o.y4m"), "--cpu"] + flags)
+    assert rc == 1
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_missing_input_exit_1(tmp_path):
+    assert cli.main([str(tmp_path / "nope.y4m"), str(tmp_path / "o.y4m"), "--cpu"]) == 1

@@ -1,0 +1,220 @@
+"""RRDBNet (the ESRGAN generator) as a PyTorch module.
+
+Port of ``video_restore_tpu/models/rrdbnet.py``: ``RRDBNetSpec`` is copied,
+and :class:`RRDBNet` runs the same network as ``_apply`` in stripe mode
+(``rrdbnet.py:532-892``): conv stem -> ``num_block`` RRDB blocks (three
+RDBs each, the RRDB residual fused into rdb3) -> ``conv_body`` + the long
+residual -> two nearest-2x upsample + conv stages -> ``conv_hr`` ->
+``conv_last``. Scale-2 and scale-1 basicsr nets pixel-unshuffle the input
+first (``:546-549``); ESRGAN-style x2 nets (BSRGANx2) have one upsample
+stage and no ``conv_up2`` (``:741-769``).
+
+Weights keep the JAX layout: HWIO convs, the same names as the JAX param
+pytree, with the body as a list of blocks instead of a stacked axis.
+:func:`params_from_jax` turns a JAX pytree (numpy leaves, stacked body) into
+this module's state dict.
+
+``forward(x)`` runs the kernel wrappers (K1 launches on CUDA tensors, their
+plain versions on CPU tensors); ``forward(x, plain=True)`` runs the plain
+versions on any device, which is the reference the kernel path is checked
+against on the GPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from video_restore_tpu_torch.ops.conv import pixel_unshuffle
+from video_restore_tpu_torch.ops.stripe import rdb_fused, rdb_fused_plain
+from video_restore_tpu_torch.ops.tail import (
+    conv3x3_fused,
+    conv3x3_fused_plain,
+    tail_fused,
+    tail_fused_plain,
+    up1_fused,
+    up1_fused_plain,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class RRDBNetSpec:
+    num_in_ch: int = 3
+    num_out_ch: int = 3
+    num_feat: int = 64
+    num_block: int = 23
+    num_grow_ch: int = 32
+    scale: int = 4
+    # basicsr (Real-ESRGAN) reaches scale<4 by pixel-unshuffling the input
+    # and keeping two 2x upsample stages; the original ESRGAN/KAIR nets
+    # (BSRGAN) instead feed the raw input and use log2(scale) stages.
+    unshuffle: bool = True
+    # torch state_dict naming of the released checkpoint this spec loads:
+    # "basicsr" (body.{i}.rdb{j}...) or "esrgan" (RRDB_trunk.{i}.RDB{j}...)
+    key_style: str = "basicsr"
+
+    @property
+    def stem_in_ch(self) -> int:
+        """Input channels after the scale<4 pixel-unshuffle."""
+        if not self.unshuffle:
+            return self.num_in_ch
+        if self.scale == 2:
+            return self.num_in_ch * 4
+        if self.scale == 1:
+            return self.num_in_ch * 16
+        return self.num_in_ch
+
+    @property
+    def num_upsample(self) -> int:
+        """Nearest-up+conv 2x stages in the tail (2 for every basicsr
+        variant; log2(scale) for ESRGAN-style nets, e.g. BSRGANx2 has 1)."""
+        if self.unshuffle or self.scale == 4:
+            return 2
+        return 1
+
+
+class Conv3x3(nn.Module):
+    """Weights of one 3x3 conv, HWIO, and its bias."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(3, 3, cin, cout), requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(cout), requires_grad=False)
+
+
+class RDB(nn.Module):
+    def __init__(self, nf: int, gc: int):
+        super().__init__()
+        for k in range(1, 6):
+            cout = gc if k < 5 else nf
+            setattr(self, f"conv{k}", Conv3x3(nf + (k - 1) * gc, cout))
+
+    def weights(self):
+        convs = [getattr(self, f"conv{k}") for k in range(1, 6)]
+        return [c.w for c in convs], [c.b for c in convs]
+
+
+class RRDB(nn.Module):
+    def __init__(self, nf: int, gc: int):
+        super().__init__()
+        self.rdb1 = RDB(nf, gc)
+        self.rdb2 = RDB(nf, gc)
+        self.rdb3 = RDB(nf, gc)
+
+
+class RRDBNet(nn.Module):
+    """RRDBNet on NHWC activations: (N, H, W, 3) in [0, 1] -> (N, H*s, W*s, 3)
+    in the module's dtype."""
+
+    def __init__(self, spec: RRDBNetSpec):
+        super().__init__()
+        self.spec = spec
+        nf, gc = spec.num_feat, spec.num_grow_ch
+        self.conv_first = Conv3x3(spec.stem_in_ch, nf)
+        self.body = nn.ModuleList(RRDB(nf, gc) for _ in range(spec.num_block))
+        self.conv_body = Conv3x3(nf, nf)
+        self.conv_up1 = Conv3x3(nf, nf)
+        if spec.num_upsample == 2:
+            self.conv_up2 = Conv3x3(nf, nf)
+        self.conv_hr = Conv3x3(nf, nf)
+        self.conv_last = Conv3x3(nf, spec.num_out_ch)
+
+    @torch.no_grad()
+    def prepare(self, dtype: torch.dtype, device) -> "RRDBNet":
+        """Move the weights once to the compute dtype and device (biases
+        included, as the JAX zoo casts every leaf). They stay contiguous
+        HWIO, the layout K1 reads, so no per-call packing is left. Returns
+        self."""
+        return self.to(device=device, dtype=dtype)
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        spec = self.spec
+        conv = conv3x3_fused_plain if plain else conv3x3_fused
+        rdb = rdb_fused_plain if plain else rdb_fused
+        x = x.to(self.conv_first.w.dtype)
+        if spec.unshuffle and spec.scale == 2:
+            x = pixel_unshuffle(x, 2)
+        elif spec.unshuffle and spec.scale == 1:
+            x = pixel_unshuffle(x, 4)
+        feat = conv(x, self.conv_first.w, self.conv_first.b)
+        h = feat
+        for blk in self.body:
+            out = rdb(h, *blk.rdb1.weights())
+            out = rdb(out, *blk.rdb2.weights())
+            h = rdb(out, *blk.rdb3.weights(), x0=h)
+        feat = conv(h, self.conv_body.w, self.conv_body.b, feat)
+        up1 = up1_fused_plain if plain else up1_fused
+        feat = up1(feat, self.conv_up1.w, self.conv_up1.b)
+        if spec.num_upsample == 2:
+            tail = tail_fused_plain if plain else tail_fused
+            return tail(
+                feat,
+                self.conv_up2.w, self.conv_up2.b,
+                self.conv_hr.w, self.conv_hr.b,
+                self.conv_last.w, self.conv_last.b,
+            )
+        feat = conv(feat, self.conv_hr.w, self.conv_hr.b, act="lrelu")
+        return conv(feat, self.conv_last.w, self.conv_last.b)
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX RRDBNet param pytree (numpy leaves, body stacked on axis 0 as
+    ``init_rrdbnet``/``convert_rrdbnet`` build it) -> :class:`RRDBNet` state
+    dict (fp32)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(prefix: str, leaf: Dict[str, Any]) -> None:
+        for k in ("w", "b"):
+            sd[f"{prefix}.{k}"] = torch.tensor(np.asarray(leaf[k], np.float32))
+
+    for name in ("conv_first", "conv_body", "conv_up1", "conv_up2",
+                 "conv_hr", "conv_last"):
+        if name in tree:
+            put(name, tree[name])
+    body = tree["body"]
+    nb = np.asarray(body["rdb1"]["conv1"]["w"]).shape[0]
+    for i in range(nb):
+        for r in ("rdb1", "rdb2", "rdb3"):
+            for k in range(1, 6):
+                c = body[r][f"conv{k}"]
+                put(f"body.{i}.{r}.conv{k}", {"w": c["w"][i], "b": c["b"][i]})
+    return sd
+
+
+_LAST_GAIN = 0.005
+
+
+def init_params(
+    spec: RRDBNetSpec, generator: Optional[torch.Generator] = None
+) -> Dict[str, torch.Tensor]:
+    """Random weights (fp32 state dict): Kaiming-normal (fan_in) scaled by
+    0.1 for the dense-block convs and 1.0 elsewhere, zero biases, as the
+    JAX ``init_rrdbnet`` (the numbers differ: another generator) — except
+    ``conv_last``, scaled by ``_LAST_GAIN`` with biases 0.5.
+
+    Why: an untrained RRDB is close to ``1.2 x``, so the body's activations
+    grow ~1.2^23 and a Kaiming ``conv_last`` puts almost every output value
+    far outside [0, 1]. Clipped, such a frame is nearly all 0 or 255, and
+    its few unclipped pixels sit where a huge signal crosses the range, so
+    one rounding step upstream moves them by tens of levels. The small last
+    layer centres a random model's output in [0, 1] like a trained one's,
+    so a u8 comparison of two paths sees every pixel at a sane scale."""
+    sd = {}
+    for name, p in RRDBNet(spec).named_parameters():
+        if name.endswith(".b"):
+            fill = 0.5 if name == "conv_last.b" else 0.0
+            sd[name] = torch.full(p.shape, fill)
+            continue
+        gain = {"conv_last.w": _LAST_GAIN}.get(
+            name, 0.1 if name.startswith("body.") else 1.0
+        )
+        fan_in = p.shape[0] * p.shape[1] * p.shape[2]
+        std = math.sqrt(2.0 / fan_in) * gain
+        sd[name] = torch.randn(p.shape, generator=generator) * std
+    return sd

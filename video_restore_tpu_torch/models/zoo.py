@@ -1,0 +1,205 @@
+"""Model registry and weight loading.
+
+Port of ``video_restore_tpu/models/zoo.py``: the same ``MODEL_ZOO`` specs,
+a :class:`ModelHandle`, ``random_model``, and the two weight files the JAX
+zoo reads, in the same order: ``{models_dir}/{name}.npz`` (the converted
+pytree, keys are JAX ``keystr`` paths such as
+``['body']['rdb1']['conv1']['w']`` with the body stacked on axis 0,
+``zoo.py:199-219``), then the released ``.pth`` (converted and cached as
+that npz). Weights are never downloaded here; without a file, random
+weights are used only when the caller allows them.
+
+SRVGGNetCompact (``RealESRGAN_x4_v3``) keeps its zoo entry but is not
+ported yet: loading it raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Any, Dict, Iterator, Tuple, Union
+
+import numpy as np
+import torch
+
+from video_restore_tpu_torch.models.rrdbnet import (
+    RRDBNet,
+    RRDBNetSpec,
+    init_params,
+    params_from_jax,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SRVGGSpec:
+    """SRVGGNetCompact spec (``video_restore_tpu/models/srvgg.py``); the
+    model itself is not ported yet."""
+
+    num_in_ch: int = 3
+    num_out_ch: int = 3
+    num_feat: int = 64
+    num_conv: int = 32
+    scale: int = 4
+
+
+Spec = Union[RRDBNetSpec, SRVGGSpec]
+
+
+@dataclasses.dataclass(frozen=True)
+class ZooEntry:
+    spec: Spec
+    pth_name: str  # filename of the released checkpoint
+
+
+MODEL_ZOO: Dict[str, ZooEntry] = {
+    "RealESRGAN_x4plus": ZooEntry(
+        RRDBNetSpec(num_block=23, scale=4), "RealESRGAN_x4plus.pth"
+    ),
+    "RealESRGAN_x4_v3": ZooEntry(
+        SRVGGSpec(num_conv=32, scale=4), "realesr-general-x4v3.pth"
+    ),
+    "RealESRGAN_x4plus_anime_6B": ZooEntry(
+        RRDBNetSpec(num_block=6, scale=4), "RealESRGAN_x4plus_anime_6B.pth"
+    ),
+    "RealESRGAN_x2plus": ZooEntry(
+        RRDBNetSpec(num_block=23, scale=2), "RealESRGAN_x2plus.pth"
+    ),
+    "BSRGAN": ZooEntry(
+        RRDBNetSpec(num_block=23, scale=4, key_style="esrgan"), "BSRGAN.pth"
+    ),
+    "BSRGANx2": ZooEntry(
+        RRDBNetSpec(num_block=23, scale=2, unshuffle=False, key_style="esrgan"),
+        "BSRGANx2.pth",
+    ),
+}
+
+
+def require_rrdbnet(name: str, spec: Spec) -> RRDBNetSpec:
+    if not isinstance(spec, RRDBNetSpec):
+        raise NotImplementedError(
+            f"{name}: SRVGGNetCompact is not yet ported to the torch package"
+        )
+    return spec
+
+
+@dataclasses.dataclass
+class ModelHandle:
+    """A loaded model: its name, spec and weights (an fp32 state dict of
+    :class:`RRDBNet`, on the CPU)."""
+
+    name: str
+    spec: RRDBNetSpec
+    state: Dict[str, torch.Tensor]
+
+    @property
+    def scale(self) -> int:
+        return self.spec.scale
+
+    def module(self, dtype: torch.dtype, device) -> RRDBNet:
+        """A prepared :class:`RRDBNet` in ``dtype`` on ``device``."""
+        net = RRDBNet(self.spec)
+        net.load_state_dict(self.state)
+        return net.prepare(dtype, device)
+
+
+def random_model(name: str, seed: int = 0) -> ModelHandle:
+    """Architecture-correct random weights from ``torch.Generator(seed)``."""
+    spec = require_rrdbnet(name, MODEL_ZOO[name].spec)
+    g = torch.Generator().manual_seed(seed)
+    return ModelHandle(name, spec, init_params(spec, g))
+
+
+def _keystr(path: Tuple[str, ...]) -> str:
+    return "".join(f"['{k}']" for k in path)
+
+
+def _leaves(tree: Dict[str, Any], prefix=()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _template(spec: RRDBNetSpec) -> Dict[str, Any]:
+    """The JAX pytree's leaf shapes for ``spec`` (``init_rrdbnet``)."""
+    nf, gc, nb = spec.num_feat, spec.num_grow_ch, spec.num_block
+
+    def conv(cin, cout, stack=()):
+        return {"w": stack + (3, 3, cin, cout), "b": stack + (cout,)}
+
+    rdb = {
+        f"conv{k}": conv(nf + (k - 1) * gc, gc if k < 5 else nf, (nb,))
+        for k in range(1, 6)
+    }
+    t = {
+        "conv_first": conv(spec.stem_in_ch, nf),
+        "body": {"rdb1": rdb, "rdb2": rdb, "rdb3": rdb},
+        "conv_body": conv(nf, nf),
+        "conv_up1": conv(nf, nf),
+        "conv_up2": conv(nf, nf),
+        "conv_hr": conv(nf, nf),
+        "conv_last": conv(nf, spec.num_out_ch),
+    }
+    if spec.num_upsample == 1:
+        del t["conv_up2"]
+    return t
+
+
+def save_params_npz(params: Dict[str, Any], path: Path) -> None:
+    """Write a JAX-layout pytree with the JAX zoo's key format."""
+    np.savez(path, **{_keystr(p): np.asarray(v) for p, v in _leaves(params)})
+
+
+def load_params_npz(name: str, path: Path) -> Dict[str, Any]:
+    """Read a converted npz (written by either package) into a JAX-layout
+    pytree of numpy arrays, checking every leaf's shape."""
+    spec = require_rrdbnet(name, MODEL_ZOO[name].spec)
+    out: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for p, shape in _leaves(_template(spec)):
+            key = _keystr(p)
+            arr = data[key]
+            if arr.shape != shape:
+                raise ValueError(
+                    f"checkpoint/arch mismatch at {key}: {arr.shape} vs {shape}"
+                )
+            node = out
+            for k in p[:-1]:
+                node = node.setdefault(k, {})
+            node[p[-1]] = arr
+    return out
+
+
+def get_model(
+    name: str,
+    models_dir: Union[str, Path] = "models",
+    *,
+    allow_random: bool = False,
+    seed: int = 0,
+) -> ModelHandle:
+    """Load a zoo model: npz cache -> .pth conversion -> (optional) random
+    weights."""
+    if name not in MODEL_ZOO:
+        raise ValueError(f"Unknown model: {name}")
+    entry = MODEL_ZOO[name]
+    spec = require_rrdbnet(name, entry.spec)
+    mdir = Path(models_dir)
+    npz_path = mdir / f"{name}.npz"
+    pth_path = mdir / entry.pth_name
+    if npz_path.exists():
+        params = load_params_npz(name, npz_path)
+    elif pth_path.exists():
+        from video_restore_tpu_torch.models.convert import convert_pth_to_params
+
+        params = convert_pth_to_params(pth_path, name)
+        save_params_npz(params, npz_path)
+    elif allow_random:
+        return random_model(name, seed)
+    else:
+        raise FileNotFoundError(
+            f"No weights for {name} under {mdir}/ (expected {name}.npz or "
+            f"{entry.pth_name}); set VRT_ALLOW_RANDOM_WEIGHTS=1 for random "
+            "weights"
+        )
+    return ModelHandle(name, spec, params_from_jax(params))

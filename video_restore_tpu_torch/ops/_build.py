@@ -1,0 +1,153 @@
+"""Build and load the port's CUDA kernels, and count their launches.
+
+The sources in ``video_restore_tpu_torch/csrc/`` have a plain C interface.
+At first use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per source, all started together, then one link) into a single shared
+library under ``build/video_restore_tpu_torch/`` at the repository root,
+named by a hash of the sources and flags so an edited source rebuilds. The
+library is loaded with ``ctypes``. Nothing here runs at import time, so
+every module of the package imports on a machine without ``nvcc`` or a GPU.
+
+Launch counters: every kernel wrapper adds one to its name's count where it
+launches its kernel, and nowhere else, so a run can show that it went
+through the kernels. :func:`reset_launches` and :func:`launches` read and
+clear them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("conv3x3.cu", "unsharp.cu")
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_launches: Dict[str, int] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+
+def count_launch(name: str) -> None:
+    _launches[name] = _launches.get(name, 0) + 1
+
+
+def reset_launches() -> None:
+    _launches.clear()
+
+
+def launches() -> Dict[str, int]:
+    return dict(_launches)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): cannot build the "
+            "CUDA kernels"
+        )
+    return str(path)
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    return BUILD_DIR / f"libvrt_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources (if this hash is not built yet); returns the
+    library path. The compiler's resource report (``-Xptxas -v``) goes to
+    ``build.log`` beside it."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{out.stem}_{os.getpid()}"  # concurrent builds never share files
+    procs = []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{tag}_{Path(name).stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        procs.append(
+            (name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ))
+        )
+    log = []
+    failed = []
+    for name, _, p in procs:
+        text, _ = p.communicate()
+        log.append(f"== {name} (rc {p.returncode})\n{text}")
+        if p.returncode != 0:
+            failed.append(name)
+    (BUILD_DIR / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError(
+            f"nvcc failed for {failed}:\n" + "\n".join(log)[-4000:]
+        )
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp)] + [str(o) for _, o, _ in procs],
+        capture_output=True, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            lib.vr_conv3x3.argtypes = [
+                _I, _P, _P, _P, _P, _P, _P, _P,
+                _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _F, _F, _P,
+            ]
+            lib.vr_conv3x3.restype = _I
+            lib.vr_unsharp.argtypes = [
+                _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _F, _F, _P,
+            ]
+            lib.vr_unsharp.restype = _I
+            lib.vr_error_string.argtypes = [_I]
+            lib.vr_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(lib: ctypes.CDLL, code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code != 0:
+        msg = lib.vr_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

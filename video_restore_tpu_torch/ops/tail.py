@@ -1,0 +1,228 @@
+"""The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3.cu``).
+
+Port of ``video_restore_tpu/ops/pallas_tail.py``:
+
+- :func:`conv3x3_fused` replaces ``conv3x3_fused`` (``pallas_tail.py:767``):
+  ``act(conv3x3(x) + b) + res``, the stem and ``conv_body`` + the long
+  residual;
+- :func:`up1_fused` replaces ``up1_fused`` (``:603``):
+  ``lrelu(conv3x3(nearest2x(x)) + b)``, giving a plain (B, 2H, 2W, nf)
+  tensor (the port has no raw or masked layout);
+- :func:`tail_fused` replaces ``tail_fused_raw`` (``:266``) and
+  ``tail_fused`` (``:425``): upconv2 (lrelu, nearest 2x) -> conv_hr (lrelu)
+  -> conv_last, three K1 launches with intermediates in the activation
+  dtype, as the Pallas tail rounds them (``pallas_tail.py:188-212``).
+
+:func:`conv3x3` is the binding of K1 itself, with :func:`conv3x3_plain`,
+its plain PyTorch version, beside it. A wrapper given a CPU tensor runs the
+plain version; given a CUDA tensor it launches the kernel or raises. The
+kernel note (what bounds K1 on the H100 and what its design does about it)
+is at the top of ``csrc/conv3x3.cu``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from video_restore_tpu_torch.ops import _build
+from video_restore_tpu_torch.ops.conv import conv2d_f32, upsample_nearest
+
+_ACTS = {"none": 0, "lrelu": 1, "prelu": 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _pixel_stride(t: torch.Tensor, name: str) -> int:
+    """Pixel stride of a channel-prefix view of a contiguous NHWC buffer
+    (a whole tensor or ``buf[..., a:b]``); raises for any other layout."""
+    if t.dim() != 4:
+        raise ValueError(f"{name} must be NHWC, got shape {tuple(t.shape)}")
+    b, h, w, c = t.shape
+    s0, s1, s2, s3 = t.stride()
+    if not (s3 == 1 and s2 >= c and s1 == w * s2 and (b == 1 or s0 == h * s1)):
+        raise ValueError(
+            f"{name} must be a channel slice of a contiguous NHWC buffer "
+            f"(shape {tuple(t.shape)}, strides {t.stride()})"
+        )
+    return s2
+
+
+def conv3x3_plain(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    act: str = "none",
+    alpha: Optional[torch.Tensor] = None,
+    upsample2: bool = False,
+    out: Optional[torch.Tensor] = None,
+    r1: Optional[torch.Tensor] = None,
+    s1: float = 1.0,
+    r2: Optional[torch.Tensor] = None,
+    s2: float = 1.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of K1 (same arguments as :func:`conv3x3`):
+    fp32 products and sums, fp32 epilogue, one rounding to x's dtype (two
+    when ``r2`` is given)."""
+    dt = x.dtype
+    xi = upsample_nearest(x, 2) if upsample2 else x
+    y = conv2d_f32(xi, w)
+    del xi
+    y += b.float()  # in place: at the 8K tail each fp32 copy is 8.5 GB
+    if act == "lrelu":
+        y = torch.nn.functional.leaky_relu_(y, 0.2)
+    elif act == "prelu":
+        y = torch.where(y > 0, y, y * alpha.float())
+    if r1 is not None:
+        y = r1.float() + s1 * y
+    if r2 is not None:
+        y = r2.float() + s2 * y.to(dt).float()
+    y = y.to(dt)
+    if out is None:
+        return y
+    out.copy_(y)
+    return out
+
+
+def conv3x3(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    act: str = "none",
+    alpha: Optional[torch.Tensor] = None,
+    upsample2: bool = False,
+    out: Optional[torch.Tensor] = None,
+    r1: Optional[torch.Tensor] = None,
+    s1: float = 1.0,
+    r2: Optional[torch.Tensor] = None,
+    s2: float = 1.0,
+    counter: str,
+) -> torch.Tensor:
+    """``out = r2 + s2 * (r1 + s1 * act(conv3x3_SAME(x', w) + b))``.
+
+    x: (B, H, W, cin) NHWC, or a channel-prefix view of a wider buffer;
+    x' is x, or x read through nearest 2x upsampling (zero padding on the
+    2x grid) when ``upsample2``. w: (3, 3, cin, cout) HWIO; b, alpha:
+    (cout,). r1, r2 and ``out`` are NHWC at the output grid, each possibly
+    a channel slice of a wider buffer (``out`` is written in place). Every
+    tensor has x's dtype (fp32 or bf16); sums are fp32. ``counter`` names
+    the launch counter the calling wrapper owns."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(
+            x, w, b, act=act, alpha=alpha, upsample2=upsample2, out=out,
+            r1=r1, s1=s1, r2=r2, s2=s2,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3: unsupported device {x.device}")
+    dt = x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"conv3x3: dtype {dt} not supported (fp32, bf16)")
+    if act not in _ACTS:
+        raise ValueError(f"conv3x3: unknown act {act!r}")
+    if act == "prelu" and alpha is None:
+        raise ValueError("conv3x3: act='prelu' needs alpha (cout,)")
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    if tuple(w.shape) != (3, 3, cin, cout):
+        raise ValueError(f"conv3x3: weight {tuple(w.shape)} != (3, 3, {cin}, {cout})")
+    oh, ow = (2 * h, 2 * wd) if upsample2 else (h, wd)
+    if out is None:
+        out = torch.empty((bsz, oh, ow, cout), dtype=dt, device=x.device)
+    operands = {"x": x, "w": w, "b": b, "out": out}
+    for name, t in (("alpha", alpha), ("r1", r1), ("r2", r2)):
+        if t is not None:
+            operands[name] = t
+    for name, t in operands.items():
+        if t.device != x.device or t.dtype != dt:
+            raise ValueError(
+                f"conv3x3: {name} is {t.dtype} on {t.device}, expected "
+                f"{dt} on {x.device}"
+            )
+    for name in ("w", "b", "alpha"):
+        if name in operands and not operands[name].is_contiguous():
+            raise ValueError(f"conv3x3: {name} must be contiguous")
+    if b.shape != (cout,) or (alpha is not None and alpha.shape != (cout,)):
+        raise ValueError("conv3x3: bias/alpha must have shape (cout,)")
+    for name in ("out", "r1", "r2"):
+        if name in operands and tuple(operands[name].shape) != (bsz, oh, ow, cout):
+            raise ValueError(
+                f"conv3x3: {name} shape {tuple(operands[name].shape)} != "
+                f"{(bsz, oh, ow, cout)}"
+            )
+    xs = _pixel_stride(x, "x")
+    ys = _pixel_stride(out, "out")
+    r1s = _pixel_stride(r1, "r1") if r1 is not None else 0
+    r2s = _pixel_stride(r2, "r2") if r2 is not None else 0
+    lib = _build.load()
+    code = lib.vr_conv3x3(
+        _DTYPES[dt], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+        alpha.data_ptr() if alpha is not None else None,
+        r1.data_ptr() if r1 is not None else None,
+        r2.data_ptr() if r2 is not None else None,
+        out.data_ptr(),
+        bsz, h, wd, cin, cout, xs, ys, r1s, r2s,
+        _ACTS[act], int(upsample2), float(s1), float(s2),
+        _build.stream_ptr(x),
+    )
+    _build.check(lib, code, "conv3x3 kernel")
+    _build.count_launch(counter)
+    return out
+
+
+def conv3x3_fused(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor,
+    res: Optional[torch.Tensor] = None,
+    alpha: Optional[torch.Tensor] = None,
+    *,
+    act: str = "none",
+) -> torch.Tensor:
+    """``act(conv2d(x, w, b)) + res`` (``pallas_tail.py:767``): the stem
+    and ``conv_body`` + the long residual. One K1 launch."""
+    return conv3x3(
+        x, w, b, act=act, alpha=alpha, r1=res, counter="conv3x3_fused"
+    )
+
+
+def conv3x3_fused_plain(x, w, b, res=None, alpha=None, *, act="none"):
+    return conv3x3_plain(x, w, b, act=act, alpha=alpha, r1=res)
+
+
+def up1_fused(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``leaky_relu(conv2d(upsample_nearest(x, 2), w, b))``: (B, H, W, nf)
+    -> (B, 2H, 2W, nf) (``pallas_tail.py:603``). One K1 launch."""
+    return conv3x3(x, w, b, act="lrelu", upsample2=True, counter="up1_fused")
+
+
+def up1_fused_plain(x, w, b):
+    return conv3x3_plain(x, w, b, act="lrelu", upsample2=True)
+
+
+def tail_fused(
+    x: torch.Tensor,
+    w_up2: torch.Tensor,
+    b_up2: torch.Tensor,
+    w_hr: torch.Tensor,
+    b_hr: torch.Tensor,
+    w_last: torch.Tensor,
+    b_last: torch.Tensor,
+) -> torch.Tensor:
+    """(B, H2, W2, nf) -> (B, 2 H2, 2 W2, 3): equivalent to::
+
+        f = leaky_relu(conv2d(upsample_nearest(x, 2), w_up2, b_up2))
+        f = leaky_relu(conv2d(f, w_hr, b_hr))
+        return conv2d(f, w_last, b_last)
+
+    (``pallas_tail.py:266`` / ``:425``). Three K1 launches."""
+    f = conv3x3(x, w_up2, b_up2, act="lrelu", upsample2=True, counter="tail_fused")
+    f = conv3x3(f, w_hr, b_hr, act="lrelu", counter="tail_fused")
+    return conv3x3(f, w_last, b_last, counter="tail_fused")
+
+
+def tail_fused_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last):
+    f = conv3x3_plain(x, w_up2, b_up2, act="lrelu", upsample2=True)
+    f = conv3x3_plain(f, w_hr, b_hr, act="lrelu")
+    return conv3x3_plain(f, w_last, b_last)

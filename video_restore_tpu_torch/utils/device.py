@@ -1,0 +1,26 @@
+"""Device selection for the port's entry points.
+
+Counterpart of the JAX CLI's ``--cpu`` handling (``video_restore_tpu/cli.py``
+``main``): there the flag moves JAX onto the host. Here every entry point
+runs on the GPU unless the caller asks for the CPU, and a missing GPU is an
+error, never a silent move to the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(cpu: bool = False) -> torch.device:
+    """``torch.device("cpu")`` when asked for, else the current CUDA device.
+
+    Raises RuntimeError when CUDA is unavailable and the CPU was not asked
+    for (``--cpu`` on the CLI, ``cpu=True`` in the API)."""
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass --cpu (or cpu=True) to run the "
+            "plain PyTorch path on the host CPU"
+        )
+    return torch.device("cuda", torch.cuda.current_device())
