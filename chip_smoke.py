@@ -9,30 +9,43 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
-   ``conv3x3.cu``, K2 ``unsharp.cu``);
+   ``conv3x3.cu``, K2 ``unsharp.cu``, K3 ``srvgg_up.cu``);
 3. every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
-   flagship shapes, with kernel, plain and (where one PyTorch call computes
-   the same function) library times;
-4. the main path: a 3-frame 1080x1920 y4m with a hard cut before frame 3
-   through ``VideoRestorer`` as the CLI builds it (RealESRGAN_x4plus at full
-   width, random weights, enhanced: bilateral 0.5, CLAHE on the LR input,
-   unsharp 0.3, temporal EMA; full frame; bf16) with every launch counter
-   reset before and read after: 3 frames of 7680x4320 out, decoded ==
-   inferred == encoded, and each wrapper launched exactly its per-frame
+   shapes of the main paths (the flagship frame, the config-4 frame and
+   phase 7's tile batch), with kernel, plain and library times (one cuDNN
+   call or chain of calls over the same convs, never used by the port) and
+   the bound;
+4. the flagship path: a 3-frame 1080x1920 y4m with a hard cut before frame
+   3 through ``VideoRestorer`` as the CLI builds it (RealESRGAN_x4plus at
+   full width, random weights, enhanced: bilateral 0.5, CLAHE on the LR
+   input, unsharp 0.3, temporal EMA; full frame; bf16) with every launch
+   counter reset before and read after: 3 frames of 7680x4320 out, decoded
+   == inferred == encoded, and each wrapper launched exactly its per-frame
    count times 3;
 5. the same frames through the kernel path and the plain path on the card:
    >= 45 dB PSNR on u8, and the CLI's output equal to the kernel path's
-   frames after the y4m colour round trip.
+   frames after the y4m colour round trip;
+6. path A, config 4: the same clip through ``--model RealESRGAN_x4_v3
+   --anime-mode --quality fast`` (SRVGGNetCompact at full width, nf 64,
+   32 convs, synthetic weights from a seed; full frame chosen by
+   ``auto_full_frame``; bf16; bilateral 0.5, CLAHE, temporal EMA), with
+   the checks of phases 4 and 5;
+7. path B, config 2's tiles: a 2-frame 720x1280 clip through
+   ``--tile-size 512 --tile-overlap 32`` (seamless blending on a 2x3 grid)
+   for RealESRGAN_x4plus and RealESRGAN_x4_v3, with the checks of phases 4
+   and 5 (launch counts: per model call x chunks x frames).
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``. Work files go to
-``build/chip_smoke/`` and are removed at the end.
+The line before the last is the per-kernel JSON record (``launches`` sums
+the counts of the runs of phases 4, 6 and 7); the last line is
+``{"ok": true, "device": {...}}``. Work files go to ``build/chip_smoke/``
+and are removed at the end.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -52,6 +65,10 @@ PALLAS = {
     "up1_fused": "video_restore_tpu/ops/pallas_tail.py:603",
     "tail_fused": "video_restore_tpu/ops/pallas_tail.py:266",
     "unsharp_fused": "video_restore_tpu/ops/pallas_post.py:131",
+    # also #15 srvgg_stripe2d_padded (:370) and #16 srvgg_stripe_padded (:131)
+    "srvgg_body": "video_restore_tpu/ops/pallas_srvgg.py:635",
+    # also #18 srvgg_up_fused (:854), the tiled form
+    "srvgg_up_fused": "video_restore_tpu/ops/pallas_srvgg.py:1025",
 }
 SOURCE = {
     "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
@@ -59,6 +76,8 @@ SOURCE = {
     "up1_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
     "tail_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp.cu",
+    "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3.cu",
+    "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up.cu",
 }
 
 
@@ -93,7 +112,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from video_restore_tpu_torch.ops import _build, post, stripe, tail, unsharp
+    from video_restore_tpu_torch.ops import _build, post, srvgg, stripe, tail, unsharp
 
     # ---- phase 1: the card ------------------------------------------------
     smi = _run(
@@ -169,6 +188,12 @@ def main() -> int:
             rnd(3, 3, nf, 3, scale=0.05, dt=dt), rnd(3, scale=0.05, dt=dt),
         ]
 
+    def srvgg_weights(n, nf, dt):
+        return (
+            rnd(n, 3, 3, nf, nf, scale=0.06, dt=dt), rnd(n, nf, scale=0.05, dt=dt),
+            (rnd(n, nf, scale=0.2, dt=torch.float32) + 0.2).to(dt),
+        )
+
     # odd shapes, fp32 and bf16
     for dt in (torch.float32, torch.bfloat16):
         b, h, w = 2, 37, 53
@@ -205,6 +230,17 @@ def main() -> int:
                 stripe.rdb_fused_plain(x, ws, bs, x0), dt,
             )
             log(f"[check] rdb_fused {dt} {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
+        sw = srvgg_weights(4, 64, dt)
+        e = compare("srvgg_body", srvgg.srvgg_body(x, *sw), srvgg.srvgg_body_plain(x, *sw), dt)
+        log(f"[check] srvgg_body {dt} {b}x{h}x{w} 4 convs err={e:.3g}")
+        xin = rnd(b, h, w, 3, dt=dt).abs()
+        for r in srvgg.UP_SCALES:
+            wo, bo = rnd(3, 3, 64, 3 * r * r, scale=0.05, dt=dt), rnd(3 * r * r, scale=0.1, dt=dt)
+            k = srvgg.srvgg_up_fused(x, wo, bo, xin, r)
+            p = srvgg.srvgg_up_fused_plain(x, wo, bo, xin, r)
+            check(k.shape == (b, r * h, r * w, 3) and k.dtype == dt, f"srvgg_up_fused shape {k.shape}")
+            e = compare(f"srvgg_up_fused r={r}", k, p, dt)
+            log(f"[check] srvgg_up_fused {dt} {b}x{h}x{w} r={r} err={e:.3g}")
     for thr in (0.0, 0.02):
         xf = torch.rand(2, 37, 53, 3, generator=gen).to(dev)
         e = compare(
@@ -213,7 +249,7 @@ def main() -> int:
         )
         log(f"[check] unsharp_fused fp32 2x37x53 threshold={thr} err={e:.3g}")
 
-    # flagship shapes, bf16 (unsharp: fp32), with times and bounds
+    # main-path shapes, bf16 (unsharp: fp32), with times and bounds
     H, W, NF, GC = 1080, 1920, 64, 32
     bf = torch.bfloat16
     rows = {}
@@ -239,9 +275,16 @@ def main() -> int:
             f"{'null' if lms is None else f'{lms:.3f}'} bound_ms={bms:.3f} ({by})"
         )
 
+    def nchw(*shape):
+        """A bf16 NCHW tensor in channels_last memory (the port's NHWC)."""
+        return rnd(*shape).contiguous(memory_format=torch.channels_last)
+
+    def oihw(w):
+        return w.permute(3, 2, 0, 1).contiguous()
+
     xs = rnd(1, H, W, 3)
     ws_, bs_ = rnd(3, 3, 3, NF, scale=0.2), rnd(NF, scale=0.1)
-    w_oihw = ws_.permute(3, 2, 0, 1).contiguous()
+    w_oihw = oihw(ws_)
     xs_nchw = xs.permute(0, 3, 1, 2)
     record(
         "conv3x3_fused", "stem 1x1080x1920x3->64",
@@ -259,33 +302,43 @@ def main() -> int:
     )
     body_ms = timed(lambda: tail.conv3x3_fused(xb, wb, bb, rb), 10)
     body_bms, _ = bound(3 * H * W * NF * 2, 2 * H * W * 9 * NF * NF, PEAK_BF16)
+    xb_nchw, wb_oihw = xb.permute(0, 3, 1, 2), oihw(wb)
+    body_lms = timed(lambda: F.conv2d(xb_nchw, wb_oihw, bb, padding=1), 10)
     log(
         f"[kernel] conv3x3_fused conv_body+res 1x1080x1920x64 err={e:.3g} "
-        f"kernel_ms={body_ms:.3f} bound_ms={body_bms:.3f}"
+        f"kernel_ms={body_ms:.3f} bound_ms={body_bms:.3f} "
+        f"library_ms={body_lms:.3f} (F.conv2d, conv only)"
     )
     ws, bs = rdb_weights(NF, GC, bf)
     rdb_ops = sum(2 * H * W * 9 * (NF + k * GC) * (GC if k < 4 else NF) for k in range(5))
     rdb_wbytes = sum(w.numel() + b.numel() for w, b in zip(ws, bs)) * 2
+    rdb_in = [nchw(1, NF + k * GC, H, W) for k in range(5)]
+    rdb_w = [oihw(w) for w in ws]
     record(
         "rdb_fused", "1x1080x1920x64 (nf 64, gc 32)",
         lambda: stripe.rdb_fused(xb, ws, bs),
         lambda: stripe.rdb_fused_plain(xb, ws, bs), 5,
         2 * H * W * NF * 2 + rdb_wbytes, rdb_ops, PEAK_BF16, bf,
+        lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
     )
+    del rdb_in
     e = compare(
         "rdb_fused x0", stripe.rdb_fused(xb, ws, bs, rb),
         stripe.rdb_fused_plain(xb, ws, bs, rb), bf,
     )
     log(f"[kernel] rdb_fused with x0 (rdb3) err={e:.3g}")
     wu, bu = rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
+    up_in = nchw(1, NF, 2 * H, 2 * W)
+    wu_oihw = oihw(wu)
     record(
         "up1_fused", "1x1080x1920x64 -> 1x2160x3840x64",
         lambda: tail.up1_fused(xb, wu, bu),
         lambda: tail.up1_fused_plain(xb, wu, bu), 5,
         (H * W * NF + 4 * H * W * NF) * 2, 2 * H * W * 16 * NF * NF,
         PEAK_BF16, bf,
+        lib_fn=lambda: F.conv2d(up_in, wu_oihw, bu, padding=1),
     )
-    del xs, xs_nchw, rb
+    del xs, xs_nchw, rb, up_in
     x2 = tail.up1_fused(xb, wu, bu)
     tw = tail_weights(NF, bf)
     h2, w2 = 2 * H, 2 * W
@@ -293,13 +346,23 @@ def main() -> int:
         2 * h2 * w2 * 16 * NF * NF + 2 * 4 * h2 * w2 * 9 * NF * NF
         + 2 * 4 * h2 * w2 * 9 * NF * 3
     )
+    tail_in = nchw(1, NF, 2 * h2, 2 * w2)
+    tw_oihw = [oihw(tw[0]), oihw(tw[2]), oihw(tw[4])]
+
+    def tail_lib():
+        f = F.conv2d(tail_in, tw_oihw[0], tw[1], padding=1)
+        f = F.conv2d(f, tw_oihw[1], tw[3], padding=1)
+        return F.conv2d(f, tw_oihw[2], tw[5], padding=1)
+
     record(
         "tail_fused", "1x2160x3840x64 -> 1x4320x7680x3",
         lambda: tail.tail_fused(x2, *tw),
         lambda: tail.tail_fused_plain(x2, *tw), 3,
         (h2 * w2 * NF + 4 * h2 * w2 * 3) * 2, tail_ops, PEAK_BF16, bf,
+        lib_fn=tail_lib,
     )
-    del x2
+    del x2, tail_in
+    torch.cuda.empty_cache()
     xu = torch.rand(1, 4 * H, 4 * W, 3, generator=gen).to(dev)
     record(
         "unsharp_fused", "1x4320x7680x3 fp32",
@@ -308,12 +371,76 @@ def main() -> int:
         2 * xu.numel() * 4, xu.numel() * (2 * 2 * 9 + 4), PEAK_FP32,
         torch.float32,
     )
-    del xu, xb
+    del xu
+    # config 4 (SRVGGNetCompact, nf 64, 32 convs, r 4) at 1080x1920
+    NC, R = 32, 4
+    sw = srvgg_weights(NC, NF, bf)
+    sw_oihw = [oihw(w) for w in sw[0]]
+
+    def body_lib(f):
+        for i in range(NC):
+            f = F.prelu(F.conv2d(f, sw_oihw[i], sw[1][i], padding=1), sw[2][i])
+        return f
+
+    record(
+        "srvgg_body", "1x1080x1920x64, 32 x (conv 64->64 + PReLU)",
+        lambda: srvgg.srvgg_body(xb, *sw),
+        lambda: srvgg.srvgg_body_plain(xb, *sw), 3,
+        2 * H * W * NF * 2 + sum(t.numel() for t in sw) * 2,
+        NC * 2 * H * W * 9 * NF * NF, PEAK_BF16, bf,
+        lib_fn=lambda: body_lib(xb_nchw),
+    )
+    xin = rnd(1, H, W, 3).abs()
+    wo, bo = rnd(3, 3, NF, 3 * R * R, scale=0.05), rnd(3 * R * R, scale=0.1)
+    wo_oihw = oihw(wo)
+    record(
+        "srvgg_up_fused", "1x1080x1920x64 -> 1x4320x7680x3 (r 4)",
+        lambda: srvgg.srvgg_up_fused(xb, wo, bo, xin, R),
+        lambda: srvgg.srvgg_up_fused_plain(xb, wo, bo, xin, R), 10,
+        (H * W * NF + H * W * 3 + R * R * H * W * 3 + wo.numel() + bo.numel()) * 2,
+        2 * H * W * 9 * NF * 3 * R * R, PEAK_BF16, bf,
+        lib_fn=lambda: F.conv2d(xb_nchw, wo_oihw, bo, padding=1),
+    )
+    del xb, xb_nchw, xin
+    # the tile batch of phase 7 (720x1280, tile 512 / overlap 32: six tiles
+    # of 376x448 in one model call), logged beside the rows above
+    TB, TH, TW = 6, 376, 448
+    xt = rnd(TB, TH, TW, NF)
+    xt_nchw = xt.permute(0, 3, 1, 2)
+    rdb_in = [nchw(TB, NF + k * GC, TH, TW) for k in range(5)]
+    record(
+        "rdb_fused tiles", f"{TB}x{TH}x{TW}x64 (nf 64, gc 32)",
+        lambda: stripe.rdb_fused(xt, ws, bs),
+        lambda: stripe.rdb_fused_plain(xt, ws, bs), 5,
+        2 * TB * TH * TW * NF * 2 + rdb_wbytes,
+        rdb_ops * TB * TH * TW // (H * W), PEAK_BF16, bf,
+        lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+    )
+    del rdb_in
+    record(
+        "srvgg_body tiles", f"{TB}x{TH}x{TW}x64, 32 convs",
+        lambda: srvgg.srvgg_body(xt, *sw),
+        lambda: srvgg.srvgg_body_plain(xt, *sw), 3,
+        2 * TB * TH * TW * NF * 2 + sum(t.numel() for t in sw) * 2,
+        NC * 2 * TB * TH * TW * 9 * NF * NF, PEAK_BF16, bf,
+        lib_fn=lambda: body_lib(xt_nchw),
+    )
+    xin = rnd(TB, TH, TW, 3).abs()
+    record(
+        "srvgg_up_fused tiles", f"{TB}x{TH}x{TW}x64 -> {TB}x{R * TH}x{R * TW}x3",
+        lambda: srvgg.srvgg_up_fused(xt, wo, bo, xin, R),
+        lambda: srvgg.srvgg_up_fused_plain(xt, wo, bo, xin, R), 10,
+        TB * TH * TW * (NF + 3 + 3 * R * R) * 2 + (wo.numel() + bo.numel()) * 2,
+        2 * TB * TH * TW * 9 * NF * 3 * R * R, PEAK_BF16, bf,
+        lib_fn=lambda: F.conv2d(xt_nchw, wo_oihw, bo, padding=1),
+    )
+    del xt, xt_nchw, xin, sw, sw_oihw
     torch.cuda.empty_cache()
 
-    # ---- phase 4: the main path -------------------------------------------
+    # ---- phases 4-7: the main paths ----------------------------------------
     from video_restore_tpu_torch.cli import build_parser, config_from_args
-    from video_restore_tpu_torch.models.zoo import MODEL_ZOO
+    from video_restore_tpu_torch.models.zoo import MODEL_ZOO, save_params_npz
+    from video_restore_tpu_torch.parallel.dispatch import Upscaler
     from video_restore_tpu_torch.pipeline.runner import VideoRestorer
     from video_restore_tpu_torch.utils.logging import setup_logging
     from video_restore_tpu_torch.video.y4m import (
@@ -322,133 +449,212 @@ def main() -> int:
         rgb_to_yuv_planes,
         yuv_planes_to_rgb,
     )
-
     setup_logging()
+    os.environ["VRT_ALLOW_RANDOM_WEIGHTS"] = "1"
     work = REPO / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    src, dst = work / "in.y4m", work / "out.y4m"
-    n_frames = 3
-    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
-    frames = []
-    for t in range(n_frames):
-        if t < 2:  # one scene: gradient, moving box, mild noise
-            f = np.stack([xx / W, yy / H, np.full((H, W), 0.3)], -1) * 200 + 20
-            f[300:500, 400 + 40 * t : 600 + 40 * t] = (230, 60, 60)
-        else:  # hard cut: another scene
-            f = np.stack([(xx + yy) / (H + W), 1 - xx / W, yy / H], -1) * 120
-            f[::64] = 250
-        f = f + np.random.default_rng(t).normal(0, 3, f.shape)
-        frames.append(np.clip(f, 0, 255).astype(np.uint8))
-    with Y4MWriter(src, W, H, 25) as wr:
-        for f in frames:
-            wr.write(f)
+    models_dir = work / "models"
+    models_dir.mkdir()
 
-    argv = [
-        str(src), str(dst), "--model", "RealESRGAN_x4plus", "--enhanced",
-        "--sharpen", "0.3", "--tile-size", "0", "--precision", "bf16",
-        "--models-dir", str(work / "models"),
-    ]
-    cfg = config_from_args(build_parser().parse_args(argv))
-    check(
-        cfg.denoise == 0.5 and cfg.sharpen == 0.3 and cfg.color_enhance
-        and cfg.clahe_lr and cfg.temporal and cfg.tile_size == 0,
-        f"unexpected flagship config {cfg}",
-    )
-    import os
+    def make_clip(path, h, w, n):
+        """Gradient + moving box + mild noise, a hard cut before the last
+        frame."""
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        frames = []
+        for t in range(n):
+            if t < n - 1:  # one scene
+                f = np.stack([xx / w, yy / h, np.full((h, w), 0.3)], -1) * 200 + 20
+                f[h * 5 // 18 : h * 25 // 54, w * 5 // 24 + 40 * t : w * 5 // 16 + 40 * t] = (230, 60, 60)
+            else:  # hard cut: another scene
+                f = np.stack([(xx + yy) / (h + w), 1 - xx / w, yy / h], -1) * 120
+                f[::64] = 250
+            f = f + np.random.default_rng(t).normal(0, 3, f.shape)
+            frames.append(np.clip(f, 0, 255).astype(np.uint8))
+        with Y4MWriter(path, w, h, 25) as wr:
+            for f in frames:
+                wr.write(f)
 
-    os.environ["VRT_ALLOW_RANDOM_WEIGHTS"] = "1"
-    restorer = VideoRestorer(cfg)
-    spec = MODEL_ZOO["RealESRGAN_x4plus"].spec
-    check(
-        (spec.num_feat, spec.num_grow_ch, spec.num_block) == (64, 32, 23),
-        "flagship spec",
-    )
-    per_frame = {
-        "conv3x3_fused": 2,
-        "rdb_fused": 3 * spec.num_block * 5,
-        "up1_fused": 1,
-        "tail_fused": 3,
-        "unsharp_fused": 1,
-    }
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    ok = restorer.process_video(src, dst, show_progress=False)
-    torch.cuda.synchronize()
-    counts = _build.launches()
-    check(ok, "VideoRestorer.process_video failed")
-    st = restorer.last_stats
-    check(
-        st.decoded == st.inferred == st.encoded == n_frames,
-        f"frame accounting {st.decoded}/{st.inferred}/{st.encoded}",
-    )
-    expected = {k: v * n_frames for k, v in per_frame.items()}
-    check(counts == expected, f"launch counts {counts} != expected {expected}")
-    with Y4MReader(dst) as rd:
-        out_frames = list(rd)
-        check(
-            (rd.info.width, rd.info.height) == (4 * W, 4 * H),
-            f"output size {rd.info.width}x{rd.info.height}",
-        )
-    check(len(out_frames) == n_frames, f"{len(out_frames)} output frames")
-    check(
-        all(f.shape == (4 * H, 4 * W, 3) for f in out_frames), "frame shapes"
-    )
-    log(
-        f"[main] {n_frames} frames {W}x{H} -> {4 * W}x{4 * H} in {st.wall_s:.2f}s "
-        f"({st.fps:.4f} fps, {1e3 * st.wall_s / n_frames:.1f} ms/frame wall, "
-        f"stages {json.dumps({k: round(v, 3) for k, v in st.stages.items()})}); "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
-    )
-    log(f"[main] launches {json.dumps(counts)}")
+    def psnr_u8(a, b):
+        mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+        return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
 
-    # ---- phase 5: kernel path vs plain path on the card --------------------
-    from video_restore_tpu_torch.ops.tiles import TileGrid
-    from video_restore_tpu_torch.parallel.dispatch import Upscaler
+    total_launches = {}
+    path_stats = {}
 
-    grid = TileGrid.build(H, W, tile=0, overlap=cfg.tile_overlap, scale=4)
-    with Y4MReader(src) as rd:  # the frames the CLI decoded (y4m is 4:2:0)
-        decoded = list(rd)
-    outs = {}
-    for plain in (False, True):
-        ups = Upscaler(restorer.model, grid, cfg, dev, plain=plain)
+    def drive(tag, src, argv, per_call, cfg_check, expect_tiles):
+        """One main path: the CLI's config through ``VideoRestorer`` with
+        the launch counters reset before and read after, then the kernel
+        path and the plain path on the decoded frames."""
+        dst = work / f"out_{tag}.y4m"
+        cfg = config_from_args(build_parser().parse_args([str(src), str(dst)] + argv))
+        check(cfg_check(cfg), f"[{tag}] unexpected config {cfg}")
+        restorer = VideoRestorer(cfg)
+        with Y4MReader(src) as rd:  # the frames the CLI decodes (y4m is 4:2:0)
+            decoded = list(rd)
+            h, w = rd.info.height, rd.info.width
+        n_frames = len(decoded)
+        grid = restorer._upscaler_for(h, w).grid  # the bucket process_video uses
+        check(grid.n_tiles == expect_tiles, f"[{tag}] {grid.n_tiles} tiles, expected {expect_tiles}")
+        s = restorer.model.scale
+        expected = {k: v * grid.n_chunks * n_frames for k, v in per_call.items()}
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        outs[plain] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
-        dt_s = time.perf_counter() - t0
-        log(
-            f"[path] {'plain' if plain else 'kernel'} path: "
-            f"{1e3 * dt_s / n_frames:.1f} ms/frame, {n_frames / dt_s:.4f} fps "
-            "(step only, frames already decoded)"
-        )
-        del ups
-        torch.cuda.empty_cache()
-    for i in range(n_frames):
-        a = outs[False][i].astype(np.float64)
-        b_ = outs[True][i].astype(np.float64)
-        mse = float(np.mean((a - b_) ** 2))
-        psnr = float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
-        d = np.abs(a - b_)
-        log(
-            f"[path] frame {i}: kernel vs plain PSNR {psnr:.2f} dB, "
-            f"{100 * (d > 0).mean():.3f}% of values differ, max {d.max():.0f}"
-        )
-        check(psnr >= 45.0, f"frame {i}: kernel vs plain {psnr:.2f} dB < 45")
-        rt = yuv_planes_to_rgb(*rgb_to_yuv_planes(outs[False][i], "420"))
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        ok = restorer.process_video(src, dst, show_progress=False)
+        torch.cuda.synchronize()
+        counts = _build.launches()
+        check(ok, f"[{tag}] VideoRestorer.process_video failed")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        st = restorer.last_stats
         check(
-            np.array_equal(rt, out_frames[i]),
-            f"frame {i}: CLI output != kernel step output after the y4m round trip",
+            st.decoded == st.inferred == st.encoded == n_frames,
+            f"[{tag}] frame accounting {st.decoded}/{st.inferred}/{st.encoded}",
+        )
+        check(counts == expected, f"[{tag}] launch counts {counts} != expected {expected}")
+        for k, v in counts.items():
+            total_launches[k] = total_launches.get(k, 0) + v
+        with Y4MReader(dst) as rd:
+            out_frames = list(rd)
+            check(
+                (rd.info.width, rd.info.height) == (s * w, s * h),
+                f"[{tag}] output size {rd.info.width}x{rd.info.height}",
+            )
+        check(len(out_frames) == n_frames, f"[{tag}] {len(out_frames)} output frames")
+        check(all(f.shape == (s * h, s * w, 3) for f in out_frames), f"[{tag}] frame shapes")
+        log(
+            f"[{tag}] {n_frames} frames {w}x{h} -> {s * w}x{s * h}, {grid.n_tiles} "
+            f"tile(s) of {grid.tile_shape}, {grid.n_chunks} model call(s)/frame, "
+            f"in {st.wall_s:.2f}s ({st.fps:.4f} fps, {1e3 * st.wall_s / n_frames:.1f} "
+            f"ms/frame wall, stages "
+            f"{json.dumps({k: round(v, 3) for k, v in st.stages.items()})}); "
+            f"peak device memory {peak:.2f} GiB"
+        )
+        log(f"[{tag}] launches {json.dumps(counts)}")
+        model = restorer.model
+        del restorer
+        torch.cuda.empty_cache()
+        outs, step_ms = {}, {}
+        for plain in (False, True):
+            ups = Upscaler(model, grid, cfg, dev, plain=plain)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs[plain] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
+            dt_s = time.perf_counter() - t0
+            step_ms[plain] = 1e3 * dt_s / n_frames
+            log(
+                f"[{tag}] {'plain' if plain else 'kernel'} path: "
+                f"{step_ms[plain]:.1f} ms/frame, {n_frames / dt_s:.4f} fps "
+                "(step only, frames already decoded)"
+            )
+            del ups
+            torch.cuda.empty_cache()
+        for i in range(n_frames):
+            a, b_ = outs[False][i], outs[True][i]
+            psnr = psnr_u8(a, b_)
+            d = np.abs(a.astype(np.int32) - b_.astype(np.int32))
+            log(
+                f"[{tag}] frame {i}: kernel vs plain PSNR {psnr:.2f} dB, "
+                f"{100 * (d > 0).mean():.3f}% of values differ, max {d.max()}"
+            )
+            check(psnr >= 45.0, f"[{tag}] frame {i}: kernel vs plain {psnr:.2f} dB < 45")
+            rt = yuv_planes_to_rgb(*rgb_to_yuv_planes(a, "420"))
+            check(
+                np.array_equal(rt, out_frames[i]),
+                f"[{tag}] frame {i}: CLI output != kernel step output after the y4m round trip",
+            )
+        path_stats[tag] = dict(
+            wall_ms_per_frame=1e3 * st.wall_s / n_frames, fps=st.fps,
+            step_ms=step_ms[False], plain_step_ms=step_ms[True], peak_gib=peak,
+        )
+
+    # phases 4-5: the flagship
+    src = work / "in_1080p.y4m"
+    make_clip(src, H, W, 3)
+    spec = MODEL_ZOO["RealESRGAN_x4plus"].spec
+    check((spec.num_feat, spec.num_grow_ch, spec.num_block) == (64, 32, 23), "flagship spec")
+    rrdb_call = {
+        "conv3x3_fused": 2, "rdb_fused": 3 * spec.num_block * 5,
+        "up1_fused": 1, "tail_fused": 3,
+    }
+    drive(
+        "main", src,
+        ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
+         "--tile-size", "0", "--precision", "bf16", "--models-dir", str(models_dir)],
+        {**rrdb_call, "unsharp_fused": 1},
+        lambda c: (c.denoise == 0.5 and c.sharpen == 0.3 and c.color_enhance
+                   and c.clahe_lr and c.temporal and c.tile_size == 0),
+        1,
+    )
+
+    # phase 6: path A, config 4 with synthetic weights at an informative
+    # scale (Kaiming stem and body, conv_out gain 0.1, PReLU 0.25): the JAX
+    # init's 0.1 gain on every conv makes a random net's output equal its
+    # nearest-upsampled input, which would hide the convs from the u8 check
+    v3 = MODEL_ZOO["RealESRGAN_x4_v3"].spec
+    check((v3.num_feat, v3.num_conv, v3.scale) == (64, 32, 4), "config-4 spec")
+    rng = np.random.default_rng(0)
+
+    def kaiming(*shape, gain=1.0):
+        return (rng.normal(0, (2.0 / (9 * shape[-2])) ** 0.5, shape) * gain).astype(np.float32)
+
+    nf, nc = v3.num_feat, v3.num_conv
+    save_params_npz(
+        {
+            "conv_in": {"w": kaiming(3, 3, 3, nf), "b": np.zeros(nf, np.float32)},
+            "alpha_in": np.full(nf, 0.25, np.float32),
+            "body": {
+                "w": kaiming(nc, 3, 3, nf, nf),
+                "b": rng.normal(0, 0.01, (nc, nf)).astype(np.float32),
+                "alpha": np.full((nc, nf), 0.25, np.float32),
+            },
+            "conv_out": {
+                "w": kaiming(3, 3, nf, 3 * v3.scale**2, gain=0.1),
+                "b": np.zeros(3 * v3.scale**2, np.float32),
+            },
+        },
+        models_dir / "RealESRGAN_x4_v3.npz",
+    )
+    srvgg_call = {"conv3x3_fused": 1, "srvgg_body": v3.num_conv, "srvgg_up_fused": 1}
+    drive(
+        "config4", src,
+        ["--model", "RealESRGAN_x4_v3", "--anime-mode", "--quality", "fast",
+         "--models-dir", str(models_dir)],
+        srvgg_call,
+        lambda c: (c.model_name == "RealESRGAN_x4_v3" and c.denoise == 0.5
+                   and c.sharpen == 0 and c.color_enhance and c.clahe_lr
+                   and c.temporal and c.full_frame == "auto" and c.precision == "bf16"),
+        1,
+    )
+    src.unlink()
+
+    # phase 7: path B, config 2's tiles, both families
+    src = work / "in_720p.y4m"
+    make_clip(src, 720, 1280, 2)
+    for tag, model, per_call in (
+        ("tiled_x4plus", "RealESRGAN_x4plus", rrdb_call),
+        ("tiled_x4_v3", "RealESRGAN_x4_v3", srvgg_call),
+    ):
+        drive(
+            tag, src,
+            ["--model", model, "--quality", "balanced", "--tile-size", "512",
+             "--tile-overlap", "32", "--models-dir", str(models_dir)],
+            per_call,
+            lambda c: (c.tile_size == 512 and c.tile_overlap == 32
+                       and c.full_frame == "off" and c.seamless
+                       and not c.enhanced_mode),
+            6,
         )
     shutil.rmtree(work, ignore_errors=True)
+    log(f"[paths] {json.dumps(path_stats)}")
 
     # ---- result ------------------------------------------------------------
     kernels = []
-    for name in ("conv3x3_fused", "rdb_fused", "up1_fused", "tail_fused", "unsharp_fused"):
+    for name in PALLAS:
         r = rows[name]
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name], replaces=PALLAS[name],
-            launches=counts[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            launches=total_launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
         ))

@@ -6,10 +6,10 @@
   2 blocks, for the scale-4, scale-2 (pixel-unshuffled stem) and
   single-upsample x2 variants, fp32 on both sides (tolerance 1e-4: fp32
   sums in another order through ~40 chained convs);
-- the full-width golden: a schema-exact synthetic RealESRGAN_x4plus
-  checkpoint goes through the port's own converter and forward and must
-  reach the repo's golden bar, >= 45 dB against
-  ``tests/goldens/RealESRGAN_x4plus.npz``.
+- the full-width goldens: a schema-exact synthetic checkpoint of each
+  RRDBNet release (RealESRGAN_x4plus, x2plus, anime_6B, BSRGAN, BSRGANx2)
+  goes through the port's own converter and forward and must reach the
+  repo's golden bar, >= 45 dB against ``tests/goldens/<name>.npz``.
 """
 
 import sys
@@ -114,11 +114,10 @@ def test_plain_forward_matches_naive(rng, spec_kw, h, w):
     np.testing.assert_array_equal(net(torch.from_numpy(x)).numpy(), got.numpy())
 
 
-def test_full_width_golden_x4plus(tmp_path):
+def _golden_case(name, tmp_path):
     sys.path.insert(0, str(REPO / "tools"))
     import golden_parity
 
-    name = "RealESRGAN_x4plus"
     pth = golden_parity.synthetic_sr_checkpoint(name, tmp_path)
     handle = port_zoo.get_model(name, tmp_path)  # port converter, caches npz
     assert (tmp_path / f"{name}.npz").exists()
@@ -130,3 +129,15 @@ def test_full_width_golden_x4plus(tmp_path):
     assert psnr >= golden_parity.PSNR_PASS, psnr
     assert ssim >= golden_parity.SSIM_PASS, ssim
     assert pth.exists()
+
+
+def test_full_width_golden_x4plus(tmp_path):
+    _golden_case("RealESRGAN_x4plus", tmp_path)
+
+
+@pytest.mark.parametrize(
+    "name",
+    ["RealESRGAN_x2plus", "BSRGAN", "BSRGANx2", "RealESRGAN_x4plus_anime_6B"],
+)
+def test_full_width_golden_rrdb_releases(tmp_path, name):
+    _golden_case(name, tmp_path)

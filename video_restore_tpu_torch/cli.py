@@ -260,16 +260,12 @@ def _unported(args, cfg: RestoreConfig) -> list:
         out.append("--shard-mode tiles")
     if cfg.precision == "int8":
         out.append("--precision int8")
-    if cfg.tile_size and cfg.full_frame == "off":
-        out.append("tiled mode (--tile-size > 0 / --full-frame off)")
     if cfg.num_devices > 1:
         out.append("multi-GPU (--devices/--gpus > 1)")
     if args.profile:
         out.append("--profile")
     if cfg.outscale != float(cfg.scale):
         out.append("--outscale")
-    if cfg.model_name == "RealESRGAN_x4_v3":
-        out.append("--model RealESRGAN_x4_v3 (SRVGGNetCompact)")
     return out
 
 

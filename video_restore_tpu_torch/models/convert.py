@@ -1,12 +1,12 @@
 """Torch ``.pth`` checkpoint -> param pytree in the JAX layout.
 
-Port of ``video_restore_tpu/models/convert.py`` for RRDBNet: the released
+Port of ``video_restore_tpu/models/convert.py``: the released
 Real-ESRGAN/BSRGAN state dicts (OIHW conv weights, sometimes nested under
 ``params_ema``/``params``) are validated against the manifest and mapped
-onto the pytree the JAX package uses (HWIO weights, the ``num_block`` body
-blocks stacked on axis 0), with numpy leaves. ``models/rrdbnet.py``
-``params_from_jax`` turns that pytree into the module's weights, so both
-packages load the same files the same way.
+onto the pytree the JAX package uses (HWIO weights, the body blocks or
+convs stacked on axis 0), with numpy leaves. ``params_from_jax`` of
+``models/rrdbnet.py`` or ``models/srvgg.py`` turns that pytree into the
+module's weights, so both packages load the same files the same way.
 """
 
 from __future__ import annotations
@@ -90,17 +90,39 @@ def convert_rrdbnet(
     return params
 
 
+def convert_srvgg(sd: Dict[str, np.ndarray], num_conv: int) -> Dict[str, Any]:
+    """SRVGGNetCompact's flat ``body`` ModuleList: conv_in at 0, its PReLU
+    at 1, (conv, PReLU) pairs at (2 + 2i, 3 + 2i), conv_out at
+    2 + 2 num_conv."""
+    body = [
+        {
+            **_conv(sd, f"body.{2 + 2 * i}"),
+            "alpha": sd[f"body.{3 + 2 * i}.weight"].astype(np.float32),
+        }
+        for i in range(num_conv)
+    ]
+    return {
+        "conv_in": _conv(sd, "body.0"),
+        "alpha_in": sd["body.1.weight"].astype(np.float32),
+        "body": {k: np.stack([c[k] for c in body]) for k in ("w", "b", "alpha")},
+        "conv_out": _conv(sd, f"body.{2 + 2 * num_conv}"),
+    }
+
+
 def convert_pth_to_params(
     path: Union[str, Path], model_name: str
 ) -> Dict[str, Any]:
     from video_restore_tpu_torch.models.manifests import validate_state_dict
-    from video_restore_tpu_torch.models.zoo import MODEL_ZOO, require_rrdbnet
+    from video_restore_tpu_torch.models.rrdbnet import RRDBNetSpec
+    from video_restore_tpu_torch.models.zoo import MODEL_ZOO
 
-    spec = require_rrdbnet(model_name, MODEL_ZOO[model_name].spec)
+    spec = MODEL_ZOO[model_name].spec
     sd = _load_state_dict(path)
     # fail loudly (with a key diff) on any deviation from the released
     # checkpoint schema rather than producing a silently broken model
     validate_state_dict(sd, model_name)
-    return convert_rrdbnet(
-        sd, spec.num_block, spec.key_style, spec.num_upsample
-    )
+    if isinstance(spec, RRDBNetSpec):
+        return convert_rrdbnet(
+            sd, spec.num_block, spec.key_style, spec.num_upsample
+        )
+    return convert_srvgg(sd, spec.num_conv)

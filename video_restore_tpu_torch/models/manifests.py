@@ -1,7 +1,7 @@
 """Key/shape manifests of the released Real-ESRGAN checkpoints.
 
-Port of ``video_restore_tpu/models/manifests.py`` for the RRDBNet models
-(SRVGGNetCompact is not ported yet, so its manifest is not either).
+Port of ``video_restore_tpu/models/manifests.py`` (RRDBNet and
+SRVGGNetCompact).
 
 The reference loads these exact files (video_upscaler.py:344-348 URL
 table); their serialization layout is public information (basicsr /
@@ -34,6 +34,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 from video_restore_tpu_torch.models.rrdbnet import RRDBNetSpec
+from video_restore_tpu_torch.models.srvgg import SRVGGSpec
 
 Shape = Tuple[int, ...]
 
@@ -93,10 +94,30 @@ def rrdbnet_manifest(spec: RRDBNetSpec) -> Dict[str, Shape]:
     return m
 
 
-def state_dict_manifest(model_name: str) -> Dict[str, Shape]:
-    from video_restore_tpu_torch.models.zoo import MODEL_ZOO, require_rrdbnet
+def srvgg_manifest(spec: SRVGGSpec) -> Dict[str, Shape]:
+    m: Dict[str, Shape] = {}
 
-    return rrdbnet_manifest(require_rrdbnet(model_name, MODEL_ZOO[model_name].spec))
+    def conv(prefix: str, cin: int, cout: int) -> None:
+        m[f"{prefix}.weight"] = (cout, cin, 3, 3)
+        m[f"{prefix}.bias"] = (cout,)
+
+    nf = spec.num_feat
+    conv("body.0", spec.num_in_ch, nf)
+    m["body.1.weight"] = (nf,)  # PReLU
+    for i in range(spec.num_conv):
+        conv(f"body.{2 + 2 * i}", nf, nf)
+        m[f"body.{3 + 2 * i}.weight"] = (nf,)  # PReLU
+    conv(f"body.{2 + 2 * spec.num_conv}", nf, spec.num_out_ch * spec.scale**2)
+    return m
+
+
+def state_dict_manifest(model_name: str) -> Dict[str, Shape]:
+    from video_restore_tpu_torch.models.zoo import MODEL_ZOO
+
+    spec = MODEL_ZOO[model_name].spec
+    if isinstance(spec, RRDBNetSpec):
+        return rrdbnet_manifest(spec)
+    return srvgg_manifest(spec)
 
 
 def validate_state_dict(sd: Dict[str, "object"], model_name: str) -> None:

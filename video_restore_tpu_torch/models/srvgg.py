@@ -1,0 +1,128 @@
+"""SRVGGNetCompact (realesr-general-x4v3) as a PyTorch module.
+
+Port of ``video_restore_tpu/models/srvgg.py``: ``SRVGGSpec`` is copied, and
+:class:`SRVGGNet` runs the same network as ``_apply`` in stripe mode
+(``srvgg.py:117-284``): the stem conv + PReLU (K1 through
+``conv3x3_fused``), ``num_conv`` x (3x3 conv + PReLU) at LR resolution
+(``ops/srvgg.py::srvgg_body``, K1), then the output conv to ``3 scale^2``
+channels, pixel-shuffled, plus the nearest-upsampled input
+(``ops/srvgg.py::srvgg_up_fused``, K3). The fused upsampler takes scales 2
+and 4, the scales the JAX model sends to its own (``srvgg.py:227, 270``).
+
+Weights keep the JAX layout: HWIO convs, the same names as the JAX param
+pytree, the body stacked on axis 0 (``body.w``, ``body.b``,
+``body.alpha``). ``forward(x)`` runs the kernel wrappers (launches on CUDA
+tensors, the plain versions on CPU tensors); ``forward(x, plain=True)``
+runs the plain versions on any device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from video_restore_tpu_torch.models.rrdbnet import Conv3x3
+from video_restore_tpu_torch.ops.srvgg import (
+    srvgg_body,
+    srvgg_body_plain,
+    srvgg_up_fused,
+    srvgg_up_fused_plain,
+)
+from video_restore_tpu_torch.ops.tail import conv3x3_fused, conv3x3_fused_plain
+
+
+@dataclasses.dataclass(frozen=True)
+class SRVGGSpec:
+    num_in_ch: int = 3
+    num_out_ch: int = 3
+    num_feat: int = 64
+    num_conv: int = 32
+    scale: int = 4
+
+
+class _Body(nn.Module):
+    """The ``num_conv`` body convs, stacked: w (n, 3, 3, nf, nf), b and
+    alpha (n, nf)."""
+
+    def __init__(self, n: int, nf: int):
+        super().__init__()
+        self.w = nn.Parameter(torch.zeros(n, 3, 3, nf, nf), requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(n, nf), requires_grad=False)
+        self.alpha = nn.Parameter(torch.zeros(n, nf), requires_grad=False)
+
+
+class SRVGGNet(nn.Module):
+    """SRVGGNetCompact on NHWC activations: (N, H, W, 3) in [0, 1] ->
+    (N, H*s, W*s, 3) in the module's dtype."""
+
+    def __init__(self, spec: SRVGGSpec):
+        super().__init__()
+        self.spec = spec
+        nf = spec.num_feat
+        self.conv_in = Conv3x3(spec.num_in_ch, nf)
+        self.alpha_in = nn.Parameter(torch.zeros(nf), requires_grad=False)
+        self.body = _Body(spec.num_conv, nf)
+        self.conv_out = Conv3x3(nf, spec.num_out_ch * spec.scale**2)
+
+    @torch.no_grad()
+    def prepare(self, dtype: torch.dtype, device) -> "SRVGGNet":
+        """Move the weights once to the compute dtype and device (biases and
+        alphas included, as the JAX zoo casts every float leaf). Returns
+        self."""
+        return self.to(device=device, dtype=dtype)
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        conv = conv3x3_fused_plain if plain else conv3x3_fused
+        body = srvgg_body_plain if plain else srvgg_body
+        up = srvgg_up_fused_plain if plain else srvgg_up_fused
+        x = x.to(self.conv_in.w.dtype)
+        feat = conv(
+            x, self.conv_in.w, self.conv_in.b, alpha=self.alpha_in, act="prelu"
+        )
+        feat = body(feat, self.body.w, self.body.b, self.body.alpha)
+        return up(feat, self.conv_out.w, self.conv_out.b, x, self.spec.scale)
+
+
+def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX SRVGG param pytree (numpy leaves, body stacked on axis 0 as
+    ``init_srvgg``/``convert_srvgg`` build it) -> :class:`SRVGGNet` state
+    dict (fp32)."""
+
+    def t(a) -> torch.Tensor:
+        return torch.tensor(np.asarray(a, np.float32))
+
+    return {
+        "conv_in.w": t(tree["conv_in"]["w"]),
+        "conv_in.b": t(tree["conv_in"]["b"]),
+        "alpha_in": t(tree["alpha_in"]),
+        "body.w": t(tree["body"]["w"]),
+        "body.b": t(tree["body"]["b"]),
+        "body.alpha": t(tree["body"]["alpha"]),
+        "conv_out.w": t(tree["conv_out"]["w"]),
+        "conv_out.b": t(tree["conv_out"]["b"]),
+    }
+
+
+def init_params(
+    spec: SRVGGSpec, generator: Optional[torch.Generator] = None
+) -> Dict[str, torch.Tensor]:
+    """Random weights (fp32 state dict) as the JAX ``init_srvgg``: every
+    conv normal with std ``sqrt(2 / fan_in) * 0.1``, zero biases, PReLU
+    alphas 0.25 (the numbers differ: another generator)."""
+    sd = {}
+    for name, p in SRVGGNet(spec).named_parameters():
+        if name.endswith(".b"):
+            sd[name] = torch.zeros(p.shape)
+        elif "alpha" in name:
+            sd[name] = torch.full(p.shape, 0.25)
+        else:
+            fan_in = 9 * p.shape[-2]
+            std = math.sqrt(2.0 / fan_in) * 0.1
+            sd[name] = torch.randn(p.shape, generator=generator) * std
+    return sd

@@ -9,8 +9,8 @@ pytree, keys are JAX ``keystr`` paths such as
 that npz). Weights are never downloaded here; without a file, random
 weights are used only when the caller allows them.
 
-SRVGGNetCompact (``RealESRGAN_x4_v3``) keeps its zoo entry but is not
-ported yet: loading it raises.
+Both families load: RRDBNet (``models/rrdbnet.py``) and SRVGGNetCompact
+(``RealESRGAN_x4_v3``, ``models/srvgg.py``).
 """
 
 from __future__ import annotations
@@ -22,25 +22,9 @@ from typing import Any, Dict, Iterator, Tuple, Union
 import numpy as np
 import torch
 
-from video_restore_tpu_torch.models.rrdbnet import (
-    RRDBNet,
-    RRDBNetSpec,
-    init_params,
-    params_from_jax,
-)
-
-
-@dataclasses.dataclass(frozen=True)
-class SRVGGSpec:
-    """SRVGGNetCompact spec (``video_restore_tpu/models/srvgg.py``); the
-    model itself is not ported yet."""
-
-    num_in_ch: int = 3
-    num_out_ch: int = 3
-    num_feat: int = 64
-    num_conv: int = 32
-    scale: int = 4
-
+from video_restore_tpu_torch.models import rrdbnet, srvgg
+from video_restore_tpu_torch.models.rrdbnet import RRDBNet, RRDBNetSpec
+from video_restore_tpu_torch.models.srvgg import SRVGGNet, SRVGGSpec
 
 Spec = Union[RRDBNetSpec, SRVGGSpec]
 
@@ -74,39 +58,40 @@ MODEL_ZOO: Dict[str, ZooEntry] = {
 }
 
 
-def require_rrdbnet(name: str, spec: Spec) -> RRDBNetSpec:
-    if not isinstance(spec, RRDBNetSpec):
-        raise NotImplementedError(
-            f"{name}: SRVGGNetCompact is not yet ported to the torch package"
-        )
-    return spec
-
-
 @dataclasses.dataclass
 class ModelHandle:
     """A loaded model: its name, spec and weights (an fp32 state dict of
-    :class:`RRDBNet`, on the CPU)."""
+    :class:`RRDBNet` or :class:`SRVGGNet`, on the CPU)."""
 
     name: str
-    spec: RRDBNetSpec
+    spec: Spec
     state: Dict[str, torch.Tensor]
 
     @property
     def scale(self) -> int:
         return self.spec.scale
 
-    def module(self, dtype: torch.dtype, device) -> RRDBNet:
-        """A prepared :class:`RRDBNet` in ``dtype`` on ``device``."""
-        net = RRDBNet(self.spec)
+    def module(self, dtype: torch.dtype, device) -> Union[RRDBNet, SRVGGNet]:
+        """The prepared network in ``dtype`` on ``device``."""
+        net = _NET[type(self.spec)](self.spec)
         net.load_state_dict(self.state)
         return net.prepare(dtype, device)
 
 
+_NET = {RRDBNetSpec: RRDBNet, SRVGGSpec: SRVGGNet}
+
+
+def _arch(spec: Spec):
+    """The model module of ``spec``'s family (its ``init_params`` and
+    ``params_from_jax``)."""
+    return srvgg if isinstance(spec, SRVGGSpec) else rrdbnet
+
+
 def random_model(name: str, seed: int = 0) -> ModelHandle:
     """Architecture-correct random weights from ``torch.Generator(seed)``."""
-    spec = require_rrdbnet(name, MODEL_ZOO[name].spec)
+    spec = MODEL_ZOO[name].spec
     g = torch.Generator().manual_seed(seed)
-    return ModelHandle(name, spec, init_params(spec, g))
+    return ModelHandle(name, spec, _arch(spec).init_params(spec, g))
 
 
 def _keystr(path: Tuple[str, ...]) -> str:
@@ -121,13 +106,22 @@ def _leaves(tree: Dict[str, Any], prefix=()) -> Iterator[Tuple[Tuple[str, ...], 
             yield prefix + (k,), v
 
 
-def _template(spec: RRDBNetSpec) -> Dict[str, Any]:
-    """The JAX pytree's leaf shapes for ``spec`` (``init_rrdbnet``)."""
-    nf, gc, nb = spec.num_feat, spec.num_grow_ch, spec.num_block
+def _template(spec: Spec) -> Dict[str, Any]:
+    """The JAX pytree's leaf shapes for ``spec`` (``init_rrdbnet`` /
+    ``init_srvgg``)."""
 
     def conv(cin, cout, stack=()):
         return {"w": stack + (3, 3, cin, cout), "b": stack + (cout,)}
 
+    if isinstance(spec, SRVGGSpec):
+        nf, n = spec.num_feat, spec.num_conv
+        return {
+            "conv_in": conv(spec.num_in_ch, nf),
+            "alpha_in": (nf,),
+            "body": {**conv(nf, nf, (n,)), "alpha": (n, nf)},
+            "conv_out": conv(nf, spec.num_out_ch * spec.scale**2),
+        }
+    nf, gc, nb = spec.num_feat, spec.num_grow_ch, spec.num_block
     rdb = {
         f"conv{k}": conv(nf + (k - 1) * gc, gc if k < 5 else nf, (nb,))
         for k in range(1, 6)
@@ -154,7 +148,7 @@ def save_params_npz(params: Dict[str, Any], path: Path) -> None:
 def load_params_npz(name: str, path: Path) -> Dict[str, Any]:
     """Read a converted npz (written by either package) into a JAX-layout
     pytree of numpy arrays, checking every leaf's shape."""
-    spec = require_rrdbnet(name, MODEL_ZOO[name].spec)
+    spec = MODEL_ZOO[name].spec
     out: Dict[str, Any] = {}
     with np.load(path) as data:
         for p, shape in _leaves(_template(spec)):
@@ -183,7 +177,7 @@ def get_model(
     if name not in MODEL_ZOO:
         raise ValueError(f"Unknown model: {name}")
     entry = MODEL_ZOO[name]
-    spec = require_rrdbnet(name, entry.spec)
+    spec = entry.spec
     mdir = Path(models_dir)
     npz_path = mdir / f"{name}.npz"
     pth_path = mdir / entry.pth_name
@@ -202,4 +196,4 @@ def get_model(
             f"{entry.pth_name}); set VRT_ALLOW_RANDOM_WEIGHTS=1 for random "
             "weights"
         )
-    return ModelHandle(name, spec, params_from_jax(params))
+    return ModelHandle(name, spec, _arch(spec).params_from_jax(params))

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("conv3x3.cu", "unsharp.cu")
+SOURCES = ("conv3x3.cu", "unsharp.cu", "srvgg_up.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -136,6 +136,10 @@ def load() -> ctypes.CDLL:
                 _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _F, _F, _P,
             ]
             lib.vr_unsharp.restype = _I
+            lib.vr_srvgg_up.argtypes = [
+                _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+            ]
+            lib.vr_srvgg_up.restype = _I
             lib.vr_error_string.argtypes = [_I]
             lib.vr_error_string.restype = ctypes.c_char_p
             _lib = lib

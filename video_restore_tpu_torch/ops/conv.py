@@ -1,12 +1,13 @@
 """Plain convolution and layout primitives, NHWC activations, HWIO weights.
 
 Port of ``video_restore_tpu/ops/conv.py:21-233`` (``conv2d``,
-``leaky_relu``, ``prelu``, ``pixel_unshuffle``, ``upsample_nearest``). Same
+``leaky_relu``, ``prelu``, ``pixel_shuffle``, ``pixel_unshuffle``,
+``upsample_nearest``). Same
 conventions as the JAX functions: activations NHWC, weights HWIO, products
 accumulated in fp32 and the result cast back to the activation dtype. These
 are the plain versions that the CPU path and the kernel checks use; the
 GPU path runs the hand-written kernels in ``ops/tail.py``,
-``ops/stripe.py`` and ``ops/unsharp.py``.
+``ops/stripe.py``, ``ops/srvgg.py`` and ``ops/unsharp.py``.
 """
 
 from __future__ import annotations
@@ -52,6 +53,15 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Channel-wise PReLU; ``alpha`` has shape (C,)."""
     return torch.where(x >= 0, x, x * alpha.to(x.dtype))
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Depth-to-space, NHWC, channel order (c_out, ry, rx) as torch's
+    PixelShuffle (the SRVGG output conv)."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h, w, c // (r * r), r, r)
+    x = x.permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(n, h * r, w * r, c // (r * r))
 
 
 def pixel_unshuffle(x: torch.Tensor, r: int) -> torch.Tensor:

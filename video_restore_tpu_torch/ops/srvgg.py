@@ -1,0 +1,137 @@
+"""The SRVGGNetCompact body and upsampler on kernels K1 and K3.
+
+Port of ``video_restore_tpu/ops/pallas_srvgg.py``:
+
+- :func:`srvgg_body` replaces the chained conv3x3 + PReLU body kernels
+  ``srvgg_stripe2d_split`` (``:635``), ``srvgg_stripe2d_padded`` (``:370``,
+  the full-frame 2D-blocked forms) and ``srvgg_stripe_padded`` (``:131``,
+  the full-width stripe form the tiled path takes). All three compute, per
+  conv i, ``h = prelu(conv3x3_SAME(h, w[i]) + b[i], alpha[i])`` with fp32
+  sums, bias and PReLU, rounded to the activation dtype between convs
+  (``pallas_srvgg.py:101-111``); they differ in TPU layout and launch split
+  only. Here: one K1 launch (``csrc/conv3x3.cu``, ``act="prelu"``) per
+  conv, whose bounds-checked reads give SAME zero padding at every frame
+  and tile edge.
+- :func:`srvgg_up_fused` replaces ``srvgg_up_fused_raw`` (``:1025``) and
+  ``srvgg_up_fused`` (``:854``): ``pixel_shuffle(conv3x3(feat) + b, r) +
+  upsample_nearest(x_in, r)`` in one launch of K3 (``csrc/srvgg_up.cu``),
+  fp32 until one final rounding.
+
+Each wrapper has its plain PyTorch version beside it (``*_plain``). A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from video_restore_tpu_torch.ops import _build
+from video_restore_tpu_torch.ops.conv import (
+    conv2d_f32,
+    pixel_shuffle,
+    upsample_nearest,
+)
+from video_restore_tpu_torch.ops.tail import _DTYPES, conv3x3, conv3x3_plain
+
+UP_SCALES = (2, 4)  # the scales the JAX model sends to its fused upsampler
+
+
+def _body(conv, x, w, b, alpha, **kw):
+    if w.dim() != 5 or b.shape != w.shape[:1] + w.shape[-1:] or alpha.shape != b.shape:
+        raise ValueError(
+            f"srvgg_body: weights {tuple(w.shape)}, biases {tuple(b.shape)}, "
+            f"alphas {tuple(alpha.shape)} are not a stack of (3, 3, nf, nf) "
+            "convs with (nf,) biases and alphas"
+        )
+    for i in range(w.shape[0]):
+        x = conv(x, w[i], b[i], act="prelu", alpha=alpha[i], **kw)
+    return x
+
+
+def srvgg_body(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, alpha: torch.Tensor
+) -> torch.Tensor:
+    """``num_conv`` chained ``prelu(conv3x3(x) + b)``: x (B, H, W, nf), w
+    (num_conv, 3, 3, nf, nf) HWIO, b and alpha (num_conv, nf), all in x's
+    dtype. One K1 launch per conv on CUDA, the plain version on the CPU."""
+    return _body(conv3x3, x, w, b, alpha, counter="srvgg_body")
+
+
+def srvgg_body_plain(x, w, b, alpha):
+    return _body(conv3x3_plain, x, w, b, alpha)
+
+
+def _check_up(feat, w_out, b_out, x_in, r):
+    if r not in UP_SCALES:
+        raise ValueError(f"srvgg_up_fused: r must be one of {UP_SCALES}, got {r}")
+    bsz, h, w, nf = feat.shape
+    cout = w_out.shape[-1] // (r * r)
+    if tuple(w_out.shape) != (3, 3, nf, cout * r * r) or b_out.shape != (cout * r * r,):
+        raise ValueError(
+            f"srvgg_up_fused: weight {tuple(w_out.shape)} / bias "
+            f"{tuple(b_out.shape)} do not map {nf} channels to cout*r*r"
+        )
+    if tuple(x_in.shape) != (bsz, h, w, cout):
+        raise ValueError(
+            f"srvgg_up_fused: x_in {tuple(x_in.shape)} != {(bsz, h, w, cout)}"
+        )
+    return cout
+
+
+def srvgg_up_fused_plain(
+    feat: torch.Tensor,
+    w_out: torch.Tensor,
+    b_out: torch.Tensor,
+    x_in: torch.Tensor,
+    r: int = 4,
+) -> torch.Tensor:
+    """Plain PyTorch version of K3: fp32 conv sums, bias and skip, one
+    rounding to feat's dtype."""
+    _check_up(feat, w_out, b_out, x_in, r)
+    y = conv2d_f32(feat, w_out) + b_out.float()
+    y = pixel_shuffle(y, r) + upsample_nearest(x_in.float(), r)
+    return y.to(feat.dtype)
+
+
+def srvgg_up_fused(
+    feat: torch.Tensor,
+    w_out: torch.Tensor,
+    b_out: torch.Tensor,
+    x_in: torch.Tensor,
+    r: int = 4,
+) -> torch.Tensor:
+    """``pixel_shuffle(conv2d(feat, w_out, b_out), r) +
+    upsample_nearest(x_in, r)``: feat (B, H, W, nf), w_out (3, 3, nf,
+    3 r^2) HWIO, b_out (3 r^2,), x_in (B, H, W, 3) -> (B, rH, rW, 3), all
+    in feat's dtype (fp32 or bf16); r in {2, 4}. One K3 launch on CUDA, the
+    plain version on the CPU."""
+    if feat.device.type == "cpu":
+        return srvgg_up_fused_plain(feat, w_out, b_out, x_in, r)
+    if feat.device.type != "cuda":
+        raise ValueError(f"srvgg_up_fused: unsupported device {feat.device}")
+    cout = _check_up(feat, w_out, b_out, x_in, r)
+    if cout != 3:
+        raise ValueError(f"srvgg_up_fused: K3 writes 3 colours, not {cout}")
+    dt = feat.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"srvgg_up_fused: dtype {dt} not supported (fp32, bf16)")
+    for name, t in (("w_out", w_out), ("b_out", b_out), ("x_in", x_in), ("feat", feat)):
+        if t.device != feat.device or t.dtype != dt:
+            raise ValueError(
+                f"srvgg_up_fused: {name} is {t.dtype} on {t.device}, expected "
+                f"{dt} on {feat.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"srvgg_up_fused: {name} must be contiguous")
+    bsz, h, w, nf = feat.shape
+    out = torch.empty((bsz, r * h, r * w, cout), dtype=dt, device=feat.device)
+    lib = _build.load()
+    code = lib.vr_srvgg_up(
+        _DTYPES[dt], r, feat.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+        x_in.data_ptr(), out.data_ptr(), bsz, h, w, nf,
+        _build.stream_ptr(feat),
+    )
+    _build.check(lib, code, "srvgg_up kernel")
+    _build.count_launch("srvgg_up_fused")
+    return out

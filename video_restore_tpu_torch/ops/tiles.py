@@ -1,13 +1,27 @@
-"""Tile grid and the full-frame model call.
+"""Seamless tile engine and the full-frame model call.
 
-Port of ``video_restore_tpu/ops/tiles.py``: ``TileGrid.build`` is copied
-(the same static plan per (H, W, tile, overlap, scale) bucket), and
-:func:`tiled_apply` ports the full-frame branch (``tiles.py:398-412``): the
-frame, padded to the grid's single tile, goes through the model once and
-the fp32 result is cropped to the frame. A grid with more than one tile
-raises: seamless tiling with overlap-add blending is not yet ported.
-:func:`auto_full_frame` sizes the full-frame decision from
-``torch.cuda.mem_get_info`` instead of JAX memory stats.
+Port of ``video_restore_tpu/ops/tiles.py``. The frame is padded to a static
+tile grid (one plan per (H, W, tile, overlap, scale) bucket), all tiles are
+cut with static slices and batched through the model (tiles are the batch
+axis, optionally in fixed-size chunks to bound device memory), and the
+output tiles are blended by weighted overlap-add in fp32 with a
+complementary cosine-ramp window (:func:`ramp_window`: flat interior,
+smooth fall-off across the overlap; adjacent ramps sum to 1). The
+normalisation field is separable, so it is built from its two 1-D factors.
+
+Modes:
+
+- ``seamless``: overlapping tiles, the ramp window;
+- ``legacy``: RealESRGANer parity, non-overlapping tile centres each cut
+  with ``overlap`` pixels of real context (the leading halo of
+  :func:`_pad_frame`), centre-cropped and pasted without blending.
+
+A frame that is one exact tile (tile size 0, full-frame mode) skips the
+blend: the model output is the frame. The blend and the tile cuts are plain
+PyTorch on every device (in the JAX package they are XLA, not Pallas).
+:func:`auto_full_frame` sizes its decision from the card's memory where the
+JAX package reads JAX memory stats; :func:`auto_tile_chunk` keeps the JAX
+package's fixed 2 GiB activation budget.
 """
 
 from __future__ import annotations
@@ -16,12 +30,27 @@ import dataclasses
 import math
 from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def ramp_window(size: int, ramp: int) -> np.ndarray:
+    """1-D blend window: flat 1 in the interior, smooth fall-off to ~0
+    across the ``ramp`` (= overlap) pixels at each edge, adjacent ramps
+    complementary (``tiles.py:51``)."""
+    w = np.ones(size, dtype=np.float64)
+    ramp = min(ramp, size // 2)
+    if ramp > 0:
+        t = (np.arange(ramp) + 0.5) / ramp  # (0, 1)
+        r = 0.5 - 0.5 * np.cos(np.pi * t)  # smooth 0 -> 1
+        w[:ramp] = r
+        w[size - ramp :] = r[::-1]
+    return np.maximum(w, 1e-4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +80,8 @@ class _Axis:
             # tiles exactly cover the frame with (at least) the requested
             # overlap, instead of overlapping by whatever a fixed stride
             # leaves over. 1080p/tile512/ov32 drops from 12x512^2 to
-            # 12x384x504 tile pixels — 1.36x less model compute. Extents
-            # are rounded to 8 (sublane granule; also satisfies the
-            # scale-2 mod-2 requirement).
+            # 12x384x504 tile pixels. Extents are rounded to 8 (also
+            # satisfies the scale-2 mod-2 requirement).
             overlap = extract - stride
             extract = min(
                 extract,
@@ -67,6 +95,24 @@ class _Axis:
         return _Axis(
             dim, extract, tuple(i * stride for i in range(n)), padded, halo
         )
+
+    def window(self, scale: int, mode: str, halo: int, overlap: int = 0) -> np.ndarray:
+        es = self.extract * scale
+        if len(self.offsets) == 1:
+            return np.ones(es)
+        if mode == "legacy":
+            w = np.full(es, 1e-6)  # ~hard paste: halo contamination < 1e-6
+            h = halo * scale
+            w[h : es - h if h else es] = 1.0
+            return w
+        return ramp_window(es, overlap * scale)
+
+    def norm(self, scale: int, mode: str, halo: int, overlap: int = 0) -> np.ndarray:
+        w = self.window(scale, mode, halo, overlap)
+        n = np.zeros(self.padded * scale)
+        for o in self.offsets:
+            n[o * scale : o * scale + len(w)] += w
+        return n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +179,34 @@ class TileGrid:
     def tile_shape(self) -> Tuple[int, int]:
         return (self.rows.extract, self.cols.extract)
 
+    @property
+    def n_chunks(self) -> int:
+        """Model calls per frame (``_chunked_apply``)."""
+        c = self.tile_chunk
+        return 1 if c <= 0 or c >= self.n_tiles else math.ceil(self.n_tiles / c)
+
+
+def auto_tile_chunk(
+    extract_h: int,
+    extract_w: int,
+    scale: int,
+    n_tiles: int,
+    budget_bytes: int = 2 << 30,
+    feat_ch: int = 64,
+) -> int:
+    """Tiles per model call so that the dominant activation (``feat_ch``
+    channels at output resolution, bf16) stays within ``budget_bytes``
+    (``tiles.py:198``); 0 = all tiles in one call. Prefers a divisor of
+    ``n_tiles``: a non-divisor pads the last chunk with dead tiles."""
+    per_tile = extract_h * extract_w * scale * scale * feat_ch * 2
+    chunk = max(1, budget_bytes // max(per_tile, 1))
+    if chunk >= n_tiles:
+        return 0
+    for c in range(int(chunk), 0, -1):
+        if n_tiles % c == 0:
+            return c
+    return int(chunk)
+
 
 def auto_full_frame(
     height: int,
@@ -145,8 +219,8 @@ def auto_full_frame(
     """Whether a full-frame (tile=0) pass fits device memory: ~5 body
     feature buffers (bf16), the upconv1 output at 2x resolution, and ~3
     output-resolution RGB fp32 buffers, against half the device's memory
-    (``tiles.py:222-271``). ``device_bytes`` defaults to the current CUDA
-    device's total memory."""
+    (``tiles.py:222-271``; the RRDB estimate, which dominates SRVGG's).
+    ``device_bytes`` defaults to the current CUDA device's total memory."""
     if device_bytes is None:
         device_bytes = torch.cuda.mem_get_info()[1]
     hw = height * width
@@ -157,27 +231,100 @@ def auto_full_frame(
     return est <= 0.5 * device_bytes
 
 
+def _pad_frame(x: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """Reflect-pad (N, H, W, C) to the grid's padded extent, or edge-pad
+    when a pad is not smaller than the frame (``tiles.py:274-287``); legacy
+    mode adds a leading halo of real context."""
+    r, c = grid.rows, grid.cols
+    top, bottom = r.lead, r.padded - r.dim - r.lead
+    left, right = c.lead, c.padded - c.dim - c.lead
+    if not (top or bottom or left or right):
+        return x
+    big = max(top, bottom, left, right)
+    mode = "reflect" if big < min(r.dim, c.dim) else "replicate"
+    xp = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom), mode=mode)
+    return xp.permute(0, 2, 3, 1)
+
+
+def _extract_tiles(xp: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """(N, pad_h, pad_w, C) -> (N, n_tiles, Eh, Ew, C), contiguous."""
+    eh, ew = grid.tile_shape
+    tiles = [
+        xp[:, r : r + eh, c : c + ew, :]
+        for r in grid.rows.offsets
+        for c in grid.cols.offsets
+    ]
+    return torch.stack(tiles, dim=1)
+
+
+def _blend_tiles(out_tiles: torch.Tensor, grid: TileGrid) -> torch.Tensor:
+    """(N, n_tiles, Eh*s, Ew*s, C) -> (N, H*s, W*s, C), fp32 overlap-add
+    (``tiles.py:301-341``)."""
+    s = grid.scale
+    n, c = out_tiles.shape[0], out_tiles.shape[-1]
+    dev = out_tiles.device
+
+    def vec(a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.float32).to(dev)
+
+    wr = vec(grid.rows.window(s, grid.mode, grid.halo, grid.overlap))
+    wc = vec(grid.cols.window(s, grid.mode, grid.halo, grid.overlap))
+    w2d = (wr[:, None] * wc[None, :])[None, :, :, None]
+    canvas = torch.zeros(
+        (n, grid.rows.padded * s, grid.cols.padded * s, c),
+        dtype=torch.float32, device=dev,
+    )
+    ehs, ews = grid.rows.extract * s, grid.cols.extract * s
+    idx = 0
+    for r in grid.rows.offsets:
+        for col in grid.cols.offsets:
+            canvas[:, r * s : r * s + ehs, col * s : col * s + ews, :] += (
+                out_tiles[:, idx].float() * w2d
+            )
+            idx += 1
+    nr = vec(grid.rows.norm(s, grid.mode, grid.halo, grid.overlap))
+    nc = vec(grid.cols.norm(s, grid.mode, grid.halo, grid.overlap))
+    canvas /= (nr[:, None] * nc[None, :])[None, :, :, None]
+    top, left = grid.rows.lead * s, grid.cols.lead * s
+    return canvas[:, top : top + grid.height * s, left : left + grid.width * s, :]
+
+
+def _chunked_apply(
+    model_fn: Callable[[torch.Tensor], torch.Tensor],
+    tiles: torch.Tensor,
+    chunk: int,
+) -> torch.Tensor:
+    """Apply the model over the tile batch, in fixed-size chunks of
+    ``chunk`` tiles (one model call each, the last zero-padded to full
+    size, ``tiles.py:344-362``) when ``0 < chunk < len(tiles)``."""
+    b = tiles.shape[0]
+    if chunk <= 0 or chunk >= b:
+        return model_fn(tiles)
+    nb = _round_up(b, chunk)
+    if nb != b:
+        pad = tiles.new_zeros((nb - b,) + tuple(tiles.shape[1:]))
+        tiles = torch.cat([tiles, pad], dim=0)
+    out = torch.cat(
+        [model_fn(tiles[i : i + chunk]) for i in range(0, nb, chunk)], dim=0
+    )
+    return out[:b]
+
+
 def tiled_apply(
     model_fn: Callable[[torch.Tensor], torch.Tensor],
     frames: torch.Tensor,
     grid: TileGrid,
 ) -> torch.Tensor:
-    """Upscale (N, H, W, C) frames through the model on ``grid``'s single
-    tile; returns (N, H*scale, W*scale, C) fp32. The frame is padded to the
-    tile extent (reflect, or edge when the pad is not smaller than the
-    frame, as ``_pad_frame``) and the output cropped back."""
-    if grid.n_tiles != 1:
-        raise NotImplementedError(
-            f"{grid.n_tiles}-tile grid: seamless tiling not yet ported "
-            "(use tile size 0 / full frame)"
-        )
+    """Upscale (N, H, W, C) frames (any float dtype: the model runs in the
+    frames' dtype) through the tiled model; returns (N, H*scale, W*scale, C)
+    fp32, blended in fp32."""
+    n = frames.shape[0]
+    tiles = _extract_tiles(_pad_frame(frames, grid), grid)  # (N, T, Eh, Ew, C)
+    flat = tiles.reshape((n * grid.n_tiles,) + tuple(tiles.shape[2:]))
+    out = _chunked_apply(model_fn, flat, grid.tile_chunk)
+    out = out.reshape((n, grid.n_tiles) + tuple(out.shape[1:]))
     r, c = grid.rows, grid.cols
-    ph, pw = r.padded - r.dim, c.padded - c.dim
-    x = frames
-    if ph or pw:
-        mode = "reflect" if max(ph, pw) < min(r.dim, c.dim) else "replicate"
-        x = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode=mode)
-        x = x.permute(0, 2, 3, 1).contiguous()
-    out = model_fn(x)
-    s = grid.scale
-    return out[:, : grid.height * s, : grid.width * s].float()
+    if grid.n_tiles == 1 and r.padded == r.dim and c.padded == c.dim:
+        # full-frame mode: one exact tile, all-ones window — no canvas
+        return out[:, 0].float()
+    return _blend_tiles(out, grid)

@@ -4,11 +4,13 @@ Port of ``video_restore_tpu/parallel/dispatch.py:54-407``: uint8 frames in,
 uint8 frames out, with the enhancement stack around the model::
 
     u8 -> f32/255 -> [bilateral] -> [CLAHE on LR] -> compute dtype ->
-    model (full frame, fp32 out) -> [unsharp] -> [temporal EMA] -> u8
+    model (full frame or tiles, fp32 out) -> [unsharp] -> [temporal EMA] -> u8
 
 The dtype flow is the JAX step's: bilateral and CLAHE in fp32, the model in
 the compute dtype (bf16: fp32 sums inside each kernel, bf16 between
-kernels), fp32 from the model's exit on. The temporal EMA carries an
+kernels; the tiles of a tiled grid are cut in that dtype), fp32 from the
+model's exit on (``tiled_apply`` blends the tiles in fp32). The model is
+either family, through ``ModelHandle.module``. The temporal EMA carries an
 explicit ``{frame, valid}`` pair (an all-black previous frame is still a
 previous frame) with one carry shard, so the carry is exactly sequential
 (gap 1); ``lax.scan`` over the frames becomes a Python loop. A scene cut

@@ -28,10 +28,15 @@ from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Union
 
 import numpy as np
+import torch
 
 from video_restore_tpu_torch.config import RestoreConfig
 from video_restore_tpu_torch.models.zoo import ModelHandle, get_model
-from video_restore_tpu_torch.ops.tiles import TileGrid, auto_full_frame
+from video_restore_tpu_torch.ops.tiles import (
+    TileGrid,
+    auto_full_frame,
+    auto_tile_chunk,
+)
 from video_restore_tpu_torch.parallel.dispatch import Upscaler
 from video_restore_tpu_torch.pipeline.progress import Progress
 from video_restore_tpu_torch.utils.device import resolve_device
@@ -183,28 +188,47 @@ class VideoRestorer:
         )
 
     def _upscaler_for(self, height: int, width: int) -> Upscaler:
+        """The restore step for one resolution bucket (``runner.py:194-276``
+        of the JAX package): full frame when ``full_frame`` is "on", or
+        "auto" and the frame fits the card (``auto_full_frame``); else the
+        tile grid, with ``tile_chunk`` tiles per model call (0 = auto).
+        Legacy tiling and shard mode "tiles" always tile. On the CPU, with
+        no device memory to size against, "auto" keeps the tiles, as the
+        JAX package does without its TPU body kernels."""
         key = (height, width)
         if key not in self._upscalers:
             cfg = self.config
             tile = cfg.tile_size
-            if tile != 0 and cfg.full_frame == "on":
-                tile = 0
-            elif tile != 0 and cfg.full_frame == "auto":
-                # full frame when it fits; on the CPU the host memory holds it
-                if self.device.type == "cpu" or auto_full_frame(
-                    height, width, self.model.scale,
-                    frames=max(cfg.frames_per_batch, 1),
+            if tile != 0 and not cfg.legacy_tiling and cfg.shard_mode != "tiles":
+                if cfg.full_frame == "on":
+                    tile = 0
+                elif (
+                    cfg.full_frame == "auto"
+                    and self.device.type == "cuda"
+                    and auto_full_frame(
+                        height, width, self.model.scale,
+                        torch.cuda.mem_get_info(self.device)[1],
+                        frames=max(cfg.frames_per_batch, 1),
+                    )
                 ):
                     tile = 0
-                else:
-                    raise NotImplementedError(
-                        f"{width}x{height} does not fit device memory in one "
-                        "piece and seamless tiling is not yet ported"
+                    log.info(
+                        "full-frame mode: %dx%d fits device memory, tiling "
+                        "disabled (full_frame=off restores tiles)",
+                        width, height,
                     )
             grid = TileGrid.build(
                 height, width, tile=tile, overlap=cfg.tile_overlap,
                 scale=self.model.scale,
                 mode="legacy" if cfg.legacy_tiling else "seamless",
+            )
+            chunk = cfg.tile_chunk or auto_tile_chunk(
+                grid.rows.extract, grid.cols.extract, grid.scale, grid.n_tiles,
+            )
+            grid = dataclasses.replace(grid, tile_chunk=chunk)
+            log.debug(
+                "bucket %dx%d: %d tiles of %s, %d per model call", width,
+                height, grid.n_tiles, grid.tile_shape, chunk or grid.n_tiles,
             )
             self._upscalers[key] = Upscaler(self.model, grid, cfg, self.device)
         return self._upscalers[key]
