@@ -9,13 +9,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
-   ``conv3x3.cu``, K2 ``unsharp.cu``, K3 ``srvgg_up.cu``);
+   ``conv3x3.cu``, K2 ``unsharp.cu``, K3 ``srvgg_up.cu``, K4
+   ``conv3x3_i8.cu`` with its amax entry point);
 3. every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
    phase 7's tile batch), with kernel, plain and library times (one cuDNN
    call or chain of calls over the same convs, never used by the port) and
-   the bound;
+   the bound; K4 (bf16 only) within one bf16 step of its plain version per
+   value, for each of the five RDB convs and an SRVGG conv at odd shapes
+   and for the whole int8 RDB at the flagship and tile-batch shapes;
 4. the flagship path: a 3-frame 1080x1920 y4m with a hard cut before frame
    3 through ``VideoRestorer`` as the CLI builds it (RealESRGAN_x4plus at
    full width, random weights, enhanced: bilateral 0.5, CLAHE on the LR
@@ -34,16 +37,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 7. path B, config 2's tiles: a 2-frame 720x1280 clip through
    ``--tile-size 512 --tile-overlap 32`` (seamless blending on a 2x3 grid)
    for RealESRGAN_x4plus and RealESRGAN_x4_v3, with the checks of phases 4
-   and 5 (launch counts: per model call x chunks x frames).
+   and 5 (launch counts: per model call x chunks x frames);
+8. the int8 paths (``--precision int8``, the W8A8 body on K4), 2 frames
+   each: the flagship flags at 1080p, config 4, and 720p tiles with
+   RealESRGAN_x4plus, with the checks of phases 4 and 5, and the int8
+   output against the bf16 kernel path's (>= 35 dB on u8 per frame).
 
 The line before the last is the per-kernel JSON record (``launches`` sums
-the counts of the runs of phases 4, 6 and 7); the last line is
+the counts of the runs of phases 4, 6, 7 and 8); the last line is
 ``{"ok": true, "device": {...}}``. Work files go to ``build/chip_smoke/``
 and are removed at the end.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -57,6 +65,7 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
 PALLAS = {
@@ -69,6 +78,12 @@ PALLAS = {
     "srvgg_body": "video_restore_tpu/ops/pallas_srvgg.py:635",
     # also #18 srvgg_up_fused (:854), the tiled form
     "srvgg_up_fused": "video_restore_tpu/ops/pallas_srvgg.py:1025",
+    # K4: the int8 (sws) branch of _conv_prefix, which the RDB kernels
+    # (#2-#4, #9, #10) and the SRVGG body kernels (#14-#16) run
+    "rdb_fused_i8": "video_restore_tpu/ops/pallas_stripe.py:358",
+    "srvgg_body_i8": "video_restore_tpu/ops/pallas_stripe.py:358",
+    # the per-chunk |max| of _quant_act, for a tensor K4 did not write
+    "act_amax": "video_restore_tpu/ops/pallas_stripe.py:239",
 }
 SOURCE = {
     "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
@@ -78,6 +93,9 @@ SOURCE = {
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp.cu",
     "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3.cu",
     "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up.cu",
+    "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
+    "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
+    "act_amax": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
 }
 
 
@@ -112,7 +130,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from video_restore_tpu_torch.ops import _build, post, srvgg, stripe, tail, unsharp
+    from video_restore_tpu_torch.ops import _build, post, quant, srvgg, stripe, tail, unsharp
 
     # ---- phase 1: the card ------------------------------------------------
     smi = _run(
@@ -249,6 +267,72 @@ def main() -> int:
         )
         log(f"[check] unsharp_fused fp32 2x37x53 threshold={thr} err={e:.3g}")
 
+    def bf16_steps(name, k, p, n=1):
+        """Per value, |kernel - plain| in bf16 steps (2^-7 relative) of the
+        larger magnitude; fails above ``n``."""
+        k, p = k.float(), p.float()
+        mag = torch.maximum(k.abs(), p.abs()).clamp_min(2.0**-126)
+        d = (k - p).abs()
+        worst = (d / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+        check(worst <= n, f"{name}: kernel vs plain {worst:.2f} bf16 steps > {n}")
+        return d.max().item(), worst
+
+    def i8_rdb(nf, gc):
+        """Seeded bf16 RDB weights and their W8 (int8 HWIO, fp32 scales)."""
+        ws, bs = rdb_weights(nf, gc, torch.bfloat16)
+        q = [quant.quantize_conv_weights(ws[k], quant.rdb_segments(nf, gc, k + 1)) for k in range(5)]
+        return ws, bs, [a for a, _ in q], [s_ for _, s_ in q]
+
+    def i8_srvgg(n, nf):
+        sw_ = srvgg_weights(n, nf, torch.bfloat16)
+        q = [quant.quantize_conv_weights(w_, (0, nf)) for w_ in sw_[0]]
+        return sw_, torch.stack([a for a, _ in q]), torch.cat([s_ for _, s_ in q])
+
+    # K4 at odd shapes, bf16: each RDB conv (1..5 segments) and an SRVGG conv
+    b, h, w = 2, 37, 53
+    ws8, bs8, wq8, sw8 = i8_rdb(64, 32)
+    grow = rnd(b, h, w, 64 + 4 * 32)
+    amax = torch.zeros(b, 6, device=dev)
+    segs5 = quant.rdb_segments(64, 32, 5)
+    for s_ in range(5):
+        quant.act_amax(grow[..., segs5[s_] : segs5[s_ + 1]], out=amax[:, s_])
+        check(
+            torch.equal(amax[:, s_], quant.act_amax_plain(grow[..., segs5[s_] : segs5[s_ + 1]])),
+            "act_amax != its plain version",
+        )
+    for k_ in range(5):
+        segs = quant.rdb_segments(64, 32, k_ + 1)
+        kw = (dict(act="lrelu") if k_ < 4 else
+              dict(r1=grow[..., :64], s1=0.2, r2=rnd(b, h, w, 64), s2=0.2))
+        oa, pa = torch.zeros(b, device=dev), torch.zeros(b, device=dev)
+        args = (grow[..., : segs[-1]], segs, amax, wq8[k_], sw8[k_], bs8[k_])
+        ko = quant.conv3x3_i8(*args, out_amax=oa, counter="check", **kw)
+        po = quant.conv3x3_i8_plain(*args, out_amax=pa, **kw)
+        e, st = bf16_steps(f"conv3x3_i8 RDB conv{k_ + 1}", ko, po)
+        check(torch.equal(oa, pa), f"conv3x3_i8 conv{k_ + 1}: output amax {oa} != {pa}")
+        log(f"[check] conv3x3_i8 bf16 {b}x{h}x{w} RDB conv{k_ + 1} ({k_ + 1} segments) err={e:.3g} steps={st:.2f}")
+    sw4, swq4, ssw4 = i8_srvgg(1, 64)
+    x = rnd(b, h, w, 64)
+    ax = quant.act_amax(x)[:, None].contiguous()
+    args = (x, (0, 64), ax, swq4[0], ssw4, sw4[1][0])
+    kw = dict(act="prelu", alpha=sw4[2][0])
+    e, st = bf16_steps("conv3x3_i8 SRVGG conv", quant.conv3x3_i8(*args, counter="check", **kw),
+                       quant.conv3x3_i8_plain(*args, **kw))
+    log(f"[check] conv3x3_i8 bf16 {b}x{h}x{w} SRVGG conv (prelu) err={e:.3g} steps={st:.2f}")
+    for x0 in (None, rnd(b, h, w, 64)):
+        k_out, k_amax = stripe.rdb_fused_i8(x, wq8, sw8, bs8, x0)
+        p_out, p_amax = stripe.rdb_fused_i8_plain(x, wq8, sw8, bs8, x0)
+        e = compare("rdb_fused_i8", k_out, p_out, torch.bfloat16)
+        check(torch.equal(k_amax, p_amax), "rdb_fused_i8: output amax differs from plain")
+        log(f"[check] rdb_fused_i8 bf16 {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
+    sw4, swq4, ssw4 = i8_srvgg(4, 64)
+    e = compare(
+        "srvgg_body_i8", srvgg.srvgg_body_i8(x, swq4, ssw4, sw4[1], sw4[2]),
+        srvgg.srvgg_body_i8_plain(x, swq4, ssw4, sw4[1], sw4[2]), torch.bfloat16,
+    )
+    log(f"[check] srvgg_body_i8 bf16 {b}x{h}x{w} 4 convs err={e:.3g}")
+    del grow, amax
+
     # main-path shapes, bf16 (unsharp: fp32), with times and bounds
     H, W, NF, GC = 1080, 1920, 64, 32
     bf = torch.bfloat16
@@ -321,12 +405,33 @@ def main() -> int:
         2 * H * W * NF * 2 + rdb_wbytes, rdb_ops, PEAK_BF16, bf,
         lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
     )
-    del rdb_in
     e = compare(
         "rdb_fused x0", stripe.rdb_fused(xb, ws, bs, rb),
         stripe.rdb_fused_plain(xb, ws, bs, rb), bf,
     )
     log(f"[kernel] rdb_fused with x0 (rdb3) err={e:.3g}")
+    ws8, bs8, wq8, sw8 = i8_rdb(NF, GC)
+    rdb_i8_wbytes = sum(
+        q.numel() + s_.numel() * 4 + b_.numel() * 2 for q, s_, b_ in zip(wq8, sw8, bs8)
+    )
+    k_out = stripe.rdb_fused_i8(xb, wq8, sw8, bs8)[0]
+    e, st = bf16_steps("rdb_fused_i8 1080p", k_out, stripe.rdb_fused_i8_plain(xb, wq8, sw8, bs8)[0])
+    log(f"[check] rdb_fused_i8 bf16 1x1080x1920x64 err={e:.3g} steps={st:.2f}")
+    del k_out
+    record(
+        "rdb_fused_i8", "1x1080x1920x64 (nf 64, gc 32), W8A8 (library: the bf16 cuDNN chain)",
+        lambda: stripe.rdb_fused_i8(xb, wq8, sw8, bs8)[0],
+        lambda: stripe.rdb_fused_i8_plain(xb, wq8, sw8, bs8)[0], 5,
+        2 * H * W * NF * 2 + rdb_i8_wbytes, rdb_ops, PEAK_INT8, bf,
+        lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+    )
+    record(
+        "act_amax", "1x1080x1920x64 -> (1,) (library: torch.linalg.vector_norm ord=inf)",
+        lambda: quant.act_amax(xb), lambda: quant.act_amax_plain(xb), 10,
+        H * W * NF * 2 + 4, 2 * H * W * NF, PEAK_FP32, torch.float32,
+        lib_fn=lambda: torch.linalg.vector_norm(xb, float("inf"), dim=(1, 2, 3)),
+    )
+    del rdb_in
     wu, bu = rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
     up_in = nchw(1, NF, 2 * H, 2 * W)
     wu_oihw = oihw(wu)
@@ -390,6 +495,16 @@ def main() -> int:
         NC * 2 * H * W * 9 * NF * NF, PEAK_BF16, bf,
         lib_fn=lambda: body_lib(xb_nchw),
     )
+    sq = [quant.quantize_conv_weights(w_, (0, NF)) for w_ in sw[0]]
+    swq, ssw = torch.stack([a for a, _ in sq]), torch.cat([s_ for _, s_ in sq])
+    srvgg_i8_wbytes = swq.numel() + ssw.numel() * 4 + (sw[1].numel() + sw[2].numel()) * 2
+    record(
+        "srvgg_body_i8", "1x1080x1920x64, 32 x W8A8 (conv 64->64 + PReLU) (library: the bf16 cuDNN chain)",
+        lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sw[1], sw[2]),
+        lambda: srvgg.srvgg_body_i8_plain(xb, swq, ssw, sw[1], sw[2]), 3,
+        2 * H * W * NF * 2 + srvgg_i8_wbytes, NC * 2 * H * W * 9 * NF * NF, PEAK_INT8, bf,
+        lib_fn=lambda: body_lib(xb_nchw),
+    )
     xin = rnd(1, H, W, 3).abs()
     wo, bo = rnd(3, 3, NF, 3 * R * R, scale=0.05), rnd(3 * R * R, scale=0.1)
     wo_oihw = oihw(wo)
@@ -416,6 +531,19 @@ def main() -> int:
         rdb_ops * TB * TH * TW // (H * W), PEAK_BF16, bf,
         lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
     )
+    e, st = bf16_steps(
+        "rdb_fused_i8 tiles", stripe.rdb_fused_i8(xt, wq8, sw8, bs8)[0],
+        stripe.rdb_fused_i8_plain(xt, wq8, sw8, bs8)[0],
+    )
+    log(f"[check] rdb_fused_i8 bf16 {TB}x{TH}x{TW}x64 err={e:.3g} steps={st:.2f}")
+    record(
+        "rdb_fused_i8 tiles", f"{TB}x{TH}x{TW}x64 (nf 64, gc 32), W8A8 (library: the bf16 cuDNN chain)",
+        lambda: stripe.rdb_fused_i8(xt, wq8, sw8, bs8)[0],
+        lambda: stripe.rdb_fused_i8_plain(xt, wq8, sw8, bs8)[0], 5,
+        2 * TB * TH * TW * NF * 2 + rdb_i8_wbytes, rdb_ops * TB * TH * TW // (H * W),
+        PEAK_INT8, bf,
+        lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+    )
     del rdb_in
     record(
         "srvgg_body tiles", f"{TB}x{TH}x{TW}x64, 32 convs",
@@ -423,6 +551,14 @@ def main() -> int:
         lambda: srvgg.srvgg_body_plain(xt, *sw), 3,
         2 * TB * TH * TW * NF * 2 + sum(t.numel() for t in sw) * 2,
         NC * 2 * TB * TH * TW * 9 * NF * NF, PEAK_BF16, bf,
+        lib_fn=lambda: body_lib(xt_nchw),
+    )
+    record(
+        "srvgg_body_i8 tiles", f"{TB}x{TH}x{TW}x64, 32 W8A8 convs (library: the bf16 cuDNN chain)",
+        lambda: srvgg.srvgg_body_i8(xt, swq, ssw, sw[1], sw[2]),
+        lambda: srvgg.srvgg_body_i8_plain(xt, swq, ssw, sw[1], sw[2]), 3,
+        2 * TB * TH * TW * NF * 2 + srvgg_i8_wbytes, NC * 2 * TB * TH * TW * 9 * NF * NF,
+        PEAK_INT8, bf,
         lib_fn=lambda: body_lib(xt_nchw),
     )
     xin = rnd(TB, TH, TW, 3).abs()
@@ -434,7 +570,7 @@ def main() -> int:
         2 * TB * TH * TW * 9 * NF * 3 * R * R, PEAK_BF16, bf,
         lib_fn=lambda: F.conv2d(xt_nchw, wo_oihw, bo, padding=1),
     )
-    del xt, xt_nchw, xin, sw, sw_oihw
+    del xt, xt_nchw, xin, sw, sw_oihw, swq, ssw
     torch.cuda.empty_cache()
 
     # ---- phases 4-7: the main paths ----------------------------------------
@@ -482,10 +618,12 @@ def main() -> int:
     total_launches = {}
     path_stats = {}
 
-    def drive(tag, src, argv, per_call, cfg_check, expect_tiles):
+    def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False):
         """One main path: the CLI's config through ``VideoRestorer`` with
         the launch counters reset before and read after, then the kernel
-        path and the plain path on the decoded frames."""
+        path and the plain path on the decoded frames (and, with
+        ``vs_bf16``, the bf16 kernel path, which the int8 output must stay
+        within 35 dB of)."""
         dst = work / f"out_{tag}.y4m"
         cfg = config_from_args(build_parser().parse_args([str(src), str(dst)] + argv))
         check(cfg_check(cfg), f"[{tag}] unexpected config {cfg}")
@@ -535,16 +673,20 @@ def main() -> int:
         del restorer
         torch.cuda.empty_cache()
         outs, step_ms = {}, {}
-        for plain in (False, True):
-            ups = Upscaler(model, grid, cfg, dev, plain=plain)
+        runs = [(False, cfg), (True, cfg)]
+        if vs_bf16:
+            runs.append(("bf16", dataclasses.replace(cfg, precision="bf16")))
+        for key, run_cfg in runs:
+            ups = Upscaler(model, grid, run_cfg, dev, plain=key is True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs[plain] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
+            outs[key] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
             dt_s = time.perf_counter() - t0
-            step_ms[plain] = 1e3 * dt_s / n_frames
+            step_ms[key] = 1e3 * dt_s / n_frames
+            name = {False: "kernel", True: "plain", "bf16": "bf16 kernel"}[key]
             log(
-                f"[{tag}] {'plain' if plain else 'kernel'} path: "
-                f"{step_ms[plain]:.1f} ms/frame, {n_frames / dt_s:.4f} fps "
+                f"[{tag}] {name} path: "
+                f"{step_ms[key]:.1f} ms/frame, {n_frames / dt_s:.4f} fps "
                 "(step only, frames already decoded)"
             )
             del ups
@@ -567,6 +709,11 @@ def main() -> int:
             wall_ms_per_frame=1e3 * st.wall_s / n_frames, fps=st.fps,
             step_ms=step_ms[False], plain_step_ms=step_ms[True], peak_gib=peak,
         )
+        if vs_bf16:
+            dbs = [psnr_u8(a, b_) for a, b_ in zip(outs[False], outs["bf16"])]
+            log(f"[{tag}] int8 vs bf16 kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
+            check(min(dbs) >= 35.0, f"[{tag}] int8 vs bf16 {min(dbs):.2f} dB < 35")
+            path_stats[tag].update(bf16_step_ms=step_ms["bf16"], int8_vs_bf16_db=dbs)
 
     # phases 4-5: the flagship
     src = work / "in_1080p.y4m"
@@ -645,6 +792,38 @@ def main() -> int:
                        and not c.enhanced_mode),
             6,
         )
+
+    # phase 8: the int8 paths (W8A8 body on K4), 2 frames each
+    src8 = work / "in8_1080p.y4m"
+    make_clip(src8, H, W, 2)
+    rrdb_i8_call = {
+        "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": 3 * spec.num_block * 5,
+        "up1_fused": 1, "tail_fused": 3,
+    }
+    drive(
+        "main_int8", src8,
+        ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
+         "--tile-size", "0", "--precision", "int8", "--models-dir", str(models_dir)],
+        {**rrdb_i8_call, "unsharp_fused": 1},
+        lambda c: c.precision == "int8" and c.tile_size == 0 and c.sharpen == 0.3,
+        1, vs_bf16=True,
+    )
+    drive(
+        "config4_int8", src8,
+        ["--model", "RealESRGAN_x4_v3", "--anime-mode", "--quality", "fast",
+         "--precision", "int8", "--models-dir", str(models_dir)],
+        {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv, "srvgg_up_fused": 1},
+        lambda c: c.precision == "int8" and c.model_name == "RealESRGAN_x4_v3",
+        1, vs_bf16=True,
+    )
+    drive(
+        "tiled_x4plus_int8", src,
+        ["--model", "RealESRGAN_x4plus", "--quality", "balanced", "--tile-size", "512",
+         "--tile-overlap", "32", "--precision", "int8", "--models-dir", str(models_dir)],
+        rrdb_i8_call,
+        lambda c: c.precision == "int8" and c.tile_size == 512 and c.full_frame == "off",
+        6, vs_bf16=True,
+    )
     shutil.rmtree(work, ignore_errors=True)
     log(f"[paths] {json.dumps(path_stats)}")
 

@@ -63,7 +63,6 @@ NOW_PORTED = (["--tile-size", "128"], ["--model", "RealESRGAN_x4_v3"])
         ["--face-enhance"],
         ["--multihost"],
         ["--segment-frames", "8"],
-        ["--precision", "int8"],
         ["--tile-size", "128"],
         ["--shard-mode", "tiles"],
         ["--model", "RealESRGAN_x4_v3"],
@@ -89,6 +88,43 @@ def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
     rc = cli.main([str(src), str(dst), "--cpu"] + flags)
     assert rc == 1
     assert "not yet ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("model", ["RealESRGAN_x4plus_anime_6B", "RealESRGAN_x4_v3"])
+def test_cli_int8_on_cpu(tmp_path, capsys, monkeypatch, model):
+    """--precision int8 --cpu runs for both families (the W8A8 body on the
+    plain path) and writes what the int8 restore step computes; without
+    --cpu and without a GPU it exits 1 with the "no CUDA device" error."""
+    import torch
+
+    from video_restore_tpu_torch.models.zoo import random_model
+    from video_restore_tpu_torch.pipeline.runner import VideoRestorer
+    from video_restore_tpu_torch.video.y4m import rgb_to_yuv_planes, yuv_planes_to_rgb
+
+    src, dst = tmp_path / "in.y4m", tmp_path / "o.y4m"
+    _clip(src, n=2)
+    monkeypatch.setenv("VRT_ALLOW_RANDOM_WEIGHTS", "1")
+    flags = ["--model", model, "--precision", "int8", "--tile-size", "0"]
+    argv = [str(src), str(dst), "--models-dir", str(tmp_path / "m")] + flags
+    rc = cli.main(argv + ["--cpu"])
+    assert rc == 0, capsys.readouterr().err[-2000:]
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    assert cfg.precision == "int8"
+    ups = VideoRestorer(cfg, model=random_model(model), cpu=True)._upscaler_for(16, 24)
+    assert ups.net.precision == "int8" and ups.compute_dtype == torch.bfloat16
+    with Y4MReader(src) as rd:
+        frames = list(rd)
+    with Y4MReader(dst) as rd:
+        assert (rd.info.width, rd.info.height) == (96, 64)
+        out = list(rd)
+    assert len(out) == 2
+    for f, o in zip(frames, out):
+        want = ups.process_batch(f[None])[0].numpy()
+        np.testing.assert_array_equal(yuv_planes_to_rgb(*rgb_to_yuv_planes(want, "420")), o)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    capsys.readouterr()
+    assert cli.main(argv) == 1
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("model", ["RealESRGAN_x4plus_anime_6B", "RealESRGAN_x4_v3"])

@@ -125,7 +125,9 @@ Streaming (y4m over stdin/stdout, for ffmpeg pipelines):
     # device / framework flags
     p.add_argument(
         "--precision", default="bf16", choices=["bf16", "fp32", "int8"],
-        help="model compute precision (int8 is not yet ported)",
+        help="model compute precision; int8 runs the RRDB/SRVGG body as "
+             "W8A8 (int8 weights, per-image int8 activations, bf16 "
+             "between kernels)",
     )
     p.add_argument("--shard-mode", default="frames",
                    choices=["frames", "tiles"],
@@ -258,8 +260,6 @@ def _unported(args, cfg: RestoreConfig) -> list:
         out.append("--resume/--segment-frames")
     if cfg.shard_mode == "tiles":
         out.append("--shard-mode tiles")
-    if cfg.precision == "int8":
-        out.append("--precision int8")
     if cfg.num_devices > 1:
         out.append("multi-GPU (--devices/--gpus > 1)")
     if args.profile:

@@ -18,6 +18,13 @@ this module's state dict.
 plain versions on CPU tensors); ``forward(x, plain=True)`` runs the plain
 versions on any device, which is the reference the kernel path is checked
 against on the GPU.
+
+``prepare(..., precision="int8")`` selects the W8A8 body of the JAX
+``_apply(stripe=True, precision="int8")`` (``rrdbnet.py:660-664``): every
+RDB conv keeps int8 weights and fp32 scales per (source, output channel),
+quantised once from the compute-dtype weights, and runs on K4
+(``ops/stripe.py::rdb_fused_i8``); the stem, ``conv_body`` and the tail
+stay in the compute dtype, as in JAX (``rrdbnet.py:384-391``).
 """
 
 from __future__ import annotations
@@ -31,7 +38,18 @@ import torch
 from torch import nn
 
 from video_restore_tpu_torch.ops.conv import pixel_unshuffle
-from video_restore_tpu_torch.ops.stripe import rdb_fused, rdb_fused_plain
+from video_restore_tpu_torch.ops.quant import (
+    act_amax,
+    act_amax_plain,
+    quantize_conv_weights,
+    rdb_segments,
+)
+from video_restore_tpu_torch.ops.stripe import (
+    rdb_fused,
+    rdb_fused_i8,
+    rdb_fused_i8_plain,
+    rdb_fused_plain,
+)
 from video_restore_tpu_torch.ops.tail import (
     conv3x3_fused,
     conv3x3_fused_plain,
@@ -90,6 +108,7 @@ class Conv3x3(nn.Module):
 class RDB(nn.Module):
     def __init__(self, nf: int, gc: int):
         super().__init__()
+        self.nf, self.gc = nf, gc
         for k in range(1, 6):
             cout = gc if k < 5 else nf
             setattr(self, f"conv{k}", Conv3x3(nf + (k - 1) * gc, cout))
@@ -97,6 +116,24 @@ class RDB(nn.Module):
     def weights(self):
         convs = [getattr(self, f"conv{k}") for k in range(1, 6)]
         return [c.w for c in convs], [c.b for c in convs]
+
+    def quantize(self) -> None:
+        """W8 of the five convs, one scale per (source, output channel):
+        buffers ``wq{k}`` (int8 HWIO) and ``sw{k}`` (fp32 (k, cout))."""
+        for k in range(1, 6):
+            q, s = quantize_conv_weights(
+                getattr(self, f"conv{k}").w, rdb_segments(self.nf, self.gc, k)
+            )
+            self.register_buffer(f"wq{k}", q, persistent=False)
+            self.register_buffer(f"sw{k}", s, persistent=False)
+
+    def int8_weights(self):
+        ks = range(1, 6)
+        return (
+            [getattr(self, f"wq{k}") for k in ks],
+            [getattr(self, f"sw{k}") for k in ks],
+            [getattr(self, f"conv{k}").b for k in ks],
+        )
 
 
 class RRDB(nn.Module):
@@ -123,14 +160,24 @@ class RRDBNet(nn.Module):
             self.conv_up2 = Conv3x3(nf, nf)
         self.conv_hr = Conv3x3(nf, nf)
         self.conv_last = Conv3x3(nf, spec.num_out_ch)
+        self.precision = "bf16"
 
     @torch.no_grad()
-    def prepare(self, dtype: torch.dtype, device) -> "RRDBNet":
+    def prepare(
+        self, dtype: torch.dtype, device, precision: str = "bf16"
+    ) -> "RRDBNet":
         """Move the weights once to the compute dtype and device (biases
         included, as the JAX zoo casts every leaf). They stay contiguous
-        HWIO, the layout K1 reads, so no per-call packing is left. Returns
-        self."""
-        return self.to(device=device, dtype=dtype)
+        HWIO, the layout K1 reads, so no per-call packing is left. With
+        ``precision="int8"`` every RDB also quantises its cast weights
+        (the W8A8 body). Returns self."""
+        self.to(device=device, dtype=dtype)
+        self.precision = precision
+        if precision == "int8":
+            for blk in self.body:
+                for rdb in (blk.rdb1, blk.rdb2, blk.rdb3):
+                    rdb.quantize()
+        return self
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -144,10 +191,18 @@ class RRDBNet(nn.Module):
             x = pixel_unshuffle(x, 4)
         feat = conv(x, self.conv_first.w, self.conv_first.b)
         h = feat
-        for blk in self.body:
-            out = rdb(h, *blk.rdb1.weights())
-            out = rdb(out, *blk.rdb2.weights())
-            h = rdb(out, *blk.rdb3.weights(), x0=h)
+        if self.precision == "int8":
+            rdb = rdb_fused_i8_plain if plain else rdb_fused_i8
+            amax = (act_amax_plain if plain else act_amax)(h)
+            for blk in self.body:
+                out, a = rdb(h, *blk.rdb1.int8_weights(), x_amax=amax)
+                out, a = rdb(out, *blk.rdb2.int8_weights(), x_amax=a)
+                h, amax = rdb(out, *blk.rdb3.int8_weights(), x0=h, x_amax=a)
+        else:
+            for blk in self.body:
+                out = rdb(h, *blk.rdb1.weights())
+                out = rdb(out, *blk.rdb2.weights())
+                h = rdb(out, *blk.rdb3.weights(), x0=h)
         feat = conv(h, self.conv_body.w, self.conv_body.b, feat)
         up1 = up1_fused_plain if plain else up1_fused
         feat = up1(feat, self.conv_up1.w, self.conv_up1.b)

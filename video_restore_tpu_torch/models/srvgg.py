@@ -13,7 +13,11 @@ Weights keep the JAX layout: HWIO convs, the same names as the JAX param
 pytree, the body stacked on axis 0 (``body.w``, ``body.b``,
 ``body.alpha``). ``forward(x)`` runs the kernel wrappers (launches on CUDA
 tensors, the plain versions on CPU tensors); ``forward(x, plain=True)``
-runs the plain versions on any device.
+runs the plain versions on any device. ``prepare(..., precision="int8")``
+selects the W8A8 body of the JAX ``_apply(stripe=True, precision="int8")``
+(``srvgg.py:177-185``): int8 body weights with one fp32 scale per (conv,
+output channel), on K4 (``ops/srvgg.py::srvgg_body_i8``); the stem and the
+upsampler stay in the compute dtype.
 """
 
 from __future__ import annotations
@@ -27,8 +31,11 @@ import torch
 from torch import nn
 
 from video_restore_tpu_torch.models.rrdbnet import Conv3x3
+from video_restore_tpu_torch.ops.quant import quantize_conv_weights
 from video_restore_tpu_torch.ops.srvgg import (
     srvgg_body,
+    srvgg_body_i8,
+    srvgg_body_i8_plain,
     srvgg_body_plain,
     srvgg_up_fused,
     srvgg_up_fused_plain,
@@ -68,13 +75,26 @@ class SRVGGNet(nn.Module):
         self.alpha_in = nn.Parameter(torch.zeros(nf), requires_grad=False)
         self.body = _Body(spec.num_conv, nf)
         self.conv_out = Conv3x3(nf, spec.num_out_ch * spec.scale**2)
+        self.precision = "bf16"
 
     @torch.no_grad()
-    def prepare(self, dtype: torch.dtype, device) -> "SRVGGNet":
+    def prepare(
+        self, dtype: torch.dtype, device, precision: str = "bf16"
+    ) -> "SRVGGNet":
         """Move the weights once to the compute dtype and device (biases and
-        alphas included, as the JAX zoo casts every float leaf). Returns
+        alphas included, as the JAX zoo casts every float leaf). With
+        ``precision="int8"`` the body also quantises its cast weights into
+        the buffers ``wq`` (int8) and ``sw`` (fp32 (num_conv, nf)). Returns
         self."""
-        return self.to(device=device, dtype=dtype)
+        self.to(device=device, dtype=dtype)
+        self.precision = precision
+        if precision == "int8":
+            body = self.body
+            nf = body.w.shape[-1]
+            qs = [quantize_conv_weights(w, (0, nf)) for w in body.w]
+            body.register_buffer("wq", torch.stack([q for q, _ in qs]), persistent=False)
+            body.register_buffer("sw", torch.cat([s for _, s in qs]), persistent=False)
+        return self
 
     @torch.no_grad()
     def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
@@ -85,7 +105,13 @@ class SRVGGNet(nn.Module):
         feat = conv(
             x, self.conv_in.w, self.conv_in.b, alpha=self.alpha_in, act="prelu"
         )
-        feat = body(feat, self.body.w, self.body.b, self.body.alpha)
+        if self.precision == "int8":
+            body_i8 = srvgg_body_i8_plain if plain else srvgg_body_i8
+            feat = body_i8(
+                feat, self.body.wq, self.body.sw, self.body.b, self.body.alpha
+            )
+        else:
+            feat = body(feat, self.body.w, self.body.b, self.body.alpha)
         return up(feat, self.conv_out.w, self.conv_out.b, x, self.spec.scale)
 
 

@@ -71,11 +71,15 @@ class ModelHandle:
     def scale(self) -> int:
         return self.spec.scale
 
-    def module(self, dtype: torch.dtype, device) -> Union[RRDBNet, SRVGGNet]:
-        """The prepared network in ``dtype`` on ``device``."""
+    def module(
+        self, dtype: torch.dtype, device, precision: str = "bf16"
+    ) -> Union[RRDBNet, SRVGGNet]:
+        """The prepared network in ``dtype`` on ``device``; ``precision``
+        "int8" selects the W8A8 body (``zoo.py:120-157`` of the JAX
+        package)."""
         net = _NET[type(self.spec)](self.spec)
         net.load_state_dict(self.state)
-        return net.prepare(dtype, device)
+        return net.prepare(dtype, device, precision)
 
 
 _NET = {RRDBNetSpec: RRDBNet, SRVGGSpec: SRVGGNet}

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("conv3x3.cu", "unsharp.cu", "srvgg_up.cu")
+SOURCES = ("conv3x3.cu", "unsharp.cu", "srvgg_up.cu", "conv3x3_i8.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -140,6 +140,14 @@ def load() -> ctypes.CDLL:
                 _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
             ]
             lib.vr_srvgg_up.restype = _I
+            lib.vr_conv3x3_i8.argtypes = [
+                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
+                _I, ctypes.POINTER(_I), _I, _F, _F, _P,
+            ]
+            lib.vr_conv3x3_i8.restype = _I
+            lib.vr_amax_bf16.argtypes = [_P, _P, _I, _I, _I, _L, _L, _P]
+            lib.vr_amax_bf16.restype = _I
             lib.vr_error_string.argtypes = [_I]
             lib.vr_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,0 +1,295 @@
+"""W8A8 int8 convolution: kernel K4 (``csrc/conv3x3_i8.cu``) and its plain
+versions.
+
+Port of the int8 branch of ``_conv_prefix``
+(``video_restore_tpu/ops/pallas_stripe.py:358``), which the RDB and SRVGG
+body kernels run with ``--precision int8``, and of what feeds it:
+
+- W8, once at prepare time (:func:`quantize_conv_weights`): per input
+  segment s and output channel o, ``s = max(amax, 1e-12) / 127`` over the
+  3x3 x cin_s taps of the compute-dtype weight, ``q = clip(round_half_even(w
+  / s), -127, 127)``. For an RDB the segments are the sources x, c1 .. c4
+  of each conv, which is ``quantize_prefix_weights`` (``:200-236``) on the
+  source-major weights of ``prefix_rdb_weights`` (``:75-108``); for SRVGG
+  one segment per conv (``models/srvgg.py:180-185``).
+- A8, dynamic (:func:`quant_act_plain`): one scale per (image, segment),
+  ``sa = max(amax, 1e-12) * float32(1/127)``, then ``_quant_act`` and
+  ``_round_clip_i8`` (``:239-290``) in the activation dtype.
+- The conv (:func:`conv3x3_i8`): an exact integer dot per segment,
+  ``float(acc_s) * (sa_s * sw[s, o])``, summed over the segments in order,
+  then K1's epilogue (bias, lrelu/PReLU, ``r1 + s1 v``, ``r2 + s2 T(v)``),
+  with every multiply-add rounded once: XLA fuses the JAX kernel's
+  multiply-adds so (``tests/test_torch_int8.py`` holds the port to it
+  bit for bit in bf16).
+
+The JAX kernels take one activation scale per row chunk of their VMEM
+window; the port takes one per image (per tile when tiled). The two agree
+when one stripe and one chunk cover the frame (ROADMAP queue 3).
+
+:func:`conv3x3_i8` and :func:`act_amax` take their plain versions for CPU
+tensors; for CUDA tensors they launch K4 (bf16 only) or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from video_restore_tpu_torch.ops import _build
+from video_restore_tpu_torch.ops.conv import conv2d_f32
+from video_restore_tpu_torch.ops.tail import _ACTS, _pixel_stride
+
+_INV127 = float(np.float32(1.0 / 127.0))  # the fp32 constant JAX multiplies by
+MAX_SEGMENTS = 5
+
+
+def rdb_segments(nf: int, gc: int, k: int) -> Tuple[int, ...]:
+    """Channel bounds of the sources read by RDB conv ``k`` (1..5): x, then
+    c1 .. c_{k-1}."""
+    return (0,) + tuple(nf + i * gc for i in range(k))
+
+
+@torch.no_grad()
+def quantize_conv_weights(
+    w: torch.Tensor, segs: Sequence[int]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """W8 of one (3, 3, cin, cout) conv weight whose input channels split
+    at ``segs`` (``segs[0] == 0``, ``segs[-1] == cin``): int8 weights in the
+    same layout and fp32 scales (len(segs) - 1, cout). Computed in fp32 on
+    the CPU from the weight as given (the compute dtype), then placed on the
+    weight's device."""
+    wf = w.detach().float().cpu()
+    if tuple(wf.shape[:2]) != (3, 3) or segs[0] != 0 or segs[-1] != wf.shape[2]:
+        raise ValueError(f"segments {tuple(segs)} do not split weight {tuple(w.shape)}")
+    q = torch.empty(wf.shape, dtype=torch.int8)
+    scales = []
+    for lo, hi in zip(segs[:-1], segs[1:]):
+        part = wf[:, :, lo:hi]
+        amax = part.abs().amax(dim=(0, 1, 2))
+        s = torch.clamp(amax, min=1e-12) / 127.0
+        q[:, :, lo:hi] = torch.clamp(torch.round(part / s), -127.0, 127.0).to(torch.int8)
+        scales.append(s)
+    return q.to(w.device), torch.stack(scales).to(w.device)
+
+
+def quant_act_plain(
+    a: torch.Tensor, amax: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A8 with one scale per image: a (B, H, W, C) in bf16 or fp32 ->
+    (int8 tensor, fp32 scales (B,)). ``amax`` (B,) is a's per-image |max|
+    (computed when not given). The chain runs in a's dtype, as
+    ``_quant_act`` runs it: ``inv = T(1 / sa)``, ``p = T(a inv)``,
+    ``q = trunc(clip(T(p + copysign(0.5, p)), -127.5, 127.5))``."""
+    dt = a.dtype
+    if amax is None:
+        amax = act_amax_plain(a)
+    sa = torch.clamp(amax.float(), min=1e-12) * _INV127
+    inv = (1.0 / sa).to(dt).view(-1, 1, 1, 1)
+    p = a * inv
+    p = p + torch.copysign(torch.full_like(p, 0.5), p)
+    return torch.clamp(p, -127.5, 127.5).to(torch.int8), sa
+
+
+def act_amax_plain(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-image |max| of x (B, H, W, C) as fp32 (B,)."""
+    m = x.abs().amax(dim=(1, 2, 3)).float()
+    if out is None:
+        return m
+    out.copy_(m)
+    return out
+
+
+def act_amax(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-image |max| of x (B, H, W, C), or of a channel-prefix view of a
+    wider NHWC buffer, as fp32 (B,), written into ``out`` when given (any
+    1-D fp32 view on x's device). The amax entry point of K4's source on
+    CUDA (bf16), the plain version on the CPU."""
+    if x.device.type == "cpu":
+        return act_amax_plain(x, out)
+    if x.device.type != "cuda":
+        raise ValueError(f"act_amax: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"act_amax: dtype {x.dtype} not supported (bf16)")
+    bsz, h, w, c = x.shape
+    if out is None:
+        out = torch.zeros(bsz, dtype=torch.float32, device=x.device)
+    else:
+        if out.shape != (bsz,) or out.dtype != torch.float32 or out.device != x.device:
+            raise ValueError(f"act_amax: out must be fp32 ({bsz},) on {x.device}")
+        out.zero_()
+    xs = _pixel_stride(x, "x")
+    lib = _build.load()
+    code = lib.vr_amax_bf16(
+        x.data_ptr(), out.data_ptr(), bsz, h * w, c, xs, out.stride(0),
+        _build.stream_ptr(x),
+    )
+    _build.check(lib, code, "amax kernel")
+    _build.count_launch("act_amax")
+    return out
+
+
+def _fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` in fp32 with one rounding (the products of two fp32
+    values are exact in float64)."""
+    b = b.double() if isinstance(b, torch.Tensor) else float(np.float32(b))
+    return (a.double() * b + c.double()).float()
+
+
+def conv3x3_i8_plain(
+    x: torch.Tensor,
+    segs: Sequence[int],
+    amax: torch.Tensor,
+    wq: torch.Tensor,
+    sw: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    act: str = "none",
+    alpha: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+    out_amax: Optional[torch.Tensor] = None,
+    r1: Optional[torch.Tensor] = None,
+    s1: float = 1.0,
+    r2: Optional[torch.Tensor] = None,
+    s2: float = 1.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of K4 (same arguments as :func:`conv3x3_i8`),
+    in x's dtype (bf16, or fp32 as JAX's fp32 branch). The integer dot is
+    an fp32 conv over integer values, exact below 2^24 (rounded, so a conv
+    algorithm that is not exact on the card gives the same integers).
+    Every multiply-add rounds once, as XLA fuses the JAX kernel's: the
+    dequantised terms ``acc_s * (sa_s sw_s)`` added in source order, the
+    bias after a single source, and the residuals."""
+    dt = x.dtype
+    bias = b.float()
+    for s, (lo, hi) in enumerate(zip(segs[:-1], segs[1:])):
+        q, sa = quant_act_plain(x[..., lo:hi], amax[:, s])
+        acc = torch.round(conv2d_f32(q.float(), wq[:, :, lo:hi].float()))
+        sc = sa.view(-1, 1, 1, 1) * sw[s].float()
+        if s == 0:
+            y = _fma(acc, sc, bias.expand_as(acc)) if len(segs) == 2 else acc * sc
+        else:
+            y = _fma(acc, sc, y)
+    if len(segs) > 2:
+        y = y + bias
+    if act == "lrelu":
+        y = torch.where(y >= 0, y, y * 0.2)
+    elif act == "prelu":
+        y = torch.where(y > 0, y, y * alpha.float())
+    if r1 is not None:
+        y = _fma(y, s1, r1)
+    if r2 is not None:
+        y = _fma(y.to(dt), s2, r2)
+    y = y.to(dt)
+    if out is not None:
+        y = out.copy_(y)
+    if out_amax is not None:
+        act_amax_plain(y, out_amax)
+    return y
+
+
+def conv3x3_i8(
+    x: torch.Tensor,
+    segs: Sequence[int],
+    amax: torch.Tensor,
+    wq: torch.Tensor,
+    sw: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    act: str = "none",
+    alpha: Optional[torch.Tensor] = None,
+    out: Optional[torch.Tensor] = None,
+    out_amax: Optional[torch.Tensor] = None,
+    r1: Optional[torch.Tensor] = None,
+    s1: float = 1.0,
+    r2: Optional[torch.Tensor] = None,
+    s2: float = 1.0,
+    counter: str,
+) -> torch.Tensor:
+    """W8A8 ``out = r2 + s2 * (r1 + s1 * act(conv3x3_SAME(x, w) + b))``.
+
+    x: (B, H, W, cin) NHWC or a channel-prefix view of a wider buffer, its
+    channels split into segments at ``segs`` (0 = segs[0] < ... <
+    segs[-1] = cin, at most 5). amax: fp32 (B, >= nseg), the |max| of each
+    image's segment s in column s (any 2-D fp32 view). wq: int8 (3, 3, cin,
+    cout) HWIO; sw: fp32 (nseg, cout). b, alpha (cout,), r1, r2 and
+    ``out`` as :func:`~video_restore_tpu_torch.ops.tail.conv3x3`, in x's
+    dtype. ``out_amax``: an fp32 (B,) view that receives the per-image
+    |max| of the stored output (the next conv's scale). ``counter`` names
+    the launch counter the calling wrapper owns."""
+    nseg = len(segs) - 1
+    if x.device.type == "cpu":
+        return conv3x3_i8_plain(
+            x, segs, amax, wq, sw, b, act=act, alpha=alpha, out=out,
+            out_amax=out_amax, r1=r1, s1=s1, r2=r2, s2=s2,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_i8: unsupported device {x.device}")
+    dt = torch.bfloat16
+    if x.dtype != dt:
+        raise TypeError(f"conv3x3_i8: dtype {x.dtype} not supported (bf16)")
+    if act not in _ACTS:
+        raise ValueError(f"conv3x3_i8: unknown act {act!r}")
+    if act == "prelu" and alpha is None:
+        raise ValueError("conv3x3_i8: act='prelu' needs alpha (cout,)")
+    bsz, h, wd, cin = x.shape
+    cout = wq.shape[-1]
+    if not 1 <= nseg <= MAX_SEGMENTS or segs[0] != 0 or segs[-1] != cin or any(
+        lo >= hi for lo, hi in zip(segs[:-1], segs[1:])
+    ):
+        raise ValueError(f"conv3x3_i8: bad segments {tuple(segs)} for cin {cin}")
+    if tuple(wq.shape) != (3, 3, cin, cout) or wq.dtype != torch.int8:
+        raise ValueError(f"conv3x3_i8: weight {tuple(wq.shape)} {wq.dtype} != int8 (3, 3, {cin}, {cout})")
+    if tuple(sw.shape) != (nseg, cout) or sw.dtype != torch.float32:
+        raise ValueError(f"conv3x3_i8: scales {tuple(sw.shape)} {sw.dtype} != fp32 {(nseg, cout)}")
+    if amax.dim() != 2 or amax.shape[0] != bsz or amax.shape[1] < nseg or amax.dtype != torch.float32 or amax.stride(1) != 1:
+        raise ValueError(f"conv3x3_i8: amax {tuple(amax.shape)} must be fp32 ({bsz}, >={nseg}), unit column stride")
+    if out is None:
+        out = torch.empty((bsz, h, wd, cout), dtype=dt, device=x.device)
+    operands = {"x": x, "wq": wq, "sw": sw, "amax": amax, "b": b, "out": out}
+    for name, t in (("alpha", alpha), ("r1", r1), ("r2", r2), ("out_amax", out_amax)):
+        if t is not None:
+            operands[name] = t
+    for name, t in operands.items():
+        if t.device != x.device:
+            raise ValueError(f"conv3x3_i8: {name} is on {t.device}, expected {x.device}")
+        if name in ("b", "alpha", "r1", "r2", "out") and t.dtype != dt:
+            raise ValueError(f"conv3x3_i8: {name} is {t.dtype}, expected {dt}")
+    for name in ("wq", "sw", "b", "alpha"):
+        if name in operands and not operands[name].is_contiguous():
+            raise ValueError(f"conv3x3_i8: {name} must be contiguous")
+    if b.shape != (cout,) or (alpha is not None and alpha.shape != (cout,)):
+        raise ValueError("conv3x3_i8: bias/alpha must have shape (cout,)")
+    for name in ("out", "r1", "r2"):
+        if name in operands and tuple(operands[name].shape) != (bsz, h, wd, cout):
+            raise ValueError(
+                f"conv3x3_i8: {name} shape {tuple(operands[name].shape)} != {(bsz, h, wd, cout)}"
+            )
+    if out_amax is not None and (out_amax.shape != (bsz,) or out_amax.dtype != torch.float32):
+        raise ValueError(f"conv3x3_i8: out_amax must be fp32 ({bsz},)")
+    xs = _pixel_stride(x, "x")
+    ys = _pixel_stride(out, "out")
+    r1s = _pixel_stride(r1, "r1") if r1 is not None else 0
+    r2s = _pixel_stride(r2, "r2") if r2 is not None else 0
+    if out_amax is not None:
+        out_amax.zero_()
+    seg_arr = (ctypes.c_int * (MAX_SEGMENTS + 1))(*segs)
+    lib = _build.load()
+    code = lib.vr_conv3x3_i8(
+        x.data_ptr(), amax.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+        b.data_ptr(),
+        alpha.data_ptr() if alpha is not None else None,
+        r1.data_ptr() if r1 is not None else None,
+        r2.data_ptr() if r2 is not None else None,
+        out.data_ptr(),
+        out_amax.data_ptr() if out_amax is not None else None,
+        bsz, h, wd, cin, cout, xs, ys, r1s, r2s, amax.stride(0),
+        out_amax.stride(0) if out_amax is not None else 0,
+        nseg, seg_arr, _ACTS[act], float(s1), float(s2),
+        _build.stream_ptr(x),
+    )
+    _build.check(lib, code, "conv3x3_i8 kernel")
+    _build.count_launch(counter)
+    return out

@@ -12,6 +12,11 @@ Port of ``video_restore_tpu/ops/pallas_srvgg.py``:
   only. Here: one K1 launch (``csrc/conv3x3.cu``, ``act="prelu"``) per
   conv, whose bounds-checked reads give SAME zero padding at every frame
   and tile edge.
+- :func:`srvgg_body_i8` is the same body with the W8A8 int8 convs of
+  ``--precision int8`` (the ``sws`` argument of the same three entry
+  points): one K4 launch (``csrc/conv3x3_i8.cu``) per conv, each conv's
+  input quantised with its per-image scale, which the launch before wrote
+  (the amax kernel for the body's input).
 - :func:`srvgg_up_fused` replaces ``srvgg_up_fused_raw`` (``:1025``) and
   ``srvgg_up_fused`` (``:854``): ``pixel_shuffle(conv3x3(feat) + b, r) +
   upsample_nearest(x_in, r)`` in one launch of K3 (``csrc/srvgg_up.cu``),
@@ -32,18 +37,28 @@ from video_restore_tpu_torch.ops.conv import (
     pixel_shuffle,
     upsample_nearest,
 )
+from video_restore_tpu_torch.ops.quant import (
+    act_amax,
+    act_amax_plain,
+    conv3x3_i8,
+    conv3x3_i8_plain,
+)
 from video_restore_tpu_torch.ops.tail import _DTYPES, conv3x3, conv3x3_plain
 
 UP_SCALES = (2, 4)  # the scales the JAX model sends to its fused upsampler
 
 
-def _body(conv, x, w, b, alpha, **kw):
+def _check_body(w, b, alpha):
     if w.dim() != 5 or b.shape != w.shape[:1] + w.shape[-1:] or alpha.shape != b.shape:
         raise ValueError(
             f"srvgg_body: weights {tuple(w.shape)}, biases {tuple(b.shape)}, "
             f"alphas {tuple(alpha.shape)} are not a stack of (3, 3, nf, nf) "
             "convs with (nf,) biases and alphas"
         )
+
+
+def _body(conv, x, w, b, alpha, **kw):
+    _check_body(w, b, alpha)
     for i in range(w.shape[0]):
         x = conv(x, w[i], b[i], act="prelu", alpha=alpha[i], **kw)
     return x
@@ -60,6 +75,41 @@ def srvgg_body(
 
 def srvgg_body_plain(x, w, b, alpha):
     return _body(conv3x3_plain, x, w, b, alpha)
+
+
+def _body_i8(conv, amax_fn, x, wq, sw, b, alpha, **kw):
+    _check_body(wq, b, alpha)
+    n, nf = b.shape
+    if tuple(sw.shape) != (n, nf):
+        raise ValueError(f"srvgg_body_i8: scales {tuple(sw.shape)} != {(n, nf)}")
+    # column i: |max| of conv i's input
+    amax = torch.zeros((x.shape[0], n + 1), dtype=torch.float32, device=x.device)
+    amax_fn(x, out=amax[:, 0])
+    for i in range(n):
+        x = conv(
+            x, (0, nf), amax[:, i : i + 1], wq[i], sw[i : i + 1], b[i],
+            act="prelu", alpha=alpha[i], out_amax=amax[:, i + 1], **kw,
+        )
+    return x
+
+
+def srvgg_body_i8(
+    x: torch.Tensor,
+    wq: torch.Tensor,
+    sw: torch.Tensor,
+    b: torch.Tensor,
+    alpha: torch.Tensor,
+) -> torch.Tensor:
+    """``num_conv`` chained W8A8 ``prelu(conv3x3(x) + b)``: x (B, H, W, nf)
+    bf16, wq (num_conv, 3, 3, nf, nf) int8 HWIO, sw (num_conv, nf) fp32
+    weight scales, b and alpha (num_conv, nf) in x's dtype. One amax-kernel
+    launch and one K4 launch per conv on CUDA, the plain version on the
+    CPU."""
+    return _body_i8(conv3x3_i8, act_amax, x, wq, sw, b, alpha, counter="srvgg_body_i8")
+
+
+def srvgg_body_i8_plain(x, wq, sw, b, alpha):
+    return _body_i8(conv3x3_i8_plain, act_amax_plain, x, wq, sw, b, alpha)
 
 
 def _check_up(feat, w_out, b_out, x_in, r):

@@ -19,18 +19,35 @@ bounds-checks its reads, which gives the same SAME padding. Five K1
 launches per RDB; c_k is rounded to the activation dtype between launches,
 as the Pallas kernel rounds it. A one-launch RDB that keeps c1..c4 on chip
 is later work.
+
+:func:`rdb_fused_i8` is the same RDB with the W8A8 int8 convs of
+``--precision int8`` (the ``sws`` arguments of the same entry points): five
+launches of K4 (``csrc/conv3x3_i8.cu``) on the same growth buffer, conv k
+reading its prefix as the segments x, c1 .. c_{k-1}, each quantised with
+its own per-image scale. The |max| of each segment comes from the launch
+that wrote it (K4's output amax) or, for x, from the caller (the previous
+RDB's output amax) or the amax kernel, so no conv waits on the host.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from video_restore_tpu_torch.ops.quant import (
+    act_amax,
+    act_amax_plain,
+    conv3x3_i8,
+    conv3x3_i8_plain,
+    rdb_segments,
+)
 from video_restore_tpu_torch.ops.tail import conv3x3, conv3x3_plain
 
 
-def _rdb(conv, x, ws, bs, x0, **kw):
+def _growth_buffer(x, ws, bs):
+    """The (B, H, W, nf + 4 gc) buffer ``[x | c1 .. c4]`` with x in place,
+    after checking that the five convs close an RDB."""
     if len(ws) != 5 or len(bs) != 5:
         raise ValueError("an RDB has five convs")
     bsz, h, w, nf = x.shape
@@ -43,6 +60,11 @@ def _rdb(conv, x, ws, bs, x0, **kw):
         )
     grow = torch.empty((bsz, h, w, width), dtype=x.dtype, device=x.device)
     grow[..., :nf] = x
+    return grow, nf, gc
+
+
+def _rdb(conv, x, ws, bs, x0, **kw):
+    grow, nf, gc = _growth_buffer(x, ws, bs)
     for k in range(4):
         lo = nf + k * gc
         conv(
@@ -72,3 +94,51 @@ def rdb_fused(
 
 def rdb_fused_plain(x, ws, bs, x0=None):
     return _rdb(conv3x3_plain, x, ws, bs, x0)
+
+
+def _rdb_i8(conv, amax_fn, x, wq, sw, bs, x0, x_amax, **kw):
+    grow, nf, gc = _growth_buffer(x, wq, bs)
+    # column 0: |max| of x; k: of c_k; 5: of the output
+    amax = torch.zeros((x.shape[0], 6), dtype=torch.float32, device=x.device)
+    if x_amax is None:
+        amax_fn(x, out=amax[:, 0])
+    else:
+        amax[:, 0] = x_amax
+    for k in range(4):
+        lo = nf + k * gc
+        conv(
+            grow[..., :lo], rdb_segments(nf, gc, k + 1), amax, wq[k], sw[k],
+            bs[k], act="lrelu", out=grow[..., lo : lo + gc],
+            out_amax=amax[:, k + 1], **kw,
+        )
+    out = conv(
+        grow, rdb_segments(nf, gc, 5), amax, wq[4], sw[4], bs[4],
+        r1=grow[..., :nf], s1=0.2, r2=x0, s2=0.2, out_amax=amax[:, 5], **kw,
+    )
+    return out, amax[:, 5]
+
+
+def rdb_fused_i8(
+    x: torch.Tensor,
+    wq: Sequence[torch.Tensor],
+    sw: Sequence[torch.Tensor],
+    bs: Sequence[torch.Tensor],
+    x0: Optional[torch.Tensor] = None,
+    x_amax: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One W8A8 RDB, optionally with the RRDB residual: returns the output
+    (as :func:`rdb_fused`) and its per-image |max| (fp32 (B,)), which is
+    the next RDB's ``x_amax``.
+
+    x, x0: (B, H, W, nf) bf16; wq: the five int8 HWIO conv weights; sw:
+    their fp32 scales (k, cout) for conv k (one row per source segment,
+    ``quant.quantize_conv_weights``); bs: the biases in x's dtype; x_amax:
+    x's per-image |max| (computed by the amax kernel when not given). Five
+    K4 launches on CUDA, the plain version on the CPU."""
+    return _rdb_i8(
+        conv3x3_i8, act_amax, x, wq, sw, bs, x0, x_amax, counter="rdb_fused_i8"
+    )
+
+
+def rdb_fused_i8_plain(x, wq, sw, bs, x0=None, x_amax=None):
+    return _rdb_i8(conv3x3_i8_plain, act_amax_plain, x, wq, sw, bs, x0, x_amax)

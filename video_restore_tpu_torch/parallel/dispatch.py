@@ -187,19 +187,17 @@ class Upscaler:
         device: torch.device,
         plain: bool = False,
     ):
-        if cfg.precision not in ("bf16", "fp32"):
-            raise NotImplementedError(
-                f"precision {cfg.precision!r} is not yet ported"
-            )
         self.device = torch.device(device)
         self.grid = grid
         self.scale = grid.scale
         self.step_cfg = StepConfig.from_config(cfg)
+        # int8 selects the W8A8 body; the activations between kernels stay
+        # bf16 (dispatch.py:300-312 of the JAX package)
         self.compute_dtype = (
             torch.float32 if cfg.precision == "fp32" else torch.bfloat16
         )
         self.plain = plain
-        self.net = model.module(self.compute_dtype, self.device)
+        self.net = model.module(self.compute_dtype, self.device, cfg.precision)
         self._carry = None
 
     @property
