@@ -10,7 +10,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
    ``conv3x3.cu``, K2 ``unsharp.cu``, K3 ``srvgg_up.cu``, K4
-   ``conv3x3_i8.cu`` with its amax entry point);
+   ``conv3x3_i8.cu`` with its amax entry point, K5 ``rdb_fused.cu`` with
+   its one-RDB and whole-RRDB entry points);
 3. every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
@@ -18,7 +19,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    call or chain of calls over the same convs, never used by the port) and
    the bound; K4 (bf16 only) within one bf16 step of its plain version per
    value, for each of the five RDB convs and an SRVGG conv at odd shapes
-   and for the whole int8 RDB at the flagship and tile-batch shapes;
+   and for the whole int8 RDB at the flagship and tile-batch shapes; K5's
+   one RDB and whole RRDB (fp32 and bf16) at odd shapes with nf 16 / gc 8
+   and nf 64 / gc 32, and in bf16 at the flagship body shape and at
+   ``bench_rdb``'s 4x384x504 (library: a cuDNN chain of 5 and of 15 convs);
 4. the flagship path: a 3-frame 1080x1920 y4m with a hard cut before frame
    3 through ``VideoRestorer`` as the CLI builds it (RealESRGAN_x4plus at
    full width, random weights, enhanced: bilateral 0.5, CLAHE on the LR
@@ -41,10 +45,19 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 8. the int8 paths (``--precision int8``, the W8A8 body on K4), 2 frames
    each: the flagship flags at 1080p, config 4, and 720p tiles with
    RealESRGAN_x4plus, with the checks of phases 4 and 5, and the int8
-   output against the bf16 kernel path's (>= 35 dB on u8 per frame).
+   output against the bf16 kernel path's (>= 35 dB on u8 per frame);
+9. ``[main_pallas]``: the flagship flags with ``VRT_PALLAS=1`` (one K5
+   launch per RRDB block, 23 per frame, and no five-K1 RDB), 2 frames, with
+   the checks of phases 4 and 5, and the output against the default body's
+   kernel path (>= 45 dB on u8 per frame: one function, summed in another
+   order);
+10. ``[bench_rdb]``: ``python -m video_restore_tpu_torch.tools.bench_rdb``'s
+    four modes (k1, fused, rrdb, int8) at its default shape, each checked
+    against its plain version on its first application, then timed.
 
-The line before the last is the per-kernel JSON record (``launches`` sums
-the counts of the runs of phases 4, 6, 7 and 8); the last line is
+The card's ``nvidia-smi`` line is printed first and again just before the
+per-kernel JSON record, which is the line before the last (``launches`` sums
+the counts of the runs of phases 4 and 6-10); the last line is
 ``{"ok": true, "device": {...}}``. Work files go to ``build/chip_smoke/``
 and are removed at the end.
 """
@@ -84,6 +97,11 @@ PALLAS = {
     "srvgg_body_i8": "video_restore_tpu/ops/pallas_stripe.py:358",
     # the per-chunk |max| of _quant_act, for a tensor K4 did not write
     "act_amax": "video_restore_tpu/ops/pallas_stripe.py:239",
+    # K5, one RDB: #20 rdb_fused, and #12 rdb_stripe (pallas_stripe.py:2079)
+    "rdb_fused_k5": "video_restore_tpu/ops/pallas_rdb.py:313",
+    # K5, a whole RRDB: #19 rrdb_fused (VRT_PALLAS=1), and #11
+    # rrdb_stripe_padded (pallas_stripe.py:1016)
+    "rrdb_fused": "video_restore_tpu/ops/pallas_rdb.py:257",
 }
 SOURCE = {
     "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
@@ -96,6 +114,8 @@ SOURCE = {
     "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "act_amax": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
+    "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused.cu",
+    "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused.cu",
 }
 
 
@@ -130,7 +150,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from video_restore_tpu_torch.ops import _build, post, quant, srvgg, stripe, tail, unsharp
+    from video_restore_tpu_torch.ops import _build, post, quant, rdb, srvgg, stripe, tail, unsharp
 
     # ---- phase 1: the card ------------------------------------------------
     smi = _run(
@@ -153,9 +173,18 @@ def main() -> int:
     lib_path = _build.build()
     _build.load()
     log(f"[build] {time.time() - t0:.1f}s -> {lib_path.name}")
+    entry = spill = ""
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if line.startswith("=="):
             log(f"[build] {line.strip()}")
+        elif "Compiling entry function" in line:
+            # the kernel's name and template arguments, from the mangled name
+            entry = line.split("'")[1]
+            entry = entry.split("_cu_")[-1][8:] if "_cu_" in entry else entry
+        elif "spill" in line:
+            spill = line.split(",", 1)[-1].strip()
+        elif "registers" in line:
+            log(f"[build] {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
 
     # ---- phase 3: kernels against their plain versions -------------------
     gen = torch.Generator().manual_seed(0)
@@ -248,6 +277,18 @@ def main() -> int:
                 stripe.rdb_fused_plain(x, ws, bs, x0), dt,
             )
             log(f"[check] rdb_fused {dt} {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
+        # K5 at odd shapes: frames that no 8- or 16-pixel tile divides
+        for nf_, gc_, shp in ((16, 8, (1, 37, 53)), (64, 32, (b, h, w)), (16, 8, (2, 8, 5))):
+            x5 = rnd(*shp, nf_, dt=dt)
+            w5 = [rdb_weights(nf_, gc_, dt) for _ in range(3)]
+            for x0 in (None, rnd(*shp, nf_, dt=dt)):
+                e = compare(
+                    "rdb_fused_k5", rdb.rdb_fused(x5, *w5[0], x0),
+                    rdb.rdb_fused_plain(x5, *w5[0], x0), dt,
+                )
+                log(f"[check] rdb_fused_k5 {dt} {shp} nf {nf_} gc {gc_} x0={x0 is not None} err={e:.3g}")
+            e = compare("rrdb_fused", rdb.rrdb_fused(x5, w5), rdb.rrdb_fused_plain(x5, w5), dt)
+            log(f"[check] rrdb_fused {dt} {shp} nf {nf_} gc {gc_} err={e:.3g}")
         sw = srvgg_weights(4, 64, dt)
         e = compare("srvgg_body", srvgg.srvgg_body(x, *sw), srvgg.srvgg_body_plain(x, *sw), dt)
         log(f"[check] srvgg_body {dt} {b}x{h}x{w} 4 convs err={e:.3g}")
@@ -410,6 +451,34 @@ def main() -> int:
         stripe.rdb_fused_plain(xb, ws, bs, rb), bf,
     )
     log(f"[kernel] rdb_fused with x0 (rdb3) err={e:.3g}")
+    rrdb_w = [(ws, bs)] + [rdb_weights(NF, GC, bf) for _ in range(2)]
+    rrdb_wbytes = sum(t.numel() for ws_, bs_ in rrdb_w for t in (*ws_, *bs_)) * 2
+    rrdb_w_oihw = [[oihw(w) for w in ws_] for ws_, _ in rrdb_w]
+
+    def rrdb_lib(ins):
+        return [F.conv2d(a, w, b_, padding=1) for (_, bs_), wo in zip(rrdb_w, rrdb_w_oihw)
+                for a, w, b_ in zip(ins, wo, bs_)]
+
+    def k5_rows(tag, xk, ins, n_px):
+        """K5's two entry points at one shape: one RDB, then a whole RRDB."""
+        ops = rdb_ops * n_px // (H * W)
+        record(
+            "rdb_fused_k5" + tag, f"{tuple(xk.shape)} (nf 64, gc 32), one launch",
+            lambda: rdb.rdb_fused(xk, ws, bs), lambda: rdb.rdb_fused_plain(xk, ws, bs), 5,
+            2 * n_px * NF * 2 + rdb_wbytes, ops, PEAK_BF16, bf,
+            lib_fn=lambda: [F.conv2d(a, w, b_, padding=1) for a, w, b_ in zip(ins, rdb_w, bs)],
+        )
+        e = compare("rdb_fused_k5 x0", rdb.rdb_fused(xk, ws, bs, xk), rdb.rdb_fused_plain(xk, ws, bs, xk), bf)
+        log(f"[check] rdb_fused_k5 with x0 {tuple(xk.shape)} err={e:.3g}")
+        record(
+            "rrdb_fused" + tag, f"{tuple(xk.shape)}, 3 RDBs + residual, one cooperative launch "
+            "(library: chain of 15 convs)",
+            lambda: rdb.rrdb_fused(xk, rrdb_w), lambda: rdb.rrdb_fused_plain(xk, rrdb_w), 3,
+            2 * n_px * NF * 2 + rrdb_wbytes, 3 * ops, PEAK_BF16, bf,
+            lib_fn=lambda: rrdb_lib(ins),
+        )
+
+    k5_rows("", xb, rdb_in, H * W)
     ws8, bs8, wq8, sw8 = i8_rdb(NF, GC)
     rdb_i8_wbytes = sum(
         q.numel() + s_.numel() * 4 + b_.numel() * 2 for q, s_, b_ in zip(wq8, sw8, bs8)
@@ -545,6 +614,11 @@ def main() -> int:
         lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
     )
     del rdb_in
+    BB, BH, BW = 4, 384, 504  # bench_rdb's shape, the JAX tile chunk
+    xc = rnd(BB, BH, BW, NF)
+    rdb_in = [nchw(BB, NF + k * GC, BH, BW) for k in range(5)]
+    k5_rows(" bench", xc, rdb_in, BB * BH * BW)
+    del xc, rdb_in
     record(
         "srvgg_body tiles", f"{TB}x{TH}x{TW}x64, 32 convs",
         lambda: srvgg.srvgg_body(xt, *sw),
@@ -618,12 +692,14 @@ def main() -> int:
     total_launches = {}
     path_stats = {}
 
-    def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False):
+    def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False,
+              vs_default=False):
         """One main path: the CLI's config through ``VideoRestorer`` with
         the launch counters reset before and read after, then the kernel
         path and the plain path on the decoded frames (and, with
         ``vs_bf16``, the bf16 kernel path, which the int8 output must stay
-        within 35 dB of)."""
+        within 35 dB of; with ``vs_default``, the kernel path of the default
+        body, without ``VRT_PALLAS``, which must stay within 45 dB)."""
         dst = work / f"out_{tag}.y4m"
         cfg = config_from_args(build_parser().parse_args([str(src), str(dst)] + argv))
         check(cfg_check(cfg), f"[{tag}] unexpected config {cfg}")
@@ -676,14 +752,22 @@ def main() -> int:
         runs = [(False, cfg), (True, cfg)]
         if vs_bf16:
             runs.append(("bf16", dataclasses.replace(cfg, precision="bf16")))
+        if vs_default:
+            runs.append(("default", cfg))
         for key, run_cfg in runs:
-            ups = Upscaler(model, grid, run_cfg, dev, plain=key is True)
+            if key == "default":  # the module resolves its body without the knob
+                knob = os.environ.pop("VRT_PALLAS")
+                ups = Upscaler(model, grid, run_cfg, dev)
+                os.environ["VRT_PALLAS"] = knob
+            else:
+                ups = Upscaler(model, grid, run_cfg, dev, plain=key is True)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             outs[key] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
             dt_s = time.perf_counter() - t0
             step_ms[key] = 1e3 * dt_s / n_frames
-            name = {False: "kernel", True: "plain", "bf16": "bf16 kernel"}[key]
+            name = {False: "kernel", True: "plain", "bf16": "bf16 kernel",
+                    "default": "default-body kernel"}[key]
             log(
                 f"[{tag}] {name} path: "
                 f"{step_ms[key]:.1f} ms/frame, {n_frames / dt_s:.4f} fps "
@@ -714,6 +798,11 @@ def main() -> int:
             log(f"[{tag}] int8 vs bf16 kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
             check(min(dbs) >= 35.0, f"[{tag}] int8 vs bf16 {min(dbs):.2f} dB < 35")
             path_stats[tag].update(bf16_step_ms=step_ms["bf16"], int8_vs_bf16_db=dbs)
+        if vs_default:
+            dbs = [psnr_u8(a, b_) for a, b_ in zip(outs[False], outs["default"])]
+            log(f"[{tag}] vs the default-body kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
+            check(min(dbs) >= 45.0, f"[{tag}] vs default body {min(dbs):.2f} dB < 45")
+            path_stats[tag].update(default_step_ms=step_ms["default"], vs_default_db=dbs)
 
     # phases 4-5: the flagship
     src = work / "in_1080p.y4m"
@@ -824,10 +913,48 @@ def main() -> int:
         lambda c: c.precision == "int8" and c.tile_size == 512 and c.full_frame == "off",
         6, vs_bf16=True,
     )
+
+    # phase 9: the VRT_PALLAS=1 body (one K5 launch per RRDB block)
+    os.environ["VRT_PALLAS"] = "1"
+    try:
+        drive(
+            "main_pallas", src8,
+            ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
+             "--tile-size", "0", "--precision", "bf16", "--models-dir", str(models_dir)],
+            {"conv3x3_fused": 2, "rrdb_fused": spec.num_block, "up1_fused": 1,
+             "tail_fused": 3, "unsharp_fused": 1},
+            lambda c: c.precision == "bf16" and c.tile_size == 0 and c.sharpen == 0.3,
+            1, vs_default=True,
+        )
+    finally:
+        os.environ.pop("VRT_PALLAS")
     shutil.rmtree(work, ignore_errors=True)
+
+    # phase 10: the RDB micro-benchmark's four modes at its default shape
+    from video_restore_tpu_torch.tools import bench_rdb
+
+    iters = 2
+    _build.reset_launches()
+    recs = bench_rdb.bench(bench_rdb.MODES, bench_rdb.SHAPE, "cuda", iters)
+    torch.cuda.synchronize()
+    counts = _build.launches()
+    apps = 1 + (1 + iters) * bench_rdb.REPS  # the check, the warm-up, the timed steps
+    rrdb_apps = 1 + (1 + iters) * -(-bench_rdb.REPS // 3)
+    expected = {"rdb_fused": 5 * apps, "rdb_fused_k5": apps, "rrdb_fused": rrdb_apps,
+                "rdb_fused_i8": 5 * apps, "act_amax": 1}
+    check(counts == expected, f"[bench_rdb] launch counts {counts} != expected {expected}")
+    for r in recs:
+        tol = 2e-2 * max(1.0, r["scale"])
+        check(r["err"] <= tol, f"[bench_rdb] {r['mode']}: first call {r['err']:.3g} > {tol:.3g}")
+    for k, v in counts.items():
+        total_launches[k] = total_launches.get(k, 0) + v
+    log(f"[bench_rdb] launches {json.dumps(counts)}")
+    path_stats["bench_rdb"] = {r["mode"]: dict(ms_per_rdb=r["ms_per_rdb"], tflops=r["tflops"],
+                                               err=r["err"]) for r in recs}
     log(f"[paths] {json.dumps(path_stats)}")
 
     # ---- result ------------------------------------------------------------
+    log(smi)  # the card again, beside the result lines
     kernels = []
     for name in PALLAS:
         r = rows[name]

@@ -33,7 +33,7 @@
 // slice in shared memory as fp32, and each thread keeps an 8-pixel x
 // 8-channel register tile, reusing each loaded input row segment across the
 // three kx taps (192 FMAs per 16 shared-memory loads). Tensor-core mma /
-// wgmma and a one-launch RDB that keeps c1..c4 on chip are later work.
+// wgmma is later work; the one-launch RDB is K5 (rdb_fused.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

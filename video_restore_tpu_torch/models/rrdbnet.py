@@ -25,12 +25,21 @@ RDB conv keeps int8 weights and fp32 scales per (source, output channel),
 quantised once from the compute-dtype weights, and runs on K4
 (``ops/stripe.py::rdb_fused_i8``); the stem, ``conv_body`` and the tail
 stay in the compute dtype, as in JAX (``rrdbnet.py:384-391``).
+
+``prepare(..., mode="pallas")`` selects the body of the JAX
+``_apply(use_pallas=True)`` (``rrdbnet.py:650-651``, ``VRT_PALLAS=1``): one
+K5 launch per RRDB block (``ops/rdb.py::rrdb_fused``) instead of the
+default ``"stripe"`` body's 15 K1 launches. As in JAX (``zoo.py:154``),
+int8 applies only to the stripe body: ``"pallas"`` keeps the compute dtype.
+:func:`body_mode` resolves the mode the way the JAX ``default_use_pallas``
+does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -44,6 +53,7 @@ from video_restore_tpu_torch.ops.quant import (
     quantize_conv_weights,
     rdb_segments,
 )
+from video_restore_tpu_torch.ops.rdb import rrdb_fused, rrdb_fused_plain
 from video_restore_tpu_torch.ops.stripe import (
     rdb_fused,
     rdb_fused_i8,
@@ -143,6 +153,24 @@ class RRDB(nn.Module):
         self.rdb2 = RDB(nf, gc)
         self.rdb3 = RDB(nf, gc)
 
+    def weights(self):
+        """The three RDBs' ``(ws, bs)``, as ``ops/rdb.py::rrdb_fused`` takes
+        them."""
+        return [r.weights() for r in (self.rdb1, self.rdb2, self.rdb3)]
+
+
+MODES = ("stripe", "pallas")
+
+
+def body_mode(device) -> str:
+    """The RRDB body mode for ``device``: ``"pallas"`` when ``VRT_PALLAS=1``
+    and the device is a CUDA device, else ``"stripe"``. The JAX
+    ``default_use_pallas`` (``rrdbnet.py:510-522``) honours the knob only on
+    its accelerator and ignores it on the CPU; so does the port."""
+    if os.environ.get("VRT_PALLAS") != "1":
+        return "stripe"
+    return "pallas" if torch.device(device).type == "cuda" else "stripe"
+
 
 class RRDBNet(nn.Module):
     """RRDBNet on NHWC activations: (N, H, W, 3) in [0, 1] -> (N, H*s, W*s, 3)
@@ -161,19 +189,25 @@ class RRDBNet(nn.Module):
         self.conv_hr = Conv3x3(nf, nf)
         self.conv_last = Conv3x3(nf, spec.num_out_ch)
         self.precision = "bf16"
+        self.mode = "stripe"
 
     @torch.no_grad()
     def prepare(
-        self, dtype: torch.dtype, device, precision: str = "bf16"
+        self, dtype: torch.dtype, device, precision: str = "bf16",
+        mode: str = "stripe",
     ) -> "RRDBNet":
         """Move the weights once to the compute dtype and device (biases
         included, as the JAX zoo casts every leaf). They stay contiguous
-        HWIO, the layout K1 reads, so no per-call packing is left. With
-        ``precision="int8"`` every RDB also quantises its cast weights
-        (the W8A8 body). Returns self."""
+        HWIO, the layout K1 and K5 read, so no per-call packing is left.
+        ``mode`` picks the body (:data:`MODES`). With ``precision="int8"``
+        and the stripe body every RDB also quantises its cast weights (the
+        W8A8 body); the pallas body ignores int8. Returns self."""
+        if mode not in MODES:
+            raise ValueError(f"unknown RRDBNet body mode {mode!r}")
         self.to(device=device, dtype=dtype)
-        self.precision = precision
-        if precision == "int8":
+        self.mode = mode
+        self.precision = "bf16" if mode == "pallas" and precision == "int8" else precision
+        if self.precision == "int8":
             for blk in self.body:
                 for rdb in (blk.rdb1, blk.rdb2, blk.rdb3):
                     rdb.quantize()
@@ -198,6 +232,10 @@ class RRDBNet(nn.Module):
                 out, a = rdb(h, *blk.rdb1.int8_weights(), x_amax=amax)
                 out, a = rdb(out, *blk.rdb2.int8_weights(), x_amax=a)
                 h, amax = rdb(out, *blk.rdb3.int8_weights(), x0=h, x_amax=a)
+        elif self.mode == "pallas":
+            rrdb = rrdb_fused_plain if plain else rrdb_fused
+            for blk in self.body:
+                h = rrdb(h, blk.weights())
         else:
             for blk in self.body:
                 out = rdb(h, *blk.rdb1.weights())

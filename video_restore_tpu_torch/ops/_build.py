@@ -28,7 +28,9 @@ from typing import Dict, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("conv3x3.cu", "unsharp.cu", "srvgg_up.cu", "conv3x3_i8.cu")
+SOURCES = (
+    "conv3x3.cu", "unsharp.cu", "srvgg_up.cu", "conv3x3_i8.cu", "rdb_fused.cu",
+)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,6 +45,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_PP = ctypes.POINTER(ctypes.c_void_p)
 
 
 def count_launch(name: str) -> None:
@@ -148,6 +151,10 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3_i8.restype = _I
             lib.vr_amax_bf16.argtypes = [_P, _P, _I, _I, _I, _L, _L, _P]
             lib.vr_amax_bf16.restype = _I
+            for fn in (lib.vr_rdb_fused, lib.vr_rrdb_fused):
+                # dtype, nf, gc, x, x0 | y, y | scratch, ws, bs, B, H, W, stream
+                fn.argtypes = [_I, _I, _I, _P, _P, _P, _PP, _PP, _I, _I, _I, _P]
+                fn.restype = _I
             lib.vr_error_string.argtypes = [_I]
             lib.vr_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -163,3 +170,8 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def pointers(ts) -> ctypes.Array:
+    """A C array of the tensors' device pointers (``const void* const*``)."""
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))

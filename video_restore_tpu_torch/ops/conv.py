@@ -7,7 +7,7 @@ conventions as the JAX functions: activations NHWC, weights HWIO, products
 accumulated in fp32 and the result cast back to the activation dtype. These
 are the plain versions that the CPU path and the kernel checks use; the
 GPU path runs the hand-written kernels in ``ops/tail.py``,
-``ops/stripe.py``, ``ops/srvgg.py`` and ``ops/unsharp.py``.
+``ops/stripe.py``, ``ops/rdb.py``, ``ops/srvgg.py`` and ``ops/unsharp.py``.
 """
 
 from __future__ import annotations

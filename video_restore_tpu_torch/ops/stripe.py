@@ -17,8 +17,8 @@ idea becomes the memory layout: one growth buffer ``[x | c1 | c2 | c3 | c4]``
 writes c_k at its offset, so the concat never exists; each K1 launch
 bounds-checks its reads, which gives the same SAME padding. Five K1
 launches per RDB; c_k is rounded to the activation dtype between launches,
-as the Pallas kernel rounds it. A one-launch RDB that keeps c1..c4 on chip
-is later work.
+as the Pallas kernel rounds it. The same function in one launch, with
+c1..c4 kept on chip, is ``ops/rdb.py`` (K5, the ``VRT_PALLAS=1`` body).
 
 :func:`rdb_fused_i8` is the same RDB with the W8A8 int8 convs of
 ``--precision int8`` (the ``sws`` arguments of the same entry points): five
