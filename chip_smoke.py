@@ -11,7 +11,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
    ``conv3x3.cu``, K2 ``unsharp.cu``, K3 ``srvgg_up.cu``, K4
    ``conv3x3_i8.cu`` with its amax entry point, K5 ``rdb_fused.cu`` with
-   its one-RDB and whole-RRDB entry points);
+   its one-RDB and whole-RRDB entry points, K6 ``tail_fused.cu``), and
+   print each kernel's registers and spills from ``ptxas``;
 3. every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
@@ -23,6 +24,13 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    one RDB and whole RRDB (fp32 and bf16) at odd shapes with nf 16 / gc 8
    and nf 64 / gc 32, and in bf16 at the flagship body shape and at
    ``bench_rdb``'s 4x384x504 (library: a cuDNN chain of 5 and of 15 convs);
+   K6's one-launch tail (fp32 and bf16) at odd shapes with nf 16 and nf 64,
+   whose doubled extents no tile divides, so both intermediates' edge masks
+   are exercised, and in bf16 at the flagship's 1x2160x3840x64 (library:
+   the cuDNN chain of 3 convs); K4's static-A8 mode (fixed scales, no amax)
+   for each of the five RDB convs at an odd shape and for the whole static
+   RDB at the flagship and tile-batch shapes, with 5 launches and no amax
+   launch per RDB;
 4. the flagship path: a 3-frame 1080x1920 y4m with a hard cut before frame
    3 through ``VideoRestorer`` as the CLI builds it (RealESRGAN_x4plus at
    full width, random weights, enhanced: bilateral 0.5, CLAHE on the LR
@@ -51,13 +59,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the checks of phases 4 and 5, and the output against the default body's
    kernel path (>= 45 dB on u8 per frame: one function, summed in another
    order);
-10. ``[bench_rdb]``: ``python -m video_restore_tpu_torch.tools.bench_rdb``'s
-    four modes (k1, fused, rrdb, int8) at its default shape, each checked
-    against its plain version on its first application, then timed.
+10. ``[main_tailq]``: the flagship flags with ``VRT_TAIL_Q=1`` (one K6
+    launch per frame in place of the three-K1 tail), 2 frames, with the
+    checks of phases 4 and 5, and the output against the default tail's
+    kernel path (>= 45 dB on u8 per frame: one function, two kernel
+    routes); the step's ms/frame and the path's peak memory are printed
+    beside the default tail's;
+11. ``[bench_rdb]``: ``python -m video_restore_tpu_torch.tools.bench_rdb``'s
+    five modes (k1, fused, rrdb, int8, int8s) at its default shape, each
+    checked against its plain version on its first application, then timed.
 
 The card's ``nvidia-smi`` line is printed first and again just before the
 per-kernel JSON record, which is the line before the last (``launches`` sums
-the counts of the runs of phases 4 and 6-10); the last line is
+the counts of the runs of phases 4 and 6-11, the static-A8 row those of
+``bench_rdb``'s int8s run, which the wrapper counts under ``rdb_fused_i8``);
+the last line is
 ``{"ok": true, "device": {...}}``. Work files go to ``build/chip_smoke/``
 and are removed at the end.
 """
@@ -102,6 +118,11 @@ PALLAS = {
     # K5, a whole RRDB: #19 rrdb_fused (VRT_PALLAS=1), and #11
     # rrdb_stripe_padded (pallas_stripe.py:1016)
     "rrdb_fused": "video_restore_tpu/ops/pallas_rdb.py:257",
+    # K6: #13 tail_fused_q (VRT_TAIL_Q=1), the tail in one launch
+    "tail_fused_q": "video_restore_tpu/ops/pallas_tail.py:1018",
+    # K4, static A8: the sa_static branch of _conv_prefix (_quant_act_static),
+    # the sas arguments of #2 and #3; its launches count under rdb_fused_i8
+    "rdb_fused_i8 static": "video_restore_tpu/ops/pallas_stripe.py:293",
 }
 SOURCE = {
     "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
@@ -116,6 +137,8 @@ SOURCE = {
     "act_amax": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused.cu",
     "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused.cu",
+    "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused.cu",
+    "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
 }
 
 
@@ -150,6 +173,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    from video_restore_tpu_torch.models.rrdbnet import calibrate_rdb_act_scales
     from video_restore_tpu_torch.ops import _build, post, quant, rdb, srvgg, stripe, tail, unsharp
 
     # ---- phase 1: the card ------------------------------------------------
@@ -270,6 +294,16 @@ def main() -> int:
         tw = tail_weights(64, dt)
         e = compare("tail_fused", tail.tail_fused(x, *tw), tail.tail_fused_plain(x, *tw), dt)
         log(f"[check] tail_fused {dt} {b}x{h}x{w} err={e:.3g}")
+        # K6 at odd shapes: doubled extents that no 16x28 (bf16) or 8x12
+        # (fp32) tile divides, and a frame smaller than one tile
+        for nf_, shp in ((16, (1, 19, 23)), (64, (b, h, w)), (16, (2, 4, 3))):
+            xq, tq = rnd(*shp, nf_, dt=dt), tail_weights(nf_, dt)
+            kq = tail.tail_fused_q(xq, *tq)
+            check(kq.shape == (shp[0], 2 * shp[1], 2 * shp[2], 3) and kq.dtype == dt,
+                  f"tail_fused_q shape {kq.shape}")
+            e = compare("tail_fused_q", kq, tail.tail_fused_q_plain(xq, *tq), dt)
+            e1 = (kq.float() - tail.tail_fused(xq, *tq).float()).abs().max().item()
+            log(f"[check] tail_fused_q {dt} {shp} nf {nf_} err={e:.3g} vs_three_K1={e1:.3g}")
         ws, bs = rdb_weights(64, 32, dt)
         for x0 in (None, rnd(b, h, w, 64, dt=dt)):
             e = compare(
@@ -335,6 +369,7 @@ def main() -> int:
     grow = rnd(b, h, w, 64 + 4 * 32)
     amax = torch.zeros(b, 6, device=dev)
     segs5 = quant.rdb_segments(64, 32, 5)
+    SAS_ODD = (0.0075, 0.0079, 0.0081, 0.0068, 0.0090)
     for s_ in range(5):
         quant.act_amax(grow[..., segs5[s_] : segs5[s_ + 1]], out=amax[:, s_])
         check(
@@ -352,6 +387,13 @@ def main() -> int:
         e, st = bf16_steps(f"conv3x3_i8 RDB conv{k_ + 1}", ko, po)
         check(torch.equal(oa, pa), f"conv3x3_i8 conv{k_ + 1}: output amax {oa} != {pa}")
         log(f"[check] conv3x3_i8 bf16 {b}x{h}x{w} RDB conv{k_ + 1} ({k_ + 1} segments) err={e:.3g} steps={st:.2f}")
+        # static A8: fixed scales below the segments' |max| / 127, so some
+        # values saturate; no amax in or out
+        args = (grow[..., : segs[-1]], segs, None, wq8[k_], sw8[k_], bs8[k_])
+        ko = quant.conv3x3_i8(*args, sas=SAS_ODD[: k_ + 1], counter="check", **kw)
+        po = quant.conv3x3_i8_plain(*args, sas=SAS_ODD[: k_ + 1], **kw)
+        e, st = bf16_steps(f"conv3x3_i8 static RDB conv{k_ + 1}", ko, po)
+        log(f"[check] conv3x3_i8 static bf16 {b}x{h}x{w} RDB conv{k_ + 1} ({k_ + 1} segments) err={e:.3g} steps={st:.2f}")
     sw4, swq4, ssw4 = i8_srvgg(1, 64)
     x = rnd(b, h, w, 64)
     ax = quant.act_amax(x)[:, None].contiguous()
@@ -366,6 +408,12 @@ def main() -> int:
         e = compare("rdb_fused_i8", k_out, p_out, torch.bfloat16)
         check(torch.equal(k_amax, p_amax), "rdb_fused_i8: output amax differs from plain")
         log(f"[check] rdb_fused_i8 bf16 {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
+        sas_ = calibrate_rdb_act_scales(ws8, bs8, x)
+        k_out, k_amax = stripe.rdb_fused_i8(x, wq8, sw8, bs8, x0, sas=sas_)
+        p_out, _ = stripe.rdb_fused_i8_plain(x, wq8, sw8, bs8, x0, sas=sas_)
+        e = compare("rdb_fused_i8 static", k_out, p_out, torch.bfloat16)
+        check(k_amax is None, "rdb_fused_i8 static returned an amax")
+        log(f"[check] rdb_fused_i8 static bf16 {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
     sw4, swq4, ssw4 = i8_srvgg(4, 64)
     e = compare(
         "srvgg_body_i8", srvgg.srvgg_body_i8(x, swq4, ssw4, sw4[1], sw4[2]),
@@ -494,6 +542,35 @@ def main() -> int:
         2 * H * W * NF * 2 + rdb_i8_wbytes, rdb_ops, PEAK_INT8, bf,
         lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
     )
+    def static_rdb_row(tag, xk, lib_fn, n_px):
+        """The whole static-A8 RDB at one shape: within one bf16 step of its
+        plain version per value, 5 K4 launches and no amax launch, times."""
+        sas_ = calibrate_rdb_act_scales(ws8, bs8, xk[:1, :128, :128])
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        k_out = stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_)[0]
+        torch.cuda.synchronize()
+        got = _build.launches()
+        check(got == {"rdb_fused_i8": 5}, f"static RDB launches {got} != 5 K4 and no amax")
+        e, st = bf16_steps(
+            "rdb_fused_i8 static" + tag, k_out,
+            stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0],
+        )
+        log(f"[check] rdb_fused_i8 static bf16 {tuple(xk.shape)} err={e:.3g} steps={st:.2f} launches={json.dumps(got)}")
+        del k_out
+        record(
+            "rdb_fused_i8 static" + tag,
+            f"{tuple(xk.shape)} (nf 64, gc 32), W8A8 with fixed scales (library: the bf16 cuDNN chain)",
+            lambda: stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_)[0],
+            lambda: stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0], 5,
+            2 * n_px * NF * 2 + rdb_i8_wbytes, rdb_ops * n_px // (H * W), PEAK_INT8, bf,
+            lib_fn=lib_fn,
+        )
+
+    static_rdb_row(
+        "", xb, lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+        H * W,
+    )
     record(
         "act_amax", "1x1080x1920x64 -> (1,) (library: torch.linalg.vector_norm ord=inf)",
         lambda: quant.act_amax(xb), lambda: quant.act_amax_plain(xb), 10,
@@ -532,6 +609,15 @@ def main() -> int:
         "tail_fused", "1x2160x3840x64 -> 1x4320x7680x3",
         lambda: tail.tail_fused(x2, *tw),
         lambda: tail.tail_fused_plain(x2, *tw), 3,
+        (h2 * w2 * NF + 4 * h2 * w2 * 3) * 2, tail_ops, PEAK_BF16, bf,
+        lib_fn=tail_lib,
+    )
+    e1 = (tail.tail_fused_q(x2, *tw).float() - tail.tail_fused(x2, *tw).float()).abs().max().item()
+    log(f"[check] tail_fused_q vs the three-K1 tail_fused at 1x2160x3840x64: max |diff| {e1:.3g}")
+    record(
+        "tail_fused_q", "1x2160x3840x64 -> 1x4320x7680x3, one launch (library: chain of 3 convs)",
+        lambda: tail.tail_fused_q(x2, *tw),
+        lambda: tail.tail_fused_q_plain(x2, *tw), 3,
         (h2 * w2 * NF + 4 * h2 * w2 * 3) * 2, tail_ops, PEAK_BF16, bf,
         lib_fn=tail_lib,
     )
@@ -613,6 +699,10 @@ def main() -> int:
         PEAK_INT8, bf,
         lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
     )
+    static_rdb_row(
+        " tiles", xt, lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+        TB * TH * TW,
+    )
     del rdb_in
     BB, BH, BW = 4, 384, 504  # bench_rdb's shape, the JAX tile chunk
     xc = rnd(BB, BH, BW, NF)
@@ -693,13 +783,14 @@ def main() -> int:
     path_stats = {}
 
     def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False,
-              vs_default=False):
+              vs_default=None):
         """One main path: the CLI's config through ``VideoRestorer`` with
         the launch counters reset before and read after, then the kernel
         path and the plain path on the decoded frames (and, with
         ``vs_bf16``, the bf16 kernel path, which the int8 output must stay
-        within 35 dB of; with ``vs_default``, the kernel path of the default
-        body, without ``VRT_PALLAS``, which must stay within 45 dB)."""
+        within 35 dB of; with ``vs_default``, the name of the knob that is
+        set, the kernel path of the default route without that knob, which
+        must stay within 45 dB)."""
         dst = work / f"out_{tag}.y4m"
         cfg = config_from_args(build_parser().parse_args([str(src), str(dst)] + argv))
         check(cfg_check(cfg), f"[{tag}] unexpected config {cfg}")
@@ -755,10 +846,10 @@ def main() -> int:
         if vs_default:
             runs.append(("default", cfg))
         for key, run_cfg in runs:
-            if key == "default":  # the module resolves its body without the knob
-                knob = os.environ.pop("VRT_PALLAS")
+            if key == "default":  # the module resolves its modes without the knob
+                knob = os.environ.pop(vs_default)
                 ups = Upscaler(model, grid, run_cfg, dev)
-                os.environ["VRT_PALLAS"] = knob
+                os.environ[vs_default] = knob
             else:
                 ups = Upscaler(model, grid, run_cfg, dev, plain=key is True)
             torch.cuda.synchronize()
@@ -767,7 +858,7 @@ def main() -> int:
             dt_s = time.perf_counter() - t0
             step_ms[key] = 1e3 * dt_s / n_frames
             name = {False: "kernel", True: "plain", "bf16": "bf16 kernel",
-                    "default": "default-body kernel"}[key]
+                    "default": f"default (no {vs_default}) kernel"}[key]
             log(
                 f"[{tag}] {name} path: "
                 f"{step_ms[key]:.1f} ms/frame, {n_frames / dt_s:.4f} fps "
@@ -800,8 +891,8 @@ def main() -> int:
             path_stats[tag].update(bf16_step_ms=step_ms["bf16"], int8_vs_bf16_db=dbs)
         if vs_default:
             dbs = [psnr_u8(a, b_) for a, b_ in zip(outs[False], outs["default"])]
-            log(f"[{tag}] vs the default-body kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
-            check(min(dbs) >= 45.0, f"[{tag}] vs default body {min(dbs):.2f} dB < 45")
+            log(f"[{tag}] vs the default (no {vs_default}) kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
+            check(min(dbs) >= 45.0, f"[{tag}] vs the default route {min(dbs):.2f} dB < 45")
             path_stats[tag].update(default_step_ms=step_ms["default"], vs_default_db=dbs)
 
     # phases 4-5: the flagship
@@ -924,31 +1015,62 @@ def main() -> int:
             {"conv3x3_fused": 2, "rrdb_fused": spec.num_block, "up1_fused": 1,
              "tail_fused": 3, "unsharp_fused": 1},
             lambda c: c.precision == "bf16" and c.tile_size == 0 and c.sharpen == 0.3,
-            1, vs_default=True,
+            1, vs_default="VRT_PALLAS",
         )
     finally:
         os.environ.pop("VRT_PALLAS")
+
+    # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
+    os.environ["VRT_TAIL_Q"] = "1"
+    try:
+        drive(
+            "main_tailq", src8,
+            ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
+             "--tile-size", "0", "--precision", "bf16", "--models-dir", str(models_dir)],
+            {"conv3x3_fused": 2, "rdb_fused": 3 * spec.num_block * 5, "up1_fused": 1,
+             "tail_fused_q": 1, "unsharp_fused": 1},
+            lambda c: c.precision == "bf16" and c.tile_size == 0 and c.sharpen == 0.3,
+            1, vs_default="VRT_TAIL_Q",
+        )
+    finally:
+        os.environ.pop("VRT_TAIL_Q")
+    tq = path_stats["main_tailq"]
+    log(
+        f"[main_tailq] step {tq['step_ms']:.1f} ms/frame with the one-launch tail, "
+        f"{tq['default_step_ms']:.1f} with the default three-K1 tail (same run); peak device "
+        f"memory {tq['peak_gib']:.2f} GiB, the flagship [main] {path_stats['main']['peak_gib']:.2f}"
+    )
     shutil.rmtree(work, ignore_errors=True)
 
-    # phase 10: the RDB micro-benchmark's four modes at its default shape
+    # phase 11: the RDB micro-benchmark's five modes at its default shape;
+    # the static mode runs on its own so that its launches are read apart
     from video_restore_tpu_torch.tools import bench_rdb
 
     iters = 2
-    _build.reset_launches()
-    recs = bench_rdb.bench(bench_rdb.MODES, bench_rdb.SHAPE, "cuda", iters)
-    torch.cuda.synchronize()
-    counts = _build.launches()
     apps = 1 + (1 + iters) * bench_rdb.REPS  # the check, the warm-up, the timed steps
     rrdb_apps = 1 + (1 + iters) * -(-bench_rdb.REPS // 3)
-    expected = {"rdb_fused": 5 * apps, "rdb_fused_k5": apps, "rrdb_fused": rrdb_apps,
-                "rdb_fused_i8": 5 * apps, "act_amax": 1}
-    check(counts == expected, f"[bench_rdb] launch counts {counts} != expected {expected}")
+    check(bench_rdb.MODES[-1] == "int8s", f"bench_rdb modes {bench_rdb.MODES}")
+    recs = []
+    for modes, expected in (
+        (bench_rdb.MODES[:-1],
+         {"rdb_fused": 5 * apps, "rdb_fused_k5": apps, "rrdb_fused": rrdb_apps,
+          "rdb_fused_i8": 5 * apps, "act_amax": 1}),
+        (("int8s",), {"rdb_fused_i8": 5 * apps}),
+    ):
+        _build.reset_launches()
+        recs += bench_rdb.bench(modes, bench_rdb.SHAPE, "cuda", iters)
+        torch.cuda.synchronize()
+        counts = _build.launches()
+        check(counts == expected, f"[bench_rdb] launch counts {counts} != expected {expected}")
+        log(f"[bench_rdb] {' '.join(modes)}: launches {json.dumps(counts)}")
+        if modes == ("int8s",):
+            total_launches["rdb_fused_i8 static"] = counts["rdb_fused_i8"]
+        else:
+            for k, v in counts.items():
+                total_launches[k] = total_launches.get(k, 0) + v
     for r in recs:
         tol = 2e-2 * max(1.0, r["scale"])
         check(r["err"] <= tol, f"[bench_rdb] {r['mode']}: first call {r['err']:.3g} > {tol:.3g}")
-    for k, v in counts.items():
-        total_launches[k] = total_launches.get(k, 0) + v
-    log(f"[bench_rdb] launches {json.dumps(counts)}")
     path_stats["bench_rdb"] = {r["mode"]: dict(ms_per_rdb=r["ms_per_rdb"], tflops=r["tflops"],
                                                err=r["err"]) for r in recs}
     log(f"[paths] {json.dumps(path_stats)}")

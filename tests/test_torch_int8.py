@@ -27,6 +27,17 @@
   int8 step).
 - The restore step on the CPU: int8 against bf16 on u8 (RRDBNet >= 40 dB,
   SRVGGNetCompact >= 35 dB).
+- Static A8 (``sas``): ``calibrate_rdb_act_scales`` against JAX's on the
+  same RDB and input (five floats, relative 1e-6: fp32 convs summed in
+  another order); ``quant_act_static_plain`` equal to ``_quant_act_static``
+  (bf16 and fp32, with values that saturate); one static RDB against
+  ``rdb_stripe2d_padded(sws=..., sas=..., interpret=True)`` at the
+  multi-block geometry of
+  ``tests/test_pallas_stripe.py::test_rdb_stripe2d_int8_static_interpret``
+  (nf 16, gc 8, 96x144, blocks 32x48), where a fixed scale is the same for
+  every block, so unlike the dynamic form the two must agree: bf16 exact,
+  fp32 within 1e-6, and > 45 dB from the fp32 naive RDB; and ``bench_rdb
+  int8s`` on the CPU at a tiny shape.
 """
 
 from unittest import mock
@@ -39,6 +50,7 @@ import torch
 
 from video_restore_tpu_torch.ops.quant import (
     quant_act_plain,
+    quant_act_static_plain,
     quantize_conv_weights,
     rdb_segments,
 )
@@ -497,3 +509,139 @@ def test_restore_step_int8_close_to_bf16(tiny_frames, model, min_db):
     for a, b in zip(outs["int8"], outs["bf16"]):
         mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
         assert 10 * np.log10(255.0**2 / mse) >= min_db
+
+
+def _static_case(rng, bf16):
+    """One RDB, its input at 96x144, and JAX's calibrated scales."""
+    from video_restore_tpu.models.rrdbnet import calibrate_rdb_act_scales
+
+    ws, bs = _rdb_case(rng, bf16)
+    x = _mk(rng, 1, 96, 144, NF, scale=1.5)
+    if bf16:
+        x = _bf16(x)
+    sas = calibrate_rdb_act_scales(_jax_rdb(ws, bs, jnp.float32), jnp.asarray(x))
+    return ws, bs, x, sas
+
+
+def test_calibrate_rdb_act_scales_matches_jax(rng):
+    from video_restore_tpu.models.rrdbnet import calibrate_rdb_act_scales as jax_cal
+    from video_restore_tpu_torch.models.rrdbnet import calibrate_rdb_act_scales
+
+    ws, bs, x, ref = _static_case(rng, False)
+    got = calibrate_rdb_act_scales([_t(w) for w in ws], [_t(b) for b in bs], _t(x))
+    assert len(got) == 5 and all(isinstance(v, float) for v in got)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
+    assert got[0] == float(np.float32(np.abs(x).max())) / 127.0
+    # the margin scales every entry; bf16 weights and input calibrate in fp32
+    wide = calibrate_rdb_act_scales([_t(w) for w in ws], [_t(b) for b in bs], _t(x), margin=1.5)
+    np.testing.assert_allclose(wide, 1.5 * np.asarray(got), rtol=1e-12)
+    ref_m = jax_cal(_jax_rdb(ws, bs, jnp.float32), jnp.asarray(x), margin=1.5)
+    np.testing.assert_allclose(wide, ref_m, rtol=1e-6, atol=0)
+    wsb, bsb = [_bf16(w) for w in ws], [_bf16(b) for b in bs]
+    from_bf16 = calibrate_rdb_act_scales(
+        [_t(w, torch.bfloat16) for w in wsb], [_t(b, torch.bfloat16) for b in bsb],
+        _t(_bf16(x), torch.bfloat16),
+    )
+    ref_b = jax_cal(_jax_rdb(wsb, bsb, jnp.float32), jnp.asarray(_bf16(x)))
+    np.testing.assert_allclose(from_bf16, ref_b, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("scale", [0.02917, 1.0, 3.3e-3])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_a8_static_matches_quant_act_static(rng, bf16, scale):
+    """Exact, on random data that reaches past 127 scale (saturates at
+    +-127) and, at scale 1.0, on the grid of ties."""
+    from video_restore_tpu.ops.pallas_stripe import _quant_act_static
+
+    a = _mk(rng, 12, 40, 24, scale=160 * scale, shift=0.4 * scale)
+    if scale == 1.0:
+        a = np.concatenate([a.reshape(1, -1, 8), _ties()], axis=1)
+    if bf16:
+        a = _bf16(a)
+    jdt = jnp.bfloat16 if bf16 else jnp.float32
+    qj = np.asarray(jax.jit(lambda v: _quant_act_static(v, scale))(jnp.asarray(a, jdt)))
+    q = quant_act_static_plain(_t(a, torch.bfloat16 if bf16 else torch.float32), scale)
+    assert q.dtype == torch.int8 and qj.dtype == np.int8
+    np.testing.assert_array_equal(q.numpy(), qj)
+    assert q.max().item() == 127 and q.min().item() == -127
+    assert (np.abs(a) > 128 * scale).any()  # some values saturate
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_rdb_i8_static_matches_pallas_stripe2d(rng, bf16):
+    """rdb_stripe2d_padded (#3) with sws and sas, 3x3 blocks of 32x48."""
+    from video_restore_tpu.models.rrdbnet import _rdb_apply
+    from video_restore_tpu.ops.pallas_stripe import (
+        pad_stripe2d_entry,
+        rdb_stripe2d_padded,
+        unpad_stripe2d_exit,
+    )
+
+    h, w, bh, bw = 96, 144, 32, 48
+    ws, bs, x, sas = _static_case(rng, bf16)
+    dt, jdt = (torch.bfloat16, jnp.bfloat16) if bf16 else (torch.float32, jnp.float32)
+    qws, sws, pbs = _jax_quant_rdb(ws, bs, jdt)
+    xp = pad_stripe2d_entry(jnp.asarray(x, jdt), block_h=bh, block_w=bw)
+    out = rdb_stripe2d_padded(
+        xp, qws, pbs, frame_h=h, frame_w=w, block_h=bh, block_w=bw, sws=sws,
+        sas=sas, interpret=True,
+    )
+    ref = np.asarray(unpad_stripe2d_exit(out, h, w, NF, block_h=bh, block_w=bw), np.float32)
+    wq, sw = _port_quant_rdb(ws, dt)
+    got, amax = rdb_fused_i8_plain(_t(x, dt), wq, sw, [_t(b, dt) for b in bs], sas=sas)
+    assert amax is None  # static A8 computes no amax
+    got = got.float().numpy()
+    if bf16:
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    naive = np.asarray(_rdb_apply(_jax_rdb(ws, bs, jnp.float32), jnp.asarray(x)))
+    assert _psnr(got, naive) > 45.0
+    # fixed scales, not the image's: the dynamic form gives other values
+    dyn, _ = rdb_fused_i8_plain(_t(x, dt), wq, sw, [_t(b, dt) for b in bs])
+    assert not np.array_equal(dyn.float().numpy(), got)
+
+
+def test_rdb_i8_static_wrapper_and_arguments(rng):
+    """On CPU tensors the static wrapper is its plain version and counts no
+    launch (so no amax kernel either); rdb3's ``x0`` form works; the static
+    form refuses an amax."""
+    from video_restore_tpu_torch.ops import _build
+    from video_restore_tpu_torch.ops.quant import conv3x3_i8
+
+    ws, bs = _rdb_case(rng, True)
+    x = _t(_bf16(_mk(rng, 2, 9, 11, NF)), torch.bfloat16)
+    x0 = _t(_bf16(_mk(rng, 2, 9, 11, NF)), torch.bfloat16)
+    wq, sw = _port_quant_rdb(ws, torch.bfloat16)
+    b = [_t(v, torch.bfloat16) for v in bs]
+    sas = (0.011, 0.004, 0.005, 0.006, 0.007)
+    _build.reset_launches()
+    k, ka = rdb_fused_i8(x, wq, sw, b, x0, sas=sas)
+    p, pa = rdb_fused_i8_plain(x, wq, sw, b, x0, sas=sas)
+    assert ka is None and pa is None and torch.equal(k, p)
+    assert _build.launches() == {}
+    assert not torch.equal(k, rdb_fused_i8_plain(x, wq, sw, b, sas=sas)[0])
+    with pytest.raises(ValueError):
+        rdb_fused_i8(x, wq, sw, b, x_amax=torch.ones(2), sas=sas)
+    with pytest.raises(ValueError):
+        rdb_fused_i8(x, wq, sw, b, sas=sas[:4])
+    segs = rdb_segments(NF, GC, 1)
+    with pytest.raises(ValueError):
+        conv3x3_i8(x, segs, torch.ones(2, 1), wq[0], sw[0], b[0], sas=sas[:1], counter="t")
+    with pytest.raises(ValueError):
+        conv3x3_i8(x, segs, None, wq[0], sw[0], b[0], sas=(0.0,), counter="t")
+
+
+def test_bench_rdb_int8s_runs_on_cpu(capsys):
+    """``python -m video_restore_tpu_torch.tools.bench_rdb int8s --cpu`` at
+    a tiny shape: the static mode calibrates, runs its 23 chained RDBs per
+    step through the plain version and prints one line."""
+    from video_restore_tpu_torch.tools import bench_rdb
+
+    assert bench_rdb.MODES == ("k1", "fused", "rrdb", "int8", "int8s")
+    assert bench_rdb.main(["int8s", "--cpu", "--shape", "1,6,10"]) == 0
+    out = capsys.readouterr().out
+    assert " int8s:" in out and "cpu, plain versions" in out
+    (rec,) = bench_rdb.bench(["int8s"], (1, 6, 10), "cpu", iters=1)
+    assert rec["mode"] == "int8s" and rec["rdbs_timed"] == bench_rdb.REPS
+    assert "err" not in rec  # the kernel-vs-plain check belongs to the card

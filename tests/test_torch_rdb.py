@@ -26,7 +26,7 @@ through ``params_from_jax``; inputs from numpy seeds.
   in another order through ~40 chained convs);
 - ``"pallas"`` with int8 runs the bf16 body (bit-equal), ``VRT_PALLAS``
   selects the mode on a CUDA device only, the CPU wrappers launch nothing,
-  and ``tools/bench_rdb.py --cpu`` runs all four modes at a tiny shape.
+  and ``tools/bench_rdb.py --cpu`` runs all five modes at a tiny shape.
 """
 
 from unittest import mock
@@ -272,7 +272,7 @@ def test_bench_rdb_cpu_tiny(capsys):
 
     assert bench_rdb.main(["--cpu", "--shape", "1,6,10"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
-    assert [ln.split(":")[0].strip() for ln in lines] == ["k1", "fused", "rrdb", "int8"]
+    assert [ln.split(":")[0].strip() for ln in lines] == ["k1", "fused", "rrdb", "int8", "int8s"]
     assert all("ms/RDB-call" in ln and "1x6x10x64 bf16; cpu" in ln for ln in lines)
     records = bench_rdb.bench(["rrdb"], (1, 6, 10), "cpu", iters=1)
     assert records[0]["ms_per_rdb"] > 0 and records[0]["rdbs_timed"] == 24

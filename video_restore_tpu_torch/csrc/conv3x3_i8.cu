@@ -35,6 +35,13 @@
 // K4 takes one per image (per tile when tiled); the two agree when one
 // stripe and one chunk cover the frame (ROADMAP queue 3).
 //
+// Static A8 (the `sa_static` branch of the same `_conv_prefix`, :396-404,
+// with `_quant_act_static` :293 and `fold_static_act_scales` :904): each
+// segment takes a fixed calibrated scale sa_s from the host instead of an
+// amax, with `inv = bf16(1 / sa_s)` rounded once from the host's double and
+// `sc_s = sw[s, o] * float(sa_s)`; the rest is the same chain. No amax is
+// read, and none is written.
+//
 // What bounds it on the H100: at nf 64 an RDB does 9.94e11 int8 operations
 // at 1080p against 0.53 GB of bf16 in and out, so its bound is the tensor
 // cores' 1979 TOPS dense int8 (0.50 ms per RDB). This first design runs
@@ -82,6 +89,8 @@ struct I8Args {
   int seg[kMaxSeg + 1];
   int act;  // 0 none, 1 lrelu(0.2), 2 prelu
   float s1, s2;
+  float sa[kMaxSeg];    // static A8: the segments' fixed scales
+  float inv[kMaxSeg];   // static A8: bf16(1 / sa), held as float
 };
 
 __device__ __forceinline__ float act_scale(float amax) {
@@ -112,6 +121,8 @@ __device__ __forceinline__ void block_amax(float m, float* s_red,
   }
 }
 
+// STATIC: the segments' scales come from a.sa / a.inv, not from a.amax
+template <bool STATIC>
 __global__ void __launch_bounds__(kThreads) conv3x3_i8_kernel(const I8Args a) {
   __shared__ __align__(16) int s_mem[IN + WT];
   __shared__ float s_red[kThreads / 32];
@@ -135,9 +146,14 @@ __global__ void __launch_bounds__(kThreads) conv3x3_i8_kernel(const I8Args a) {
 
   for (int s = 0; s < a.nseg; ++s) {
     const int lo = a.seg[s], hi = a.seg[s + 1];
-    const float sa = act_scale(a.amax[n * a.as + s]);
-    const float inv =
-        __bfloat162float(__float2bfloat16_rn(__fdiv_rn(1.0f, sa)));
+    float sa, inv;
+    if constexpr (STATIC) {
+      sa = a.sa[s];
+      inv = a.inv[s];
+    } else {
+      sa = act_scale(a.amax[n * a.as + s]);
+      inv = __bfloat162float(__float2bfloat16_rn(__fdiv_rn(1.0f, sa)));
+    }
 #pragma unroll
     for (int p = 0; p < 8; ++p)
 #pragma unroll
@@ -288,15 +304,21 @@ __global__ void __launch_bounds__(256)
 extern "C" {
 
 // Returns the cudaError_t of the launch. out_amax must be zeroed by the
-// caller (atomicMax of values >= 0).
+// caller (atomicMax of values >= 0). Static A8: `sa` and `inv` are host
+// arrays of nseg floats (the fixed scales and bf16(1 / sa)), and `amax` and
+// `out_amax` are null; dynamic A8: `sa` and `inv` are null.
 int vr_conv3x3_i8(const void* x, const void* amax, const void* w,
                   const void* sw, const void* b, const void* alpha,
                   const void* r1, const void* r2, void* y, void* out_amax,
                   int B, int H, int W, int cin, int cout, long long xs,
                   long long ys, long long r1s, long long r2s, long long as,
-                  long long os, int nseg, const int* seg, int act, float s1,
-                  float s2, void* stream) {
+                  long long os, int nseg, const int* seg, const float* sa,
+                  const float* inv, int act, float s1, float s2,
+                  void* stream) {
   if (nseg < 1 || nseg > kMaxSeg || seg[0] != 0 || seg[nseg] != cin)
+    return cudaErrorInvalidValue;
+  if ((sa == nullptr) != (inv == nullptr) ||
+      (sa ? amax != nullptr || out_amax != nullptr : amax == nullptr))
     return cudaErrorInvalidValue;
   I8Args a;
   a.x = static_cast<const __nv_bfloat16*>(x);
@@ -314,9 +336,17 @@ int vr_conv3x3_i8(const void* x, const void* amax, const void* w,
   a.nseg = nseg;
   for (int i = 0; i <= kMaxSeg; ++i) a.seg[i] = i <= nseg ? seg[i] : cin;
   a.act = act; a.s1 = s1; a.s2 = s2;
+  for (int i = 0; i < kMaxSeg; ++i) {
+    a.sa[i] = sa && i < nseg ? sa[i] : 0.f;
+    a.inv[i] = sa && i < nseg ? inv[i] : 0.f;
+  }
   const int tiles = ((W + TW - 1) / TW) * ((H + TH - 1) / TH);
   const dim3 grid(tiles, (cout + CO - 1) / CO, B);
-  conv3x3_i8_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (sa)
+    conv3x3_i8_kernel<true><<<grid, kThreads, 0, st>>>(a);
+  else
+    conv3x3_i8_kernel<false><<<grid, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 

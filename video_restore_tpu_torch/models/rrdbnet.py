@@ -33,6 +33,17 @@ default ``"stripe"`` body's 15 K1 launches. As in JAX (``zoo.py:154``),
 int8 applies only to the stripe body: ``"pallas"`` keeps the compute dtype.
 :func:`body_mode` resolves the mode the way the JAX ``default_use_pallas``
 does.
+
+``prepare(..., tail="q")`` selects the one-launch tail of the JAX
+``VRT_TAIL_Q=1`` (``rrdbnet.py:783-800``): one K6 launch
+(``ops/tail.py::tail_fused_q``) in place of the default ``"chain"`` tail's
+three K1 launches, for the nets with two upsample stages. It is
+independent of the body mode and of the precision; :func:`tail_mode`
+resolves it from the knob.
+
+:func:`calibrate_rdb_act_scales` gives the fixed activation scales of the
+static-A8 int8 RDB (``ops/stripe.py::rdb_fused_i8(..., sas=)``); as in JAX,
+no model or CLI path takes them.
 """
 
 from __future__ import annotations
@@ -63,8 +74,11 @@ from video_restore_tpu_torch.ops.stripe import (
 from video_restore_tpu_torch.ops.tail import (
     conv3x3_fused,
     conv3x3_fused_plain,
+    conv3x3_plain,
     tail_fused,
     tail_fused_plain,
+    tail_fused_q,
+    tail_fused_q_plain,
     up1_fused,
     up1_fused_plain,
 )
@@ -172,6 +186,40 @@ def body_mode(device) -> str:
     return "pallas" if torch.device(device).type == "cuda" else "stripe"
 
 
+TAIL_MODES = ("chain", "q")
+
+
+def tail_mode(device) -> str:
+    """The tail mode for ``device``: ``"q"`` (one K6 launch) when
+    ``VRT_TAIL_Q=1`` and the device is a CUDA device, else ``"chain"``
+    (three K1 launches). JAX reads the knob only where its tail kernels run
+    (``default_use_tail_kernel``, ``rrdbnet.py:939-955``: the TPU); on the
+    CPU it changes nothing, there or here."""
+    if os.environ.get("VRT_TAIL_Q") != "1":
+        return "chain"
+    return "q" if torch.device(device).type == "cuda" else "chain"
+
+
+@torch.no_grad()
+def calibrate_rdb_act_scales(ws, bs, x: torch.Tensor, margin: float = 1.0):
+    """Static activation scales of one RDB for ``rdb_fused_i8(..., sas=)``
+    (``rrdbnet.py:162-192`` of the JAX package): ``max(|t|max, 1e-12) *
+    margin / 127`` for t in (x, c1 .. c4), the dense block's intermediates
+    on representative data ``x`` (B, H, W, nf), computed in fp32 through the
+    plain conv. ws, bs: the five torch-ordered HWIO weights and biases.
+    Returns five python floats."""
+    feats = [x.float()]
+    for k in range(4):
+        feats.append(
+            conv3x3_plain(
+                torch.cat(feats, -1), ws[k].float(), bs[k].float(), act="lrelu"
+            )
+        )
+    return tuple(
+        max(float(t.abs().max()), 1e-12) * margin / 127.0 for t in feats
+    )
+
+
 class RRDBNet(nn.Module):
     """RRDBNet on NHWC activations: (N, H, W, 3) in [0, 1] -> (N, H*s, W*s, 3)
     in the module's dtype."""
@@ -190,22 +238,27 @@ class RRDBNet(nn.Module):
         self.conv_last = Conv3x3(nf, spec.num_out_ch)
         self.precision = "bf16"
         self.mode = "stripe"
+        self.tail = "chain"
 
     @torch.no_grad()
     def prepare(
         self, dtype: torch.dtype, device, precision: str = "bf16",
-        mode: str = "stripe",
+        mode: str = "stripe", tail: str = "chain",
     ) -> "RRDBNet":
         """Move the weights once to the compute dtype and device (biases
         included, as the JAX zoo casts every leaf). They stay contiguous
         HWIO, the layout K1 and K5 read, so no per-call packing is left.
         ``mode`` picks the body (:data:`MODES`). With ``precision="int8"``
         and the stripe body every RDB also quantises its cast weights (the
-        W8A8 body); the pallas body ignores int8. Returns self."""
+        W8A8 body); the pallas body ignores int8. ``tail`` picks the tail
+        (:data:`TAIL_MODES`), whatever the body. Returns self."""
         if mode not in MODES:
             raise ValueError(f"unknown RRDBNet body mode {mode!r}")
+        if tail not in TAIL_MODES:
+            raise ValueError(f"unknown RRDBNet tail mode {tail!r}")
         self.to(device=device, dtype=dtype)
         self.mode = mode
+        self.tail = tail
         self.precision = "bf16" if mode == "pallas" and precision == "int8" else precision
         if self.precision == "int8":
             for blk in self.body:
@@ -245,7 +298,10 @@ class RRDBNet(nn.Module):
         up1 = up1_fused_plain if plain else up1_fused
         feat = up1(feat, self.conv_up1.w, self.conv_up1.b)
         if spec.num_upsample == 2:
-            tail = tail_fused_plain if plain else tail_fused
+            if self.tail == "q":
+                tail = tail_fused_q_plain if plain else tail_fused_q
+            else:
+                tail = tail_fused_plain if plain else tail_fused
             return tail(
                 feat,
                 self.conv_up2.w, self.conv_up2.b,

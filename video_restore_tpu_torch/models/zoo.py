@@ -76,12 +76,16 @@ class ModelHandle:
     ) -> Union[RRDBNet, SRVGGNet]:
         """The prepared network in ``dtype`` on ``device``; ``precision``
         "int8" selects the W8A8 body, and an RRDBNet's body mode follows
-        ``VRT_PALLAS`` on a CUDA device (``zoo.py:120-157`` of the JAX
-        package, ``rrdbnet.body_mode``)."""
+        ``VRT_PALLAS`` and its tail mode ``VRT_TAIL_Q`` on a CUDA device
+        (``zoo.py:120-157`` of the JAX package, ``rrdbnet.body_mode``,
+        ``rrdbnet.tail_mode``)."""
         net = _NET[type(self.spec)](self.spec)
         net.load_state_dict(self.state)
         if isinstance(net, RRDBNet):
-            return net.prepare(dtype, device, precision, rrdbnet.body_mode(device))
+            return net.prepare(
+                dtype, device, precision, rrdbnet.body_mode(device),
+                rrdbnet.tail_mode(device),
+            )
         return net.prepare(dtype, device, precision)
 
 

@@ -30,6 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "unsharp.cu", "srvgg_up.cu", "conv3x3_i8.cu", "rdb_fused.cu",
+    "tail_fused.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -146,7 +147,8 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3_i8.argtypes = [
                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                 _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-                _I, ctypes.POINTER(_I), _I, _F, _F, _P,
+                _I, ctypes.POINTER(_I), ctypes.POINTER(_F), ctypes.POINTER(_F),
+                _I, _F, _F, _P,
             ]
             lib.vr_conv3x3_i8.restype = _I
             lib.vr_amax_bf16.argtypes = [_P, _P, _I, _I, _I, _L, _L, _P]
@@ -155,6 +157,9 @@ def load() -> ctypes.CDLL:
                 # dtype, nf, gc, x, x0 | y, y | scratch, ws, bs, B, H, W, stream
                 fn.argtypes = [_I, _I, _I, _P, _P, _P, _PP, _PP, _I, _I, _I, _P]
                 fn.restype = _I
+            # dtype, nf, x, y, three (w, b) pairs, B, H2, W2, stream
+            lib.vr_tail_fused.argtypes = [_I, _I] + [_P] * 8 + [_I, _I, _I, _P]
+            lib.vr_tail_fused.restype = _I
             lib.vr_error_string.argtypes = [_I]
             lib.vr_error_string.restype = ctypes.c_char_p
             _lib = lib

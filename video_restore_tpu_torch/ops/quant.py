@@ -15,6 +15,13 @@ body kernels run with ``--precision int8``, and of what feeds it:
 - A8, dynamic (:func:`quant_act_plain`): one scale per (image, segment),
   ``sa = max(amax, 1e-12) * float32(1/127)``, then ``_quant_act`` and
   ``_round_clip_i8`` (``:239-290``) in the activation dtype.
+- A8, static (:func:`quant_act_static_plain`; ``_quant_act_static``,
+  ``:293-304``, the ``sa_static`` branch of ``_conv_prefix``, ``:396-404``):
+  one fixed calibrated scale ``sa_s`` per segment, ``inv = T(1 / sa_s)``
+  rounded once from the host's double, the same ``_round_clip_i8``, and the
+  dequant factor ``sw[s, o] * float32(sa_s)`` (``fold_static_act_scales``,
+  ``:904-914``). No amax is read or written. The ``sas`` argument of
+  :func:`conv3x3_i8` selects it.
 - The conv (:func:`conv3x3_i8`): an exact integer dot per segment,
   ``float(acc_s) * (sa_s * sw[s, o])``, summed over the segments in order,
   then K1's epilogue (bias, lrelu/PReLU, ``r1 + s1 v``, ``r2 + s2 T(v)``),
@@ -88,9 +95,26 @@ def quant_act_plain(
         amax = act_amax_plain(a)
     sa = torch.clamp(amax.float(), min=1e-12) * _INV127
     inv = (1.0 / sa).to(dt).view(-1, 1, 1, 1)
-    p = a * inv
+    return _round_clip_i8(a * inv), sa
+
+
+def _round_clip_i8(p: torch.Tensor) -> torch.Tensor:
+    """Round half away from zero in p's dtype, clip, truncate to int8."""
     p = p + torch.copysign(torch.full_like(p, 0.5), p)
-    return torch.clamp(p, -127.5, 127.5).to(torch.int8), sa
+    return torch.clamp(p, -127.5, 127.5).to(torch.int8)
+
+
+def static_act_inverse(sa: float, dt: torch.dtype) -> float:
+    """``T(1 / sa)`` of the static quantiser: the reciprocal in double on
+    the host, rounded once to the activation dtype (held as a float)."""
+    return torch.tensor(1.0 / sa, dtype=torch.float64).to(dt).item()
+
+
+def quant_act_static_plain(a: torch.Tensor, sa: float) -> torch.Tensor:
+    """A8 with a fixed scale (``_quant_act_static``): a in bf16 or fp32 ->
+    int8, ``q = round_clip(a * T(1 / sa))`` in a's dtype; values beyond
+    127 sa saturate."""
+    return _round_clip_i8(a * static_act_inverse(sa, a.dtype))
 
 
 def act_amax_plain(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -154,6 +178,7 @@ def conv3x3_i8_plain(
     s1: float = 1.0,
     r2: Optional[torch.Tensor] = None,
     s2: float = 1.0,
+    sas: Optional[Sequence[float]] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K4 (same arguments as :func:`conv3x3_i8`),
     in x's dtype (bf16, or fp32 as JAX's fp32 branch). The integer dot is
@@ -164,10 +189,15 @@ def conv3x3_i8_plain(
     bias after a single source, and the residuals."""
     dt = x.dtype
     bias = b.float()
+    _check_static(sas, len(segs) - 1, amax, out_amax)
     for s, (lo, hi) in enumerate(zip(segs[:-1], segs[1:])):
-        q, sa = quant_act_plain(x[..., lo:hi], amax[:, s])
+        if sas is None:
+            q, sa = quant_act_plain(x[..., lo:hi], amax[:, s])
+            sc = sa.view(-1, 1, 1, 1) * sw[s].float()
+        else:
+            q = quant_act_static_plain(x[..., lo:hi], sas[s])
+            sc = sw[s].float() * float(np.float32(sas[s]))
         acc = torch.round(conv2d_f32(q.float(), wq[:, :, lo:hi].float()))
-        sc = sa.view(-1, 1, 1, 1) * sw[s].float()
         if s == 0:
             y = _fma(acc, sc, bias.expand_as(acc)) if len(segs) == 2 else acc * sc
         else:
@@ -190,10 +220,20 @@ def conv3x3_i8_plain(
     return y
 
 
+def _check_static(sas, nseg, amax, out_amax) -> None:
+    """Static A8 takes one positive scale per segment and no amax."""
+    if sas is None:
+        return
+    if len(sas) != nseg or not all(float(v) > 0 for v in sas):
+        raise ValueError(f"conv3x3_i8: sas {tuple(sas)} must be {nseg} positive scales")
+    if amax is not None or out_amax is not None:
+        raise ValueError("conv3x3_i8: static A8 (sas) reads and writes no amax")
+
+
 def conv3x3_i8(
     x: torch.Tensor,
     segs: Sequence[int],
-    amax: torch.Tensor,
+    amax: Optional[torch.Tensor],
     wq: torch.Tensor,
     sw: torch.Tensor,
     b: torch.Tensor,
@@ -206,6 +246,7 @@ def conv3x3_i8(
     s1: float = 1.0,
     r2: Optional[torch.Tensor] = None,
     s2: float = 1.0,
+    sas: Optional[Sequence[float]] = None,
     counter: str,
 ) -> torch.Tensor:
     """W8A8 ``out = r2 + s2 * (r1 + s1 * act(conv3x3_SAME(x, w) + b))``.
@@ -217,13 +258,15 @@ def conv3x3_i8(
     cout) HWIO; sw: fp32 (nseg, cout). b, alpha (cout,), r1, r2 and
     ``out`` as :func:`~video_restore_tpu_torch.ops.tail.conv3x3`, in x's
     dtype. ``out_amax``: an fp32 (B,) view that receives the per-image
-    |max| of the stored output (the next conv's scale). ``counter`` names
-    the launch counter the calling wrapper owns."""
+    |max| of the stored output (the next conv's scale). ``sas``: static
+    A8, one fixed activation scale per segment (python floats) in place of
+    ``amax``, which is then None, as is ``out_amax``. ``counter`` names the
+    launch counter the calling wrapper owns."""
     nseg = len(segs) - 1
     if x.device.type == "cpu":
         return conv3x3_i8_plain(
             x, segs, amax, wq, sw, b, act=act, alpha=alpha, out=out,
-            out_amax=out_amax, r1=r1, s1=s1, r2=r2, s2=s2,
+            out_amax=out_amax, r1=r1, s1=s1, r2=r2, s2=s2, sas=sas,
         )
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_i8: unsupported device {x.device}")
@@ -244,12 +287,13 @@ def conv3x3_i8(
         raise ValueError(f"conv3x3_i8: weight {tuple(wq.shape)} {wq.dtype} != int8 (3, 3, {cin}, {cout})")
     if tuple(sw.shape) != (nseg, cout) or sw.dtype != torch.float32:
         raise ValueError(f"conv3x3_i8: scales {tuple(sw.shape)} {sw.dtype} != fp32 {(nseg, cout)}")
-    if amax.dim() != 2 or amax.shape[0] != bsz or amax.shape[1] < nseg or amax.dtype != torch.float32 or amax.stride(1) != 1:
+    _check_static(sas, nseg, amax, out_amax)
+    if sas is None and (amax.dim() != 2 or amax.shape[0] != bsz or amax.shape[1] < nseg or amax.dtype != torch.float32 or amax.stride(1) != 1):
         raise ValueError(f"conv3x3_i8: amax {tuple(amax.shape)} must be fp32 ({bsz}, >={nseg}), unit column stride")
     if out is None:
         out = torch.empty((bsz, h, wd, cout), dtype=dt, device=x.device)
-    operands = {"x": x, "wq": wq, "sw": sw, "amax": amax, "b": b, "out": out}
-    for name, t in (("alpha", alpha), ("r1", r1), ("r2", r2), ("out_amax", out_amax)):
+    operands = {"x": x, "wq": wq, "sw": sw, "b": b, "out": out}
+    for name, t in (("amax", amax), ("alpha", alpha), ("r1", r1), ("r2", r2), ("out_amax", out_amax)):
         if t is not None:
             operands[name] = t
     for name, t in operands.items():
@@ -276,18 +320,24 @@ def conv3x3_i8(
     if out_amax is not None:
         out_amax.zero_()
     seg_arr = (ctypes.c_int * (MAX_SEGMENTS + 1))(*segs)
+    sa_arr = inv_arr = None
+    if sas is not None:
+        sa_arr = (ctypes.c_float * nseg)(*(float(v) for v in sas))
+        inv_arr = (ctypes.c_float * nseg)(*(static_act_inverse(float(v), dt) for v in sas))
     lib = _build.load()
     code = lib.vr_conv3x3_i8(
-        x.data_ptr(), amax.data_ptr(), wq.data_ptr(), sw.data_ptr(),
+        x.data_ptr(), amax.data_ptr() if amax is not None else None,
+        wq.data_ptr(), sw.data_ptr(),
         b.data_ptr(),
         alpha.data_ptr() if alpha is not None else None,
         r1.data_ptr() if r1 is not None else None,
         r2.data_ptr() if r2 is not None else None,
         out.data_ptr(),
         out_amax.data_ptr() if out_amax is not None else None,
-        bsz, h, wd, cin, cout, xs, ys, r1s, r2s, amax.stride(0),
+        bsz, h, wd, cin, cout, xs, ys, r1s, r2s,
+        amax.stride(0) if amax is not None else 0,
         out_amax.stride(0) if out_amax is not None else 0,
-        nseg, seg_arr, _ACTS[act], float(s1), float(s2),
+        nseg, seg_arr, sa_arr, inv_arr, _ACTS[act], float(s1), float(s2),
         _build.stream_ptr(x),
     )
     _build.check(lib, code, "conv3x3_i8 kernel")

@@ -27,6 +27,12 @@ reading its prefix as the segments x, c1 .. c_{k-1}, each quantised with
 its own per-image scale. The |max| of each segment comes from the launch
 that wrote it (K4's output amax) or, for x, from the caller (the previous
 RDB's output amax) or the amax kernel, so no conv waits on the host.
+
+With ``sas`` (five calibrated scales for x, c1 .. c4, from
+``models/rrdbnet.py::calibrate_rdb_act_scales``) it is the static-A8 form,
+the ``sas`` arguments of ``rdb_stripe2d_padded`` / ``rdb_stripe2d_split``
+(``:1536``, ``:1976``): the same five K4 launches with fixed scales, no
+amax kernel and no amax array.
 """
 
 from __future__ import annotations
@@ -96,26 +102,40 @@ def rdb_fused_plain(x, ws, bs, x0=None):
     return _rdb(conv3x3_plain, x, ws, bs, x0)
 
 
-def _rdb_i8(conv, amax_fn, x, wq, sw, bs, x0, x_amax, **kw):
+def _rdb_i8(conv, amax_fn, x, wq, sw, bs, x0, x_amax, sas, **kw):
     grow, nf, gc = _growth_buffer(x, wq, bs)
-    # column 0: |max| of x; k: of c_k; 5: of the output
-    amax = torch.zeros((x.shape[0], 6), dtype=torch.float32, device=x.device)
-    if x_amax is None:
-        amax_fn(x, out=amax[:, 0])
+    static = sas is not None
+    if static:
+        if x_amax is not None:
+            raise ValueError("rdb_fused_i8: static A8 (sas) takes no x_amax")
+        if len(sas) != 5:
+            raise ValueError("static A8 takes five scales: x, c1 .. c4")
+        amax = None
     else:
-        amax[:, 0] = x_amax
+        # column 0: |max| of x; k: of c_k; 5: of the output
+        amax = torch.zeros((x.shape[0], 6), dtype=torch.float32, device=x.device)
+        if x_amax is None:
+            amax_fn(x, out=amax[:, 0])
+        else:
+            amax[:, 0] = x_amax
+
+    def scales(k):
+        """Conv k's A8 arguments: its k sources' fixed scales, or the
+        column that receives its output's |max|."""
+        return dict(sas=tuple(sas[:k])) if static else dict(out_amax=amax[:, k])
+
     for k in range(4):
         lo = nf + k * gc
         conv(
             grow[..., :lo], rdb_segments(nf, gc, k + 1), amax, wq[k], sw[k],
             bs[k], act="lrelu", out=grow[..., lo : lo + gc],
-            out_amax=amax[:, k + 1], **kw,
+            **scales(k + 1), **kw,
         )
     out = conv(
         grow, rdb_segments(nf, gc, 5), amax, wq[4], sw[4], bs[4],
-        r1=grow[..., :nf], s1=0.2, r2=x0, s2=0.2, out_amax=amax[:, 5], **kw,
+        r1=grow[..., :nf], s1=0.2, r2=x0, s2=0.2, **scales(5), **kw,
     )
-    return out, amax[:, 5]
+    return out, None if static else amax[:, 5]
 
 
 def rdb_fused_i8(
@@ -125,7 +145,8 @@ def rdb_fused_i8(
     bs: Sequence[torch.Tensor],
     x0: Optional[torch.Tensor] = None,
     x_amax: Optional[torch.Tensor] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    sas: Optional[Sequence[float]] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One W8A8 RDB, optionally with the RRDB residual: returns the output
     (as :func:`rdb_fused`) and its per-image |max| (fp32 (B,)), which is
     the next RDB's ``x_amax``.
@@ -134,11 +155,16 @@ def rdb_fused_i8(
     their fp32 scales (k, cout) for conv k (one row per source segment,
     ``quant.quantize_conv_weights``); bs: the biases in x's dtype; x_amax:
     x's per-image |max| (computed by the amax kernel when not given). Five
-    K4 launches on CUDA, the plain version on the CPU."""
+    K4 launches on CUDA, the plain version on the CPU.
+
+    sas: static A8, the fixed activation scales of x, c1 .. c4 (python
+    floats); ``x_amax`` is then not taken, no amax is computed and the
+    returned |max| is None."""
     return _rdb_i8(
-        conv3x3_i8, act_amax, x, wq, sw, bs, x0, x_amax, counter="rdb_fused_i8"
+        conv3x3_i8, act_amax, x, wq, sw, bs, x0, x_amax, sas,
+        counter="rdb_fused_i8",
     )
 
 
-def rdb_fused_i8_plain(x, wq, sw, bs, x0=None, x_amax=None):
-    return _rdb_i8(conv3x3_i8_plain, act_amax_plain, x, wq, sw, bs, x0, x_amax)
+def rdb_fused_i8_plain(x, wq, sw, bs, x0=None, x_amax=None, sas=None):
+    return _rdb_i8(conv3x3_i8_plain, act_amax_plain, x, wq, sw, bs, x0, x_amax, sas)

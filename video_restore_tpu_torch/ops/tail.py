@@ -1,4 +1,5 @@
-"""The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3.cu``).
+"""The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3.cu``),
+and the one-launch tail on kernel K6 (``csrc/tail_fused.cu``).
 
 Port of ``video_restore_tpu/ops/pallas_tail.py``:
 
@@ -11,7 +12,20 @@ Port of ``video_restore_tpu/ops/pallas_tail.py``:
 - :func:`tail_fused` replaces ``tail_fused_raw`` (``:266``) and
   ``tail_fused`` (``:425``): upconv2 (lrelu, nearest 2x) -> conv_hr (lrelu)
   -> conv_last, three K1 launches with intermediates in the activation
-  dtype, as the Pallas tail rounds them (``pallas_tail.py:188-212``).
+  dtype, as the Pallas tail rounds them (``pallas_tail.py:188-212``);
+- :func:`tail_fused_q` replaces ``tail_fused_q`` (``pallas_tail.py:1018``,
+  the ``VRT_TAIL_Q=1`` tail): the same function as :func:`tail_fused` in
+  one K6 launch that reads up1's output and keeps both 64-channel
+  intermediates in shared memory, each zeroed outside the frame and rounded
+  to the activation dtype as it is stored (``_tail_q_kernel``'s ``post_u2``
+  and ``post_hr``). What is not carried over is the TPU layout: the 4-way
+  column packing with its structural-zero weight matrices
+  (``wsd_kernel_r``, ``:907``) and up1's ``masked=True`` raw output of
+  (b, o) lane pairs exist to fill 128 lanes; here x is a plain NHWC tensor
+  and the weights are read as given. The JAX knob's verdict on the TPU
+  (``docs/KNOBS.md``: a dead end there, for the MACs the packing spends on
+  structural zeros) says nothing about this card: a tile kernel has no such
+  zeros, only a recomputed halo.
 
 :func:`conv3x3` is the binding of K1 itself, with :func:`conv3x3_plain`,
 its plain PyTorch version, beside it. A wrapper given a CPU tensor runs the
@@ -226,3 +240,63 @@ def tail_fused_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last):
     f = conv3x3_plain(x, w_up2, b_up2, act="lrelu", upsample2=True)
     f = conv3x3_plain(f, w_hr, b_hr, act="lrelu")
     return conv3x3_plain(f, w_last, b_last)
+
+
+def tail_fused_q(
+    x: torch.Tensor,
+    w_up2: torch.Tensor,
+    b_up2: torch.Tensor,
+    w_hr: torch.Tensor,
+    b_hr: torch.Tensor,
+    w_last: torch.Tensor,
+    b_last: torch.Tensor,
+) -> torch.Tensor:
+    """:func:`tail_fused` in one launch (``pallas_tail.py:1018``): x (B, H2,
+    W2, nf), up1's output, -> (B, 2 H2, 2 W2, 3), with upconv2's and
+    conv_hr's outputs kept on chip. One K6 launch on CUDA (fp32 or bf16,
+    nf 64 or 16, contiguous operands) or an error; the plain version on the
+    CPU."""
+    if x.device.type == "cpu":
+        return tail_fused_q_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
+    if x.device.type != "cuda":
+        raise ValueError(f"tail_fused_q: unsupported device {x.device}")
+    dt = x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"tail_fused_q: dtype {dt} not supported (fp32, bf16)")
+    if x.dim() != 4:
+        raise ValueError(f"tail_fused_q: x must be NHWC, got {tuple(x.shape)}")
+    bsz, h2, w2, nf = x.shape
+    if nf not in (64, 16):
+        raise ValueError(f"tail_fused_q: nf {nf} not built (64, 16)")
+    shapes = {
+        "x": (x, (bsz, h2, w2, nf)),
+        "w_up2": (w_up2, (3, 3, nf, nf)), "b_up2": (b_up2, (nf,)),
+        "w_hr": (w_hr, (3, 3, nf, nf)), "b_hr": (b_hr, (nf,)),
+        "w_last": (w_last, (3, 3, nf, 3)), "b_last": (b_last, (3,)),
+    }
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"tail_fused_q: {name} shape {tuple(t.shape)} != {shape}")
+        if t.device != x.device or t.dtype != dt:
+            raise ValueError(
+                f"tail_fused_q: {name} is {t.dtype} on {t.device}, expected "
+                f"{dt} on {x.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"tail_fused_q: {name} must be contiguous")
+    out = torch.empty((bsz, 2 * h2, 2 * w2, 3), dtype=dt, device=x.device)
+    lib = _build.load()
+    code = lib.vr_tail_fused(
+        _DTYPES[dt], nf, x.data_ptr(), out.data_ptr(),
+        w_up2.data_ptr(), b_up2.data_ptr(), w_hr.data_ptr(), b_hr.data_ptr(),
+        w_last.data_ptr(), b_last.data_ptr(), bsz, h2, w2,
+        _build.stream_ptr(x),
+    )
+    _build.check(lib, code, "tail_fused_q kernel")
+    _build.count_launch("tail_fused_q")
+    return out
+
+
+# the same function with the same rounding points: both intermediates in the
+# activation dtype, SAME zero padding at the frame edge of each conv
+tail_fused_q_plain = tail_fused_plain

@@ -7,10 +7,10 @@ output of each feeding the next) and the same useful-MAC count for TF/s.
 Weights come from a seed (Kaiming fan-in x 0.1, the body init of
 ``models/rrdbnet.py::init_params``).
 
-    python -m video_restore_tpu_torch.tools.bench_rdb [k1|fused|rrdb|int8 ...]
-        [--cpu] [--shape B,H,W]
+    python -m video_restore_tpu_torch.tools.bench_rdb
+        [k1|fused|rrdb|int8|int8s ...] [--cpu] [--shape B,H,W]
 
-Modes (default: all four):
+Modes (default: all five):
 
 - ``k1``: the default body's RDB, five K1 launches
   (``ops/stripe.py::rdb_fused``);
@@ -20,7 +20,12 @@ Modes (default: all four):
   counterpart of ``rrdb:BH`` / ``rrdbp:BH`` (``rrdb_stripe_padded``),
   ceil(23 / 3) RRDBs per step, reported per RDB;
 - ``int8``: the W8A8 RDB, five K4 launches (``ops/stripe.py::rdb_fused_i8``),
-  the counterpart of ``s2q``.
+  the counterpart of ``s2q``;
+- ``int8s``: the static-A8 W8A8 RDB, the same five K4 launches with fixed
+  activation scales and no amax (``rdb_fused_i8(..., sas=)``), the
+  counterpart of ``s2qs``: the scales are calibrated in fp32 on the first
+  image's 128x128 crop of the bench input
+  (``models/rrdbnet.py::calibrate_rdb_act_scales``), as the JAX tool does.
 
 The JAX tool's other modes (``accum``, ``regroup``, ``old64``, the 2D
 blocks ``s2d``/``s2s``, the packed or im2col contractions, ``acc_bf16``)
@@ -45,7 +50,7 @@ import torch
 NF, GC = 64, 32
 SHAPE = (4, 384, 504)
 REPS = 23  # RDB applications per timed step (one 23-block model's rdb1s)
-MODES = ("k1", "fused", "rrdb", "int8")
+MODES = ("k1", "fused", "rrdb", "int8", "int8s")
 
 
 def useful_flops(b: int, h: int, w: int, nf: int = NF, gc: int = GC) -> int:
@@ -67,9 +72,11 @@ def rdb_weights(gen: torch.Generator, nf: int = NF, gc: int = GC):
     return ws, bs
 
 
-def _steps(mode: str, ws, bs, plain: bool):
+def _steps(mode: str, ws, bs, x: torch.Tensor, plain: bool):
     """(one application, applications per timed step) for ``mode``; an
-    application maps x -> x (int8: (x, amax) -> (x, amax))."""
+    application maps x -> x (int8: (x, amax) -> (x, amax)). ``x`` is the
+    bench input, which ``int8s`` calibrates on."""
+    from video_restore_tpu_torch.models.rrdbnet import calibrate_rdb_act_scales
     from video_restore_tpu_torch.ops import quant, rdb, stripe
 
     if mode == "k1":
@@ -82,13 +89,16 @@ def _steps(mode: str, ws, bs, plain: bool):
         fn = rdb.rrdb_fused_plain if plain else rdb.rrdb_fused
         three = [(ws, bs)] * 3
         return (lambda h: fn(h, three)), -(-REPS // 3)
-    if mode == "int8":
+    if mode in ("int8", "int8s"):
         qs = [
             quant.quantize_conv_weights(ws[k], quant.rdb_segments(NF, GC, k + 1))
             for k in range(5)
         ]
         wq, sw = [q for q, _ in qs], [s for _, s in qs]
         fn = stripe.rdb_fused_i8_plain if plain else stripe.rdb_fused_i8
+        if mode == "int8s":
+            sas = calibrate_rdb_act_scales(ws, bs, x[:1, :128, :128])
+            return (lambda h: fn(h, wq, sw, bs, sas=sas)[0]), REPS
         return (lambda h: fn(h[0], wq, sw, bs, x_amax=h[1])), REPS
     raise ValueError(f"unknown mode {mode!r} (expected one of {MODES})")
 
@@ -115,7 +125,7 @@ def bench(
     flops = useful_flops(b, h, w)
     records = []
     for mode in modes:
-        app, per_step = _steps(mode, ws, bs, plain=not on_card)
+        app, per_step = _steps(mode, ws, bs, x, plain=not on_card)
         rdbs_per_app = 3 if mode == "rrdb" else 1
         h0 = x
         if mode == "int8":
@@ -124,7 +134,7 @@ def bench(
             h0 = (x, (act_amax if on_card else act_amax_plain)(x))
         rec: Dict = dict(mode=mode, shape=[b, h, w, NF], device=str(dev))
         if on_card:
-            ref, _ = _steps(mode, ws, bs, plain=True)
+            ref, _ = _steps(mode, ws, bs, x, plain=True)
             k, p = app(h0), ref(h0)
             k, p = (k[0], p[0]) if mode == "int8" else (k, p)
             rec["err"] = (k.float() - p.float()).abs().max().item()
