@@ -3,17 +3,34 @@
 
 Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only NAME[,NAME...]]
+
+``--only`` runs a subset for a quick probe: any of ``k1`` (K1's tensor-core
+route alone: its odd-shape checks and the old and new kernel side by side),
+``kernels`` (all of phase 3), ``paths`` (phases 4-10) or single path tags
+(``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
+``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``),
+``bench`` (phase 11). Phases 1 and 2 always run. A partial run prints
+neither the per-kernel record nor the final ``{"ok": true, ...}`` line; the
+run that counts is the one without arguments.
 
 Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
-   ``conv3x3.cu``, K2 ``unsharp.cu``, K3 ``srvgg_up.cu``, K4
+   ``conv3x3_mma.cu`` on ``mma_tile.cuh`` and ``conv3x3.cu``, K2
+   ``unsharp.cu``, K3 ``srvgg_up.cu``, K4
    ``conv3x3_i8.cu`` with its amax entry point, K5 ``rdb_fused.cu`` with
    its one-RDB and whole-RRDB entry points, K6 ``tail_fused.cu``), and
    print each kernel's registers and spills from ``ptxas``;
-3. every kernel wrapper against its plain PyTorch version on the card, in
+3. K1's tensor-core route (``conv3x3:mma``) first: every single conv at odd
+   shapes in bf16 (ragged 2x37x53, a frame smaller than one tile, each
+   activation, the residuals, the growth-buffer slices with cin 64..192,
+   ``upsample2``) within one bf16 step of its plain version per value and
+   of a float64 conv of the same inputs, each launch counted under its
+   route; then one 1080p RDB on the old kernel (``conv3x3:fma``, forced)
+   and on the new one, side by side, with each conv's time. Then
+   every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
    phase 7's tile batch), with kernel, plain and library times (one cuDNN
@@ -37,7 +54,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    input, unsharp 0.3, temporal EMA; full frame; bf16) with every launch
    counter reset before and read after: 3 frames of 7680x4320 out, decoded
    == inferred == encoded, and each wrapper launched exactly its per-frame
-   count times 3;
+   count times 3, K1 351 times per frame of which 349 on the ``mma`` route
+   and 2 (stem, ``conv_last``) on ``fma``; the ``auto_full_frame`` estimate
+   is printed beside the measured peak memory;
 5. the same frames through the kernel path and the plain path on the card:
    >= 45 dB PSNR on u8, and the CLI's output equal to the kernel path's
    frames after the y4m colour round trip;
@@ -80,6 +99,7 @@ and are removed at the end.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -123,14 +143,21 @@ PALLAS = {
     # K4, static A8: the sa_static branch of _conv_prefix (_quant_act_static),
     # the sas arguments of #2 and #3; its launches count under rdb_fused_i8
     "rdb_fused_i8 static": "video_restore_tpu/ops/pallas_stripe.py:293",
+    # K1's tensor-core route, timed on conv_body + residual: the dense-block
+    # convs of #2-#4, #9, #10, conv_body (#1), up1 (#5), upconv2 and conv_hr
+    # (#6, #7) and the SRVGG body (#14-#16)
+    "conv3x3:mma": "video_restore_tpu/ops/pallas_stripe.py:1963",
 }
 SOURCE = {
+    # K1 is two kernels (ops/tail.py::conv3x3_route). This row times the stem
+    # (cin 3), which stays on the fp32-FMA kernel; conv_body is conv3x3:mma's
     "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
-    "rdb_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
-    "up1_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
-    "tail_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
+    "rdb_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
+    "up1_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
+    # upconv2 and conv_hr; conv_last (cout 3) runs on conv3x3.cu
+    "tail_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp.cu",
-    "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3.cu",
+    "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up.cu",
     "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
@@ -139,7 +166,13 @@ SOURCE = {
     "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused.cu",
     "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused.cu",
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
+    "conv3x3:mma": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
 }
+PATH_TAGS = (
+    "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
+    "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
+)
+PHASES = ("k1", "kernels", "paths", "bench") + PATH_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -163,7 +196,22 @@ def _run(cmd) -> str:
     return (r.stdout or r.stderr).strip()
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="chip smoke test of the PyTorch/CUDA port")
+    ap.add_argument(
+        "--only", default="",
+        help=f"comma-separated subset of {', '.join(PHASES)} (default: everything)",
+    )
+    args = ap.parse_args(argv)
+    only = {n for n in args.only.split(",") if n}
+    if only - set(PHASES):
+        ap.error(f"--only: unknown {sorted(only - set(PHASES))}; choose from {PHASES}")
+
+    def want(*names):
+        """Whether a phase runs: always in a full run; in a partial run when
+        one of its names was asked for."""
+        return not only or bool(only.intersection(names))
+
     import torch
 
     if not torch.cuda.is_available():
@@ -265,88 +313,14 @@ def main() -> int:
             (rnd(n, nf, scale=0.2, dt=torch.float32) + 0.2).to(dt),
         )
 
-    # odd shapes, fp32 and bf16
-    for dt in (torch.float32, torch.bfloat16):
-        b, h, w = 2, 37, 53
-        for cin, cout, act, res in (
-            (3, 64, "none", False), (64, 64, "none", True),
-            (64, 64, "lrelu", False), (64, 64, "prelu", False),
-            (64, 3, "none", False),
-        ):
-            x = rnd(b, h, w, cin, dt=dt)
-            wt = rnd(3, 3, cin, cout, scale=0.05, dt=dt)
-            bias = rnd(cout, scale=0.1, dt=dt)
-            al = rnd(cout, scale=0.3, dt=dt) if act == "prelu" else None
-            r = rnd(b, h, w, cout, dt=dt) if res else None
-            k = tail.conv3x3_fused(x, wt, bias, r, al, act=act)
-            p = tail.conv3x3_fused_plain(x, wt, bias, r, al, act=act)
-            e = compare(f"conv3x3_fused {cin}->{cout} {act}", k, p, dt)
-            msg = f"[check] conv3x3_fused {dt} {b}x{h}x{w} {cin}->{cout} act={act} res={res} err={e:.3g}"
-            if dt == torch.float32 and act == "none" and not res:
-                e64 = (k.double().cpu() - conv_ref64(x, wt, bias)).abs().max().item()
-                check(e64 <= 1e-4, f"conv3x3_fused vs float64: {e64:.3g}")
-                msg += f" err_vs_f64={e64:.3g}"
-            log(msg)
-        x = rnd(b, h, w, 64, dt=dt)
-        wt, bias = rnd(3, 3, 64, 64, scale=0.05, dt=dt), rnd(64, scale=0.1, dt=dt)
-        e = compare("up1_fused", tail.up1_fused(x, wt, bias), tail.up1_fused_plain(x, wt, bias), dt)
-        log(f"[check] up1_fused {dt} {b}x{h}x{w} err={e:.3g}")
-        tw = tail_weights(64, dt)
-        e = compare("tail_fused", tail.tail_fused(x, *tw), tail.tail_fused_plain(x, *tw), dt)
-        log(f"[check] tail_fused {dt} {b}x{h}x{w} err={e:.3g}")
-        # K6 at odd shapes: doubled extents that no 16x28 (bf16) or 8x12
-        # (fp32) tile divides, and a frame smaller than one tile
-        for nf_, shp in ((16, (1, 19, 23)), (64, (b, h, w)), (16, (2, 4, 3))):
-            xq, tq = rnd(*shp, nf_, dt=dt), tail_weights(nf_, dt)
-            kq = tail.tail_fused_q(xq, *tq)
-            check(kq.shape == (shp[0], 2 * shp[1], 2 * shp[2], 3) and kq.dtype == dt,
-                  f"tail_fused_q shape {kq.shape}")
-            e = compare("tail_fused_q", kq, tail.tail_fused_q_plain(xq, *tq), dt)
-            e1 = (kq.float() - tail.tail_fused(xq, *tq).float()).abs().max().item()
-            log(f"[check] tail_fused_q {dt} {shp} nf {nf_} err={e:.3g} vs_three_K1={e1:.3g}")
-        ws, bs = rdb_weights(64, 32, dt)
-        for x0 in (None, rnd(b, h, w, 64, dt=dt)):
-            e = compare(
-                "rdb_fused", stripe.rdb_fused(x, ws, bs, x0),
-                stripe.rdb_fused_plain(x, ws, bs, x0), dt,
-            )
-            log(f"[check] rdb_fused {dt} {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
-        # K5 at odd shapes: frames that no 8- or 16-pixel tile divides
-        for nf_, gc_, shp in ((16, 8, (1, 37, 53)), (64, 32, (b, h, w)), (16, 8, (2, 8, 5))):
-            x5 = rnd(*shp, nf_, dt=dt)
-            w5 = [rdb_weights(nf_, gc_, dt) for _ in range(3)]
-            for x0 in (None, rnd(*shp, nf_, dt=dt)):
-                e = compare(
-                    "rdb_fused_k5", rdb.rdb_fused(x5, *w5[0], x0),
-                    rdb.rdb_fused_plain(x5, *w5[0], x0), dt,
-                )
-                log(f"[check] rdb_fused_k5 {dt} {shp} nf {nf_} gc {gc_} x0={x0 is not None} err={e:.3g}")
-            e = compare("rrdb_fused", rdb.rrdb_fused(x5, w5), rdb.rrdb_fused_plain(x5, w5), dt)
-            log(f"[check] rrdb_fused {dt} {shp} nf {nf_} gc {gc_} err={e:.3g}")
-        sw = srvgg_weights(4, 64, dt)
-        e = compare("srvgg_body", srvgg.srvgg_body(x, *sw), srvgg.srvgg_body_plain(x, *sw), dt)
-        log(f"[check] srvgg_body {dt} {b}x{h}x{w} 4 convs err={e:.3g}")
-        xin = rnd(b, h, w, 3, dt=dt).abs()
-        for r in srvgg.UP_SCALES:
-            wo, bo = rnd(3, 3, 64, 3 * r * r, scale=0.05, dt=dt), rnd(3 * r * r, scale=0.1, dt=dt)
-            k = srvgg.srvgg_up_fused(x, wo, bo, xin, r)
-            p = srvgg.srvgg_up_fused_plain(x, wo, bo, xin, r)
-            check(k.shape == (b, r * h, r * w, 3) and k.dtype == dt, f"srvgg_up_fused shape {k.shape}")
-            e = compare(f"srvgg_up_fused r={r}", k, p, dt)
-            log(f"[check] srvgg_up_fused {dt} {b}x{h}x{w} r={r} err={e:.3g}")
-    for thr in (0.0, 0.02):
-        xf = torch.rand(2, 37, 53, 3, generator=gen).to(dev)
-        e = compare(
-            "unsharp_fused", unsharp.unsharp_fused(xf, 0.3, 1.5, 4, thr),
-            post.unsharp_mask(xf, 0.3, 1.5, 4, thr), torch.float32,
-        )
-        log(f"[check] unsharp_fused fp32 2x37x53 threshold={thr} err={e:.3g}")
 
-    def bf16_steps(name, k, p, n=1):
+    def bf16_steps(name, k, p, n=1, floor=2.0**-126):
         """Per value, |kernel - plain| in bf16 steps (2^-7 relative) of the
-        larger magnitude; fails above ``n``."""
+        larger magnitude; fails above ``n``. ``floor``: the least magnitude a
+        step is taken at (for sums in another order: a value that cancels to
+        nearly 0 carries the fp32 rounding of its terms, not of itself)."""
         k, p = k.float(), p.float()
-        mag = torch.maximum(k.abs(), p.abs()).clamp_min(2.0**-126)
+        mag = torch.maximum(k.abs(), p.abs()).clamp_min(floor)
         d = (k - p).abs()
         worst = (d / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
         check(worst <= n, f"{name}: kernel vs plain {worst:.2f} bf16 steps > {n}")
@@ -363,383 +337,579 @@ def main() -> int:
         q = [quant.quantize_conv_weights(w_, (0, nf)) for w_ in sw_[0]]
         return sw_, torch.stack([a for a, _ in q]), torch.cat([s_ for _, s_ in q])
 
-    # K4 at odd shapes, bf16: each RDB conv (1..5 segments) and an SRVGG conv
-    b, h, w = 2, 37, 53
-    ws8, bs8, wq8, sw8 = i8_rdb(64, 32)
-    grow = rnd(b, h, w, 64 + 4 * 32)
-    amax = torch.zeros(b, 6, device=dev)
-    segs5 = quant.rdb_segments(64, 32, 5)
-    SAS_ODD = (0.0075, 0.0079, 0.0081, 0.0068, 0.0090)
-    for s_ in range(5):
-        quant.act_amax(grow[..., segs5[s_] : segs5[s_ + 1]], out=amax[:, s_])
-        check(
-            torch.equal(amax[:, s_], quant.act_amax_plain(grow[..., segs5[s_] : segs5[s_ + 1]])),
-            "act_amax != its plain version",
-        )
-    for k_ in range(5):
-        segs = quant.rdb_segments(64, 32, k_ + 1)
-        kw = (dict(act="lrelu") if k_ < 4 else
-              dict(r1=grow[..., :64], s1=0.2, r2=rnd(b, h, w, 64), s2=0.2))
-        oa, pa = torch.zeros(b, device=dev), torch.zeros(b, device=dev)
-        args = (grow[..., : segs[-1]], segs, amax, wq8[k_], sw8[k_], bs8[k_])
-        ko = quant.conv3x3_i8(*args, out_amax=oa, counter="check", **kw)
-        po = quant.conv3x3_i8_plain(*args, out_amax=pa, **kw)
-        e, st = bf16_steps(f"conv3x3_i8 RDB conv{k_ + 1}", ko, po)
-        check(torch.equal(oa, pa), f"conv3x3_i8 conv{k_ + 1}: output amax {oa} != {pa}")
-        log(f"[check] conv3x3_i8 bf16 {b}x{h}x{w} RDB conv{k_ + 1} ({k_ + 1} segments) err={e:.3g} steps={st:.2f}")
-        # static A8: fixed scales below the segments' |max| / 127, so some
-        # values saturate; no amax in or out
-        args = (grow[..., : segs[-1]], segs, None, wq8[k_], sw8[k_], bs8[k_])
-        ko = quant.conv3x3_i8(*args, sas=SAS_ODD[: k_ + 1], counter="check", **kw)
-        po = quant.conv3x3_i8_plain(*args, sas=SAS_ODD[: k_ + 1], **kw)
-        e, st = bf16_steps(f"conv3x3_i8 static RDB conv{k_ + 1}", ko, po)
-        log(f"[check] conv3x3_i8 static bf16 {b}x{h}x{w} RDB conv{k_ + 1} ({k_ + 1} segments) err={e:.3g} steps={st:.2f}")
-    sw4, swq4, ssw4 = i8_srvgg(1, 64)
-    x = rnd(b, h, w, 64)
-    ax = quant.act_amax(x)[:, None].contiguous()
-    args = (x, (0, 64), ax, swq4[0], ssw4, sw4[1][0])
-    kw = dict(act="prelu", alpha=sw4[2][0])
-    e, st = bf16_steps("conv3x3_i8 SRVGG conv", quant.conv3x3_i8(*args, counter="check", **kw),
-                       quant.conv3x3_i8_plain(*args, **kw))
-    log(f"[check] conv3x3_i8 bf16 {b}x{h}x{w} SRVGG conv (prelu) err={e:.3g} steps={st:.2f}")
-    for x0 in (None, rnd(b, h, w, 64)):
-        k_out, k_amax = stripe.rdb_fused_i8(x, wq8, sw8, bs8, x0)
-        p_out, p_amax = stripe.rdb_fused_i8_plain(x, wq8, sw8, bs8, x0)
-        e = compare("rdb_fused_i8", k_out, p_out, torch.bfloat16)
-        check(torch.equal(k_amax, p_amax), "rdb_fused_i8: output amax differs from plain")
-        log(f"[check] rdb_fused_i8 bf16 {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
-        sas_ = calibrate_rdb_act_scales(ws8, bs8, x)
-        k_out, k_amax = stripe.rdb_fused_i8(x, wq8, sw8, bs8, x0, sas=sas_)
-        p_out, _ = stripe.rdb_fused_i8_plain(x, wq8, sw8, bs8, x0, sas=sas_)
-        e = compare("rdb_fused_i8 static", k_out, p_out, torch.bfloat16)
-        check(k_amax is None, "rdb_fused_i8 static returned an amax")
-        log(f"[check] rdb_fused_i8 static bf16 {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
-    sw4, swq4, ssw4 = i8_srvgg(4, 64)
-    e = compare(
-        "srvgg_body_i8", srvgg.srvgg_body_i8(x, swq4, ssw4, sw4[1], sw4[2]),
-        srvgg.srvgg_body_i8_plain(x, swq4, ssw4, sw4[1], sw4[2]), torch.bfloat16,
-    )
-    log(f"[check] srvgg_body_i8 bf16 {b}x{h}x{w} 4 convs err={e:.3g}")
-    del grow, amax
-
-    # main-path shapes, bf16 (unsharp: fp32), with times and bounds
     H, W, NF, GC = 1080, 1920, 64, 32
     bf = torch.bfloat16
     rows = {}
 
-    def bound(nbytes, ops, peak):
-        return max(nbytes / PEAK_BYTES, ops / peak) * 1e3, (
-            "bytes" if nbytes / PEAK_BYTES >= ops / peak else "operations"
-        )
+    def phase_k1():
+        """K1's tensor-core route: single convs at odd shapes, bf16, held per
+        value to their plain version and to a float64 conv; then the old and
+        the new kernel on one 1080p RDB."""
+        def one(tag, x, wt, bias, f64=False, **kw):
+            """One conv on the mma route against plain (and float64). Steps
+            are taken at no less than 2^-8 of the output's largest value:
+            the two sides add ~600-1700 fp32 products in different orders,
+            so a value that cancels below that keeps an absolute error of
+            the terms' rounding (~1e-6 here), which is many steps of a tiny
+            value and no sign of a wrong fragment (that would be O(1))."""
+            pk = {k_: (v.clone() if k_ == "out" else v) for k_, v in kw.items()}
+            _build.reset_launches()
+            k = tail.conv3x3(x, wt, bias, counter="check", **kw)
+            torch.cuda.synchronize()
+            got = _build.launches()
+            check(got == {"check": 1, "conv3x3:mma": 1}, f"{tag}: launches {got}, expected one on the mma route")
+            p = tail.conv3x3_plain(x, wt, bias, **pk)
+            floor = p.float().abs().max().item() * 2.0**-8
+            if kw.get("r2") is not None:
+                # two roundings (the inner sum to bf16 before r2): a flipped
+                # inner step is s2 x a step of the larger inner value
+                e, st = compare(tag, k, p, bf), float("nan")
+            else:
+                e, st = bf16_steps(tag, k, p, floor=floor)
+            msg = f"[k1] {tag} err={e:.3g} steps={st:.2f}"
+            if f64:
+                xi = x.repeat_interleave(2, 1).repeat_interleave(2, 2) if kw.get("upsample2") else x
+                ref = conv_ref64(xi, wt, bias)
+                if kw.get("act") == "lrelu":
+                    ref = torch.where(ref >= 0, ref, 0.2 * ref)
+                elif kw.get("act") == "prelu":
+                    ref = torch.where(ref > 0, ref, ref * kw["alpha"].double().cpu())
+                e64, st64 = bf16_steps(tag + " vs float64", k.cpu(), ref.float(), floor=floor)
+                msg += f" err_vs_f64={e64:.3g} steps_vs_f64={st64:.2f}"
+            log(msg)
+            return k, p
 
-    def record(name, shape, k_fn, p_fn, reps, nbytes, ops, peak, dt, lib_fn=None):
-        e = compare(name, k_fn(), p_fn(), dt)
-        ms = timed(k_fn, reps)
-        pms = timed(p_fn, max(1, reps // 2))
-        lms = timed(lib_fn, reps) if lib_fn is not None else None
-        bms, by = bound(nbytes, ops, peak)
-        rows[name] = dict(
-            max_abs_err=e, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-            library_ms=lms,
-        )
+        b, h, w = 2, 37, 53
+        for shp in ((b, h, w), (1, 5, 7)):
+            x = rnd(*shp, 64)
+            wt, bias = rnd(3, 3, 64, 64, scale=0.05), rnd(64, scale=0.1)
+            al = rnd(64, scale=0.3)
+            r1, r2 = rnd(*shp, 64), rnd(*shp, 64)
+            one(f"{shp} 64->64 none", x, wt, bias, f64=True)
+            one(f"{shp} 64->64 lrelu", x, wt, bias, f64=True, act="lrelu")
+            one(f"{shp} 64->64 prelu", x, wt, bias, f64=True, act="prelu", alpha=al)
+            one(f"{shp} 64->64 r1", x, wt, bias, r1=r1, s1=0.2)
+            one(f"{shp} 64->64 r1+r2", x, wt, bias, r1=r1, s1=0.2, r2=r2, s2=0.2)
+            one(f"{shp} 64->64 upsample2 lrelu", x, wt, bias, f64=True, act="lrelu", upsample2=True)
+            one(f"{shp} 64->32 none", x, rnd(3, 3, 64, 32, scale=0.05), bias[:32].clone(), f64=True)
+        # the growth-buffer case: conv k reads the prefix of a 192-channel
+        # buffer and writes its 32 channels at their offset in the same buffer
+        grow = rnd(b, h, w, 192)
+        for cin in (64, 96, 128, 160):
+            wt, bias = rnd(3, 3, cin, 32, scale=0.03), rnd(32, scale=0.05)
+            gk = grow.clone()
+            k, p = one(f"growth buffer {cin}->32 into [{cin}:{cin + 32}]", gk[..., :cin], wt, bias,
+                       f64=True, act="lrelu", out=gk[..., cin : cin + 32])
+            gp = grow.clone()
+            gp[..., cin : cin + 32] = p
+            rest = torch.ones(192, dtype=torch.bool, device=dev)
+            rest[cin : cin + 32] = False
+            check(torch.equal(gk[..., rest], grow[..., rest]),
+                  f"growth buffer {cin}->32: the kernel wrote outside its channel slice")
+        wt, bias = rnd(3, 3, 192, 64, scale=0.03), rnd(64, scale=0.05)
+        one("growth buffer 192->64 r1", grow, wt, bias, r1=grow[..., :64], s1=0.2)
+        one("growth buffer 192->64 r1+r2", grow, wt, bias, r1=grow[..., :64], s1=0.2,
+            r2=rnd(b, h, w, 64), s2=0.2)
+        del grow
+
+        # one 1080p RDB: each conv on the new kernel, then the whole RDB on
+        # the old kernel (the fma route forced), the new one, and cuDNN
+        xb = rnd(1, H, W, NF)
+        ws, bs = rdb_weights(NF, GC, bf)
+        grow = torch.empty(1, H, W, NF + 4 * GC, dtype=bf, device=dev)
+        grow[..., :NF] = xb
+        for k_ in range(5):
+            lo = NF + k_ * GC
+            cout = GC if k_ < 4 else NF
+            out = grow[..., lo : lo + GC] if k_ < 4 else torch.empty(1, H, W, NF, dtype=bf, device=dev)
+            ms = timed(lambda: tail.conv3x3(grow[..., :lo], ws[k_], bs[k_], act="lrelu", out=out, counter="check"), 10)
+            ops = 2 * H * W * 9 * lo * cout
+            log(f"[k1] conv{k_ + 1} {lo}->{cout} 1x{H}x{W} mma: {ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s")
+        del grow, out
+        k_new = stripe.rdb_fused(xb, ws, bs)
+        new_ms = timed(lambda: stripe.rdb_fused(xb, ws, bs), 5)
+        route = tail.conv3x3_route
+        tail.conv3x3_route = lambda *a, **k: "fma"
+        try:
+            _build.reset_launches()
+            k_old = stripe.rdb_fused(xb, ws, bs)
+            check(_build.launches() == {"rdb_fused": 5, "conv3x3:fma": 5}, f"forced fma route: {_build.launches()}")
+            old_ms = timed(lambda: stripe.rdb_fused(xb, ws, bs), 5)
+        finally:
+            tail.conv3x3_route = route
+        e = compare("rdb_fused mma vs fma", k_new, k_old, bf)
+        del k_new, k_old
+        rdb_in = [rnd(1, NF + k_ * GC, H, W).contiguous(memory_format=torch.channels_last) for k_ in range(5)]
+        rdb_w = [w_.permute(3, 2, 0, 1).contiguous() for w_ in ws]
+        lib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1) for a, w_, b_ in zip(rdb_in, rdb_w, bs)], 5)
+        rdb_ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
         log(
-            f"[kernel] {name} {shape} err={e:.3g} kernel_ms={ms:.3f} "
-            f"plain_ms={pms:.3f} library_ms="
-            f"{'null' if lms is None else f'{lms:.3f}'} bound_ms={bms:.3f} ({by})"
+            f"[k1] rdb_fused 1x{H}x{W}x64 bf16: fma (old kernel) {old_ms:.3f} ms, mma (new kernel) "
+            f"{new_ms:.3f} ms ({old_ms / new_ms:.2f}x, {rdb_ops / new_ms / 1e9:.1f} TFLOP/s useful), "
+            f"library (cuDNN chain of 5) {lib_ms:.3f} ms; max |mma - fma| {e:.3g}"
         )
+        k1_stats.update(rdb_fma_ms=old_ms, rdb_mma_ms=new_ms, rdb_library_ms=lib_ms)
+        check(new_ms * 3 <= old_ms, f"[k1] the mma route ({new_ms:.3f} ms per RDB) is not 3x the fma kernel ({old_ms:.3f})")
 
-    def nchw(*shape):
-        """A bf16 NCHW tensor in channels_last memory (the port's NHWC)."""
-        return rnd(*shape).contiguous(memory_format=torch.channels_last)
+    k1_stats = {}
+    if want("k1", "kernels"):
+        phase_k1()
+        torch.cuda.empty_cache()
 
-    def oihw(w):
-        return w.permute(3, 2, 0, 1).contiguous()
+    def phase_kernels():
+        """Phase 3: every wrapper against its plain version, then the rows
+        of the main paths' shapes with times and bounds."""
+        # odd shapes, fp32 and bf16
+        for dt in (torch.float32, torch.bfloat16):
+            b, h, w = 2, 37, 53
+            for cin, cout, act, res in (
+                (3, 64, "none", False), (64, 64, "none", True),
+                (64, 64, "lrelu", False), (64, 64, "prelu", False),
+                (64, 3, "none", False),
+            ):
+                x = rnd(b, h, w, cin, dt=dt)
+                wt = rnd(3, 3, cin, cout, scale=0.05, dt=dt)
+                bias = rnd(cout, scale=0.1, dt=dt)
+                al = rnd(cout, scale=0.3, dt=dt) if act == "prelu" else None
+                r = rnd(b, h, w, cout, dt=dt) if res else None
+                k = tail.conv3x3_fused(x, wt, bias, r, al, act=act)
+                p = tail.conv3x3_fused_plain(x, wt, bias, r, al, act=act)
+                e = compare(f"conv3x3_fused {cin}->{cout} {act}", k, p, dt)
+                msg = f"[check] conv3x3_fused {dt} {b}x{h}x{w} {cin}->{cout} act={act} res={res} err={e:.3g}"
+                if dt == torch.float32 and act == "none" and not res:
+                    e64 = (k.double().cpu() - conv_ref64(x, wt, bias)).abs().max().item()
+                    check(e64 <= 1e-4, f"conv3x3_fused vs float64: {e64:.3g}")
+                    msg += f" err_vs_f64={e64:.3g}"
+                log(msg)
+            x = rnd(b, h, w, 64, dt=dt)
+            wt, bias = rnd(3, 3, 64, 64, scale=0.05, dt=dt), rnd(64, scale=0.1, dt=dt)
+            e = compare("up1_fused", tail.up1_fused(x, wt, bias), tail.up1_fused_plain(x, wt, bias), dt)
+            log(f"[check] up1_fused {dt} {b}x{h}x{w} err={e:.3g}")
+            tw = tail_weights(64, dt)
+            e = compare("tail_fused", tail.tail_fused(x, *tw), tail.tail_fused_plain(x, *tw), dt)
+            log(f"[check] tail_fused {dt} {b}x{h}x{w} err={e:.3g}")
+            # K6 at odd shapes: doubled extents that no 16x28 (bf16) or 8x12
+            # (fp32) tile divides, and a frame smaller than one tile
+            for nf_, shp in ((16, (1, 19, 23)), (64, (b, h, w)), (16, (2, 4, 3))):
+                xq, tq = rnd(*shp, nf_, dt=dt), tail_weights(nf_, dt)
+                kq = tail.tail_fused_q(xq, *tq)
+                check(kq.shape == (shp[0], 2 * shp[1], 2 * shp[2], 3) and kq.dtype == dt,
+                      f"tail_fused_q shape {kq.shape}")
+                e = compare("tail_fused_q", kq, tail.tail_fused_q_plain(xq, *tq), dt)
+                e1 = (kq.float() - tail.tail_fused(xq, *tq).float()).abs().max().item()
+                log(f"[check] tail_fused_q {dt} {shp} nf {nf_} err={e:.3g} vs_three_K1={e1:.3g}")
+            ws, bs = rdb_weights(64, 32, dt)
+            for x0 in (None, rnd(b, h, w, 64, dt=dt)):
+                e = compare(
+                    "rdb_fused", stripe.rdb_fused(x, ws, bs, x0),
+                    stripe.rdb_fused_plain(x, ws, bs, x0), dt,
+                )
+                log(f"[check] rdb_fused {dt} {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
+            # K5 at odd shapes: frames that no 8- or 16-pixel tile divides
+            for nf_, gc_, shp in ((16, 8, (1, 37, 53)), (64, 32, (b, h, w)), (16, 8, (2, 8, 5))):
+                x5 = rnd(*shp, nf_, dt=dt)
+                w5 = [rdb_weights(nf_, gc_, dt) for _ in range(3)]
+                for x0 in (None, rnd(*shp, nf_, dt=dt)):
+                    e = compare(
+                        "rdb_fused_k5", rdb.rdb_fused(x5, *w5[0], x0),
+                        rdb.rdb_fused_plain(x5, *w5[0], x0), dt,
+                    )
+                    log(f"[check] rdb_fused_k5 {dt} {shp} nf {nf_} gc {gc_} x0={x0 is not None} err={e:.3g}")
+                e = compare("rrdb_fused", rdb.rrdb_fused(x5, w5), rdb.rrdb_fused_plain(x5, w5), dt)
+                log(f"[check] rrdb_fused {dt} {shp} nf {nf_} gc {gc_} err={e:.3g}")
+            sw = srvgg_weights(4, 64, dt)
+            e = compare("srvgg_body", srvgg.srvgg_body(x, *sw), srvgg.srvgg_body_plain(x, *sw), dt)
+            log(f"[check] srvgg_body {dt} {b}x{h}x{w} 4 convs err={e:.3g}")
+            xin = rnd(b, h, w, 3, dt=dt).abs()
+            for r in srvgg.UP_SCALES:
+                wo, bo = rnd(3, 3, 64, 3 * r * r, scale=0.05, dt=dt), rnd(3 * r * r, scale=0.1, dt=dt)
+                k = srvgg.srvgg_up_fused(x, wo, bo, xin, r)
+                p = srvgg.srvgg_up_fused_plain(x, wo, bo, xin, r)
+                check(k.shape == (b, r * h, r * w, 3) and k.dtype == dt, f"srvgg_up_fused shape {k.shape}")
+                e = compare(f"srvgg_up_fused r={r}", k, p, dt)
+                log(f"[check] srvgg_up_fused {dt} {b}x{h}x{w} r={r} err={e:.3g}")
+        for thr in (0.0, 0.02):
+            xf = torch.rand(2, 37, 53, 3, generator=gen).to(dev)
+            e = compare(
+                "unsharp_fused", unsharp.unsharp_fused(xf, 0.3, 1.5, 4, thr),
+                post.unsharp_mask(xf, 0.3, 1.5, 4, thr), torch.float32,
+            )
+            log(f"[check] unsharp_fused fp32 2x37x53 threshold={thr} err={e:.3g}")
 
-    xs = rnd(1, H, W, 3)
-    ws_, bs_ = rnd(3, 3, 3, NF, scale=0.2), rnd(NF, scale=0.1)
-    w_oihw = oihw(ws_)
-    xs_nchw = xs.permute(0, 3, 1, 2)
-    record(
-        "conv3x3_fused", "stem 1x1080x1920x3->64",
-        lambda: tail.conv3x3_fused(xs, ws_, bs_),
-        lambda: tail.conv3x3_fused_plain(xs, ws_, bs_), 10,
-        (H * W * 3 + 9 * 3 * NF + NF + H * W * NF) * 2,
-        2 * H * W * 9 * 3 * NF, PEAK_BF16, bf,
-        lib_fn=lambda: F.conv2d(xs_nchw, w_oihw, bs_, padding=1),
-    )
-    xb, rb = rnd(1, H, W, NF), rnd(1, H, W, NF)
-    wb, bb = rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
-    e = compare(
-        "conv_body", tail.conv3x3_fused(xb, wb, bb, rb),
-        tail.conv3x3_fused_plain(xb, wb, bb, rb), bf,
-    )
-    body_ms = timed(lambda: tail.conv3x3_fused(xb, wb, bb, rb), 10)
-    body_bms, _ = bound(3 * H * W * NF * 2, 2 * H * W * 9 * NF * NF, PEAK_BF16)
-    xb_nchw, wb_oihw = xb.permute(0, 3, 1, 2), oihw(wb)
-    body_lms = timed(lambda: F.conv2d(xb_nchw, wb_oihw, bb, padding=1), 10)
-    log(
-        f"[kernel] conv3x3_fused conv_body+res 1x1080x1920x64 err={e:.3g} "
-        f"kernel_ms={body_ms:.3f} bound_ms={body_bms:.3f} "
-        f"library_ms={body_lms:.3f} (F.conv2d, conv only)"
-    )
-    ws, bs = rdb_weights(NF, GC, bf)
-    rdb_ops = sum(2 * H * W * 9 * (NF + k * GC) * (GC if k < 4 else NF) for k in range(5))
-    rdb_wbytes = sum(w.numel() + b.numel() for w, b in zip(ws, bs)) * 2
-    rdb_in = [nchw(1, NF + k * GC, H, W) for k in range(5)]
-    rdb_w = [oihw(w) for w in ws]
-    record(
-        "rdb_fused", "1x1080x1920x64 (nf 64, gc 32)",
-        lambda: stripe.rdb_fused(xb, ws, bs),
-        lambda: stripe.rdb_fused_plain(xb, ws, bs), 5,
-        2 * H * W * NF * 2 + rdb_wbytes, rdb_ops, PEAK_BF16, bf,
-        lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
-    )
-    e = compare(
-        "rdb_fused x0", stripe.rdb_fused(xb, ws, bs, rb),
-        stripe.rdb_fused_plain(xb, ws, bs, rb), bf,
-    )
-    log(f"[kernel] rdb_fused with x0 (rdb3) err={e:.3g}")
-    rrdb_w = [(ws, bs)] + [rdb_weights(NF, GC, bf) for _ in range(2)]
-    rrdb_wbytes = sum(t.numel() for ws_, bs_ in rrdb_w for t in (*ws_, *bs_)) * 2
-    rrdb_w_oihw = [[oihw(w) for w in ws_] for ws_, _ in rrdb_w]
+        # K4 at odd shapes, bf16: each RDB conv (1..5 segments) and an SRVGG conv
+        b, h, w = 2, 37, 53
+        ws8, bs8, wq8, sw8 = i8_rdb(64, 32)
+        grow = rnd(b, h, w, 64 + 4 * 32)
+        amax = torch.zeros(b, 6, device=dev)
+        segs5 = quant.rdb_segments(64, 32, 5)
+        SAS_ODD = (0.0075, 0.0079, 0.0081, 0.0068, 0.0090)
+        for s_ in range(5):
+            quant.act_amax(grow[..., segs5[s_] : segs5[s_ + 1]], out=amax[:, s_])
+            check(
+                torch.equal(amax[:, s_], quant.act_amax_plain(grow[..., segs5[s_] : segs5[s_ + 1]])),
+                "act_amax != its plain version",
+            )
+        for k_ in range(5):
+            segs = quant.rdb_segments(64, 32, k_ + 1)
+            kw = (dict(act="lrelu") if k_ < 4 else
+                  dict(r1=grow[..., :64], s1=0.2, r2=rnd(b, h, w, 64), s2=0.2))
+            oa, pa = torch.zeros(b, device=dev), torch.zeros(b, device=dev)
+            args = (grow[..., : segs[-1]], segs, amax, wq8[k_], sw8[k_], bs8[k_])
+            ko = quant.conv3x3_i8(*args, out_amax=oa, counter="check", **kw)
+            po = quant.conv3x3_i8_plain(*args, out_amax=pa, **kw)
+            e, st = bf16_steps(f"conv3x3_i8 RDB conv{k_ + 1}", ko, po)
+            check(torch.equal(oa, pa), f"conv3x3_i8 conv{k_ + 1}: output amax {oa} != {pa}")
+            log(f"[check] conv3x3_i8 bf16 {b}x{h}x{w} RDB conv{k_ + 1} ({k_ + 1} segments) err={e:.3g} steps={st:.2f}")
+            # static A8: fixed scales below the segments' |max| / 127, so some
+            # values saturate; no amax in or out
+            args = (grow[..., : segs[-1]], segs, None, wq8[k_], sw8[k_], bs8[k_])
+            ko = quant.conv3x3_i8(*args, sas=SAS_ODD[: k_ + 1], counter="check", **kw)
+            po = quant.conv3x3_i8_plain(*args, sas=SAS_ODD[: k_ + 1], **kw)
+            e, st = bf16_steps(f"conv3x3_i8 static RDB conv{k_ + 1}", ko, po)
+            log(f"[check] conv3x3_i8 static bf16 {b}x{h}x{w} RDB conv{k_ + 1} ({k_ + 1} segments) err={e:.3g} steps={st:.2f}")
+        sw4, swq4, ssw4 = i8_srvgg(1, 64)
+        x = rnd(b, h, w, 64)
+        ax = quant.act_amax(x)[:, None].contiguous()
+        args = (x, (0, 64), ax, swq4[0], ssw4, sw4[1][0])
+        kw = dict(act="prelu", alpha=sw4[2][0])
+        e, st = bf16_steps("conv3x3_i8 SRVGG conv", quant.conv3x3_i8(*args, counter="check", **kw),
+                           quant.conv3x3_i8_plain(*args, **kw))
+        log(f"[check] conv3x3_i8 bf16 {b}x{h}x{w} SRVGG conv (prelu) err={e:.3g} steps={st:.2f}")
+        for x0 in (None, rnd(b, h, w, 64)):
+            k_out, k_amax = stripe.rdb_fused_i8(x, wq8, sw8, bs8, x0)
+            p_out, p_amax = stripe.rdb_fused_i8_plain(x, wq8, sw8, bs8, x0)
+            e = compare("rdb_fused_i8", k_out, p_out, torch.bfloat16)
+            check(torch.equal(k_amax, p_amax), "rdb_fused_i8: output amax differs from plain")
+            log(f"[check] rdb_fused_i8 bf16 {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
+            sas_ = calibrate_rdb_act_scales(ws8, bs8, x)
+            k_out, k_amax = stripe.rdb_fused_i8(x, wq8, sw8, bs8, x0, sas=sas_)
+            p_out, _ = stripe.rdb_fused_i8_plain(x, wq8, sw8, bs8, x0, sas=sas_)
+            e = compare("rdb_fused_i8 static", k_out, p_out, torch.bfloat16)
+            check(k_amax is None, "rdb_fused_i8 static returned an amax")
+            log(f"[check] rdb_fused_i8 static bf16 {b}x{h}x{w} x0={x0 is not None} err={e:.3g}")
+        sw4, swq4, ssw4 = i8_srvgg(4, 64)
+        e = compare(
+            "srvgg_body_i8", srvgg.srvgg_body_i8(x, swq4, ssw4, sw4[1], sw4[2]),
+            srvgg.srvgg_body_i8_plain(x, swq4, ssw4, sw4[1], sw4[2]), torch.bfloat16,
+        )
+        log(f"[check] srvgg_body_i8 bf16 {b}x{h}x{w} 4 convs err={e:.3g}")
+        del grow, amax
 
-    def rrdb_lib(ins):
-        return [F.conv2d(a, w, b_, padding=1) for (_, bs_), wo in zip(rrdb_w, rrdb_w_oihw)
-                for a, w, b_ in zip(ins, wo, bs_)]
+        # main-path shapes, bf16 (unsharp: fp32), with times and bounds
 
-    def k5_rows(tag, xk, ins, n_px):
-        """K5's two entry points at one shape: one RDB, then a whole RRDB."""
-        ops = rdb_ops * n_px // (H * W)
+        def bound(nbytes, ops, peak):
+            return max(nbytes / PEAK_BYTES, ops / peak) * 1e3, (
+                "bytes" if nbytes / PEAK_BYTES >= ops / peak else "operations"
+            )
+
+        def record(name, shape, k_fn, p_fn, reps, nbytes, ops, peak, dt, lib_fn=None):
+            e = compare(name, k_fn(), p_fn(), dt)
+            ms = timed(k_fn, reps)
+            pms = timed(p_fn, max(1, reps // 2))
+            lms = timed(lib_fn, reps) if lib_fn is not None else None
+            bms, by = bound(nbytes, ops, peak)
+            rows[name] = dict(
+                max_abs_err=e, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                library_ms=lms,
+            )
+            log(
+                f"[kernel] {name} {shape} err={e:.3g} kernel_ms={ms:.3f} "
+                f"plain_ms={pms:.3f} library_ms="
+                f"{'null' if lms is None else f'{lms:.3f}'} bound_ms={bms:.3f} ({by})"
+            )
+
+        def nchw(*shape):
+            """A bf16 NCHW tensor in channels_last memory (the port's NHWC)."""
+            return rnd(*shape).contiguous(memory_format=torch.channels_last)
+
+        def oihw(w):
+            return w.permute(3, 2, 0, 1).contiguous()
+
+        xs = rnd(1, H, W, 3)
+        ws_, bs_ = rnd(3, 3, 3, NF, scale=0.2), rnd(NF, scale=0.1)
+        w_oihw = oihw(ws_)
+        xs_nchw = xs.permute(0, 3, 1, 2)
         record(
-            "rdb_fused_k5" + tag, f"{tuple(xk.shape)} (nf 64, gc 32), one launch",
-            lambda: rdb.rdb_fused(xk, ws, bs), lambda: rdb.rdb_fused_plain(xk, ws, bs), 5,
-            2 * n_px * NF * 2 + rdb_wbytes, ops, PEAK_BF16, bf,
-            lib_fn=lambda: [F.conv2d(a, w, b_, padding=1) for a, w, b_ in zip(ins, rdb_w, bs)],
+            "conv3x3_fused", "stem 1x1080x1920x3->64",
+            lambda: tail.conv3x3_fused(xs, ws_, bs_),
+            lambda: tail.conv3x3_fused_plain(xs, ws_, bs_), 10,
+            (H * W * 3 + 9 * 3 * NF + NF + H * W * NF) * 2,
+            2 * H * W * 9 * 3 * NF, PEAK_BF16, bf,
+            lib_fn=lambda: F.conv2d(xs_nchw, w_oihw, bs_, padding=1),
         )
-        e = compare("rdb_fused_k5 x0", rdb.rdb_fused(xk, ws, bs, xk), rdb.rdb_fused_plain(xk, ws, bs, xk), bf)
-        log(f"[check] rdb_fused_k5 with x0 {tuple(xk.shape)} err={e:.3g}")
+        xb, rb = rnd(1, H, W, NF), rnd(1, H, W, NF)
+        wb, bb = rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
+        xb_nchw, wb_oihw = xb.permute(0, 3, 1, 2), oihw(wb)
         record(
-            "rrdb_fused" + tag, f"{tuple(xk.shape)}, 3 RDBs + residual, one cooperative launch "
-            "(library: chain of 15 convs)",
-            lambda: rdb.rrdb_fused(xk, rrdb_w), lambda: rdb.rrdb_fused_plain(xk, rrdb_w), 3,
-            2 * n_px * NF * 2 + rrdb_wbytes, 3 * ops, PEAK_BF16, bf,
-            lib_fn=lambda: rrdb_lib(ins),
+            "conv3x3:mma", "conv_body+res 1x1080x1920x64 (library: F.conv2d, conv only)",
+            lambda: tail.conv3x3_fused(xb, wb, bb, rb),
+            lambda: tail.conv3x3_fused_plain(xb, wb, bb, rb), 10,
+            3 * H * W * NF * 2 + (wb.numel() + bb.numel()) * 2,
+            2 * H * W * 9 * NF * NF, PEAK_BF16, bf,
+            lib_fn=lambda: F.conv2d(xb_nchw, wb_oihw, bb, padding=1),
         )
+        ws, bs = rdb_weights(NF, GC, bf)
+        rdb_ops = sum(2 * H * W * 9 * (NF + k * GC) * (GC if k < 4 else NF) for k in range(5))
+        rdb_wbytes = sum(w.numel() + b.numel() for w, b in zip(ws, bs)) * 2
+        rdb_in = [nchw(1, NF + k * GC, H, W) for k in range(5)]
+        rdb_w = [oihw(w) for w in ws]
+        record(
+            "rdb_fused", "1x1080x1920x64 (nf 64, gc 32)",
+            lambda: stripe.rdb_fused(xb, ws, bs),
+            lambda: stripe.rdb_fused_plain(xb, ws, bs), 5,
+            2 * H * W * NF * 2 + rdb_wbytes, rdb_ops, PEAK_BF16, bf,
+            lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+        )
+        e = compare(
+            "rdb_fused x0", stripe.rdb_fused(xb, ws, bs, rb),
+            stripe.rdb_fused_plain(xb, ws, bs, rb), bf,
+        )
+        log(f"[kernel] rdb_fused with x0 (rdb3) err={e:.3g}")
+        rrdb_w = [(ws, bs)] + [rdb_weights(NF, GC, bf) for _ in range(2)]
+        rrdb_wbytes = sum(t.numel() for ws_, bs_ in rrdb_w for t in (*ws_, *bs_)) * 2
+        rrdb_w_oihw = [[oihw(w) for w in ws_] for ws_, _ in rrdb_w]
 
-    k5_rows("", xb, rdb_in, H * W)
-    ws8, bs8, wq8, sw8 = i8_rdb(NF, GC)
-    rdb_i8_wbytes = sum(
-        q.numel() + s_.numel() * 4 + b_.numel() * 2 for q, s_, b_ in zip(wq8, sw8, bs8)
-    )
-    k_out = stripe.rdb_fused_i8(xb, wq8, sw8, bs8)[0]
-    e, st = bf16_steps("rdb_fused_i8 1080p", k_out, stripe.rdb_fused_i8_plain(xb, wq8, sw8, bs8)[0])
-    log(f"[check] rdb_fused_i8 bf16 1x1080x1920x64 err={e:.3g} steps={st:.2f}")
-    del k_out
-    record(
-        "rdb_fused_i8", "1x1080x1920x64 (nf 64, gc 32), W8A8 (library: the bf16 cuDNN chain)",
-        lambda: stripe.rdb_fused_i8(xb, wq8, sw8, bs8)[0],
-        lambda: stripe.rdb_fused_i8_plain(xb, wq8, sw8, bs8)[0], 5,
-        2 * H * W * NF * 2 + rdb_i8_wbytes, rdb_ops, PEAK_INT8, bf,
-        lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
-    )
-    def static_rdb_row(tag, xk, lib_fn, n_px):
-        """The whole static-A8 RDB at one shape: within one bf16 step of its
-        plain version per value, 5 K4 launches and no amax launch, times."""
-        sas_ = calibrate_rdb_act_scales(ws8, bs8, xk[:1, :128, :128])
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        k_out = stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_)[0]
-        torch.cuda.synchronize()
-        got = _build.launches()
-        check(got == {"rdb_fused_i8": 5}, f"static RDB launches {got} != 5 K4 and no amax")
-        e, st = bf16_steps(
-            "rdb_fused_i8 static" + tag, k_out,
-            stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0],
+        def rrdb_lib(ins):
+            return [F.conv2d(a, w, b_, padding=1) for (_, bs_), wo in zip(rrdb_w, rrdb_w_oihw)
+                    for a, w, b_ in zip(ins, wo, bs_)]
+
+        def k5_rows(tag, xk, ins, n_px):
+            """K5's two entry points at one shape: one RDB, then a whole RRDB."""
+            ops = rdb_ops * n_px // (H * W)
+            record(
+                "rdb_fused_k5" + tag, f"{tuple(xk.shape)} (nf 64, gc 32), one launch",
+                lambda: rdb.rdb_fused(xk, ws, bs), lambda: rdb.rdb_fused_plain(xk, ws, bs), 5,
+                2 * n_px * NF * 2 + rdb_wbytes, ops, PEAK_BF16, bf,
+                lib_fn=lambda: [F.conv2d(a, w, b_, padding=1) for a, w, b_ in zip(ins, rdb_w, bs)],
+            )
+            e = compare("rdb_fused_k5 x0", rdb.rdb_fused(xk, ws, bs, xk), rdb.rdb_fused_plain(xk, ws, bs, xk), bf)
+            log(f"[check] rdb_fused_k5 with x0 {tuple(xk.shape)} err={e:.3g}")
+            record(
+                "rrdb_fused" + tag, f"{tuple(xk.shape)}, 3 RDBs + residual, one cooperative launch "
+                "(library: chain of 15 convs)",
+                lambda: rdb.rrdb_fused(xk, rrdb_w), lambda: rdb.rrdb_fused_plain(xk, rrdb_w), 3,
+                2 * n_px * NF * 2 + rrdb_wbytes, 3 * ops, PEAK_BF16, bf,
+                lib_fn=lambda: rrdb_lib(ins),
+            )
+
+        k5_rows("", xb, rdb_in, H * W)
+        ws8, bs8, wq8, sw8 = i8_rdb(NF, GC)
+        rdb_i8_wbytes = sum(
+            q.numel() + s_.numel() * 4 + b_.numel() * 2 for q, s_, b_ in zip(wq8, sw8, bs8)
         )
-        log(f"[check] rdb_fused_i8 static bf16 {tuple(xk.shape)} err={e:.3g} steps={st:.2f} launches={json.dumps(got)}")
+        k_out = stripe.rdb_fused_i8(xb, wq8, sw8, bs8)[0]
+        e, st = bf16_steps("rdb_fused_i8 1080p", k_out, stripe.rdb_fused_i8_plain(xb, wq8, sw8, bs8)[0])
+        log(f"[check] rdb_fused_i8 bf16 1x1080x1920x64 err={e:.3g} steps={st:.2f}")
         del k_out
         record(
-            "rdb_fused_i8 static" + tag,
-            f"{tuple(xk.shape)} (nf 64, gc 32), W8A8 with fixed scales (library: the bf16 cuDNN chain)",
-            lambda: stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_)[0],
-            lambda: stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0], 5,
-            2 * n_px * NF * 2 + rdb_i8_wbytes, rdb_ops * n_px // (H * W), PEAK_INT8, bf,
-            lib_fn=lib_fn,
+            "rdb_fused_i8", "1x1080x1920x64 (nf 64, gc 32), W8A8 (library: the bf16 cuDNN chain)",
+            lambda: stripe.rdb_fused_i8(xb, wq8, sw8, bs8)[0],
+            lambda: stripe.rdb_fused_i8_plain(xb, wq8, sw8, bs8)[0], 5,
+            2 * H * W * NF * 2 + rdb_i8_wbytes, rdb_ops, PEAK_INT8, bf,
+            lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
         )
+        def static_rdb_row(tag, xk, lib_fn, n_px):
+            """The whole static-A8 RDB at one shape: within one bf16 step of its
+            plain version per value, 5 K4 launches and no amax launch, times."""
+            sas_ = calibrate_rdb_act_scales(ws8, bs8, xk[:1, :128, :128])
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            k_out = stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_)[0]
+            torch.cuda.synchronize()
+            got = _build.launches()
+            check(got == {"rdb_fused_i8": 5}, f"static RDB launches {got} != 5 K4 and no amax")
+            e, st = bf16_steps(
+                "rdb_fused_i8 static" + tag, k_out,
+                stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0],
+            )
+            log(f"[check] rdb_fused_i8 static bf16 {tuple(xk.shape)} err={e:.3g} steps={st:.2f} launches={json.dumps(got)}")
+            del k_out
+            record(
+                "rdb_fused_i8 static" + tag,
+                f"{tuple(xk.shape)} (nf 64, gc 32), W8A8 with fixed scales (library: the bf16 cuDNN chain)",
+                lambda: stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_)[0],
+                lambda: stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0], 5,
+                2 * n_px * NF * 2 + rdb_i8_wbytes, rdb_ops * n_px // (H * W), PEAK_INT8, bf,
+                lib_fn=lib_fn,
+            )
 
-    static_rdb_row(
-        "", xb, lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
-        H * W,
-    )
-    record(
-        "act_amax", "1x1080x1920x64 -> (1,) (library: torch.linalg.vector_norm ord=inf)",
-        lambda: quant.act_amax(xb), lambda: quant.act_amax_plain(xb), 10,
-        H * W * NF * 2 + 4, 2 * H * W * NF, PEAK_FP32, torch.float32,
-        lib_fn=lambda: torch.linalg.vector_norm(xb, float("inf"), dim=(1, 2, 3)),
-    )
-    del rdb_in
-    wu, bu = rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
-    up_in = nchw(1, NF, 2 * H, 2 * W)
-    wu_oihw = oihw(wu)
-    record(
-        "up1_fused", "1x1080x1920x64 -> 1x2160x3840x64",
-        lambda: tail.up1_fused(xb, wu, bu),
-        lambda: tail.up1_fused_plain(xb, wu, bu), 5,
-        (H * W * NF + 4 * H * W * NF) * 2, 2 * H * W * 16 * NF * NF,
-        PEAK_BF16, bf,
-        lib_fn=lambda: F.conv2d(up_in, wu_oihw, bu, padding=1),
-    )
-    del xs, xs_nchw, rb, up_in
-    x2 = tail.up1_fused(xb, wu, bu)
-    tw = tail_weights(NF, bf)
-    h2, w2 = 2 * H, 2 * W
-    tail_ops = (
-        2 * h2 * w2 * 16 * NF * NF + 2 * 4 * h2 * w2 * 9 * NF * NF
-        + 2 * 4 * h2 * w2 * 9 * NF * 3
-    )
-    tail_in = nchw(1, NF, 2 * h2, 2 * w2)
-    tw_oihw = [oihw(tw[0]), oihw(tw[2]), oihw(tw[4])]
+        static_rdb_row(
+            "", xb, lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+            H * W,
+        )
+        record(
+            "act_amax", "1x1080x1920x64 -> (1,) (library: torch.linalg.vector_norm ord=inf)",
+            lambda: quant.act_amax(xb), lambda: quant.act_amax_plain(xb), 10,
+            H * W * NF * 2 + 4, 2 * H * W * NF, PEAK_FP32, torch.float32,
+            lib_fn=lambda: torch.linalg.vector_norm(xb, float("inf"), dim=(1, 2, 3)),
+        )
+        del rdb_in
+        wu, bu = rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
+        up_in = nchw(1, NF, 2 * H, 2 * W)
+        wu_oihw = oihw(wu)
+        record(
+            "up1_fused", "1x1080x1920x64 -> 1x2160x3840x64",
+            lambda: tail.up1_fused(xb, wu, bu),
+            lambda: tail.up1_fused_plain(xb, wu, bu), 5,
+            (H * W * NF + 4 * H * W * NF) * 2, 2 * H * W * 16 * NF * NF,
+            PEAK_BF16, bf,
+            lib_fn=lambda: F.conv2d(up_in, wu_oihw, bu, padding=1),
+        )
+        del xs, xs_nchw, rb, up_in
+        x2 = tail.up1_fused(xb, wu, bu)
+        tw = tail_weights(NF, bf)
+        h2, w2 = 2 * H, 2 * W
+        tail_ops = (
+            2 * h2 * w2 * 16 * NF * NF + 2 * 4 * h2 * w2 * 9 * NF * NF
+            + 2 * 4 * h2 * w2 * 9 * NF * 3
+        )
+        tail_in = nchw(1, NF, 2 * h2, 2 * w2)
+        tw_oihw = [oihw(tw[0]), oihw(tw[2]), oihw(tw[4])]
 
-    def tail_lib():
-        f = F.conv2d(tail_in, tw_oihw[0], tw[1], padding=1)
-        f = F.conv2d(f, tw_oihw[1], tw[3], padding=1)
-        return F.conv2d(f, tw_oihw[2], tw[5], padding=1)
+        def tail_lib():
+            f = F.conv2d(tail_in, tw_oihw[0], tw[1], padding=1)
+            f = F.conv2d(f, tw_oihw[1], tw[3], padding=1)
+            return F.conv2d(f, tw_oihw[2], tw[5], padding=1)
 
-    record(
-        "tail_fused", "1x2160x3840x64 -> 1x4320x7680x3",
-        lambda: tail.tail_fused(x2, *tw),
-        lambda: tail.tail_fused_plain(x2, *tw), 3,
-        (h2 * w2 * NF + 4 * h2 * w2 * 3) * 2, tail_ops, PEAK_BF16, bf,
-        lib_fn=tail_lib,
-    )
-    e1 = (tail.tail_fused_q(x2, *tw).float() - tail.tail_fused(x2, *tw).float()).abs().max().item()
-    log(f"[check] tail_fused_q vs the three-K1 tail_fused at 1x2160x3840x64: max |diff| {e1:.3g}")
-    record(
-        "tail_fused_q", "1x2160x3840x64 -> 1x4320x7680x3, one launch (library: chain of 3 convs)",
-        lambda: tail.tail_fused_q(x2, *tw),
-        lambda: tail.tail_fused_q_plain(x2, *tw), 3,
-        (h2 * w2 * NF + 4 * h2 * w2 * 3) * 2, tail_ops, PEAK_BF16, bf,
-        lib_fn=tail_lib,
-    )
-    del x2, tail_in
-    torch.cuda.empty_cache()
-    xu = torch.rand(1, 4 * H, 4 * W, 3, generator=gen).to(dev)
-    record(
-        "unsharp_fused", "1x4320x7680x3 fp32",
-        lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4),
-        lambda: post.unsharp_mask(xu, 0.3, 1.5, 4), 10,
-        2 * xu.numel() * 4, xu.numel() * (2 * 2 * 9 + 4), PEAK_FP32,
-        torch.float32,
-    )
-    del xu
-    # config 4 (SRVGGNetCompact, nf 64, 32 convs, r 4) at 1080x1920
-    NC, R = 32, 4
-    sw = srvgg_weights(NC, NF, bf)
-    sw_oihw = [oihw(w) for w in sw[0]]
+        record(
+            "tail_fused", "1x2160x3840x64 -> 1x4320x7680x3",
+            lambda: tail.tail_fused(x2, *tw),
+            lambda: tail.tail_fused_plain(x2, *tw), 3,
+            (h2 * w2 * NF + 4 * h2 * w2 * 3) * 2, tail_ops, PEAK_BF16, bf,
+            lib_fn=tail_lib,
+        )
+        e1 = (tail.tail_fused_q(x2, *tw).float() - tail.tail_fused(x2, *tw).float()).abs().max().item()
+        log(f"[check] tail_fused_q vs the three-K1 tail_fused at 1x2160x3840x64: max |diff| {e1:.3g}")
+        record(
+            "tail_fused_q", "1x2160x3840x64 -> 1x4320x7680x3, one launch (library: chain of 3 convs)",
+            lambda: tail.tail_fused_q(x2, *tw),
+            lambda: tail.tail_fused_q_plain(x2, *tw), 3,
+            (h2 * w2 * NF + 4 * h2 * w2 * 3) * 2, tail_ops, PEAK_BF16, bf,
+            lib_fn=tail_lib,
+        )
+        del x2, tail_in
+        torch.cuda.empty_cache()
+        xu = torch.rand(1, 4 * H, 4 * W, 3, generator=gen).to(dev)
+        record(
+            "unsharp_fused", "1x4320x7680x3 fp32",
+            lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4),
+            lambda: post.unsharp_mask(xu, 0.3, 1.5, 4), 10,
+            2 * xu.numel() * 4, xu.numel() * (2 * 2 * 9 + 4), PEAK_FP32,
+            torch.float32,
+        )
+        del xu
+        # config 4 (SRVGGNetCompact, nf 64, 32 convs, r 4) at 1080x1920
+        NC, R = 32, 4
+        sw = srvgg_weights(NC, NF, bf)
+        sw_oihw = [oihw(w) for w in sw[0]]
 
-    def body_lib(f):
-        for i in range(NC):
-            f = F.prelu(F.conv2d(f, sw_oihw[i], sw[1][i], padding=1), sw[2][i])
-        return f
+        def body_lib(f):
+            for i in range(NC):
+                f = F.prelu(F.conv2d(f, sw_oihw[i], sw[1][i], padding=1), sw[2][i])
+            return f
 
-    record(
-        "srvgg_body", "1x1080x1920x64, 32 x (conv 64->64 + PReLU)",
-        lambda: srvgg.srvgg_body(xb, *sw),
-        lambda: srvgg.srvgg_body_plain(xb, *sw), 3,
-        2 * H * W * NF * 2 + sum(t.numel() for t in sw) * 2,
-        NC * 2 * H * W * 9 * NF * NF, PEAK_BF16, bf,
-        lib_fn=lambda: body_lib(xb_nchw),
-    )
-    sq = [quant.quantize_conv_weights(w_, (0, NF)) for w_ in sw[0]]
-    swq, ssw = torch.stack([a for a, _ in sq]), torch.cat([s_ for _, s_ in sq])
-    srvgg_i8_wbytes = swq.numel() + ssw.numel() * 4 + (sw[1].numel() + sw[2].numel()) * 2
-    record(
-        "srvgg_body_i8", "1x1080x1920x64, 32 x W8A8 (conv 64->64 + PReLU) (library: the bf16 cuDNN chain)",
-        lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sw[1], sw[2]),
-        lambda: srvgg.srvgg_body_i8_plain(xb, swq, ssw, sw[1], sw[2]), 3,
-        2 * H * W * NF * 2 + srvgg_i8_wbytes, NC * 2 * H * W * 9 * NF * NF, PEAK_INT8, bf,
-        lib_fn=lambda: body_lib(xb_nchw),
-    )
-    xin = rnd(1, H, W, 3).abs()
-    wo, bo = rnd(3, 3, NF, 3 * R * R, scale=0.05), rnd(3 * R * R, scale=0.1)
-    wo_oihw = oihw(wo)
-    record(
-        "srvgg_up_fused", "1x1080x1920x64 -> 1x4320x7680x3 (r 4)",
-        lambda: srvgg.srvgg_up_fused(xb, wo, bo, xin, R),
-        lambda: srvgg.srvgg_up_fused_plain(xb, wo, bo, xin, R), 10,
-        (H * W * NF + H * W * 3 + R * R * H * W * 3 + wo.numel() + bo.numel()) * 2,
-        2 * H * W * 9 * NF * 3 * R * R, PEAK_BF16, bf,
-        lib_fn=lambda: F.conv2d(xb_nchw, wo_oihw, bo, padding=1),
-    )
-    del xb, xb_nchw, xin
-    # the tile batch of phase 7 (720x1280, tile 512 / overlap 32: six tiles
-    # of 376x448 in one model call), logged beside the rows above
-    TB, TH, TW = 6, 376, 448
-    xt = rnd(TB, TH, TW, NF)
-    xt_nchw = xt.permute(0, 3, 1, 2)
-    rdb_in = [nchw(TB, NF + k * GC, TH, TW) for k in range(5)]
-    record(
-        "rdb_fused tiles", f"{TB}x{TH}x{TW}x64 (nf 64, gc 32)",
-        lambda: stripe.rdb_fused(xt, ws, bs),
-        lambda: stripe.rdb_fused_plain(xt, ws, bs), 5,
-        2 * TB * TH * TW * NF * 2 + rdb_wbytes,
-        rdb_ops * TB * TH * TW // (H * W), PEAK_BF16, bf,
-        lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
-    )
-    e, st = bf16_steps(
-        "rdb_fused_i8 tiles", stripe.rdb_fused_i8(xt, wq8, sw8, bs8)[0],
-        stripe.rdb_fused_i8_plain(xt, wq8, sw8, bs8)[0],
-    )
-    log(f"[check] rdb_fused_i8 bf16 {TB}x{TH}x{TW}x64 err={e:.3g} steps={st:.2f}")
-    record(
-        "rdb_fused_i8 tiles", f"{TB}x{TH}x{TW}x64 (nf 64, gc 32), W8A8 (library: the bf16 cuDNN chain)",
-        lambda: stripe.rdb_fused_i8(xt, wq8, sw8, bs8)[0],
-        lambda: stripe.rdb_fused_i8_plain(xt, wq8, sw8, bs8)[0], 5,
-        2 * TB * TH * TW * NF * 2 + rdb_i8_wbytes, rdb_ops * TB * TH * TW // (H * W),
-        PEAK_INT8, bf,
-        lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
-    )
-    static_rdb_row(
-        " tiles", xt, lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
-        TB * TH * TW,
-    )
-    del rdb_in
-    BB, BH, BW = 4, 384, 504  # bench_rdb's shape, the JAX tile chunk
-    xc = rnd(BB, BH, BW, NF)
-    rdb_in = [nchw(BB, NF + k * GC, BH, BW) for k in range(5)]
-    k5_rows(" bench", xc, rdb_in, BB * BH * BW)
-    del xc, rdb_in
-    record(
-        "srvgg_body tiles", f"{TB}x{TH}x{TW}x64, 32 convs",
-        lambda: srvgg.srvgg_body(xt, *sw),
-        lambda: srvgg.srvgg_body_plain(xt, *sw), 3,
-        2 * TB * TH * TW * NF * 2 + sum(t.numel() for t in sw) * 2,
-        NC * 2 * TB * TH * TW * 9 * NF * NF, PEAK_BF16, bf,
-        lib_fn=lambda: body_lib(xt_nchw),
-    )
-    record(
-        "srvgg_body_i8 tiles", f"{TB}x{TH}x{TW}x64, 32 W8A8 convs (library: the bf16 cuDNN chain)",
-        lambda: srvgg.srvgg_body_i8(xt, swq, ssw, sw[1], sw[2]),
-        lambda: srvgg.srvgg_body_i8_plain(xt, swq, ssw, sw[1], sw[2]), 3,
-        2 * TB * TH * TW * NF * 2 + srvgg_i8_wbytes, NC * 2 * TB * TH * TW * 9 * NF * NF,
-        PEAK_INT8, bf,
-        lib_fn=lambda: body_lib(xt_nchw),
-    )
-    xin = rnd(TB, TH, TW, 3).abs()
-    record(
-        "srvgg_up_fused tiles", f"{TB}x{TH}x{TW}x64 -> {TB}x{R * TH}x{R * TW}x3",
-        lambda: srvgg.srvgg_up_fused(xt, wo, bo, xin, R),
-        lambda: srvgg.srvgg_up_fused_plain(xt, wo, bo, xin, R), 10,
-        TB * TH * TW * (NF + 3 + 3 * R * R) * 2 + (wo.numel() + bo.numel()) * 2,
-        2 * TB * TH * TW * 9 * NF * 3 * R * R, PEAK_BF16, bf,
-        lib_fn=lambda: F.conv2d(xt_nchw, wo_oihw, bo, padding=1),
-    )
-    del xt, xt_nchw, xin, sw, sw_oihw, swq, ssw
-    torch.cuda.empty_cache()
+        record(
+            "srvgg_body", "1x1080x1920x64, 32 x (conv 64->64 + PReLU)",
+            lambda: srvgg.srvgg_body(xb, *sw),
+            lambda: srvgg.srvgg_body_plain(xb, *sw), 3,
+            2 * H * W * NF * 2 + sum(t.numel() for t in sw) * 2,
+            NC * 2 * H * W * 9 * NF * NF, PEAK_BF16, bf,
+            lib_fn=lambda: body_lib(xb_nchw),
+        )
+        sq = [quant.quantize_conv_weights(w_, (0, NF)) for w_ in sw[0]]
+        swq, ssw = torch.stack([a for a, _ in sq]), torch.cat([s_ for _, s_ in sq])
+        srvgg_i8_wbytes = swq.numel() + ssw.numel() * 4 + (sw[1].numel() + sw[2].numel()) * 2
+        record(
+            "srvgg_body_i8", "1x1080x1920x64, 32 x W8A8 (conv 64->64 + PReLU) (library: the bf16 cuDNN chain)",
+            lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sw[1], sw[2]),
+            lambda: srvgg.srvgg_body_i8_plain(xb, swq, ssw, sw[1], sw[2]), 3,
+            2 * H * W * NF * 2 + srvgg_i8_wbytes, NC * 2 * H * W * 9 * NF * NF, PEAK_INT8, bf,
+            lib_fn=lambda: body_lib(xb_nchw),
+        )
+        xin = rnd(1, H, W, 3).abs()
+        wo, bo = rnd(3, 3, NF, 3 * R * R, scale=0.05), rnd(3 * R * R, scale=0.1)
+        wo_oihw = oihw(wo)
+        record(
+            "srvgg_up_fused", "1x1080x1920x64 -> 1x4320x7680x3 (r 4)",
+            lambda: srvgg.srvgg_up_fused(xb, wo, bo, xin, R),
+            lambda: srvgg.srvgg_up_fused_plain(xb, wo, bo, xin, R), 10,
+            (H * W * NF + H * W * 3 + R * R * H * W * 3 + wo.numel() + bo.numel()) * 2,
+            2 * H * W * 9 * NF * 3 * R * R, PEAK_BF16, bf,
+            lib_fn=lambda: F.conv2d(xb_nchw, wo_oihw, bo, padding=1),
+        )
+        del xb, xb_nchw, xin
+        # the tile batch of phase 7 (720x1280, tile 512 / overlap 32: six tiles
+        # of 376x448 in one model call), logged beside the rows above
+        TB, TH, TW = 6, 376, 448
+        xt = rnd(TB, TH, TW, NF)
+        xt_nchw = xt.permute(0, 3, 1, 2)
+        rdb_in = [nchw(TB, NF + k * GC, TH, TW) for k in range(5)]
+        record(
+            "rdb_fused tiles", f"{TB}x{TH}x{TW}x64 (nf 64, gc 32)",
+            lambda: stripe.rdb_fused(xt, ws, bs),
+            lambda: stripe.rdb_fused_plain(xt, ws, bs), 5,
+            2 * TB * TH * TW * NF * 2 + rdb_wbytes,
+            rdb_ops * TB * TH * TW // (H * W), PEAK_BF16, bf,
+            lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+        )
+        e, st = bf16_steps(
+            "rdb_fused_i8 tiles", stripe.rdb_fused_i8(xt, wq8, sw8, bs8)[0],
+            stripe.rdb_fused_i8_plain(xt, wq8, sw8, bs8)[0],
+        )
+        log(f"[check] rdb_fused_i8 bf16 {TB}x{TH}x{TW}x64 err={e:.3g} steps={st:.2f}")
+        record(
+            "rdb_fused_i8 tiles", f"{TB}x{TH}x{TW}x64 (nf 64, gc 32), W8A8 (library: the bf16 cuDNN chain)",
+            lambda: stripe.rdb_fused_i8(xt, wq8, sw8, bs8)[0],
+            lambda: stripe.rdb_fused_i8_plain(xt, wq8, sw8, bs8)[0], 5,
+            2 * TB * TH * TW * NF * 2 + rdb_i8_wbytes, rdb_ops * TB * TH * TW // (H * W),
+            PEAK_INT8, bf,
+            lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+        )
+        static_rdb_row(
+            " tiles", xt, lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
+            TB * TH * TW,
+        )
+        del rdb_in
+        BB, BH, BW = 4, 384, 504  # bench_rdb's shape, the JAX tile chunk
+        xc = rnd(BB, BH, BW, NF)
+        rdb_in = [nchw(BB, NF + k * GC, BH, BW) for k in range(5)]
+        k5_rows(" bench", xc, rdb_in, BB * BH * BW)
+        del xc, rdb_in
+        record(
+            "srvgg_body tiles", f"{TB}x{TH}x{TW}x64, 32 convs",
+            lambda: srvgg.srvgg_body(xt, *sw),
+            lambda: srvgg.srvgg_body_plain(xt, *sw), 3,
+            2 * TB * TH * TW * NF * 2 + sum(t.numel() for t in sw) * 2,
+            NC * 2 * TB * TH * TW * 9 * NF * NF, PEAK_BF16, bf,
+            lib_fn=lambda: body_lib(xt_nchw),
+        )
+        record(
+            "srvgg_body_i8 tiles", f"{TB}x{TH}x{TW}x64, 32 W8A8 convs (library: the bf16 cuDNN chain)",
+            lambda: srvgg.srvgg_body_i8(xt, swq, ssw, sw[1], sw[2]),
+            lambda: srvgg.srvgg_body_i8_plain(xt, swq, ssw, sw[1], sw[2]), 3,
+            2 * TB * TH * TW * NF * 2 + srvgg_i8_wbytes, NC * 2 * TB * TH * TW * 9 * NF * NF,
+            PEAK_INT8, bf,
+            lib_fn=lambda: body_lib(xt_nchw),
+        )
+        xin = rnd(TB, TH, TW, 3).abs()
+        record(
+            "srvgg_up_fused tiles", f"{TB}x{TH}x{TW}x64 -> {TB}x{R * TH}x{R * TW}x3",
+            lambda: srvgg.srvgg_up_fused(xt, wo, bo, xin, R),
+            lambda: srvgg.srvgg_up_fused_plain(xt, wo, bo, xin, R), 10,
+            TB * TH * TW * (NF + 3 + 3 * R * R) * 2 + (wo.numel() + bo.numel()) * 2,
+            2 * TB * TH * TW * 9 * NF * 3 * R * R, PEAK_BF16, bf,
+            lib_fn=lambda: F.conv2d(xt_nchw, wo_oihw, bo, padding=1),
+        )
+        del xt, xt_nchw, xin, sw, sw_oihw, swq, ssw
+        torch.cuda.empty_cache()
+
+    if want("kernels"):
+        phase_kernels()
 
     # ---- phases 4-7: the main paths ----------------------------------------
     from video_restore_tpu_torch.cli import build_parser, config_from_args
     from video_restore_tpu_torch.models.zoo import MODEL_ZOO, save_params_npz
+    from video_restore_tpu_torch.ops import tiles as tiles_mod
     from video_restore_tpu_torch.parallel.dispatch import Upscaler
     from video_restore_tpu_torch.pipeline.runner import VideoRestorer
     from video_restore_tpu_torch.utils.logging import setup_logging
@@ -836,6 +1006,16 @@ def main() -> int:
             f"peak device memory {peak:.2f} GiB"
         )
         log(f"[{tag}] launches {json.dumps(counts)}")
+        frames_ = max(cfg.frames_per_batch, 1)
+        in_memory = restorer._tail_in_memory()
+        est = tiles_mod.full_frame_bytes(h, w, s, frames=frames_, tail_in_memory=in_memory)
+        jax_est = tiles_mod.full_frame_bytes(h, w, s, frames=frames_)
+        log(
+            f"[{tag}] auto_full_frame estimate for {frames_} frame(s) of {w}x{h}: "
+            f"{est / 2**30:.2f} GiB (tail intermediates in device memory: {in_memory}; "
+            f"without them {jax_est / 2**30:.2f}); measured peak {peak:.2f} GiB"
+            + ("" if grid.n_tiles == 1 else " (tiled: the estimate is of a full frame)")
+        )
         model = restorer.model
         del restorer
         torch.cuda.empty_cache()
@@ -895,185 +1075,181 @@ def main() -> int:
             check(min(dbs) >= 45.0, f"[{tag}] vs the default route {min(dbs):.2f} dB < 45")
             path_stats[tag].update(default_step_ms=step_ms["default"], vs_default_db=dbs)
 
-    # phases 4-5: the flagship
-    src = work / "in_1080p.y4m"
-    make_clip(src, H, W, 3)
     spec = MODEL_ZOO["RealESRGAN_x4plus"].spec
     check((spec.num_feat, spec.num_grow_ch, spec.num_block) == (64, 32, 23), "flagship spec")
-    rrdb_call = {
-        "conv3x3_fused": 2, "rdb_fused": 3 * spec.num_block * 5,
-        "up1_fused": 1, "tail_fused": 3,
-    }
-    drive(
-        "main", src,
-        ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
-         "--tile-size", "0", "--precision", "bf16", "--models-dir", str(models_dir)],
-        {**rrdb_call, "unsharp_fused": 1},
-        lambda c: (c.denoise == 0.5 and c.sharpen == 0.3 and c.color_enhance
-                   and c.clahe_lr and c.temporal and c.tile_size == 0),
-        1,
-    )
-
-    # phase 6: path A, config 4 with synthetic weights at an informative
-    # scale (Kaiming stem and body, conv_out gain 0.1, PReLU 0.25): the JAX
-    # init's 0.1 gain on every conv makes a random net's output equal its
-    # nearest-upsampled input, which would hide the convs from the u8 check
     v3 = MODEL_ZOO["RealESRGAN_x4_v3"].spec
     check((v3.num_feat, v3.num_conv, v3.scale) == (64, 32, 4), "config-4 spec")
-    rng = np.random.default_rng(0)
+    n_rdb = 3 * spec.num_block * 5
 
-    def kaiming(*shape, gain=1.0):
-        return (rng.normal(0, (2.0 / (9 * shape[-2])) ** 0.5, shape) * gain).astype(np.float32)
+    def k1_routes(mma, fma):
+        """K1 launches per model call by route (``conv3x3_route``)."""
+        return {k: v for k, v in (("conv3x3:mma", mma), ("conv3x3:fma", fma)) if v}
 
-    nf, nc = v3.num_feat, v3.num_conv
-    save_params_npz(
-        {
-            "conv_in": {"w": kaiming(3, 3, 3, nf), "b": np.zeros(nf, np.float32)},
-            "alpha_in": np.full(nf, 0.25, np.float32),
-            "body": {
-                "w": kaiming(nc, 3, 3, nf, nf),
-                "b": rng.normal(0, 0.01, (nc, nf)).astype(np.float32),
-                "alpha": np.full((nc, nf), 0.25, np.float32),
-            },
-            "conv_out": {
-                "w": kaiming(3, 3, nf, 3 * v3.scale**2, gain=0.1),
-                "b": np.zeros(3 * v3.scale**2, np.float32),
-            },
-        },
-        models_dir / "RealESRGAN_x4_v3.npz",
-    )
-    srvgg_call = {"conv3x3_fused": 1, "srvgg_body": v3.num_conv, "srvgg_up_fused": 1}
-    drive(
-        "config4", src,
-        ["--model", "RealESRGAN_x4_v3", "--anime-mode", "--quality", "fast",
-         "--models-dir", str(models_dir)],
-        srvgg_call,
-        lambda c: (c.model_name == "RealESRGAN_x4_v3" and c.denoise == 0.5
-                   and c.sharpen == 0 and c.color_enhance and c.clahe_lr
-                   and c.temporal and c.full_frame == "auto" and c.precision == "bf16"),
-        1,
-    )
-    src.unlink()
-
-    # phase 7: path B, config 2's tiles, both families
-    src = work / "in_720p.y4m"
-    make_clip(src, 720, 1280, 2)
-    for tag, model, per_call in (
-        ("tiled_x4plus", "RealESRGAN_x4plus", rrdb_call),
-        ("tiled_x4_v3", "RealESRGAN_x4_v3", srvgg_call),
-    ):
-        drive(
-            tag, src,
-            ["--model", model, "--quality", "balanced", "--tile-size", "512",
-             "--tile-overlap", "32", "--models-dir", str(models_dir)],
-            per_call,
-            lambda c: (c.tile_size == 512 and c.tile_overlap == 32
-                       and c.full_frame == "off" and c.seamless
-                       and not c.enhanced_mode),
-            6,
-        )
-
-    # phase 8: the int8 paths (W8A8 body on K4), 2 frames each
-    src8 = work / "in8_1080p.y4m"
-    make_clip(src8, H, W, 2)
-    rrdb_i8_call = {
-        "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": 3 * spec.num_block * 5,
-        "up1_fused": 1, "tail_fused": 3,
+    # per model call. K1 of an RRDBNet frame: the stem and conv_last on the
+    # fma route; the dense-block convs, conv_body, up1, upconv2 and conv_hr
+    # on the mma route. A path that ran on the old kernel fails its counts.
+    rrdb_call = {
+        "conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1, "tail_fused": 3,
+        **k1_routes(n_rdb + 4, 2),
     }
-    drive(
-        "main_int8", src8,
-        ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
-         "--tile-size", "0", "--precision", "int8", "--models-dir", str(models_dir)],
-        {**rrdb_i8_call, "unsharp_fused": 1},
-        lambda c: c.precision == "int8" and c.tile_size == 0 and c.sharpen == 0.3,
-        1, vs_bf16=True,
-    )
-    drive(
-        "config4_int8", src8,
-        ["--model", "RealESRGAN_x4_v3", "--anime-mode", "--quality", "fast",
-         "--precision", "int8", "--models-dir", str(models_dir)],
-        {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv, "srvgg_up_fused": 1},
-        lambda c: c.precision == "int8" and c.model_name == "RealESRGAN_x4_v3",
-        1, vs_bf16=True,
-    )
-    drive(
-        "tiled_x4plus_int8", src,
-        ["--model", "RealESRGAN_x4plus", "--quality", "balanced", "--tile-size", "512",
-         "--tile-overlap", "32", "--precision", "int8", "--models-dir", str(models_dir)],
-        rrdb_i8_call,
-        lambda c: c.precision == "int8" and c.tile_size == 512 and c.full_frame == "off",
-        6, vs_bf16=True,
-    )
+    srvgg_call = {
+        "conv3x3_fused": 1, "srvgg_body": v3.num_conv, "srvgg_up_fused": 1,
+        **k1_routes(v3.num_conv, 1),
+    }
+    rrdb_i8_call = {
+        "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
+        "up1_fused": 1, "tail_fused": 3, **k1_routes(4, 2),
+    }
+    flagship = ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
+                "--tile-size", "0", "--models-dir", str(models_dir)]
+    config4 = ["--model", "RealESRGAN_x4_v3", "--anime-mode", "--quality", "fast",
+               "--models-dir", str(models_dir)]
+    tiled = ["--quality", "balanced", "--tile-size", "512", "--tile-overlap", "32",
+             "--models-dir", str(models_dir)]
 
-    # phase 9: the VRT_PALLAS=1 body (one K5 launch per RRDB block)
-    os.environ["VRT_PALLAS"] = "1"
-    try:
-        drive(
-            "main_pallas", src8,
-            ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
-             "--tile-size", "0", "--precision", "bf16", "--models-dir", str(models_dir)],
-            {"conv3x3_fused": 2, "rrdb_fused": spec.num_block, "up1_fused": 1,
-             "tail_fused": 3, "unsharp_fused": 1},
-            lambda c: c.precision == "bf16" and c.tile_size == 0 and c.sharpen == 0.3,
-            1, vs_default="VRT_PALLAS",
-        )
-    finally:
-        os.environ.pop("VRT_PALLAS")
+    def is_flagship(precision):
+        return lambda c: (c.denoise == 0.5 and c.sharpen == 0.3 and c.color_enhance
+                          and c.clahe_lr and c.temporal and c.tile_size == 0
+                          and c.precision == precision)
 
-    # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
-    os.environ["VRT_TAIL_Q"] = "1"
-    try:
-        drive(
-            "main_tailq", src8,
-            ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
-             "--tile-size", "0", "--precision", "bf16", "--models-dir", str(models_dir)],
-            {"conv3x3_fused": 2, "rdb_fused": 3 * spec.num_block * 5, "up1_fused": 1,
-             "tail_fused_q": 1, "unsharp_fused": 1},
-            lambda c: c.precision == "bf16" and c.tile_size == 0 and c.sharpen == 0.3,
-            1, vs_default="VRT_TAIL_Q",
-        )
-    finally:
-        os.environ.pop("VRT_TAIL_Q")
-    tq = path_stats["main_tailq"]
-    log(
-        f"[main_tailq] step {tq['step_ms']:.1f} ms/frame with the one-launch tail, "
-        f"{tq['default_step_ms']:.1f} with the default three-K1 tail (same run); peak device "
-        f"memory {tq['peak_gib']:.2f} GiB, the flagship [main] {path_stats['main']['peak_gib']:.2f}"
+    def is_config4(precision):
+        return lambda c: (c.model_name == "RealESRGAN_x4_v3" and c.denoise == 0.5
+                          and c.sharpen == 0 and c.color_enhance and c.clahe_lr
+                          and c.temporal and c.full_frame == "auto" and c.precision == precision)
+
+    def is_tiled(precision):
+        return lambda c: (c.tile_size == 512 and c.tile_overlap == 32
+                          and c.full_frame == "off" and c.seamless
+                          and not c.enhanced_mode and c.precision == precision)
+
+    # (tag, clip (h, w, frames), argv, per call, config check, tiles, knob, drive's keywords)
+    PATHS = (
+        # phases 4-5: the flagship
+        ("main", (H, W, 3), flagship + ["--precision", "bf16"],
+         {**rrdb_call, "unsharp_fused": 1}, is_flagship("bf16"), 1, None, {}),
+        # phase 6: path A, config 4
+        ("config4", (H, W, 3), config4, srvgg_call, is_config4("bf16"), 1, None, {}),
+        # phase 7: path B, config 2's tiles, both families
+        ("tiled_x4plus", (720, 1280, 2), ["--model", "RealESRGAN_x4plus"] + tiled,
+         rrdb_call, is_tiled("bf16"), 6, None, {}),
+        ("tiled_x4_v3", (720, 1280, 2), ["--model", "RealESRGAN_x4_v3"] + tiled,
+         srvgg_call, is_tiled("bf16"), 6, None, {}),
+        # phase 8: the int8 paths (W8A8 body on K4), 2 frames each
+        ("main_int8", (H, W, 2), flagship + ["--precision", "int8"],
+         {**rrdb_i8_call, "unsharp_fused": 1}, is_flagship("int8"), 1, None, dict(vs_bf16=True)),
+        ("config4_int8", (H, W, 2), config4 + ["--precision", "int8"],
+         {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv,
+          "srvgg_up_fused": 1, **k1_routes(0, 1)},
+         is_config4("int8"), 1, None, dict(vs_bf16=True)),
+        ("tiled_x4plus_int8", (720, 1280, 2),
+         ["--model", "RealESRGAN_x4plus", "--precision", "int8"] + tiled,
+         rrdb_i8_call, is_tiled("int8"), 6, None, dict(vs_bf16=True)),
+        # phase 9: the VRT_PALLAS=1 body (one K5 launch per RRDB block)
+        ("main_pallas", (H, W, 2), flagship + ["--precision", "bf16"],
+         {"conv3x3_fused": 2, "rrdb_fused": spec.num_block, "up1_fused": 1,
+          "tail_fused": 3, "unsharp_fused": 1, **k1_routes(4, 2)},
+         is_flagship("bf16"), 1, "VRT_PALLAS", dict(vs_default="VRT_PALLAS")),
+        # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
+        ("main_tailq", (H, W, 2), flagship + ["--precision", "bf16"],
+         {"conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1,
+          "tail_fused_q": 1, "unsharp_fused": 1, **k1_routes(n_rdb + 2, 1)},
+         is_flagship("bf16"), 1, "VRT_TAIL_Q", dict(vs_default="VRT_TAIL_Q")),
     )
+    check(tuple(p_[0] for p_ in PATHS) == PATH_TAGS, "path tags")
+
+    def config4_weights():
+        """Config 4 with synthetic weights at an informative scale (Kaiming
+        stem and body, conv_out gain 0.1, PReLU 0.25): the JAX init's 0.1
+        gain on every conv makes a random net's output equal its
+        nearest-upsampled input, which would hide the convs from the u8
+        check."""
+        rng = np.random.default_rng(0)
+
+        def kaiming(*shape, gain=1.0):
+            return (rng.normal(0, (2.0 / (9 * shape[-2])) ** 0.5, shape) * gain).astype(np.float32)
+
+        nf, nc = v3.num_feat, v3.num_conv
+        save_params_npz(
+            {
+                "conv_in": {"w": kaiming(3, 3, 3, nf), "b": np.zeros(nf, np.float32)},
+                "alpha_in": np.full(nf, 0.25, np.float32),
+                "body": {
+                    "w": kaiming(nc, 3, 3, nf, nf),
+                    "b": rng.normal(0, 0.01, (nc, nf)).astype(np.float32),
+                    "alpha": np.full((nc, nf), 0.25, np.float32),
+                },
+                "conv_out": {
+                    "w": kaiming(3, 3, nf, 3 * v3.scale**2, gain=0.1),
+                    "b": np.zeros(3 * v3.scale**2, np.float32),
+                },
+            },
+            models_dir / "RealESRGAN_x4_v3.npz",
+        )
+
+    config4_weights()
+    clips = {}
+    for tag, clip, argv_, per_call, cfg_check, tiles, knob, kw in PATHS:
+        if not want("paths", tag):
+            continue
+        if clip not in clips:
+            clips[clip] = work / "in_{}x{}_{}.y4m".format(*clip)
+            make_clip(clips[clip], *clip)
+        if knob:
+            os.environ[knob] = "1"
+        try:
+            drive(tag, clips[clip], argv_, per_call, cfg_check, tiles, **kw)
+        finally:
+            if knob:
+                os.environ.pop(knob)
+    if "main_tailq" in path_stats and "main" in path_stats:
+        tq = path_stats["main_tailq"]
+        log(
+            f"[main_tailq] step {tq['step_ms']:.1f} ms/frame with the one-launch tail, "
+            f"{tq['default_step_ms']:.1f} with the default three-K1 tail (same run); peak device "
+            f"memory {tq['peak_gib']:.2f} GiB, the flagship [main] {path_stats['main']['peak_gib']:.2f}"
+        )
     shutil.rmtree(work, ignore_errors=True)
 
     # phase 11: the RDB micro-benchmark's five modes at its default shape;
     # the static mode runs on its own so that its launches are read apart
-    from video_restore_tpu_torch.tools import bench_rdb
+    def phase_bench():
+        from video_restore_tpu_torch.tools import bench_rdb
 
-    iters = 2
-    apps = 1 + (1 + iters) * bench_rdb.REPS  # the check, the warm-up, the timed steps
-    rrdb_apps = 1 + (1 + iters) * -(-bench_rdb.REPS // 3)
-    check(bench_rdb.MODES[-1] == "int8s", f"bench_rdb modes {bench_rdb.MODES}")
-    recs = []
-    for modes, expected in (
-        (bench_rdb.MODES[:-1],
-         {"rdb_fused": 5 * apps, "rdb_fused_k5": apps, "rrdb_fused": rrdb_apps,
-          "rdb_fused_i8": 5 * apps, "act_amax": 1}),
-        (("int8s",), {"rdb_fused_i8": 5 * apps}),
-    ):
-        _build.reset_launches()
-        recs += bench_rdb.bench(modes, bench_rdb.SHAPE, "cuda", iters)
-        torch.cuda.synchronize()
-        counts = _build.launches()
-        check(counts == expected, f"[bench_rdb] launch counts {counts} != expected {expected}")
-        log(f"[bench_rdb] {' '.join(modes)}: launches {json.dumps(counts)}")
-        if modes == ("int8s",):
-            total_launches["rdb_fused_i8 static"] = counts["rdb_fused_i8"]
-        else:
-            for k, v in counts.items():
-                total_launches[k] = total_launches.get(k, 0) + v
-    for r in recs:
-        tol = 2e-2 * max(1.0, r["scale"])
-        check(r["err"] <= tol, f"[bench_rdb] {r['mode']}: first call {r['err']:.3g} > {tol:.3g}")
-    path_stats["bench_rdb"] = {r["mode"]: dict(ms_per_rdb=r["ms_per_rdb"], tflops=r["tflops"],
-                                               err=r["err"]) for r in recs}
+        iters = 2
+        apps = 1 + (1 + iters) * bench_rdb.REPS  # the check, the warm-up, the timed steps
+        rrdb_apps = 1 + (1 + iters) * -(-bench_rdb.REPS // 3)
+        check(bench_rdb.MODES[-1] == "int8s", f"bench_rdb modes {bench_rdb.MODES}")
+        recs = []
+        for modes, expected in (
+            (bench_rdb.MODES[:-1],
+             {"rdb_fused": 5 * apps, "conv3x3:mma": 5 * apps, "rdb_fused_k5": apps,
+              "rrdb_fused": rrdb_apps, "rdb_fused_i8": 5 * apps, "act_amax": 1}),
+            (("int8s",), {"rdb_fused_i8": 5 * apps}),
+        ):
+            _build.reset_launches()
+            recs += bench_rdb.bench(modes, bench_rdb.SHAPE, "cuda", iters)
+            torch.cuda.synchronize()
+            counts = _build.launches()
+            check(counts == expected, f"[bench_rdb] launch counts {counts} != expected {expected}")
+            log(f"[bench_rdb] {' '.join(modes)}: launches {json.dumps(counts)}")
+            if modes == ("int8s",):
+                total_launches["rdb_fused_i8 static"] = counts["rdb_fused_i8"]
+            else:
+                for k, v in counts.items():
+                    total_launches[k] = total_launches.get(k, 0) + v
+        for r in recs:
+            tol = 2e-2 * max(1.0, r["scale"])
+            check(r["err"] <= tol, f"[bench_rdb] {r['mode']}: first call {r['err']:.3g} > {tol:.3g}")
+        path_stats["bench_rdb"] = {r["mode"]: dict(ms_per_rdb=r["ms_per_rdb"], tflops=r["tflops"],
+                                                   err=r["err"]) for r in recs}
+
+    if want("bench"):
+        phase_bench()
+    path_stats["k1"] = k1_stats
     log(f"[paths] {json.dumps(path_stats)}")
+    if only:
+        log(f"[partial] ran only {sorted(only)} after the build: no result line")
+        return 0
 
     # ---- result ------------------------------------------------------------
     log(smi)  # the card again, beside the result lines

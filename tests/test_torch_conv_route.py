@@ -1,0 +1,263 @@
+"""Which of K1's two kernels each conv of the port takes on the card, and the
+full-frame memory estimate with the chain tail counted.
+
+K1 is one function behind two hand-written CUDA kernels: ``"mma"``
+(``csrc/conv3x3_mma.cu``, tensor cores) and ``"fma"`` (``csrc/conv3x3.cu``,
+fp32 FMAs). ``ops/tail.py::conv3x3_route`` chooses between them from the
+call alone (dtype, widths, alignment), so the choice is tested here, on the
+CPU, without a kernel: every model runs at full width on a tiny frame in
+bf16 through the plain versions while a recorder asks the route of each K1
+call. The numbers of the split are the ones the chip smoke test asserts on
+the card (349 ``mma`` + 2 ``fma`` per flagship frame).
+
+``auto_full_frame``: equal to the JAX function at its default (held in
+``test_torch_tiles.py``); with ``tail_in_memory`` it also counts the two
+64-channel tensors at output resolution that the three-launch tail writes
+to device memory, and the runner passes the keyword by tail mode.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from video_restore_tpu_torch.models.rrdbnet import RRDBNet, RRDBNetSpec
+from video_restore_tpu_torch.models.srvgg import SRVGGNet, SRVGGSpec
+from video_restore_tpu_torch.models.zoo import MODEL_ZOO
+from video_restore_tpu_torch.ops import srvgg, stripe, tail
+from video_restore_tpu_torch.ops import tiles as pt
+
+BF, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize(
+    "dtype,cin,cout,aligned,route",
+    [
+        (BF, 64, 64, True, "mma"),   # conv_body, up1, upconv2, conv_hr, SRVGG body
+        (BF, 64, 32, True, "mma"),   # RDB conv1
+        (BF, 96, 32, True, "mma"),   # RDB conv2: 6 k16 steps
+        (BF, 128, 32, True, "mma"),
+        (BF, 160, 32, True, "mma"),  # RDB conv4: 10 k16 steps
+        (BF, 192, 64, True, "mma"),  # RDB conv5
+        (F32, 64, 64, True, "fma"),  # fp32: the tight checks
+        (BF, 3, 64, True, "fma"),    # the stem
+        (BF, 12, 64, True, "fma"),   # x2plus's pixel-unshuffled stem
+        (BF, 64, 3, True, "fma"),    # conv_last
+        (BF, 64, 48, True, "fma"),   # SRVGG's conv_out width: not K1's to take
+        (BF, 16, 8, True, "fma"),    # the nf 16 / gc 8 test model
+        (BF, 24, 8, True, "fma"),    # cin not a multiple of 16
+        (BF, 40, 16, True, "fma"),
+        (BF, 64, 64, False, "fma"),  # misaligned operands
+        (BF, 192, 64, False, "fma"),
+    ],
+)
+def test_conv3x3_route(dtype, cin, cout, aligned, route):
+    assert tail.conv3x3_route(dtype, cin, cout, aligned) == route
+    assert route in tail.ROUTES
+
+
+def _operands(cin=64, cout=64, dt=BF):
+    x = torch.zeros(1, 4, 5, cin, dtype=dt)
+    w = torch.zeros(3, 3, cin, cout, dtype=dt)
+    b = torch.zeros(cout, dtype=dt)
+    return x, w, b
+
+
+def test_call_route_follows_alignment_of_every_operand():
+    x, w, b = _operands()
+    assert tail.conv3x3_call_route(x, w, b) == "mma"
+    buf = torch.zeros(1, 4, 5, 192, dtype=BF)
+    # the growth-buffer views: prefix in, 32 channels out at their offset
+    for lo in (64, 96, 128, 160):
+        wk = torch.zeros(3, 3, lo, 32, dtype=BF)
+        assert tail.conv3x3_call_route(
+            buf[..., :lo], wk, b[:32], out=buf[..., lo : lo + 32]
+        ) == "mma"
+    w5 = torch.zeros(3, 3, 192, 64, dtype=BF)
+    assert tail.conv3x3_call_route(buf, w5, b, r1=buf[..., :64], r2=x) == "mma"
+    # a channel offset that is not a multiple of 8 elements (16 bytes)
+    wide = torch.zeros(1, 4, 5, 72, dtype=BF)
+    assert tail.conv3x3_call_route(wide[..., 4:68], w, b) == "fma"
+    assert tail.conv3x3_call_route(x, w, b, out=wide[..., 4:68]) == "fma"
+    assert tail.conv3x3_call_route(x, w, b, r1=wide[..., 4:68]) == "fma"
+    assert tail.conv3x3_call_route(x, w, b, r2=wide[..., 4:68]) == "fma"
+    # a pixel stride that is not a multiple of 8 elements
+    odd = torch.zeros(1, 4, 5, 68, dtype=BF)
+    assert tail.conv3x3_call_route(odd[..., :64], w, b) == "fma"
+    # a bias or alpha that starts off a 16-byte boundary
+    bb = torch.zeros(72, dtype=BF)
+    assert tail.conv3x3_call_route(x, w, bb[4:68]) == "fma"
+    assert tail.conv3x3_call_route(x, w, b, alpha=bb[4:68]) == "fma"
+    assert tail.conv3x3_call_route(x, w, b, alpha=bb[8:72]) == "mma"
+    # fp32 never takes the tensor-core route
+    assert tail.conv3x3_call_route(*_operands(dt=F32)) == "fma"
+
+
+def _record_routes(monkeypatch):
+    """Patch every module's binding of K1 with a recorder of (counter,
+    route); the plain version still computes."""
+    calls = []
+    real = tail.conv3x3
+
+    def recorder(x, w, b, *, counter, **kw):
+        calls.append((counter, tail.conv3x3_call_route(
+            x, w, b, kw.get("alpha"), kw.get("out"), kw.get("r1"), kw.get("r2")
+        )))
+        return real(x, w, b, counter=counter, **kw)
+
+    for mod in (tail, stripe, srvgg):
+        monkeypatch.setattr(mod, "conv3x3", recorder)
+    return calls
+
+
+def _split(calls):
+    n = {r: sum(1 for _, r_ in calls if r_ == r) for r in tail.ROUTES}
+    return n["mma"], n["fma"]
+
+
+@pytest.mark.parametrize(
+    "name,n_mma,n_fma",
+    [
+        # 345 dense-block convs + conv_body, up1, upconv2, conv_hr | stem, conv_last
+        ("RealESRGAN_x4plus", 349, 2),
+        ("RealESRGAN_x2plus", 349, 2),  # the stem has cin 12
+        ("RealESRGAN_x4plus_anime_6B", 6 * 15 + 4, 2),
+        ("RealESRGAN_x4_v3", 32, 1),  # config 4: the body | the stem
+    ],
+)
+def test_routes_of_one_frame_at_full_width(monkeypatch, name, n_mma, n_fma):
+    spec = MODEL_ZOO[name].spec
+    net = (RRDBNet if isinstance(spec, RRDBNetSpec) else SRVGGNet)(spec)
+    net.prepare(BF, "cpu")
+    calls = _record_routes(monkeypatch)
+    y = net(torch.rand(1, 8, 8, 3))
+    assert y.shape == (1, 8 * spec.scale, 8 * spec.scale, 3)
+    assert _split(calls) == (n_mma, n_fma)
+    fma = [c for c, r in calls if r == "fma"]
+    if isinstance(spec, RRDBNetSpec):
+        assert fma == ["conv3x3_fused", "tail_fused"]  # stem first, conv_last last
+        assert {c for c, r in calls if r == "mma"} == {
+            "rdb_fused", "conv3x3_fused", "up1_fused", "tail_fused"
+        }
+    else:
+        assert fma == ["conv3x3_fused"]
+        assert {c for c, r in calls if r == "mma"} == {"srvgg_body"}
+
+
+@pytest.mark.parametrize("family", ["rrdbnet", "srvgg"])
+@pytest.mark.parametrize("dt", [BF, F32])
+def test_routes_of_the_narrow_test_models_stay_on_fma(monkeypatch, family, dt):
+    """nf 16 / gc 8 (the widths of the parity tests and of the smoke test's
+    small checks) and every fp32 call: the old kernel."""
+    if family == "rrdbnet":
+        net = RRDBNet(RRDBNetSpec(num_feat=16, num_block=2, num_grow_ch=8, scale=4))
+        n = 2 * 15 + 6
+    else:
+        net = SRVGGNet(SRVGGSpec(num_feat=16, num_conv=4, scale=4))
+        n = 5
+    net.prepare(dt, "cpu")
+    calls = _record_routes(monkeypatch)
+    net(torch.rand(1, 6, 7, 3))
+    assert _split(calls) == (0, n)
+
+
+def test_full_width_fp32_stays_on_fma(monkeypatch):
+    spec = dataclasses.replace(MODEL_ZOO["RealESRGAN_x4plus"].spec, num_block=1)
+    net = RRDBNet(spec).prepare(F32, "cpu")
+    calls = _record_routes(monkeypatch)
+    net(torch.rand(1, 6, 6, 3))
+    assert _split(calls) == (0, 15 + 6)
+
+
+# ---- auto_full_frame with the chain tail's intermediates ---------------------
+
+GB80 = 80 * 10**9
+
+
+@pytest.mark.parametrize(
+    "frames,jax_like,with_tail",
+    [(1, True, True), (3, True, True), (8, True, False)],
+)
+def test_auto_full_frame_counts_the_chain_tail(frames, jax_like, with_tail):
+    """1080x1920, scale 4, 80e9 bytes: 1 and 3 frames fit either way; 8
+    frames fit by the JAX estimate (28.7 GB) but not with the two 4.25 GB
+    tail intermediates per frame counted (96.6 GB)."""
+    args = (1080, 1920, 4, GB80)
+    assert pt.auto_full_frame(*args, frames=frames) is jax_like
+    assert pt.auto_full_frame(*args, frames=frames, tail_in_memory=False) is jax_like
+    assert pt.auto_full_frame(*args, frames=frames, tail_in_memory=True) is with_tail
+
+
+def test_full_frame_bytes_terms():
+    hw = 1080 * 1920
+    base = 5 * hw * 64 * 2 + 4 * hw * 64 * 2 + 3 * 16 * hw * 3 * 4
+    assert pt.full_frame_bytes(1080, 1920, 4) == base
+    tail_bytes = 2 * 16 * hw * 64 * 2
+    assert pt.full_frame_bytes(1080, 1920, 4, tail_in_memory=True) == base + tail_bytes
+    assert pt.full_frame_bytes(1080, 1920, 4, frames=8, tail_in_memory=True) == 8 * (
+        base + tail_bytes
+    )
+    # the measured flagship peak (9.65 GiB) lies under the new estimate and
+    # far above the old one
+    assert base < 4 * 10**9 < 10.36 * 10**9 < base + tail_bytes
+
+
+@pytest.mark.parametrize(
+    "model,knob,expected",
+    [
+        ("RealESRGAN_x4plus", None, True),   # chain tail: three K1 launches
+        ("RealESRGAN_x4plus", "1", True),    # the knob counts only on a CUDA device
+        ("RealESRGAN_x4_v3", None, False),   # SRVGG has no such tail
+    ],
+)
+def test_runner_passes_tail_in_memory_by_tail_mode(monkeypatch, model, knob, expected):
+    from video_restore_tpu_torch.config import RestoreConfig
+    from video_restore_tpu_torch.models.zoo import ModelHandle
+    from video_restore_tpu_torch.pipeline import runner
+
+    if knob:
+        monkeypatch.setenv("VRT_TAIL_Q", knob)
+    else:
+        monkeypatch.delenv("VRT_TAIL_Q", raising=False)
+    handle = ModelHandle(model, MODEL_ZOO[model].spec, {})
+    r = runner.VideoRestorer(RestoreConfig(model_name=model), model=handle, cpu=True)
+    assert r._tail_in_memory() is expected
+    # on a CUDA device the tail mode "q" keeps both intermediates on chip
+    monkeypatch.setattr(runner, "tail_mode", lambda device: "q")
+    assert r._tail_in_memory() is False
+
+
+def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
+    """The decision as the runner makes it on a card with 80e9 bytes and
+    ``--frames-per-batch 8``: tiles for the chain tail, full frame for the
+    one-launch tail."""
+    from video_restore_tpu_torch.config import RestoreConfig
+    from video_restore_tpu_torch.models.zoo import ModelHandle
+    from video_restore_tpu_torch.pipeline import runner
+
+    name = "RealESRGAN_x4plus"
+    handle = ModelHandle(name, MODEL_ZOO[name].spec, {})
+    seen = []
+
+    class FakeUpscaler:
+        def __init__(self, model, grid, cfg, device):
+            self.grid = grid
+
+    monkeypatch.setattr(runner, "Upscaler", FakeUpscaler)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (GB80, GB80))
+    real = runner.auto_full_frame
+
+    def spy(*a, **kw):
+        seen.append(kw)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(runner, "auto_full_frame", spy)
+    for mode, tiled in (("chain", True), ("q", False)):
+        monkeypatch.setattr(runner, "tail_mode", lambda device, m=mode: m)
+        cfg = RestoreConfig(model_name=name, frames_per_batch=8, full_frame="auto")
+        r = runner.VideoRestorer(cfg, model=handle, cpu=True)
+        r.device = torch.device("cuda", 0)  # only the decision is exercised
+        grid = r._upscaler_for(1080, 1920).grid
+        assert (grid.n_tiles > 1) is tiled, mode
+        assert seen[-1]["tail_in_memory"] is (mode == "chain")
+        assert seen[-1]["frames"] == 8

@@ -25,15 +25,21 @@
 // prefix [0, 64 + 32(k-1)) of one growth buffer and writes its 32 channels
 // at their offset in the same buffer).
 //
-// What bounds it on the H100: at nf=64 every conv of the flagship frame does
-// 9*cin FMAs per output value, far above the card's bytes-to-operations
-// balance, so it is compute bound. This first design runs the FMAs in fp32
-// on the CUDA cores (67 TFLOP/s peak, vs 989 for bf16 tensor cores): a block
-// stages a (TH+2) x (TW+2) x CI input patch and the 9 x CI x CO_T weight
-// slice in shared memory as fp32, and each thread keeps an 8-pixel x
-// 8-channel register tile, reusing each loaded input row segment across the
-// three kx taps (192 FMAs per 16 shared-memory loads). Tensor-core mma /
-// wgmma is later work; the one-launch RDB is K5 (rdb_fused.cu).
+// K1 has two kernels behind one wrapper (ops/tail.py::conv3x3_route). This
+// one, the "fma" route, takes what the tensor-core route (conv3x3_mma.cu)
+// does not: fp32 (the tight checks), cin that is no multiple of 16 (the
+// stems: cin 3, 12), cout other than 32 or 64 (conv_last: cout 3; narrow
+// test widths) and operands off a 16-byte boundary.
+//
+// What bounds it on the H100: a wide conv does 9*cin FMAs per output value,
+// far above the card's bytes-to-operations balance, so it is compute bound
+// on the CUDA cores' fp32 rate (67 TFLOP/s peak): a block stages a (TH+2) x
+// (TW+2) x CI input patch and the 9 x CI x CO_T weight slice in shared
+// memory as fp32, and each thread keeps an 8-pixel x 8-channel register
+// tile, reusing each loaded input row segment across the three kx taps (192
+// FMAs per 16 shared-memory loads). The calls left to it are narrow (cin 3
+// or cout 3) and sit near their bytes bound instead. The one-launch RDB is
+// K5 (rdb_fused.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

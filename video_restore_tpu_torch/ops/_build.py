@@ -4,7 +4,8 @@ The sources in ``video_restore_tpu_torch/csrc/`` have a plain C interface.
 At first use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
 per source, all started together, then one link) into a single shared
 library under ``build/video_restore_tpu_torch/`` at the repository root,
-named by a hash of the sources and flags so an edited source rebuilds. The
+named by a hash of every file under ``csrc/`` (headers included) and the
+flags, so an edited source or header rebuilds. The
 library is loaded with ``ctypes``. Nothing here runs at import time, so
 every module of the package imports on a machine without ``nvcc`` or a GPU.
 
@@ -29,8 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
-    "conv3x3.cu", "unsharp.cu", "srvgg_up.cu", "conv3x3_i8.cu", "rdb_fused.cu",
-    "tail_fused.cu",
+    "conv3x3.cu", "conv3x3_mma.cu", "unsharp.cu", "srvgg_up.cu",
+    "conv3x3_i8.cu", "rdb_fused.cu", "tail_fused.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -76,9 +77,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + SOURCES).encode())
+    for path in sorted(CSRC.iterdir()):  # the headers too
+        if path.is_file():
+            h.update(path.name.encode() + path.read_bytes())
     return BUILD_DIR / f"libvrt_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -136,6 +138,8 @@ def load() -> ctypes.CDLL:
                 _I, _I, _I, _I, _I, _L, _L, _L, _L, _I, _I, _F, _F, _P,
             ]
             lib.vr_conv3x3.restype = _I
+            lib.vr_conv3x3_mma.argtypes = lib.vr_conv3x3.argtypes[1:]
+            lib.vr_conv3x3_mma.restype = _I
             lib.vr_unsharp.argtypes = [
                 _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _F, _F, _P,
             ]

@@ -1,5 +1,6 @@
-"""The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3.cu``),
-and the one-launch tail on kernel K6 (``csrc/tail_fused.cu``).
+"""The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3_mma.cu``
+on the tensor cores, ``csrc/conv3x3.cu`` on the CUDA cores), and the
+one-launch tail on kernel K6 (``csrc/tail_fused.cu``).
 
 Port of ``video_restore_tpu/ops/pallas_tail.py``:
 
@@ -29,9 +30,14 @@ Port of ``video_restore_tpu/ops/pallas_tail.py``:
 
 :func:`conv3x3` is the binding of K1 itself, with :func:`conv3x3_plain`,
 its plain PyTorch version, beside it. A wrapper given a CPU tensor runs the
-plain version; given a CUDA tensor it launches the kernel or raises. The
-kernel note (what bounds K1 on the H100 and what its design does about it)
-is at the top of ``csrc/conv3x3.cu``.
+plain version; given a CUDA tensor it launches the kernel or raises. K1 is
+two hand-written kernels of one function, and :func:`conv3x3_route` says
+which a call takes: ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed
+by ``ldmatrix`` from shared memory that ``cp.async`` fills) for the bf16
+convs whose widths feed the tensor cores, ``"fma"`` (``csrc/conv3x3.cu``:
+fp32 FMAs) for the rest: fp32, the stems (cin 3, 12), ``conv_last`` (cout
+3) and narrow test widths. The kernel notes (what bounds K1 on the H100 and
+what each design does about it) are at the top of the two sources.
 """
 
 from __future__ import annotations
@@ -45,6 +51,44 @@ from video_restore_tpu_torch.ops.conv import conv2d_f32, upsample_nearest
 
 _ACTS = {"none": 0, "lrelu": 1, "prelu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+ROUTES = ("mma", "fma")
+_MMA_COUT = (32, 64)  # the widths conv3x3_mma.cu is instantiated for
+
+
+def conv3x3_route(dtype: torch.dtype, cin: int, cout: int, aligned: bool = True) -> str:
+    """Which of K1's two kernels a call on a CUDA tensor launches: a pure
+    function of the call. ``"mma"`` (tensor cores) takes bf16 with cin a
+    multiple of 16 (one k16 step per 16 input channels), cout 32 or 64 (gc
+    and nf of every released model) and ``aligned`` operands
+    (:func:`operands_aligned`: its 16-byte copies and paired stores);
+    ``"fma"`` takes every other call."""
+    if dtype == torch.bfloat16 and cin % 16 == 0 and cout in _MMA_COUT and aligned:
+        return "mma"
+    return "fma"
+
+
+def operands_aligned(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether every given tensor (None is skipped) starts on a 16-byte
+    boundary and, where it is NHWC, has a pixel stride that is a multiple of
+    8 elements: what the ``"mma"`` route's 16-byte copies need."""
+    for t in tensors:
+        if t is None:
+            continue
+        if t.data_ptr() % 16:
+            return False
+        if t.dim() == 4 and t.stride(2) % 8:
+            return False
+    return True
+
+
+def conv3x3_call_route(x, w, b, alpha=None, out=None, r1=None, r2=None) -> str:
+    """:func:`conv3x3_route` of one call's operands (``out=None``: a fresh
+    contiguous tensor, which is aligned)."""
+    return conv3x3_route(
+        x.dtype, w.shape[-2], w.shape[-1],
+        operands_aligned(x, w, b, alpha, out, r1, r2),
+    )
 
 
 def _pixel_stride(t: torch.Tensor, name: str) -> int:
@@ -122,7 +166,9 @@ def conv3x3(
     (cout,). r1, r2 and ``out`` are NHWC at the output grid, each possibly
     a channel slice of a wider buffer (``out`` is written in place). Every
     tensor has x's dtype (fp32 or bf16); sums are fp32. ``counter`` names
-    the launch counter the calling wrapper owns."""
+    the launch counter the calling wrapper owns; the launch is also counted
+    under its route, ``conv3x3:mma`` or ``conv3x3:fma``
+    (:func:`conv3x3_route`)."""
     if x.device.type == "cpu":
         return conv3x3_plain(
             x, w, b, act=act, alpha=alpha, upsample2=upsample2, out=out,
@@ -169,9 +215,10 @@ def conv3x3(
     ys = _pixel_stride(out, "out")
     r1s = _pixel_stride(r1, "r1") if r1 is not None else 0
     r2s = _pixel_stride(r2, "r2") if r2 is not None else 0
+    route = conv3x3_call_route(x, w, b, alpha, out, r1, r2)
     lib = _build.load()
-    code = lib.vr_conv3x3(
-        _DTYPES[dt], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+    args = (
+        x.data_ptr(), w.data_ptr(), b.data_ptr(),
         alpha.data_ptr() if alpha is not None else None,
         r1.data_ptr() if r1 is not None else None,
         r2.data_ptr() if r2 is not None else None,
@@ -180,8 +227,13 @@ def conv3x3(
         _ACTS[act], int(upsample2), float(s1), float(s2),
         _build.stream_ptr(x),
     )
-    _build.check(lib, code, "conv3x3 kernel")
+    if route == "mma":
+        code = lib.vr_conv3x3_mma(*args)
+    else:
+        code = lib.vr_conv3x3(_DTYPES[dt], *args)
+    _build.check(lib, code, f"conv3x3 kernel ({route})")
     _build.count_launch(counter)
+    _build.count_launch(f"conv3x3:{route}")
     return out
 
 
@@ -230,7 +282,8 @@ def tail_fused(
         f = leaky_relu(conv2d(f, w_hr, b_hr))
         return conv2d(f, w_last, b_last)
 
-    (``pallas_tail.py:266`` / ``:425``). Three K1 launches."""
+    (``pallas_tail.py:266`` / ``:425``). Three K1 launches; both
+    64-channel intermediates go through device memory."""
     f = conv3x3(x, w_up2, b_up2, act="lrelu", upsample2=True, counter="tail_fused")
     f = conv3x3(f, w_hr, b_hr, act="lrelu", counter="tail_fused")
     return conv3x3(f, w_last, b_last, counter="tail_fused")

@@ -215,20 +215,39 @@ def auto_full_frame(
     device_bytes: Optional[int] = None,
     feat_ch: int = 64,
     frames: int = 1,
+    tail_in_memory: bool = False,
 ) -> bool:
-    """Whether a full-frame (tile=0) pass fits device memory: ~5 body
-    feature buffers (bf16), the upconv1 output at 2x resolution, and ~3
-    output-resolution RGB fp32 buffers, against half the device's memory
-    (``tiles.py:222-271``; the RRDB estimate, which dominates SRVGG's).
+    """Whether a full-frame (tile=0) pass fits device memory:
+    :func:`full_frame_bytes` against half the device's memory.
     ``device_bytes`` defaults to the current CUDA device's total memory."""
     if device_bytes is None:
         device_bytes = torch.cuda.mem_get_info()[1]
+    est = full_frame_bytes(height, width, scale, feat_ch, frames, tail_in_memory)
+    return est <= 0.5 * device_bytes
+
+
+def full_frame_bytes(
+    height: int,
+    width: int,
+    scale: int,
+    feat_ch: int = 64,
+    frames: int = 1,
+    tail_in_memory: bool = False,
+) -> int:
+    """The estimate behind :func:`auto_full_frame`: ~5 body feature buffers
+    (bf16), the upconv1 output at 2x resolution, and ~3 output-resolution
+    RGB fp32 buffers per frame (``tiles.py:222-271``; the RRDB estimate,
+    which dominates SRVGG's). That is the JAX estimate, whose tail keeps
+    upconv2's and conv_hr's outputs on chip. ``tail_in_memory`` adds those
+    two ``feat_ch``-channel tensors at output resolution (bf16, ``2 x 16 hw
+    x feat_ch x 2`` bytes at scale 4), which the three-launch tail
+    (``ops/tail.py::tail_fused``) writes to device memory."""
     hw = height * width
     body = 5 * hw * feat_ch * 2
     up1 = 4 * hw * feat_ch * 2
     out_rgb = 3 * (scale * scale * hw) * 3 * 4
-    est = (body + up1 + out_rgb) * max(frames, 1)
-    return est <= 0.5 * device_bytes
+    tail = 2 * (scale * scale * hw) * feat_ch * 2 if tail_in_memory else 0
+    return (body + up1 + out_rgb + tail) * max(frames, 1)
 
 
 def _pad_frame(x: torch.Tensor, grid: TileGrid) -> torch.Tensor:

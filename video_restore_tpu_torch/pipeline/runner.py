@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from video_restore_tpu_torch.config import RestoreConfig
+from video_restore_tpu_torch.models.rrdbnet import RRDBNetSpec, tail_mode
 from video_restore_tpu_torch.models.zoo import ModelHandle, get_model
 from video_restore_tpu_torch.ops.tiles import (
     TileGrid,
@@ -209,6 +210,7 @@ class VideoRestorer:
                         height, width, self.model.scale,
                         torch.cuda.mem_get_info(self.device)[1],
                         frames=max(cfg.frames_per_batch, 1),
+                        tail_in_memory=self._tail_in_memory(),
                     )
                 ):
                     tile = 0
@@ -232,6 +234,14 @@ class VideoRestorer:
             )
             self._upscalers[key] = Upscaler(self.model, grid, cfg, self.device)
         return self._upscalers[key]
+
+    def _tail_in_memory(self) -> bool:
+        """Whether the model's tail writes its two 4x-resolution
+        intermediates to device memory: an RRDBNet on the three-launch
+        ``"chain"`` tail; not the one-launch ``"q"`` tail, not SRVGG."""
+        return tail_mode(self.device) == "chain" and isinstance(
+            self.model.spec, RRDBNetSpec
+        )
 
     def process_video(
         self,
