@@ -314,15 +314,22 @@ def main(argv=None) -> int:
         )
 
 
-    def bf16_steps(name, k, p, n=1, floor=2.0**-126):
+    def bf16_step(mag):
+        """The bf16 step (2^-7 relative) at each magnitude."""
+        return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+    def bf16_steps(name, k, p, n=1, floor=2.0**-126, extra=0.0):
         """Per value, |kernel - plain| in bf16 steps (2^-7 relative) of the
         larger magnitude; fails above ``n``. ``floor``: the least magnitude a
         step is taken at (for sums in another order: a value that cancels to
-        nearly 0 carries the fp32 rounding of its terms, not of itself)."""
+        nearly 0 carries the fp32 rounding of its terms, not of itself).
+        ``extra``: what is added to each value's step before the division
+        (the share of an earlier rounding that the function itself carries
+        into the value)."""
         k, p = k.float(), p.float()
         mag = torch.maximum(k.abs(), p.abs()).clamp_min(floor)
         d = (k - p).abs()
-        worst = (d / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+        worst = (d / (bf16_step(mag) + extra)).max().item()
         check(worst <= n, f"{name}: kernel vs plain {worst:.2f} bf16 steps > {n}")
         return d.max().item(), worst
 
@@ -360,12 +367,17 @@ def main(argv=None) -> int:
             check(got == {"check": 1, "conv3x3:mma": 1}, f"{tag}: launches {got}, expected one on the mma route")
             p = tail.conv3x3_plain(x, wt, bias, **pk)
             floor = p.float().abs().max().item() * 2.0**-8
+            extra = 0.0
             if kw.get("r2") is not None:
-                # two roundings (the inner sum to bf16 before r2): a flipped
-                # inner step is s2 x a step of the larger inner value
-                e, st = compare(tag, k, p, bf), float("nan")
-            else:
-                e, st = bf16_steps(tag, k, p, floor=floor)
+                # two roundings: the inner sum T(r1 + s1 v) goes to bf16
+                # before r2, so a flipped inner step reaches the output as s2
+                # x a step of the inner value, on top of the output's own
+                inner = tail.conv3x3_plain(
+                    x, wt, bias, **{k_: v for k_, v in pk.items() if k_ not in ("r2", "s2")}
+                ).float().abs()
+                inner = (inner * (1 + 2.0**-7)).clamp_min(inner.max().item() * 2.0**-8)
+                extra = kw["s2"] * bf16_step(inner)
+            e, st = bf16_steps(tag, k, p, floor=floor, extra=extra)
             msg = f"[k1] {tag} err={e:.3g} steps={st:.2f}"
             if f64:
                 xi = x.repeat_interleave(2, 1).repeat_interleave(2, 2) if kw.get("upsample2") else x
