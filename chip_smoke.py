@@ -7,6 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 ``--only`` runs a subset for a quick probe: any of ``k1`` (K1's tensor-core
 route alone: its odd-shape checks and the old and new kernel side by side),
+``k5`` and ``k3`` (the same for K5's and K3's tensor-core routes),
 ``kernels`` (all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``),
@@ -19,17 +20,28 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
    ``conv3x3_mma.cu`` on ``mma_tile.cuh`` and ``conv3x3.cu``, K2
-   ``unsharp.cu``, K3 ``srvgg_up.cu``, K4
-   ``conv3x3_i8.cu`` with its amax entry point, K5 ``rdb_fused.cu`` with
+   ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
+   ``srvgg_up.cu``, K4 ``conv3x3_i8.cu`` with its amax entry point, K5
+   ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and ``rdb_fused.cu``, each with
    its one-RDB and whole-RRDB entry points, K6 ``tail_fused.cu``), and
-   print each kernel's registers and spills from ``ptxas``;
+   print each kernel's registers, shared memory and spills from ``ptxas``;
 3. K1's tensor-core route (``conv3x3:mma``) first: every single conv at odd
    shapes in bf16 (ragged 2x37x53, a frame smaller than one tile, each
    activation, the residuals, the growth-buffer slices with cin 64..192,
    ``upsample2``) within one bf16 step of its plain version per value and
    of a float64 conv of the same inputs, each launch counted under its
    route; then one 1080p RDB on the old kernel (``conv3x3:fma``, forced)
-   and on the new one, side by side, with each conv's time. Then
+   and on the new one, side by side, with each conv's time. K5's
+   tensor-core route (``rdb_fused_k5:mma``, ``rrdb_fused:mma``) the same
+   way: one RDB (with and without ``x0``) and a whole RRDB in bf16 at nf 64
+   / gc 32 at odd shapes (a frame smaller than one tile, ragged extents no
+   tile divides, B = 2, more tiles than the persistent grid has blocks)
+   within ``compare``'s bf16 tolerance of the plain version, the largest
+   error in bf16 steps printed, then the old kernel (``fma``, forced) and
+   the new one side by side on one 1080p RDB and RRDB with the cuDNN
+   chain's time. K3's tensor-core route (``srvgg_up_fused:mma``) at r 2 and
+   r 4 at odd shapes, the config-4 frame and the tile batch, within one
+   bf16 step per value of the plain version, old and new side by side. Then
    every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
@@ -148,6 +160,14 @@ PALLAS = {
     # (#6, #7) and the SRVGG body (#14-#16)
     "conv3x3:mma": "video_restore_tpu/ops/pallas_stripe.py:1963",
 }
+# the hand-written kernel behind each row where a wrapper has two
+# (ops/tail.py::conv3x3_route, ops/rdb.py::rdb_route,
+# ops/srvgg.py::srvgg_up_route), as the row's calls take it
+CUDA_ROUTE = {
+    "conv3x3_fused": "fma", "rdb_fused": "mma", "up1_fused": "mma",
+    "tail_fused": "mma+fma", "srvgg_body": "mma", "srvgg_up_fused": "mma",
+    "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:mma": "mma",
+}
 SOURCE = {
     # K1 is two kernels (ops/tail.py::conv3x3_route). This row times the stem
     # (cin 3), which stays on the fp32-FMA kernel; conv_body is conv3x3:mma's
@@ -158,12 +178,12 @@ SOURCE = {
     "tail_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp.cu",
     "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
-    "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up.cu",
+    "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up_mma.cu",
     "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "act_amax": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
-    "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused.cu",
-    "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused.cu",
+    "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
+    "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
     "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused.cu",
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "conv3x3:mma": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
@@ -172,7 +192,7 @@ PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
 )
-PHASES = ("k1", "kernels", "paths", "bench") + PATH_TAGS
+PHASES = ("k1", "k5", "k3", "kernels", "paths", "bench") + PATH_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -245,10 +265,14 @@ def main(argv=None) -> int:
     lib_path = _build.build()
     _build.load()
     log(f"[build] {time.time() - t0:.1f}s -> {lib_path.name}")
-    entry = spill = ""
+    entry = spill = source = ""
+    # K5's and K3's tensor-core sources, whose ptxas lines are repeated
+    # under their phase's tag
+    new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3"}
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
             log(f"[build] {line.strip()}")
+            source = line.split()[1]
         elif "Compiling entry function" in line:
             # the kernel's name and template arguments, from the mangled name
             entry = line.split("'")[1]
@@ -256,7 +280,10 @@ def main(argv=None) -> int:
         elif "spill" in line:
             spill = line.split(",", 1)[-1].strip()
         elif "registers" in line:
-            log(f"[build] {entry}: {line.split(':', 1)[-1].strip()}; {spill}")
+            msg = f"{entry}: {line.split(':', 1)[-1].strip()}; {spill}"
+            log(f"[build] {msg}")
+            if source in new_sources:
+                log(f"[{new_sources[source]}] ptxas {source} {msg}")
 
     # ---- phase 3: kernels against their plain versions -------------------
     gen = torch.Generator().manual_seed(0)
@@ -466,6 +493,163 @@ def main(argv=None) -> int:
     k1_stats = {}
     if want("k1", "kernels"):
         phase_k1()
+        torch.cuda.empty_cache()
+
+    def one_launch(tag, fn, counter, route="mma"):
+        """fn() with the counters reset before and read after: exactly one
+        launch, counted under ``counter`` and its route."""
+        _build.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = _build.launches()
+        check(got == {counter: 1, f"{counter}:{route}": 1},
+              f"{tag}: launches {got}, expected one on the {route} route")
+        return out
+
+    def k5_exec_ops(b, h, w):
+        """Operations K5's mma route executes: every conv over its whole
+        window of every 12 x 12 tile (the recomputed halo included)."""
+        tiles = b * -(-h // 12) * -(-w // 12)
+        return tiles * sum(2 * 9 * (22 - 2 * k) ** 2 * (NF + (k - 1) * GC) * (GC if k < 5 else NF)
+                           for k in range(1, 6))
+
+    def phase_k5():
+        """K5's tensor-core route: one RDB (with and without x0) and a whole
+        RRDB in bf16 at nf 64 / gc 32, at odd shapes, each launch counted
+        under its route, within compare's bf16 tolerance of the plain
+        version; then the old kernel (fma route forced) and the new one side
+        by side at 1080p."""
+        ws, bs = rdb_weights(NF, GC, bf)
+        w3 = [(ws, bs)] + [rdb_weights(NF, GC, bf) for _ in range(2)]
+
+        def held(tag, counter, k_fn, p_fn):
+            k = one_launch(f"[k5] {tag}", k_fn, counter)
+            p = p_fn()
+            e = compare(f"[k5] {tag}", k, p, bf)
+            # per value in bf16 steps, taken at no less than 2^-8 of plain's
+            # largest value as in [k1]: reported, not held
+            _, st = bf16_steps(f"[k5] {tag}", k, p, n=float("inf"),
+                               floor=p.float().abs().max().item() * 2.0**-8)
+            k5_stats["max_steps"] = max(k5_stats.get("max_steps", 0.0), st)
+            k5_stats["max_err"] = max(k5_stats.get("max_err", 0.0), e)
+            log(f"[k5] {tag} err={e:.3g} steps={st:.2f} (|plain| max {p.float().abs().max().item():.3g})")
+            return k
+
+        # below one tile, one tile, ragged with B = 2, and more 12 x 12 tiles
+        # (2 x 11 x 13 = 286) than the persistent grid has blocks (132)
+        for shp in ((1, 5, 7), (1, 12, 12), (2, 37, 53), (2, 130, 150)):
+            x, x0 = rnd(*shp, NF), rnd(*shp, NF)
+            held(f"rdb_fused {shp}", "rdb_fused_k5",
+                 lambda: rdb.rdb_fused(x, ws, bs), lambda: rdb.rdb_fused_plain(x, ws, bs))
+            held(f"rdb_fused {shp} x0", "rdb_fused_k5",
+                 lambda: rdb.rdb_fused(x, ws, bs, x0), lambda: rdb.rdb_fused_plain(x, ws, bs, x0))
+            held(f"rrdb_fused {shp}", "rrdb_fused",
+                 lambda: rdb.rrdb_fused(x, w3), lambda: rdb.rrdb_fused_plain(x, w3))
+
+        xb, x0b = rnd(1, H, W, NF), rnd(1, H, W, NF)
+        k_new = held(f"rdb_fused 1x{H}x{W}", "rdb_fused_k5",
+                     lambda: rdb.rdb_fused(xb, ws, bs), lambda: rdb.rdb_fused_plain(xb, ws, bs))
+        held(f"rdb_fused 1x{H}x{W} x0", "rdb_fused_k5",
+             lambda: rdb.rdb_fused(xb, ws, bs, x0b), lambda: rdb.rdb_fused_plain(xb, ws, bs, x0b))
+        k_old = one_launch("[k5] rdb_fused forced fma", lambda: rdb.rdb_fused(xb, ws, bs, route="fma"),
+                           "rdb_fused_k5", route="fma")
+        e_old = compare("[k5] rdb_fused mma vs fma", k_new, k_old, bf)
+        # the same fp32 sums in the same order as K1's tensor-core route (16
+        # channels of the growth prefix at a time, taps in order) and the same
+        # epilogue: expected bit-equal to the five-launch chain
+        same = torch.equal(k_new, stripe.rdb_fused(xb, ws, bs))
+        k5_stats["bit_equal_to_k1_chain"] = same
+        log(f"[k5] rdb_fused 1x{H}x{W} mma bit-equal to K1's five-launch chain: {same}")
+        del k_new, k_old
+        new_ms = timed(lambda: rdb.rdb_fused(xb, ws, bs), 10)
+        old_ms = timed(lambda: rdb.rdb_fused(xb, ws, bs, route="fma"), 3)
+        rdb_in = [rnd(1, NF + k_ * GC, H, W).contiguous(memory_format=torch.channels_last) for k_ in range(5)]
+        rdb_w = [[w_.permute(3, 2, 0, 1).contiguous() for w_ in r_[0]] for r_ in w3]
+        lib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1) for a, w_, b_ in zip(rdb_in, rdb_w[0], bs)], 5)
+        ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
+        exe = k5_exec_ops(1, H, W)
+        log(
+            f"[k5] rdb_fused 1x{H}x{W}x64 bf16: fma (old kernel) {old_ms:.3f} ms, mma (new kernel) "
+            f"{new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {ops / new_ms / 1e9:.1f} TFLOP/s useful, "
+            f"{exe / new_ms / 1e9:.1f} executed, executed/useful {exe / ops:.3f}), "
+            f"library (cuDNN chain of 5) {lib_ms:.3f} ms; max |mma - fma| {e_old:.3g}"
+        )
+        k_new = held(f"rrdb_fused 1x{H}x{W}", "rrdb_fused",
+                     lambda: rdb.rrdb_fused(xb, w3), lambda: rdb.rrdb_fused_plain(xb, w3))
+        k_old = one_launch("[k5] rrdb_fused forced fma", lambda: rdb.rrdb_fused(xb, w3, route="fma"),
+                           "rrdb_fused", route="fma")
+        e_rold = compare("[k5] rrdb_fused mma vs fma", k_new, k_old, bf)
+        del k_new, k_old
+        rnew_ms = timed(lambda: rdb.rrdb_fused(xb, w3), 5)
+        rold_ms = timed(lambda: rdb.rrdb_fused(xb, w3, route="fma"), 2)
+        rlib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1) for r_, wo in zip(w3, rdb_w)
+                                 for a, w_, b_ in zip(rdb_in, wo, r_[1])], 3)
+        log(
+            f"[k5] rrdb_fused 1x{H}x{W}x64 bf16: fma (old kernel) {rold_ms:.3f} ms, mma (new kernel) "
+            f"{rnew_ms:.3f} ms ({rold_ms / rnew_ms:.2f}x; {3 * ops / rnew_ms / 1e9:.1f} TFLOP/s useful), "
+            f"library (cuDNN chain of 15) {rlib_ms:.3f} ms; max |mma - fma| {e_rold:.3g}; "
+            f"largest error at every shape: {k5_stats['max_err']:.3g}, {k5_stats['max_steps']:.2f} bf16 steps"
+        )
+        k5_stats.update(rdb_fma_ms=old_ms, rdb_mma_ms=new_ms, rdb_library_ms=lib_ms,
+                        rrdb_fma_ms=rold_ms, rrdb_mma_ms=rnew_ms, rrdb_library_ms=rlib_ms,
+                        executed_per_useful=exe / ops)
+        check(new_ms * 3 <= old_ms,
+              f"[k5] the mma route ({new_ms:.3f} ms per RDB) is not 3x the fma kernel ({old_ms:.3f})")
+
+    def phase_k3():
+        """K3's tensor-core route at r 2 and r 4: odd shapes, the config-4
+        frame and the tile batch, each within one bf16 step per value of the
+        plain version (steps taken at no less than 2^-8 of the output's
+        largest value); then the old kernel (fma route forced) and the new
+        one side by side."""
+        def held(tag, x, wo, bo, xin, r):
+            wu = srvgg.srvgg_up_weights(wo, r)
+            k = one_launch(f"[k3] {tag}", lambda: srvgg.srvgg_up_fused(x, wu, bo, xin, r), "srvgg_up_fused")
+            check(k.shape == (x.shape[0], r * x.shape[1], r * x.shape[2], 3), f"[k3] {tag}: shape {k.shape}")
+            p = srvgg.srvgg_up_fused_plain(x, wo, bo, xin, r)
+            e, st = bf16_steps(f"[k3] {tag}", k, p, floor=p.float().abs().max().item() * 2.0**-8)
+            if wu.shape != wo.shape:  # a direct caller's unpadded weight
+                check(torch.equal(srvgg.srvgg_up_fused(x, wo, bo, xin, r), k), f"[k3] {tag}: unpadded weight")
+            log(f"[k3] {tag} err={e:.3g} steps={st:.2f}")
+            return k
+
+        for r in srvgg.UP_SCALES:
+            for shp in ((1, 5, 7), (2, 37, 53), (1, 9, 33)):
+                x, xin = rnd(*shp, NF), rnd(*shp, 3).abs()
+                wo, bo = rnd(3, 3, NF, 3 * r * r, scale=0.05), rnd(3 * r * r, scale=0.1)
+                held(f"r {r} {shp}", x, wo, bo, xin, r)
+        R = 4
+        wo, bo = rnd(3, 3, NF, 3 * R * R, scale=0.05), rnd(3 * R * R, scale=0.1)
+        for tag, shp in (("config-4 frame", (1, H, W)), ("tile batch", (6, 376, 448))):
+            x, xin = rnd(*shp, NF), rnd(*shp, 3).abs()
+            k_new = held(f"r 4 {tag} {shp}", x, wo, bo, xin, R)
+            k_old = one_launch(f"[k3] {tag} forced fma", lambda: srvgg.srvgg_up_fused(x, wo, bo, xin, R, route="fma"),
+                               "srvgg_up_fused", route="fma")
+            e_old = (k_new.float() - k_old.float()).abs().max().item()
+            del k_new, k_old
+            new_ms = timed(lambda: srvgg.srvgg_up_fused(x, wo, bo, xin, R), 20)
+            old_ms = timed(lambda: srvgg.srvgg_up_fused(x, wo, bo, xin, R, route="fma"), 5)
+            x_nchw, wo_oihw = x.permute(0, 3, 1, 2), wo.permute(3, 2, 0, 1).contiguous()
+            lib_ms = timed(lambda: F.conv2d(x_nchw, wo_oihw, bo, padding=1), 20)
+            npx = shp[0] * shp[1] * shp[2]
+            ops = 2 * npx * 9 * NF * 3 * R * R
+            log(
+                f"[k3] srvgg_up_fused {tag} {shp} r 4 bf16: fma (old kernel) {old_ms:.3f} ms, mma (new "
+                f"kernel) {new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {ops / new_ms / 1e9:.1f} TFLOP/s, "
+                f"{npx * (NF + 3 + 3 * R * R) * 2 / new_ms / 1e9:.2f} TB/s), library (F.conv2d, conv_out "
+                f"alone) {lib_ms:.3f} ms; max |mma - fma| {e_old:.3g}"
+            )
+            key = "frame" if shp[0] == 1 else "tiles"
+            k3_stats.update({f"{key}_fma_ms": old_ms, f"{key}_mma_ms": new_ms, f"{key}_library_ms": lib_ms})
+            check(key == "tiles" or new_ms * 3 <= old_ms,
+                  f"[k3] the mma route ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
+
+    k5_stats, k3_stats = {}, {}
+    if want("k5", "kernels"):
+        phase_k5()
+        torch.cuda.empty_cache()
+    if want("k3", "kernels"):
+        phase_k3()
         torch.cuda.empty_cache()
 
     def phase_kernels():
@@ -1106,7 +1290,7 @@ def main(argv=None) -> int:
     }
     srvgg_call = {
         "conv3x3_fused": 1, "srvgg_body": v3.num_conv, "srvgg_up_fused": 1,
-        **k1_routes(v3.num_conv, 1),
+        "srvgg_up_fused:mma": 1, **k1_routes(v3.num_conv, 1),
     }
     rrdb_i8_call = {
         "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
@@ -1151,14 +1335,15 @@ def main(argv=None) -> int:
          {**rrdb_i8_call, "unsharp_fused": 1}, is_flagship("int8"), 1, None, dict(vs_bf16=True)),
         ("config4_int8", (H, W, 2), config4 + ["--precision", "int8"],
          {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv,
-          "srvgg_up_fused": 1, **k1_routes(0, 1)},
+          "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1, **k1_routes(0, 1)},
          is_config4("int8"), 1, None, dict(vs_bf16=True)),
         ("tiled_x4plus_int8", (720, 1280, 2),
          ["--model", "RealESRGAN_x4plus", "--precision", "int8"] + tiled,
          rrdb_i8_call, is_tiled("int8"), 6, None, dict(vs_bf16=True)),
         # phase 9: the VRT_PALLAS=1 body (one K5 launch per RRDB block)
         ("main_pallas", (H, W, 2), flagship + ["--precision", "bf16"],
-         {"conv3x3_fused": 2, "rrdb_fused": spec.num_block, "up1_fused": 1,
+         {"conv3x3_fused": 2, "rrdb_fused": spec.num_block,
+          "rrdb_fused:mma": spec.num_block, "up1_fused": 1,
           "tail_fused": 3, "unsharp_fused": 1, **k1_routes(4, 2)},
          is_flagship("bf16"), 1, "VRT_PALLAS", dict(vs_default="VRT_PALLAS")),
         # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
@@ -1235,7 +1420,8 @@ def main(argv=None) -> int:
         for modes, expected in (
             (bench_rdb.MODES[:-1],
              {"rdb_fused": 5 * apps, "conv3x3:mma": 5 * apps, "rdb_fused_k5": apps,
-              "rrdb_fused": rrdb_apps, "rdb_fused_i8": 5 * apps, "act_amax": 1}),
+              "rdb_fused_k5:mma": apps, "rrdb_fused": rrdb_apps,
+              "rrdb_fused:mma": rrdb_apps, "rdb_fused_i8": 5 * apps, "act_amax": 1}),
             (("int8s",), {"rdb_fused_i8": 5 * apps}),
         ):
             _build.reset_launches()
@@ -1257,7 +1443,7 @@ def main(argv=None) -> int:
 
     if want("bench"):
         phase_bench()
-    path_stats["k1"] = k1_stats
+    path_stats.update(k1=k1_stats, k5=k5_stats, k3=k3_stats)
     log(f"[paths] {json.dumps(path_stats)}")
     if only:
         log(f"[partial] ran only {sorted(only)} after the build: no result line")
@@ -1273,6 +1459,7 @@ def main(argv=None) -> int:
             launches=total_launches[name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],
+            cuda_route=CUDA_ROUTE.get(name, "one kernel"),
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -39,6 +39,9 @@ from video_restore_tpu_torch.ops.srvgg import (
     srvgg_body_plain,
     srvgg_up_fused,
     srvgg_up_fused_plain,
+    srvgg_up_route,
+    srvgg_up_weights,
+    up_width,
 )
 from video_restore_tpu_torch.ops.tail import conv3x3_fused, conv3x3_fused_plain
 
@@ -84,10 +87,19 @@ class SRVGGNet(nn.Module):
         """Move the weights once to the compute dtype and device (biases and
         alphas included, as the JAX zoo casts every float leaf). With
         ``precision="int8"`` the body also quantises its cast weights into
-        the buffers ``wq`` (int8) and ``sw`` (fp32 (num_conv, nf)). Returns
-        self."""
+        the buffers ``wq`` (int8) and ``sw`` (fp32 (num_conv, nf)). Where
+        K3's tensor-core route reads conv_out with padded output columns
+        (r 2: 12 -> 16), the padded copy is made here, once, as the buffer
+        ``w_up`` (``ops/srvgg.py::srvgg_up_weights``). Returns self."""
         self.to(device=device, dtype=dtype)
         self.precision = precision
+        w = self.conv_out.w
+        r = self.spec.scale
+        if (
+            srvgg_up_route(dtype, w.shape[-2], r) == "mma"
+            and up_width(r, self.spec.num_out_ch) != w.shape[-1]
+        ):
+            self.register_buffer("w_up", srvgg_up_weights(w, r), persistent=False)
         if precision == "int8":
             body = self.body
             nf = body.w.shape[-1]
@@ -112,7 +124,8 @@ class SRVGGNet(nn.Module):
             )
         else:
             feat = body(feat, self.body.w, self.body.b, self.body.alpha)
-        return up(feat, self.conv_out.w, self.conv_out.b, x, self.spec.scale)
+        w_up = getattr(self, "w_up", self.conv_out.w)
+        return up(feat, w_up, self.conv_out.b, x, self.spec.scale)
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -31,7 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "conv3x3_mma.cu", "unsharp.cu", "srvgg_up.cu",
-    "conv3x3_i8.cu", "rdb_fused.cu", "tail_fused.cu",
+    "srvgg_up_mma.cu", "conv3x3_i8.cu", "rdb_fused.cu", "rdb_fused_mma.cu",
+    "tail_fused.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -148,6 +149,9 @@ def load() -> ctypes.CDLL:
                 _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
             ]
             lib.vr_srvgg_up.restype = _I
+            # r, x, w, b, skip, y, B, H, W, cin, stream
+            lib.vr_srvgg_up_mma.argtypes = lib.vr_srvgg_up.argtypes[1:]
+            lib.vr_srvgg_up_mma.restype = _I
             lib.vr_conv3x3_i8.argtypes = [
                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                 _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
@@ -157,7 +161,8 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3_i8.restype = _I
             lib.vr_amax_bf16.argtypes = [_P, _P, _I, _I, _I, _L, _L, _P]
             lib.vr_amax_bf16.restype = _I
-            for fn in (lib.vr_rdb_fused, lib.vr_rrdb_fused):
+            for fn in (lib.vr_rdb_fused, lib.vr_rrdb_fused,
+                       lib.vr_rdb_fused_mma, lib.vr_rrdb_fused_mma):
                 # dtype, nf, gc, x, x0 | y, y | scratch, ws, bs, B, H, W, stream
                 fn.argtypes = [_I, _I, _I, _P, _P, _P, _PP, _PP, _I, _I, _I, _P]
                 fn.restype = _I

@@ -14,7 +14,12 @@ Pallas entry points that compute the same two functions:
 Both take the torch-ordered HWIO weights of ``ops/stripe.py``; the TPU
 regroup and prefix layouts are not carried over. On a CUDA tensor a
 wrapper launches K5 or raises; on a CPU tensor it runs its plain version.
-The kernel note (design, bound) is at the top of ``csrc/rdb_fused.cu``.
+K5 is two hand-written kernels of one function, and :func:`rdb_route` says
+which a call takes: ``"mma"`` (``csrc/rdb_fused_mma.cu``: bf16 ``mma.sync``
+on the tile routines of ``csrc/mma_tile.cuh``) for bf16 at nf 64 / gc 32,
+``"fma"`` (``csrc/rdb_fused.cu``: fp32 FMAs) for fp32 and the narrow nf 16
+/ gc 8 of the checks. The kernel notes (design, bound) are at the top of
+the two sources.
 
 The border. The ``pallas_stripe.py`` forms mask every growth tensor to the
 frame, so each conv has exact SAME zero padding. The ``pallas_rdb.py`` forms
@@ -35,13 +40,37 @@ import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.stripe import rdb_fused_plain
-from video_restore_tpu_torch.ops.tail import _DTYPES
+from video_restore_tpu_torch.ops.tail import _DTYPES, ROUTES
 
 # (nf, gc) pairs K5 is instantiated for: every RRDBNet of the zoo, and the
 # narrow width of the tests and checks
 WIDTHS = ((64, 32), (16, 8))
 
 RdbWeights = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]
+
+
+def rdb_route(dtype: torch.dtype, nf: int, gc: int) -> str:
+    """Which of K5's two kernels a call on a CUDA tensor launches: a pure
+    function of the call. ``"mma"`` (tensor cores) takes bf16 at (nf, gc) =
+    (64, 32), the width of every RRDBNet of the zoo; ``"fma"`` takes fp32
+    and the narrow (16, 8)."""
+    if dtype == torch.bfloat16 and (nf, gc) == (64, 32):
+        return "mma"
+    return "fma"
+
+
+def _pick_route(name: str, x: torch.Tensor, nf: int, gc: int, route: Optional[str]) -> str:
+    """The route of a call: :func:`rdb_route`, or ``route`` when the caller
+    forces one (a side-by-side timing of the two kernels); ``"mma"`` only
+    where the tensor-core kernel is instantiated."""
+    own = rdb_route(x.dtype, nf, gc)
+    if route is None:
+        return own
+    if route not in ROUTES:
+        raise ValueError(f"{name}: unknown route {route!r} (expected one of {ROUTES})")
+    if route == "mma" and own != "mma":
+        raise ValueError(f"{name}: the mma kernel takes bf16 at (64, 32) only")
+    return route
 
 
 def _check(name: str, x: torch.Tensor, rdbs: Sequence[RdbWeights]) -> Tuple[int, int]:
@@ -79,16 +108,22 @@ def rdb_fused(
     ws: Sequence[torch.Tensor],
     bs: Sequence[torch.Tensor],
     x0: Optional[torch.Tensor] = None,
+    *,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """One RDB, optionally with the RRDB residual ``x0 + 0.2 * RDB(x)``:
     the function of ``ops/stripe.py::rdb_fused`` in one K5 launch.
 
     x, x0: (B, H, W, nf) contiguous; ws: the five HWIO conv weights
     (3, 3, nf + (k-1) gc, gc) and (3, 3, nf + 4 gc, nf); bs: their biases;
-    all in x's dtype (fp32 or bf16)."""
+    all in x's dtype (fp32 or bf16). ``route``: None for :func:`rdb_route`'s
+    kernel, ``"fma"`` to force the fp32-FMA kernel. The launch is counted
+    under ``rdb_fused_k5`` and under its route, ``rdb_fused_k5:mma`` or
+    ``rdb_fused_k5:fma``."""
     if x.device.type == "cpu":
         return rdb_fused_plain(x, ws, bs, x0)
     nf, gc = _check("rdb_fused", x, [(ws, bs)])
+    route = _pick_route("rdb_fused", x, nf, gc, route)
     if x0 is not None and (
         x0.shape != x.shape or x0.dtype != x.dtype or x0.device != x.device
         or not x0.is_contiguous()
@@ -97,43 +132,52 @@ def rdb_fused(
     out = torch.empty_like(x)
     b, h, w, _ = x.shape
     lib = _build.load()
+    fn = lib.vr_rdb_fused_mma if route == "mma" else lib.vr_rdb_fused
     with torch.cuda.device(x.device):
-        code = lib.vr_rdb_fused(
+        code = fn(
             _DTYPES[x.dtype], nf, gc, x.data_ptr(),
             x0.data_ptr() if x0 is not None else None, out.data_ptr(),
             _build.pointers(ws), _build.pointers(bs), b, h, w,
             _build.stream_ptr(x),
         )
-    _build.check(lib, code, "rdb_fused (K5) kernel")
+    _build.check(lib, code, f"rdb_fused (K5) kernel ({route})")
     _build.count_launch("rdb_fused_k5")
+    _build.count_launch(f"rdb_fused_k5:{route}")
     return out
 
 
-def rrdb_fused(x: torch.Tensor, rdb_weights: Sequence[RdbWeights]) -> torch.Tensor:
+def rrdb_fused(
+    x: torch.Tensor, rdb_weights: Sequence[RdbWeights], *, route: Optional[str] = None
+) -> torch.Tensor:
     """A whole RRDB, ``x + 0.2 * RDB3(RDB2(RDB1(x)))``, in one cooperative
     K5 launch.
 
     x: (B, H, W, nf) contiguous; rdb_weights: three ``(ws, bs)`` pairs as
-    :func:`rdb_fused` takes them, in x's dtype."""
+    :func:`rdb_fused` takes them, in x's dtype. ``route`` as for
+    :func:`rdb_fused`; the launch is counted under ``rrdb_fused`` and
+    ``rrdb_fused:<route>``."""
     if x.device.type == "cpu":
         return rrdb_fused_plain(x, rdb_weights)
     if len(rdb_weights) != 3:
         raise ValueError("rrdb_fused: an RRDB has three RDBs")
     nf, gc = _check("rrdb_fused", x, rdb_weights)
+    route = _pick_route("rrdb_fused", x, nf, gc, route)
     out = torch.empty_like(x)
     scratch = torch.empty_like(x)
     b, h, w, _ = x.shape
     ws = [t for r in rdb_weights for t in r[0]]
     bs = [t for r in rdb_weights for t in r[1]]
     lib = _build.load()
+    fn = lib.vr_rrdb_fused_mma if route == "mma" else lib.vr_rrdb_fused
     with torch.cuda.device(x.device):
-        code = lib.vr_rrdb_fused(
+        code = fn(
             _DTYPES[x.dtype], nf, gc, x.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), _build.pointers(ws), _build.pointers(bs),
             b, h, w, _build.stream_ptr(x),
         )
-    _build.check(lib, code, "rrdb_fused (K5) kernel")
+    _build.check(lib, code, f"rrdb_fused (K5) kernel ({route})")
     _build.count_launch("rrdb_fused")
+    _build.count_launch(f"rrdb_fused:{route}")
     return out
 
 

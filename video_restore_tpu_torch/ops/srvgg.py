@@ -19,8 +19,14 @@ Port of ``video_restore_tpu/ops/pallas_srvgg.py``:
   (the amax kernel for the body's input).
 - :func:`srvgg_up_fused` replaces ``srvgg_up_fused_raw`` (``:1025``) and
   ``srvgg_up_fused`` (``:854``): ``pixel_shuffle(conv3x3(feat) + b, r) +
-  upsample_nearest(x_in, r)`` in one launch of K3 (``csrc/srvgg_up.cu``),
-  fp32 until one final rounding.
+  upsample_nearest(x_in, r)`` in one launch of K3, fp32 until one final
+  rounding. K3 is two hand-written kernels of one function, and
+  :func:`srvgg_up_route` says which a call takes: ``"mma"``
+  (``csrc/srvgg_up_mma.cu``: bf16 ``mma.sync`` on the tile routines of
+  ``csrc/mma_tile.cuh``) for bf16 with cin a multiple of 16 up to 64,
+  ``"fma"`` (``csrc/srvgg_up.cu``: fp32 FMAs) for the rest. The ``"mma"``
+  kernel reads cout padded to a multiple of 16 (r 2: 12 -> 16 zero
+  columns), which :func:`srvgg_up_weights` prepares once.
 
 Each wrapper has its plain PyTorch version beside it (``*_plain``). A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -28,6 +34,8 @@ launches its kernel or raises.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,9 +51,39 @@ from video_restore_tpu_torch.ops.quant import (
     conv3x3_i8,
     conv3x3_i8_plain,
 )
-from video_restore_tpu_torch.ops.tail import _DTYPES, conv3x3, conv3x3_plain
+from video_restore_tpu_torch.ops.tail import _DTYPES, ROUTES, conv3x3, conv3x3_plain
 
 UP_SCALES = (2, 4)  # the scales the JAX model sends to its fused upsampler
+UP_MMA_MAX_CIN = 64  # the whole patch and weights of a block in shared memory
+
+
+def srvgg_up_route(dtype: torch.dtype, cin: int, r: int) -> str:
+    """Which of K3's two kernels a call on a CUDA tensor launches: a pure
+    function of the call. ``"mma"`` (tensor cores) takes bf16 with cin a
+    multiple of 16 (one k16 step per 16 input channels) up to
+    :data:`UP_MMA_MAX_CIN`, at a scale of :data:`UP_SCALES`; ``"fma"``
+    takes every other call: fp32, and widths the kernel is not built for."""
+    if (
+        dtype == torch.bfloat16 and cin % 16 == 0 and 0 < cin <= UP_MMA_MAX_CIN
+        and r in UP_SCALES
+    ):
+        return "mma"
+    return "fma"
+
+
+def up_width(r: int, colours: int = 3) -> int:
+    """conv_out's width as the ``"mma"`` kernel reads it: ``colours * r^2``
+    padded to a multiple of 16 (r 4: 48; r 2: 16)."""
+    return -(-colours * r * r // 16) * 16
+
+
+def srvgg_up_weights(w_out: torch.Tensor, r: int) -> torch.Tensor:
+    """conv_out's HWIO weight (3, 3, nf, 3 r^2) padded with zero output
+    columns to :func:`up_width`, contiguous: what the ``"mma"`` kernel
+    reads. A pure function, for the model to call once; the conv of the
+    padded weight is the conv of ``w_out`` in its first 3 r^2 channels."""
+    pad = up_width(r, w_out.shape[-1] // (r * r)) - w_out.shape[-1]
+    return torch.nn.functional.pad(w_out, (0, pad)).contiguous()
 
 
 def _check_body(w, b, alpha):
@@ -113,11 +151,17 @@ def srvgg_body_i8_plain(x, wq, sw, b, alpha):
 
 
 def _check_up(feat, w_out, b_out, x_in, r):
+    """Validate the shapes; returns cout (colours). w_out may be conv_out's
+    weight (3, 3, nf, cout r^2) or :func:`srvgg_up_weights` of it."""
     if r not in UP_SCALES:
         raise ValueError(f"srvgg_up_fused: r must be one of {UP_SCALES}, got {r}")
     bsz, h, w, nf = feat.shape
-    cout = w_out.shape[-1] // (r * r)
-    if tuple(w_out.shape) != (3, 3, nf, cout * r * r) or b_out.shape != (cout * r * r,):
+    cout = b_out.shape[0] // (r * r) if b_out.dim() == 1 else 0
+    if (
+        cout < 1 or b_out.shape != (cout * r * r,) or w_out.dim() != 4
+        or tuple(w_out.shape[:3]) != (3, 3, nf)
+        or w_out.shape[-1] not in (cout * r * r, up_width(r, cout))
+    ):
         raise ValueError(
             f"srvgg_up_fused: weight {tuple(w_out.shape)} / bias "
             f"{tuple(b_out.shape)} do not map {nf} channels to cout*r*r"
@@ -137,9 +181,10 @@ def srvgg_up_fused_plain(
     r: int = 4,
 ) -> torch.Tensor:
     """Plain PyTorch version of K3: fp32 conv sums, bias and skip, one
-    rounding to feat's dtype."""
+    rounding to feat's dtype. w_out: conv_out's weight or its padded form
+    (:func:`srvgg_up_weights`)."""
     _check_up(feat, w_out, b_out, x_in, r)
-    y = conv2d_f32(feat, w_out) + b_out.float()
+    y = conv2d_f32(feat, w_out[..., : b_out.shape[0]]) + b_out.float()
     y = pixel_shuffle(y, r) + upsample_nearest(x_in.float(), r)
     return y.to(feat.dtype)
 
@@ -150,12 +195,18 @@ def srvgg_up_fused(
     b_out: torch.Tensor,
     x_in: torch.Tensor,
     r: int = 4,
+    *,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """``pixel_shuffle(conv2d(feat, w_out, b_out), r) +
     upsample_nearest(x_in, r)``: feat (B, H, W, nf), w_out (3, 3, nf,
-    3 r^2) HWIO, b_out (3 r^2,), x_in (B, H, W, 3) -> (B, rH, rW, 3), all
-    in feat's dtype (fp32 or bf16); r in {2, 4}. One K3 launch on CUDA, the
-    plain version on the CPU."""
+    3 r^2) HWIO or its padded form (:func:`srvgg_up_weights`, what a
+    prepared model passes), b_out (3 r^2,), x_in (B, H, W, 3) -> (B, rH,
+    rW, 3), all in feat's dtype (fp32 or bf16); r in {2, 4}. One K3 launch
+    on CUDA, the plain version on the CPU. ``route``: None for
+    :func:`srvgg_up_route`'s kernel, ``"fma"`` to force the fp32-FMA kernel
+    (a side-by-side timing). The launch is counted under ``srvgg_up_fused``
+    and ``srvgg_up_fused:<route>``."""
     if feat.device.type == "cpu":
         return srvgg_up_fused_plain(feat, w_out, b_out, x_in, r)
     if feat.device.type != "cuda":
@@ -175,13 +226,32 @@ def srvgg_up_fused(
         if not t.is_contiguous():
             raise ValueError(f"srvgg_up_fused: {name} must be contiguous")
     bsz, h, w, nf = feat.shape
+    own = srvgg_up_route(dt, nf, r)
+    if route is None:
+        route = own
+    elif route not in ROUTES:
+        raise ValueError(f"srvgg_up_fused: unknown route {route!r} (expected one of {ROUTES})")
+    elif route == "mma" and own != "mma":
+        raise ValueError("srvgg_up_fused: the mma kernel takes bf16 with cin 16..64")
+    # each kernel's weight width: a direct caller's unpadded r-2 weight is
+    # padded here, off the model's path
+    width = up_width(r) if route == "mma" else 3 * r * r
+    if w_out.shape[-1] != width:
+        w_out = (srvgg_up_weights(w_out, r) if route == "mma"
+                 else w_out[..., :width].contiguous())
     out = torch.empty((bsz, r * h, r * w, cout), dtype=dt, device=feat.device)
     lib = _build.load()
-    code = lib.vr_srvgg_up(
-        _DTYPES[dt], r, feat.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+    args = (
+        r, feat.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         x_in.data_ptr(), out.data_ptr(), bsz, h, w, nf,
         _build.stream_ptr(feat),
     )
-    _build.check(lib, code, "srvgg_up kernel")
+    with torch.cuda.device(feat.device):
+        if route == "mma":
+            code = lib.vr_srvgg_up_mma(*args)
+        else:
+            code = lib.vr_srvgg_up(_DTYPES[dt], *args)
+    _build.check(lib, code, f"srvgg_up kernel ({route})")
     _build.count_launch("srvgg_up_fused")
+    _build.count_launch(f"srvgg_up_fused:{route}")
     return out
