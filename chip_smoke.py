@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 ``--only`` runs a subset for a quick probe: any of ``k1`` (K1's tensor-core
 route alone: its odd-shape checks and the old and new kernel side by side),
-``k5`` and ``k3`` (the same for K5's and K3's tensor-core routes),
-``kernels`` (all of phase 3), ``paths`` (phases 4-10) or single path tags
+``k5``, ``k3`` and ``k6`` (the same for K5's, K3's and K6's tensor-core
+routes), ``kernels`` (all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``),
 ``bench`` (phase 11). Phases 1 and 2 always run. A partial run prints
@@ -23,7 +23,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
    ``srvgg_up.cu``, K4 ``conv3x3_i8.cu`` with its amax entry point, K5
    ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and ``rdb_fused.cu``, each with
-   its one-RDB and whole-RRDB entry points, K6 ``tail_fused.cu``), and
+   its one-RDB and whole-RRDB entry points, K6 ``tail_fused_mma.cu`` on
+   ``mma_tile.cuh`` and ``tail_fused.cu``), and
    print each kernel's registers, shared memory and spills from ``ptxas``;
 3. K1's tensor-core route (``conv3x3:mma``) first: every single conv at odd
    shapes in bf16 (ragged 2x37x53, a frame smaller than one tile, each
@@ -41,7 +42,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the new one side by side on one 1080p RDB and RRDB with the cuDNN
    chain's time. K3's tensor-core route (``srvgg_up_fused:mma``) at r 2 and
    r 4 at odd shapes, the config-4 frame and the tile batch, within one
-   bf16 step per value of the plain version, old and new side by side. Then
+   bf16 step per value of the plain version, old and new side by side. K6's
+   tensor-core route (``tail_fused_q:mma``) in bf16 at nf 64 at odd shapes
+   (B = 2, ragged extents no 16x28 tile divides, a frame smaller than one
+   tile, more tiles than the persistent grid has blocks) and at the
+   flagship's 1x2160x3840x64, within ``compare``'s bf16 bound of the plain
+   version with the largest error in bf16 steps; at the flagship shape
+   ``bit_equal_to_k1_chain`` (against the three K1 launches) and the old
+   kernel (``fma``, forced) and the new one side by side beside the cuDNN
+   chain of 3, the new one at least 3x the old. Then
    every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
@@ -56,7 +65,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    K6's one-launch tail (fp32 and bf16) at odd shapes with nf 16 and nf 64,
    whose doubled extents no tile divides, so both intermediates' edge masks
    are exercised, and in bf16 at the flagship's 1x2160x3840x64 (library:
-   the cuDNN chain of 3 convs); K4's static-A8 mode (fixed scales, no amax)
+   the cuDNN chain of 3 convs); the amax kernel equal to its plain version
+   bit for bit at odd shapes (B = 2, C = 3, C = 32 prefix views at channel
+   offsets 64..160 of a 192-wide buffer, a misaligned view on its scalar
+   path) and at 1080p, timed beside ``torch.linalg.vector_norm``; K4's
+   static-A8 mode (fixed scales, no amax)
    for each of the five RDB convs at an odd shape and for the whole static
    RDB at the flagship and tile-batch shapes, with 5 launches and no amax
    launch per RDB;
@@ -91,7 +104,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    kernel path (>= 45 dB on u8 per frame: one function, summed in another
    order);
 10. ``[main_tailq]``: the flagship flags with ``VRT_TAIL_Q=1`` (one K6
-    launch per frame in place of the three-K1 tail), 2 frames, with the
+    launch per frame, on the ``mma`` route, in place of the three-K1 tail;
+    its frames are expected to equal the default tail's: inf dB), 2 frames,
+    with the
     checks of phases 4 and 5, and the output against the default tail's
     kernel path (>= 45 dB on u8 per frame: one function, two kernel
     routes); the step's ms/frame and the path's peak memory are printed
@@ -167,6 +182,7 @@ CUDA_ROUTE = {
     "conv3x3_fused": "fma", "rdb_fused": "mma", "up1_fused": "mma",
     "tail_fused": "mma+fma", "srvgg_body": "mma", "srvgg_up_fused": "mma",
     "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:mma": "mma",
+    "tail_fused_q": "mma",
 }
 SOURCE = {
     # K1 is two kernels (ops/tail.py::conv3x3_route). This row times the stem
@@ -184,7 +200,7 @@ SOURCE = {
     "act_amax": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
     "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
-    "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused.cu",
+    "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_mma.cu",
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "conv3x3:mma": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
 }
@@ -192,7 +208,7 @@ PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
 )
-PHASES = ("k1", "k5", "k3", "kernels", "paths", "bench") + PATH_TAGS
+PHASES = ("k1", "k5", "k3", "k6", "kernels", "paths", "bench") + PATH_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -268,7 +284,7 @@ def main(argv=None) -> int:
     entry = spill = source = ""
     # K5's and K3's tensor-core sources, whose ptxas lines are repeated
     # under their phase's tag
-    new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3"}
+    new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3", "tail_fused_mma.cu": "k6"}
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
             log(f"[build] {line.strip()}")
@@ -644,12 +660,90 @@ def main(argv=None) -> int:
             check(key == "tiles" or new_ms * 3 <= old_ms,
                   f"[k3] the mma route ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
 
-    k5_stats, k3_stats = {}, {}
+    def phase_k6():
+        """K6's tensor-core route (``tail_fused_q:mma``) in bf16 at nf 64:
+        B = 2 with ragged extents, a frame smaller than one tile, more tiles
+        than the persistent grid has blocks, and the flagship's
+        1x2160x3840x64, each within compare's bf16 bound of the plain
+        version, the largest error in bf16 steps printed; at the flagship
+        shape its equality with K1's three-launch chain, and the old kernel
+        (fma route forced) and the new one side by side beside the cuDNN
+        chain of 3."""
+        tw = tail_weights(NF, bf)
+
+        def held(tag, x):
+            k = one_launch(f"[k6] {tag}", lambda: tail.tail_fused_q(x, *tw), "tail_fused_q")
+            b_, h_, w_ = x.shape[:3]
+            check(k.shape == (b_, 2 * h_, 2 * w_, 3) and k.dtype == bf, f"[k6] {tag}: shape {k.shape}")
+            p = tail.tail_fused_q_plain(x, *tw)
+            e = compare(f"[k6] {tag}", k, p, bf)
+            _, st = bf16_steps(f"[k6] {tag}", k, p, n=float("inf"),
+                               floor=p.float().abs().max().item() * 2.0**-8)
+            del p
+            chain = tail.tail_fused(x, *tw)
+            same = torch.equal(k, chain)
+            _, st_chain = bf16_steps(f"[k6] {tag} vs chain", k, chain, n=float("inf"))
+            del chain
+            k6_stats["max_steps"] = max(k6_stats.get("max_steps", 0.0), st)
+            k6_stats["max_err"] = max(k6_stats.get("max_err", 0.0), e)
+            k6_stats["max_steps_vs_chain"] = max(k6_stats.get("max_steps_vs_chain", 0.0), st_chain)
+            log(f"[k6] {tag} err={e:.3g} steps={st:.2f} bit_equal_to_k1_chain={same} "
+                f"steps_vs_chain={st_chain:.2f}")
+            return k, same
+
+        # 16 x 28 output tiles: (2, 37, 53) -> 74 x 106 (ragged, B = 2);
+        # (1, 5, 7) -> 10 x 14, below one tile; (1, 9, 13) ragged both ways;
+        # (2, 100, 150) -> 2 x 13 x 11 = 286 tiles on 132 blocks
+        for shp in ((2, 37, 53), (1, 5, 7), (1, 9, 13), (2, 100, 150)):
+            held(str(shp), rnd(*shp, NF))
+        h2, w2 = 2 * H, 2 * W
+        x2 = rnd(1, h2, w2, NF)
+        k_new, same = held(f"1x{h2}x{w2}x64", x2)
+        k6_stats["bit_equal_to_k1_chain"] = same
+        k_old = one_launch("[k6] forced fma", lambda: tail.tail_fused_q(x2, *tw, route="fma"),
+                           "tail_fused_q", route="fma")
+        e_old = compare("[k6] mma vs fma", k_new, k_old, bf)
+        del k_new, k_old
+        new_ms = timed(lambda: tail.tail_fused_q(x2, *tw), 10)
+        old_ms = timed(lambda: tail.tail_fused_q(x2, *tw, route="fma"), 2)
+        chain_ms = timed(lambda: tail.tail_fused(x2, *tw), 5)
+        tail_in = rnd(1, NF, 2 * h2, 2 * w2).contiguous(memory_format=torch.channels_last)
+        tw_oihw = [tw[i].permute(3, 2, 0, 1).contiguous() for i in (0, 2, 4)]
+
+        def tail_lib():
+            f = F.conv2d(tail_in, tw_oihw[0], tw[1], padding=1)
+            f = F.conv2d(f, tw_oihw[1], tw[3], padding=1)
+            return F.conv2d(f, tw_oihw[2], tw[5], padding=1)
+
+        lib_ms = timed(tail_lib, 3)
+        del tail_in, x2
+        npx = 4 * h2 * w2
+        wide = 2 * 2 * npx * 9 * NF * NF  # useful, upconv2 as 9 taps
+        tiles = -(-2 * h2 // 16) * -(-2 * w2 // 28)
+        exe = tiles * 2 * 9 * NF * NF * (20 * 32 + 34 * 16)
+        log(
+            f"[k6] tail_fused_q 1x{h2}x{w2}x64 bf16: fma (old kernel) {old_ms:.3f} ms, mma (new kernel) "
+            f"{new_ms:.3f} ms ({old_ms / new_ms:.2f}x; wide convs {wide / new_ms / 1e9:.1f} TFLOP/s "
+            f"useful, {exe / new_ms / 1e9:.1f} executed, executed/useful {exe / wide:.3f}), K1's "
+            f"three launches {chain_ms:.3f} ms, library (cuDNN chain of 3) {lib_ms:.3f} ms; max "
+            f"|mma - fma| {e_old:.3g}; bit_equal_to_k1_chain={same}; largest error at every shape: "
+            f"{k6_stats['max_err']:.3g}, {k6_stats['max_steps']:.2f} bf16 steps "
+            f"({k6_stats['max_steps_vs_chain']:.2f} against the chain)"
+        )
+        k6_stats.update(fma_ms=old_ms, mma_ms=new_ms, chain_ms=chain_ms, library_ms=lib_ms,
+                        executed_per_useful=exe / wide)
+        check(new_ms * 3 <= old_ms,
+              f"[k6] the mma route ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
+
+    k5_stats, k3_stats, k6_stats = {}, {}, {}
     if want("k5", "kernels"):
         phase_k5()
         torch.cuda.empty_cache()
     if want("k3", "kernels"):
         phase_k3()
+        torch.cuda.empty_cache()
+    if want("k6", "kernels"):
+        phase_k6()
         torch.cuda.empty_cache()
 
     def phase_kernels():
@@ -933,6 +1027,21 @@ def main(argv=None) -> int:
             "", xb, lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
             H * W,
         )
+        # the amax kernel is a maximum, exact in any order: equal to its plain
+        # version bit for bit at every shape, on the 16-byte path (C and the
+        # pixel stride multiples of 8, an aligned base) and the scalar one
+        grow = rnd(2, 37, 53, 192)
+        amax_cases = [("B = 2, C = 64", rnd(2, 37, 53, 64)), ("B = 2, C = 3", rnd(2, 37, 53, 3)),
+                      ("C = 3 at 1080p", xs)]
+        amax_cases += [(f"C = 32 at [{lo}:{lo + 32}] of 192", grow[..., lo : lo + 32])
+                       for lo in (64, 96, 128, 160)]
+        amax_cases += [("misaligned [3:35] of 192 (scalar path)", grow[..., 3:35]),
+                       ("B = 2, C = 160 prefix of 192", grow[..., :160]), ("1x1080x1920x64", xb)]
+        for tag, xa in amax_cases:
+            ka, pa = quant.act_amax(xa), quant.act_amax_plain(xa)
+            check(torch.equal(ka, pa), f"act_amax {tag}: {ka.tolist()} != plain {pa.tolist()}")
+            log(f"[check] act_amax {tag} {tuple(xa.shape)}: equal to plain {ka.tolist()}")
+        del grow
         record(
             "act_amax", "1x1080x1920x64 -> (1,) (library: torch.linalg.vector_norm ord=inf)",
             lambda: quant.act_amax(xb), lambda: quant.act_amax_plain(xb), 10,
@@ -1349,7 +1458,8 @@ def main(argv=None) -> int:
         # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
         ("main_tailq", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1,
-          "tail_fused_q": 1, "unsharp_fused": 1, **k1_routes(n_rdb + 2, 1)},
+          "tail_fused_q": 1, "tail_fused_q:mma": 1, "unsharp_fused": 1,
+          **k1_routes(n_rdb + 2, 1)},
          is_flagship("bf16"), 1, "VRT_TAIL_Q", dict(vs_default="VRT_TAIL_Q")),
     )
     check(tuple(p_[0] for p_ in PATHS) == PATH_TAGS, "path tags")
@@ -1443,7 +1553,7 @@ def main(argv=None) -> int:
 
     if want("bench"):
         phase_bench()
-    path_stats.update(k1=k1_stats, k5=k5_stats, k3=k3_stats)
+    path_stats.update(k1=k1_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats)
     log(f"[paths] {json.dumps(path_stats)}")
     if only:
         log(f"[partial] ran only {sorted(only)} after the build: no result line")

@@ -282,20 +282,61 @@ __global__ void __launch_bounds__(kThreads) conv3x3_i8_kernel(const I8Args a) {
   if (a.out_amax) block_amax(m, s_red, a.out_amax + n * a.os);
 }
 
-// per-image |max| of a (B, H*W, >=C) bf16 channel-prefix view
+// Per-image |max| of a (B, H*W, >=C) bf16 channel-prefix view with pixel
+// stride xs (the A8 amax of _quant_act, pallas_stripe.py:239, for a tensor K4
+// did not write). VEC channels per load: 8 (16 bytes; C and xs multiples of
+// 8, base 16-byte aligned) or 1 (any view). A thread walks positions (pixel,
+// chunk) of the view strided by the grid's thread count, four loads in
+// flight, stepping its pixel and chunk by a precomputed quotient and
+// remainder (no division per element); |.| and max on bf16x2 are exact, so
+// the result equals the plain version bit for bit in any order; one widening
+// to fp32 and one atomicMax per block. Bound: the bytes of the view.
+template <int VEC>
 __global__ void __launch_bounds__(256)
     amax_kernel(const __nv_bfloat16* x, long long xs, int hw, int c,
                 float* out, long long os) {
   __shared__ float s_red[256 / 32];
+  constexpr int UNROLL = 4;
   const int n = blockIdx.y;
   const __nv_bfloat16* base = x + (long long)n * hw * xs;
-  const unsigned total = (unsigned)hw * (unsigned)c;
-  float m = 0.f;
-  for (unsigned i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const unsigned pix = i / c, ch = i % c;
-    m = fmaxf(m, fabsf(__bfloat162float(base[(long long)pix * xs + ch])));
+  const int cc = c / VEC;  // positions per pixel
+  const long long nthreads = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int dp = (int)(nthreads / cc), dc = (int)(nthreads % cc);
+  int pix = (int)(first / cc), ch = (int)(first % cc);
+  __nv_bfloat162 m2 = __floats2bfloat162_rn(0.f, 0.f);
+  while (pix < hw) {
+    uint4 v[UNROLL];
+    bool ok[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      ok[u] = pix < hw;
+      if (ok[u]) {
+        const __nv_bfloat16* p = base + (long long)pix * xs + ch * VEC;
+        if constexpr (VEC == 8) {
+          v[u] = __ldg(reinterpret_cast<const uint4*>(p));
+        } else {
+          const unsigned short bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+          v[u] = make_uint4(bits, 0u, 0u, 0u);
+        }
+      }
+      ch += dc;
+      pix += dp;
+      if (ch >= cc) {
+        ch -= cc;
+        ++pix;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (!ok[u]) continue;
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[u]);
+#pragma unroll
+      for (int k = 0; k < (VEC == 8 ? 4 : 1); ++k)
+        m2 = __hmax2(m2, __habs2(h[k]));  // VEC 1: the high half is +0
+    }
   }
+  const float m = fmaxf(__low2float(m2), __high2float(m2));
   block_amax(m, s_red, out + n * os);
 }
 
@@ -352,12 +393,28 @@ int vr_conv3x3_i8(const void* x, const void* amax, const void* w,
 
 int vr_amax_bf16(const void* x, void* out, int B, int HW, int C, long long xs,
                  long long os, void* stream) {
-  const long long total = (long long)HW * C;
-  if (total >= (1ll << 31)) return cudaErrorInvalidValue;
-  const int blocks = (int)(total / 4096 + 1 < 512 ? total / 4096 + 1 : 512);
-  amax_kernel<<<dim3(blocks, B), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), xs, HW, C,
-      static_cast<float*>(out), os);
+  if (B <= 0 || B > 65535 || HW <= 0 || C <= 0 || xs < C)
+    return cudaErrorInvalidValue;
+  const bool vec = C % 8 == 0 && xs % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const long long positions = (long long)HW * (vec ? C / 8 : C);
+  // a few blocks per SM over all images, no more than the positions need
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  long long blocks = (4LL * sms + B - 1) / B;
+  const long long need = (positions + 256 * 4 - 1) / (256 * 4);
+  if (blocks > need) blocks = need;
+  const dim3 grid((unsigned)blocks, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
+  float* op = static_cast<float*>(out);
+  if (vec)
+    amax_kernel<8><<<grid, 256, 0, st>>>(xp, xs, HW, C, op, os);
+  else
+    amax_kernel<1><<<grid, 256, 0, st>>>(xp, xs, HW, C, op, os);
   return cudaGetLastError();
 }
 

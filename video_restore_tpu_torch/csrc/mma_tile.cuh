@@ -37,8 +37,9 @@
 //     (k 0-7, n 8-15), (k 8-15, n 8-15) = b0, b1 of two neighbouring n8 tiles;
 //   C: c0, c1 (row g, columns 2t, 2t + 1), c2, c3 (row g + 8, same columns).
 //
-// Written for the K1 conv (conv3x3_mma.cu); the one-launch RDB, the one-launch
-// tail and the SRVGG kernels can be rebuilt on the same routines.
+// Written for the K1 conv (conv3x3_mma.cu); the one-launch RDB
+// (rdb_fused_mma.cu), the SRVGG upsampler (srvgg_up_mma.cu) and the one-launch
+// tail (tail_fused_mma.cu) are built on the same routines.
 
 #pragma once
 

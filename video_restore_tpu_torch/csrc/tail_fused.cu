@@ -39,8 +39,9 @@
 // tensor-core peak). This first design runs fp32 FMAs on the CUDA cores
 // (67 TFLOP/s peak) at one block of 320 threads per SM; what it saves over
 // three K1 launches is the 17 GB of intermediate traffic and 8.5 GB of
-// device memory, not operations. Tensor-core mma/wgmma over the same
-// windows is later work.
+// device memory, not operations. bf16 at nf 64 runs on the tensor cores in
+// tail_fused_mma.cu; this kernel keeps fp32 and nf 16
+// (ops/tail.py::tail_fused_route).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "conv3x3_mma.cu", "unsharp.cu", "srvgg_up.cu",
     "srvgg_up_mma.cu", "conv3x3_i8.cu", "rdb_fused.cu", "rdb_fused_mma.cu",
-    "tail_fused.cu",
+    "tail_fused.cu", "tail_fused_mma.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -169,6 +169,8 @@ def load() -> ctypes.CDLL:
             # dtype, nf, x, y, three (w, b) pairs, B, H2, W2, stream
             lib.vr_tail_fused.argtypes = [_I, _I] + [_P] * 8 + [_I, _I, _I, _P]
             lib.vr_tail_fused.restype = _I
+            lib.vr_tail_fused_mma.argtypes = lib.vr_tail_fused.argtypes
+            lib.vr_tail_fused_mma.restype = _I
             lib.vr_error_string.argtypes = [_I]
             lib.vr_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -146,10 +146,11 @@ def act_amax(x: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tenso
         out.zero_()
     xs = _pixel_stride(x, "x")
     lib = _build.load()
-    code = lib.vr_amax_bf16(
-        x.data_ptr(), out.data_ptr(), bsz, h * w, c, xs, out.stride(0),
-        _build.stream_ptr(x),
-    )
+    with torch.cuda.device(x.device):  # the grid is sized to this card's SMs
+        code = lib.vr_amax_bf16(
+            x.data_ptr(), out.data_ptr(), bsz, h * w, c, xs, out.stride(0),
+            _build.stream_ptr(x),
+        )
     _build.check(lib, code, "amax kernel")
     _build.count_launch("act_amax")
     return out

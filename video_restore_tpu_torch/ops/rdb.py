@@ -40,7 +40,7 @@ import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.stripe import rdb_fused_plain
-from video_restore_tpu_torch.ops.tail import _DTYPES, ROUTES
+from video_restore_tpu_torch.ops.tail import _DTYPES, ROUTES, forced_route
 
 # (nf, gc) pairs K5 is instantiated for: every RRDBNet of the zoo, and the
 # narrow width of the tests and checks
@@ -63,14 +63,7 @@ def _pick_route(name: str, x: torch.Tensor, nf: int, gc: int, route: Optional[st
     """The route of a call: :func:`rdb_route`, or ``route`` when the caller
     forces one (a side-by-side timing of the two kernels); ``"mma"`` only
     where the tensor-core kernel is instantiated."""
-    own = rdb_route(x.dtype, nf, gc)
-    if route is None:
-        return own
-    if route not in ROUTES:
-        raise ValueError(f"{name}: unknown route {route!r} (expected one of {ROUTES})")
-    if route == "mma" and own != "mma":
-        raise ValueError(f"{name}: the mma kernel takes bf16 at (64, 32) only")
-    return route
+    return forced_route(name, rdb_route(x.dtype, nf, gc), route, "bf16 at (64, 32)")
 
 
 def _check(name: str, x: torch.Tensor, rdbs: Sequence[RdbWeights]) -> Tuple[int, int]:

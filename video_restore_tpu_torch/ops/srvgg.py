@@ -51,7 +51,7 @@ from video_restore_tpu_torch.ops.quant import (
     conv3x3_i8,
     conv3x3_i8_plain,
 )
-from video_restore_tpu_torch.ops.tail import _DTYPES, ROUTES, conv3x3, conv3x3_plain
+from video_restore_tpu_torch.ops.tail import _DTYPES, ROUTES, conv3x3, conv3x3_plain, forced_route
 
 UP_SCALES = (2, 4)  # the scales the JAX model sends to its fused upsampler
 UP_MMA_MAX_CIN = 64  # the whole patch and weights of a block in shared memory
@@ -226,13 +226,8 @@ def srvgg_up_fused(
         if not t.is_contiguous():
             raise ValueError(f"srvgg_up_fused: {name} must be contiguous")
     bsz, h, w, nf = feat.shape
-    own = srvgg_up_route(dt, nf, r)
-    if route is None:
-        route = own
-    elif route not in ROUTES:
-        raise ValueError(f"srvgg_up_fused: unknown route {route!r} (expected one of {ROUTES})")
-    elif route == "mma" and own != "mma":
-        raise ValueError("srvgg_up_fused: the mma kernel takes bf16 with cin 16..64")
+    route = forced_route("srvgg_up_fused", srvgg_up_route(dt, nf, r), route,
+                         "bf16 with cin 16..64")
     # each kernel's weight width: a direct caller's unpadded r-2 weight is
     # padded here, off the model's path
     width = up_width(r) if route == "mma" else 3 * r * r

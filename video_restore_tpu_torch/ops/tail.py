@@ -1,6 +1,7 @@
 """The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3_mma.cu``
 on the tensor cores, ``csrc/conv3x3.cu`` on the CUDA cores), and the
-one-launch tail on kernel K6 (``csrc/tail_fused.cu``).
+one-launch tail on kernel K6 (``csrc/tail_fused_mma.cu`` on the tensor cores,
+``csrc/tail_fused.cu`` on the CUDA cores).
 
 Port of ``video_restore_tpu/ops/pallas_tail.py``:
 
@@ -36,8 +37,11 @@ which a call takes: ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed
 by ``ldmatrix`` from shared memory that ``cp.async`` fills) for the bf16
 convs whose widths feed the tensor cores, ``"fma"`` (``csrc/conv3x3.cu``:
 fp32 FMAs) for the rest: fp32, the stems (cin 3, 12), ``conv_last`` (cout
-3) and narrow test widths. The kernel notes (what bounds K1 on the H100 and
-what each design does about it) are at the top of the two sources.
+3) and narrow test widths. K6 is two kernels the same way, chosen by
+:func:`tail_fused_route`: ``"mma"`` (``csrc/tail_fused_mma.cu``) for bf16 at
+nf 64, ``"fma"`` (``csrc/tail_fused.cu``) for fp32 and nf 16. The kernel
+notes (what bounds each kernel on the H100 and what its design does about
+it) are at the top of the sources.
 """
 
 from __future__ import annotations
@@ -295,6 +299,19 @@ def tail_fused_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last):
     return conv3x3_plain(f, w_last, b_last)
 
 
+def tail_fused_route(dtype: torch.dtype, nf: int, aligned: bool = True) -> str:
+    """Which of K6's two kernels a call on a CUDA tensor launches: a pure
+    function of the call. ``"mma"`` (``csrc/tail_fused_mma.cu``: tensor
+    cores, summing in K1's order) takes bf16 at nf 64, the width of every
+    RRDBNet of the zoo, with ``aligned`` operands (x and the two wide convs'
+    weights and biases on 16-byte boundaries: :func:`operands_aligned`);
+    ``"fma"`` (``csrc/tail_fused.cu``: fp32 FMAs) takes fp32 and the narrow
+    nf 16 of the checks."""
+    if dtype == torch.bfloat16 and nf == 64 and aligned:
+        return "mma"
+    return "fma"
+
+
 def tail_fused_q(
     x: torch.Tensor,
     w_up2: torch.Tensor,
@@ -303,12 +320,16 @@ def tail_fused_q(
     b_hr: torch.Tensor,
     w_last: torch.Tensor,
     b_last: torch.Tensor,
+    *,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """:func:`tail_fused` in one launch (``pallas_tail.py:1018``): x (B, H2,
     W2, nf), up1's output, -> (B, 2 H2, 2 W2, 3), with upconv2's and
     conv_hr's outputs kept on chip. One K6 launch on CUDA (fp32 or bf16,
     nf 64 or 16, contiguous operands) or an error; the plain version on the
-    CPU."""
+    CPU. ``route``: None for :func:`tail_fused_route`'s kernel, ``"fma"`` to
+    force the fp32-FMA kernel (a side-by-side timing). The launch is counted
+    under ``tail_fused_q`` and ``tail_fused_q:<route>``."""
     if x.device.type == "cpu":
         return tail_fused_q_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
     if x.device.type != "cuda":
@@ -337,17 +358,44 @@ def tail_fused_q(
             )
         if not t.is_contiguous():
             raise ValueError(f"tail_fused_q: {name} must be contiguous")
+    route = _pick_tail_route(x, w_up2, b_up2, w_hr, b_hr, route)
     out = torch.empty((bsz, 2 * h2, 2 * w2, 3), dtype=dt, device=x.device)
     lib = _build.load()
-    code = lib.vr_tail_fused(
-        _DTYPES[dt], nf, x.data_ptr(), out.data_ptr(),
-        w_up2.data_ptr(), b_up2.data_ptr(), w_hr.data_ptr(), b_hr.data_ptr(),
-        w_last.data_ptr(), b_last.data_ptr(), bsz, h2, w2,
-        _build.stream_ptr(x),
-    )
-    _build.check(lib, code, "tail_fused_q kernel")
+    fn = lib.vr_tail_fused_mma if route == "mma" else lib.vr_tail_fused
+    with torch.cuda.device(x.device):
+        code = fn(
+            _DTYPES[dt], nf, x.data_ptr(), out.data_ptr(),
+            w_up2.data_ptr(), b_up2.data_ptr(), w_hr.data_ptr(), b_hr.data_ptr(),
+            w_last.data_ptr(), b_last.data_ptr(), bsz, h2, w2,
+            _build.stream_ptr(x),
+        )
+    _build.check(lib, code, f"tail_fused_q (K6) kernel ({route})")
     _build.count_launch("tail_fused_q")
+    _build.count_launch(f"tail_fused_q:{route}")
     return out
+
+
+def forced_route(name: str, own: str, route: Optional[str], mma_takes: str) -> str:
+    """The route of a call to a wrapper with two kernels: ``own`` (its route
+    function's choice), or ``route`` when the caller forces one (a
+    side-by-side timing of the two kernels); ``"mma"`` only where the
+    tensor-core kernel takes the call (``mma_takes`` says what it takes)."""
+    if route is None:
+        return own
+    if route not in ROUTES:
+        raise ValueError(f"{name}: unknown route {route!r} (expected one of {ROUTES})")
+    if route == "mma" and own != "mma":
+        raise ValueError(f"{name}: the mma kernel takes {mma_takes} only")
+    return route
+
+
+def _pick_tail_route(x, w_up2, b_up2, w_hr, b_hr, route: Optional[str]) -> str:
+    """The route of a K6 call: :func:`tail_fused_route` of its operands, or
+    the forced ``route`` (:func:`forced_route`)."""
+    own = tail_fused_route(
+        x.dtype, x.shape[-1], operands_aligned(x, w_up2, b_up2, w_hr, b_hr)
+    )
+    return forced_route("tail_fused_q", own, route, "bf16 at nf 64 with aligned operands")
 
 
 # the same function with the same rounding points: both intermediates in the
