@@ -7,8 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 ``--only`` runs a subset for a quick probe: any of ``k1`` (K1's tensor-core
 route alone: its odd-shape checks and the old and new kernel side by side),
-``k5``, ``k3`` and ``k6`` (the same for K5's, K3's and K6's tensor-core
-routes), ``kernels`` (all of phase 3), ``paths`` (phases 4-10) or single path tags
+``k5``, ``k3``, ``k6`` and ``k4`` (the same for K5's, K3's, K6's and K4's
+tensor-core routes), ``kernels`` (all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``),
 ``bench`` (phase 11). Phases 1 and 2 always run. A partial run prints
@@ -21,7 +21,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
    ``conv3x3_mma.cu`` on ``mma_tile.cuh`` and ``conv3x3.cu``, K2
    ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
-   ``srvgg_up.cu``, K4 ``conv3x3_i8.cu`` with its amax entry point, K5
+   ``srvgg_up.cu``, K4 ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and
+   ``conv3x3_i8.cu`` with its amax entry point, K5
    ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and ``rdb_fused.cu``, each with
    its one-RDB and whole-RRDB entry points, K6 ``tail_fused_mma.cu`` on
    ``mma_tile.cuh`` and ``tail_fused.cu``), and
@@ -50,7 +51,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    version with the largest error in bf16 steps; at the flagship shape
    ``bit_equal_to_k1_chain`` (against the three K1 launches) and the old
    kernel (``fma``, forced) and the new one side by side beside the cuDNN
-   chain of 3, the new one at least 3x the old. Then
+   chain of 3, the new one at least 3x the old. K4's tensor-core route
+   (``conv3x3_i8:mma``), dynamic and static A8: each of the five RDB convs
+   (growth-buffer prefix views, pixel stride 192) and an SRVGG PReLU conv at
+   odd shapes (B = 2 ragged, below one tile, one pixel past a tile column,
+   more tiles than the card has SMs), the quantiser on all 65280 finite bf16
+   values through a centre-tap identity at 38 scales, and the whole int8 RDB
+   at 1x1080x1920x64 and 6x376x448x64, each ``torch.equal`` to the forced
+   ``dp4a`` route and to the plain version with equal output amax; then the
+   old and the new kernel side by side beside K1's bf16 RDB and the bf16
+   cuDNN chain (the new one at least 3x the old at 1080p), and the same for
+   the SRVGG int8 body. Then
    every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
@@ -96,8 +107,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    and 5 (launch counts: per model call x chunks x frames);
 8. the int8 paths (``--precision int8``, the W8A8 body on K4), 2 frames
    each: the flagship flags at 1080p, config 4, and 720p tiles with
-   RealESRGAN_x4plus, with the checks of phases 4 and 5, and the int8
-   output against the bf16 kernel path's (>= 35 dB on u8 per frame);
+   RealESRGAN_x4plus, with the checks of phases 4 and 5 (K4 by route: 345
+   ``conv3x3_i8:mma`` per flagship frame, 32 per config-4 frame, no
+   ``dp4a``), and the int8 output against the bf16 kernel path's (>= 35 dB
+   on u8 per frame);
 9. ``[main_pallas]``: the flagship flags with ``VRT_PALLAS=1`` (one K5
    launch per RRDB block, 23 per frame, and no five-K1 RDB), 2 frames, with
    the checks of phases 4 and 5, and the output against the default body's
@@ -177,12 +190,14 @@ PALLAS = {
 }
 # the hand-written kernel behind each row where a wrapper has two
 # (ops/tail.py::conv3x3_route, ops/rdb.py::rdb_route,
-# ops/srvgg.py::srvgg_up_route), as the row's calls take it
+# ops/srvgg.py::srvgg_up_route, ops/tail.py::tail_fused_route,
+# ops/quant.py::conv3x3_i8_route), as the row's calls take it
 CUDA_ROUTE = {
     "conv3x3_fused": "fma", "rdb_fused": "mma", "up1_fused": "mma",
     "tail_fused": "mma+fma", "srvgg_body": "mma", "srvgg_up_fused": "mma",
     "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:mma": "mma",
-    "tail_fused_q": "mma",
+    "tail_fused_q": "mma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
+    "rdb_fused_i8 static": "mma",
 }
 SOURCE = {
     # K1 is two kernels (ops/tail.py::conv3x3_route). This row times the stem
@@ -195,20 +210,22 @@ SOURCE = {
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp.cu",
     "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up_mma.cu",
-    "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
-    "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
+    # K4 is two kernels (ops/quant.py::conv3x3_i8_route); these rows' convs
+    # (nf 64 / gc 32) take the int8 tensor-core one
+    "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
+    "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
     "act_amax": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
     "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
     "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_mma.cu",
-    "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
+    "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
     "conv3x3:mma": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
 }
 PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
 )
-PHASES = ("k1", "k5", "k3", "k6", "kernels", "paths", "bench") + PATH_TAGS
+PHASES = ("k1", "k5", "k3", "k6", "k4", "kernels", "paths", "bench") + PATH_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -284,7 +301,8 @@ def main(argv=None) -> int:
     entry = spill = source = ""
     # K5's and K3's tensor-core sources, whose ptxas lines are repeated
     # under their phase's tag
-    new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3", "tail_fused_mma.cu": "k6"}
+    new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3", "tail_fused_mma.cu": "k6",
+                   "conv3x3_i8_mma.cu": "k4"}
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
             log(f"[build] {line.strip()}")
@@ -735,6 +753,199 @@ def main(argv=None) -> int:
         check(new_ms * 3 <= old_ms,
               f"[k6] the mma route ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
 
+    def phase_k4():
+        """K4's tensor-core route (``conv3x3_i8:mma``), dynamic and static A8:
+        each of the five RDB convs (growth-buffer prefix views, pixel stride
+        192) and an SRVGG PReLU conv at odd shapes, the quantiser on every
+        finite bf16 value, and the whole int8 RDB at 1x1080x1920x64 and the
+        tile batch 6x376x448x64, each ``torch.equal`` to the forced ``dp4a``
+        route and to the plain version, with equal output amax; then the old
+        and the new kernel side by side beside K1's bf16 RDB and the bf16
+        cuDNN chain, and the same for the SRVGG int8 body."""
+        ws8, bs8, wq8, sw8 = i8_rdb(NF, GC)
+        wp8 = [quant.pack_i8_weights(q) for q in wq8]
+        sv, swq, ssw = i8_srvgg(1, NF)
+        swp = quant.pack_i8_weights(swq[0])
+        SAS = (0.0075, 0.0079, 0.0081, 0.0068, 0.0090)  # below |max| / 127: some saturate
+
+        def held(tag, run, expect):
+            """run(route) -> (out, amax or None) for route None (the call's own),
+            "dp4a" (forced) and "plain": the first with the counters reset
+            before and read after (``expect``), all three equal bit for bit."""
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            k, ka = run(None)
+            torch.cuda.synchronize()
+            got = _build.launches()
+            check(got == expect, f"[k4] {tag}: launches {got} != {expect}")
+            d, da = run("dp4a")
+            p, pa = run("plain")
+            for name, o, oa in (("dp4a", d, da), ("plain", p, pa)):
+                diff = (k.float() - o.float()).abs().max().item()
+                check(torch.equal(k, o), f"[k4] {tag}: mma != {name} (max |diff| {diff:.3g})")
+                check((ka is None and oa is None) or torch.equal(ka, oa),
+                      f"[k4] {tag}: output amax {ka} != {name}'s {oa}")
+            k4_stats["bit_equal_cases"] = k4_stats.get("bit_equal_cases", 0) + 1
+            return k, ka
+
+        def conv(x, segs, amax, wq, sw, b, wp, route, **kw):
+            if route == "plain":
+                return quant.conv3x3_i8_plain(x, segs, amax, wq, sw, b, **kw)
+            return quant.conv3x3_i8(x, segs, amax, wq, sw, b, wp=wp, route=route, counter="k4", **kw)
+
+        one = {"k4": 1, "conv3x3_i8:mma": 1}
+        # (1, 5, 7) below one 8 x 32 tile; (2, 37, 53) B = 2, ragged both ways;
+        # (1, 9, 33) one pixel past a tile column; (2, 130, 150) 170 tiles,
+        # more than the card has SMs
+        for shp in ((2, 37, 53), (1, 5, 7), (1, 9, 33), (2, 130, 150)):
+            grow = rnd(*shp, NF + 4 * GC)
+            amax = torch.stack([quant.act_amax_plain(grow[..., lo:lo + (NF if lo == 0 else GC)])
+                                for lo in quant.rdb_segments(NF, GC, 5)[:5]], 1).contiguous()
+            r2 = rnd(*shp, NF)
+            for k_ in range(5):
+                segs = quant.rdb_segments(NF, GC, k_ + 1)
+                lo, cout = segs[-1], GC if k_ < 4 else NF
+                for static in (False, True):
+                    def run(route, k_=k_, segs=segs, lo=lo, cout=cout, static=static):
+                        dst = torch.zeros_like(grow)  # written as a channel slice, pixel stride 192
+                        out = dst[..., lo:lo + cout] if k_ < 4 else dst[..., :NF]
+                        kw = (dict(act="lrelu") if k_ < 4 else
+                              dict(r1=grow[..., :NF], s1=0.2, r2=r2, s2=0.2))
+                        if static:
+                            kw.update(sas=SAS[: k_ + 1])
+                        else:
+                            kw.update(out_amax=torch.zeros(shp[0], device=dev))
+                        conv(grow[..., :lo], segs, None if static else amax, wq8[k_], sw8[k_],
+                             bs8[k_], wp8[k_], route, out=out, **kw)
+                        return out, kw.get("out_amax")
+
+                    held(f"{shp} RDB conv{k_ + 1} {'static' if static else 'dynamic'}", run, one)
+            x = rnd(*shp, NF)
+            ax = quant.act_amax_plain(x)[:, None].contiguous()
+            for static in (False, True):
+                def run(route, static=static):
+                    kw = dict(act="prelu", alpha=sv[2][0])
+                    kw.update(sas=(0.0079,)) if static else kw.update(out_amax=torch.zeros(shp[0], device=dev))
+                    y = conv(x, (0, NF), None if static else ax, swq[0], ssw, sv[1][0], swp, route, **kw)
+                    return y, kw.get("out_amax")
+
+                held(f"{shp} SRVGG conv {'static' if static else 'dynamic'}", run, one)
+            log(f"[k4] {shp}: 5 RDB convs and an SRVGG conv, dynamic and static: mma == dp4a == plain, "
+                "output amax equal")
+            del grow
+
+        # the quantiser on every finite bf16 value: a 1x32x32x64 frame of all
+        # 65536 bit patterns (inf and NaN as 0) through the centre-tap
+        # identity, so each output is q(x) * sa for its own input, at scales
+        # 2^-120 .. 2^120 (static) and amaxes across the range (dynamic)
+        bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+        xq = bits.view(torch.bfloat16).clone()
+        xq[(bits.int() & 0x7F80) == 0x7F80] = 0
+        xq = xq.reshape(1, 32, 32, NF).to(dev)
+        eye = torch.zeros(3, 3, NF, NF, dtype=torch.int8)
+        eye[1, 1] = torch.eye(NF, dtype=torch.int8)
+        eye = eye.to(dev)
+        eye_p, ones, zero = quant.pack_i8_weights(eye), torch.ones(1, NF, device=dev), torch.zeros(NF, dtype=bf, device=dev)
+        n_scales = 0
+        for e in range(-120, 121, 8):
+            sa = 2.0 ** e
+
+            def run(route, sa=sa):
+                return conv(xq, (0, NF), None, eye, ones, zero, eye_p, route, sas=(sa,)), None
+
+            y, _ = held(f"quantiser static 2^{e}", run, one)
+            q = quant.quant_act_static_plain(xq, sa).float()
+            check(torch.equal(y.float() / sa, q), f"[k4] quantiser static 2^{e}: output != q(x) * sa")
+            n_scales += 1
+        for amax_v in (127.0, 1.0, 3.0e-3, 0.37, 5.0e4, 1.0e-30, 1.0e30):
+            am = torch.full((1, 1), amax_v, device=dev)
+
+            def run(route, am=am):
+                oa = torch.zeros(1, device=dev)
+                y = conv(xq, (0, NF), am, eye, ones, zero, eye_p, route, out_amax=oa)
+                return y, oa
+
+            held(f"quantiser dynamic amax {amax_v:g}", run, one)
+            n_scales += 1
+        log(f"[k4] quantiser: all {int(((bits.int() & 0x7F80) != 0x7F80).sum())} finite bf16 values at "
+            f"{n_scales} scales: bf16x2 quantiser (mma) == fp32 quantiser (dp4a) == plain")
+        k4_stats["quantiser_scales"] = n_scales
+        del xq
+
+        # the whole int8 RDB at the flagship and tile-batch shapes
+        rdb_ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
+        for tag, shp in (("1080p", (1, H, W)), ("tiles", (6, 376, 448))):
+            xk = rnd(*shp, NF)
+            x0 = rnd(*shp, NF) if tag == "tiles" else None
+            sas_ = calibrate_rdb_act_scales(ws8, bs8, xk[:1, :128, :128])
+
+            def rdb_run(route, static=False):
+                if route == "plain":
+                    return stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, x0, sas=sas_ if static else None)
+                return stripe.rdb_fused_i8(xk, wq8, sw8, bs8, x0, sas=sas_ if static else None,
+                                           wp=wp8, route=route)
+
+            five = {"rdb_fused_i8": 5, "conv3x3_i8:mma": 5}
+            held(f"rdb_fused_i8 {shp} dynamic", rdb_run, {**five, "act_amax": 1})
+            held(f"rdb_fused_i8 {shp} static", lambda r: rdb_run(r, True), five)
+            new_ms = timed(lambda: rdb_run(None), 10)
+            old_ms = timed(lambda: rdb_run("dp4a"), 3)
+            snew_ms = timed(lambda: rdb_run(None, True), 10)
+            sold_ms = timed(lambda: rdb_run("dp4a", True), 3)
+            k1_ms = timed(lambda: stripe.rdb_fused(xk, ws8, bs8, x0), 10)
+            ins = [rnd(shp[0], NF + k_ * GC, shp[1], shp[2]).contiguous(memory_format=torch.channels_last)
+                   for k_ in range(5)]
+            w_oihw = [w_.permute(3, 2, 0, 1).contiguous() for w_ in ws8]
+            lib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1) for a, w_, b_ in zip(ins, w_oihw, bs8)], 5)
+            del ins
+            ops = rdb_ops * shp[0] * shp[1] * shp[2] // (H * W)
+            log(
+                f"[k4] rdb_fused_i8 {shp}x64: dp4a (old kernel) {old_ms:.3f} ms, mma (new kernel) "
+                f"{new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {ops / new_ms / 1e9:.1f} TOPS useful); static "
+                f"A8: dp4a {sold_ms:.3f}, mma {snew_ms:.3f} ms ({sold_ms / snew_ms:.2f}x); K1's bf16 RDB "
+                f"{k1_ms:.3f} ms, library (bf16 cuDNN chain of 5) {lib_ms:.3f} ms"
+            )
+            check(tag != "1080p" or new_ms * 3 <= old_ms,
+                  f"[k4] the mma route ({new_ms:.3f} ms per RDB) is not 3x the dp4a kernel ({old_ms:.3f})")
+            k4_stats.update({f"rdb_{tag}_dp4a_ms": old_ms, f"rdb_{tag}_mma_ms": new_ms,
+                             f"rdb_{tag}_static_dp4a_ms": sold_ms, f"rdb_{tag}_static_mma_ms": snew_ms,
+                             f"rdb_{tag}_k1_bf16_ms": k1_ms, f"rdb_{tag}_library_ms": lib_ms})
+            del xk, x0
+            torch.cuda.empty_cache()
+
+        # the SRVGG int8 body (config 4: 32 convs at nf 64) at 1080p
+        NC = 32
+        sv, swq, ssw = i8_srvgg(NC, NF)
+        swp = torch.stack([quant.pack_i8_weights(q) for q in swq])
+        xb = rnd(1, H, W, NF)
+        k_ = srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp)
+        check(torch.equal(k_, srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp, route="dp4a")),
+              "[k4] srvgg_body_i8 1080p: mma != dp4a")
+        check(torch.equal(k_, srvgg.srvgg_body_i8_plain(xb, swq, ssw, sv[1], sv[2])),
+              "[k4] srvgg_body_i8 1080p: mma != plain")
+        del k_
+        new_ms = timed(lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp), 5)
+        old_ms = timed(lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp, route="dp4a"), 2)
+        bf_ms = timed(lambda: srvgg.srvgg_body(xb, *sv), 5)
+        xb_nchw = xb.permute(0, 3, 1, 2)
+        sv_oihw = [w_.permute(3, 2, 0, 1).contiguous() for w_ in sv[0]]
+
+        def body_lib(f):
+            for i in range(NC):
+                f = F.prelu(F.conv2d(f, sv_oihw[i], sv[1][i], padding=1), sv[2][i])
+            return f
+
+        lib_ms = timed(lambda: body_lib(xb_nchw), 3)
+        ops = NC * 2 * H * W * 9 * NF * NF
+        log(
+            f"[k4] srvgg_body_i8 1x{H}x{W}x64, 32 convs: dp4a (old kernel) {old_ms:.3f} ms, mma (new "
+            f"kernel) {new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {ops / new_ms / 1e9:.1f} TOPS useful), "
+            f"K1's bf16 body {bf_ms:.3f} ms, library (bf16 cuDNN chain of 32 conv + prelu) {lib_ms:.3f} "
+            f"ms; bit-equal to dp4a and plain; {k4_stats['bit_equal_cases']} cases bit-equal in all"
+        )
+        k4_stats.update(srvgg_dp4a_ms=old_ms, srvgg_mma_ms=new_ms, srvgg_k1_bf16_ms=bf_ms,
+                        srvgg_library_ms=lib_ms)
+
     k5_stats, k3_stats, k6_stats = {}, {}, {}
     if want("k5", "kernels"):
         phase_k5()
@@ -744,6 +955,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     if want("k6", "kernels"):
         phase_k6()
+        torch.cuda.empty_cache()
+    k4_stats = {}
+    if want("k4", "kernels"):
+        phase_k4()
         torch.cuda.empty_cache()
 
     def phase_kernels():
@@ -984,16 +1199,17 @@ def main(argv=None) -> int:
 
         k5_rows("", xb, rdb_in, H * W)
         ws8, bs8, wq8, sw8 = i8_rdb(NF, GC)
+        wp8 = [quant.pack_i8_weights(q) for q in wq8]  # K4's mma route, as a model prepares them
         rdb_i8_wbytes = sum(
             q.numel() + s_.numel() * 4 + b_.numel() * 2 for q, s_, b_ in zip(wq8, sw8, bs8)
         )
-        k_out = stripe.rdb_fused_i8(xb, wq8, sw8, bs8)[0]
+        k_out = stripe.rdb_fused_i8(xb, wq8, sw8, bs8, wp=wp8)[0]
         e, st = bf16_steps("rdb_fused_i8 1080p", k_out, stripe.rdb_fused_i8_plain(xb, wq8, sw8, bs8)[0])
         log(f"[check] rdb_fused_i8 bf16 1x1080x1920x64 err={e:.3g} steps={st:.2f}")
         del k_out
         record(
             "rdb_fused_i8", "1x1080x1920x64 (nf 64, gc 32), W8A8 (library: the bf16 cuDNN chain)",
-            lambda: stripe.rdb_fused_i8(xb, wq8, sw8, bs8)[0],
+            lambda: stripe.rdb_fused_i8(xb, wq8, sw8, bs8, wp=wp8)[0],
             lambda: stripe.rdb_fused_i8_plain(xb, wq8, sw8, bs8)[0], 5,
             2 * H * W * NF * 2 + rdb_i8_wbytes, rdb_ops, PEAK_INT8, bf,
             lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
@@ -1004,10 +1220,11 @@ def main(argv=None) -> int:
             sas_ = calibrate_rdb_act_scales(ws8, bs8, xk[:1, :128, :128])
             torch.cuda.synchronize()
             _build.reset_launches()
-            k_out = stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_)[0]
+            k_out = stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_, wp=wp8)[0]
             torch.cuda.synchronize()
             got = _build.launches()
-            check(got == {"rdb_fused_i8": 5}, f"static RDB launches {got} != 5 K4 and no amax")
+            check(got == {"rdb_fused_i8": 5, "conv3x3_i8:mma": 5},
+                  f"static RDB launches {got} != 5 K4 on the mma route and no amax")
             e, st = bf16_steps(
                 "rdb_fused_i8 static" + tag, k_out,
                 stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0],
@@ -1017,7 +1234,7 @@ def main(argv=None) -> int:
             record(
                 "rdb_fused_i8 static" + tag,
                 f"{tuple(xk.shape)} (nf 64, gc 32), W8A8 with fixed scales (library: the bf16 cuDNN chain)",
-                lambda: stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_)[0],
+                lambda: stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_, wp=wp8)[0],
                 lambda: stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0], 5,
                 2 * n_px * NF * 2 + rdb_i8_wbytes, rdb_ops * n_px // (H * W), PEAK_INT8, bf,
                 lib_fn=lib_fn,
@@ -1123,10 +1340,11 @@ def main(argv=None) -> int:
         )
         sq = [quant.quantize_conv_weights(w_, (0, NF)) for w_ in sw[0]]
         swq, ssw = torch.stack([a for a, _ in sq]), torch.cat([s_ for _, s_ in sq])
+        swp = torch.stack([quant.pack_i8_weights(a) for a, _ in sq])
         srvgg_i8_wbytes = swq.numel() + ssw.numel() * 4 + (sw[1].numel() + sw[2].numel()) * 2
         record(
             "srvgg_body_i8", "1x1080x1920x64, 32 x W8A8 (conv 64->64 + PReLU) (library: the bf16 cuDNN chain)",
-            lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sw[1], sw[2]),
+            lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sw[1], sw[2], swp),
             lambda: srvgg.srvgg_body_i8_plain(xb, swq, ssw, sw[1], sw[2]), 3,
             2 * H * W * NF * 2 + srvgg_i8_wbytes, NC * 2 * H * W * 9 * NF * NF, PEAK_INT8, bf,
             lib_fn=lambda: body_lib(xb_nchw),
@@ -1158,13 +1376,13 @@ def main(argv=None) -> int:
             lib_fn=lambda: [F.conv2d(a, w, b, padding=1) for a, w, b in zip(rdb_in, rdb_w, bs)],
         )
         e, st = bf16_steps(
-            "rdb_fused_i8 tiles", stripe.rdb_fused_i8(xt, wq8, sw8, bs8)[0],
+            "rdb_fused_i8 tiles", stripe.rdb_fused_i8(xt, wq8, sw8, bs8, wp=wp8)[0],
             stripe.rdb_fused_i8_plain(xt, wq8, sw8, bs8)[0],
         )
         log(f"[check] rdb_fused_i8 bf16 {TB}x{TH}x{TW}x64 err={e:.3g} steps={st:.2f}")
         record(
             "rdb_fused_i8 tiles", f"{TB}x{TH}x{TW}x64 (nf 64, gc 32), W8A8 (library: the bf16 cuDNN chain)",
-            lambda: stripe.rdb_fused_i8(xt, wq8, sw8, bs8)[0],
+            lambda: stripe.rdb_fused_i8(xt, wq8, sw8, bs8, wp=wp8)[0],
             lambda: stripe.rdb_fused_i8_plain(xt, wq8, sw8, bs8)[0], 5,
             2 * TB * TH * TW * NF * 2 + rdb_i8_wbytes, rdb_ops * TB * TH * TW // (H * W),
             PEAK_INT8, bf,
@@ -1190,7 +1408,7 @@ def main(argv=None) -> int:
         )
         record(
             "srvgg_body_i8 tiles", f"{TB}x{TH}x{TW}x64, 32 W8A8 convs (library: the bf16 cuDNN chain)",
-            lambda: srvgg.srvgg_body_i8(xt, swq, ssw, sw[1], sw[2]),
+            lambda: srvgg.srvgg_body_i8(xt, swq, ssw, sw[1], sw[2], swp),
             lambda: srvgg.srvgg_body_i8_plain(xt, swq, ssw, sw[1], sw[2]), 3,
             2 * TB * TH * TW * NF * 2 + srvgg_i8_wbytes, NC * 2 * TB * TH * TW * 9 * NF * NF,
             PEAK_INT8, bf,
@@ -1205,7 +1423,7 @@ def main(argv=None) -> int:
             2 * TB * TH * TW * 9 * NF * 3 * R * R, PEAK_BF16, bf,
             lib_fn=lambda: F.conv2d(xt_nchw, wo_oihw, bo, padding=1),
         )
-        del xt, xt_nchw, xin, sw, sw_oihw, swq, ssw
+        del xt, xt_nchw, xin, sw, sw_oihw, swq, ssw, swp
         torch.cuda.empty_cache()
 
     if want("kernels"):
@@ -1401,9 +1619,10 @@ def main(argv=None) -> int:
         "conv3x3_fused": 1, "srvgg_body": v3.num_conv, "srvgg_up_fused": 1,
         "srvgg_up_fused:mma": 1, **k1_routes(v3.num_conv, 1),
     }
+    # K4 of an int8 RRDBNet frame: every RDB conv on the int8 tensor cores
     rrdb_i8_call = {
         "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
-        "up1_fused": 1, "tail_fused": 3, **k1_routes(4, 2),
+        "conv3x3_i8:mma": n_rdb, "up1_fused": 1, "tail_fused": 3, **k1_routes(4, 2),
     }
     flagship = ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
                 "--tile-size", "0", "--models-dir", str(models_dir)]
@@ -1444,7 +1663,7 @@ def main(argv=None) -> int:
          {**rrdb_i8_call, "unsharp_fused": 1}, is_flagship("int8"), 1, None, dict(vs_bf16=True)),
         ("config4_int8", (H, W, 2), config4 + ["--precision", "int8"],
          {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv,
-          "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1, **k1_routes(0, 1)},
+          "conv3x3_i8:mma": v3.num_conv, "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1, **k1_routes(0, 1)},
          is_config4("int8"), 1, None, dict(vs_bf16=True)),
         ("tiled_x4plus_int8", (720, 1280, 2),
          ["--model", "RealESRGAN_x4plus", "--precision", "int8"] + tiled,
@@ -1531,8 +1750,9 @@ def main(argv=None) -> int:
             (bench_rdb.MODES[:-1],
              {"rdb_fused": 5 * apps, "conv3x3:mma": 5 * apps, "rdb_fused_k5": apps,
               "rdb_fused_k5:mma": apps, "rrdb_fused": rrdb_apps,
-              "rrdb_fused:mma": rrdb_apps, "rdb_fused_i8": 5 * apps, "act_amax": 1}),
-            (("int8s",), {"rdb_fused_i8": 5 * apps}),
+              "rrdb_fused:mma": rrdb_apps, "rdb_fused_i8": 5 * apps,
+              "conv3x3_i8:mma": 5 * apps, "act_amax": 1}),
+            (("int8s",), {"rdb_fused_i8": 5 * apps, "conv3x3_i8:mma": 5 * apps}),
         ):
             _build.reset_launches()
             recs += bench_rdb.bench(modes, bench_rdb.SHAPE, "cuda", iters)
@@ -1553,7 +1773,7 @@ def main(argv=None) -> int:
 
     if want("bench"):
         phase_bench()
-    path_stats.update(k1=k1_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats)
+    path_stats.update(k1=k1_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats, k4=k4_stats)
     log(f"[paths] {json.dumps(path_stats)}")
     if only:
         log(f"[partial] ran only {sorted(only)} after the build: no result line")

@@ -51,7 +51,9 @@
 // shared memory as int8 packed by 4 channels, stages the 9 x 32 x 32 int8
 // weight slice the same way, and each thread keeps 8 pixels x 8 output
 // channels of int32 sums (and their fp32 dequantised totals) in registers.
-// Tensor-core int8 (`mma.sync` m16n8k32, then `wgmma`) is later work.
+// The int8 tensor cores (`mma.sync` m16n8k32) are conv3x3_i8_mma.cu, the
+// same function bit for bit, which takes the calls at nf 64 / gc 32
+// (ops/quant.py::conv3x3_i8_route); this kernel keeps the rest.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

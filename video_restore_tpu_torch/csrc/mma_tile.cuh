@@ -40,6 +40,19 @@
 // Written for the K1 conv (conv3x3_mma.cu); the one-launch RDB
 // (rdb_fused_mma.cu), the SRVGG upsampler (srvgg_up_mma.cu) and the one-launch
 // tail (tail_fused_mma.cu) are built on the same routines.
+//
+// int8 (the W8A8 conv, conv3x3_i8_mma.cu): `mma.sync.aligned.m16n8k32` s8 x s8
+// -> s32, one k32 step per 32 input channels. The patch holds 32 int8
+// channels in the 32 data bytes of the same 48-byte pixel, so a_lane_offset
+// and the same `ldmatrix.x4` give the s8 A fragment unchanged (a0 row g, k
+// 4t..4t+3; a1 row g + 8; a2, a3 the same at k + 16). The B operand cannot go
+// through `ldmatrix.trans`, which moves 16-bit elements and would split int8
+// pairs: the weights are laid out once as (9, cout, cin) int8 (n-major, k
+// contiguous; ops/quant.py::pack_i8_weights), a row (tap, n) of 32 k bytes
+// (swizzled, WeightsI8), and a plain `ldmatrix.x4` of (n 0-7, k 0-15), (n 0-7,
+// k 16-31), (n 8-15, k 0-15), (n 8-15, k 16-31) gives b0 (k 4t..4t+3 of column
+// g), b1 (k 16 + 4t..) of two neighbouring n8 tiles. The accumulator layout is
+// the fp32 one (frag_pixel, frag_channel).
 
 #pragma once
 
@@ -172,6 +185,102 @@ __device__ __forceinline__ void mma_taps(float (&acc)[RW][2][NT][4],
             mma_16816(acc[rw][mt][2 * np + 1], a[rw][mt], b[2], b[3]);
           }
       }
+    }
+  }
+}
+
+// ---- int8 -------------------------------------------------------------------
+
+constexpr int KC8 = 32;  // int8 input channels per stage: one k32 step
+
+// c += a (m16 x k32, row) * b (k32 x n8, col), s8 in, exact s32 sums
+__device__ __forceinline__ void mma_16832_s8(int (&c)[4], const uint32_t (&a)[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared-memory geometry of one int8 weight stage for NT * 8 output channels:
+// row (tap, n) holds k 0..31 of the stage, 32 bytes, its two 16-byte halves
+// swapped in rows 4-7 of every 8 (half ^ ((n >> 2) & 1)): the eight rows of
+// one `ldmatrix` 8x8 matrix then fall on eight different 16-byte bank groups
+// of a 128-byte line without the padding of the bf16 tiles, so a block can
+// keep every stage of a conv's weights resident.
+template <int NT>
+struct WeightsI8 {
+  static constexpr int PITCH = 32;                 // bytes per (tap, n) row
+  static constexpr int BYTES = 9 * NT * 8 * PITCH;
+  static constexpr int CHUNKS = 9 * NT * 8 * 2;    // 16-byte copies per stage
+};
+
+// Every stage of the weights: wp is (9, NT * 8, cin) int8, 16-byte aligned,
+// cin a multiple of 32; stage j (input channels 32 j ..) at s_w + j * BYTES.
+template <int NT, int THREADS>
+__device__ __forceinline__ void load_weights_i8(uint32_t s_w,
+                                                const int8_t* __restrict__ wp,
+                                                int cin, int tid) {
+  const int n = (cin / KC8) * WeightsI8<NT>::CHUNKS;
+  for (int i = tid; i < n; i += THREADS) {
+    const int j = i / WeightsI8<NT>::CHUNKS;
+    const int c = i - j * WeightsI8<NT>::CHUNKS;
+    const int row = c >> 1, half = c & 1;  // row = tap * cout + n
+    cp_async16(s_w + j * WeightsI8<NT>::BYTES + row * WeightsI8<NT>::PITCH +
+                   ((half ^ (row >> 2)) & 1) * 16,
+               wp + ((long long)row * cin + j * KC8 + half * 16), true);
+  }
+}
+
+// Byte offset of this lane's `ldmatrix` row in the int8 weight tile (tap 0,
+// n-tile pair 0): matrix l >> 3 is (n + 8 (m >> 1), k + 16 (m & 1)), its
+// half swapped in rows 4-7. Tap and n-pair offsets move by multiples of 8
+// rows, which keep the swap.
+__device__ __forceinline__ uint32_t b_lane_offset_i8(int lane) {
+  const int m = lane >> 3, r = lane & 7;
+  return (r + (m >> 1) * 8) * WeightsI8<2>::PITCH + ((m ^ (r >> 2)) & 1) * 16;
+}
+
+struct NoWork {
+  __device__ __forceinline__ void operator()(int) const {}
+};
+
+// acc += the nine taps of one int8 stage (32 input channels), as mma_taps,
+// for NT of the NB n8 tiles of a tap (b_lane points at the warp's first).
+// between(tap) runs after the MMAs of each tap (0..8): other work the warp
+// can issue while the tensor cores run them (conv3x3_i8_mma.cu quantises the
+// next stage there).
+template <int NT, int RW, int PW, int NB = NT, typename Between = NoWork>
+__device__ __forceinline__ void mma_taps_i8(int (&acc)[RW][2][NT][4],
+                                            uint32_t a_lane, uint32_t b_lane,
+                                            Between between = Between()) {
+  static_assert(NT % 2 == 0, "n8 tiles are loaded in pairs");
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky) {
+#pragma unroll
+    for (int kx = 0; kx < 3; ++kx) {
+      uint32_t a[RW][2][4];
+#pragma unroll
+      for (int rw = 0; rw < RW; ++rw)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(a[rw][mt],
+                      a_lane + ((rw + ky) * PW + mt * 16 + kx) * PIX_PITCH);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, b_lane + ((ky * 3 + kx) * NB * 8 + np * 16) *
+                                    WeightsI8<NB>::PITCH);
+#pragma unroll
+        for (int rw = 0; rw < RW; ++rw)
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_16832_s8(acc[rw][mt][2 * np], a[rw][mt], b[0], b[1]);
+            mma_16832_s8(acc[rw][mt][2 * np + 1], a[rw][mt], b[2], b[3]);
+          }
+      }
+      between(ky * 3 + kx);
     }
   }
 }

@@ -61,6 +61,7 @@ from video_restore_tpu_torch.ops.conv import pixel_unshuffle
 from video_restore_tpu_torch.ops.quant import (
     act_amax,
     act_amax_plain,
+    pack_i8_weights,
     quantize_conv_weights,
     rdb_segments,
 )
@@ -143,20 +144,25 @@ class RDB(nn.Module):
 
     def quantize(self) -> None:
         """W8 of the five convs, one scale per (source, output channel):
-        buffers ``wq{k}`` (int8 HWIO) and ``sw{k}`` (fp32 (k, cout))."""
+        buffers ``wq{k}`` (int8 HWIO), ``sw{k}`` (fp32 (k, cout)) and
+        ``wp{k}`` (``wq{k}`` packed (9, cout, cin) for K4's ``"mma"``
+        route)."""
         for k in range(1, 6):
             q, s = quantize_conv_weights(
                 getattr(self, f"conv{k}").w, rdb_segments(self.nf, self.gc, k)
             )
             self.register_buffer(f"wq{k}", q, persistent=False)
             self.register_buffer(f"sw{k}", s, persistent=False)
+            self.register_buffer(f"wp{k}", pack_i8_weights(q), persistent=False)
 
     def int8_weights(self):
+        """``rdb_fused_i8``'s weight arguments, by name."""
         ks = range(1, 6)
-        return (
-            [getattr(self, f"wq{k}") for k in ks],
-            [getattr(self, f"sw{k}") for k in ks],
-            [getattr(self, f"conv{k}").b for k in ks],
+        return dict(
+            wq=[getattr(self, f"wq{k}") for k in ks],
+            sw=[getattr(self, f"sw{k}") for k in ks],
+            bs=[getattr(self, f"conv{k}").b for k in ks],
+            wp=[getattr(self, f"wp{k}") for k in ks],
         )
 
 
@@ -282,9 +288,9 @@ class RRDBNet(nn.Module):
             rdb = rdb_fused_i8_plain if plain else rdb_fused_i8
             amax = (act_amax_plain if plain else act_amax)(h)
             for blk in self.body:
-                out, a = rdb(h, *blk.rdb1.int8_weights(), x_amax=amax)
-                out, a = rdb(out, *blk.rdb2.int8_weights(), x_amax=a)
-                h, amax = rdb(out, *blk.rdb3.int8_weights(), x0=h, x_amax=a)
+                out, a = rdb(h, **blk.rdb1.int8_weights(), x_amax=amax)
+                out, a = rdb(out, **blk.rdb2.int8_weights(), x_amax=a)
+                h, amax = rdb(out, **blk.rdb3.int8_weights(), x0=h, x_amax=a)
         elif self.mode == "pallas":
             rrdb = rrdb_fused_plain if plain else rrdb_fused
             for blk in self.body:

@@ -31,7 +31,7 @@ import torch
 from torch import nn
 
 from video_restore_tpu_torch.models.rrdbnet import Conv3x3
-from video_restore_tpu_torch.ops.quant import quantize_conv_weights
+from video_restore_tpu_torch.ops.quant import pack_i8_weights, quantize_conv_weights
 from video_restore_tpu_torch.ops.srvgg import (
     srvgg_body,
     srvgg_body_i8,
@@ -87,7 +87,8 @@ class SRVGGNet(nn.Module):
         """Move the weights once to the compute dtype and device (biases and
         alphas included, as the JAX zoo casts every float leaf). With
         ``precision="int8"`` the body also quantises its cast weights into
-        the buffers ``wq`` (int8) and ``sw`` (fp32 (num_conv, nf)). Where
+        the buffers ``wq`` (int8), ``sw`` (fp32 (num_conv, nf)) and ``wp``
+        (each conv's ``wq`` packed for K4's ``"mma"`` route). Where
         K3's tensor-core route reads conv_out with padded output columns
         (r 2: 12 -> 16), the padded copy is made here, once, as the buffer
         ``w_up`` (``ops/srvgg.py::srvgg_up_weights``). Returns self."""
@@ -106,6 +107,9 @@ class SRVGGNet(nn.Module):
             qs = [quantize_conv_weights(w, (0, nf)) for w in body.w]
             body.register_buffer("wq", torch.stack([q for q, _ in qs]), persistent=False)
             body.register_buffer("sw", torch.cat([s for _, s in qs]), persistent=False)
+            body.register_buffer(
+                "wp", torch.stack([pack_i8_weights(q) for q, _ in qs]), persistent=False
+            )
         return self
 
     @torch.no_grad()
@@ -120,7 +124,8 @@ class SRVGGNet(nn.Module):
         if self.precision == "int8":
             body_i8 = srvgg_body_i8_plain if plain else srvgg_body_i8
             feat = body_i8(
-                feat, self.body.wq, self.body.sw, self.body.b, self.body.alpha
+                feat, self.body.wq, self.body.sw, self.body.b, self.body.alpha,
+                self.body.wp,
             )
         else:
             feat = body(feat, self.body.w, self.body.b, self.body.alpha)

@@ -31,8 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "conv3x3_mma.cu", "unsharp.cu", "srvgg_up.cu",
-    "srvgg_up_mma.cu", "conv3x3_i8.cu", "rdb_fused.cu", "rdb_fused_mma.cu",
-    "tail_fused.cu", "tail_fused_mma.cu",
+    "srvgg_up_mma.cu", "conv3x3_i8.cu", "conv3x3_i8_mma.cu", "rdb_fused.cu",
+    "rdb_fused_mma.cu", "tail_fused.cu", "tail_fused_mma.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -159,6 +159,8 @@ def load() -> ctypes.CDLL:
                 _I, _F, _F, _P,
             ]
             lib.vr_conv3x3_i8.restype = _I
+            lib.vr_conv3x3_i8_mma.argtypes = lib.vr_conv3x3_i8.argtypes
+            lib.vr_conv3x3_i8_mma.restype = _I
             lib.vr_amax_bf16.argtypes = [_P, _P, _I, _I, _I, _L, _L, _P]
             lib.vr_amax_bf16.restype = _I
             for fn in (lib.vr_rdb_fused, lib.vr_rrdb_fused,

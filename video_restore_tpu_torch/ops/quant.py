@@ -34,7 +34,15 @@ window; the port takes one per image (per tile when tiled). The two agree
 when one stripe and one chunk cover the frame (ROADMAP queue 3).
 
 :func:`conv3x3_i8` and :func:`act_amax` take their plain versions for CPU
-tensors; for CUDA tensors they launch K4 (bf16 only) or raise.
+tensors; for CUDA tensors they launch K4 (bf16 only) or raise. K4 is two
+hand-written kernels of one function, and :func:`conv3x3_i8_route` says
+which a call takes: ``"mma"`` (``csrc/conv3x3_i8_mma.cu``: int8
+``mma.sync`` m16n8k32 on the tile routines of ``csrc/mma_tile.cuh``, reading
+the weights packed by :func:`pack_i8_weights`) for the calls whose widths
+feed the tensor cores, ``"dp4a"`` (``csrc/conv3x3_i8.cu``: ``__dp4a`` on the
+CUDA cores, HWIO weights) for the rest. The integer sums are exact in any
+order and both kernels repeat the same fp32 steps, so they agree bit for
+bit.
 """
 
 from __future__ import annotations
@@ -47,10 +55,66 @@ import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.conv import conv2d_f32
-from video_restore_tpu_torch.ops.tail import _ACTS, _pixel_stride
+from video_restore_tpu_torch.ops.tail import _ACTS, _pixel_stride, forced_route, operands_aligned
 
 _INV127 = float(np.float32(1.0 / 127.0))  # the fp32 constant JAX multiplies by
 MAX_SEGMENTS = 5
+I8_ROUTES = ("mma", "dp4a")
+_I8_MMA_K = 32  # input channels per k32 step of m16n8k32
+_I8_MMA_COUT = (32, 64)  # the widths conv3x3_i8_mma.cu is instantiated for
+_I8_MMA_MAX_CIN = 192  # every stage of the weights resident in shared memory
+
+
+def conv3x3_i8_route(
+    dtype: torch.dtype, segs: Sequence[int], cout: int, aligned: bool = True
+) -> str:
+    """Which of K4's two kernels a call on a CUDA tensor launches: a pure
+    function of the call. ``"mma"`` (int8 tensor cores) takes bf16 with
+    every segment width a multiple of 32 (one k32 step per 32 input
+    channels, each step inside one segment: every RDB at nf 64 / gc 32, the
+    SRVGG body at nf 64), cin up to 192 (the conv's weights stay in shared
+    memory), cout 32 or 64, and ``aligned`` operands
+    (:func:`~video_restore_tpu_torch.ops.tail.operands_aligned`);
+    ``"dp4a"`` takes every other call: the narrow test widths (nf 16 / gc 8)
+    and unaligned views."""
+    if (
+        dtype == torch.bfloat16
+        and all((hi - lo) % _I8_MMA_K == 0 for lo, hi in zip(segs[:-1], segs[1:]))
+        and segs[-1] <= _I8_MMA_MAX_CIN
+        and cout in _I8_MMA_COUT
+        and aligned
+    ):
+        return "mma"
+    return "dp4a"
+
+
+def pick_i8_route(x, segs, wq, b, alpha=None, out=None, r1=None, r2=None, wp=None,
+                  route: Optional[str] = None) -> str:
+    """The route of a K4 call: :func:`conv3x3_i8_route` of its operands
+    (``out=None``: a fresh contiguous tensor; ``wp=None``: a fresh packed
+    copy; both are aligned), or the forced ``route``
+    (``ops/tail.py::forced_route`` with K4's route names :data:`I8_ROUTES`:
+    ``"dp4a"`` for any call, ``"mma"`` only where the tensor-core kernel
+    takes it)."""
+    own = conv3x3_i8_route(
+        x.dtype, segs, wq.shape[-1], operands_aligned(x, wp, b, alpha, out, r1, r2)
+    )
+    return forced_route(
+        "conv3x3_i8", own, route,
+        "bf16 with segments of multiples of 32, cin up to 192, cout 32 or 64 and aligned operands",
+        routes=I8_ROUTES,
+    )
+
+
+def pack_i8_weights(wq: torch.Tensor) -> torch.Tensor:
+    """The int8 HWIO weight (3, 3, cin, cout) as the ``"mma"`` route reads
+    it: (9, cout, cin), contiguous (n-major, k contiguous, so that a plain
+    ``ldmatrix`` gives the m16n8k32 B fragment). A pure function, for the
+    model to call once at prepare time, beside the HWIO ``wq`` that the
+    plain version and the ``"dp4a"`` route read."""
+    if wq.dim() != 4 or tuple(wq.shape[:2]) != (3, 3) or wq.dtype != torch.int8:
+        raise ValueError(f"pack_i8_weights: {tuple(wq.shape)} {wq.dtype} is not int8 (3, 3, cin, cout)")
+    return wq.reshape(9, wq.shape[2], wq.shape[3]).transpose(1, 2).contiguous()
 
 
 def rdb_segments(nf: int, gc: int, k: int) -> Tuple[int, ...]:
@@ -248,6 +312,8 @@ def conv3x3_i8(
     r2: Optional[torch.Tensor] = None,
     s2: float = 1.0,
     sas: Optional[Sequence[float]] = None,
+    wp: Optional[torch.Tensor] = None,
+    route: Optional[str] = None,
     counter: str,
 ) -> torch.Tensor:
     """W8A8 ``out = r2 + s2 * (r1 + s1 * act(conv3x3_SAME(x, w) + b))``.
@@ -261,8 +327,12 @@ def conv3x3_i8(
     dtype. ``out_amax``: an fp32 (B,) view that receives the per-image
     |max| of the stored output (the next conv's scale). ``sas``: static
     A8, one fixed activation scale per segment (python floats) in place of
-    ``amax``, which is then None, as is ``out_amax``. ``counter`` names the
-    launch counter the calling wrapper owns."""
+    ``amax``, which is then None, as is ``out_amax``. ``wp``: ``wq`` packed
+    by :func:`pack_i8_weights`, which the ``"mma"`` route reads (packed here
+    when not given). ``route``: None for :func:`conv3x3_i8_route`'s kernel,
+    ``"dp4a"`` to force the ``__dp4a`` kernel (a side-by-side timing).
+    ``counter`` names the launch counter the calling wrapper owns; the
+    launch is also counted under ``conv3x3_i8:<route>``."""
     nseg = len(segs) - 1
     if x.device.type == "cpu":
         return conv3x3_i8_plain(
@@ -318,6 +388,16 @@ def conv3x3_i8(
     ys = _pixel_stride(out, "out")
     r1s = _pixel_stride(r1, "r1") if r1 is not None else 0
     r2s = _pixel_stride(r2, "r2") if r2 is not None else 0
+    if wp is not None and (
+        tuple(wp.shape) != (9, cout, cin) or wp.dtype != torch.int8
+        or wp.device != x.device or not wp.is_contiguous()
+    ):
+        raise ValueError(f"conv3x3_i8: wp {tuple(wp.shape)} {wp.dtype} != contiguous int8 (9, {cout}, {cin})")
+    route = pick_i8_route(x, segs, wq, b, alpha, out, r1, r2, wp, route)
+    if route == "mma":
+        wk, fn = pack_i8_weights(wq) if wp is None else wp, "vr_conv3x3_i8_mma"
+    else:
+        wk, fn = wq, "vr_conv3x3_i8"
     if out_amax is not None:
         out_amax.zero_()
     seg_arr = (ctypes.c_int * (MAX_SEGMENTS + 1))(*segs)
@@ -326,9 +406,9 @@ def conv3x3_i8(
         sa_arr = (ctypes.c_float * nseg)(*(float(v) for v in sas))
         inv_arr = (ctypes.c_float * nseg)(*(static_act_inverse(float(v), dt) for v in sas))
     lib = _build.load()
-    code = lib.vr_conv3x3_i8(
+    code = getattr(lib, fn)(
         x.data_ptr(), amax.data_ptr() if amax is not None else None,
-        wq.data_ptr(), sw.data_ptr(),
+        wk.data_ptr(), sw.data_ptr(),
         b.data_ptr(),
         alpha.data_ptr() if alpha is not None else None,
         r1.data_ptr() if r1 is not None else None,
@@ -341,6 +421,7 @@ def conv3x3_i8(
         nseg, seg_arr, sa_arr, inv_arr, _ACTS[act], float(s1), float(s2),
         _build.stream_ptr(x),
     )
-    _build.check(lib, code, "conv3x3_i8 kernel")
+    _build.check(lib, code, f"conv3x3_i8 kernel ({route})")
     _build.count_launch(counter)
+    _build.count_launch(f"conv3x3_i8:{route}")
     return out

@@ -14,7 +14,9 @@ Port of ``video_restore_tpu/ops/pallas_srvgg.py``:
   and tile edge.
 - :func:`srvgg_body_i8` is the same body with the W8A8 int8 convs of
   ``--precision int8`` (the ``sws`` argument of the same three entry
-  points): one K4 launch (``csrc/conv3x3_i8.cu``) per conv, each conv's
+  points): one K4 launch (``csrc/conv3x3_i8_mma.cu`` on the int8 tensor
+  cores at nf 64, ``csrc/conv3x3_i8.cu`` otherwise:
+  ``ops/quant.py::conv3x3_i8_route``) per conv, each conv's
   input quantised with its per-image scale, which the launch before wrote
   (the amax kernel for the body's input).
 - :func:`srvgg_up_fused` replaces ``srvgg_up_fused_raw`` (``:1025``) and
@@ -115,7 +117,7 @@ def srvgg_body_plain(x, w, b, alpha):
     return _body(conv3x3_plain, x, w, b, alpha)
 
 
-def _body_i8(conv, amax_fn, x, wq, sw, b, alpha, **kw):
+def _body_i8(conv, amax_fn, x, wq, sw, b, alpha, wp=None, **kw):
     _check_body(wq, b, alpha)
     n, nf = b.shape
     if tuple(sw.shape) != (n, nf):
@@ -126,7 +128,8 @@ def _body_i8(conv, amax_fn, x, wq, sw, b, alpha, **kw):
     for i in range(n):
         x = conv(
             x, (0, nf), amax[:, i : i + 1], wq[i], sw[i : i + 1], b[i],
-            act="prelu", alpha=alpha[i], out_amax=amax[:, i + 1], **kw,
+            act="prelu", alpha=alpha[i], out_amax=amax[:, i + 1],
+            **({} if wp is None else {"wp": wp[i]}), **kw,
         )
     return x
 
@@ -137,16 +140,23 @@ def srvgg_body_i8(
     sw: torch.Tensor,
     b: torch.Tensor,
     alpha: torch.Tensor,
+    wp: Optional[torch.Tensor] = None,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """``num_conv`` chained W8A8 ``prelu(conv3x3(x) + b)``: x (B, H, W, nf)
     bf16, wq (num_conv, 3, 3, nf, nf) int8 HWIO, sw (num_conv, nf) fp32
-    weight scales, b and alpha (num_conv, nf) in x's dtype. One amax-kernel
-    launch and one K4 launch per conv on CUDA, the plain version on the
-    CPU."""
-    return _body_i8(conv3x3_i8, act_amax, x, wq, sw, b, alpha, counter="srvgg_body_i8")
+    weight scales, b and alpha (num_conv, nf) in x's dtype; wp (num_conv, 9,
+    nf, nf) int8, each conv's weight packed by ``quant.pack_i8_weights``
+    for K4's ``"mma"`` route (each conv packs its own when not given; the
+    plain version ignores it). One amax-kernel launch and one K4 launch per
+    conv on CUDA, the plain version on the CPU. route: None for each conv's
+    own K4 route, ``"dp4a"`` to force the ``__dp4a`` kernel."""
+    return _body_i8(
+        conv3x3_i8, act_amax, x, wq, sw, b, alpha, wp, route=route, counter="srvgg_body_i8"
+    )
 
 
-def srvgg_body_i8_plain(x, wq, sw, b, alpha):
+def srvgg_body_i8_plain(x, wq, sw, b, alpha, wp=None):
     return _body_i8(conv3x3_i8_plain, act_amax_plain, x, wq, sw, b, alpha)
 
 

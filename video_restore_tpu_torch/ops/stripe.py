@@ -22,7 +22,9 @@ c1..c4 kept on chip, is ``ops/rdb.py`` (K5, the ``VRT_PALLAS=1`` body).
 
 :func:`rdb_fused_i8` is the same RDB with the W8A8 int8 convs of
 ``--precision int8`` (the ``sws`` arguments of the same entry points): five
-launches of K4 (``csrc/conv3x3_i8.cu``) on the same growth buffer, conv k
+launches of K4 (``csrc/conv3x3_i8_mma.cu`` on the int8 tensor cores at nf
+64 / gc 32, ``csrc/conv3x3_i8.cu`` otherwise: ``ops/quant.py::
+conv3x3_i8_route``) on the same growth buffer, conv k
 reading its prefix as the segments x, c1 .. c_{k-1}, each quantised with
 its own per-image scale. The |max| of each segment comes from the launch
 that wrote it (K4's output amax) or, for x, from the caller (the previous
@@ -102,7 +104,7 @@ def rdb_fused_plain(x, ws, bs, x0=None):
     return _rdb(conv3x3_plain, x, ws, bs, x0)
 
 
-def _rdb_i8(conv, amax_fn, x, wq, sw, bs, x0, x_amax, sas, **kw):
+def _rdb_i8(conv, amax_fn, x, wq, sw, bs, x0, x_amax, sas, wp=None, **kw):
     grow, nf, gc = _growth_buffer(x, wq, bs)
     static = sas is not None
     if static:
@@ -121,8 +123,10 @@ def _rdb_i8(conv, amax_fn, x, wq, sw, bs, x0, x_amax, sas, **kw):
 
     def scales(k):
         """Conv k's A8 arguments: its k sources' fixed scales, or the
-        column that receives its output's |max|."""
-        return dict(sas=tuple(sas[:k])) if static else dict(out_amax=amax[:, k])
+        column that receives its output's |max|; and its packed weight,
+        where the caller gave one."""
+        a8 = dict(sas=tuple(sas[:k])) if static else dict(out_amax=amax[:, k])
+        return a8 if wp is None else dict(a8, wp=wp[k - 1])
 
     for k in range(4):
         lo = nf + k * gc
@@ -146,6 +150,8 @@ def rdb_fused_i8(
     x0: Optional[torch.Tensor] = None,
     x_amax: Optional[torch.Tensor] = None,
     sas: Optional[Sequence[float]] = None,
+    wp: Optional[Sequence[torch.Tensor]] = None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One W8A8 RDB, optionally with the RRDB residual: returns the output
     (as :func:`rdb_fused`) and its per-image |max| (fp32 (B,)), which is
@@ -159,12 +165,18 @@ def rdb_fused_i8(
 
     sas: static A8, the fixed activation scales of x, c1 .. c4 (python
     floats); ``x_amax`` is then not taken, no amax is computed and the
-    returned |max| is None."""
+    returned |max| is None.
+
+    wp: the five weights packed by ``quant.pack_i8_weights``, which K4's
+    ``"mma"`` route reads (each conv packs its own when not given); the
+    plain version reads ``wq`` and ignores them. route: None for each
+    conv's own K4 route, ``"dp4a"`` to force the ``__dp4a`` kernel (a
+    side-by-side timing)."""
     return _rdb_i8(
-        conv3x3_i8, act_amax, x, wq, sw, bs, x0, x_amax, sas,
-        counter="rdb_fused_i8",
+        conv3x3_i8, act_amax, x, wq, sw, bs, x0, x_amax, sas, wp,
+        route=route, counter="rdb_fused_i8",
     )
 
 
-def rdb_fused_i8_plain(x, wq, sw, bs, x0=None, x_amax=None, sas=None):
+def rdb_fused_i8_plain(x, wq, sw, bs, x0=None, x_amax=None, sas=None, wp=None):
     return _rdb_i8(conv3x3_i8_plain, act_amax_plain, x, wq, sw, bs, x0, x_amax, sas)

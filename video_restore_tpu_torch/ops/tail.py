@@ -46,7 +46,7 @@ it) are at the top of the sources.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -375,15 +375,19 @@ def tail_fused_q(
     return out
 
 
-def forced_route(name: str, own: str, route: Optional[str], mma_takes: str) -> str:
+def forced_route(
+    name: str, own: str, route: Optional[str], mma_takes: str,
+    routes: Sequence[str] = ROUTES,
+) -> str:
     """The route of a call to a wrapper with two kernels: ``own`` (its route
     function's choice), or ``route`` when the caller forces one (a
     side-by-side timing of the two kernels); ``"mma"`` only where the
-    tensor-core kernel takes the call (``mma_takes`` says what it takes)."""
+    tensor-core kernel takes the call (``mma_takes`` says what it takes).
+    ``routes``: the wrapper's route names (K4's are ``("mma", "dp4a")``)."""
     if route is None:
         return own
-    if route not in ROUTES:
-        raise ValueError(f"{name}: unknown route {route!r} (expected one of {ROUTES})")
+    if route not in routes:
+        raise ValueError(f"{name}: unknown route {route!r} (expected one of {tuple(routes)})")
     if route == "mma" and own != "mma":
         raise ValueError(f"{name}: the mma kernel takes {mma_takes} only")
     return route
