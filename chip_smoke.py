@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 ``--only`` runs a subset for a quick probe: any of ``k1`` (K1's tensor-core
 route alone: its odd-shape checks and the old and new kernel side by side),
-``k5``, ``k3``, ``k6`` and ``k4`` (the same for K5's, K3's, K6's and K4's
-tensor-core routes), ``kernels`` (all of phase 3), ``paths`` (phases 4-10) or single path tags
+``k1n`` (the same for K1's narrow route), ``k5``, ``k3``, ``k6`` and ``k4``
+(the same for K5's, K3's, K6's and K4's tensor-core routes), ``kernels``
+(all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``),
 ``bench`` (phase 11). Phases 1 and 2 always run. A partial run prints
@@ -19,7 +20,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
-   ``conv3x3_mma.cu`` on ``mma_tile.cuh`` and ``conv3x3.cu``, K2
+   ``conv3x3_mma.cu`` on ``mma_tile.cuh``, ``conv3x3_narrow.cu`` and
+   ``conv3x3.cu``, K2
    ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
    ``srvgg_up.cu``, K4 ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and
    ``conv3x3_i8.cu`` with its amax entry point, K5
@@ -33,7 +35,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``upsample2``) within one bf16 step of its plain version per value and
    of a float64 conv of the same inputs, each launch counted under its
    route; then one 1080p RDB on the old kernel (``conv3x3:fma``, forced)
-   and on the new one, side by side, with each conv's time. K5's
+   and on the new one, side by side, with each conv's time. K1's narrow
+   route (``conv3x3:narrow``): the stems (cin 3 and 12 -> 64, act none,
+   PReLU and lrelu, odd shapes, a frame of one pixel, a strided cin-3 view,
+   the flagship frame and the tile batch) and ``conv_last`` (64 -> 3, odd
+   shapes, a prefix view of a wider buffer, the flagship's 1x4320x7680x64
+   and the tile batch's 6x1504x1792x64), each ``torch.equal`` to the
+   forced ``fma`` route and within ``compare``'s bound of plain, each
+   launch counted under its kernel; then the old kernel, the new one and
+   ``F.conv2d`` side by side at both flagship shapes, the new one at least
+   3x the old. K5's
    tensor-core route (``rdb_fused_k5:mma``, ``rrdb_fused:mma``) the same
    way: one RDB (with and without ``x0``) and a whole RRDB in bf16 at nf 64
    / gc 32 at odd shapes (a frame smaller than one tile, ragged extents no
@@ -91,7 +102,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    counter reset before and read after: 3 frames of 7680x4320 out, decoded
    == inferred == encoded, and each wrapper launched exactly its per-frame
    count times 3, K1 351 times per frame of which 349 on the ``mma`` route
-   and 2 (stem, ``conv_last``) on ``fma``; the ``auto_full_frame`` estimate
+   and 2 on ``narrow`` (the stem and ``conv_last``, one on each of its
+   kernels), none on ``fma``; the ``auto_full_frame`` estimate
    is printed beside the measured peak memory;
 5. the same frames through the kernel path and the plain path on the card:
    >= 45 dB PSNR on u8, and the CLI's output equal to the kernel path's
@@ -187,25 +199,28 @@ PALLAS = {
     # convs of #2-#4, #9, #10, conv_body (#1), up1 (#5), upconv2 and conv_hr
     # (#6, #7) and the SRVGG body (#14-#16)
     "conv3x3:mma": "video_restore_tpu/ops/pallas_stripe.py:1963",
+    # K1's narrow route, conv_last (#6, #7: the tail's last conv, 64 -> 3);
+    # its launches are those of the conv_last kernel
+    "conv3x3:narrow conv_last": "video_restore_tpu/ops/pallas_tail.py:266",
 }
 # the hand-written kernel behind each row where a wrapper has two
 # (ops/tail.py::conv3x3_route, ops/rdb.py::rdb_route,
 # ops/srvgg.py::srvgg_up_route, ops/tail.py::tail_fused_route,
 # ops/quant.py::conv3x3_i8_route), as the row's calls take it
 CUDA_ROUTE = {
-    "conv3x3_fused": "fma", "rdb_fused": "mma", "up1_fused": "mma",
-    "tail_fused": "mma+fma", "srvgg_body": "mma", "srvgg_up_fused": "mma",
+    "conv3x3_fused": "narrow", "rdb_fused": "mma", "up1_fused": "mma",
+    "tail_fused": "mma+narrow", "srvgg_body": "mma", "srvgg_up_fused": "mma",
     "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:mma": "mma",
     "tail_fused_q": "mma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
-    "rdb_fused_i8 static": "mma",
+    "rdb_fused_i8 static": "mma", "conv3x3:narrow conv_last": "narrow",
 }
 SOURCE = {
-    # K1 is two kernels (ops/tail.py::conv3x3_route). This row times the stem
-    # (cin 3), which stays on the fp32-FMA kernel; conv_body is conv3x3:mma's
-    "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3.cu",
+    # K1 is three routes (ops/tail.py::conv3x3_route). This row times the
+    # stem (cin 3), on the narrow route; conv_body is conv3x3:mma's
+    "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
     "rdb_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "up1_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
-    # upconv2 and conv_hr; conv_last (cout 3) runs on conv3x3.cu
+    # upconv2 and conv_hr; conv_last (cout 3) is conv3x3:narrow conv_last's
     "tail_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp.cu",
     "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
@@ -220,12 +235,13 @@ SOURCE = {
     "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_mma.cu",
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
     "conv3x3:mma": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
+    "conv3x3:narrow conv_last": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
 }
 PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
 )
-PHASES = ("k1", "k5", "k3", "k6", "k4", "kernels", "paths", "bench") + PATH_TAGS
+PHASES = ("k1", "k1n", "k5", "k3", "k6", "k4", "kernels", "paths", "bench") + PATH_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -299,10 +315,10 @@ def main(argv=None) -> int:
     _build.load()
     log(f"[build] {time.time() - t0:.1f}s -> {lib_path.name}")
     entry = spill = source = ""
-    # K5's and K3's tensor-core sources, whose ptxas lines are repeated
-    # under their phase's tag
+    # the redesigned sources, whose ptxas lines are repeated under their
+    # phase's tag
     new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3", "tail_fused_mma.cu": "k6",
-                   "conv3x3_i8_mma.cu": "k4"}
+                   "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n"}
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
             log(f"[build] {line.strip()}")
@@ -527,6 +543,91 @@ def main(argv=None) -> int:
     k1_stats = {}
     if want("k1", "kernels"):
         phase_k1()
+        torch.cuda.empty_cache()
+
+    def phase_k1n():
+        """K1's narrow route (``conv3x3_narrow.cu``): the stems and conv_last
+        at odd shapes and at the paths' shapes, each ``torch.equal`` to the
+        forced fma route (both sum in one order) and within compare's bf16
+        bound of plain; then the old kernel (fma forced), the new one and
+        ``F.conv2d`` side by side at the flagship's two shapes."""
+        def held(tag, x, wt, bias, kind, **kw):
+            _build.reset_launches()
+            k = tail.conv3x3(x, wt, bias, counter="k1n", **kw)
+            torch.cuda.synchronize()
+            got = _build.launches()
+            expect = {"k1n": 1, "conv3x3:narrow": 1, f"conv3x3:narrow {kind}": 1}
+            check(got == expect, f"[k1n] {tag}: launches {got} != {expect}")
+            if "out" in kw:  # the forced route writes the same slice
+                k = k.clone()
+            old = tail.conv3x3(x, wt, bias, counter="k1n", route="fma", **kw)
+            diff = (k.float() - old.float()).abs().max().item()
+            check(torch.equal(k, old), f"[k1n] {tag}: narrow != fma (max |diff| {diff:.3g})")
+            del old
+            e = compare(f"[k1n] {tag}", k, tail.conv3x3_plain(x, wt, bias, **kw), bf)
+            k1n_stats["bit_equal_cases"] = k1n_stats.get("bit_equal_cases", 0) + 1
+            k1n_stats["max_err"] = max(k1n_stats.get("max_err", 0.0), e)
+            log(f"[k1n] {tag} {kind}: == fma, err vs plain {e:.3g}")
+            return k
+
+        odd = ((2, 37, 53), (1, 5, 7), (1, 1, 1))
+        for cin in (3, 12):
+            wt, bias = rnd(3, 3, cin, NF, scale=0.2), rnd(NF, scale=0.1)
+            al = rnd(NF, scale=0.3)
+            for shp in odd:
+                x = rnd(*shp, cin)
+                held(f"stem {cin}->64 {shp} none", x, wt, bias, "stem")
+                held(f"stem {cin}->64 {shp} prelu", x, wt, bias, "stem", act="prelu", alpha=al)
+            held(f"stem {cin}->64 (2, 37, 53) lrelu", rnd(2, 37, 53, cin), wt, bias, "stem", act="lrelu")
+        # a cin-3 view of a 4-channel buffer (pixel stride 4), into a slice of
+        # a wider output (pixel stride 72, 16-byte aligned)
+        wt, bias, al = rnd(3, 3, 3, NF, scale=0.2), rnd(NF, scale=0.1), rnd(NF, scale=0.3)
+        dst = torch.zeros(2, 37, 53, 72, dtype=bf, device=dev)
+        held("stem 3->64 (2, 37, 53) strided x, out a slice", rnd(2, 37, 53, 4)[..., :3], wt, bias,
+             "stem", act="prelu", alpha=al, out=dst[..., 8:72])
+        check(not dst[..., :8].any(), "[k1n] the stem wrote outside its channel slice")
+        for tag, shp in (("frame", (1, H, W)), ("tiles", (6, 376, 448))):
+            x = rnd(*shp, 3)
+            held(f"stem 3->64 {shp} none", x, wt, bias, "stem")
+            held(f"stem 3->64 {shp} prelu", x, wt, bias, "stem", act="prelu", alpha=al)
+        wl, bl = rnd(3, 3, NF, 3, scale=0.05), rnd(3, scale=0.1)
+        for shp in ((2, 37, 53), (1, 5, 7), (2, 100, 150)):
+            held(f"conv_last 64->3 {shp}", rnd(*shp, NF), wl, bl, "conv_last")
+        held("conv_last 64->3 (2, 37, 53) x a prefix of 72", rnd(2, 37, 53, 72)[..., :NF], wl, bl,
+             "conv_last")
+        for shp in ((1, 4 * H, 4 * W), (6, 1504, 1792)):
+            held(f"conv_last 64->3 {shp}", rnd(*shp, NF), wl, bl, "conv_last")
+            torch.cuda.empty_cache()
+
+        # old, new and cuDNN at the flagship's shapes
+        for tag, cin, cout, shp, reps in (("stem", 3, NF, (1, H, W), 20),
+                                          ("conv_last", NF, 3, (1, 4 * H, 4 * W), 5)):
+            x = rnd(*shp, cin)
+            wt, bias = rnd(3, 3, cin, cout, scale=0.05), rnd(cout, scale=0.1)
+            new_ms = timed(lambda: tail.conv3x3(x, wt, bias, counter="k1n"), reps)
+            old_ms = timed(lambda: tail.conv3x3(x, wt, bias, counter="k1n", route="fma"), max(2, reps // 4))
+            x_nchw, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
+            lib_ms = timed(lambda: F.conv2d(x_nchw, w_oihw, bias, padding=1), reps)
+            npx = shp[0] * shp[1] * shp[2]
+            fmas = npx * 9 * cin * cout
+            nbytes = (npx * (cin + cout) + 9 * cin * cout + cout) * 2
+            log(
+                f"[k1n] {tag} {shp}x{cin}->{cout} bf16: fma (old kernel) {old_ms:.3f} ms, narrow (new "
+                f"kernel) {new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {2 * fmas / new_ms / 1e9:.1f} TFLOP/s "
+                f"of fp32 FMAs, {nbytes / new_ms / 1e9:.2f} TB/s), library (F.conv2d, channels_last) "
+                f"{lib_ms:.3f} ms; floors: FMAs {2 * fmas / PEAK_FP32 * 1e3:.3f} ms, bytes "
+                f"{nbytes / PEAK_BYTES * 1e3:.3f} ms"
+            )
+            k1n_stats.update({f"{tag}_fma_ms": old_ms, f"{tag}_narrow_ms": new_ms,
+                              f"{tag}_library_ms": lib_ms})
+            check(new_ms * 3 <= old_ms,
+                  f"[k1n] the narrow route ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f}) at {tag}")
+            del x
+            torch.cuda.empty_cache()
+
+    k1n_stats = {}
+    if want("k1n", "kernels"):
+        phase_k1n()
         torch.cuda.empty_cache()
 
     def one_launch(tag, fn, counter, route="mma"):
@@ -1311,6 +1412,20 @@ def main(argv=None) -> int:
         )
         del x2, tail_in
         torch.cuda.empty_cache()
+        # conv_last alone, on K1's narrow route, at the flagship tail's shape
+        xl = rnd(1, 4 * H, 4 * W, NF)
+        wl, bl = tw[4], tw[5]
+        xl_nchw, wl_oihw = xl.permute(0, 3, 1, 2), oihw(wl)
+        npx = 16 * H * W
+        record(
+            "conv3x3:narrow conv_last", "1x4320x7680x64 -> 3 (library: F.conv2d of conv_last alone)",
+            lambda: tail.conv3x3(xl, wl, bl, counter="check"),
+            lambda: tail.conv3x3_plain(xl, wl, bl), 5,
+            (npx * (NF + 3) + wl.numel() + bl.numel()) * 2, 2 * npx * 9 * NF * 3, PEAK_BF16, bf,
+            lib_fn=lambda: F.conv2d(xl_nchw, wl_oihw, bl, padding=1),
+        )
+        del xl, xl_nchw
+        torch.cuda.empty_cache()
         xu = torch.rand(1, 4 * H, 4 * W, 3, generator=gen).to(dev)
         record(
             "unsharp_fused", "1x4320x7680x3 fp32",
@@ -1604,25 +1719,29 @@ def main(argv=None) -> int:
     check((v3.num_feat, v3.num_conv, v3.scale) == (64, 32, 4), "config-4 spec")
     n_rdb = 3 * spec.num_block * 5
 
-    def k1_routes(mma, fma):
-        """K1 launches per model call by route (``conv3x3_route``)."""
-        return {k: v for k, v in (("conv3x3:mma", mma), ("conv3x3:fma", fma)) if v}
+    def k1_routes(mma, stem, last):
+        """K1 launches per model call by route (``conv3x3_route``) and, on
+        the narrow route, by kernel; no call on the fma route."""
+        counts = (("conv3x3:mma", mma), ("conv3x3:narrow", stem + last),
+                  ("conv3x3:narrow stem", stem), ("conv3x3:narrow conv_last", last))
+        return {k: v for k, v in counts if v}
 
     # per model call. K1 of an RRDBNet frame: the stem and conv_last on the
-    # fma route; the dense-block convs, conv_body, up1, upconv2 and conv_hr
-    # on the mma route. A path that ran on the old kernel fails its counts.
+    # narrow route; the dense-block convs, conv_body, up1, upconv2 and
+    # conv_hr on the mma route. A path that ran on an old kernel fails its
+    # counts.
     rrdb_call = {
         "conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1, "tail_fused": 3,
-        **k1_routes(n_rdb + 4, 2),
+        **k1_routes(n_rdb + 4, 1, 1),
     }
     srvgg_call = {
         "conv3x3_fused": 1, "srvgg_body": v3.num_conv, "srvgg_up_fused": 1,
-        "srvgg_up_fused:mma": 1, **k1_routes(v3.num_conv, 1),
+        "srvgg_up_fused:mma": 1, **k1_routes(v3.num_conv, 1, 0),
     }
     # K4 of an int8 RRDBNet frame: every RDB conv on the int8 tensor cores
     rrdb_i8_call = {
         "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
-        "conv3x3_i8:mma": n_rdb, "up1_fused": 1, "tail_fused": 3, **k1_routes(4, 2),
+        "conv3x3_i8:mma": n_rdb, "up1_fused": 1, "tail_fused": 3, **k1_routes(4, 1, 1),
     }
     flagship = ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
                 "--tile-size", "0", "--models-dir", str(models_dir)]
@@ -1663,7 +1782,7 @@ def main(argv=None) -> int:
          {**rrdb_i8_call, "unsharp_fused": 1}, is_flagship("int8"), 1, None, dict(vs_bf16=True)),
         ("config4_int8", (H, W, 2), config4 + ["--precision", "int8"],
          {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv,
-          "conv3x3_i8:mma": v3.num_conv, "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1, **k1_routes(0, 1)},
+          "conv3x3_i8:mma": v3.num_conv, "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1, **k1_routes(0, 1, 0)},
          is_config4("int8"), 1, None, dict(vs_bf16=True)),
         ("tiled_x4plus_int8", (720, 1280, 2),
          ["--model", "RealESRGAN_x4plus", "--precision", "int8"] + tiled,
@@ -1672,13 +1791,13 @@ def main(argv=None) -> int:
         ("main_pallas", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rrdb_fused": spec.num_block,
           "rrdb_fused:mma": spec.num_block, "up1_fused": 1,
-          "tail_fused": 3, "unsharp_fused": 1, **k1_routes(4, 2)},
+          "tail_fused": 3, "unsharp_fused": 1, **k1_routes(4, 1, 1)},
          is_flagship("bf16"), 1, "VRT_PALLAS", dict(vs_default="VRT_PALLAS")),
         # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
         ("main_tailq", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1,
           "tail_fused_q": 1, "tail_fused_q:mma": 1, "unsharp_fused": 1,
-          **k1_routes(n_rdb + 2, 1)},
+          **k1_routes(n_rdb + 2, 1, 0)},
          is_flagship("bf16"), 1, "VRT_TAIL_Q", dict(vs_default="VRT_TAIL_Q")),
     )
     check(tuple(p_[0] for p_ in PATHS) == PATH_TAGS, "path tags")
@@ -1773,7 +1892,7 @@ def main(argv=None) -> int:
 
     if want("bench"):
         phase_bench()
-    path_stats.update(k1=k1_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats, k4=k4_stats)
+    path_stats.update(k1=k1_stats, k1n=k1n_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats, k4=k4_stats)
     log(f"[paths] {json.dumps(path_stats)}")
     if only:
         log(f"[partial] ran only {sorted(only)} after the build: no result line")

@@ -1,14 +1,16 @@
-"""Which of K1's two kernels each conv of the port takes on the card, and the
+"""Which of K1's routes each conv of the port takes on the card, and the
 full-frame memory estimate with the chain tail counted.
 
-K1 is one function behind two hand-written CUDA kernels: ``"mma"``
-(``csrc/conv3x3_mma.cu``, tensor cores) and ``"fma"`` (``csrc/conv3x3.cu``,
-fp32 FMAs). ``ops/tail.py::conv3x3_route`` chooses between them from the
-call alone (dtype, widths, alignment), so the choice is tested here, on the
-CPU, without a kernel: every model runs at full width on a tiny frame in
-bf16 through the plain versions while a recorder asks the route of each K1
-call. The numbers of the split are the ones the chip smoke test asserts on
-the card (349 ``mma`` + 2 ``fma`` per flagship frame).
+K1 is one function behind three routes of hand-written CUDA kernels:
+``"mma"`` (``csrc/conv3x3_mma.cu``, tensor cores), ``"narrow"``
+(``csrc/conv3x3_narrow.cu``: the bf16 stems and conv_last) and ``"fma"``
+(``csrc/conv3x3.cu``, fp32 FMAs). ``ops/tail.py::conv3x3_route`` chooses
+from the call alone (dtype, widths, alignment), so the choice is tested
+here, on the CPU, without a kernel: every model runs at full width on a tiny
+frame in bf16 through the plain versions while a recorder asks the route of
+each K1 call. The numbers of the split are the ones the chip smoke test
+asserts on the card (349 ``mma`` + 2 ``narrow`` per flagship frame, no
+``fma``).
 
 ``auto_full_frame``: equal to the JAX function at its default (held in
 ``test_torch_tiles.py``); with ``tail_in_memory`` it also counts the two
@@ -40,9 +42,9 @@ BF, F32 = torch.bfloat16, torch.float32
         (BF, 160, 32, True, "mma"),  # RDB conv4: 10 k16 steps
         (BF, 192, 64, True, "mma"),  # RDB conv5
         (F32, 64, 64, True, "fma"),  # fp32: the tight checks
-        (BF, 3, 64, True, "fma"),    # the stem
-        (BF, 12, 64, True, "fma"),   # x2plus's pixel-unshuffled stem
-        (BF, 64, 3, True, "fma"),    # conv_last
+        (BF, 3, 64, True, "narrow"),   # the stem
+        (BF, 12, 64, True, "narrow"),  # x2plus's pixel-unshuffled stem
+        (BF, 64, 3, True, "narrow"),   # conv_last
         (BF, 64, 48, True, "fma"),   # SRVGG's conv_out width: not K1's to take
         (BF, 16, 8, True, "fma"),    # the nf 16 / gc 8 test model
         (BF, 24, 8, True, "fma"),    # cin not a multiple of 16
@@ -101,7 +103,8 @@ def _record_routes(monkeypatch):
 
     def recorder(x, w, b, *, counter, **kw):
         calls.append((counter, tail.conv3x3_call_route(
-            x, w, b, kw.get("alpha"), kw.get("out"), kw.get("r1"), kw.get("r2")
+            x, w, b, kw.get("alpha"), kw.get("out"), kw.get("r1"), kw.get("r2"),
+            kw.get("upsample2", False),
         )))
         return real(x, w, b, counter=counter, **kw)
 
@@ -112,35 +115,35 @@ def _record_routes(monkeypatch):
 
 def _split(calls):
     n = {r: sum(1 for _, r_ in calls if r_ == r) for r in tail.ROUTES}
-    return n["mma"], n["fma"]
+    return n["mma"], n["narrow"], n["fma"]
 
 
 @pytest.mark.parametrize(
-    "name,n_mma,n_fma",
+    "name,n_mma,n_narrow,n_fma",
     [
         # 345 dense-block convs + conv_body, up1, upconv2, conv_hr | stem, conv_last
-        ("RealESRGAN_x4plus", 349, 2),
-        ("RealESRGAN_x2plus", 349, 2),  # the stem has cin 12
-        ("RealESRGAN_x4plus_anime_6B", 6 * 15 + 4, 2),
-        ("RealESRGAN_x4_v3", 32, 1),  # config 4: the body | the stem
+        ("RealESRGAN_x4plus", 349, 2, 0),
+        ("RealESRGAN_x2plus", 349, 2, 0),  # the stem has cin 12
+        ("RealESRGAN_x4plus_anime_6B", 6 * 15 + 4, 2, 0),
+        ("RealESRGAN_x4_v3", 32, 1, 0),  # config 4: the body | the stem
     ],
 )
-def test_routes_of_one_frame_at_full_width(monkeypatch, name, n_mma, n_fma):
+def test_routes_of_one_frame_at_full_width(monkeypatch, name, n_mma, n_narrow, n_fma):
     spec = MODEL_ZOO[name].spec
     net = (RRDBNet if isinstance(spec, RRDBNetSpec) else SRVGGNet)(spec)
     net.prepare(BF, "cpu")
     calls = _record_routes(monkeypatch)
     y = net(torch.rand(1, 8, 8, 3))
     assert y.shape == (1, 8 * spec.scale, 8 * spec.scale, 3)
-    assert _split(calls) == (n_mma, n_fma)
-    fma = [c for c, r in calls if r == "fma"]
+    assert _split(calls) == (n_mma, n_narrow, n_fma)
+    narrow = [c for c, r in calls if r == "narrow"]
     if isinstance(spec, RRDBNetSpec):
-        assert fma == ["conv3x3_fused", "tail_fused"]  # stem first, conv_last last
+        assert narrow == ["conv3x3_fused", "tail_fused"]  # stem first, conv_last last
         assert {c for c, r in calls if r == "mma"} == {
             "rdb_fused", "conv3x3_fused", "up1_fused", "tail_fused"
         }
     else:
-        assert fma == ["conv3x3_fused"]
+        assert narrow == ["conv3x3_fused"]
         assert {c for c, r in calls if r == "mma"} == {"srvgg_body"}
 
 
@@ -158,7 +161,7 @@ def test_routes_of_the_narrow_test_models_stay_on_fma(monkeypatch, family, dt):
     net.prepare(dt, "cpu")
     calls = _record_routes(monkeypatch)
     net(torch.rand(1, 6, 7, 3))
-    assert _split(calls) == (0, n)
+    assert _split(calls) == (0, 0, n)
 
 
 def test_full_width_fp32_stays_on_fma(monkeypatch):
@@ -166,7 +169,7 @@ def test_full_width_fp32_stays_on_fma(monkeypatch):
     net = RRDBNet(spec).prepare(F32, "cpu")
     calls = _record_routes(monkeypatch)
     net(torch.rand(1, 6, 6, 3))
-    assert _split(calls) == (0, 15 + 6)
+    assert _split(calls) == (0, 0, 15 + 6)
 
 
 # ---- auto_full_frame with the chain tail's intermediates ---------------------

@@ -25,11 +25,13 @@
 // prefix [0, 64 + 32(k-1)) of one growth buffer and writes its 32 channels
 // at their offset in the same buffer).
 //
-// K1 has two kernels behind one wrapper (ops/tail.py::conv3x3_route). This
-// one, the "fma" route, takes what the tensor-core route (conv3x3_mma.cu)
-// does not: fp32 (the tight checks), cin that is no multiple of 16 (the
-// stems: cin 3, 12), cout other than 32 or 64 (conv_last: cout 3; narrow
-// test widths) and operands off a 16-byte boundary.
+// K1 has three routes behind one wrapper (ops/tail.py::conv3x3_route). This
+// kernel, the "fma" route, takes what the tensor-core route (conv3x3_mma.cu)
+// and the narrow route (conv3x3_narrow.cu: the bf16 stems, cin 3 or 12 ->
+// 64, and conv_last, 64 -> 3) do not: fp32 (the tight checks), the narrow
+// test widths, cout 48, and operands the other kernels cannot load. The
+// narrow route sums in this kernel's order, so a call forced onto this
+// kernel gives the narrow kernels' outputs bit for bit.
 //
 // What bounds it on the H100: a wide conv does 9*cin FMAs per output value,
 // far above the card's bytes-to-operations balance, so it is compute bound
@@ -37,9 +39,7 @@
 // (TW+2) x CI input patch and the 9 x CI x CO_T weight slice in shared
 // memory as fp32, and each thread keeps an 8-pixel x 8-channel register
 // tile, reusing each loaded input row segment across the three kx taps (192
-// FMAs per 16 shared-memory loads). The calls left to it are narrow (cin 3
-// or cout 3) and sit near their bytes bound instead. The one-launch RDB is
-// K5 (rdb_fused.cu).
+// FMAs per 16 shared-memory loads). The one-launch RDB is K5 (rdb_fused.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -30,9 +30,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
-    "conv3x3.cu", "conv3x3_mma.cu", "unsharp.cu", "srvgg_up.cu",
-    "srvgg_up_mma.cu", "conv3x3_i8.cu", "conv3x3_i8_mma.cu", "rdb_fused.cu",
-    "rdb_fused_mma.cu", "tail_fused.cu", "tail_fused_mma.cu",
+    "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_narrow.cu", "unsharp.cu",
+    "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu", "conv3x3_i8_mma.cu",
+    "rdb_fused.cu", "rdb_fused_mma.cu", "tail_fused.cu", "tail_fused_mma.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -141,6 +141,8 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3.restype = _I
             lib.vr_conv3x3_mma.argtypes = lib.vr_conv3x3.argtypes[1:]
             lib.vr_conv3x3_mma.restype = _I
+            lib.vr_conv3x3_narrow.argtypes = lib.vr_conv3x3.argtypes[1:]
+            lib.vr_conv3x3_narrow.restype = _I
             lib.vr_unsharp.argtypes = [
                 _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _F, _F, _P,
             ]

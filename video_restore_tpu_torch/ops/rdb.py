@@ -40,7 +40,7 @@ import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.stripe import rdb_fused_plain
-from video_restore_tpu_torch.ops.tail import _DTYPES, ROUTES, forced_route
+from video_restore_tpu_torch.ops.tail import _DTYPES, PAIR_ROUTES as ROUTES, forced_route
 
 # (nf, gc) pairs K5 is instantiated for: every RRDBNet of the zoo, and the
 # narrow width of the tests and checks

@@ -53,7 +53,7 @@ from video_restore_tpu_torch.ops.quant import (
     conv3x3_i8,
     conv3x3_i8_plain,
 )
-from video_restore_tpu_torch.ops.tail import _DTYPES, ROUTES, conv3x3, conv3x3_plain, forced_route
+from video_restore_tpu_torch.ops.tail import _DTYPES, PAIR_ROUTES as ROUTES, conv3x3, conv3x3_plain, forced_route
 
 UP_SCALES = (2, 4)  # the scales the JAX model sends to its fused upsampler
 UP_MMA_MAX_CIN = 64  # the whole patch and weights of a block in shared memory

@@ -1,5 +1,6 @@
 """The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3_mma.cu``
-on the tensor cores, ``csrc/conv3x3.cu`` on the CUDA cores), and the
+on the tensor cores, ``csrc/conv3x3_narrow.cu`` for the stems and conv_last,
+``csrc/conv3x3.cu`` for the rest, both on the CUDA cores), and the
 one-launch tail on kernel K6 (``csrc/tail_fused_mma.cu`` on the tensor cores,
 ``csrc/tail_fused.cu`` on the CUDA cores).
 
@@ -32,15 +33,17 @@ Port of ``video_restore_tpu/ops/pallas_tail.py``:
 :func:`conv3x3` is the binding of K1 itself, with :func:`conv3x3_plain`,
 its plain PyTorch version, beside it. A wrapper given a CPU tensor runs the
 plain version; given a CUDA tensor it launches the kernel or raises. K1 is
-two hand-written kernels of one function, and :func:`conv3x3_route` says
-which a call takes: ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed
-by ``ldmatrix`` from shared memory that ``cp.async`` fills) for the bf16
-convs whose widths feed the tensor cores, ``"fma"`` (``csrc/conv3x3.cu``:
-fp32 FMAs) for the rest: fp32, the stems (cin 3, 12), ``conv_last`` (cout
-3) and narrow test widths. K6 is two kernels the same way, chosen by
-:func:`tail_fused_route`: ``"mma"`` (``csrc/tail_fused_mma.cu``) for bf16 at
-nf 64, ``"fma"`` (``csrc/tail_fused.cu``) for fp32 and nf 16. The kernel
-notes (what bounds each kernel on the H100 and what its design does about
+one function behind three routes of hand-written kernels, and
+:func:`conv3x3_route` says which a call takes: ``"mma"``
+(``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed by ``ldmatrix`` from shared
+memory that ``cp.async`` fills) for the bf16 convs whose widths feed the
+tensor cores, ``"narrow"`` (``csrc/conv3x3_narrow.cu``: fp32 FMAs in
+``conv3x3.cu``'s order, one kernel for the bf16 stems, cin 3 or 12 -> 64,
+and one for ``conv_last``, 64 -> 3), ``"fma"`` (``csrc/conv3x3.cu``: fp32
+FMAs) for the rest: fp32 and the narrow test widths. K6 is two kernels the
+same way, chosen by :func:`tail_fused_route`: ``"mma"``
+(``csrc/tail_fused_mma.cu``) for bf16 at nf 64, ``"fma"``
+(``csrc/tail_fused.cu``) for fp32 and nf 16. The kernel notes (what bounds each kernel on the H100 and what its design does about
 it) are at the top of the sources.
 """
 
@@ -56,19 +59,33 @@ from video_restore_tpu_torch.ops.conv import conv2d_f32, upsample_nearest
 _ACTS = {"none": 0, "lrelu": 1, "prelu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-ROUTES = ("mma", "fma")
+ROUTES = ("mma", "narrow", "fma")  # K1's kernels; "fma" takes every call
+PAIR_ROUTES = ("mma", "fma")  # the wrappers with a tensor-core and an fp32-FMA kernel
 _MMA_COUT = (32, 64)  # the widths conv3x3_mma.cu is instantiated for
+# (cin, cout) of conv3x3_narrow.cu's kernels: the stems and conv_last
+_NARROW = ((3, 64), (12, 64), (64, 3))
+_K1_TAKES = {
+    "mma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
+    "narrow": "bf16 stems (cin 3 or 12 -> 64) and conv_last (64 -> 3) without residuals "
+              "or upsample2, with operands it can load",
+}
 
 
-def conv3x3_route(dtype: torch.dtype, cin: int, cout: int, aligned: bool = True) -> str:
-    """Which of K1's two kernels a call on a CUDA tensor launches: a pure
+def conv3x3_route(
+    dtype: torch.dtype, cin: int, cout: int, aligned: bool = True, narrow: bool = True
+) -> str:
+    """Which of K1's kernels a call on a CUDA tensor launches: a pure
     function of the call. ``"mma"`` (tensor cores) takes bf16 with cin a
     multiple of 16 (one k16 step per 16 input channels), cout 32 or 64 (gc
     and nf of every released model) and ``aligned`` operands
     (:func:`operands_aligned`: its 16-byte copies and paired stores);
-    ``"fma"`` takes every other call."""
+    ``"narrow"`` takes bf16 stems (cin 3 or 12 -> cout 64) and ``conv_last``
+    (cin 64 -> cout 3) where ``narrow`` says the rest of the call suits it
+    (:func:`narrow_operands`); ``"fma"`` takes every other call."""
     if dtype == torch.bfloat16 and cin % 16 == 0 and cout in _MMA_COUT and aligned:
         return "mma"
+    if dtype == torch.bfloat16 and (cin, cout) in _NARROW and narrow:
+        return "narrow"
     return "fma"
 
 
@@ -86,12 +103,27 @@ def operands_aligned(*tensors: Optional[torch.Tensor]) -> bool:
     return True
 
 
-def conv3x3_call_route(x, w, b, alpha=None, out=None, r1=None, r2=None) -> str:
+def narrow_operands(x, cout, out=None, r1=None, r2=None, upsample2=False) -> bool:
+    """Whether a call of the narrow widths suits ``"narrow"``'s kernels: no
+    residuals and no ``upsample2``; ``conv_last`` (cout 3) reads x 16 bytes
+    (8 channels) at a time, so x must be :func:`operands_aligned`; a stem
+    writes ``out`` 16 bytes (8 couts) at a time, so ``out`` (None: a fresh
+    contiguous tensor) must be, while its x is read 2 bytes at a time at any
+    pixel stride (cin 3: 3). Weights, bias and alpha are read 2 bytes at a
+    time."""
+    if upsample2 or r1 is not None or r2 is not None:
+        return False
+    return operands_aligned(x if cout == 3 else out)
+
+
+def conv3x3_call_route(x, w, b, alpha=None, out=None, r1=None, r2=None, upsample2=False) -> str:
     """:func:`conv3x3_route` of one call's operands (``out=None``: a fresh
     contiguous tensor, which is aligned)."""
+    cout = w.shape[-1]
     return conv3x3_route(
-        x.dtype, w.shape[-2], w.shape[-1],
+        x.dtype, w.shape[-2], cout,
         operands_aligned(x, w, b, alpha, out, r1, r2),
+        narrow_operands(x, cout, out, r1, r2, upsample2),
     )
 
 
@@ -161,6 +193,7 @@ def conv3x3(
     r2: Optional[torch.Tensor] = None,
     s2: float = 1.0,
     counter: str,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """``out = r2 + s2 * (r1 + s1 * act(conv3x3_SAME(x', w) + b))``.
 
@@ -171,8 +204,12 @@ def conv3x3(
     a channel slice of a wider buffer (``out`` is written in place). Every
     tensor has x's dtype (fp32 or bf16); sums are fp32. ``counter`` names
     the launch counter the calling wrapper owns; the launch is also counted
-    under its route, ``conv3x3:mma`` or ``conv3x3:fma``
-    (:func:`conv3x3_route`)."""
+    under its route, ``conv3x3:mma``, ``conv3x3:narrow`` or ``conv3x3:fma``
+    (:func:`conv3x3_route`), and a narrow one under its kernel,
+    ``conv3x3:narrow stem`` or ``conv3x3:narrow conv_last``. ``route``:
+    None for :func:`conv3x3_route`'s kernel, or a route forced where its
+    kernel takes the call (``"fma"`` takes every call: a side-by-side
+    timing; :func:`forced_route`)."""
     if x.device.type == "cpu":
         return conv3x3_plain(
             x, w, b, act=act, alpha=alpha, upsample2=upsample2, out=out,
@@ -219,7 +256,7 @@ def conv3x3(
     ys = _pixel_stride(out, "out")
     r1s = _pixel_stride(r1, "r1") if r1 is not None else 0
     r2s = _pixel_stride(r2, "r2") if r2 is not None else 0
-    route = conv3x3_call_route(x, w, b, alpha, out, r1, r2)
+    route = _pick_conv_route(x, w, b, alpha, out, r1, r2, upsample2, route)
     lib = _build.load()
     args = (
         x.data_ptr(), w.data_ptr(), b.data_ptr(),
@@ -233,11 +270,15 @@ def conv3x3(
     )
     if route == "mma":
         code = lib.vr_conv3x3_mma(*args)
+    elif route == "narrow":
+        code = lib.vr_conv3x3_narrow(*args)
     else:
         code = lib.vr_conv3x3(_DTYPES[dt], *args)
     _build.check(lib, code, f"conv3x3 kernel ({route})")
     _build.count_launch(counter)
     _build.count_launch(f"conv3x3:{route}")
+    if route == "narrow":
+        _build.count_launch("conv3x3:narrow " + ("conv_last" if cout == 3 else "stem"))
     return out
 
 
@@ -376,21 +417,30 @@ def tail_fused_q(
 
 
 def forced_route(
-    name: str, own: str, route: Optional[str], mma_takes: str,
-    routes: Sequence[str] = ROUTES,
+    name: str, own: str, route: Optional[str], takes: str,
+    routes: Sequence[str] = PAIR_ROUTES,
 ) -> str:
-    """The route of a call to a wrapper with two kernels: ``own`` (its route
-    function's choice), or ``route`` when the caller forces one (a
-    side-by-side timing of the two kernels); ``"mma"`` only where the
-    tensor-core kernel takes the call (``mma_takes`` says what it takes).
-    ``routes``: the wrapper's route names (K4's are ``("mma", "dp4a")``)."""
+    """The route of a call to a wrapper with several kernels: ``own`` (its
+    route function's choice), or ``route`` when the caller forces one (a
+    side-by-side timing of the kernels). The last of ``routes`` (``"fma"``,
+    K4's ``"dp4a"``) takes every call; any other route only where its kernel
+    takes the call, which is where the route function chose it (``takes``
+    says what that kernel takes). ``routes``: the wrapper's route names (K1's
+    :data:`ROUTES`, K4's ``("mma", "dp4a")``)."""
     if route is None:
         return own
     if route not in routes:
         raise ValueError(f"{name}: unknown route {route!r} (expected one of {tuple(routes)})")
-    if route == "mma" and own != "mma":
-        raise ValueError(f"{name}: the mma kernel takes {mma_takes} only")
+    if route != routes[-1] and route != own:
+        raise ValueError(f"{name}: the {route} kernel takes {takes} only")
     return route
+
+
+def _pick_conv_route(x, w, b, alpha, out, r1, r2, upsample2, route: Optional[str]) -> str:
+    """The route of a K1 call: :func:`conv3x3_call_route` of its operands,
+    or the forced ``route`` (:func:`forced_route` with K1's :data:`ROUTES`)."""
+    own = conv3x3_call_route(x, w, b, alpha, out, r1, r2, upsample2)
+    return forced_route("conv3x3", own, route, _K1_TAKES.get(route, ""), routes=ROUTES)
 
 
 def _pick_tail_route(x, w_up2, b_up2, w_hr, b_hr, route: Optional[str]) -> str:
