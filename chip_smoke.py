@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
 
 ``--only`` runs a subset for a quick probe: any of ``k1`` (K1's tensor-core
 route alone: its odd-shape checks and the old and new kernel side by side),
-``k1n`` (the same for K1's narrow route), ``k5``, ``k3``, ``k6`` and ``k4``
+``k1n`` (the same for K1's narrow route), ``k2`` (the same for K2's rows
+route), ``k5``, ``k3``, ``k6`` and ``k4``
 (the same for K5's, K3's, K6's and K4's tensor-core routes), ``kernels``
 (all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
@@ -22,7 +23,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
    ``conv3x3_mma.cu`` on ``mma_tile.cuh``, ``conv3x3_narrow.cu`` and
    ``conv3x3.cu``, K2
-   ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
+   ``unsharp_rows.cu`` and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
    ``srvgg_up.cu``, K4 ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and
    ``conv3x3_i8.cu`` with its amax entry point, K5
    ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and ``rdb_fused.cu``, each with
@@ -44,7 +45,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    forced ``fma`` route and within ``compare``'s bound of plain, each
    launch counted under its kernel; then the old kernel, the new one and
    ``F.conv2d`` side by side at both flagship shapes, the new one at least
-   3x the old. K5's
+   3x the old. K2's rows route (``unsharp_fused:rows``) in fp32: odd
+   shapes (B = 2 at W*C % 4 != 0, frames smaller than the halo, 4 rows over
+   9 strips, a 2x1037x1283 frame whose runs cross strips and frames, an x
+   4 bytes off a 16-byte boundary), radius 0, 1, 4 and 16, thresholds 0 and
+   0.02, and the flagship's 1x4320x7680x3, each ``torch.equal`` to the
+   forced ``tile`` route and within ``compare``'s bound of plain; then the
+   old kernel, the new one, the plain version and ``dst.copy_(src)`` of the
+   8K frame side by side, the new one at least 3x the old. K5's
    tensor-core route (``rdb_fused_k5:mma``, ``rrdb_fused:mma``) the same
    way: one RDB (with and without ``x0``) and a whole RRDB in bf16 at nf 64
    / gc 32 at odd shapes (a frame smaller than one tile, ragged extents no
@@ -103,8 +111,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    == inferred == encoded, and each wrapper launched exactly its per-frame
    count times 3, K1 351 times per frame of which 349 on the ``mma`` route
    and 2 on ``narrow`` (the stem and ``conv_last``, one on each of its
-   kernels), none on ``fma``; the ``auto_full_frame`` estimate
-   is printed beside the measured peak memory;
+   kernels), none on ``fma``, and K2 once on ``rows``; the
+   ``auto_full_frame`` estimate is printed beside the measured peak memory;
+   then (``[post]``) the step by stage: ``restore_step``'s stage functions
+   wrapped in CUDA events over the 3 frames, beside the step's own time;
 5. the same frames through the kernel path and the plain path on the card:
    >= 45 dB PSNR on u8, and the CLI's output equal to the kernel path's
    frames after the y4m colour round trip;
@@ -206,13 +216,15 @@ PALLAS = {
 # the hand-written kernel behind each row where a wrapper has two
 # (ops/tail.py::conv3x3_route, ops/rdb.py::rdb_route,
 # ops/srvgg.py::srvgg_up_route, ops/tail.py::tail_fused_route,
-# ops/quant.py::conv3x3_i8_route), as the row's calls take it
+# ops/quant.py::conv3x3_i8_route, ops/unsharp.py::unsharp_route), as the
+# row's calls take it
 CUDA_ROUTE = {
     "conv3x3_fused": "narrow", "rdb_fused": "mma", "up1_fused": "mma",
     "tail_fused": "mma+narrow", "srvgg_body": "mma", "srvgg_up_fused": "mma",
     "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:mma": "mma",
     "tail_fused_q": "mma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
     "rdb_fused_i8 static": "mma", "conv3x3:narrow conv_last": "narrow",
+    "unsharp_fused": "rows",
 }
 SOURCE = {
     # K1 is three routes (ops/tail.py::conv3x3_route). This row times the
@@ -222,7 +234,9 @@ SOURCE = {
     "up1_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     # upconv2 and conv_hr; conv_last (cout 3) is conv3x3:narrow conv_last's
     "tail_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
-    "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp.cu",
+    # K2 is two kernels (ops/unsharp.py::unsharp_route); the paths' frames
+    # (fp32, C = 3) take the rows one
+    "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp_rows.cu",
     "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up_mma.cu",
     # K4 is two kernels (ops/quant.py::conv3x3_i8_route); these rows' convs
@@ -241,7 +255,7 @@ PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
 )
-PHASES = ("k1", "k1n", "k5", "k3", "k6", "k4", "kernels", "paths", "bench") + PATH_TAGS
+PHASES = ("k1", "k1n", "k2", "k5", "k3", "k6", "k4", "kernels", "paths", "bench") + PATH_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -318,7 +332,7 @@ def main(argv=None) -> int:
     # the redesigned sources, whose ptxas lines are repeated under their
     # phase's tag
     new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3", "tail_fused_mma.cu": "k6",
-                   "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n"}
+                   "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2"}
     for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
         if line.startswith("=="):
             log(f"[build] {line.strip()}")
@@ -628,6 +642,81 @@ def main(argv=None) -> int:
     k1n_stats = {}
     if want("k1n", "kernels"):
         phase_k1n()
+        torch.cuda.empty_cache()
+
+    def phase_k2():
+        """K2's rows route (``unsharp_rows.cu``): odd shapes, edge cases of
+        its strips, runs and halo, and radii 0..16, each
+        ``torch.equal`` to the forced tile route (both sum in one order) and
+        within compare's fp32 bound of plain; then the old kernel (tile
+        forced), the new one, the plain version and a copy of the frame side
+        by side at the flagship's 1x4320x7680x3."""
+        def held(tag, x, radius=4, thr=0.0):
+            _build.reset_launches()
+            k = unsharp.unsharp_fused(x, 0.3, 1.5, radius, thr)
+            torch.cuda.synchronize()
+            got = _build.launches()
+            expect = {"unsharp_fused": 1, "unsharp_fused:rows": 1}
+            check(got == expect, f"[k2] {tag}: launches {got} != {expect}")
+            old = unsharp.unsharp_fused(x, 0.3, 1.5, radius, thr, route="tile")
+            diff = (k - old).abs().max().item()
+            check(torch.equal(k, old), f"[k2] {tag}: rows != tile (max |diff| {diff:.3g})")
+            del old
+            p = post.unsharp_mask(x, 0.3, 1.5, radius, thr)
+            e = compare(f"[k2] {tag}", k, p, torch.float32)
+            k2_stats["bit_equal_cases"] = k2_stats.get("bit_equal_cases", 0) + 1
+            k2_stats["max_err"] = max(k2_stats.get("max_err", 0.0), e)
+            log(f"[k2] {tag} r={radius} threshold={thr}: == tile, err vs plain {e:.3g}, "
+                f"bit-equal to plain: {torch.equal(k, p)}")
+
+        def frame(*shape):
+            return torch.rand(*shape, generator=gen).to(dev)
+
+        for thr in (0.0, 0.02):
+            held("2x37x53x3 (W*C % 4 != 0)", frame(2, 37, 53, 3), thr=thr)
+        for shp in ((1, 1, 1, 3), (1, 5, 9, 3)):  # frames smaller than the halo
+            held(f"{'x'.join(map(str, shp))} (below the halo)", frame(*shp))
+        # a run shorter than 2r + 1 rows, 9 strips of a row
+        held("1x4x3000x3 (4 rows, 9 strips)", frame(1, 4, 3000, 3))
+        # runs that start mid-frame and cross strips and frames: no run length
+        # divides H
+        held("2x1037x1283x3 (runs cross strips and frames)", frame(2, 1037, 1283, 3), thr=0.02)
+        for r in (0, 1, 4, 16):
+            held(f"2x37x53x3 radius {r}", frame(2, 37, 53, 3), radius=r)
+            held(f"1x301x2000x3 radius {r}", frame(1, 301, 2000, 3), radius=r, thr=0.02)
+        # 4 bytes past a 16-byte boundary: the 4-byte copies at W*C % 4 == 0
+        buf = torch.rand(1 + 2 * 40 * 64 * 3, generator=gen).to(dev)
+        held("2x40x64x3 x off 16 bytes", buf[1:].view(2, 40, 64, 3), thr=0.02)
+        xu = frame(1, 4 * H, 4 * W, 3)
+        for thr in (0.0, 0.02):
+            held(f"1x{4 * H}x{4 * W}x3 (flagship)", xu, thr=thr)
+
+        # old, new, plain and a copy of the frame at the flagship's shape
+        nbytes = 2 * xu.numel() * 4
+        dst = torch.empty_like(xu)
+        new_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4), 20)
+        old_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4, route="tile"), 10)
+        plain_ms = timed(lambda: post.unsharp_mask(xu, 0.3, 1.5, 4), 3)
+        copy_ms = timed(lambda: dst.copy_(xu), 20)
+        new2_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4), 20)
+        bound = nbytes / PEAK_BYTES * 1e3
+        log(
+            f"[k2] 1x{4 * H}x{4 * W}x3 fp32 r=4: tile (old kernel) {old_ms:.3f} ms "
+            f"({nbytes / old_ms / 1e9:.2f} TB/s), rows (new kernel) {new_ms:.3f} / {new2_ms:.3f} ms "
+            f"({nbytes / new_ms / 1e9:.2f} TB/s; {old_ms / new_ms:.2f}x), plain {plain_ms:.3f} ms, "
+            f"dst.copy_(src) {copy_ms:.3f} ms ({nbytes / copy_ms / 1e9:.2f} TB/s); bound {bound:.3f} ms "
+            f"(bytes; the new kernel at {100 * bound / new_ms:.1f}% of it); "
+            f"{k2_stats['bit_equal_cases']} cases bit-equal to tile"
+        )
+        k2_stats.update(tile_ms=old_ms, rows_ms=new_ms, rows_again_ms=new2_ms, plain_ms=plain_ms,
+                        copy_ms=copy_ms, bound_ms=bound)
+        check(new_ms * 3 <= old_ms,
+              f"[k2] the rows route ({new_ms:.3f} ms) is not 3x the tile kernel ({old_ms:.3f})")
+        del xu, dst, buf
+
+    k2_stats = {}
+    if want("k2", "kernels"):
+        phase_k2()
         torch.cuda.empty_cache()
 
     def one_launch(tag, fn, counter, route="mma"):
@@ -1590,15 +1679,98 @@ def main(argv=None) -> int:
     total_launches = {}
     path_stats = {}
 
+    def stage_split(tag, model, grid, cfg, frames, outs):
+        """The restore step by stage on the kernel path: ``restore_step`` as
+        it runs, its stage functions (``dispatch.py``'s module names) wrapped
+        in CUDA events and put back after; the casts and the EMA loop are the
+        gaps between them. The frame's copy to the card and the result's
+        copy back are timed apart, on the host clock between
+        synchronisations. One warm-up pass over the frames, then the timed
+        pass from a fresh temporal carry, whose frames must equal the kernel
+        path's."""
+        from video_restore_tpu_torch.parallel import dispatch
+
+        names = ("bilateral_filter", "clahe", "tiled_apply", "unsharp_fused", "_luma_hist",
+                 "quantize_u8")
+        saved = {n: getattr(dispatch, n) for n in names}
+        marks = []
+
+        def wrap(name, fn):
+            def stage(*a, **kw):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                marks.append((name, e0, e1))
+                return out
+            return stage
+
+        ups = Upscaler(model, grid, cfg, dev)
+        try:
+            for n in names:
+                setattr(dispatch, n, wrap(n, saved[n]))
+            for f in frames:  # warm-up
+                ups.process_batch(f[None]).cpu()
+            ups.reset_temporal()
+            per_frame = []
+            for i, f in enumerate(frames):
+                marks.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = ups.stage(f[None])
+                torch.cuda.synchronize()
+                stage_ms = 1e3 * (time.perf_counter() - t0)
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = ups.process_batch(x)
+                e1.record()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = out.cpu().numpy()[0]
+                fetch_ms = 1e3 * (time.perf_counter() - t0)
+                check(np.array_equal(out, outs[i]), f"[{tag}] frame {i}: the timed step != the kernel path")
+                got = [m[0] for m in marks]
+                check(got == ["bilateral_filter", "clahe", "tiled_apply", "unsharp_fused",
+                              "_luma_hist", "_luma_hist", "quantize_u8"], f"[{tag}] stages {got}")
+                (_, b0, b1), (_, c0, c1), (_, m0, m1), (_, u0, u1), (_, h0, h1), (_, g0, g1), (_, q0, q1) = marks
+                per_frame.append({
+                    "cast u8->fp32": e0.elapsed_time(b0), "bilateral_filter": b0.elapsed_time(b1),
+                    "clahe (LR)": c0.elapsed_time(c1), "cast bf16": c1.elapsed_time(m0),
+                    "tiled_apply (model)": m0.elapsed_time(m1), "unsharp_fused": u0.elapsed_time(u1),
+                    "_luma_hist (frame)": h0.elapsed_time(h1), "_luma_hist (carry)": g0.elapsed_time(g1),
+                    "EMA loop": g1.elapsed_time(q0), "quantize_u8": q0.elapsed_time(q1),
+                    "carry cast, gaps": u1.elapsed_time(h0) + q1.elapsed_time(e1),
+                    "step (events)": e0.elapsed_time(e1), "stage (H2D)": stage_ms,
+                    "fetch (.cpu())": fetch_ms,
+                })
+        finally:
+            for n in names:
+                setattr(dispatch, n, saved[n])
+        del ups
+        torch.cuda.empty_cache()
+        mean = {k: sum(f[k] for f in per_frame) / len(per_frame) for k in per_frame[0]}
+        host = ("step (events)", "stage (H2D)", "fetch (.cpu())")
+        stages = [k for k in mean if k not in host]
+        total = sum(mean[k] for k in stages)
+        log(f"[post] {tag} step by stage, ms/frame (mean of {len(per_frame)} frames, CUDA events): "
+            + ", ".join(f"{k} {mean[k]:.3f}" for k in stages)
+            + f"; sum {total:.3f}; step (events) {mean['step (events)']:.3f}; host clock around "
+              f"synchronised copies: stage (H2D) {mean['stage (H2D)']:.3f}, fetch (.cpu(), D2H) "
+              f"{mean['fetch (.cpu())']:.3f}")
+        return dict(mean, sum=total)
+
     def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False,
-              vs_default=None):
+              vs_default=None, post_split=False):
         """One main path: the CLI's config through ``VideoRestorer`` with
         the launch counters reset before and read after, then the kernel
         path and the plain path on the decoded frames (and, with
         ``vs_bf16``, the bf16 kernel path, which the int8 output must stay
         within 35 dB of; with ``vs_default``, the name of the knob that is
         set, the kernel path of the default route without that knob, which
-        must stay within 45 dB)."""
+        must stay within 45 dB; with ``post_split``, the kernel path's step
+        by stage, :func:`stage_split`)."""
         dst = work / f"out_{tag}.y4m"
         cfg = config_from_args(build_parser().parse_args([str(src), str(dst)] + argv))
         check(cfg_check(cfg), f"[{tag}] unexpected config {cfg}")
@@ -1712,6 +1884,10 @@ def main(argv=None) -> int:
             log(f"[{tag}] vs the default (no {vs_default}) kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
             check(min(dbs) >= 45.0, f"[{tag}] vs the default route {min(dbs):.2f} dB < 45")
             path_stats[tag].update(default_step_ms=step_ms["default"], vs_default_db=dbs)
+        if post_split:
+            split = stage_split(tag, model, grid, cfg, decoded, outs[False])
+            log(f"[post] {tag} step (host clock, the kernel path above, same run): {step_ms[False]:.1f} ms/frame")
+            path_stats[tag]["stage_ms"] = split
 
     spec = MODEL_ZOO["RealESRGAN_x4plus"].spec
     check((spec.num_feat, spec.num_grow_ch, spec.num_block) == (64, 32, 23), "flagship spec")
@@ -1743,6 +1919,8 @@ def main(argv=None) -> int:
         "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
         "conv3x3_i8:mma": n_rdb, "up1_fused": 1, "tail_fused": 3, **k1_routes(4, 1, 1),
     }
+    # K2 of an enhanced frame: the sharpen stage on the rows route
+    K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1}
     flagship = ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
                 "--tile-size", "0", "--models-dir", str(models_dir)]
     config4 = ["--model", "RealESRGAN_x4_v3", "--anime-mode", "--quality", "fast",
@@ -1769,7 +1947,7 @@ def main(argv=None) -> int:
     PATHS = (
         # phases 4-5: the flagship
         ("main", (H, W, 3), flagship + ["--precision", "bf16"],
-         {**rrdb_call, "unsharp_fused": 1}, is_flagship("bf16"), 1, None, {}),
+         {**rrdb_call, **K2_ROWS}, is_flagship("bf16"), 1, None, dict(post_split=True)),
         # phase 6: path A, config 4
         ("config4", (H, W, 3), config4, srvgg_call, is_config4("bf16"), 1, None, {}),
         # phase 7: path B, config 2's tiles, both families
@@ -1779,7 +1957,7 @@ def main(argv=None) -> int:
          srvgg_call, is_tiled("bf16"), 6, None, {}),
         # phase 8: the int8 paths (W8A8 body on K4), 2 frames each
         ("main_int8", (H, W, 2), flagship + ["--precision", "int8"],
-         {**rrdb_i8_call, "unsharp_fused": 1}, is_flagship("int8"), 1, None, dict(vs_bf16=True)),
+         {**rrdb_i8_call, **K2_ROWS}, is_flagship("int8"), 1, None, dict(vs_bf16=True)),
         ("config4_int8", (H, W, 2), config4 + ["--precision", "int8"],
          {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv,
           "conv3x3_i8:mma": v3.num_conv, "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1, **k1_routes(0, 1, 0)},
@@ -1791,12 +1969,12 @@ def main(argv=None) -> int:
         ("main_pallas", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rrdb_fused": spec.num_block,
           "rrdb_fused:mma": spec.num_block, "up1_fused": 1,
-          "tail_fused": 3, "unsharp_fused": 1, **k1_routes(4, 1, 1)},
+          "tail_fused": 3, **K2_ROWS, **k1_routes(4, 1, 1)},
          is_flagship("bf16"), 1, "VRT_PALLAS", dict(vs_default="VRT_PALLAS")),
         # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
         ("main_tailq", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1,
-          "tail_fused_q": 1, "tail_fused_q:mma": 1, "unsharp_fused": 1,
+          "tail_fused_q": 1, "tail_fused_q:mma": 1, **K2_ROWS,
           **k1_routes(n_rdb + 2, 1, 0)},
          is_flagship("bf16"), 1, "VRT_TAIL_Q", dict(vs_default="VRT_TAIL_Q")),
     )
@@ -1892,7 +2070,7 @@ def main(argv=None) -> int:
 
     if want("bench"):
         phase_bench()
-    path_stats.update(k1=k1_stats, k1n=k1n_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats, k4=k4_stats)
+    path_stats.update(k1=k1_stats, k1n=k1n_stats, k2=k2_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats, k4=k4_stats)
     log(f"[paths] {json.dumps(path_stats)}")
     if only:
         log(f"[partial] ran only {sorted(only)} after the build: no result line")

@@ -11,9 +11,13 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from video_restore_tpu_torch import cli
 from video_restore_tpu_torch.video.y4m import Y4MReader, Y4MWriter
+
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -31,7 +35,7 @@ def _clip(path, n=3, h=16, w=24):
 def test_cli_restores_clip_on_cpu(tmp_path):
     src, dst = tmp_path / "in.y4m", tmp_path / "out.y4m"
     _clip(src)
-    env = dict(os.environ, VRT_ALLOW_RANDOM_WEIGHTS="1")
+    env = dict(os.environ, VRT_ALLOW_RANDOM_WEIGHTS="1", OMP_NUM_THREADS="1")
     env["PYTHONPATH"] = os.pathsep.join(
         [str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p]
     )

@@ -29,6 +29,9 @@ from video_restore_tpu_torch.models.zoo import MODEL_ZOO
 from video_restore_tpu_torch.ops import srvgg, stripe, tail
 from video_restore_tpu_torch.ops import tiles as pt
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 BF, F32 = torch.bfloat16, torch.float32
 
 

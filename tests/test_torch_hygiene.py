@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = """

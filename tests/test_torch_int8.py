@@ -57,6 +57,9 @@ from video_restore_tpu_torch.ops.quant import (
 from video_restore_tpu_torch.ops.srvgg import srvgg_body_i8, srvgg_body_i8_plain
 from video_restore_tpu_torch.ops.stripe import rdb_fused_i8, rdb_fused_i8_plain
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 NF, GC = 16, 8
 
 

@@ -34,6 +34,9 @@ from video_restore_tpu_torch.models.srvgg import SRVGGNet, SRVGGSpec
 from video_restore_tpu_torch.models.zoo import MODEL_ZOO
 from video_restore_tpu_torch.ops import _build, rdb, srvgg
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 BF, F32 = torch.bfloat16, torch.float32
 
 
@@ -222,9 +225,9 @@ def test_upsampler_rejects_a_weight_of_another_width():
 
 def test_every_cuda_source_is_built():
     """One nvcc per source: each ``.cu`` under ``csrc/`` is in the build,
-    the tensor-core sources of K5, K3 and K6 and K1's narrow source
-    included."""
+    the tensor-core sources of K5, K3 and K6, K1's narrow source and K2's
+    rows source included."""
     on_disk = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sorted(_build.SOURCES) == on_disk
     assert {"rdb_fused_mma.cu", "srvgg_up_mma.cu", "tail_fused_mma.cu",
-            "conv3x3_narrow.cu"} <= set(on_disk)
+            "conv3x3_narrow.cu", "unsharp_rows.cu"} <= set(on_disk)

@@ -30,6 +30,9 @@ from video_restore_tpu_torch.models.rrdbnet import RRDBNet, RRDBNetSpec
 from video_restore_tpu_torch.models.zoo import MODEL_ZOO
 from video_restore_tpu_torch.ops import _build, tail
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 BF, F32 = torch.bfloat16, torch.float32
 
 

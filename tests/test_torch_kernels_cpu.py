@@ -18,6 +18,9 @@ from video_restore_tpu_torch.ops.stripe import rdb_fused
 from video_restore_tpu_torch.ops.tail import conv3x3_fused, tail_fused, up1_fused
 from video_restore_tpu_torch.ops.unsharp import unsharp_fused
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

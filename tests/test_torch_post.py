@@ -10,6 +10,9 @@ from video_restore_tpu_torch.ops import color as port_color
 from video_restore_tpu_torch.ops import post as port_post
 from video_restore_tpu_torch.parallel.dispatch import _luma_hist
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("sigma", [25.0, 50.0])
 def test_bilateral_matches_jax(rng, sigma):

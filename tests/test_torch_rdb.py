@@ -50,6 +50,9 @@ from video_restore_tpu_torch.ops.rdb import (
     rrdb_fused_plain,
 )
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 NF, GC = 16, 8
 
 

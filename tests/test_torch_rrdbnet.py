@@ -28,6 +28,9 @@ from video_restore_tpu_torch.models.rrdbnet import (
 )
 from video_restore_tpu_torch.models import zoo as port_zoo
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -42,6 +42,9 @@ from video_restore_tpu_torch.ops.srvgg import (
     srvgg_up_fused_plain,
 )
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 

@@ -23,6 +23,9 @@ from video_restore_tpu_torch.ops.conv import upsample_nearest
 from video_restore_tpu_torch.ops.tiles import TileGrid as PortGrid
 from video_restore_tpu_torch.parallel import dispatch as port
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 
 def _assert_u8_close(got, ref):
     d = np.abs(got.astype(np.int32) - ref.astype(np.int32))

@@ -34,6 +34,9 @@ from video_restore_tpu_torch.models import rrdbnet as port
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops import tail as port_tail
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32))

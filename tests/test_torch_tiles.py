@@ -24,6 +24,9 @@ import torch
 
 from video_restore_tpu_torch.ops import tiles as pt
 
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
 GRIDS = [
     # (h, w, tile, overlap, scale, mode, chunk)
     (37, 53, 0, 8, 2, "seamless", 0),  # tile 0: one padded tile (odd dims)

@@ -18,6 +18,9 @@
 // which is exactly edge-replicate padding) in shared memory, runs the
 // vertical pass into a second shared buffer, and writes each output once.
 // Unlike the Pallas kernel it needs no row alignment, so every height works.
+//
+// Route "tile" of K2 (ops/unsharp.py::unsharp_route): it takes any C; the
+// paths' fp32 RGB frames take unsharp_rows.cu, which equals it bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -32,8 +35,15 @@ struct Taps {
 
 __global__ void __launch_bounds__(kThreads)
     unsharp_kernel(const float* __restrict__ x, float* __restrict__ y, int H,
-                   int W, int C, int r, const Taps taps, float amount,
+                   int W, int C_arg, int r_arg, const Taps taps, float amount,
                    float threshold) {
+#ifdef VR_PROBE_CONST_DECODE
+  // tools/probe_k2.py: C and r compiled in (its frames' 3 and 4), so the
+  // index decode divides by constants
+  constexpr int C = 3, r = 4;
+#else
+  const int C = C_arg, r = r_arg;
+#endif
   extern __shared__ float smem[];
   const int PW = kTW + 2 * r, PH = kTH + 2 * r;
   float* s_in = smem;              // [PH][PW][C]
@@ -56,6 +66,7 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const int n = 2 * r + 1;
+#ifndef VR_PROBE_NO_MATH  // tools/probe_k2.py: no vertical pass
   for (int i = tid; i < kTH * PW * C; i += kThreads) {
     const int c = i % C;
     const int px = (i / C) % PW;
@@ -67,6 +78,7 @@ __global__ void __launch_bounds__(kThreads)
     s_v[i] = v;
   }
   __syncthreads();
+#endif
 
   for (int i = tid; i < kTH * kTW * C; i += kThreads) {
     const int c = i % C;
@@ -74,6 +86,10 @@ __global__ void __launch_bounds__(kThreads)
     const int py = i / (C * kTW);
     const int gy = y0 + py, gx = x0 + px;
     if (gy >= H || gx >= W) continue;
+#ifdef VR_PROBE_NO_MATH  // the centre value, no taps
+    y[base + ((long long)gy * W + gx) * C + c] = s_in[((py + r) * PW + px + r) * C + c];
+    continue;
+#endif
     float blur = __fmul_rn(s_v[(py * PW + px) * C + c], taps.k[0]);
     for (int t = 1; t < n; ++t)
       blur = __fadd_rn(blur,

@@ -31,8 +31,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_narrow.cu", "unsharp.cu",
-    "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu", "conv3x3_i8_mma.cu",
-    "rdb_fused.cu", "rdb_fused_mma.cu", "tail_fused.cu", "tail_fused_mma.cu",
+    "unsharp_rows.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
+    "conv3x3_i8_mma.cu", "rdb_fused.cu", "rdb_fused_mma.cu", "tail_fused.cu",
+    "tail_fused_mma.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -147,6 +148,8 @@ def load() -> ctypes.CDLL:
                 _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _F, _F, _P,
             ]
             lib.vr_unsharp.restype = _I
+            lib.vr_unsharp_rows.argtypes = lib.vr_unsharp.argtypes
+            lib.vr_unsharp_rows.restype = _I
             lib.vr_srvgg_up.argtypes = [
                 _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
             ]

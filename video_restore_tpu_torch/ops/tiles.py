@@ -278,7 +278,8 @@ def _extract_tiles(xp: torch.Tensor, grid: TileGrid) -> torch.Tensor:
 
 def _blend_tiles(out_tiles: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     """(N, n_tiles, Eh*s, Ew*s, C) -> (N, H*s, W*s, C), fp32 overlap-add
-    (``tiles.py:301-341``)."""
+    (``tiles.py:301-341``), contiguous: the sharpen kernel reads whole rows
+    (a legacy grid's crop of the canvas is strided)."""
     s = grid.scale
     n, c = out_tiles.shape[0], out_tiles.shape[-1]
     dev = out_tiles.device
@@ -305,7 +306,7 @@ def _blend_tiles(out_tiles: torch.Tensor, grid: TileGrid) -> torch.Tensor:
     nc = vec(grid.cols.norm(s, grid.mode, grid.halo, grid.overlap))
     canvas /= (nr[:, None] * nc[None, :])[None, :, :, None]
     top, left = grid.rows.lead * s, grid.cols.lead * s
-    return canvas[:, top : top + grid.height * s, left : left + grid.width * s, :]
+    return canvas[:, top : top + grid.height * s, left : left + grid.width * s, :].contiguous()
 
 
 def _chunked_apply(

@@ -1,26 +1,73 @@
-"""Single-pass unsharp mask on kernel K2 (``csrc/unsharp.cu``).
+"""Single-pass unsharp mask on kernel K2, two routes of hand-written kernels.
 
 Port of ``video_restore_tpu/ops/pallas_post.py`` ``unsharp_fused``
 (``:131-186``): ``clip(x + amount * (x - gauss_sep(x)), 0, 1)`` in fp32 on
 (B, H, W, C), edge-replicate padding on both axes, taps from
 ``_gaussian_kernel1d(sigma, radius)``, and the ``threshold`` branch. One
 read and one write of the frame. Unlike the Pallas wrapper, which falls
-back to XLA when ``h % 8`` or ``h < block_h + 16`` (``:150-158``), the
-kernel takes every frame height. Its plain version is
-``ops/post.py::unsharp_mask``; the kernel note is at the top of
-``csrc/unsharp.cu``.
+back to XLA when ``h % 8`` or ``h < block_h + 16`` (``:150-158``), both
+kernels take every frame height. Its plain version is
+``ops/post.py::unsharp_mask``.
+
+:func:`unsharp_route` says which kernel a call launches: ``"rows"``
+(``csrc/unsharp_rows.cu``: streams down rows of a strip with 16-byte loads
+and stores, C a template parameter, instantiated for :data:`ROWS_CHANNELS`)
+or ``"tile"`` (``csrc/unsharp.cu``: 32x16 tiles, any C). Both sum the same
+rounded products in the same order, so their outputs are equal bit for bit
+(held on the card by ``chip_smoke.py --only k2``); each kernel's note is at
+the top of its source.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.post import _gaussian_kernel1d, unsharp_mask
 
-MAX_RADIUS = 16  # kMaxRadius in csrc/unsharp.cu
+MAX_RADIUS = 16  # kMaxRadius in csrc/unsharp.cu and csrc/unsharp_rows.cu
+ROWS_CHANNELS = (3,)  # the C that vr_unsharp_rows instantiates: RGB frames
+ROUTES = ("rows", "tile")
+
+
+def unsharp_route(x: torch.Tensor, radius: int) -> str:
+    """Which of K2's kernels a call on a CUDA tensor launches: a pure
+    function of x's dtype and channel count and of the radius. ``"rows"``
+    takes fp32 with C in :data:`ROWS_CHANNELS` and radius 0..16, at any H
+    and W (rows of W*C % 4 != 0 floats take its 4-byte path); ``"tile"``
+    takes every other call."""
+    if x.dtype == torch.float32 and x.shape[-1] in ROWS_CHANNELS and 0 <= radius <= MAX_RADIUS:
+        return "rows"
+    return "tile"
+
+
+def _pick_route(x: torch.Tensor, radius: int, route: Optional[str]) -> str:
+    """The route of a call: :func:`unsharp_route`'s, or the forced
+    ``route``: ``"tile"`` takes every call, ``"rows"`` only where the route
+    function chose it."""
+    own = unsharp_route(x, radius)
+    if route is None:
+        return own
+    if route not in ROUTES:
+        raise ValueError(f"unsharp_fused: unknown route {route!r} (expected one of {ROUTES})")
+    if route == "rows" and own != "rows":
+        raise ValueError(
+            f"unsharp_fused: the rows kernel takes fp32 with C in {ROWS_CHANNELS} only"
+        )
+    return route
+
+
+def check_kernel_operand(x: torch.Tensor) -> None:
+    """Raise unless x is what both kernels read: a contiguous (B, H, W, C)
+    float32 tensor."""
+    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(
+            "unsharp_fused: x must be a contiguous (B, H, W, C) float32 "
+            f"tensor (got {x.dtype}, shape {tuple(x.shape)}, strides {x.stride()})"
+        )
 
 
 def unsharp_fused(
@@ -29,30 +76,39 @@ def unsharp_fused(
     sigma: float = 1.0,
     radius: int = 3,
     threshold: float = 0.0,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """Unsharp mask of x (B, H, W, C) fp32 in [0, 1]; one K2 launch on
-    CUDA, the plain version on the CPU."""
+    CUDA, the plain version on the CPU (any strides there).
+
+    ``route``: None for :func:`unsharp_route`'s kernel, or ``"tile"`` to
+    force the tile kernel, which takes every call (a side-by-side check or
+    timing); ``"rows"`` only where the route function chose it. A launch
+    counts under ``unsharp_fused`` and ``unsharp_fused:<route>``."""
+    if not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"unsharp_fused: radius must be in [0, {MAX_RADIUS}]")
+    if x.dtype != torch.float32 or x.dim() != 4:
+        raise ValueError(
+            f"unsharp_fused: x must be (B, H, W, C) float32 (got {x.dtype}, shape {tuple(x.shape)})"
+        )
+    route = _pick_route(x, radius, route)
     if x.device.type == "cpu":
         return unsharp_mask(x, amount, sigma, radius, threshold)
     if x.device.type != "cuda":
         raise ValueError(f"unsharp_fused: unsupported device {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(
-            "unsharp_fused: x must be a contiguous (B, H, W, C) float32 "
-            f"tensor (got {x.dtype}, shape {tuple(x.shape)})"
-        )
-    if not 0 <= radius <= MAX_RADIUS:
-        raise ValueError(f"unsharp_fused: radius must be in [0, {MAX_RADIUS}]")
+    check_kernel_operand(x)
     b, h, w, c = x.shape
     out = torch.empty_like(x)
     taps = (ctypes.c_float * (2 * radius + 1))(
         *[float(t) for t in _gaussian_kernel1d(sigma, radius)]
     )
     lib = _build.load()
-    code = lib.vr_unsharp(
+    fn = lib.vr_unsharp_rows if route == "rows" else lib.vr_unsharp
+    code = fn(
         x.data_ptr(), out.data_ptr(), b, h, w, c, radius, taps,
         float(amount), float(threshold), _build.stream_ptr(x),
     )
-    _build.check(lib, code, "unsharp kernel")
+    _build.check(lib, code, f"unsharp kernel ({route})")
     _build.count_launch("unsharp_fused")
+    _build.count_launch(f"unsharp_fused:{route}")
     return out
