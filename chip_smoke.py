@@ -13,7 +13,7 @@ route), ``k5``, ``k3``, ``k6`` and ``k4``
 (all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``),
-``bench`` (phase 11). Phases 1 and 2 always run. A partial run prints
+``io`` (phase 11), ``bench`` (phase 12). Phases 1 and 2 always run. A partial run prints
 neither the per-kernel record nor the final ``{"ok": true, ...}`` line; the
 run that counts is the one without arguments.
 
@@ -106,18 +106,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 4. the flagship path: a 3-frame 1080x1920 y4m with a hard cut before frame
    3 through ``VideoRestorer`` as the CLI builds it (RealESRGAN_x4plus at
    full width, random weights, enhanced: bilateral 0.5, CLAHE on the LR
-   input, unsharp 0.3, temporal EMA; full frame; bf16) with every launch
-   counter reset before and read after: 3 frames of 7680x4320 out, decoded
-   == inferred == encoded, and each wrapper launched exactly its per-frame
-   count times 3, K1 351 times per frame of which 349 on the ``mma`` route
-   and 2 on ``narrow`` (the stem and ``conv_last``, one on each of its
-   kernels), none on ``fma``, and K2 once on ``rows``; the
+   input, unsharp 0.3, temporal EMA; full frame; bf16; the y4m sink takes
+   planar I420 from the device, fetched through the pinned ring) with
+   every launch counter reset before and read after: 3 frames of 7680x4320
+   out, decoded == inferred == encoded, and each wrapper launched exactly
+   its per-frame count times 3, K1 351 times per frame of which 349 on the
+   ``mma`` route and 2 on ``narrow`` (the stem and ``conv_last``, one on
+   each of its kernels), none on ``fma``, and K2 once on ``rows``; the
    ``auto_full_frame`` estimate is printed beside the measured peak memory;
-   then (``[post]``) the step by stage: ``restore_step``'s stage functions
-   wrapped in CUDA events over the 3 frames, beside the step's own time;
-5. the same frames through the kernel path and the plain path on the card:
-   >= 45 dB PSNR on u8, and the CLI's output equal to the kernel path's
-   frames after the y4m colour round trip;
+   the wall, the step and the encode thread's ``fetch`` and ``encode``
+   totals per frame; then (``[post]``) the step by stage:
+   ``restore_step``'s stage functions wrapped in CUDA events over the 3
+   frames, beside the step's own time, with ``rgb_to_yuv420_planar`` and
+   the pinned fetch of the planes beside ``quantize_u8`` and the pageable
+   ``.cpu()`` of the RGB frame, and the fetch on the compute stream against
+   a side stream; and the same config with ``device_yuv="off"`` (RGB out,
+   host colour conversion), whose file equals the RGB kernel path's frames
+   after the y4m colour round trip;
+5. the same frames through the kernel path (RGB and I420 out) and the plain
+   path on the card: the RGB kernel path >= 45 dB PSNR on u8 against the
+   plain one, and the CLI's planes equal to the I420 kernel path's byte for
+   byte;
 6. path A, config 4: the same clip through ``--model RealESRGAN_x4_v3
    --anime-mode --quality fast`` (SRVGGNetCompact at full width, nf 64,
    32 convs, synthetic weights from a seed; full frame chosen by
@@ -146,14 +155,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     kernel path (>= 45 dB on u8 per frame: one function, two kernel
     routes); the step's ms/frame and the path's peak memory are printed
     beside the default tail's;
-11. ``[bench_rdb]``: ``python -m video_restore_tpu_torch.tools.bench_rdb``'s
+11. ``[io]``: the pinned ring under stress, the
+    native framecodec (it must load) against numpy on an 8K frame, and an
+    mp4 clip with audio through the repo's fake ffmpeg: the planes on the
+    encoder pipe, the audio copy, segmented resume and a batch directory
+    (``phase_io``);
+12. ``[bench_rdb]``: ``python -m video_restore_tpu_torch.tools.bench_rdb``'s
     five modes (k1, fused, rrdb, int8, int8s) at its default shape, each
     checked against its plain version on its first application, then timed.
 
 The card's ``nvidia-smi`` line is printed first and again just before the
 per-kernel JSON record, which is the line before the last (``launches`` sums
-the counts of the runs of phases 4 and 6-11, the static-A8 row those of
-``bench_rdb``'s int8s run, which the wrapper counts under ``rdb_fused_i8``);
+the counts of the CLI runs of phases 4 and 6-10 and of phase 12, the
+static-A8 row those of ``bench_rdb``'s int8s run, which the wrapper counts
+under ``rdb_fused_i8``; phase 11's runs are counted and checked on their
+own, and left out of the sums);
 the last line is
 ``{"ok": true, "device": {...}}``. Work files go to ``build/chip_smoke/``
 and are removed at the end.
@@ -165,9 +181,11 @@ import argparse
 import dataclasses
 import json
 import os
+import queue
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -255,7 +273,7 @@ PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
 )
-PHASES = ("k1", "k1n", "k2", "k5", "k3", "k6", "k4", "kernels", "paths", "bench") + PATH_TAGS
+PHASES = ("k1", "k1n", "k2", "k5", "k3", "k6", "k4", "kernels", "paths", "bench", "io") + PATH_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -1637,6 +1655,7 @@ def main(argv=None) -> int:
     from video_restore_tpu_torch.cli import build_parser, config_from_args
     from video_restore_tpu_torch.models.zoo import MODEL_ZOO, save_params_npz
     from video_restore_tpu_torch.ops import tiles as tiles_mod
+    from video_restore_tpu_torch.ops.color import quantize_u8
     from video_restore_tpu_torch.parallel.dispatch import Upscaler
     from video_restore_tpu_torch.pipeline.runner import VideoRestorer
     from video_restore_tpu_torch.utils.logging import setup_logging
@@ -1676,24 +1695,45 @@ def main(argv=None) -> int:
         mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
         return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
 
+    def read_planes(path):
+        """The raw frames of a 4:2:0 y4m file as written: (n, H*3//2, W)
+        uint8, no colour conversion."""
+        with open(path, "rb") as f:
+            hdr = f.readline().split()
+            w_, h_ = (int(t[1:]) for t in hdr[1:3])
+            planes = []
+            while f.readline():
+                planes.append(np.frombuffer(f.read(w_ * h_ * 3 // 2), np.uint8).reshape(h_ * 3 // 2, w_))
+        return np.stack(planes)
+
     total_launches = {}
     path_stats = {}
 
     def stage_split(tag, model, grid, cfg, frames, outs):
-        """The restore step by stage on the kernel path: ``restore_step`` as
-        it runs, its stage functions (``dispatch.py``'s module names) wrapped
-        in CUDA events and put back after; the casts and the EMA loop are the
-        gaps between them. The frame's copy to the card and the result's
-        copy back are timed apart, on the host clock between
-        synchronisations. One warm-up pass over the frames, then the timed
-        pass from a fresh temporal carry, whose frames must equal the kernel
-        path's."""
+        """The restore step by stage on the kernel path as the CLI runs it
+        (device I420 out): ``restore_step`` as it runs, its stage functions
+        (``dispatch.py``'s module names) wrapped in CUDA events and put back
+        after; the casts and the EMA loop are the gaps between them. The
+        frame's copy to the card (the pinned feed ring) and the planes' copy
+        back (the pinned fetch ring) are timed apart, on the host clock
+        between synchronisations, beside what the RGB step did in their
+        place: ``quantize_u8`` of the same frame (CUDA events, not in the
+        step) and the pageable ``.cpu()`` of its RGB result. One warm-up
+        pass over the frames, then the timed pass from a fresh temporal
+        carry, whose planes must equal the kernel path's (the warm-up pass
+        fetches through the ring too, so that the timed pass finds its
+        pinned slots allocated). Last, the frames in a loop as the runner
+        issues them (each fetch waited one frame later), the fetch on the
+        compute stream (``Upscaler.fetch``) and, in turns, on a side stream
+        into pinned buffers of the same size (``record_stream`` and a
+        ``wait_stream``)."""
         from video_restore_tpu_torch.parallel import dispatch
 
         names = ("bilateral_filter", "clahe", "tiled_apply", "unsharp_fused", "_luma_hist",
-                 "quantize_u8")
+                 "rgb_to_yuv420_planar")
         saved = {n: getattr(dispatch, n) for n in names}
         marks = []
+        yuv_in = []
 
         def wrap(name, fn):
             def stage(*a, **kw):
@@ -1703,15 +1743,19 @@ def main(argv=None) -> int:
                 out = fn(*a, **kw)
                 e1.record()
                 marks.append((name, e0, e1))
+                if name == "rgb_to_yuv420_planar":
+                    yuv_in[:] = [a[0]]
                 return out
             return stage
 
-        ups = Upscaler(model, grid, cfg, dev)
+        ups = Upscaler(model, grid, cfg, dev, yuv420_out=True)
         try:
             for n in names:
                 setattr(dispatch, n, wrap(n, saved[n]))
-            for f in frames:  # warm-up
-                ups.process_batch(f[None]).cpu()
+            for f in frames:  # warm-up, the fetch ring's slots allocated
+                fetched = ups.fetch(ups.process_batch(f[None]))
+                fetched.wait()
+                fetched.release()
             ups.reset_temporal()
             per_frame = []
             for i, f in enumerate(frames):
@@ -1728,49 +1772,116 @@ def main(argv=None) -> int:
                 e1.record()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = out.cpu().numpy()[0]
+                fetched = ups.fetch(out)
+                planes = fetched.wait()[0]
                 fetch_ms = 1e3 * (time.perf_counter() - t0)
-                check(np.array_equal(out, outs[i]), f"[{tag}] frame {i}: the timed step != the kernel path")
+                planes = planes.copy()
+                fetched.release()
+                check(np.array_equal(planes, outs[i]), f"[{tag}] frame {i}: the timed step != the kernel path")
+                r0 = torch.cuda.Event(enable_timing=True)
+                r1 = torch.cuda.Event(enable_timing=True)
+                r0.record()
+                rgb = quantize_u8(yuv_in[0])
+                r1.record()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rgb.cpu()
+                pageable_ms = 1e3 * (time.perf_counter() - t0)
                 got = [m[0] for m in marks]
                 check(got == ["bilateral_filter", "clahe", "tiled_apply", "unsharp_fused",
-                              "_luma_hist", "_luma_hist", "quantize_u8"], f"[{tag}] stages {got}")
+                              "_luma_hist", "_luma_hist", "rgb_to_yuv420_planar"], f"[{tag}] stages {got}")
                 (_, b0, b1), (_, c0, c1), (_, m0, m1), (_, u0, u1), (_, h0, h1), (_, g0, g1), (_, q0, q1) = marks
                 per_frame.append({
                     "cast u8->fp32": e0.elapsed_time(b0), "bilateral_filter": b0.elapsed_time(b1),
                     "clahe (LR)": c0.elapsed_time(c1), "cast bf16": c1.elapsed_time(m0),
                     "tiled_apply (model)": m0.elapsed_time(m1), "unsharp_fused": u0.elapsed_time(u1),
                     "_luma_hist (frame)": h0.elapsed_time(h1), "_luma_hist (carry)": g0.elapsed_time(g1),
-                    "EMA loop": g1.elapsed_time(q0), "quantize_u8": q0.elapsed_time(q1),
+                    "EMA loop, clamp": g1.elapsed_time(q0), "rgb_to_yuv420_planar": q0.elapsed_time(q1),
                     "carry cast, gaps": u1.elapsed_time(h0) + q1.elapsed_time(e1),
-                    "step (events)": e0.elapsed_time(e1), "stage (H2D)": stage_ms,
-                    "fetch (.cpu())": fetch_ms,
+                    "step (events)": e0.elapsed_time(e1), "stage (H2D, pinned)": stage_ms,
+                    "fetch (D2H, pinned, I420)": fetch_ms,
+                    "quantize_u8 (RGB, not in the step)": r0.elapsed_time(r1),
+                    "fetch (D2H, pageable .cpu(), RGB)": pageable_ms,
                 })
+            del out, rgb, x
+            yuv_in.clear()
         finally:
             for n in names:
                 setattr(dispatch, n, saved[n])
-        del ups
+
+        def loop_ms(fetch_fn):
+            ups.reset_temporal()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lag = []
+            for f in frames:
+                lag.append(fetch_fn(ups.process_batch(f[None])))
+                if len(lag) > 1:
+                    lag.pop(0)()
+            while lag:
+                lag.pop(0)()
+            return 1e3 * (time.perf_counter() - t0) / len(frames)
+
+        def on_compute(out):
+            fetched = ups.fetch(out)
+            return lambda: (fetched.wait(), fetched.release())
+
+        side = torch.cuda.Stream(dev)
+        pinned = [torch.empty(outs[0].shape, dtype=torch.uint8, pin_memory=True)[None] for _ in range(2)]
+        turn = [0]
+
+        def on_side(out):
+            buf = pinned[turn[0] % 2]
+            turn[0] += 1
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                buf.copy_(out, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(side)
+            out.record_stream(side)
+            return ev.synchronize
+
+        loops = {"compute": [], "side": []}
+        for name in ("compute", "side", "side", "compute", "compute", "side"):
+            loops[name].append(loop_ms(on_compute if name == "compute" else on_side))
+        del ups, pinned
         torch.cuda.empty_cache()
         mean = {k: sum(f[k] for f in per_frame) / len(per_frame) for k in per_frame[0]}
-        host = ("step (events)", "stage (H2D)", "fetch (.cpu())")
+        host = ("step (events)", "stage (H2D, pinned)", "fetch (D2H, pinned, I420)",
+                "quantize_u8 (RGB, not in the step)", "fetch (D2H, pageable .cpu(), RGB)")
         stages = [k for k in mean if k not in host]
         total = sum(mean[k] for k in stages)
-        log(f"[post] {tag} step by stage, ms/frame (mean of {len(per_frame)} frames, CUDA events): "
-            + ", ".join(f"{k} {mean[k]:.3f}" for k in stages)
+        log(f"[post] {tag} step by stage, ms/frame (mean of {len(per_frame)} frames, CUDA events; "
+            "device I420 out): " + ", ".join(f"{k} {mean[k]:.3f}" for k in stages)
             + f"; sum {total:.3f}; step (events) {mean['step (events)']:.3f}; host clock around "
-              f"synchronised copies: stage (H2D) {mean['stage (H2D)']:.3f}, fetch (.cpu(), D2H) "
-              f"{mean['fetch (.cpu())']:.3f}")
-        return dict(mean, sum=total)
+              f"synchronised copies: stage (H2D, pinned) {mean['stage (H2D, pinned)']:.3f}, fetch "
+              f"(D2H, pinned, I420) {mean['fetch (D2H, pinned, I420)']:.3f}")
+        log(f"[post] {tag} in place of the I420 stage and fetch, the RGB step's: quantize_u8 "
+            f"{mean['quantize_u8 (RGB, not in the step)']:.3f} ms (events) and the pageable .cpu() "
+            f"{mean['fetch (D2H, pageable .cpu(), RGB)']:.3f} ms (host clock), against "
+            f"rgb_to_yuv420_planar {mean['rgb_to_yuv420_planar']:.3f} and the pinned fetch "
+            f"{mean['fetch (D2H, pinned, I420)']:.3f}")
+        log(f"[post] {tag} the frames in a loop, each fetch waited a frame later, host clock ms/frame "
+            f"(compute, side, side, compute, compute, side): fetch on the compute stream "
+            f"(Upscaler.fetch) {', '.join(f'{v:.2f}' for v in loops['compute'])}; on a side stream "
+            f"{', '.join(f'{v:.2f}' for v in loops['side'])}")
+        return dict(mean, sum=total, loop_compute_ms=loops["compute"], loop_side_ms=loops["side"])
 
     def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False,
-              vs_default=None, post_split=False):
+              vs_default=None, post_split=False, rgb_check=False):
         """One main path: the CLI's config through ``VideoRestorer`` with
-        the launch counters reset before and read after, then the kernel
-        path and the plain path on the decoded frames (and, with
-        ``vs_bf16``, the bf16 kernel path, which the int8 output must stay
-        within 35 dB of; with ``vs_default``, the name of the knob that is
-        set, the kernel path of the default route without that knob, which
-        must stay within 45 dB; with ``post_split``, the kernel path's step
-        by stage, :func:`stage_split`)."""
+        the launch counters reset before and read after (the y4m sink takes
+        planar I420 from the device), then the kernel path (RGB and I420
+        out) and the plain path on the decoded frames: the file's planes
+        equal the I420 kernel path's byte for byte, and the RGB kernel path
+        is held to the plain one. With ``vs_bf16``, the bf16 kernel path,
+        which the int8 output must stay within 35 dB of; with
+        ``vs_default``, the name of the knob that is set, the kernel path of
+        the default route without that knob, which must stay within 45 dB;
+        with ``post_split``, the kernel path's step by stage,
+        :func:`stage_split`; with ``rgb_check``, the CLI's config again with
+        ``device_yuv="off"``, whose file must equal the RGB kernel path's
+        frames after the y4m colour round trip."""
         dst = work / f"out_{tag}.y4m"
         cfg = config_from_args(build_parser().parse_args([str(src), str(dst)] + argv))
         check(cfg_check(cfg), f"[{tag}] unexpected config {cfg}")
@@ -1779,7 +1890,8 @@ def main(argv=None) -> int:
             decoded = list(rd)
             h, w = rd.info.height, rd.info.width
         n_frames = len(decoded)
-        grid = restorer._upscaler_for(h, w).grid  # the bucket process_video uses
+        # the bucket process_video uses: the y4m sink takes device I420
+        grid = restorer._upscaler_for(h, w, yuv_out=True).grid
         check(grid.n_tiles == expect_tiles, f"[{tag}] {grid.n_tiles} tiles, expected {expect_tiles}")
         s = restorer.model.scale
         expected = {k: v * grid.n_chunks * n_frames for k, v in per_call.items()}
@@ -1797,16 +1909,18 @@ def main(argv=None) -> int:
             f"[{tag}] frame accounting {st.decoded}/{st.inferred}/{st.encoded}",
         )
         check(counts == expected, f"[{tag}] launch counts {counts} != expected {expected}")
+        check(list(restorer._upscalers) == [(h, w, True)],
+              f"[{tag}] buckets {list(restorer._upscalers)}: not the device-I420 route")
         for k, v in counts.items():
             total_launches[k] = total_launches.get(k, 0) + v
         with Y4MReader(dst) as rd:
-            out_frames = list(rd)
             check(
                 (rd.info.width, rd.info.height) == (s * w, s * h),
                 f"[{tag}] output size {rd.info.width}x{rd.info.height}",
             )
-        check(len(out_frames) == n_frames, f"[{tag}] {len(out_frames)} output frames")
-        check(all(f.shape == (s * h, s * w, 3) for f in out_frames), f"[{tag}] frame shapes")
+        out_planes = read_planes(dst)
+        check(out_planes.shape == (n_frames, s * h * 3 // 2, s * w),
+              f"[{tag}] output planes {out_planes.shape}")
         log(
             f"[{tag}] {n_frames} frames {w}x{h} -> {s * w}x{s * h}, {grid.n_tiles} "
             f"tile(s) of {grid.tile_shape}, {grid.n_chunks} model call(s)/frame, "
@@ -1830,7 +1944,7 @@ def main(argv=None) -> int:
         del restorer
         torch.cuda.empty_cache()
         outs, step_ms = {}, {}
-        runs = [(False, cfg), (True, cfg)]
+        runs = [(False, cfg), (True, cfg), ("yuv", cfg)]
         if vs_bf16:
             runs.append(("bf16", dataclasses.replace(cfg, precision="bf16")))
         if vs_default:
@@ -1841,13 +1955,21 @@ def main(argv=None) -> int:
                 ups = Upscaler(model, grid, run_cfg, dev)
                 os.environ[vs_default] = knob
             else:
-                ups = Upscaler(model, grid, run_cfg, dev, plain=key is True)
+                ups = Upscaler(model, grid, run_cfg, dev, plain=key is True,
+                               yuv420_out=key == "yuv")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            outs[key] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
+            if key == "yuv":  # fetched as the runner fetches: the pinned ring
+                outs[key] = []
+                for f in decoded:
+                    fetched = ups.fetch(ups.process_batch(f[None]))
+                    outs[key].append(fetched.wait()[0].copy())
+                    fetched.release()
+            else:
+                outs[key] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
             dt_s = time.perf_counter() - t0
             step_ms[key] = 1e3 * dt_s / n_frames
-            name = {False: "kernel", True: "plain", "bf16": "bf16 kernel",
+            name = {False: "kernel", True: "plain", "bf16": "bf16 kernel", "yuv": "kernel (I420 out, pinned fetch)",
                     "default": f"default (no {vs_default}) kernel"}[key]
             log(
                 f"[{tag}] {name} path: "
@@ -1865,15 +1987,50 @@ def main(argv=None) -> int:
                 f"{100 * (d > 0).mean():.3f}% of values differ, max {d.max()}"
             )
             check(psnr >= 45.0, f"[{tag}] frame {i}: kernel vs plain {psnr:.2f} dB < 45")
-            rt = yuv_planes_to_rgb(*rgb_to_yuv_planes(a, "420"))
             check(
-                np.array_equal(rt, out_frames[i]),
-                f"[{tag}] frame {i}: CLI output != kernel step output after the y4m round trip",
+                np.array_equal(outs["yuv"][i], out_planes[i]),
+                f"[{tag}] frame {i}: the CLI's planes != the I420 kernel step's",
             )
+        per_frame_ms = {k: 1e3 * st.stages.get(k, 0.0) / n_frames for k in ("fetch", "encode")}
+        log(
+            f"[{tag}] wall {1e3 * st.wall_s / n_frames:.1f} ms/frame; step (I420, pinned fetch) "
+            f"{step_ms['yuv']:.1f}, step (RGB, .cpu()) {step_ms[False]:.1f} ms/frame; encode thread: "
+            f"fetch {per_frame_ms['fetch']:.1f}, encode {per_frame_ms['encode']:.1f} ms/frame; the "
+            "CLI's planes equal the I420 kernel step's byte for byte"
+        )
         path_stats[tag] = dict(
             wall_ms_per_frame=1e3 * st.wall_s / n_frames, fps=st.fps,
             step_ms=step_ms[False], plain_step_ms=step_ms[True], peak_gib=peak,
+            yuv_step_ms=step_ms["yuv"], fetch_ms=per_frame_ms["fetch"],
+            encode_ms=per_frame_ms["encode"], stages_s=st.stages,
         )
+        if rgb_check:
+            rgb_dst = work / f"out_{tag}_rgb.y4m"
+            rgb_restorer = VideoRestorer(dataclasses.replace(cfg, device_yuv="off"), model=model)
+            check(rgb_restorer.process_video(src, rgb_dst, show_progress=False),
+                  f"[{tag}] device_yuv=off: process_video failed")
+            check(list(rgb_restorer._upscalers) == [(h, w, False)], f"[{tag}] device_yuv=off buckets")
+            rst = rgb_restorer.last_stats
+            del rgb_restorer
+            torch.cuda.empty_cache()
+            with Y4MReader(rgb_dst) as rd:
+                rgb_frames = list(rd)
+            check(len(rgb_frames) == n_frames, f"[{tag}] device_yuv=off: {len(rgb_frames)} frames")
+            for i, a in enumerate(outs[False]):
+                check(
+                    np.array_equal(yuv_planes_to_rgb(*rgb_to_yuv_planes(a, "420")), rgb_frames[i]),
+                    f"[{tag}] frame {i}: device_yuv=off output != the RGB kernel step's after the "
+                    "y4m round trip",
+                )
+            rgb_ms = {k: 1e3 * rst.stages.get(k, 0.0) / n_frames for k in ("fetch", "encode")}
+            log(
+                f"[{tag}] device_yuv=off (RGB out, host colour conversion): wall "
+                f"{1e3 * rst.wall_s / n_frames:.1f} ms/frame; encode thread: fetch "
+                f"{rgb_ms['fetch']:.1f}, encode {rgb_ms['encode']:.1f} ms/frame; the file equals the "
+                "RGB kernel step's frames after the y4m colour round trip"
+            )
+            path_stats[tag]["rgb_out"] = dict(wall_ms_per_frame=1e3 * rst.wall_s / n_frames,
+                                              fetch_ms=rgb_ms["fetch"], encode_ms=rgb_ms["encode"])
         if vs_bf16:
             dbs = [psnr_u8(a, b_) for a, b_ in zip(outs[False], outs["bf16"])]
             log(f"[{tag}] int8 vs bf16 kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
@@ -1885,8 +2042,9 @@ def main(argv=None) -> int:
             check(min(dbs) >= 45.0, f"[{tag}] vs the default route {min(dbs):.2f} dB < 45")
             path_stats[tag].update(default_step_ms=step_ms["default"], vs_default_db=dbs)
         if post_split:
-            split = stage_split(tag, model, grid, cfg, decoded, outs[False])
-            log(f"[post] {tag} step (host clock, the kernel path above, same run): {step_ms[False]:.1f} ms/frame")
+            split = stage_split(tag, model, grid, cfg, decoded, outs["yuv"])
+            log(f"[post] {tag} step (host clock, the kernel paths above, same run): I420 out with the "
+                f"pinned fetch {step_ms['yuv']:.1f} ms/frame, RGB out with .cpu() {step_ms[False]:.1f}")
             path_stats[tag]["stage_ms"] = split
 
     spec = MODEL_ZOO["RealESRGAN_x4plus"].spec
@@ -1947,7 +2105,7 @@ def main(argv=None) -> int:
     PATHS = (
         # phases 4-5: the flagship
         ("main", (H, W, 3), flagship + ["--precision", "bf16"],
-         {**rrdb_call, **K2_ROWS}, is_flagship("bf16"), 1, None, dict(post_split=True)),
+         {**rrdb_call, **K2_ROWS}, is_flagship("bf16"), 1, None, dict(post_split=True, rgb_check=True)),
         # phase 6: path A, config 4
         ("config4", (H, W, 3), config4, srvgg_call, is_config4("bf16"), 1, None, {}),
         # phase 7: path B, config 2's tiles, both families
@@ -2024,6 +2182,224 @@ def main(argv=None) -> int:
         finally:
             if knob:
                 os.environ.pop(knob)
+    def phase_io():
+        """[io] the host I/O around ``VideoRestorer``: the pinned ring under
+        stress (24 batches through 3 slots, a device-heavy producer and a
+        writer that sleeps: every frame equal to its ``.cpu()`` copy, in
+        order, every slot back); the native framecodec (it must load: g++
+        is on this machine) timed against numpy on a 7680x4320 frame; and
+        a 72x128 mp4 clip with audio through the repo's fake ffmpeg
+        (``tests/fake_ffmpeg.py`` on PATH, npz payloads): the planes on the
+        encoder pipe equal the I420 kernel step's, the audio is copied,
+        segmented resume after a simulated crash equals an uninterrupted
+        run, and a two-resolution batch directory gives (2, 2). Config 4's
+        model (seeded weights) at full frame, no enhancement (a resumed run
+        restarts the temporal carry); each ``process_video`` with the
+        launch counters reset before and read after."""
+        from importlib.util import module_from_spec, spec_from_file_location
+
+        from video_restore_tpu_torch.parallel.dispatch import PinnedRing
+        from video_restore_tpu_torch.utils import native
+        from video_restore_tpu_torch.video import ffmpeg_available, ffmpeg_backend, open_reader, segmented
+        from video_restore_tpu_torch.video import y4m as y4m_mod
+
+        stats = {}
+        # the ring: a producer whose copies trail its device work, a slow writer
+        ring = PinnedRing(3, pin=True)
+        a = torch.randn(2048, 2048, device=dev) / 64
+        items: queue.Queue = queue.Queue()
+        written = []
+
+        def writer():
+            while True:
+                item = items.get()
+                if item is None:
+                    return
+                slot, event, i = item
+                event.synchronize()
+                time.sleep(0.01)
+                written.append((i, slot.buf.numpy().copy()))
+                ring.release(slot)
+
+        th = threading.Thread(target=writer, daemon=True)
+        th.start()
+        t0 = time.perf_counter()
+        srcs = []
+        for i in range(24):
+            y_ = a
+            for _ in range(8):
+                y_ = torch.tanh(y_ @ a)
+            t = ((y_[:1620, :1920] + 1) * 100 + i).to(torch.uint8)  # a 1080p frame's planes
+            srcs.append(t)
+            slot = ring.acquire(t.shape, t.dtype)
+            slot.buf.copy_(t, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            items.put((slot, event, i))
+        items.put(None)
+        th.join(timeout=120)
+        ring_s = time.perf_counter() - t0
+        check(not th.is_alive(), "[io] the ring's writer did not finish")
+        check([i for i, _ in written] == list(range(24)), "[io] the ring reordered frames")
+        for i, arr in written:
+            check(np.array_equal(arr, srcs[i].cpu().numpy()), f"[io] ring frame {i} != its .cpu() copy")
+        check(ring._free.qsize() == 3, "[io] a ring slot was not returned")
+        log(f"[io] pinned ring: 24 batches of 1620x1920 through 3 slots, writer sleeping 10 ms each, "
+            f"{ring_s:.2f} s; every frame equal to its .cpu() copy, in order; all slots back")
+        del srcs, written, a
+        # the native framecodec
+        lib = native.load()
+        check(lib is not None, "[io] the native framecodec did not build or load")
+        frame = np.random.default_rng(0).integers(0, 256, (4320, 7680, 3), dtype=np.uint8)
+
+        def host_ms(fn, reps):
+            fn()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return 1e3 * (time.perf_counter() - t0) / reps
+
+        nat_ms = host_ms(lambda: native.rgb_to_yuv(frame, "420"), 5)
+        nat = native.rgb_to_yuv(frame, "420")
+        with_native = native.rgb_to_yuv
+        native.rgb_to_yuv = lambda *a_: None
+        try:
+            np_ms = host_ms(lambda: y4m_mod.rgb_to_yuv_planes(frame, "420"), 2)
+            ref = y4m_mod.rgb_to_yuv_planes(frame, "420")
+        finally:
+            native.rgb_to_yuv = with_native
+        lsb = max(int(np.abs(p_.astype(np.int16) - q_.astype(np.int16)).max()) for p_, q_ in zip(nat, ref))
+        check(lsb <= 2, f"[io] native vs numpy {lsb} LSB > 2")
+        log(f"[io] native framecodec ({native.library_path(native._FLAG_SETS[0]).name}): "
+            f"rgb_to_yuv420 of a 7680x4320 frame {nat_ms:.2f} ms, numpy {np_ms:.2f} ms "
+            f"({np_ms / nat_ms:.1f}x); max |native - numpy| {lsb} LSB (bound 2)")
+        stats.update(ring_s=ring_s, native_ms=nat_ms, numpy_ms=np_ms, native_vs_numpy_lsb=lsb)
+        del frame, nat, ref
+        # the ffmpeg surface through the fake binary
+        fake = REPO / "tests" / "fake_ffmpeg.py"
+        check(fake.exists(), "[io] tests/fake_ffmpeg.py is missing")
+        spec_ = spec_from_file_location("fake_ffmpeg", fake)
+        fake_mod = module_from_spec(spec_)
+        spec_.loader.exec_module(fake_mod)
+        bindir = work / "bin"
+        bindir.mkdir()
+        for name in ("ffmpeg", "ffprobe"):
+            exe = bindir / name
+            exe.write_text(f"#!{sys.executable}\n" + fake.read_text().split("\n", 1)[1])
+            exe.chmod(0o755)
+        old_path = os.environ["PATH"]
+        os.environ["PATH"] = f"{bindir}{os.pathsep}{old_path}"
+        try:
+            check(ffmpeg_available(), "[io] the fake ffmpeg is not on PATH")
+            ih, iw, n = 72, 128, 6
+            yy, xx = np.mgrid[0:ih, 0:iw].astype(np.float32)
+            rng_ = np.random.default_rng(5)
+            frames = np.stack([
+                np.clip(np.stack([xx / iw, yy / ih, np.full((ih, iw), 0.2 + 0.1 * t)], -1) * 220
+                        + rng_.normal(0, 4, (ih, iw, 3)), 0, 255).astype(np.uint8)
+                for t in range(n)
+            ])
+            audio = np.arange(1000, dtype=np.int16)
+
+            def mp4(path, fr):
+                with open(path, "wb") as fh:
+                    np.savez(fh, frames=fr, fps=25.0, audio=audio)
+
+            clip = work / "io_in.mp4"
+            mp4(clip, frames)
+            io_argv = ["--model", "RealESRGAN_x4_v3", "--tile-size", "0", "--models-dir", str(models_dir)]
+
+            def restore(src, dst, extra=(), expect_frames=n):
+                cfg_ = config_from_args(build_parser().parse_args([str(src), str(dst)] + io_argv + list(extra)))
+                r_ = VideoRestorer(cfg_)
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                ok_ = r_.process_video(src, dst, show_progress=False)
+                torch.cuda.synchronize()
+                counts_ = _build.launches()
+                check(ok_, f"[io] process_video {src.name} -> {dst.name} failed")
+                want_ = {k: v * expect_frames for k, v in srvgg_call.items()}
+                check(counts_ == want_, f"[io] launch counts {counts_} != {want_}")
+                return r_
+
+            tap = []
+            orig_write = ffmpeg_backend.FFmpegWriter.write_yuv420
+
+            def tapped(self, planar):
+                tap.append(np.array(planar))
+                orig_write(self, planar)
+
+            ffmpeg_backend.FFmpegWriter.write_yuv420 = tapped
+            try:
+                out = work / "io_out.mp4"
+                r = restore(clip, out)
+            finally:
+                ffmpeg_backend.FFmpegWriter.write_yuv420 = orig_write
+            check(list(r._upscalers) == [(ih, iw, True)], f"[io] buckets {list(r._upscalers)}")
+            with open_reader(clip) as rd:
+                decoded = list(rd)
+            check(np.array_equal(np.stack(decoded), frames), "[io] the fake's decode is not exact")
+            ups = Upscaler(r.model, r._upscalers[(ih, iw, True)].grid, r.config, dev, yuv420_out=True)
+            step_planes = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
+            check(len(tap) == n and all(np.array_equal(a_, b_) for a_, b_ in zip(tap, step_planes)),
+                  "[io] the planes on the encoder pipe != the I420 kernel step's")
+            d = np.load(out)
+            check("audio" in d and np.array_equal(d["audio"], audio), "[io] the audio was not copied")
+            check(np.array_equal(d["frames"], np.stack([fake_mod._i420_to_rgb(p_, 4 * iw, 4 * ih) for p_ in step_planes])),
+                  "[io] the encoded frames are not the step's planes")
+            st_ = r.last_stats
+            log(f"[io] mp4 {n} frames {iw}x{ih} -> {4 * iw}x{4 * ih} through the fake ffmpeg: planes on the "
+                f"encoder pipe equal the I420 kernel step's, audio copied; wall {1e3 * st_.wall_s / n:.1f} "
+                f"ms/frame, launches {json.dumps(_build.launches())}")
+            del r, ups
+            # segmented resume after a simulated crash
+            seg = ["--segment-frames", "2"]
+            full = work / "io_full.mp4"
+            restore(clip, full, seg)
+            part_clip = work / "io_in3.mp4"
+            mp4(part_clip, frames[:3])
+            partial = work / "io_part.mp4"
+            finalize = segmented.SegmentedWriter.finalize
+            segmented.SegmentedWriter.finalize = lambda self: None  # the parts survive, as after SIGKILL
+            try:
+                restore(part_clip, partial, seg, expect_frames=3)
+            finally:
+                segmented.SegmentedWriter.finalize = finalize
+            parts = Path(str(partial) + ".parts")
+            (parts / "00002.mp4").write_bytes(b"garbage from a killed encoder")
+            r = restore(clip, partial, seg + ["--resume"], expect_frames=n - 3)
+            check((r.last_stats.decoded, r.last_stats.encoded) == (n, n), "[io] resume accounting")
+            check(not parts.exists(), "[io] the parts survived finalize")
+            check(np.array_equal(np.load(full)["frames"], np.load(partial)["frames"]),
+                  "[io] the resumed output != the uninterrupted run")
+            check("audio" in np.load(partial), "[io] the resumed output has no audio")
+            log(f"[io] segmented resume (segments of 2, crash after 3 frames plus a garbage segment): "
+                f"{n - 3} frames re-run, the output equals the uninterrupted run")
+            del r
+            # a batch directory of two resolutions
+            bdir, bout = work / "io_batch", work / "io_batch_out"
+            bdir.mkdir()
+            mp4(bdir / "a.mp4", frames)
+            with Y4MWriter(bdir / "b.y4m", 96, 48, 25) as wr:
+                for f in frames[:2, :48, :96]:
+                    wr.write(f)
+            cfg_ = config_from_args(build_parser().parse_args([str(bdir), str(bout), "--batch"] + io_argv))
+            r = VideoRestorer(cfg_)
+            ok_total = r.process_batch_dir(bdir, bout, show_progress=False)
+            check(ok_total == (2, 2), f"[io] batch {ok_total} != (2, 2)")
+            names_ = sorted(p_.name for p_ in bout.iterdir())
+            check(names_ == ["a_upscaled.mp4", "b_upscaled.y4m"], f"[io] batch outputs {names_}")
+            check(sorted(r._upscalers) == [(48, 96, True), (ih, iw, True)], f"[io] batch buckets {sorted(r._upscalers)}")
+            log(f"[io] batch directory of two resolutions: (ok, total) {ok_total}, outputs {names_}, "
+                "both buckets warmed up front")
+            del r
+        finally:
+            os.environ["PATH"] = old_path
+        torch.cuda.empty_cache()
+        path_stats["io"] = stats
+
+    if want("io"):
+        phase_io()
     if "main_tailq" in path_stats and "main" in path_stats:
         tq = path_stats["main_tailq"]
         log(
@@ -2033,7 +2409,7 @@ def main(argv=None) -> int:
         )
     shutil.rmtree(work, ignore_errors=True)
 
-    # phase 11: the RDB micro-benchmark's five modes at its default shape;
+    # phase 12: the RDB micro-benchmark's five modes at its default shape;
     # the static mode runs on its own so that its launches are read apart
     def phase_bench():
         from video_restore_tpu_torch.tools import bench_rdb

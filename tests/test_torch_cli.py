@@ -2,7 +2,12 @@
 video_restore_tpu_torch.cli in.y4m out.y4m --cpu`` with RealESRGAN_x4plus
 (nf 64, 23 blocks, random weights) on a tiny clip, full frame, enhanced;
 tiled mode (seamless and legacy) for both model families; and the refusal
-of flags whose subsystems are not ported yet."""
+of flags whose subsystems are not ported yet.
+
+A y4m sink takes planar I420 from the device, so the CLI's file holds the
+restore step's planes (``Upscaler(yuv420_out=True)``) byte for byte; one
+case also checks the RGB path (``device_yuv="off"``) through the y4m
+colour round trip."""
 
 import os
 import subprocess
@@ -20,6 +25,17 @@ from video_restore_tpu_torch.video.y4m import Y4MReader, Y4MWriter
 torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
+
+
+def _y4m_planes(path):
+    """The raw planar frames of a 4:2:0 y4m file: (n, H*3//2, W) uint8."""
+    with open(path, "rb") as f:
+        header = f.readline().split()
+        w, h = (int(t[1:]) for t in header[1:3])
+        frames = []
+        while f.readline():
+            frames.append(np.frombuffer(f.read(w * h * 3 // 2), np.uint8).reshape(h * 3 // 2, w))
+    return np.stack(frames)
 
 
 def _clip(path, n=3, h=16, w=24):
@@ -57,7 +73,10 @@ def test_cli_restores_clip_on_cpu(tmp_path):
 
 
 # ported since the flag list was written: these cases must now run
-NOW_PORTED = (["--tile-size", "128"], ["--model", "RealESRGAN_x4_v3"])
+NOW_PORTED = (
+    ["--batch"], ["--segment-frames", "8"], ["--tile-size", "128"],
+    ["--model", "RealESRGAN_x4_v3"],
+)
 
 
 @pytest.mark.parametrize(
@@ -73,16 +92,23 @@ NOW_PORTED = (["--tile-size", "128"], ["--model", "RealESRGAN_x4_v3"])
     ],
 )
 def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
-    """Flags of unported subsystems exit 1 with "not yet ported"; tiled mode
-    and SRVGGNetCompact, ported since, run on --cpu."""
+    """Flags of unported subsystems exit 1 with "not yet ported"; tiled
+    mode, SRVGGNetCompact, batch directories and segmented output, ported
+    since, run on --cpu."""
     src, dst = tmp_path / "in.y4m", tmp_path / "o.y4m"
     _clip(src, n=1)
     if flags in NOW_PORTED:
         monkeypatch.setenv("VRT_ALLOW_RANDOM_WEIGHTS", "1")
         extra = ["--model", "RealESRGAN_x4plus_anime_6B"] if "--model" not in flags else []
+        args = [str(src), str(dst)]
+        if "--batch" in flags:  # a directory in, a directory out
+            indir = tmp_path / "in"
+            indir.mkdir()
+            src.rename(indir / "in.y4m")
+            args = [str(indir), str(tmp_path / "out")]
+            dst = tmp_path / "out" / "in_upscaled.y4m"
         rc = cli.main(
-            [str(src), str(dst), "--cpu", "--models-dir", str(tmp_path / "m")]
-            + extra + flags
+            args + ["--cpu", "--models-dir", str(tmp_path / "m")] + extra + flags
         )
         assert rc == 0, capsys.readouterr().err[-2000:]
         with Y4MReader(dst) as rd:
@@ -97,8 +123,12 @@ def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
 @pytest.mark.parametrize("model", ["RealESRGAN_x4plus_anime_6B", "RealESRGAN_x4_v3"])
 def test_cli_int8_on_cpu(tmp_path, capsys, monkeypatch, model):
     """--precision int8 --cpu runs for both families (the W8A8 body on the
-    plain path) and writes what the int8 restore step computes; without
-    --cpu and without a GPU it exits 1 with the "no CUDA device" error."""
+    plain path) and writes the planes the int8 restore step computes; with
+    ``device_yuv="off"`` (the anime_6B case) the RGB path writes the step's
+    frames after the y4m colour round trip; without --cpu and without a GPU
+    it exits 1 with the "no CUDA device" error."""
+    import dataclasses
+
     import torch
 
     from video_restore_tpu_torch.models.zoo import random_model
@@ -114,17 +144,28 @@ def test_cli_int8_on_cpu(tmp_path, capsys, monkeypatch, model):
     assert rc == 0, capsys.readouterr().err[-2000:]
     cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
     assert cfg.precision == "int8"
-    ups = VideoRestorer(cfg, model=random_model(model), cpu=True)._upscaler_for(16, 24)
+    restorer = VideoRestorer(cfg, model=random_model(model), cpu=True)
+    ups = restorer._upscaler_for(16, 24, yuv_out=True)
     assert ups.net.precision == "int8" and ups.compute_dtype == torch.bfloat16
     with Y4MReader(src) as rd:
         frames = list(rd)
     with Y4MReader(dst) as rd:
         assert (rd.info.width, rd.info.height) == (96, 64)
-        out = list(rd)
-    assert len(out) == 2
-    for f, o in zip(frames, out):
-        want = ups.process_batch(f[None])[0].numpy()
-        np.testing.assert_array_equal(yuv_planes_to_rgb(*rgb_to_yuv_planes(want, "420")), o)
+    planes = _y4m_planes(dst)
+    assert planes.shape == (2, 96, 96)
+    for f, o in zip(frames, planes):
+        np.testing.assert_array_equal(ups.process_batch(f[None])[0].numpy(), o)
+    if model == "RealESRGAN_x4plus_anime_6B":
+        rgb_cfg = dataclasses.replace(cfg, device_yuv="off")
+        rgb = VideoRestorer(rgb_cfg, model=random_model(model), cpu=True)
+        assert rgb.process_video(src, tmp_path / "rgb.y4m", show_progress=False)
+        step = rgb._upscaler_for(16, 24)
+        with Y4MReader(tmp_path / "rgb.y4m") as rd:
+            out = list(rd)
+        assert len(out) == 2
+        for f, o in zip(frames, out):
+            want = step.process_batch(f[None])[0].numpy()
+            np.testing.assert_array_equal(yuv_planes_to_rgb(*rgb_to_yuv_planes(want, "420")), o)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     capsys.readouterr()
     assert cli.main(argv) == 1
@@ -135,8 +176,8 @@ def test_cli_int8_on_cpu(tmp_path, capsys, monkeypatch, model):
 @pytest.mark.parametrize("legacy", [False, True])
 def test_cli_tiled_on_cpu(tmp_path, capsys, monkeypatch, model, legacy):
     """--tile-size 16 --tile-overlap 4 on a 16x24 clip (a 1x2 tile grid in
-    both modes) through the CLI on --cpu, equal to the restore step on the
-    same grid."""
+    both modes) through the CLI on --cpu: the file's planes equal the
+    restore step's on the same grid."""
     import torch
 
     from video_restore_tpu_torch.config import RestoreConfig
@@ -153,19 +194,18 @@ def test_cli_tiled_on_cpu(tmp_path, capsys, monkeypatch, model, legacy):
     assert rc == 0, capsys.readouterr().err[-2000:]
     cfg = cli.config_from_args(cli.build_parser().parse_args([str(src), str(dst)] + flags))
     assert cfg.full_frame == "off" and cfg.legacy_tiling == legacy
-    ups = VideoRestorer(cfg, model=random_model(model), cpu=True)._upscaler_for(16, 24)
+    ups = VideoRestorer(cfg, model=random_model(model), cpu=True)._upscaler_for(
+        16, 24, yuv_out=True
+    )
     assert ups.grid.n_tiles == 2
     with Y4MReader(src) as rd:
         frames = list(rd)
     with Y4MReader(dst) as rd:
         out = list(rd)
     assert len(out) == 2 and all(f.shape == (64, 96, 3) for f in out)
-    # the CLI's frames are the step's, after the y4m colour round trip
-    from video_restore_tpu_torch.video.y4m import rgb_to_yuv_planes, yuv_planes_to_rgb
-
-    for f, o in zip(frames, out):
-        y = ups.process_batch(f[None])[0].numpy()
-        assert np.array_equal(yuv_planes_to_rgb(*rgb_to_yuv_planes(y, "420")), o)
+    # the CLI's planes are the step's
+    for f, o in zip(frames, _y4m_planes(dst)):
+        assert np.array_equal(ups.process_batch(f[None])[0].numpy(), o)
     assert isinstance(ups.net, torch.nn.Module)
 
 

@@ -246,7 +246,7 @@ def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
     seen = []
 
     class FakeUpscaler:
-        def __init__(self, model, grid, cfg, device):
+        def __init__(self, model, grid, cfg, device, yuv420_out=False):
             self.grid = grid
 
     monkeypatch.setattr(runner, "Upscaler", FakeUpscaler)

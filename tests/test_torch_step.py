@@ -125,5 +125,4 @@ def test_step_config_from_config_matches_jax():
     ):
         ref = StepConfig.from_config(RestoreConfig(**kw))
         got = port.StepConfig.from_config(PortConfig(**kw))
-        ref_d = {k: v for k, v in vars(ref).items() if k != "yuv420_out"}
-        assert vars(got) == ref_d
+        assert vars(got) == vars(ref)

@@ -252,12 +252,8 @@ def _unported(args, cfg: RestoreConfig) -> list:
     out = []
     if args.face_enhance:
         out.append("--face-enhance")
-    if args.batch:
-        out.append("--batch")
     if args.multihost:
         out.append("--multihost")
-    if args.resume or args.segment_frames:
-        out.append("--resume/--segment-frames")
     if cfg.shard_mode == "tiles":
         out.append("--shard-mode tiles")
     if cfg.num_devices > 1:
@@ -296,6 +292,10 @@ def main(argv=None) -> int:
         log.error("%s", e)
         return 1
     try:
+        if args.batch:
+            ok, total = restorer.process_batch_dir(args.input, args.output)
+            log.info("batch complete: %d/%d succeeded", ok, total)
+            return 0 if ok == total and total > 0 else 1
         return 0 if restorer.process_video(args.input, args.output) else 1
     except KeyboardInterrupt:
         log.warning("interrupted")

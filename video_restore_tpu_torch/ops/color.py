@@ -51,3 +51,37 @@ def quantize_u8(x: torch.Tensor, dither: bool = False) -> torch.Tensor:
     else:
         y = torch.round(y)
     return torch.clamp(y, 0, 255).to(torch.uint8)
+
+
+def rgb_to_yuv420_planar(rgb: torch.Tensor, dither: bool = False) -> torch.Tensor:
+    """(B, H, W, 3) float RGB in [0, 1] -> (B, H*3//2, W) uint8 planar I420
+    (studio-range BT.601, 2x2-averaged chroma): the byte layout of a y4m
+    frame and of ffmpeg's ``-pix_fmt yuv420p`` rawvideo input.
+
+    Port of ``ops/color.py:72-110`` of the JAX package, in its operation
+    order: fp32 luma and chroma differences, the Bayer-dithered floor or
+    the half-to-even round for Y, chroma averaged over rows and then
+    columns, each plane clipped before the cast. Requires H % 4 == 0 and
+    W % 2 == 0 (the H/2 chroma rows are packed pairwise into full-width
+    rows)."""
+    b_, h, w, _ = rgb.shape
+    if h % 4 or w % 2:
+        raise ValueError(f"yuv420 packing needs H%4==0, W%2==0 (got {h}x{w})")
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    u = (b - y) * (1.0 / (2.0 * (1.0 - 0.114)))
+    v = (r - y) * (1.0 / (2.0 * (1.0 - 0.299)))
+    if dither:
+        yq = torch.floor(16.0 + 219.0 * y + dither_offsets(h, w, rgb.device))
+    else:
+        yq = torch.round(16.0 + 219.0 * y)
+    yq = torch.clamp(yq, 16, 235).to(torch.uint8)
+
+    def pool2(p):
+        rows = (p[:, 0::2, :] + p[:, 1::2, :]) * 0.5
+        return (rows[:, :, 0::2] + rows[:, :, 1::2]) * 0.5
+
+    uq = torch.clamp(torch.round(128.0 + 224.0 * pool2(u)), 16, 240).to(torch.uint8)
+    vq = torch.clamp(torch.round(128.0 + 224.0 * pool2(v)), 16, 240).to(torch.uint8)
+    # planar packing: Y rows, then U ((H/2, W/2) -> (H/4, W)), then V
+    return torch.cat([yq, uq.reshape(b_, h // 4, w), vq.reshape(b_, h // 4, w)], dim=1)

@@ -4,7 +4,9 @@ Port of ``video_restore_tpu/parallel/dispatch.py:54-407``: uint8 frames in,
 uint8 frames out, with the enhancement stack around the model::
 
     u8 -> f32/255 -> [bilateral] -> [CLAHE on LR] -> compute dtype ->
-    model (full frame or tiles, fp32 out) -> [unsharp] -> [temporal EMA] -> u8
+    model (full frame or tiles, fp32 out) -> [unsharp] -> [temporal EMA] ->
+    u8 RGB, or planar I420 (``yuv420_out``: 1.5 bytes a pixel, no host
+    colour work)
 
 The dtype flow is the JAX step's: bilateral and CLAHE in fp32, the model in
 the compute dtype (bf16: fp32 sums inside each kernel, bf16 between
@@ -20,20 +22,28 @@ own) passes the new frame through untouched.
 
 :class:`Upscaler` is the one-GPU counterpart of ``ShardedUpscaler``
 (``process_batch``, ``stage``, ``warmup``, ``reset_temporal``); multi-GPU
-frame sharding is not ported yet.
+frame sharding is not ported yet. Where JAX feeds and fetches
+asynchronously, the Upscaler copies through rings of pinned host buffers
+(:class:`PinnedRing`): ``stage`` for the frames in, ``fetch`` for the
+results out, each copy ``non_blocking`` on the current stream with a CUDA
+event recorded after it, and no slot reused before its event has passed.
+On an H100 a copy stream of its own for ``fetch`` gained nothing: the copy
+of an 8K frame's planes takes ~1.2 ms, and a loop of flagship frames ran no
+faster with it (``chip_smoke.py``'s ``[post]`` line compares the two).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+import queue
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from video_restore_tpu_torch.config import RestoreConfig
 from video_restore_tpu_torch.models.zoo import ModelHandle
-from video_restore_tpu_torch.ops.color import quantize_u8
+from video_restore_tpu_torch.ops.color import quantize_u8, rgb_to_yuv420_planar
 from video_restore_tpu_torch.ops.post import bilateral_filter, clahe, unsharp_mask
 from video_restore_tpu_torch.ops.tiles import TileGrid, tiled_apply
 from video_restore_tpu_torch.ops.unsharp import unsharp_fused
@@ -52,6 +62,7 @@ class StepConfig:
     temporal_strength: float = 0.3
     scene_cut_thresh: float = 0.12  # mean |delta| (0-1 units) => hard reset
     scene_cut_hist: float = 0.35  # luma-hist TV distance => hard reset (0=off)
+    yuv420_out: bool = False  # emit planar I420 on the device (halves D2H)
     dither: bool = False  # ordered-dithered 8-bit quantization
 
     @staticmethod
@@ -112,7 +123,8 @@ def restore_step(
     compute_dtype: torch.dtype,
     plain: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(B, H, W, 3) uint8 -> (B, H*s, W*s, 3) uint8 + temporal carry.
+    """(B, H, W, 3) uint8 -> (B, H*s, W*s, 3) uint8 + temporal carry, or
+    with ``step_cfg.yuv420_out`` (B, H*s*3//2, W*s) uint8 planar I420.
 
     carry: {"frame": (1, H*s, W*s, 3) uint8, the last output frame;
     "valid": (1,) float32, 1 once there is a previous frame}. ``plain``
@@ -170,7 +182,73 @@ def restore_step(
         }
     else:
         new_carry = carry
+    if step_cfg.yuv420_out:
+        return (
+            rgb_to_yuv420_planar(torch.clamp(y, 0.0, 1.0), dither=step_cfg.dither),
+            new_carry,
+        )
     return quantize_u8(y, dither=step_cfg.dither), new_carry
+
+
+class _Slot:
+    """One host buffer of a :class:`PinnedRing` and the event recorded
+    after the copy that last used it (None: no copy pending)."""
+
+    __slots__ = ("buf", "event")
+
+    def __init__(self) -> None:
+        self.buf: Optional[torch.Tensor] = None
+        self.event = None
+
+
+class PinnedRing:
+    """A ring of ``depth`` host buffers for asynchronous copies between
+    the host and the card: pinned when ``pin`` (a ``non_blocking`` copy from
+    or to pageable memory is synchronous), plain on the CPU.
+
+    ``acquire`` hands out a free slot, blocking until one is released, in
+    the order the slots were released; before it returns a slot it waits on
+    the event of the copy that last used it, so no copy's buffer is
+    refilled or read early. ``release`` returns a slot with the event of a
+    copy still in flight, or None."""
+
+    def __init__(self, depth: int, pin: bool):
+        self.pin = pin
+        self._free: queue.Queue = queue.Queue()
+        for _ in range(max(depth, 1)):
+            self._free.put(_Slot())
+
+    def acquire(self, shape, dtype: torch.dtype) -> _Slot:
+        slot = self._free.get()
+        if slot.event is not None:
+            slot.event.synchronize()
+            slot.event = None
+        shape = torch.Size(shape)
+        if slot.buf is None or slot.buf.shape != shape or slot.buf.dtype != dtype:
+            slot.buf = torch.empty(shape, dtype=dtype, pin_memory=self.pin)
+        return slot
+
+    def release(self, slot: _Slot, event=None) -> None:
+        slot.event = event
+        self._free.put(slot)
+
+
+class Fetched:
+    """A result on its way to the host: a slot of the fetch ring and the
+    event after its copy. ``wait`` returns the host array (valid until
+    ``release``); ``release`` gives the slot back once the array has been
+    written out."""
+
+    def __init__(self, ring: PinnedRing, slot: _Slot, event):
+        self._ring, self._slot, self._event = ring, slot, event
+
+    def wait(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._slot.buf.numpy()
+
+    def release(self) -> None:
+        self._ring.release(self._slot)
 
 
 class Upscaler:
@@ -186,11 +264,15 @@ class Upscaler:
         cfg: RestoreConfig,
         device: torch.device,
         plain: bool = False,
+        yuv420_out: bool = False,
     ):
         self.device = torch.device(device)
         self.grid = grid
         self.scale = grid.scale
-        self.step_cfg = StepConfig.from_config(cfg)
+        self.step_cfg = dataclasses.replace(
+            StepConfig.from_config(cfg), yuv420_out=yuv420_out
+        )
+        self.yuv420_out = yuv420_out
         # int8 selects the W8A8 body; the activations between kernels stay
         # bf16 (dispatch.py:300-312 of the JAX package)
         self.compute_dtype = (
@@ -199,6 +281,12 @@ class Upscaler:
         self.plain = plain
         self.net = model.module(self.compute_dtype, self.device, cfg.precision)
         self._carry = None
+        # the feed ring holds max_inflight_batches batches; the fetch ring
+        # one more, the batch the encode thread is writing
+        pin = self.device.type == "cuda"
+        depth = max(cfg.max_inflight_batches, 1)
+        self._feed = PinnedRing(depth, pin)
+        self._fetch = PinnedRing(depth + 1, pin)
 
     @property
     def frames_per_batch(self) -> int:
@@ -216,17 +304,40 @@ class Upscaler:
         }
 
     def stage(self, frames_u8) -> torch.Tensor:
-        """Place a (B, H, W, 3) uint8 batch on the device."""
+        """Place a (B, H, W, 3) uint8 batch on the device: on a CUDA device
+        through a slot of the pinned feed ring, the copy ``non_blocking`` on
+        the current stream; on the CPU the batch itself."""
         if isinstance(frames_u8, torch.Tensor) and frames_u8.device == self.device:
             return frames_u8
-        t = torch.as_tensor(np.ascontiguousarray(frames_u8))
-        return t.to(self.device, non_blocking=True)
+        if self.device.type != "cuda":
+            return torch.as_tensor(np.ascontiguousarray(frames_u8))
+        a = np.asarray(frames_u8)
+        slot = self._feed.acquire(a.shape, torch.uint8)
+        slot.buf.numpy()[...] = a
+        x = slot.buf.to(self.device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(self.device))
+        self._feed.release(slot, event)
+        return x
+
+    def fetch(self, out: torch.Tensor) -> Fetched:
+        """Start the copy of a result to the host, into a slot of the fetch
+        ring (blocking until one is free), ``non_blocking`` on the stream
+        that computed it, so the caller may drop ``out`` at once."""
+        slot = self._fetch.acquire(out.shape, out.dtype)
+        slot.buf.copy_(out, non_blocking=True)
+        event = None
+        if out.is_cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(out.device))
+        return Fetched(self._fetch, slot, event)
 
     @torch.no_grad()
     def process_batch(self, frames_u8) -> torch.Tensor:
         """(B, H, W, 3) uint8 (numpy or tensor) -> (B, H*s, W*s, 3) uint8 on
-        the device. Returns once the work is queued; reading the result
-        (``.cpu()``) waits for it."""
+        the device, or (B, H*s*3//2, W*s) planar I420 with ``yuv420_out``.
+        Returns once the work is queued; reading the result (``.cpu()``,
+        :meth:`fetch`) waits for it."""
         if self._carry is None:
             self._carry = self._init_carry()
         x = self.stage(frames_u8)

@@ -51,7 +51,8 @@ class NpzWriter(VideoWriter):
         self._frames = []
 
     def write(self, frame: np.ndarray) -> None:
-        self._frames.append(np.asarray(frame, np.uint8))
+        # a copy: the caller may reuse its buffer (a pinned fetch slot)
+        self._frames.append(np.array(frame, np.uint8))
 
     @property
     def frames_written(self) -> int:

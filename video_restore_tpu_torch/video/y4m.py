@@ -1,8 +1,11 @@
 """Pure-Python YUV4MPEG2 (.y4m) reader/writer.
 
-Port of ``video_restore_tpu/video/y4m.py`` with the numpy BT.601
-studio-range colour conversion only (the framecodec library is not ported
-yet). Supports C420jpeg / C420mpeg2 / C420paldv / C422 / C444.
+Port of ``video_restore_tpu/video/y4m.py``: studio-range BT.601 colour
+conversion through the native framecodec (``utils/native.py``) when it
+loads and numpy otherwise, exactly as the JAX package chooses; planar I420
+frames from the device (``write_yuv420``); append mode for resume; byte
+concatenation of segments. Supports C420jpeg / C420mpeg2 / C420paldv /
+C422 / C444.
 """
 
 from __future__ import annotations
@@ -35,7 +38,16 @@ _KR, _KG, _KB = 0.299, 0.587, 0.114
 def rgb_to_yuv_planes(
     rgb: np.ndarray, subsample: str = "420"
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(H, W, 3) uint8 RGB -> (Y, U, V) uint8 planes (studio range)."""
+    """(H, W, 3) uint8 RGB -> (Y, U, V) uint8 planes (studio range).
+
+    Uses the native fixed-point framecodec when available, else the numpy
+    float path below; both implement BT.601 studio range and agree within
+    2 LSB."""
+    from video_restore_tpu_torch.utils import native
+
+    nat = native.rgb_to_yuv(rgb, subsample)
+    if nat is not None:
+        return nat
     f = rgb.astype(np.float32) / 255.0
     r, g, b = f[..., 0], f[..., 1], f[..., 2]
     y = _KR * r + _KG * g + _KB * b
@@ -63,6 +75,11 @@ def yuv_planes_to_rgb(
     y: np.ndarray, u: np.ndarray, v: np.ndarray
 ) -> np.ndarray:
     """(Y, U, V) uint8 planes (any 4:2:0/4:2:2/4:4:4 layout) -> uint8 RGB."""
+    from video_restore_tpu_torch.utils import native
+
+    nat = native.yuv_to_rgb(y, u, v)
+    if nat is not None:
+        return nat
     h, w = y.shape
     if u.shape != y.shape:  # upsample chroma (nearest)
         ry, rx = h // u.shape[0], w // u.shape[1]
@@ -178,6 +195,7 @@ class Y4MWriter(VideoWriter):
         height: int,
         fps: float,
         colorspace: str = "420jpeg",
+        append: bool = False,
     ):
         self.path = str(path)
         self._colorspace = colorspace
@@ -193,12 +211,15 @@ class Y4MWriter(VideoWriter):
             import sys
 
             self._f = sys.stdout.buffer
+            mode = "wb"  # a stream cannot append
         else:
-            self._f = open(self.path, "wb")
-        self._f.write(
-            f"YUV4MPEG2 W{width} H{height} F{num}:{den} Ip A1:1 "
-            f"C{colorspace}\n".encode("ascii")
-        )
+            mode = "ab" if append and os.path.exists(self.path) else "wb"
+            self._f = open(self.path, mode)
+        if mode == "wb":
+            self._f.write(
+                f"YUV4MPEG2 W{width} H{height} F{num}:{den} Ip A1:1 "
+                f"C{colorspace}\n".encode("ascii")
+            )
 
     def write(self, frame: np.ndarray) -> None:
         y, u, v = rgb_to_yuv_planes(frame, self._sub)
@@ -206,6 +227,16 @@ class Y4MWriter(VideoWriter):
         self._f.write(y.tobytes())
         self._f.write(u.tobytes())
         self._f.write(v.tobytes())
+        self._count += 1
+
+    def write_yuv420(self, planar: np.ndarray) -> None:
+        """Write a planar I420 frame ((H*3//2, W) uint8, as the device's
+        ``ops/color.py::rgb_to_yuv420_planar`` emits it): no host colour
+        work."""
+        if self._sub != "420":
+            raise ValueError("write_yuv420 requires a 4:2:0 colorspace")
+        self._f.write(b"FRAME\n")
+        self._f.write(np.ascontiguousarray(planar).tobytes())
         self._count += 1
 
     @property
@@ -227,3 +258,17 @@ def _fps_to_fraction(fps: float) -> Tuple[int, int]:
     if abs(fps - round(fps)) < 1e-9:
         return int(round(fps)), 1
     return int(round(fps * 1000)), 1000
+
+
+def concat_y4m(segments, dest: Union[str, Path]) -> int:
+    """Byte-level concat of y4m segments with identical headers; returns
+    the total frame count."""
+    with open(dest, "wb") as out:
+        for i, seg in enumerate(segments):
+            with open(seg, "rb") as f:
+                header = f.readline()
+                if i == 0:
+                    out.write(header)
+                out.write(f.read())
+    with Y4MReader(dest) as r:
+        return r.info.frames
