@@ -12,8 +12,9 @@ route), ``k5``, ``k3``, ``k6`` and ``k4``
 (the same for K5's, K3's, K6's and K4's tensor-core routes), ``kernels``
 (all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
-``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``),
-``io`` (phase 11), ``bench`` (phase 12). Phases 1 and 2 always run. A partial run prints
+``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``,
+``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
+``gfpgan`` (phase 13). Phases 1 and 2 always run. A partial run prints
 neither the per-kernel record nor the final ``{"ok": true, ...}`` line; the
 run that counts is the one without arguments.
 
@@ -162,11 +163,39 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     (``phase_io``);
 12. ``[bench_rdb]``: ``python -m video_restore_tpu_torch.tools.bench_rdb``'s
     five modes (k1, fused, rrdb, int8, int8s) at its default shape, each
-    checked against its plain version on its first application, then timed.
+    checked against its plain version on its first application, then timed;
+13. ``[gfpgan]``: GFPGAN v1-clean at its full published width
+    (``GFPGANSpec()``: 512 px crops, 512 style features, channel multiplier
+    2) from the schema-exact synthetic checkpoint written as a ``.pth`` and
+    read back through ``load_gfpgan`` (``VRT_GFPGAN_RANDOM`` unset), on
+    ``golden_tiles(seed=11, 1, 512, 512)`` against
+    ``tests/goldens/GFPGANv1.4.npz`` (>= 45 dB PSNR and SSIM >= 0.99 with
+    TF32 off, the port's choice; TF32 printed beside it), the card's forward
+    against the CPU forward of the same module at batch 2 (max abs error <=
+    2e-3, >= 45 dB), ms per crop at batch 1, 2, 4 and 8 with TF32 off and
+    on, the FLOPs per crop from the shapes with the bounds at the fp32 and
+    TF32 peaks, and the peak memory;
+14. ``faces``: RealESRGAN_x4plus at full frame on a 3-frame 720x1280 y4m
+    with skin-toned faces the skin detector finds (three in frame 0, one
+    over the left edge; none in frame 1; two in frame 2), through the CLI's
+    config without ``--face-enhance`` (RGB out), with ``--face-enhance
+    --face-model gfpgan`` (the synthetic checkpoint) and with
+    ``--face-model regions``: the written frames equal the step's outside
+    every face region byte for byte and equal the card's face pass of the
+    step's frames inside; the card's pass within 2 levels of the same pass
+    on the CPU (at most 1% of values differ; the prior on the CPU for frame
+    0); K1 launched as the x4plus table says; a ``faces`` stage in
+    ``last_stats``; wall, the step, the faces stage and the pass's time
+    per frame, and the peak memory;
+15. ``outscale``: RealESRGAN_x4_v3 (config 4's seeded weights) at full
+    frame on 2 frames of 1080x1920 with ``--outscale 2``: 2 frames of
+    3840x2160 written, each equal to the card's Lanczos4 resize of the
+    step's frame and within 1 level of the port's CPU resize of it; config
+    4's launch counts; wall, step and resize ms per frame.
 
 The card's ``nvidia-smi`` line is printed first and again just before the
 per-kernel JSON record, which is the line before the last (``launches`` sums
-the counts of the CLI runs of phases 4 and 6-10 and of phase 12, the
+the counts of the CLI runs of phases 4, 6-10, 14 and 15 and of phase 12, the
 static-A8 row those of ``bench_rdb``'s int8s run, which the wrapper counts
 under ``rdb_fused_i8``; phase 11's runs are counted and checked on their
 own, and left out of the sums);
@@ -178,6 +207,7 @@ and are removed at the end.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -194,6 +224,7 @@ REPO = Path(__file__).resolve().parent
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3
 PEAK_BF16 = 989e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
 
@@ -273,7 +304,9 @@ PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
 )
-PHASES = ("k1", "k1n", "k2", "k5", "k3", "k6", "k4", "kernels", "paths", "bench", "io") + PATH_TAGS
+# the paths after the face prior's phase: the face pass and the outscale resize
+POST_TAGS = ("faces", "outscale")
+PHASES = ("k1", "k1n", "k2", "k5", "k3", "k6", "k4", "kernels", "paths", "bench", "io", "gfpgan") + PATH_TAGS + POST_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -2182,6 +2215,338 @@ def main(argv=None) -> int:
         finally:
             if knob:
                 os.environ.pop(knob)
+
+    # ---- phases 13-15: the face prior, the face pass, the outscale resize ----
+    from video_restore_tpu_torch.models import gfpgan as gfp
+    from video_restore_tpu_torch.ops import faces as faces_mod
+    from video_restore_tpu_torch.ops.resample import resize_lanczos4
+    from video_restore_tpu_torch.video import y4m as y4m_mod
+
+    def gfpgan_ckpt():
+        """The schema-exact synthetic checkpoint (the one
+        ``tests/goldens/GFPGANv1.4.npz`` was computed from) as a released
+        ``.pth`` in the models directory, read back through ``load_gfpgan``
+        (and so through the converter) wherever the prior runs."""
+        path = models_dir / "GFPGANv1.4.pth"
+        if not path.exists():
+            sd = {k: torch.from_numpy(v) for k, v in gfp.synthetic_gfpgan_sd().items()}
+            torch.save({"params_ema": sd}, path)
+        return path
+
+    def phase_gfpgan():
+        """[gfpgan] GFPGAN v1-clean at its full published width on the card:
+        loaded from the synthetic .pth, held to the committed golden (>= 45
+        dB, SSIM >= 0.99) and to the CPU forward of the same module at batch
+        2; ms per crop at batch 1, 2, 4 and 8 with TF32 off (the port's
+        choice) and on, beside the FLOPs and bounds; peak memory."""
+        check("VRT_GFPGAN_RANDOM" not in os.environ, "[gfpgan] VRT_GFPGAN_RANDOM is set")
+        t0 = time.perf_counter()
+        gfpgan_ckpt()
+        state, spec = gfp.load_gfpgan(models_dir)
+        check(spec == gfp.GFPGANSpec() and (spec.out_size, spec.num_style_feat, spec.channel_multiplier,
+                                            spec.narrow) == (512, 512, 2, 1.0), f"[gfpgan] spec {spec}")
+        net = gfp.GFPGAN(spec)
+        net.load_state_dict(state)
+        net = net.to(dev).eval()
+        log(f"[gfpgan] synthetic checkpoint written and loaded through load_gfpgan in "
+            f"{time.perf_counter() - t0:.1f}s")
+        golden = np.load(REPO / "tests" / "goldens" / "GFPGANv1.4.npz")["out"]
+        x = torch.from_numpy(gfp.golden_tiles(seed=11, n=1, h=512, w=512)).permute(0, 3, 1, 2)
+        res = {}
+        with torch.no_grad():
+            for prec in gfp.PRECISIONS:
+                y = net(x.to(dev), precision=prec).permute(0, 2, 3, 1).cpu().numpy()
+                db, ssim = gfp.golden_scores(y, golden)
+                err = float(np.abs(y - golden).max())
+                res[prec] = dict(db=db, ssim=ssim, max_abs_err=err)
+                log(f"[gfpgan] {prec}: vs tests/goldens/GFPGANv1.4.npz PSNR {db:.2f} dB, SSIM {ssim:.6f}, "
+                    f"max abs err {err:.3g}")
+            check(res["fp32"]["db"] >= 45.0 and res["fp32"]["ssim"] >= 0.99,
+                  f"[gfpgan] fp32 vs the golden {res['fp32']}")
+            x2 = torch.from_numpy(gfp.golden_tiles(seed=12, n=2, h=512, w=512)).permute(0, 3, 1, 2)
+            card = net(x2.to(dev)).cpu()
+            cpu_net = gfp.GFPGAN(spec)
+            cpu_net.load_state_dict(state)
+            t0 = time.perf_counter()
+            ref = cpu_net.eval()(x2)
+            cpu_s = time.perf_counter() - t0
+            err = float((card - ref).abs().max())
+            db_cpu, _ = gfp.golden_scores(card.permute(0, 2, 3, 1).numpy(), ref.permute(0, 2, 3, 1).numpy())
+            log(f"[gfpgan] card vs CPU forward of the same module, batch 2: max abs err {err:.3g}, "
+                f"PSNR {db_cpu:.2f} dB (CPU {cpu_s:.1f} s)")
+            check(err <= 2e-3 and db_cpu >= 45.0, f"[gfpgan] card vs CPU: {err:.3g}, {db_cpu:.2f} dB")
+            del cpu_net, ref
+            flops = gfp.gfpgan_flops(spec)
+            ms = {}
+            torch.cuda.reset_peak_memory_stats()
+            for prec in gfp.PRECISIONS:
+                for b in (1, 2, 4, 8):
+                    xb = torch.rand(b, 3, 512, 512, generator=gen).to(dev)
+                    ms[f"{prec} b{b}"] = timed(lambda: net(xb, precision=prec), 3) / b
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        bound = {p: 1e3 * flops / peak_ for p, peak_ in (("fp32", PEAK_FP32), ("tf32", PEAK_TF32))}
+        for prec in gfp.PRECISIONS:
+            log(f"[gfpgan] {prec} ms per crop at batch 1, 2, 4, 8: "
+                + ", ".join(f"{ms[f'{prec} b{b}']:.3f}" for b in (1, 2, 4, 8))
+                + f"; bound {bound[prec]:.3f} ms ({flops / 1e9:.1f} GFLOP per crop over "
+                  f"{(PEAK_FP32 if prec == 'fp32' else PEAK_TF32) / 1e12:.0f} TFLOP/s)")
+        log(f"[gfpgan] peak device memory {peak:.2f} GiB (batch 8, the module's weights included)")
+        path_stats["gfpgan"] = dict(golden=res, card_vs_cpu_err=err, card_vs_cpu_db=db_cpu,
+                                    ms_per_crop=ms, gflop_per_crop=flops / 1e9, bound_ms=bound,
+                                    peak_gib=peak)
+
+    if want("gfpgan"):
+        phase_gfpgan()
+
+    def tap_writes():
+        """Records the RGB frames the runner hands the y4m writer (the
+        path of every run with faces or a resize)."""
+        frames, orig = [], y4m_mod.Y4MWriter.write
+
+        def write(self, frame):
+            frames.append(np.array(frame))
+            orig(self, frame)
+
+        y4m_mod.Y4MWriter.write = write
+        return frames, lambda: setattr(y4m_mod.Y4MWriter, "write", orig)
+
+    def run_cli(tag, src, argv, model=None, expected=None, n_frames=None, **cfg_kw):
+        """``process_video`` of the CLI's config (with ``cfg_kw`` replaced)
+        with the launch counters reset before and read after; the RGB frames
+        written are returned."""
+        dst = work / f"out_{tag}.y4m"
+        cfg = config_from_args(build_parser().parse_args([str(src), str(dst)] + argv))
+        cfg = dataclasses.replace(cfg, **cfg_kw)
+        restorer = VideoRestorer(cfg, model=model)
+        written, untap = tap_writes()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        try:
+            ok = restorer.process_video(src, dst, show_progress=False)
+            torch.cuda.synchronize()
+        finally:
+            untap()
+        counts = _build.launches()
+        check(ok, f"[{tag}] process_video failed")
+        st = restorer.last_stats
+        check(st.decoded == st.inferred == st.encoded == n_frames,
+              f"[{tag}] frame accounting {st.decoded}/{st.inferred}/{st.encoded}")
+        if expected is not None:
+            check(counts == expected, f"[{tag}] launch counts {counts} != expected {expected}")
+        for k, v in counts.items():
+            total_launches[k] = total_launches.get(k, 0) + v
+        with Y4MReader(dst) as rd:
+            on_disk = list(rd)
+        check(len(on_disk) == len(written) == n_frames, f"[{tag}] {len(on_disk)} frames written")
+        return restorer, written, st, torch.cuda.max_memory_allocated() / 2**30, counts
+
+    def face_clip(path, h, w, n):
+        """Skin-toned faces (an ellipse with eyes and a mouth) on a bluish
+        background no skin threshold takes: frame 0 with three faces, one
+        over the left edge; frame 1 with none; frame 2 with two."""
+        rng = np.random.default_rng(13)
+        yy, xx = np.mgrid[0:h, 0:w]
+        k = w / 1280  # the positions below are for 720x1280
+        faces_at = {0: [(300, 260, 60, 78), (20, 420, 58, 76), (900, 330, 48, 64)], 1: [],
+                    2: [(320, 270, 60, 78), (880, 340, 48, 64)]}
+        faces_at = {t: [tuple(int(v * k) for v in f) for f in fs] for t, fs in faces_at.items()}
+        with Y4MWriter(path, w, h, 25) as wr:
+            for t in range(n):
+                f = np.stack([40 + xx * 60 / w, 70 + yy * 50 / h, np.full((h, w), 170.0)], -1)
+                for cx, cy, rx, ry in faces_at[t % 3]:
+                    f[((xx - cx) / rx) ** 2 + ((yy - cy) / ry) ** 2 <= 1] = (220, 170, 140)
+                    for ex in (cx - rx // 3, cx + rx // 3):  # eyes
+                        f[(xx - ex) ** 2 + (yy - cy + ry // 4) ** 2 <= (rx // 8) ** 2] = (60, 40, 40)
+                    f[(abs(xx - cx) <= rx // 3) & (abs(yy - cy - ry // 2) <= 2)] = (150, 70, 70)  # mouth
+                f = f + rng.normal(0, 3, f.shape)
+                wr.write(np.clip(f, 0, 255).astype(np.uint8))
+
+    def face_regions(boxes, s, hh, ww):
+        """Every pixel either face pass may touch for these LR boxes: the
+        heuristic's expanded boxes and the prior's loose squares."""
+        m = np.zeros((hh, ww), bool)
+        for box in boxes:
+            e = box.scaled(s).expanded(0.25, ww, hh)
+            m[e.y : e.y + e.h, e.x : e.x + e.w] = True
+            b = box.scaled(s)
+            side = int(max(b.w, b.h) * 1.6)
+            x0 = max(0, min(b.x + b.w // 2 - side // 2, ww - side))
+            y0 = max(0, min(b.y + b.h // 2 - side // 2, hh - side))
+            m[y0 : y0 + side, x0 : x0 + side] = True
+        return m
+
+    @contextlib.contextmanager
+    def without_cv2():
+        """OpenCV made unimportable (and the detector chosen again): the face
+        pass and the resize must run without it. The machine's own OpenCV,
+        where it has one, would give the JAX package's detector chain the
+        Haar cascade, which finds no synthetic face."""
+        try:
+            import cv2
+
+            have = f"cv2 {cv2.__version__}, the chain would pick {faces_mod._init_detector()[0]}"
+        except ImportError:
+            have = "no cv2"
+        log(f"[faces] this machine: {have}; cv2 blocked for the faces and outscale paths")
+        prev = sys.modules.get("cv2")
+        sys.modules["cv2"] = None
+        faces_mod._detector = None
+        try:
+            yield
+        finally:
+            faces_mod._detector = None
+            if prev is None:
+                sys.modules.pop("cv2", None)
+            else:
+                sys.modules["cv2"] = prev
+
+    def phase_faces():
+        """``faces``: RealESRGAN_x4plus at full frame on a 3-frame 720x1280
+        clip with faces the skin detector finds (OpenCV blocked), through
+        the CLI's config three times: without
+        ``--face-enhance`` (``device_yuv="off"``, so that all three write
+        RGB through the same host conversion), with ``--face-enhance
+        --face-model gfpgan`` (the synthetic checkpoint in the models
+        directory) and with ``--face-model regions``. Outside every face's
+        region the written frames equal the run without faces byte for
+        byte; inside, the card's pass is held to the same pass on the CPU
+        from the same step output and boxes; the K1 launches are the x4plus
+        table's; ``last_stats`` has its ``faces`` stage."""
+        h, w, n = 720, 1280, 3
+        src = work / "in_faces.y4m"
+        face_clip(src, h, w, n)
+        with Y4MReader(src) as rd:
+            decoded = list(rd)
+        boxes = [faces_mod.detect_faces(f) for f in decoded]
+        check(faces_mod._get_detector()[0] == "skin", f"[faces] detector {faces_mod._get_detector()[0]}")
+        check([len(b) for b in boxes] == [3, 0, 2], f"[faces] the skin detector found {boxes}")
+        gfpgan_ckpt()
+        base_argv = ["--model", "RealESRGAN_x4plus", "--tile-size", "0", "--models-dir", str(models_dir)]
+        expected = {k: v * n for k, v in rrdb_call.items()}
+        r0, base, st0, peak0, _ = run_cli("faces_off", src, base_argv, expected=expected, n_frames=n,
+                                          device_yuv="off")
+        model = r0.model
+        check(list(r0._upscalers) == [(h, w, False)], f"[faces_off] buckets {list(r0._upscalers)}")
+        # the step's RGB frames on the card, for the byte checks
+        ups = Upscaler(model, r0._upscalers[(h, w, False)].grid, r0.config, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = [ups.process_batch(f[None])[0] for f in decoded]
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / n
+        for i in range(n):
+            check(np.array_equal(base[i], steps[i].cpu().numpy()),
+                  f"[faces_off] frame {i}: the run without faces != the step")
+        stats = {}
+        for mode in ("gfpgan", "regions"):
+            tag = f"faces_{mode}"
+            r, out, st, peak, counts = run_cli(
+                tag, src, base_argv + ["--face-enhance", "--face-model", mode], model=model,
+                expected=expected, n_frames=n)
+            check("faces" in st.stages, f"[{tag}] no faces stage in last_stats {st.stages}")
+            check(list(r._upscalers) == [(h, w, False)], f"[{tag}] buckets {list(r._upscalers)}")
+            check((r._gfpgan is not False and r._gfpgan is not None) == (mode == "gfpgan"),
+                  f"[{tag}] the GFPGAN runner {r._gfpgan}")
+            s = model.scale
+            face_pass = r._face_pass()
+            cpu_pass = face_pass
+            if mode == "gfpgan":
+                cpu_runner = faces_mod.make_gfpgan_runner(models_dir, device="cpu")
+                cpu_pass = lambda f, b: faces_mod.restore_faces_learned(f, b, s, cpu_runner, 0.5)  # noqa: E731
+            pass_ms, worst, frac = 0.0, 0, 0.0
+            for i in range(n):
+                step = steps[i].cpu().numpy()
+                keep = ~face_regions(boxes[i], s, h * s, w * s)
+                check(np.array_equal(out[i][keep], step[keep]),
+                      f"[{tag}] frame {i}: outside the face regions != the step's frame")
+                if not boxes[i]:
+                    check(np.array_equal(out[i], step), f"[{tag}] frame {i} without faces changed")
+                    continue
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                card = face_pass(steps[i], boxes[i])
+                torch.cuda.synchronize()
+                pass_ms += 1e3 * (time.perf_counter() - t0)
+                card = card.cpu().numpy()
+                check(np.array_equal(card, out[i]), f"[{tag}] frame {i}: the file != the card's pass")
+                if mode == "regions" or i == 0:  # the CPU prior: one frame
+                    cpu = cpu_pass(torch.from_numpy(step), boxes[i]).numpy()
+                    d = np.abs(cpu.astype(np.int32) - card.astype(np.int32))
+                    worst, frac = max(worst, int(d.max())), max(frac, float((d > 0).mean()))
+                    check(d.max() <= 2 and (d > 0).mean() <= 0.01,
+                          f"[{tag}] frame {i}: card vs CPU pass max {d.max()}, {(d > 0).mean():.4%} differ")
+            n_px = sum(int(face_regions(b, s, h * s, w * s).sum()) for b in boxes)
+            wall = 1e3 * st.wall_s / n
+            face_stage = 1e3 * st.stages.get("faces", 0.0) / n
+            log(f"[{tag}] {n} frames {w}x{h} -> {s * w}x{s * h}, faces {[len(b) for b in boxes]}: wall "
+                f"{wall:.1f} ms/frame (without faces {1e3 * st0.wall_s / n:.1f}; the step alone "
+                f"{step_ms:.1f}, RGB, synchronised), faces stage "
+                f"{face_stage:.1f} ms/frame (host: the wait for the boxes and the pass's launches), the "
+                f"card's face pass {pass_ms / n:.1f} ms/frame (synchronised), stages "
+                f"{json.dumps({k: round(v, 3) for k, v in st.stages.items()})}; peak device memory "
+                f"{peak:.2f} GiB (without faces {peak0:.2f}); outside the regions ({n_px} px of "
+                f"{n * s * s * h * w}) byte-equal to the step; card vs CPU pass max {worst} level(s), "
+                f"{frac:.4%} of values differ")
+            stats[mode] = dict(wall_ms_per_frame=wall, step_ms=step_ms, face_stage_ms=face_stage,
+                               face_pass_ms=pass_ms / n,
+                               stages_s=st.stages, peak_gib=peak, cpu_max=worst, cpu_frac=frac)
+        stats["off"] = dict(wall_ms_per_frame=1e3 * st0.wall_s / n, peak_gib=peak0, stages_s=st0.stages)
+        path_stats["faces"] = stats
+
+    def phase_outscale():
+        """``outscale``: RealESRGAN_x4_v3 (config 4's seeded weights) at
+        full frame on 2 frames of 1080x1920 with ``--outscale 2``: 3840x2160
+        out through the CLI's config; the written frames equal the card's
+        Lanczos4 resize of the step's frames and are within 1 level of the
+        port's CPU resize of the same frames; the launches are config 4's."""
+        h, w, n = H, W, 2
+        src = work / "in_outscale.y4m"
+        make_clip(src, h, w, n)
+        argv = ["--model", "RealESRGAN_x4_v3", "--tile-size", "0", "--outscale", "2",
+                "--models-dir", str(models_dir)]
+        expected = {k: v * n for k, v in srvgg_call.items()}
+        r, out, st, peak, _ = run_cli("outscale", src, argv, expected=expected, n_frames=n)
+        size = (2 * w, 2 * h)  # x4, then outscale 2
+        check(out[0].shape == (size[1], size[0], 3), f"[outscale] frame {out[0].shape}")
+        check("resize" in st.stages, f"[outscale] no resize stage in {st.stages}")
+        check(list(r._upscalers) == [(h, w, False)], f"[outscale] buckets {list(r._upscalers)}")
+        with Y4MReader(src) as rd:
+            decoded = list(rd)
+        ups = Upscaler(r.model, r._upscalers[(h, w, False)].grid, r.config, dev)
+        resize_ms, step_ms = [], []
+        for i, f in enumerate(decoded):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = ups.process_batch(f[None])
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            card = resize_lanczos4(y, size)
+            resize_ms.append(timed(lambda: resize_lanczos4(y, size), 3))
+            card = card[0].cpu().numpy()
+            cpu = resize_lanczos4(y.cpu(), size)[0].numpy()
+            check(np.array_equal(card, out[i]), f"[outscale] frame {i}: the file != the card's resize")
+            d = np.abs(card.astype(np.int32) - cpu.astype(np.int32))
+            check(d.max() <= 1, f"[outscale] frame {i}: card vs CPU resize max {d.max()}")
+        wall = 1e3 * st.wall_s / n
+        log(f"[outscale] {n} frames {w}x{h} -> {4 * w}x{4 * h} -> {size[0]}x{size[1]}: wall {wall:.1f} ms/frame, step "
+            f"{np.mean(step_ms):.1f} ms/frame (RGB, synchronised), the card's Lanczos4 resize "
+            f"{np.mean(resize_ms):.3f} ms/frame (CUDA events), resize stage "
+            f"{1e3 * st.stages.get('resize', 0.0) / n:.1f} ms/frame (host: launches), stages "
+            f"{json.dumps({k: round(v, 3) for k, v in st.stages.items()})}; peak device memory "
+            f"{peak:.2f} GiB; the file equals the card's resize of the step, within 1 level of the CPU "
+            f"resize")
+        path_stats["outscale"] = dict(wall_ms_per_frame=wall, step_ms=float(np.mean(step_ms)),
+                                      resize_ms=float(np.mean(resize_ms)), stages_s=st.stages,
+                                      peak_gib=peak)
+
+    with without_cv2():
+        if want("paths", "faces"):
+            phase_faces()
+        if want("paths", "outscale"):
+            phase_outscale()
+
+
     def phase_io():
         """[io] the host I/O around ``VideoRestorer``: the pinned ring under
         stress (24 batches through 3 slots, a device-heavy producer and a

@@ -1,8 +1,9 @@
 """The port's CLI end to end on the CPU: ``python -m
 video_restore_tpu_torch.cli in.y4m out.y4m --cpu`` with RealESRGAN_x4plus
 (nf 64, 23 blocks, random weights) on a tiny clip, full frame, enhanced;
-tiled mode (seamless and legacy) for both model families; and the refusal
-of flags whose subsystems are not ported yet.
+tiled mode (seamless and legacy) for both model families; the face pass
+and the outscale resize; and the refusal of flags whose subsystems are not
+ported yet.
 
 A y4m sink takes planar I420 from the device, so the CLI's file holds the
 restore step's planes (``Upscaler(yuv420_out=True)``) byte for byte; one
@@ -75,7 +76,7 @@ def test_cli_restores_clip_on_cpu(tmp_path):
 # ported since the flag list was written: these cases must now run
 NOW_PORTED = (
     ["--batch"], ["--segment-frames", "8"], ["--tile-size", "128"],
-    ["--model", "RealESRGAN_x4_v3"],
+    ["--model", "RealESRGAN_x4_v3"], ["--face-enhance"], ["--outscale", "2"],
 )
 
 
@@ -89,12 +90,14 @@ NOW_PORTED = (
         ["--tile-size", "128"],
         ["--shard-mode", "tiles"],
         ["--model", "RealESRGAN_x4_v3"],
+        ["--outscale", "2"],
     ],
 )
 def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
     """Flags of unported subsystems exit 1 with "not yet ported"; tiled
-    mode, SRVGGNetCompact, batch directories and segmented output, ported
-    since, run on --cpu."""
+    mode, SRVGGNetCompact, batch directories, segmented output, the face
+    pass (the region heuristic without GFPGAN weights) and the outscale
+    resize, ported since, run on --cpu."""
     src, dst = tmp_path / "in.y4m", tmp_path / "o.y4m"
     _clip(src, n=1)
     if flags in NOW_PORTED:
@@ -112,12 +115,29 @@ def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
         )
         assert rc == 0, capsys.readouterr().err[-2000:]
         with Y4MReader(dst) as rd:
-            assert (rd.info.width, rd.info.height) == (96, 64)
+            size = (48, 32) if "--outscale" in flags else (96, 64)
+            assert (rd.info.width, rd.info.height) == size
             assert len(list(rd)) == 1
         return
     rc = cli.main([str(src), str(dst), "--cpu"] + flags)
     assert rc == 1
     assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_gfpgan_without_weights_exits_1(tmp_path, capsys, monkeypatch):
+    """``--face-model gfpgan`` with no GFPGANv1.4.pth: exit 1 with the JAX
+    package's message, and no output written."""
+    src, dst = tmp_path / "in.y4m", tmp_path / "o.y4m"
+    _clip(src, n=1)
+    monkeypatch.setenv("VRT_ALLOW_RANDOM_WEIGHTS", "1")
+    monkeypatch.delenv("VRT_GFPGAN_RANDOM", raising=False)
+    rc = cli.main([str(src), str(dst), "--cpu", "--models-dir", str(tmp_path / "m"),
+                   "--model", "RealESRGAN_x4plus_anime_6B", "--face-enhance",
+                   "--face-model", "gfpgan"])
+    assert rc == 1
+    assert ("--face-model gfpgan requires the GFPGANv1.4 weights (no download possible "
+            "and no cached file)") in capsys.readouterr().err
+    assert not dst.exists()
 
 
 @pytest.mark.parametrize("model", ["RealESRGAN_x4plus_anime_6B", "RealESRGAN_x4_v3"])

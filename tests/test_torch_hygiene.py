@@ -2,7 +2,9 @@
 ``video_restore_tpu_torch`` loads neither JAX nor any module of the JAX
 package, and without CUDA the entry points refuse to run unless the CPU
 was asked for, while kernel wrappers given CPU tensors run their plain
-versions."""
+versions; OpenCV is imported only where the face detector chain and the
+OpenCV video backend need it, and the face pass and the resize run
+without it."""
 
 import subprocess
 import sys
@@ -110,3 +112,57 @@ def test_wrappers_on_cpu_tensors_run_plain_versions():
     assert _build.launches() == {}
     # building needs nvcc: nothing above tried to build
     assert _build._lib is None
+
+
+def test_cv2_only_in_the_detector_chain_and_opencv_backend():
+    """OpenCV is imported only by the OpenCV video backend and by the face
+    detector chain (``_init_detector``, and ``detect_faces`` for the
+    detectors it picked from OpenCV), never at module level: the geometry,
+    the resizes and the GFPGAN path need none."""
+    import ast
+
+    def cv2_imports(node, fn, out):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                mods = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom):
+                mods = [child.module or ""]
+            else:
+                mods = []
+            if any(m.split(".")[0] == "cv2" for m in mods):
+                out.add(fn)
+            inner = child.name if isinstance(child, ast.FunctionDef) else fn
+            cv2_imports(child, inner, out)
+        return out
+
+    root = REPO / "video_restore_tpu_torch"
+    found = set()
+    for path in root.rglob("*.py"):
+        rel = path.relative_to(root).as_posix()
+        found |= {(rel, fn) for fn in cv2_imports(ast.parse(path.read_text()), "<module>", set())}
+    assert found == {
+        ("video/opencv_backend.py", "_cv2"), ("ops/faces.py", "_init_detector"),
+        ("ops/faces.py", "detect_faces"),
+    }
+
+
+def test_face_pass_and_resize_run_without_cv2(monkeypatch):
+    """With ``cv2`` unimportable (the card's machine) the detector chain
+    takes the skin detector, and the face pass and the resize run."""
+    import sys
+
+    from video_restore_tpu_torch.ops import faces, resample
+
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    monkeypatch.setattr(faces, "_detector", None)
+    rng = np.random.default_rng(0)
+    lr = np.zeros((48, 64, 3), np.uint8)
+    lr[...] = (60, 90, 170)
+    lr[10:40, 12:38] = (220, 170, 140)  # a skin blob
+    boxes = faces.detect_faces(lr)
+    assert faces._detector == ("skin", None) and len(boxes) == 1
+    hr = torch.from_numpy((rng.random((96, 128, 3)) * 255).astype(np.uint8))
+    assert not torch.equal(faces.enhance_face_regions(hr, boxes, 2), hr)
+    out = faces.restore_faces_learned(hr, boxes, 2, lambda c: 1.0 - c)
+    assert out.shape == hr.shape and not torch.equal(out, hr)
+    assert resample.resize_lanczos4(hr, (64, 48)).shape == (48, 64, 3)

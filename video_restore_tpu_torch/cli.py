@@ -101,7 +101,8 @@ Streaming (y4m over stdin/stdout, for ffmpeg pipelines):
     p.add_argument("--face-model", default="auto",
                    choices=["auto", "gfpgan", "regions"],
                    help="face restorer: GFPGAN v1-clean prior (needs "
-                        "downloadable weights) or the region heuristic")
+                        "MODELS_DIR/GFPGANv1.4.pth; nothing is downloaded) "
+                        "or the region heuristic")
     p.add_argument("--face-enhance", action="store_true",
                    help="detect faces and restore them with the GFPGAN "
                         "v1-clean prior (README.md:3); falls back to a "
@@ -250,8 +251,6 @@ def config_from_args(args: argparse.Namespace) -> RestoreConfig:
 def _unported(args, cfg: RestoreConfig) -> list:
     """The requested features this package cannot run yet."""
     out = []
-    if args.face_enhance:
-        out.append("--face-enhance")
     if args.multihost:
         out.append("--multihost")
     if cfg.shard_mode == "tiles":
@@ -260,8 +259,6 @@ def _unported(args, cfg: RestoreConfig) -> list:
         out.append("multi-GPU (--devices/--gpus > 1)")
     if args.profile:
         out.append("--profile")
-    if cfg.outscale != float(cfg.scale):
-        out.append("--outscale")
     return out
 
 

@@ -214,8 +214,9 @@ class PinnedRing:
 
     def __init__(self, depth: int, pin: bool):
         self.pin = pin
+        self.depth = max(depth, 1)
         self._free: queue.Queue = queue.Queue()
-        for _ in range(max(depth, 1)):
+        for _ in range(self.depth):
             self._free.put(_Slot())
 
     def acquire(self, shape, dtype: torch.dtype) -> _Slot:
@@ -231,6 +232,14 @@ class PinnedRing:
     def release(self, slot: _Slot, event=None) -> None:
         slot.event = event
         self._free.put(slot)
+
+    def reserve(self, shape, dtype: torch.dtype) -> None:
+        """Give every slot a buffer of ``shape`` now, waiting for each slot
+        to be free: a pinned allocation is slow (51.0 ms for an 8K frame's
+        49.8 MB of planes beside an NVIDIA H100 80GB HBM3, ``PERF.md``)."""
+        slots = [self.acquire(shape, dtype) for _ in range(self.depth)]
+        for slot in slots:
+            self.release(slot)
 
 
 class Fetched:
@@ -352,9 +361,12 @@ class Upscaler:
         )
         return out
 
-    def warmup(self) -> None:
+    def warmup(self, fetch_shape=None) -> None:
         """Run the step once on a zero frame (builds the kernels and warms
-        the allocator), then reset the temporal carry."""
+        the allocator), then reset the temporal carry; with ``fetch_shape``,
+        size every slot of the fetch ring for uint8 results of that shape."""
         x = np.zeros((1, self.grid.height, self.grid.width, 3), np.uint8)
         self.process_batch(x).cpu()
         self.reset_temporal()
+        if fetch_shape is not None:
+            self._fetch.reserve(fetch_shape, torch.uint8)

@@ -16,13 +16,20 @@ Port of ``video_restore_tpu/pipeline/runner.py`` (``process_video``,
 - resume: a y4m output is trimmed to its last whole frame and appended to,
   other containers resume from their recorded segments (``--segment-frames``);
   a progress manifest beside the output tracks the frames done;
+- ``--face-enhance``: faces are detected on the LR frames in a thread pool
+  while the device runs the step; the dispatch loop waits for a batch's
+  boxes (the ``faces`` stage) and runs the face pass (the GFPGAN prior, or
+  the region heuristic without its weights) on the step's uint8 RGB output
+  on the device, before the fetch;
+- ``--outscale``: the Lanczos4 resize to the requested size, after the
+  face pass and also on the device (the ``resize`` stage), with cv2's
+  coefficients and rounding (``ops/resample.py``);
 - the source's audio is muxed into the output through ffmpeg when neither
   end is a pipe;
 - frame accounting (decoded == inferred == encoded) is checked at the end,
   and per-stage wall-clock totals land in ``last_stats``.
 
-Not ported yet: face restoration, the Lanczos ``outscale`` resize (it
-needs a host resize without ``cv2``) and the multi-host batch.
+Not ported yet: the multi-host batch.
 """
 
 from __future__ import annotations
@@ -208,6 +215,9 @@ class VideoRestorer:
             config.scale = model.scale
         self._upscalers: Dict[tuple, Upscaler] = {}  # (H, W, yuv) bucket
         self._probe_cache: Dict[str, object] = {}  # str(path) -> VideoInfo
+        # the GFPGAN crop restorer, loaded at the first face pass (False:
+        # its weights are missing)
+        self._gfpgan = None
         self.last_stats: Optional[PipelineStats] = None
         log.info(
             "model=%s scale=%dx device=%s tile=%d precision=%s enhanced=%s",
@@ -339,11 +349,8 @@ class VideoRestorer:
             if info is None:
                 info = probe(input_path)
         scale = self.model.scale
-        if cfg.outscale != float(scale):
-            raise NotImplementedError(
-                "outscale resizing (host Lanczos) is not yet ported"
-            )
-        out_w, out_h = info.width * scale, info.height * scale
+        out_w = int(info.width * cfg.outscale)
+        out_h = int(info.height * cfg.outscale)
         log.info(
             "input %dx%d -> output %dx%d  (%d frames @ %.2f fps)",
             info.width, info.height, out_w, out_h, info.frames, info.fps,
@@ -361,6 +368,8 @@ class VideoRestorer:
                 output_path, out_w, out_h, info.fps
             )
         stats = PipelineStats()
+        # before any file is opened: "gfpgan" without its weights raises
+        face_pass = self._face_pass() if cfg.face_enhance else None
 
         if not pipe_in:
             reader = open_reader(input_path)
@@ -376,6 +385,17 @@ class VideoRestorer:
         if skip:
             progress.update(skip)
         timer = StageTimer()
+        # detection runs on the host (OpenCV or numpy), overlapping the step
+        face_pool = None
+        if face_pass is not None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            from video_restore_tpu_torch.ops.faces import detect_faces
+
+            face_pool = ThreadPoolExecutor(
+                max_workers=min(8, os.cpu_count() or 4), thread_name_prefix="faces"
+            )
+        resize = self._resizer(out_w, out_h, scale, info)
 
         def drain_one(item):
             fetched, valid = item
@@ -417,7 +437,19 @@ class VideoRestorer:
                     frames = pending + [pending[-1]] * (batch - valid)
                     pending = []
                     with timer.stage("dispatch"):
+                        faces = None
+                        if face_pool is not None:
+                            faces = [face_pool.submit(detect_faces, f) for f in frames[:valid]]
                         out = ups.process_batch(np.stack(frames))
+                    if faces is not None:
+                        with timer.stage("faces"):
+                            for i, fut in enumerate(faces):
+                                boxes = fut.result()
+                                if boxes:
+                                    out[i] = face_pass(out[i], boxes)
+                    if resize is not None:
+                        with timer.stage("resize"):
+                            out = resize(out)
                     enc.submit((ups.fetch(out), valid))
                 if enc.error is not None:
                     raise RuntimeError(f"encode failed: {enc.error}") from enc.error
@@ -429,6 +461,8 @@ class VideoRestorer:
                 enc.abandon()
             decoder.stop()
             decoder.join(timeout=10)
+            if face_pool is not None:
+                face_pool.shutdown(wait=True)
             writer.close()
             progress.close()
             reader.close()
@@ -443,6 +477,48 @@ class VideoRestorer:
         if cfg.audio_copy and not (pipe_in or pipe_out):
             copy_audio(input_path, output_path)
         return stats
+
+    def _face_pass(self):
+        """The face pass of ``--face-enhance`` (``runner.py:413-451`` of the
+        JAX package): ``f(frame, boxes) -> frame`` on a uint8 (H*s, W*s, 3)
+        tensor and LR boxes. The GFPGAN prior for ``face_model`` "auto" or
+        "gfpgan" when its weights load (once per restorer), else the region
+        heuristic; "gfpgan" without weights raises."""
+        from video_restore_tpu_torch.ops import faces
+
+        cfg = self.config
+        scale = self.model.scale
+        if cfg.face_model in ("auto", "gfpgan") and self._gfpgan is None:
+            self._gfpgan = faces.make_gfpgan_runner(cfg.models_dir, device=self.device) or False
+            if self._gfpgan:
+                log.info("face restorer: GFPGAN v1-clean prior")
+        if cfg.face_model != "regions" and self._gfpgan:
+            runner = self._gfpgan
+            return lambda f, boxes: faces.restore_faces_learned(
+                f, boxes, scale, runner, cfg.face_strength
+            )
+        if cfg.face_model == "gfpgan":
+            raise RuntimeError(
+                "--face-model gfpgan requires the GFPGANv1.4 weights (no "
+                "download possible and no cached file)"
+            )
+        log.info(
+            "face restorer: region heuristic%s",
+            "" if cfg.face_model == "regions" else " (GFPGAN weights unavailable)",
+        )
+        return lambda f, boxes: faces.enhance_face_regions(
+            f, boxes, scale, cfg.face_strength
+        )
+
+    def _resizer(self, out_w: int, out_h: int, scale: int, info):
+        """The ``outscale`` resize (``runner.py:538-547``): None when the
+        model's scale gives the output size, else a Lanczos4 resize of a
+        (B, H*s, W*s, 3) uint8 batch on its device to (out_h, out_w)."""
+        if out_w == info.width * scale and out_h == info.height * scale:
+            return None
+        from video_restore_tpu_torch.ops.resample import resize_lanczos4
+
+        return lambda x: resize_lanczos4(x, (out_w, out_h))
 
     def _open_writer(self, output_path, w, h, fps, pix_fmt="rgb24"):
         cfg = self.config
@@ -558,7 +634,9 @@ class VideoRestorer:
         output) pair, collect the distinct (height, width, yuv) buckets, and
         run each cold one once when there are at least two. One after
         another: the kernels are built once per process, so a bucket's
-        warm-up costs one step, not a compile."""
+        warm-up costs one step, not a compile. Each warm-up also sizes its
+        pinned fetch slots for what the runner fetches, the output after
+        any ``outscale`` resize."""
         cfg = self.config
         keys = {}
         for v, out in pairs:
@@ -570,14 +648,17 @@ class VideoRestorer:
             out_w = int(info.width * cfg.outscale)
             out_h = int(info.height * cfg.outscale)
             yuv = self._yuv_eligible(out, info, out_w, out_h)
-            keys[(info.height, info.width, yuv)] = None
+            keys[(info.height, info.width, yuv)] = (out_h, out_w)
         cold = [k for k in keys if k not in self._upscalers]
         if len(cold) < 2:
             return
         log.info("[batch] warming %d resolution buckets", len(cold))
         t0 = time.time()
         for h, w, yuv in cold:
-            self._upscaler_for(h, w, yuv_out=yuv).warmup()
+            ups = self._upscaler_for(h, w, yuv_out=yuv)
+            out_h, out_w = keys[(h, w, yuv)]
+            n = ups.frames_per_batch * max(cfg.frames_per_batch, 1)
+            ups.warmup((n, out_h * 3 // 2, out_w) if yuv else (n, out_h, out_w, 3))
         log.info("[batch] warmup done in %.1fs", time.time() - t0)
 
     def process_batch_dir(
