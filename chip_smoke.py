@@ -14,7 +14,7 @@ route), ``k5``, ``k3``, ``k6`` and ``k4``
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``,
 ``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
-``gfpgan`` (phase 13). Phases 1 and 2 always run. A partial run prints
+``gfpgan`` (phase 13), ``train`` (phase 16). Phases 1 and 2 always run. A partial run prints
 neither the per-kernel record nor the final ``{"ok": true, ...}`` line; the
 run that counts is the one without arguments.
 
@@ -191,11 +191,30 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     frame on 2 frames of 1080x1920 with ``--outscale 2``: 2 frames of
     3840x2160 written, each equal to the card's Lanczos4 resize of the
     step's frame and within 1 level of the port's CPU resize of it; config
-    4's launch counts; wall, step and resize ms per frame.
+    4's launch counts; wall, step and resize ms per frame;
+16. ``train``: fine-tuning on the card through ``finetune.main`` (20
+    steps, batch 8, patch 128, a 6-frame 360x640 clip of
+    ``synth_source_clip``) for RealESRGAN_x4plus_anime_6B (nf 64, gc 32, 6
+    RRDBs, seeded random weights) and RealESRGAN_x4_v3 (nf 64, 32 convs,
+    config 4's weights): no kernel launched while training (the
+    differentiable forwards are fp32 ``F.conv2d``, as JAX trains through
+    XLA convs), every loss finite, the ``.npz`` read back through
+    ``get_model`` equal to the trained weights and served through
+    ``VideoRestorer`` on 2 frames with the checks of phases 4 and 5; the same
+    3 Adam steps on the card and on the CPU from the same weights and
+    batches (indices and noise drawn on the CPU), TF32 off: losses within
+    1e-4 relative, step-1 gradients within 1e-3 of each leaf's largest,
+    weights within Adam's 2 x 3 x lr; ms per step in fp32 and TF32 beside
+    the step's FLOPs (``FlopCounterMode``) and bounds, and the peak memory;
+    3 fp32 steps under ``device_trace``: the device's busy share and the
+    kernels that take its time.
+    Then ``--profile``: config 4 on 2 frames of 1080x1920 with ``--profile
+    DIR`` (RGB out): the trace written, naming K1's ``conv3x3_mma_kernel``,
+    and the device's busy share of the traced window.
 
 The card's ``nvidia-smi`` line is printed first and again just before the
 per-kernel JSON record, which is the line before the last (``launches`` sums
-the counts of the CLI runs of phases 4, 6-10, 14 and 15 and of phase 12, the
+the counts of the CLI runs of phases 4, 6-10 and 14-16 and of phase 12, the
 static-A8 row those of ``bench_rdb``'s int8s run, which the wrapper counts
 under ``rdb_fused_i8``; phase 11's runs are counted and checked on their
 own, and left out of the sums);
@@ -306,7 +325,8 @@ PATH_TAGS = (
 )
 # the paths after the face prior's phase: the face pass and the outscale resize
 POST_TAGS = ("faces", "outscale")
-PHASES = ("k1", "k1n", "k2", "k5", "k3", "k6", "k4", "kernels", "paths", "bench", "io", "gfpgan") + PATH_TAGS + POST_TAGS
+PHASES = ("k1", "k1n", "k2", "k5", "k3", "k6", "k4", "kernels", "paths", "bench", "io", "gfpgan",
+          "train") + PATH_TAGS + POST_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -2545,6 +2565,216 @@ def main(argv=None) -> int:
             phase_faces()
         if want("paths", "outscale"):
             phase_outscale()
+
+    # ---- phase 16: fine-tuning, and --profile ------------------------------
+    from video_restore_tpu_torch.models.zoo import get_model
+    from video_restore_tpu_torch.training import finetune, train as train_mod
+    from video_restore_tpu_torch.utils.profiling import TRACE_FILE, device_busy_share, device_trace
+    from video_restore_tpu_torch.video.fixtures import synth_source_clip
+
+    def train_card_vs_cpu(name, handle, clip, lr_rate, steps=3):
+        """The same ``steps`` Adam steps of ``make_train_step`` on the card
+        and on this machine's CPU from the same weights and batches
+        (indices and noise drawn on the CPU, passed to ``degrade_batch``),
+        TF32 off: the losses within 1e-4 relative, the first step's
+        gradients within 1e-3 of each leaf's largest; returns the losses,
+        the gradient error and the weights' largest difference after the
+        last step."""
+        hr_all = torch.from_numpy(finetune.sample_patches([str(clip)], 128, 256, handle.scale, 0))
+        nets = {d: handle.train_module(d) for d in (dev, "cpu")}
+        step_fns = {d: train_mod.make_train_step(n, train_mod.adam(n.parameters(), lr_rate))
+                    for d, n in nets.items()}
+        g = torch.Generator().manual_seed(1)
+        losses = {d: [] for d in nets}
+        grad_err = 0.0
+        for i in range(steps):
+            hr = hr_all[torch.randint(0, hr_all.shape[0], (8,), generator=g)]
+            noise = torch.randn(8, 128 // handle.scale, 128 // handle.scale, 3, generator=g)
+            for d, step in step_fns.items():
+                lr = train_mod.degrade_batch(hr.to(d), handle.scale, noise=noise)
+                losses[d].append(float(step(lr, hr.to(d))))
+            if i == 0:
+                cpu_params = dict(nets["cpu"].named_parameters())
+                for k, p_ in nets[dev].named_parameters():
+                    ref = cpu_params[k].grad
+                    e = float((p_.grad.cpu() - ref).abs().max() / ref.abs().max())
+                    grad_err = max(grad_err, e)
+                    check(e <= 1e-3, f"[train] {name}: step 1 gradient of {k} card vs CPU {e:.3g} > 1e-3")
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[dev], losses["cpu"]))
+        check(rel <= 1e-4, f"[train] {name}: card vs CPU losses {losses} differ by {rel:.3g} relative")
+        cpu_sd = nets["cpu"].state_dict()
+        dw = max(float((v.cpu() - cpu_sd[k]).abs().max()) for k, v in nets[dev].state_dict().items())
+        check(dw <= 2 * steps * lr_rate, f"[train] {name}: weights after {steps} steps differ by {dw:.3g}")
+        return losses, rel, grad_err, dw
+
+    def trace_kernels(trace):
+        """ms of device time by kernel name in a ``device_trace`` file."""
+        by_name = {}
+        for e in json.loads(trace.read_text())["traceEvents"]:
+            if e.get("ph") == "X" and e.get("cat") == "kernel":
+                by_name[e["name"]] = by_name.get(e["name"], 0.0) + e.get("dur", 0) / 1e3
+        return by_name
+
+    def top_kernels(by_name, n=6):
+        return "; ".join(f"{k[:60]} {v:.1f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:n])
+
+    def train_step_times(handle, clip, reps=10):
+        """ms per ``make_train_step`` at batch 8, patch 128, fp32 (TF32 off)
+        and TF32 (CUDA events over ``reps`` steps after 2 warm-up steps, a
+        fresh module each), and the peak device memory of each; then 3 fp32
+        steps under ``device_trace``: the device's busy share of them and
+        the kernels that take their device time."""
+        hr = torch.from_numpy(finetune.sample_patches([str(clip)], 128, 8, handle.scale, 0)).to(dev)
+        check(hr.shape[0] == 8, f"[train] {hr.shape[0]} patches for the timing batch")
+        lr = train_mod.degrade_batch(hr, handle.scale, generator=torch.Generator(device=dev).manual_seed(0))
+        from torch.utils.flop_counter import FlopCounterMode
+
+        out = {}
+        for prec, peak_rate in (("fp32", PEAK_FP32), ("tf32", PEAK_TF32)):
+            net = handle.train_module(dev)
+            step = train_mod.make_train_step(net, train_mod.adam(net.parameters(), 1e-4),
+                                             allow_tf32=prec == "tf32")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as fc:  # the first warm-up step
+                step(lr, hr)
+            ms = timed(lambda: step(lr, hr), reps)  # the second, then the timed steps
+            out[prec] = dict(ms_per_step=ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                             gflop=fc.get_total_flops() / 1e9,
+                             bound_ms=1e3 * fc.get_total_flops() / peak_rate)
+            if prec == "fp32":
+                tdir = work / f"train_trace_{handle.name}"
+                with device_trace(tdir):
+                    for _ in range(3):
+                        step(lr, hr)
+                    torch.cuda.synchronize()
+                out["trace"] = dict(device_busy_share(tdir / TRACE_FILE),
+                                    kernels=trace_kernels(tdir / TRACE_FILE))
+            del net, step
+            torch.cuda.empty_cache()
+        return out
+
+    def phase_train():
+        """``train``: ``finetune.main`` through its normal entry point on
+        the card, 20 steps at batch 8 and patch 128 from a 6-frame 360x640
+        clip of ``synth_source_clip``, for RealESRGAN_x4plus_anime_6B (the
+        CLI's default: nf 64, gc 32, 6 RRDBs, seeded random weights) and
+        RealESRGAN_x4_v3 (nf 64, 32 convs, config 4's seeded weights): no
+        kernel launched while training, every loss finite, the ``.npz``
+        loaded back through ``get_model`` equal to the trained weights, then
+        served through ``VideoRestorer`` on 2 frames with the checks of
+        phases 4 and 5 (the kernel path >= 45 dB against plain); the same
+        three steps on the card and on the CPU (:func:`train_card_vs_cpu`);
+        ms per step in fp32 and TF32 with the peak memory. Then
+        ``--profile``: config 4 on 2 frames of 1080x1920 with ``--profile
+        DIR``, the trace written and naming K1's kernel, and the device's
+        busy share over the traced window."""
+        t_phase = time.perf_counter()
+        clip = work / "train_360x640.y4m"
+        frames = synth_source_clip(n_frames=6, height=360, width=640)
+        with Y4MWriter(clip, 640, 360, 25) as wr:
+            for f in frames:
+                wr.write(f)
+        serve_clip = work / "train_serve_360x640.y4m"
+        with Y4MWriter(serve_clip, 640, 360, 25) as wr:
+            for f in frames[:2]:
+                wr.write(f)
+        stats = {}
+        for name, short in (("RealESRGAN_x4plus_anime_6B", "x4plus_anime_6B"), ("RealESRGAN_x4_v3", "x4_v3")):
+            spec_ = MODEL_ZOO[name].spec
+            ft_dir = work / f"ft_{short}"
+            ft_dir.mkdir()
+            out_npz = ft_dir / f"{name}.npz"
+            trainers = []
+            fit = train_mod.Trainer.fit_patches
+
+            def fit_and_keep(self, *a, **kw):
+                trainers.append(self)
+                return fit(self, *a, **kw)
+
+            train_mod.Trainer.fit_patches = fit_and_keep
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.chdir(work):  # the zoo's models/: config 4's weights, no anime_6B file
+                    rc = finetune.main([str(clip), "--model", name, "--steps", "20",
+                                        "--patch-size", "128", "--out", str(out_npz)])
+                torch.cuda.synchronize()
+            finally:
+                train_mod.Trainer.fit_patches = fit
+            ft_s = time.perf_counter() - t0
+            check(rc == 0 and out_npz.exists(), f"[train] {name}: finetune exit {rc}")
+            check(_build.launches() == {}, f"[train] {name}: training launched {_build.launches()}")
+            (tr,) = trainers
+            check(tr.device.type == "cuda", f"[train] {name}: trained on {tr.device}")
+            losses = tr.losses
+            check(len(losses) == 20 and all(np.isfinite(losses)), f"[train] {name}: losses {losses}")
+            served = get_model(name, ft_dir)
+            params = tr.params
+            check(served.state.keys() == params.keys()
+                  and all(torch.equal(served.state[k], v) for k, v in params.items()),
+                  f"[train] {name}: get_model of the .npz != the trained weights")
+            log(f"[train] {name}: finetune.main 20 steps on {tr.device} in {ft_s:.1f}s (patch sampling, "
+                f"model load and the .npz included); loss {losses[0]:.5f} -> {losses[-1]:.5f}, all "
+                f"finite; no kernel launched while training; the .npz loads through get_model, equal "
+                f"to the trained weights")
+            if short == "x4_v3":
+                per_call = srvgg_call
+            else:
+                n_rdb6 = 3 * spec_.num_block * 5
+                per_call = {"conv3x3_fused": 2, "rdb_fused": n_rdb6, "up1_fused": 1, "tail_fused": 3,
+                            **k1_routes(n_rdb6 + 4, 1, 1)}
+            drive(f"train_{short}", serve_clip,
+                  ["--model", name, "--tile-size", "0", "--models-dir", str(ft_dir)], per_call,
+                  lambda c, name=name: c.model_name == name and c.tile_size == 0, 1)
+            handle = get_model(name, work / "models", allow_random=True)  # finetune's start
+            t0 = time.perf_counter()
+            cv_losses, rel, grad_err, dw = train_card_vs_cpu(name, handle, clip, 1e-4)
+            log(f"[train] {name}: 3 steps card vs CPU (TF32 off, same batches): losses card "
+                f"{', '.join(f'{v:.7f}' for v in cv_losses[dev])}, CPU "
+                f"{', '.join(f'{v:.7f}' for v in cv_losses['cpu'])}, largest relative gap {rel:.3g} "
+                f"(<= 1e-4); step 1 gradients: largest gap {grad_err:.3g} of a leaf's largest "
+                f"(<= 1e-3); weights after 3 steps: largest gap {dw:.3g} (Adam's step 1e-4) "
+                f"[{time.perf_counter() - t0:.1f}s]")
+            times = train_step_times(handle, clip)
+            log(f"[train] {name}: ms per train step at batch 8, patch 128 (CUDA events, 10 steps after "
+                f"2 warm-up; {times['fp32']['gflop']:.1f} GFLOP per step, FlopCounterMode): "
+                + "; ".join(f"{prec} {times[prec]['ms_per_step']:.3f} (bound {times[prec]['bound_ms']:.3f}, "
+                            f"peak {times[prec]['peak_gib']:.2f} GiB)" for prec in ("fp32", "tf32")))
+            tr_ = times["trace"]
+            log(f"[train] {name}: 3 fp32 steps under the profiler: device busy {tr_['busy_ms']:.1f} of "
+                f"{tr_['window_ms']:.1f} ms ({100 * tr_['share']:.2f}%; {int(tr_['events'])} kernels, copies "
+                f"and memsets); top kernels (ms): {top_kernels(tr_['kernels'])}")
+            stats[short] = dict(finetune_s=ft_s, losses=losses,
+                                card_vs_cpu_losses=dict(card=cv_losses[dev], cpu=cv_losses["cpu"]),
+                                card_vs_cpu_rel=rel, grad_rel=grad_err, weights_gap=dw, step=times)
+        # --profile: config 4 on 2 frames of the flagship-size clip
+        src = work / "in_profile.y4m"
+        make_clip(src, H, W, 2)
+        trace_dir = work / "profile"
+        expected = {k: v * 2 for k, v in srvgg_call.items()}
+        _, _, st, peak, _ = run_cli("profile", src, config4 + ["--profile", str(trace_dir)],
+                                    expected=expected, n_frames=2, device_yuv="off")
+        trace = trace_dir / TRACE_FILE
+        check(trace.exists(), f"[profile] no {trace}")
+        by_name = trace_kernels(trace)
+        check(any("conv3x3_mma_kernel" in k for k in by_name),
+              f"[profile] K1's conv3x3_mma_kernel not in the trace's kernels {sorted(by_name)[:20]}")
+        busy = device_busy_share(trace)
+        log(f"[profile] config 4, 2 frames {W}x{H}, --profile: {trace.stat().st_size / 2**20:.1f} MiB "
+            f"trace, {len(by_name)} kernel names, K1's conv3x3_mma_kernel among them; device busy "
+            f"{busy['busy_ms']:.1f} of {busy['window_ms']:.1f} ms traced ({100 * busy['share']:.2f}%, "
+            f"idle {100 * (1 - busy['share']):.2f}%; {int(busy['events'])} kernels, copies and "
+            f"memsets); wall {1e3 * st.wall_s / 2:.1f} ms/frame under the profiler; top kernels (ms): "
+            f"{top_kernels(by_name)}")
+        stats["profile"] = dict(busy, wall_ms_per_frame=1e3 * st.wall_s / 2, peak_gib=peak,
+                                trace_mib=trace.stat().st_size / 2**20)
+        stats["phase_s"] = time.perf_counter() - t_phase
+        log(f"[train] phase time {stats['phase_s']:.1f}s")
+        path_stats["train"] = stats
+
+    if want("train"):
+        phase_train()
 
 
     def phase_io():

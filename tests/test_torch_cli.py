@@ -1,15 +1,16 @@
 """The port's CLI end to end on the CPU: ``python -m
 video_restore_tpu_torch.cli in.y4m out.y4m --cpu`` with RealESRGAN_x4plus
 (nf 64, 23 blocks, random weights) on a tiny clip, full frame, enhanced;
-tiled mode (seamless and legacy) for both model families; the face pass
-and the outscale resize; and the refusal of flags whose subsystems are not
-ported yet.
+tiled mode (seamless and legacy) for both model families; the face pass,
+the outscale resize and ``--profile``; and the refusal of flags whose
+subsystems are not ported yet.
 
 A y4m sink takes planar I420 from the device, so the CLI's file holds the
 restore step's planes (``Upscaler(yuv420_out=True)``) byte for byte; one
 case also checks the RGB path (``device_yuv="off"``) through the y4m
 colour round trip."""
 
+import json
 import os
 import subprocess
 import sys
@@ -77,6 +78,7 @@ def test_cli_restores_clip_on_cpu(tmp_path):
 NOW_PORTED = (
     ["--batch"], ["--segment-frames", "8"], ["--tile-size", "128"],
     ["--model", "RealESRGAN_x4_v3"], ["--face-enhance"], ["--outscale", "2"],
+    ["--profile", "TRACE_DIR"],
 )
 
 
@@ -91,16 +93,20 @@ NOW_PORTED = (
         ["--shard-mode", "tiles"],
         ["--model", "RealESRGAN_x4_v3"],
         ["--outscale", "2"],
+        ["--profile", "TRACE_DIR"],
     ],
 )
 def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
     """Flags of unported subsystems exit 1 with "not yet ported"; tiled
     mode, SRVGGNetCompact, batch directories, segmented output, the face
-    pass (the region heuristic without GFPGAN weights) and the outscale
-    resize, ported since, run on --cpu."""
+    pass (the region heuristic without GFPGAN weights), the outscale
+    resize and ``--profile`` (a torch.profiler trace of the run in
+    DIR/trace.json), ported since, run on --cpu."""
     src, dst = tmp_path / "in.y4m", tmp_path / "o.y4m"
     _clip(src, n=1)
+    trace_dir = tmp_path / "trace"
     if flags in NOW_PORTED:
+        flags = [str(trace_dir) if f == "TRACE_DIR" else f for f in flags]
         monkeypatch.setenv("VRT_ALLOW_RANDOM_WEIGHTS", "1")
         extra = ["--model", "RealESRGAN_x4plus_anime_6B"] if "--model" not in flags else []
         args = [str(src), str(dst)]
@@ -118,6 +124,9 @@ def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
             size = (48, 32) if "--outscale" in flags else (96, 64)
             assert (rd.info.width, rd.info.height) == size
             assert len(list(rd)) == 1
+        if "--profile" in flags:
+            events = json.loads((trace_dir / "trace.json").read_text())["traceEvents"]
+            assert any(e.get("name") == "aten::conv2d" for e in events)
         return
     rc = cli.main([str(src), str(dst), "--cpu"] + flags)
     assert rc == 1

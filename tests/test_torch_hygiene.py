@@ -2,9 +2,9 @@
 ``video_restore_tpu_torch`` loads neither JAX nor any module of the JAX
 package, and without CUDA the entry points refuse to run unless the CPU
 was asked for, while kernel wrappers given CPU tensors run their plain
-versions; OpenCV is imported only where the face detector chain and the
-OpenCV video backend need it, and the face pass and the resize run
-without it."""
+versions; OpenCV is imported only where the face detector chain, the
+OpenCV video backend and the fixture presets need it, and the face pass
+and the resize run without it."""
 
 import subprocess
 import sys
@@ -31,7 +31,14 @@ bad = sorted(
     or k == "video_restore_tpu" or k.startswith("video_restore_tpu.")
 )
 print(len(mods), bad)
+print(" ".join(mods))
 """
+
+# modules of the fine-tuning slice, which the scan must reach
+TRAINING_SLICE = (
+    "training", "training.losses", "training.train", "training.finetune", "metrics",
+    "video.fixtures", "utils.knobs", "utils.profiling",
+)
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -40,9 +47,11 @@ def test_port_imports_no_jax_and_no_jax_package():
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr[-2000:]
-    n, bad = r.stdout.strip().split(" ", 1)
+    head, names = r.stdout.strip().split("\n")
+    n, bad = head.split(" ", 1)
     assert int(n) >= 25
     assert bad == "[]"
+    assert {f"video_restore_tpu_torch.{m}" for m in TRAINING_SLICE} <= set(names.split())
 
 
 def test_no_source_names_the_jax_package():
@@ -115,10 +124,12 @@ def test_wrappers_on_cpu_tensors_run_plain_versions():
 
 
 def test_cv2_only_in_the_detector_chain_and_opencv_backend():
-    """OpenCV is imported only by the OpenCV video backend and by the face
+    """OpenCV is imported only by the OpenCV video backend, by the face
     detector chain (``_init_detector``, and ``detect_faces`` for the
-    detectors it picked from OpenCV), never at module level: the geometry,
-    the resizes and the GFPGAN path need none."""
+    detectors it picked from OpenCV) and by the fixture presets
+    (``video/fixtures.py::_cv2``, where the JAX module imports it), never at
+    module level: the geometry, the resizes, the GFPGAN path and training
+    need none."""
     import ast
 
     def cv2_imports(node, fn, out):
@@ -142,7 +153,7 @@ def test_cv2_only_in_the_detector_chain_and_opencv_backend():
         found |= {(rel, fn) for fn in cv2_imports(ast.parse(path.read_text()), "<module>", set())}
     assert found == {
         ("video/opencv_backend.py", "_cv2"), ("ops/faces.py", "_init_detector"),
-        ("ops/faces.py", "detect_faces"),
+        ("ops/faces.py", "detect_faces"), ("video/fixtures.py", "_cv2"),
     }
 
 

@@ -145,7 +145,8 @@ Streaming (y4m over stdin/stdout, for ffmpeg pipelines):
                    help="run the plain PyTorch path on the host CPU")
     p.add_argument("--models-dir", default="models")
     p.add_argument("--profile", default="", metavar="DIR",
-                   help="capture a device trace to DIR (not yet ported)")
+                   help="capture a torch.profiler trace (CPU and CUDA) to "
+                        "DIR/trace.json")
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--log-json", default=None, metavar="FILE",
                    help="also write JSON-lines logs to FILE")
@@ -257,14 +258,16 @@ def _unported(args, cfg: RestoreConfig) -> list:
         out.append("--shard-mode tiles")
     if cfg.num_devices > 1:
         out.append("multi-GPU (--devices/--gpus > 1)")
-    if args.profile:
-        out.append("--profile")
     return out
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     log = setup_logging(args.verbose, args.log_json)
+    # a misspelled VRT_* would otherwise do nothing, silently
+    from video_restore_tpu_torch.utils.knobs import warn_unknown_knobs
+
+    warn_unknown_knobs()
     try:
         config = config_from_args(args)
     except ValueError as e:

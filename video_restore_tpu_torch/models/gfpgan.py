@@ -33,7 +33,6 @@ same state dict.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
@@ -44,6 +43,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from video_restore_tpu_torch.utils.device import tf32
 
 _SQRT2 = 2.0**0.5
 PRECISIONS = ("fp32", "tf32")
@@ -235,19 +236,6 @@ def _sft_head(cin: int, cout: int) -> nn.Sequential:
     return nn.Sequential(_Conv(cin, cin, 3), nn.LeakyReLU(0.2), _Conv(cin, cout, 3))
 
 
-@contextlib.contextmanager
-def _tf32(enabled: bool):
-    """The TF32 flags of cuDNN convs and CUDA matmuls for one call (on the
-    CPU they change nothing)."""
-    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
-    prev = (cudnn.allow_tf32, mm.allow_tf32)
-    cudnn.allow_tf32 = mm.allow_tf32 = enabled
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, mm.allow_tf32 = prev
-
-
 class GFPGAN(nn.Module):
     """GFPGANv1Clean for inference (``apply_gfpgan`` of the JAX package)."""
 
@@ -280,7 +268,7 @@ class GFPGAN(nn.Module):
         """(B, 3, 512, 512) RGB in [0, 1] -> the same shape in [0, 1]."""
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}")
-        with _tf32(precision == "tf32"):
+        with tf32(precision == "tf32"):
             return self._forward(x.float())
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:

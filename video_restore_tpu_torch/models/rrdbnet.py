@@ -19,6 +19,11 @@ plain versions on CPU tensors); ``forward(x, plain=True)`` runs the plain
 versions on any device, which is the reference the kernel path is checked
 against on the GPU.
 
+``forward_train(x)`` is the differentiable forward that fine-tuning runs
+(the JAX ``apply_rrdbnet(..., differentiable=True)``): fp32 ``F.conv2d``
+under autograd, no kernel. :func:`params_to_jax` is the inverse of
+:func:`params_from_jax`, so fine-tuned weights go back to the npz layout.
+
 ``prepare(..., precision="int8")`` selects the W8A8 body of the JAX
 ``_apply(stripe=True, precision="int8")`` (``rrdbnet.py:660-664``): every
 RDB conv keeps int8 weights and fp32 scales per (source, output channel),
@@ -55,6 +60,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from video_restore_tpu_torch.ops.conv import pixel_unshuffle
@@ -317,6 +323,51 @@ class RRDBNet(nn.Module):
         feat = conv(feat, self.conv_hr.w, self.conv_hr.b, act="lrelu")
         return conv(feat, self.conv_last.w, self.conv_last.b)
 
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable forward: what the JAX ``_apply(use_pallas=False,
+        stripe=False, differentiable=True)`` computes (``rrdbnet.py:1129-1134``),
+        in fp32 with ``F.conv2d`` under autograd and no kernel. Every op is
+        out of place: the serving path's growth buffer, written slice by
+        slice, cannot be differentiated. Call it on a module built from the
+        fp32 state (``ModelHandle.train_module``), not on one that
+        ``prepare`` cast. (N, H, W, 3) -> (N, H*s, W*s, 3) fp32."""
+        spec = self.spec
+        x = x.float()
+        if spec.unshuffle and spec.scale == 2:
+            x = pixel_unshuffle(x, 2)
+        elif spec.unshuffle and spec.scale == 1:
+            x = pixel_unshuffle(x, 4)
+        feat = _conv_nchw(x.permute(0, 3, 1, 2), self.conv_first)
+        h = feat
+        for blk in self.body:
+            out = h
+            for rdb in (blk.rdb1, blk.rdb2, blk.rdb3):
+                out = _rdb_train(rdb, out)
+            h = out * 0.2 + h
+        feat = feat + _conv_nchw(h, self.conv_body)
+        ups = [self.conv_up1] + ([self.conv_up2] if spec.num_upsample == 2 else [])
+        for up in ups:
+            feat = F.leaky_relu(
+                _conv_nchw(F.interpolate(feat, scale_factor=2, mode="nearest"), up), 0.2
+            )
+        feat = F.leaky_relu(_conv_nchw(feat, self.conv_hr), 0.2)
+        return _conv_nchw(feat, self.conv_last).permute(0, 2, 3, 1)
+
+
+def _conv_nchw(x: torch.Tensor, conv: Conv3x3) -> torch.Tensor:
+    """SAME 3x3 conv of an NCHW activation with a :class:`Conv3x3`'s HWIO
+    weights, differentiable in both."""
+    return F.conv2d(x, conv.w.permute(3, 2, 0, 1), conv.b, padding=1)
+
+
+def _rdb_train(rdb: RDB, x: torch.Tensor) -> torch.Tensor:
+    """One RDB on NCHW, the JAX ``_rdb_apply``: five convs over the growing
+    concatenation, LeakyReLU(0.2) after the first four, 0.2 residual."""
+    feats = [x]
+    for k in range(1, 5):
+        feats.append(F.leaky_relu(_conv_nchw(torch.cat(feats, 1), getattr(rdb, f"conv{k}")), 0.2))
+    return _conv_nchw(torch.cat(feats, 1), rdb.conv5) * 0.2 + x
+
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX RRDBNet param pytree (numpy leaves, body stacked on axis 0 as
@@ -340,6 +391,32 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 c = body[r][f"conv{k}"]
                 put(f"body.{i}.{r}.conv{k}", {"w": c["w"][i], "b": c["b"][i]})
     return sd
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """:class:`RRDBNet` state dict -> JAX RRDBNet param pytree of float32
+    numpy leaves, the body stacked on axis 0: the inverse of
+    :func:`params_from_jax` (a net with one upsample stage has no
+    ``conv_up2``, and neither has its tree)."""
+
+    def leaf(prefix: str) -> Dict[str, np.ndarray]:
+        return {k: state[f"{prefix}.{k}"].detach().cpu().float().numpy() for k in ("w", "b")}
+
+    tree: Dict[str, Any] = {
+        name: leaf(name)
+        for name in ("conv_first", "conv_body", "conv_up1", "conv_up2", "conv_hr", "conv_last")
+        if f"{name}.w" in state
+    }
+    nb = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("body."))
+
+    def stacked(r: str, k: int) -> Dict[str, np.ndarray]:
+        blocks = [leaf(f"body.{i}.{r}.conv{k}") for i in range(nb)]
+        return {p: np.stack([b[p] for b in blocks]) for p in ("w", "b")}
+
+    tree["body"] = {
+        r: {f"conv{k}": stacked(r, k) for k in range(1, 6)} for r in ("rdb1", "rdb2", "rdb3")
+    }
+    return tree
 
 
 _LAST_GAIN = 0.005

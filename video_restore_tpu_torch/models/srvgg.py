@@ -13,7 +13,10 @@ Weights keep the JAX layout: HWIO convs, the same names as the JAX param
 pytree, the body stacked on axis 0 (``body.w``, ``body.b``,
 ``body.alpha``). ``forward(x)`` runs the kernel wrappers (launches on CUDA
 tensors, the plain versions on CPU tensors); ``forward(x, plain=True)``
-runs the plain versions on any device. ``prepare(..., precision="int8")``
+runs the plain versions on any device; ``forward_train(x)`` is the
+differentiable forward of fine-tuning (the JAX ``apply_srvgg(stripe=False)``:
+fp32 ``F.conv2d`` under autograd, no kernel), and :func:`params_to_jax`
+the inverse of :func:`params_from_jax`. ``prepare(..., precision="int8")``
 selects the W8A8 body of the JAX ``_apply(stripe=True, precision="int8")``
 (``srvgg.py:177-185``): int8 body weights with one fp32 scale per (conv,
 output channel), on K4 (``ops/srvgg.py::srvgg_body_i8``); the stem and the
@@ -28,9 +31,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from video_restore_tpu_torch.models.rrdbnet import Conv3x3
+from video_restore_tpu_torch.models.rrdbnet import Conv3x3, _conv_nchw
 from video_restore_tpu_torch.ops.quant import pack_i8_weights, quantize_conv_weights
 from video_restore_tpu_torch.ops.srvgg import (
     srvgg_body,
@@ -132,6 +136,24 @@ class SRVGGNet(nn.Module):
         w_up = getattr(self, "w_up", self.conv_out.w)
         return up(feat, w_up, self.conv_out.b, x, self.spec.scale)
 
+    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+        """The differentiable forward: the JAX ``apply_srvgg(stripe=False)``
+        (``srvgg.py:136-139, 263-284``), conv_in + PReLU, ``num_conv`` conv + PReLU,
+        conv_out, pixel shuffle, plus the nearest-upsampled input, in fp32
+        with ``F.conv2d`` under autograd and no kernel, every op out of
+        place. Call it on a module built from the fp32 state, not on one
+        that ``prepare`` cast. (N, H, W, 3) -> (N, H*s, W*s, 3) fp32."""
+        r = self.spec.scale
+        x = x.float().permute(0, 3, 1, 2)
+        feat = F.prelu(_conv_nchw(x, self.conv_in), self.alpha_in)
+        body = self.body
+        for i in range(body.w.shape[0]):
+            y = F.conv2d(feat, body.w[i].permute(3, 2, 0, 1), body.b[i], padding=1)
+            feat = F.prelu(y, body.alpha[i])
+        out = F.pixel_shuffle(_conv_nchw(feat, self.conv_out), r)
+        out = out + F.interpolate(x, scale_factor=r, mode="nearest")
+        return out.permute(0, 2, 3, 1)
+
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX SRVGG param pytree (numpy leaves, body stacked on axis 0 as
@@ -150,6 +172,21 @@ def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         "body.alpha": t(tree["body"]["alpha"]),
         "conv_out.w": t(tree["conv_out"]["w"]),
         "conv_out.b": t(tree["conv_out"]["b"]),
+    }
+
+
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """:class:`SRVGGNet` state dict -> JAX SRVGG param pytree of float32
+    numpy leaves: the inverse of :func:`params_from_jax`."""
+
+    def a(key: str) -> np.ndarray:
+        return state[key].detach().cpu().float().numpy()
+
+    return {
+        "conv_in": {"w": a("conv_in.w"), "b": a("conv_in.b")},
+        "alpha_in": a("alpha_in"),
+        "body": {"w": a("body.w"), "b": a("body.b"), "alpha": a("body.alpha")},
+        "conv_out": {"w": a("conv_out.w"), "b": a("conv_out.b")},
     }
 
 

@@ -11,6 +11,12 @@ weights are used only when the caller allows them.
 
 Both families load: RRDBNet (``models/rrdbnet.py``) and SRVGGNetCompact
 (``RealESRGAN_x4_v3``, ``models/srvgg.py``).
+
+``ModelHandle.train_module`` is the PyTorch form of the JAX
+``apply_fn(differentiable=True)``: a trainable fp32 module whose
+``forward_train`` fine-tuning runs; ``ModelHandle.jax_params`` turns a
+(fine-tuned) state back into the JAX pytree that ``save_params_npz`` writes
+and both packages' ``load_params_npz`` read.
 """
 
 from __future__ import annotations
@@ -88,13 +94,26 @@ class ModelHandle:
             )
         return net.prepare(dtype, device, precision)
 
+    def train_module(self, device) -> Union[RRDBNet, SRVGGNet]:
+        """The network with trainable fp32 weights on ``device``, for its
+        ``forward_train`` (the JAX ``apply_fn(differentiable=True)``,
+        ``zoo.py:104-119``): no cast, no prepared buffers, no kernel."""
+        net = _NET[type(self.spec)](self.spec)
+        net.load_state_dict(self.state)
+        return net.to(device=device, dtype=torch.float32).requires_grad_(True)
+
+    def jax_params(self) -> Dict[str, Any]:
+        """The weights as the JAX param pytree (float32 numpy leaves, the
+        body stacked on axis 0), as :func:`save_params_npz` writes them."""
+        return _arch(self.spec).params_to_jax(self.state)
+
 
 _NET = {RRDBNetSpec: RRDBNet, SRVGGSpec: SRVGGNet}
 
 
 def _arch(spec: Spec):
-    """The model module of ``spec``'s family (its ``init_params`` and
-    ``params_from_jax``)."""
+    """The model module of ``spec``'s family (its ``init_params``,
+    ``params_from_jax`` and ``params_to_jax``)."""
     return srvgg if isinstance(spec, SRVGGSpec) else rrdbnet
 
 

@@ -15,6 +15,12 @@ replaces (``tests/test_torch_outscale.py``, ``tests/test_torch_faces.py``):
   centres, cv2's 11-bit coefficients and its vector path's vertical
   rounding; the exact 2x downscale takes cv2's 2x2 area mean. Within 1
   level (~0.2% of values differ).
+- :func:`resize_linear_aa`: the JAX package's own ``jax.image.resize(...,
+  method="linear")`` on float images (fine-tuning's degradation,
+  ``training/train.py::degrade_batch``): on a downscale a triangle kernel
+  widened by the factor (antialias), weights renormalised at the borders,
+  one weight matrix per axis as ``jax.image.scale_and_translate`` builds
+  it; within 1e-6 (``tests/test_torch_train.py``).
 - :func:`resize_lanczos4`: ``cv2.resize(INTER_LANCZOS4)`` on u8: cv2's
   8-tap coefficients (no antialias on a downscale), replicated borders,
   11-bit fixed point in both passes; equal byte for byte.
@@ -37,6 +43,8 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+
+from video_restore_tpu_torch.utils.device import tf32
 
 _RESIZE_COEF_SCALE = 2048  # cv2 INTER_RESIZE_COEF_SCALE (11 bits)
 
@@ -240,6 +248,52 @@ def resize_linear(img: torch.Tensor, dsize: Tuple[int, int]) -> torch.Tensor:
         t = ((rows.index_select(-3, iy[k]) >> 4) * cy[k].int()[:, None, None]) >> 16
         acc = t if acc is None else acc + t
     return ((acc + 2) >> 2).clamp(0, 255).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=64)
+def _triangle_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """The (n_in, n_out) float32 weights of one axis of ``jax.image.resize(
+    method="linear", antialias=True)`` (``compute_weight_mat`` of
+    ``jax/_src/image/scale.py``), in its float32 arithmetic: sample
+    positions ``(j + 0.5) / scale - 0.5``, a triangle of half-width
+    ``max(1 / scale, 1)``, each column divided by its sum (zero where the sum
+    is below 1000 eps), zero where a sample falls outside the input."""
+    f32 = np.float32
+    inv = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = w.sum(0, keepdims=True, dtype=f32)
+    ok = np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps)
+    w = np.where(ok, w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_triangle(n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """:func:`_triangle_matrix` on ``device``, copied there once."""
+    return to_device(_triangle_matrix(n_in, n_out), device)
+
+
+def resize_linear_aa(img: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(img, (N, h, w, C), method="linear")`` on float
+    (N, H, W, C): the per-axis triangle weights of
+    :func:`_triangle_matrix` applied with two fp32 ``einsum`` (TF32 off, as
+    JAX's ``Precision.HIGHEST``); an axis whose size does not change is left
+    alone, as JAX skips it. Not ``F.interpolate(antialias=True)``, whose
+    border weights are PIL's."""
+    h, w = size
+    x = img.float()
+    with tf32(False):
+        if h != x.shape[1]:
+            wy = _device_triangle(x.shape[1], h, x.device)
+            x = torch.einsum("nhwc,hi->niwc", x, wy)
+        if w != x.shape[2]:
+            wx = _device_triangle(x.shape[2], w, x.device)
+            x = torch.einsum("niwc,wj->nijc", x, wx)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -27,23 +27,24 @@ Port of ``video_restore_tpu/pipeline/runner.py`` (``process_video``,
 - the source's audio is muxed into the output through ffmpeg when neither
   end is a pipe;
 - frame accounting (decoded == inferred == encoded) is checked at the end,
-  and per-stage wall-clock totals land in ``last_stats``.
+  and per-stage wall-clock totals land in ``last_stats``;
+- ``--profile DIR`` traces each video's run with ``torch.profiler``
+  (``utils/profiling.py::device_trace``), where the JAX runner traces it
+  with ``jax.profiler`` (``runner.py:310``).
 
 Not ported yet: the multi-host batch.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
 import queue
 import threading
 import time
-from collections import defaultdict
 from pathlib import Path
-from typing import Dict, Iterator, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -60,6 +61,7 @@ from video_restore_tpu_torch.parallel.dispatch import Upscaler
 from video_restore_tpu_torch.pipeline.progress import Progress
 from video_restore_tpu_torch.utils.device import resolve_device
 from video_restore_tpu_torch.utils.logging import get_logger
+from video_restore_tpu_torch.utils.profiling import StageTimer, device_trace
 from video_restore_tpu_torch.video import (
     copy_audio,
     open_reader,
@@ -84,23 +86,6 @@ class PipelineStats:
     @property
     def fps(self) -> float:
         return self.encoded / self.wall_s if self.wall_s > 0 else 0.0
-
-
-class StageTimer:
-    """Accumulates wall-clock per pipeline stage."""
-
-    def __init__(self) -> None:
-        self.totals: Dict[str, float] = defaultdict(float)
-        self._lock = threading.Lock()  # the dispatch and encode threads both time
-
-    @contextlib.contextmanager
-    def stage(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            with self._lock:
-                self.totals[name] += time.perf_counter() - t0
 
 
 class _DecodeThread(threading.Thread):
@@ -310,10 +295,12 @@ class VideoRestorer:
         *,
         show_progress: bool = True,
     ) -> bool:
-        """Restore one video; returns success."""
+        """Restore one video; returns success. With ``config.trace_dir``
+        (``--profile DIR``) the run is traced into ``DIR/trace.json``."""
         t0 = time.time()
         try:
-            stats = self._run(input_path, output_path, show_progress)
+            with device_trace(self.config.trace_dir):
+                stats = self._run(input_path, output_path, show_progress)
         except KeyboardInterrupt:
             log.warning("interrupted — output finalized with partial frames")
             return False

@@ -8,6 +8,9 @@ error, never a silent move to the CPU.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -24,3 +27,18 @@ def resolve_device(cpu: bool = False) -> torch.device:
             "plain PyTorch path on the host CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+@contextlib.contextmanager
+def tf32(enabled: bool) -> Iterator[None]:
+    """The TF32 flags of cuDNN convs and CUDA matmuls for one call, restored
+    after it (on the CPU they change nothing). The port's fp32 library calls
+    (GFPGAN, training, the losses) run inside it with ``enabled=False``
+    unless the caller asks for TF32."""
+    cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = (cudnn.allow_tf32, mm.allow_tf32)
+    cudnn.allow_tf32 = mm.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, mm.allow_tf32 = prev
