@@ -14,7 +14,8 @@ route), ``k5``, ``k3``, ``k6`` and ``k4``
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``,
 ``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
-``gfpgan`` (phase 13), ``train`` (phase 16). Phases 1 and 2 always run. A partial run prints
+``gfpgan`` (phase 13), ``train`` (phase 16), ``multi`` (phase 17). Phases 1
+and 2 always run. A partial run prints
 neither the per-kernel record nor the final ``{"ok": true, ...}`` line; the
 run that counts is the one without arguments.
 
@@ -210,11 +211,41 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     kernels that take its time.
     Then ``--profile``: config 4 on 2 frames of 1080x1920 with ``--profile
     DIR`` (RGB out): the trace written, naming K1's ``conv3x3_mma_kernel``,
-    and the device's busy share of the traced window.
+    and the device's busy share of the traced window;
+17. ``multi``: several devices and processes on the one card. (a) config
+    4's program over ``frame_mesh(devices=[cuda:0] * 2)`` on 4 frames of
+    1080x1920 (two batches of D = 2, a hard cut before the third): the two
+    dispatch threads' planes against one ``restore_step(n_shards=2)`` call
+    per batch on the card (byte-equal, or >= 45 dB), the launch counts
+    against D = 1's, a static clip against D = 1 (within 1 level; the stale
+    carry cannot matter there), ms/frame and peak memory of both; then the
+    face pass (x4_v3 + the GFPGAN prior, 4 frames of 720x1280 with faces,
+    cuDNN TF32 at PyTorch's default) over ``[cuda:0] * 2`` byte-equal to one
+    device, the TF32 flags back at the defaults after; (b) config 1
+    (RealESRGAN_x2plus, ``--quality fast --tile-size 256``, seeded
+    weights), 2 frames of 720x1280 with ``--shard-mode tiles`` on
+    ``[cuda:0] * 2``: byte-equal to the frames mode on one device, the
+    kernel path >= 45 dB against plain on one frame, the cin-12 stem on the
+    narrow route; (c) ``--batch --multihost``: two CLI processes on the card
+    (gloo, ``WORLD_SIZE=2``, ``RANK=0/1``) on 4 clips of 72x128 through
+    config 4's model, each taking 2 and both reporting 4/4, the outputs
+    byte-equal to a one-process batch run, both walls; (d) the sharded train
+    step (``tools/train_sharded.py``) for RealESRGAN_x4_v3 at batch 8, patch
+    128, 3 Adam steps at lr 1e-4, (dp, tp) = (2, 1), (1, 2) and (2, 2) as 2
+    or 4 gloo ranks sharing the card, against the one-device step: the
+    losses of steps 1-2 within 1e-5 relative and step 3's within 3x the
+    one-device step's own run-to-run gap, step-1 gradients within 1e-4 of
+    each leaf's largest, Adam's moments after step 1 within 1e-4 (2e-4 for
+    the squares), weights within 2 x 3 x lr, ms per step of each; (e)
+    interpreter exit with live dispatch threads (``tools/exit_check.py``):
+    4 processes at once, each keeping a frames-mode upscaler over
+    ``[cuda:0] * 2`` alive to exit, each exiting 0 with no dispatch thread
+    alive after the ``atexit`` finalizers. Every child process has its own
+    timeout.
 
 The card's ``nvidia-smi`` line is printed first and again just before the
 per-kernel JSON record, which is the line before the last (``launches`` sums
-the counts of the CLI runs of phases 4, 6-10 and 14-16 and of phase 12, the
+the counts of the CLI runs of phases 4, 6-10, 14-17 and of phase 12, the
 static-A8 row those of ``bench_rdb``'s int8s run, which the wrapper counts
 under ``rdb_fused_i8``; phase 11's runs are counted and checked on their
 own, and left out of the sums);
@@ -326,7 +357,7 @@ PATH_TAGS = (
 # the paths after the face prior's phase: the face pass and the outscale resize
 POST_TAGS = ("faces", "outscale")
 PHASES = ("k1", "k1n", "k2", "k5", "k3", "k6", "k4", "kernels", "paths", "bench", "io", "gfpgan",
-          "train") + PATH_TAGS + POST_TAGS
+          "train", "multi") + PATH_TAGS + POST_TAGS
 
 
 class SmokeFailure(RuntimeError):
@@ -1726,13 +1757,13 @@ def main(argv=None) -> int:
     models_dir = work / "models"
     models_dir.mkdir()
 
-    def make_clip(path, h, w, n):
-        """Gradient + moving box + mild noise, a hard cut before the last
-        frame."""
+    def make_clip(path, h, w, n, cut=None):
+        """Gradient + moving box + mild noise, a hard cut before frame
+        ``cut`` (by default the last)."""
         yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
         frames = []
         for t in range(n):
-            if t < n - 1:  # one scene
+            if t < (n - 1 if cut is None else cut):  # one scene
                 f = np.stack([xx / w, yy / h, np.full((h, w), 0.3)], -1) * 200 + 20
                 f[h * 5 // 18 : h * 25 // 54, w * 5 // 24 + 40 * t : w * 5 // 16 + 40 * t] = (230, 60, 60)
             else:  # hard cut: another scene
@@ -2466,8 +2497,9 @@ def main(argv=None) -> int:
                 expected=expected, n_frames=n)
             check("faces" in st.stages, f"[{tag}] no faces stage in last_stats {st.stages}")
             check(list(r._upscalers) == [(h, w, False)], f"[{tag}] buckets {list(r._upscalers)}")
-            check((r._gfpgan is not False and r._gfpgan is not None) == (mode == "gfpgan"),
-                  f"[{tag}] the GFPGAN runner {r._gfpgan}")
+            # the restorer's GFPGAN runners by device: one loaded, or none
+            check(any(v is not False for v in r._gfpgan.values()) == (mode == "gfpgan"),
+                  f"[{tag}] the GFPGAN runners {r._gfpgan}")
             s = model.scale
             face_pass = r._face_pass()
             cpu_pass = face_pass
@@ -3002,7 +3034,6 @@ def main(argv=None) -> int:
             f"{tq['default_step_ms']:.1f} with the default three-K1 tail (same run); peak device "
             f"memory {tq['peak_gib']:.2f} GiB, the flagship [main] {path_stats['main']['peak_gib']:.2f}"
         )
-    shutil.rmtree(work, ignore_errors=True)
 
     # phase 12: the RDB micro-benchmark's five modes at its default shape;
     # the static mode runs on its own so that its launches are read apart
@@ -3041,6 +3072,455 @@ def main(argv=None) -> int:
 
     if want("bench"):
         phase_bench()
+
+    # ---- phase 17: several devices and several processes --------------------
+    def run_procs(tag, argvs, env_fn, timeout):
+        """One process per argv, started together from the repository root
+        with ``env_fn(i)``; each waited for on a thread of its own for at
+        most ``timeout`` seconds, and killed after it. Returns [(rc, stdout,
+        stderr, wall_s)] (each process's own wall)."""
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  cwd=REPO, env=env_fn(i)) for i, a in enumerate(argvs)]
+        res = [None] * len(procs)
+
+        def wait(i, p):
+            try:
+                out, err = p.communicate(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                out, err = p.communicate()
+                err += f"\n[killed after {timeout}s]"
+            res[i] = (p.returncode, out, err, time.perf_counter() - t0)
+
+        waits = [threading.Thread(target=wait, args=(i, p)) for i, p in enumerate(procs)]
+        for t in waits:
+            t.start()
+        for t in waits:
+            t.join()
+        for i, (rc, out, err, _) in enumerate(res):
+            check(rc == 0, f"[{tag}] process {i} exited {rc}:\n{out[-2000:]}\n{err[-3000:]}")
+        return res
+
+    def child_env(**kw):
+        env = dict(os.environ, **kw)
+        env["PYTHONPATH"] = os.pathsep.join([str(REPO)] + [p for p in [env.get("PYTHONPATH")] if p])
+        return env
+
+    def free_port():
+        import socket
+
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    def restore_counted(tag, cfg, src, dst, mesh, n_frames):
+        """``process_video`` over ``mesh`` with the launch counters reset
+        before and read after; returns (restorer, counts, wall ms/frame,
+        peak GiB)."""
+        restorer = VideoRestorer(cfg, mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        check(restorer.process_video(src, dst, show_progress=False), f"[{tag}] process_video failed")
+        torch.cuda.synchronize()
+        counts = _build.launches()
+        st = restorer.last_stats
+        check(st.decoded == st.inferred == st.encoded == n_frames,
+              f"[{tag}] frame accounting {st.decoded}/{st.inferred}/{st.encoded}")
+        for k, v in counts.items():
+            total_launches[k] = total_launches.get(k, 0) + v
+        return restorer, counts, 1e3 * st.wall_s / n_frames, torch.cuda.max_memory_allocated() / 2**30
+
+    def multi_frames():
+        """(a) config 4's program on ``frame_mesh(devices=[cuda:0] * 2)``:
+        4 frames of 1080x1920 (two batches of D = 2), a hard cut before the
+        third; the file's planes against one ``restore_step(n_shards=2)``
+        call per batch on the card (same kernels); the launch counts against
+        D = 1's on the same clip; a static clip (RGB out) against D = 1."""
+        from video_restore_tpu_torch.parallel.dispatch import ShardedUpscaler, restore_step
+        from video_restore_tpu_torch.parallel.mesh import frame_mesh
+
+        src = work / "multi_frames.y4m"
+        make_clip(src, H, W, 4, cut=2)
+        cfg = config_from_args(build_parser().parse_args([str(src), "x.y4m"] + config4))
+        check(is_config4("bf16")(cfg), f"[multi] config {cfg}")
+        mesh2 = frame_mesh(devices=[dev, dev])
+        out = {}
+        # D = 1 first as a warm-up of the process (not reported), then D = 2
+        # and D = 1 again
+        for d, mesh in ((1, [dev]), (2, mesh2), (1, [dev])):
+            r, counts, wall, peak = restore_counted(f"multi D={d}", cfg, src, work / f"multi_d{d}.y4m", mesh, 4)
+            (key, ups), = r._upscalers.items()
+            check(key == (H, W, True) and ups.grid.n_tiles == 1, f"[multi] D={d} bucket {key}")
+            check(isinstance(ups, ShardedUpscaler) and ups.n_devices == ups.frames_per_batch == d,
+                  f"[multi] D={d}: {type(ups).__name__}")
+            out[d] = dict(counts=counts, wall=wall, peak=peak, planes=read_planes(work / f"multi_d{d}.y4m"),
+                          grid=ups.grid, model=r.model, step_cfg=ups.step_cfg)
+            del r, ups
+            torch.cuda.empty_cache()
+        per_frame = {k: v * 4 for k, v in srvgg_call.items()}
+        check(out[1]["counts"] == per_frame, f"[multi] D=1 launch counts {out[1]['counts']} != {per_frame}")
+        check(out[2]["counts"] == per_frame,
+              f"[multi] D=2 launch counts {out[2]['counts']} != 2 batches x 2 x one frame's {per_frame}")
+        # one restore_step(n_shards=2) call per batch, on the card, the same kernels
+        net = out[2]["model"].module(torch.bfloat16, dev, "bf16")
+        with Y4MReader(src) as rd:
+            decoded = np.stack(list(rd))
+        carry = {"frame": torch.zeros((2, 4 * H, 4 * W, 3), dtype=torch.uint8, device=dev),
+                 "valid": torch.zeros(2, device=dev)}
+        ref = []
+        with torch.no_grad():
+            for i in (0, 2):
+                y, carry = restore_step(torch.from_numpy(decoded[i : i + 2]).to(dev), carry,
+                                        model_apply=net, grid=out[2]["grid"], step_cfg=out[2]["step_cfg"],
+                                        compute_dtype=torch.bfloat16, n_shards=2)
+                ref.append(y.cpu().numpy())
+        ref = np.concatenate(ref)
+        del net, carry
+        equal = np.array_equal(ref, out[2]["planes"])
+        dbs = [psnr_u8(a, b) for a, b in zip(out[2]["planes"], ref)]
+        check(equal or min(dbs) >= 45.0, f"[multi] D=2 threads vs restore_step(n_shards=2): {dbs} dB")
+        vs1 = [psnr_u8(a, b) for a, b in zip(out[2]["planes"], out[1]["planes"])]
+        # the static clip: the stale carry cannot matter (RGB out)
+        static = work / "multi_static.y4m"
+        with Y4MWriter(static, W, H, 25) as wr:
+            for _ in range(4):
+                wr.write(decoded[0])
+        scfg = dataclasses.replace(cfg, device_yuv="off")
+        stat = {}
+        for d, mesh in ((1, [dev]), (2, mesh2)):
+            r, counts, _, _ = restore_counted(f"multi static D={d}", scfg, static, work / f"multi_s{d}.y4m", mesh, 4)
+            check(counts == per_frame, f"[multi] static D={d} launch counts {counts}")
+            with Y4MReader(work / f"multi_s{d}.y4m") as rd:
+                stat[d] = np.stack(list(rd))
+            del r
+            torch.cuda.empty_cache()
+        sd = np.abs(stat[2].astype(np.int32) - stat[1].astype(np.int32))
+        check(sd.max() <= 1, f"[multi] static clip D=2 vs D=1: max {sd.max()} levels")
+        log(f"[multi] (a) frames, config 4, 4 frames {W}x{H} -> {4 * W}x{4 * H} (a cut before frame 3), "
+            f"frame_mesh(devices=[cuda:0] * 2): the dispatch threads' planes vs one "
+            f"restore_step(n_shards=2) per batch: byte-equal {equal} ({', '.join(f'{v:.2f}' for v in dbs)} dB); "
+            f"vs D=1 (the stale carry: gap 3 at each batch's first frames) "
+            f"{', '.join(f'{v:.2f}' for v in vs1)} dB; static clip D=2 vs D=1 (RGB out): max "
+            f"{sd.max()} level(s), {100 * (sd > 0).mean():.4f}% of values differ; launches per batch: "
+            f"D=2 2x D=1's (4 frames: equal, {json.dumps(out[2]['counts'])}); wall ms/frame D=2 "
+            f"{out[2]['wall']:.1f}, D=1 {out[1]['wall']:.1f}; peak GiB D=2 {out[2]['peak']:.2f}, D=1 "
+            f"{out[1]['peak']:.2f} (two shards on one card: the sharding's overhead, not scaling)")
+        return dict(byte_equal_to_n_shards_call=equal, vs_n_shards_db=dbs, vs_d1_db=vs1,
+                    static_max_level=int(sd.max()), static_share=float((sd > 0).mean()),
+                    wall_ms_d2=out[2]["wall"], wall_ms_d1=out[1]["wall"],
+                    peak_gib_d2=out[2]["peak"], peak_gib_d1=out[1]["peak"])
+
+    def multi_faces():
+        """(a) the face pass on frame shards: RealESRGAN_x4_v3 with
+        ``--face-enhance --face-model gfpgan`` (the synthetic checkpoint;
+        not enhanced, so no temporal carry and every frame its own) on 4
+        frames of 720x1280 with faces (OpenCV blocked: the skin detector),
+        over ``[cuda:0] * 2``, where each dispatch thread runs its frames'
+        GFPGAN crops at the same time as the other, against one device, the
+        files byte for byte. cuDNN's TF32 flag is at PyTorch's default (on),
+        as under the CLI: the prior's fp32 forward turns it off inside
+        ``utils/device.py::tf32``, whose lock keeps one thread from
+        restoring it while the other's crops still launch; the flags are
+        back at the defaults after both runs."""
+        from video_restore_tpu_torch.parallel.dispatch import StepConfig
+
+        h, w, n = 720, 1280, 4
+        src = work / "multi_faces.y4m"
+        face_clip(src, h, w, n)
+        gfpgan_ckpt()
+        argv = ["--model", "RealESRGAN_x4_v3", "--models-dir", str(models_dir), "--face-enhance",
+                "--face-model", "gfpgan"]
+        cfg = config_from_args(build_parser().parse_args([str(src), "x.y4m"] + argv))
+        check(cfg.face_enhance and not StepConfig.from_config(cfg).temporal, f"[multi] faces config {cfg}")
+        per_frame = {k: v * n for k, v in srvgg_call.items()}
+        cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+        prev = cudnn.allow_tf32, mm.allow_tf32
+        cudnn.allow_tf32, mm.allow_tf32 = True, False  # PyTorch's defaults
+        res = {}
+        try:
+            with without_cv2():
+                with Y4MReader(src) as rd:
+                    n_faces = [len(faces_mod.detect_faces(f)) for f in rd]
+                check(n_faces == [3, 0, 2, 3], f"[multi] faces: the skin detector found {n_faces}")
+                for d in (1, 2):
+                    dst = work / f"multi_faces_d{d}.y4m"
+                    r, counts, wall, _ = restore_counted(f"multi faces D={d}", cfg, src, dst, [dev] * d, n)
+                    check(counts == per_frame, f"[multi] faces D={d}: launch counts {counts}")
+                    check(any(v is not False for v in r._gfpgan.values()), f"[multi] faces D={d}: no GFPGAN")
+                    res[d] = dict(data=dst.read_bytes(), wall=wall,
+                                  faces_ms=1e3 * r.last_stats.stages.get("faces", 0.0) / n)
+                    del r
+                    torch.cuda.empty_cache()
+            flags = cudnn.allow_tf32, mm.allow_tf32
+        finally:
+            cudnn.allow_tf32, mm.allow_tf32 = prev
+        check(flags == (True, False), f"[multi] faces: the TF32 flags after the runs {flags}")
+        equal = res[2]["data"] == res[1]["data"]
+        check(equal, "[multi] faces: the file of D=2 != D=1's")
+        log(f"[multi] (a) faces, RealESRGAN_x4_v3 + GFPGAN (fp32 prior), 4 frames {w}x{h} with "
+            f"{n_faces} faces, cuDNN TF32 on outside the prior: [cuda:0] * 2 frame shards byte-equal to "
+            f"one device; TF32 flags after {flags}; wall ms/frame D=2 {res[2]['wall']:.1f}, D=1 "
+            f"{res[1]['wall']:.1f}; faces stage ms/frame D=2 {res[2]['faces_ms']:.1f} (both threads), "
+            f"D=1 {res[1]['faces_ms']:.1f}")
+        return dict(byte_equal=equal, wall_ms_d2=res[2]["wall"], wall_ms_d1=res[1]["wall"])
+
+    def multi_tiles():
+        """(b) config 1 (RealESRGAN_x2plus, ``--quality fast --tile-size
+        256``, seeded random weights) with ``--shard-mode tiles`` on
+        ``[cuda:0] * 2``: 2 frames of 720x1280, byte-equal to the frames mode
+        on one device; the kernel path >= 45 dB against plain on frame 0;
+        the cin-12 stem on the narrow route."""
+        from video_restore_tpu_torch.parallel.dispatch import ShardedUpscaler
+
+        h, w = 720, 1280
+        src = work / "multi_tiles.y4m"
+        make_clip(src, h, w, 2)
+        argv = ["--model", "RealESRGAN_x2plus", "--quality", "fast", "--tile-size", "256",
+                "--models-dir", str(models_dir)]
+        cfg_t = config_from_args(build_parser().parse_args([str(src), "x.y4m"] + argv + ["--shard-mode", "tiles"]))
+        cfg_f = dataclasses.replace(cfg_t, shard_mode="frames")
+        x2 = MODEL_ZOO["RealESRGAN_x2plus"].spec
+        check(x2.scale == 2 and x2.num_feat == 64 and x2.num_block == 23, f"[multi] x2plus spec {x2}")
+        res = {}
+        for mode, cfg, mesh in (("frames", cfg_f, [dev]), ("tiles", cfg_t, [dev, dev])):
+            dst = work / f"multi_out_{mode}.y4m"
+            r, counts, wall, peak = restore_counted(f"multi {mode}", cfg, src, dst, mesh, 2)
+            (key, ups), = r._upscalers.items()
+            grid = ups.grid
+            calls = 2 if mode == "tiles" else grid.n_chunks
+            n_rdb2 = 3 * x2.num_block * 5
+            want = {"conv3x3_fused": 2, "rdb_fused": n_rdb2, "up1_fused": 1, "tail_fused": 3,
+                    **k1_routes(n_rdb2 + 4, 1, 1)}
+            want = {k: v * calls * 2 for k, v in want.items()}
+            check(counts == want, f"[multi] {mode}: launch counts {counts} != {want}")
+            check(isinstance(ups, ShardedUpscaler) and ups.n_devices == len(mesh),
+                  f"[multi] {mode}: {type(ups).__name__}")
+            res[mode] = dict(planes=read_planes(dst), counts=counts, wall=wall, peak=peak,
+                             grid=grid, model=r.model, cfg=cfg)
+            del r, ups
+            torch.cuda.empty_cache()
+        equal = np.array_equal(res["tiles"]["planes"], res["frames"]["planes"])
+        check(equal, "[multi] tiles mode != frames mode on one device")
+        with Y4MReader(src) as rd:
+            f0 = next(iter(rd))
+        plain = Upscaler(res["frames"]["model"], res["frames"]["grid"], cfg_f, dev, plain=True, yuv420_out=True)
+        t0 = time.perf_counter()
+        p0 = plain.process_batch(f0[None])[0].cpu().numpy()
+        plain_s = time.perf_counter() - t0
+        del plain
+        torch.cuda.empty_cache()
+        db = psnr_u8(res["frames"]["planes"][0], p0)
+        check(db >= 45.0, f"[multi] x2plus kernel vs plain {db:.2f} dB < 45")
+        g = res["tiles"]["grid"]
+        log(f"[multi] (b) tiles, config 1 (RealESRGAN_x2plus, tile 256, seeded weights), 2 frames {w}x{h} -> "
+            f"{2 * w}x{2 * h}, {g.n_tiles} tiles of {g.tile_shape} padded to {-(-g.n_tiles // 2) * 2} and split "
+            f"over [cuda:0] * 2: byte-equal to the frames mode on one device ({res['frames']['grid'].n_chunks} "
+            f"model call(s)/frame); kernel vs plain frame 0: {db:.2f} dB (plain step {plain_s:.1f} s); the "
+            f"cin-12 stem on narrow: {res['tiles']['counts'].get('conv3x3:narrow stem', 0)} launches, fma "
+            f"{res['tiles']['counts'].get('conv3x3:fma', 0)}; wall ms/frame tiles {res['tiles']['wall']:.1f}, "
+            f"frames {res['frames']['wall']:.1f}; peak GiB {res['tiles']['peak']:.2f}, {res['frames']['peak']:.2f}")
+        return dict(byte_equal=equal, kernel_vs_plain_db=db, wall_ms_tiles=res["tiles"]["wall"],
+                    wall_ms_frames=res["frames"]["wall"], peak_gib_tiles=res["tiles"]["peak"],
+                    peak_gib_frames=res["frames"]["peak"], n_tiles=g.n_tiles)
+
+    def multi_hosts():
+        """(c) ``--batch --multihost``: two processes on the one card (gloo,
+        ``WORLD_SIZE=2``, ``RANK=0/1``) run the CLI on 4 y4m clips of 72x128
+        through config 4's model; each takes 2 videos, both report 4/4, the
+        outputs equal a one-process batch run's byte for byte."""
+        from video_restore_tpu_torch import cli
+
+        indir = work / "multi_in"
+        indir.mkdir()
+        for v in range(4):  # 3 frames each, seeded noise over a gradient
+            rng = np.random.default_rng(v)
+            base = np.linspace(0, 200, 128, dtype=np.float32)[None, :, None]
+            with Y4MWriter(indir / f"clip{v}.y4m", 128, 72, 25) as wr:
+                for _ in range(3):
+                    wr.write(np.clip(base + rng.normal(0, 20, (72, 128, 3)), 0, 255).astype(np.uint8))
+        flags = ["--batch"] + config4
+        coord = f"127.0.0.1:{free_port()}"
+        res = run_procs("multi hosts", [
+            [sys.executable, "-m", "video_restore_tpu_torch.cli", str(indir), str(work / "multi_out2"),
+             "--multihost", "--coordinator", coord] + flags for _ in range(2)
+        ], lambda i: child_env(WORLD_SIZE="2", RANK=str(i)), timeout=300)
+        for i, (_, _, err, _) in enumerate(res):
+            check(f"[batch] multihost: process {i}/2 takes 2 of 4 videos" in err, f"[multi] rank {i}:\n{err[-3000:]}")
+            check("batch complete: 4/4 succeeded" in err, f"[multi] rank {i} did not report 4/4:\n{err[-3000:]}")
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        check(cli.main([str(indir), str(work / "multi_out1")] + flags) == 0, "[multi] one-process batch failed")
+        one_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = _build.launches()
+        per_frame = {k: v * 12 for k, v in srvgg_call.items()}
+        check(counts == per_frame, f"[multi] one-process batch launch counts {counts} != {per_frame}")
+        for k, v in counts.items():
+            total_launches[k] = total_launches.get(k, 0) + v
+        names = sorted(p.name for p in (work / "multi_out1").iterdir())
+        check(names == [f"clip{v}_upscaled.y4m" for v in range(4)], f"[multi] outputs {names}")
+        check(sorted(p.name for p in (work / "multi_out2").iterdir()) == names, "[multi] two-process outputs")
+        for n in names:
+            check((work / "multi_out2" / n).read_bytes() == (work / "multi_out1" / n).read_bytes(),
+                  f"[multi] {n}: two processes != one")
+        walls = [r[3] for r in res]
+        log(f"[multi] (c) --batch --multihost, 2 processes on the one card (gloo): each took 2 of 4 clips "
+            f"(72x128, 3 frames, config 4), both reported 4/4, outputs byte-equal to one process's; walls "
+            f"{walls[0]:.1f} s and {walls[1]:.1f} s (process start, CUDA init and the kernels' load "
+            f"included), one in-process batch run {one_s:.1f} s")
+        return dict(walls_s=walls, one_process_s=one_s)
+
+    def multi_train():
+        """(d) the sharded train step: RealESRGAN_x4_v3 (config 4's
+        weights) at batch 8, patch 128, 3 Adam steps at lr 1e-4, (dp, tp) =
+        (2, 1), (1, 2), (2, 2), as 2 or 4 gloo ranks sharing cuda:0
+        (``tools/train_sharded.py``), each against the one-device step on
+        the card from the same weights and batches (targets 0.05 to 0.25
+        from the output): the losses of steps 1 and 2 within 1e-5 relative,
+        step 3's within 3x the one-device step's own run-to-run gap, step-1
+        gradients within 1e-4 of each leaf's largest, Adam's moments after
+        step 1 (each rank's slices, gathered) within 1e-4 (``exp_avg``) and
+        2e-4 (``exp_avg_sq``, a square) of each leaf's largest, weights
+        within 2 x 3 x lr; ms per step beside the one-device step's. Step
+        3's limit: Adam's first steps move a weight by about +-lr whatever
+        its gradient's size, and cuDNN's fp32 weight gradients are not
+        deterministic, so the one-device step does not repeat its own third
+        loss within 1e-5 (its gaps over three runs are printed; the limit is
+        3x the largest of them and of 2.11e-05, the largest an NVIDIA H100
+        80GB HBM3 at 700 W showed, ``PERF.md``)."""
+        from video_restore_tpu_torch.models.zoo import get_model as zoo_get
+        from video_restore_tpu_torch.tools.train_sharded import make_job
+
+        handle = zoo_get("RealESRGAN_x4_v3", models_dir)
+        steps = 3
+        g = torch.Generator().manual_seed(3)
+        net = handle.train_module(dev)
+        batches = []
+        with torch.no_grad():
+            for _ in range(steps):
+                lr = torch.rand(8, 32, 32, 3, generator=g)
+                y = net.forward_train(lr.to(dev)).cpu()
+                gap = (0.05 + 0.2 * torch.rand(y.shape, generator=g)) * torch.where(
+                    torch.rand(y.shape, generator=g) < 0.5, -1.0, 1.0)
+                batches.append((lr, y + gap))
+        del net
+
+        def one_device(lr_rate, time_it=False):
+            """The one-device step (make_train_step, as Trainer runs it) on
+            the batches: losses, step-1 gradients and Adam moments, the final
+            weights, ms."""
+            net = handle.train_module(dev)
+            opt = train_mod.adam(net.parameters(), lr_rate)
+            step = train_mod.make_train_step(net, opt)
+            losses = []
+            for i, (lr, hr) in enumerate(batches):
+                losses.append(float(step(lr.to(dev), hr.to(dev))))
+                if i == 0:
+                    named = list(net.named_parameters())
+                    grads = {k: p.grad.detach().cpu().clone() for k, p in named}
+                    moments = {m: {k: opt.state[p][m].detach().cpu().clone() for k, p in named}
+                               for m in ("exp_avg", "exp_avg_sq")}
+            state = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+            ms = None
+            if time_it:
+                lr0, hr0 = (t.to(dev) for t in batches[0])
+                ms = timed(lambda: step(lr0, hr0), 10)
+            del net, step, opt
+            torch.cuda.empty_cache()
+            return losses, grads, moments, state, ms
+
+        def rel_gaps(a, b):
+            return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+
+        lr_rate = 1e-4
+        one_losses, one_grads, one_moments, one_state, one_ms = one_device(lr_rate, time_it=True)
+        self_gaps = [rel_gaps(one_device(lr_rate)[0], one_losses) for _ in range(2)]
+        lim3 = 3 * max([2.11e-5] + [g[2] for g in self_gaps])
+        log(f"[multi] (d) the one-device step against itself (three runs, 3 steps, lr {lr_rate:g}): loss "
+            f"gaps per step {'; '.join(', '.join(f'{v:.3g}' for v in g) for g in self_gaps)}; step 3's "
+            f"limit {lim3:.3g}")
+        job = work / "multi_train_job.pt"
+        torch.save(make_job(handle.spec, handle.state, lr_rate, batches), job)
+        out = {"one_device_ms": one_ms, "self_gaps": self_gaps, "step3_limit": lim3}
+        for dp, tp in ((2, 1), (1, 2), (2, 2)):
+            n = dp * tp
+            res_file = work / f"multi_train_{dp}x{tp}.pt"
+            coord = f"127.0.0.1:{free_port()}"
+            run_procs(f"multi train {dp}x{tp}", [
+                [sys.executable, "-m", "video_restore_tpu_torch.tools.train_sharded", "--dp", str(dp),
+                 "--tp", str(tp), "--job", str(job), "--backend", "gloo", "--coordinator", coord,
+                 "--world-size", str(n), "--rank", str(r), "--time-steps", "10", "--out", str(res_file)]
+                for r in range(n)
+            ], lambda i: child_env(), timeout=300)
+            res = torch.load(res_file, weights_only=True)
+            gaps = rel_gaps(res["losses"], one_losses)
+            rel = max(gaps)
+            gerr = max(float((res["grads"][k] - v).abs().max() / v.abs().max()) for k, v in one_grads.items())
+            merr = {m: max(float((res["moments"][m][k] - v).abs().max() / v.abs().max()) for k, v in t.items())
+                    for m, t in one_moments.items()}
+            dw = max(float((res["state"][k] - v).abs().max()) for k, v in one_state.items())
+            sharded = sorted(k for k, d in res["shardings"].items() if d is not None)
+            log(f"[multi] (d) train step (dp, tp) = ({dp}, {tp}), {n} gloo ranks on cuda:0, x4_v3 batch 8 "
+                f"patch 128: losses {', '.join(f'{v:.7f}' for v in res['losses'])} (one device "
+                f"{', '.join(f'{v:.7f}' for v in one_losses)}; relative gaps "
+                f"{', '.join(f'{v:.3g}' for v in gaps)}); step-1 gradients {gerr:.3g} of a leaf's "
+                f"largest, Adam's moments after step 1 {merr['exp_avg']:.3g} (exp_avg), "
+                f"{merr['exp_avg_sq']:.3g} (exp_avg_sq); weights after {steps} steps {dw:.3g}; "
+                f"{res['ms_per_step']:.3f} ms/step (one device {one_ms:.3f}); tp-sharded leaves: "
+                f"{len(sharded)} of {len(res['shardings'])}")
+            check(max(gaps[:2]) <= 1e-5 and gaps[2] <= lim3,
+                  f"[multi] train {dp}x{tp}: losses {res['losses']} vs {one_losses}")
+            check(gerr <= 1e-4, f"[multi] train {dp}x{tp}: step-1 gradients {gerr:.3g} > 1e-4 of a leaf's largest")
+            check(merr["exp_avg"] <= 1e-4 and merr["exp_avg_sq"] <= 2e-4,
+                  f"[multi] train {dp}x{tp}: Adam's moments after step 1 {merr}")
+            check(dw <= 2 * steps * lr_rate, f"[multi] train {dp}x{tp}: weights differ by {dw:.3g}")
+            out[f"{dp}x{tp}"] = dict(losses=res["losses"], rel=gaps, grad_rel=gerr, moments_rel=merr, weights_gap=dw,
+                                     ms_per_step=res["ms_per_step"], n_sharded=len(sharded))
+        return out
+
+    def multi_exit():
+        """(e) interpreter exit with live dispatch threads: 4 processes at
+        once (``tools/exit_check.py``'s child), each keeping a frames-mode
+        upscaler over ``[cuda:0] * 2`` alive to interpreter exit after three
+        batches; each must exit 0 with no dispatch thread alive after the
+        ``atexit`` finalizers (a thread stopped inside PyTorch's C++ code
+        at exit aborts the process with code 134)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from video_restore_tpu_torch.tools import exit_check
+
+        with ThreadPoolExecutor(4) as ex:
+            res = list(ex.map(lambda _: exit_check.run_one("cuda:0", str(REPO), 120.0), range(4)))
+        for i, r in enumerate(res):
+            check(r["ok"], f"[multi] exit, process {i}: rc {r['rc']}\n{r['out'][-500:]}\n{r['err'][-2000:]}")
+        walls = [r["wall_s"] for r in res]
+        log(f"[multi] (e) exit: 4 processes, each with a [cuda:0] * 2 upscaler alive at exit, exited 0 "
+            f"with no dispatch thread alive after the atexit finalizers; walls "
+            f"{', '.join(f'{v:.1f}' for v in walls)} s")
+        return dict(walls_s=walls)
+
+    def phase_multi():
+        """``multi``: the sharded restore step (frames and tiles), the
+        multi-host batch and the sharded train step on the one card."""
+        t_phase = time.perf_counter()
+        stats = {}
+        for name, fn in (("frames", multi_frames), ("faces", multi_faces), ("tiles", multi_tiles),
+                         ("multihost", multi_hosts), ("train", multi_train), ("exit", multi_exit)):
+            t0 = time.perf_counter()
+            stats[name] = fn()
+            stats[name]["phase_s"] = time.perf_counter() - t0
+        stats["phase_s"] = time.perf_counter() - t_phase
+        log(f"[multi] phase time {stats['phase_s']:.1f}s ("
+            + ", ".join(f"{k} {v['phase_s']:.1f}" for k, v in stats.items() if isinstance(v, dict)) + ")")
+        path_stats["multi"] = stats
+
+    if want("multi"):
+        phase_multi()
+    shutil.rmtree(work, ignore_errors=True)
     path_stats.update(k1=k1_stats, k1n=k1n_stats, k2=k2_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats, k4=k4_stats)
     log(f"[paths] {json.dumps(path_stats)}")
     if only:

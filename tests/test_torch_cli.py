@@ -2,8 +2,9 @@
 video_restore_tpu_torch.cli in.y4m out.y4m --cpu`` with RealESRGAN_x4plus
 (nf 64, 23 blocks, random weights) on a tiny clip, full frame, enhanced;
 tiled mode (seamless and legacy) for both model families; the face pass,
-the outscale resize and ``--profile``; and the refusal of flags whose
-subsystems are not ported yet.
+the outscale resize and ``--profile``; the flags that were refused until
+their subsystems were ported (``--multihost``, ``--shard-mode tiles``), and
+``--cpu --devices 2``, which exits 1.
 
 A y4m sink takes planar I420 from the device, so the CLI's file holds the
 restore step's planes (``Upscaler(yuv420_out=True)``) byte for byte; one
@@ -78,7 +79,7 @@ def test_cli_restores_clip_on_cpu(tmp_path):
 NOW_PORTED = (
     ["--batch"], ["--segment-frames", "8"], ["--tile-size", "128"],
     ["--model", "RealESRGAN_x4_v3"], ["--face-enhance"], ["--outscale", "2"],
-    ["--profile", "TRACE_DIR"],
+    ["--profile", "TRACE_DIR"], ["--multihost"], ["--shard-mode", "tiles"],
 )
 
 
@@ -94,19 +95,32 @@ NOW_PORTED = (
         ["--model", "RealESRGAN_x4_v3"],
         ["--outscale", "2"],
         ["--profile", "TRACE_DIR"],
+        ["--devices", "2"],
     ],
 )
 def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
-    """Flags of unported subsystems exit 1 with "not yet ported"; tiled
-    mode, SRVGGNetCompact, batch directories, segmented output, the face
-    pass (the region heuristic without GFPGAN weights), the outscale
-    resize and ``--profile`` (a torch.profiler trace of the run in
-    DIR/trace.json), ported since, run on --cpu."""
+    """Every flag of this list once exited 1 with "not yet ported"; all are
+    ported now and run on --cpu: tiled mode, SRVGGNetCompact, batch
+    directories, segmented output, the face pass (the region heuristic
+    without GFPGAN weights), the outscale resize, ``--profile`` (a
+    torch.profiler trace of the run in DIR/trace.json), ``--multihost``
+    (a one-process group: ``--coordinator`` and ``WORLD_SIZE=1``) and
+    ``--shard-mode tiles``. ``--cpu --devices 2`` exits 1: the CPU is one
+    device."""
     src, dst = tmp_path / "in.y4m", tmp_path / "o.y4m"
     _clip(src, n=1)
     trace_dir = tmp_path / "trace"
     if flags in NOW_PORTED:
         flags = [str(trace_dir) if f == "TRACE_DIR" else f for f in flags]
+        if "--multihost" in flags:
+            import socket
+
+            s = socket.socket()
+            s.bind(("127.0.0.1", 0))
+            flags = flags + ["--coordinator", f"127.0.0.1:{s.getsockname()[1]}"]
+            s.close()
+            monkeypatch.setenv("WORLD_SIZE", "1")
+            monkeypatch.delenv("RANK", raising=False)
         monkeypatch.setenv("VRT_ALLOW_RANDOM_WEIGHTS", "1")
         extra = ["--model", "RealESRGAN_x4plus_anime_6B"] if "--model" not in flags else []
         args = [str(src), str(dst)]
@@ -130,7 +144,7 @@ def test_unported_flags_exit_1(tmp_path, capsys, monkeypatch, flags):
         return
     rc = cli.main([str(src), str(dst), "--cpu"] + flags)
     assert rc == 1
-    assert "not yet ported" in capsys.readouterr().err
+    assert "Requested 2 devices but only 1 available" in capsys.readouterr().err
 
 
 def test_cli_gfpgan_without_weights_exits_1(tmp_path, capsys, monkeypatch):
@@ -175,7 +189,8 @@ def test_cli_int8_on_cpu(tmp_path, capsys, monkeypatch, model):
     assert cfg.precision == "int8"
     restorer = VideoRestorer(cfg, model=random_model(model), cpu=True)
     ups = restorer._upscaler_for(16, 24, yuv_out=True)
-    assert ups.net.precision == "int8" and ups.compute_dtype == torch.bfloat16
+    (step,) = ups.shards  # one device: one shard
+    assert step.net.precision == "int8" and step.compute_dtype == torch.bfloat16
     with Y4MReader(src) as rd:
         frames = list(rd)
     with Y4MReader(dst) as rd:
@@ -235,7 +250,7 @@ def test_cli_tiled_on_cpu(tmp_path, capsys, monkeypatch, model, legacy):
     # the CLI's planes are the step's
     for f, o in zip(frames, _y4m_planes(dst)):
         assert np.array_equal(ups.process_batch(f[None])[0].numpy(), o)
-    assert isinstance(ups.net, torch.nn.Module)
+    assert isinstance(ups.shards[0].net, torch.nn.Module)
 
 
 def test_missing_input_exit_1(tmp_path):

@@ -246,10 +246,10 @@ def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
     seen = []
 
     class FakeUpscaler:
-        def __init__(self, model, grid, cfg, device, yuv420_out=False):
+        def __init__(self, model, grid, cfg, mesh, yuv420_out=False):
             self.grid = grid
 
-    monkeypatch.setattr(runner, "Upscaler", FakeUpscaler)
+    monkeypatch.setattr(runner, "ShardedUpscaler", FakeUpscaler)
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (GB80, GB80))
     real = runner.auto_full_frame
 

@@ -12,8 +12,8 @@ where both compute the same thing:
   the device once;
 - the checkpoint round trip (``torch.save`` / ``torch.load(weights_only)``);
 - no fallback: without CUDA, ``Trainer`` without a device and the CLI
-  without ``--cpu`` raise; ``mesh=`` and the sharded step raise
-  ``NotImplementedError``.
+  without ``--cpu`` raise. (``mesh=`` and the sharded step run:
+  ``tests/test_torch_train_sharded.py``.)
 """
 
 import numpy as np
@@ -125,16 +125,6 @@ def test_checkpoint_round_trip(tmp_path):
     opt = train.adam(handle.train_module("cpu").parameters(), 1e-4)
     opt.load_state_dict(got["opt_state"])
     assert opt.state_dict()["state"][0]["step"] == 1
-
-
-def test_mesh_and_sharded_step_are_refused():
-    net = port_zoo.random_model("RealESRGAN_x4_v3").train_module("cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        train.Trainer(net, 4, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        train.shard_train_state({}, {}, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        train.train_step_sharded(None, None, None, {}, {})
 
 
 def test_no_cpu_fallback_without_cuda(clip, tmp_path, monkeypatch):

@@ -39,6 +39,8 @@ TRAINING_SLICE = (
     "training", "training.losses", "training.train", "training.finetune", "metrics",
     "video.fixtures", "utils.knobs", "utils.profiling",
 )
+# modules of the multi-device slice, which the scan must reach
+MULTI_DEVICE_SLICE = ("parallel.mesh", "parallel.multihost", "parallel.dispatch", "tools.train_sharded")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -51,7 +53,9 @@ def test_port_imports_no_jax_and_no_jax_package():
     n, bad = head.split(" ", 1)
     assert int(n) >= 25
     assert bad == "[]"
-    assert {f"video_restore_tpu_torch.{m}" for m in TRAINING_SLICE} <= set(names.split())
+    assert {f"video_restore_tpu_torch.{m}" for m in TRAINING_SLICE + MULTI_DEVICE_SLICE} <= set(
+        names.split()
+    )
 
 
 def test_no_source_names_the_jax_package():

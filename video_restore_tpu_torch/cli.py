@@ -2,9 +2,13 @@
 
 Port of ``video_restore_tpu/cli.py``: ``build_parser`` and
 ``config_from_args`` are copied, so every invocation parses as it does for
-the JAX CLI. The program runs on the GPU; ``--cpu`` selects the plain
-PyTorch path on the host CPU. Flags whose subsystems are not ported yet
-exit 1 with a "not yet ported" message instead of being ignored.
+the JAX CLI. The program runs on the GPUs (``--devices N``: frames, or
+with ``--shard-mode tiles`` each frame's tiles, sharded over N of them);
+``--cpu`` selects the plain PyTorch path on the host CPU, which is one
+device. ``--multihost`` joins a process group (``torchrun``'s
+``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, or
+``--coordinator``) and shards a ``--batch`` directory's videos over the
+processes.
 
     python -m video_restore_tpu_torch.cli in.y4m out.y4m [--cpu]
 """
@@ -54,8 +58,7 @@ Streaming (y4m over stdin/stdout, for ffmpeg pipelines):
     # `--devices 4` (4 devices) from `--gpus 4` (one device, id 4)
     p.add_argument(
         "--devices", dest="devices", type=int, default=0,
-        help="number of GPUs to shard frames across (0 = all; only one is "
-             "ported)",
+        help="number of GPUs to shard frames across (0 = all)",
     )
     p.add_argument(
         "--gpus", dest="gpus", type=int, default=None, nargs="*",
@@ -86,8 +89,9 @@ Streaming (y4m over stdin/stdout, for ffmpeg pipelines):
                         "all distinct resolutions are probed and their "
                         "programs compiled in parallel up front)")
     p.add_argument("--multihost", action="store_true",
-                   help="shard --batch videos across hosts (not yet "
-                        "ported)")
+                   help="shard --batch videos across hosts (coordinator "
+                        "from --coordinator or MASTER_ADDR/MASTER_PORT, "
+                        "WORLD_SIZE, RANK, as torchrun sets them)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                    help="multihost coordinator address")
     # advertised-but-unimplemented reference features (SURVEY.md §2.5)
@@ -249,18 +253,6 @@ def config_from_args(args: argparse.Namespace) -> RestoreConfig:
     )
 
 
-def _unported(args, cfg: RestoreConfig) -> list:
-    """The requested features this package cannot run yet."""
-    out = []
-    if args.multihost:
-        out.append("--multihost")
-    if cfg.shard_mode == "tiles":
-        out.append("--shard-mode tiles")
-    if cfg.num_devices > 1:
-        out.append("multi-GPU (--devices/--gpus > 1)")
-    return out
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     log = setup_logging(args.verbose, args.log_json)
@@ -268,14 +260,29 @@ def main(argv=None) -> int:
     from video_restore_tpu_torch.utils.knobs import warn_unknown_knobs
 
     warn_unknown_knobs()
+    if args.multihost:
+        from video_restore_tpu_torch.parallel.multihost import init_multihost
+
+        try:
+            init_multihost(args.coordinator)
+        except Exception as e:
+            log.error("multihost init failed: %s", e)
+            return 1
+    try:
+        return _run(args, log)
+    finally:
+        if args.multihost:  # the group this call formed
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+
+
+def _run(args, log) -> int:
     try:
         config = config_from_args(args)
     except ValueError as e:
         log.error("%s", e)
-        return 1
-    missing = _unported(args, config)
-    if missing:
-        log.error("not yet ported: %s", ", ".join(missing))
         return 1
 
     from video_restore_tpu_torch.video.y4m import is_pipe

@@ -323,50 +323,68 @@ class RRDBNet(nn.Module):
         feat = conv(feat, self.conv_hr.w, self.conv_hr.b, act="lrelu")
         return conv(feat, self.conv_last.w, self.conv_last.b)
 
-    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, tp=None) -> torch.Tensor:
         """The differentiable forward: what the JAX ``_apply(use_pallas=False,
         stripe=False, differentiable=True)`` computes (``rrdbnet.py:1129-1134``),
         in fp32 with ``F.conv2d`` under autograd and no kernel. Every op is
         out of place: the serving path's growth buffer, written slice by
         slice, cannot be differentiated. Call it on a module built from the
         fp32 state (``ModelHandle.train_module``), not on one that
-        ``prepare`` cast. (N, H, W, 3) -> (N, H*s, W*s, 3) fp32."""
+        ``prepare`` cast. ``tp``: the sharded train step's tensor-parallel
+        axis (``training/train.py::TensorParallel``), where each conv whose
+        weights it holds sharded computes this rank's output channels and
+        gathers them. (N, H, W, 3) -> (N, H*s, W*s, 3) fp32."""
         spec = self.spec
         x = x.float()
         if spec.unshuffle and spec.scale == 2:
             x = pixel_unshuffle(x, 2)
         elif spec.unshuffle and spec.scale == 1:
             x = pixel_unshuffle(x, 4)
-        feat = _conv_nchw(x.permute(0, 3, 1, 2), self.conv_first)
+        feat = _conv_nchw(x.permute(0, 3, 1, 2), self.conv_first, tp)
         h = feat
         for blk in self.body:
             out = h
             for rdb in (blk.rdb1, blk.rdb2, blk.rdb3):
-                out = _rdb_train(rdb, out)
+                out = _rdb_train(rdb, out, tp)
             h = out * 0.2 + h
-        feat = feat + _conv_nchw(h, self.conv_body)
+        feat = feat + _conv_nchw(h, self.conv_body, tp)
         ups = [self.conv_up1] + ([self.conv_up2] if spec.num_upsample == 2 else [])
         for up in ups:
             feat = F.leaky_relu(
-                _conv_nchw(F.interpolate(feat, scale_factor=2, mode="nearest"), up), 0.2
+                _conv_nchw(F.interpolate(feat, scale_factor=2, mode="nearest"), up, tp), 0.2
             )
-        feat = F.leaky_relu(_conv_nchw(feat, self.conv_hr), 0.2)
-        return _conv_nchw(feat, self.conv_last).permute(0, 2, 3, 1)
+        feat = F.leaky_relu(_conv_nchw(feat, self.conv_hr, tp), 0.2)
+        return _conv_nchw(feat, self.conv_last, tp).permute(0, 2, 3, 1)
 
 
-def _conv_nchw(x: torch.Tensor, conv: Conv3x3) -> torch.Tensor:
+def _conv_nchw(x: torch.Tensor, conv: Conv3x3, tp=None, act=None) -> torch.Tensor:
     """SAME 3x3 conv of an NCHW activation with a :class:`Conv3x3`'s HWIO
-    weights, differentiable in both."""
-    return F.conv2d(x, conv.w.permute(3, 2, 0, 1), conv.b, padding=1)
+    weights, differentiable in both, then ``act`` (a per-channel function,
+    or None); sharded where ``tp`` holds ``conv.w`` sharded
+    (:func:`_conv_hwio`)."""
+    return _conv_hwio(x, conv.w, conv.b, tp if tp is not None and tp.is_sharded(conv.w) else None, act)
 
 
-def _rdb_train(rdb: RDB, x: torch.Tensor) -> torch.Tensor:
+def _conv_hwio(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tp=None, act=None) -> torch.Tensor:
+    """SAME 3x3 conv of an NCHW activation with HWIO weights ``w``, then
+    ``act``. With ``tp`` (``w`` and ``b`` hold this rank's output channels
+    of the sharded train step) the input goes through ``tp.enter``, and the
+    rank's channels, after ``act``, through ``tp.gather``."""
+    if tp is not None:
+        x = tp.enter(x)
+    y = F.conv2d(x, w.permute(3, 2, 0, 1), b, padding=1)
+    if act is not None:
+        y = act(y)
+    return tp.gather(y) if tp is not None else y
+
+
+def _rdb_train(rdb: RDB, x: torch.Tensor, tp=None) -> torch.Tensor:
     """One RDB on NCHW, the JAX ``_rdb_apply``: five convs over the growing
     concatenation, LeakyReLU(0.2) after the first four, 0.2 residual."""
     feats = [x]
     for k in range(1, 5):
-        feats.append(F.leaky_relu(_conv_nchw(torch.cat(feats, 1), getattr(rdb, f"conv{k}")), 0.2))
-    return _conv_nchw(torch.cat(feats, 1), rdb.conv5) * 0.2 + x
+        feats.append(F.leaky_relu(_conv_nchw(torch.cat(feats, 1), getattr(rdb, f"conv{k}"), tp), 0.2))
+    return _conv_nchw(torch.cat(feats, 1), rdb.conv5, tp) * 0.2 + x
 
 
 def params_from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

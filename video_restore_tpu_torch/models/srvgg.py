@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_restore_tpu_torch.models.rrdbnet import Conv3x3, _conv_nchw
+from video_restore_tpu_torch.models.rrdbnet import Conv3x3, _conv_hwio, _conv_nchw
 from video_restore_tpu_torch.ops.quant import pack_i8_weights, quantize_conv_weights
 from video_restore_tpu_torch.ops.srvgg import (
     srvgg_body,
@@ -136,21 +136,26 @@ class SRVGGNet(nn.Module):
         w_up = getattr(self, "w_up", self.conv_out.w)
         return up(feat, w_up, self.conv_out.b, x, self.spec.scale)
 
-    def forward_train(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_train(self, x: torch.Tensor, tp=None) -> torch.Tensor:
         """The differentiable forward: the JAX ``apply_srvgg(stripe=False)``
         (``srvgg.py:136-139, 263-284``), conv_in + PReLU, ``num_conv`` conv + PReLU,
         conv_out, pixel shuffle, plus the nearest-upsampled input, in fp32
         with ``F.conv2d`` under autograd and no kernel, every op out of
         place. Call it on a module built from the fp32 state, not on one
-        that ``prepare`` cast. (N, H, W, 3) -> (N, H*s, W*s, 3) fp32."""
+        that ``prepare`` cast. ``tp``: the sharded train step's
+        tensor-parallel axis (``training/train.py::TensorParallel``), where
+        each conv whose weights it holds sharded computes this rank's output
+        channels (and their PReLU) and gathers them. (N, H, W, 3) -> (N,
+        H*s, W*s, 3) fp32."""
         r = self.spec.scale
         x = x.float().permute(0, 3, 1, 2)
-        feat = F.prelu(_conv_nchw(x, self.conv_in), self.alpha_in)
+        feat = _conv_nchw(x, self.conv_in, tp, act=lambda y: F.prelu(y, self.alpha_in))
         body = self.body
+        body_tp = tp if tp is not None and tp.is_sharded(body.w) else None
         for i in range(body.w.shape[0]):
-            y = F.conv2d(feat, body.w[i].permute(3, 2, 0, 1), body.b[i], padding=1)
-            feat = F.prelu(y, body.alpha[i])
-        out = F.pixel_shuffle(_conv_nchw(feat, self.conv_out), r)
+            feat = _conv_hwio(feat, body.w[i], body.b[i], body_tp,
+                              act=lambda y, i=i: F.prelu(y, body.alpha[i]))
+        out = F.pixel_shuffle(_conv_nchw(feat, self.conv_out, tp), r)
         out = out + F.interpolate(x, scale_factor=r, mode="nearest")
         return out.permute(0, 2, 3, 1)
 

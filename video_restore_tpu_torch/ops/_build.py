@@ -12,7 +12,8 @@ every module of the package imports on a machine without ``nvcc`` or a GPU.
 Launch counters: every kernel wrapper adds one to its name's count where it
 launches its kernel, and nowhere else, so a run can show that it went
 through the kernels. :func:`reset_launches` and :func:`launches` read and
-clear them.
+clear them. The counts are kept under a lock: several dispatch threads (one
+per device of a sharded upscaler) launch at once.
 """
 
 from __future__ import annotations
@@ -52,16 +53,22 @@ _F = ctypes.c_float
 _PP = ctypes.POINTER(ctypes.c_void_p)
 
 
+_count_lock = threading.Lock()
+
+
 def count_launch(name: str) -> None:
-    _launches[name] = _launches.get(name, 0) + 1
+    with _count_lock:
+        _launches[name] = _launches.get(name, 0) + 1
 
 
 def reset_launches() -> None:
-    _launches.clear()
+    with _count_lock:
+        _launches.clear()
 
 
 def launches() -> Dict[str, int]:
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def _nvcc() -> str:

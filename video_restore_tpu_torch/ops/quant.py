@@ -406,21 +406,22 @@ def conv3x3_i8(
         sa_arr = (ctypes.c_float * nseg)(*(float(v) for v in sas))
         inv_arr = (ctypes.c_float * nseg)(*(static_act_inverse(float(v), dt) for v in sas))
     lib = _build.load()
-    code = getattr(lib, fn)(
-        x.data_ptr(), amax.data_ptr() if amax is not None else None,
-        wk.data_ptr(), sw.data_ptr(),
-        b.data_ptr(),
-        alpha.data_ptr() if alpha is not None else None,
-        r1.data_ptr() if r1 is not None else None,
-        r2.data_ptr() if r2 is not None else None,
-        out.data_ptr(),
-        out_amax.data_ptr() if out_amax is not None else None,
-        bsz, h, wd, cin, cout, xs, ys, r1s, r2s,
-        amax.stride(0) if amax is not None else 0,
-        out_amax.stride(0) if out_amax is not None else 0,
-        nseg, seg_arr, sa_arr, inv_arr, _ACTS[act], float(s1), float(s2),
-        _build.stream_ptr(x),
-    )
+    with torch.cuda.device(x.device):  # the launch's device is x's
+        code = getattr(lib, fn)(
+            x.data_ptr(), amax.data_ptr() if amax is not None else None,
+            wk.data_ptr(), sw.data_ptr(),
+            b.data_ptr(),
+            alpha.data_ptr() if alpha is not None else None,
+            r1.data_ptr() if r1 is not None else None,
+            r2.data_ptr() if r2 is not None else None,
+            out.data_ptr(),
+            out_amax.data_ptr() if out_amax is not None else None,
+            bsz, h, wd, cin, cout, xs, ys, r1s, r2s,
+            amax.stride(0) if amax is not None else 0,
+            out_amax.stride(0) if out_amax is not None else 0,
+            nseg, seg_arr, sa_arr, inv_arr, _ACTS[act], float(s1), float(s2),
+            _build.stream_ptr(x),
+        )
     _build.check(lib, code, f"conv3x3_i8 kernel ({route})")
     _build.count_launch(counter)
     _build.count_launch(f"conv3x3_i8:{route}")

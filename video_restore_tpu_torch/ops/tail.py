@@ -268,12 +268,15 @@ def conv3x3(
         _ACTS[act], int(upsample2), float(s1), float(s2),
         _build.stream_ptr(x),
     )
-    if route == "mma":
-        code = lib.vr_conv3x3_mma(*args)
-    elif route == "narrow":
-        code = lib.vr_conv3x3_narrow(*args)
-    else:
-        code = lib.vr_conv3x3(_DTYPES[dt], *args)
+    # the kernel sizes its grid and raises its shared-memory limit on the
+    # current device: make it x's
+    with torch.cuda.device(x.device):
+        if route == "mma":
+            code = lib.vr_conv3x3_mma(*args)
+        elif route == "narrow":
+            code = lib.vr_conv3x3_narrow(*args)
+        else:
+            code = lib.vr_conv3x3(_DTYPES[dt], *args)
     _build.check(lib, code, f"conv3x3 kernel ({route})")
     _build.count_launch(counter)
     _build.count_launch(f"conv3x3:{route}")

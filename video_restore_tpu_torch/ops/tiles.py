@@ -334,14 +334,34 @@ def tiled_apply(
     model_fn: Callable[[torch.Tensor], torch.Tensor],
     frames: torch.Tensor,
     grid: TileGrid,
+    tile_sharding=None,
 ) -> torch.Tensor:
     """Upscale (N, H, W, C) frames (any float dtype: the model runs in the
     frames' dtype) through the tiled model; returns (N, H*scale, W*scale, C)
-    fp32, blended in fp32."""
+    fp32, blended in fp32.
+
+    ``tile_sharding``: spatial parallelism, all devices cooperating on one
+    frame's tiles (``tiles.py:364-400``, where it is a ``NamedSharding`` of
+    the tile axis): an object with ``n_parts`` that is called with the
+    flattened tile batch of all N frames, zero-padded to a multiple of
+    ``n_parts`` and split into that many contiguous parts, and returns each
+    part's model output on the frames' device
+    (``parallel/dispatch.py::TileShards`` runs part d on device d). Each
+    part is one model call, as each device's share of the JAX program is;
+    ``tile_chunk`` does not apply, and ``model_fn`` is not called."""
     n = frames.shape[0]
     tiles = _extract_tiles(_pad_frame(frames, grid), grid)  # (N, T, Eh, Ew, C)
     flat = tiles.reshape((n * grid.n_tiles,) + tuple(tiles.shape[2:]))
-    out = _chunked_apply(model_fn, flat, grid.tile_chunk)
+    if tile_sharding is not None:
+        d = tile_sharding.n_parts
+        nb = _round_up(flat.shape[0], d)
+        if nb != flat.shape[0]:
+            flat = torch.cat([flat, flat.new_zeros((nb - flat.shape[0],) + tuple(flat.shape[1:]))])
+        k = nb // d
+        out = torch.cat(tile_sharding([flat[i * k : (i + 1) * k] for i in range(d)]))
+        out = out[: n * grid.n_tiles]
+    else:
+        out = _chunked_apply(model_fn, flat, grid.tile_chunk)
     out = out.reshape((n, grid.n_tiles) + tuple(out.shape[1:]))
     r, c = grid.rows, grid.cols
     if grid.n_tiles == 1 and r.padded == r.dim and c.padded == c.dim:

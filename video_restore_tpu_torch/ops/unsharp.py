@@ -104,10 +104,11 @@ def unsharp_fused(
     )
     lib = _build.load()
     fn = lib.vr_unsharp_rows if route == "rows" else lib.vr_unsharp
-    code = fn(
-        x.data_ptr(), out.data_ptr(), b, h, w, c, radius, taps,
-        float(amount), float(threshold), _build.stream_ptr(x),
-    )
+    with torch.cuda.device(x.device):  # the launch's device is x's
+        code = fn(
+            x.data_ptr(), out.data_ptr(), b, h, w, c, radius, taps,
+            float(amount), float(threshold), _build.stream_ptr(x),
+        )
     _build.check(lib, code, f"unsharp kernel ({route})")
     _build.count_launch("unsharp_fused")
     _build.count_launch(f"unsharp_fused:{route}")

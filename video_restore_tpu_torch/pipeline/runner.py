@@ -6,7 +6,11 @@ Port of ``video_restore_tpu/pipeline/runner.py`` (``process_video``,
 - one decode thread feeding a bounded queue (backpressure);
 - the dispatch loop on the caller's thread queues each batch on the device
   and returns at once (CUDA launches are asynchronous), then starts the
-  result's copy into a pinned host slot (``Upscaler.fetch``);
+  result's copy into a pinned host slot (``ShardedUpscaler.run``); over
+  several devices (``--devices N``, ``frame_mesh``) each batch holds
+  ``frames_per_batch`` x ``--frames-per-batch`` frames and each device's
+  dispatch thread runs its chunk, its face pass and resize, and its copy
+  into its slice of the slot;
 - one encode thread waits for each copy and writes the frames in dispatch
   order, so no reorder buffer exists; a slot goes back to the ring once
   its frames are written;
@@ -30,9 +34,11 @@ Port of ``video_restore_tpu/pipeline/runner.py`` (``process_video``,
   and per-stage wall-clock totals land in ``last_stats``;
 - ``--profile DIR`` traces each video's run with ``torch.profiler``
   (``utils/profiling.py::device_trace``), where the JAX runner traces it
-  with ``jax.profiler`` (``runner.py:310``).
-
-Not ported yet: the multi-host batch.
+  with ``jax.profiler`` (``runner.py:310``);
+- the multi-host batch (``--multihost``, ``runner.py:720-759``): under a
+  process group of several processes each takes its round-robin share of
+  the sorted videos, and one gather of ``[ok, mine]`` makes every process
+  report the global result.
 """
 
 from __future__ import annotations
@@ -57,9 +63,9 @@ from video_restore_tpu_torch.ops.tiles import (
     auto_full_frame,
     auto_tile_chunk,
 )
-from video_restore_tpu_torch.parallel.dispatch import Upscaler
+from video_restore_tpu_torch.parallel.dispatch import ShardedUpscaler
+from video_restore_tpu_torch.parallel.mesh import frame_mesh
 from video_restore_tpu_torch.pipeline.progress import Progress
-from video_restore_tpu_torch.utils.device import resolve_device
 from video_restore_tpu_torch.utils.logging import get_logger
 from video_restore_tpu_torch.utils.profiling import StageTimer, device_trace
 from video_restore_tpu_torch.video import (
@@ -172,19 +178,22 @@ class _EncodeThread(threading.Thread):
 
 
 class VideoRestorer:
-    """End-to-end restorer for one device. The model stays resident across
-    videos. Runs on the current CUDA device unless ``cpu=True``; without a
-    GPU and without ``cpu=True`` it raises."""
+    """End-to-end restorer over a device list (``mesh``, by default
+    ``frame_mesh(config.num_devices)``: this process's GPUs). The model
+    stays resident across videos. Runs on the GPUs unless ``cpu=True``;
+    without a GPU and without ``cpu=True`` it raises."""
 
     def __init__(
         self,
         config: RestoreConfig,
         model: Optional[ModelHandle] = None,
+        mesh=None,
         *,
         cpu: bool = False,
     ):
         self.config = config
-        self.device = resolve_device(cpu)
+        self.mesh = list(mesh) if mesh is not None else frame_mesh(config.num_devices, cpu=cpu)
+        self.device = self.mesh[0]
         if model is None:
             import os
 
@@ -198,28 +207,31 @@ class VideoRestorer:
             if config.outscale == float(config.scale):
                 config.outscale = float(model.scale)
             config.scale = model.scale
-        self._upscalers: Dict[tuple, Upscaler] = {}  # (H, W, yuv) bucket
+        self._upscalers: Dict[tuple, ShardedUpscaler] = {}  # (H, W, yuv) bucket
         self._probe_cache: Dict[str, object] = {}  # str(path) -> VideoInfo
-        # the GFPGAN crop restorer, loaded at the first face pass (False:
-        # its weights are missing)
-        self._gfpgan = None
+        # the GFPGAN crop restorer of each device, loaded at its first face
+        # pass (False: the weights are missing)
+        self._gfpgan: Dict[torch.device, object] = {}
+        self._gfpgan_lock = threading.Lock()
         self.last_stats: Optional[PipelineStats] = None
         log.info(
-            "model=%s scale=%dx device=%s tile=%d precision=%s enhanced=%s",
-            model.name, model.scale, self.device, config.tile_size,
-            config.precision, config.enhanced_mode,
+            "model=%s scale=%dx devices=%d (%s) tile=%d overlap=%d precision=%s "
+            "enhanced=%s shard_mode=%s",
+            model.name, model.scale, len(self.mesh), self.device, config.tile_size,
+            config.tile_overlap, config.precision, config.enhanced_mode, config.shard_mode,
         )
 
     def _upscaler_for(
         self, height: int, width: int, yuv_out: bool = False
-    ) -> Upscaler:
+    ) -> ShardedUpscaler:
         """The restore step for one bucket ``(height, width, yuv_out)``
-        (``runner.py:194-276`` of the JAX package): full frame when ``full_frame`` is "on", or
-        "auto" and the frame fits the card (``auto_full_frame``); else the
-        tile grid, with ``tile_chunk`` tiles per model call (0 = auto).
-        Legacy tiling and shard mode "tiles" always tile. On the CPU, with
-        no device memory to size against, "auto" keeps the tiles, as the
-        JAX package does without its TPU body kernels."""
+        (``runner.py:194-276`` of the JAX package): full frame when
+        ``full_frame`` is "on", or "auto" and the frame fits the smallest
+        card of the mesh (``auto_full_frame``); else the tile grid, with
+        ``tile_chunk`` tiles per model call (0 = auto). Legacy tiling and
+        shard mode "tiles" always tile. On the CPU, with no device memory
+        to size against, "auto" keeps the tiles, as the JAX package does
+        without its TPU body kernels."""
         key = (height, width, yuv_out)
         if key not in self._upscalers:
             cfg = self.config
@@ -232,7 +244,7 @@ class VideoRestorer:
                     and self.device.type == "cuda"
                     and auto_full_frame(
                         height, width, self.model.scale,
-                        torch.cuda.mem_get_info(self.device)[1],
+                        min(torch.cuda.mem_get_info(d)[1] for d in self.mesh),
                         frames=max(cfg.frames_per_batch, 1),
                         tail_in_memory=self._tail_in_memory(),
                     )
@@ -256,8 +268,8 @@ class VideoRestorer:
                 "bucket %dx%d: %d tiles of %s, %d per model call", width,
                 height, grid.n_tiles, grid.tile_shape, chunk or grid.n_tiles,
             )
-            self._upscalers[key] = Upscaler(
-                self.model, grid, cfg, self.device, yuv420_out=yuv_out
+            self._upscalers[key] = ShardedUpscaler(
+                self.model, grid, cfg, self.mesh, yuv420_out=yuv_out
             )
         return self._upscalers[key]
 
@@ -309,9 +321,10 @@ class VideoRestorer:
             return False
         stats.wall_s = time.time() - t0
         self.last_stats = stats
+        n = len(self.mesh)
         log.info(
-            "done: %d frames in %.1fs (%.3f fps)",
-            stats.encoded, stats.wall_s, stats.fps,
+            "done: %d frames in %.1fs (%.3f fps, %.3f fps/device)",
+            stats.encoded, stats.wall_s, stats.fps, stats.fps / n,
         )
         if not (stats.decoded == stats.inferred == stats.encoded):
             log.error(
@@ -423,21 +436,14 @@ class VideoRestorer:
                     valid = len(pending)
                     frames = pending + [pending[-1]] * (batch - valid)
                     pending = []
-                    with timer.stage("dispatch"):
-                        faces = None
-                        if face_pool is not None:
-                            faces = [face_pool.submit(detect_faces, f) for f in frames[:valid]]
-                        out = ups.process_batch(np.stack(frames))
-                    if faces is not None:
-                        with timer.stage("faces"):
-                            for i, fut in enumerate(faces):
-                                boxes = fut.result()
-                                if boxes:
-                                    out[i] = face_pass(out[i], boxes)
-                    if resize is not None:
-                        with timer.stage("resize"):
-                            out = resize(out)
-                    enc.submit((ups.fetch(out), valid))
+                    faces = None
+                    if face_pool is not None:
+                        faces = [face_pool.submit(detect_faces, f) for f in frames[:valid]]
+                    post = None
+                    if faces is not None or resize is not None:
+                        post = self._post(faces, face_pass, resize, valid, timer)
+                    fetched = ups.run(np.stack(frames), post, timer.stage)
+                    enc.submit((fetched, valid))
                 if enc.error is not None:
                     raise RuntimeError(f"encode failed: {enc.error}") from enc.error
             enc.finish()
@@ -465,24 +471,54 @@ class VideoRestorer:
             copy_audio(input_path, output_path)
         return stats
 
+    @staticmethod
+    def _post(faces, face_pass, resize, valid: int, timer: StageTimer):
+        """``post(out, lo)`` for ``ShardedUpscaler.run``: on a chunk of a batch's
+        output whose first frame is frame ``lo`` of the batch, the face pass
+        of each of its frames below ``valid`` (waiting for its detection),
+        then the resize."""
+
+        def post(out, lo):
+            if faces is not None:
+                with timer.stage("faces"):
+                    for i in range(out.shape[0]):
+                        if lo + i < valid:
+                            boxes = faces[lo + i].result()
+                            if boxes:
+                                out[i] = face_pass(out[i], boxes)
+            if resize is not None:
+                with timer.stage("resize"):
+                    out = resize(out)
+            return out
+
+        return post
+
+    def _gfpgan_for(self, device: torch.device):
+        """The GFPGAN crop restorer on ``device``, loaded once per device
+        (False: the weights are missing)."""
+        from video_restore_tpu_torch.ops import faces
+
+        with self._gfpgan_lock:
+            if device not in self._gfpgan:
+                self._gfpgan[device] = faces.make_gfpgan_runner(
+                    self.config.models_dir, device=device
+                ) or False
+            return self._gfpgan[device]
+
     def _face_pass(self):
         """The face pass of ``--face-enhance`` (``runner.py:413-451`` of the
         JAX package): ``f(frame, boxes) -> frame`` on a uint8 (H*s, W*s, 3)
         tensor and LR boxes. The GFPGAN prior for ``face_model`` "auto" or
-        "gfpgan" when its weights load (once per restorer), else the region
+        "gfpgan" when its weights load (once per device), else the region
         heuristic; "gfpgan" without weights raises."""
         from video_restore_tpu_torch.ops import faces
 
         cfg = self.config
         scale = self.model.scale
-        if cfg.face_model in ("auto", "gfpgan") and self._gfpgan is None:
-            self._gfpgan = faces.make_gfpgan_runner(cfg.models_dir, device=self.device) or False
-            if self._gfpgan:
-                log.info("face restorer: GFPGAN v1-clean prior")
-        if cfg.face_model != "regions" and self._gfpgan:
-            runner = self._gfpgan
+        if cfg.face_model != "regions" and self._gfpgan_for(self.device):
+            log.info("face restorer: GFPGAN v1-clean prior")
             return lambda f, boxes: faces.restore_faces_learned(
-                f, boxes, scale, runner, cfg.face_strength
+                f, boxes, scale, self._gfpgan_for(f.device), cfg.face_strength
             )
         if cfg.face_model == "gfpgan":
             raise RuntimeError(
@@ -655,20 +691,34 @@ class VideoRestorer:
         *,
         show_progress: bool = True,
     ) -> Tuple[int, int]:
-        """Batch directory mode (``runner.py:704-759``, one host): every
-        video in ``input_dir`` to ``output_dir/{stem}_upscaled{suffix}``.
-        Returns (succeeded, total)."""
+        """Batch directory mode (``runner.py:704-759``): every video in
+        ``input_dir`` to ``output_dir/{stem}_upscaled{suffix}``. Returns
+        (succeeded, total). Under a process group of several processes
+        (``--multihost``: ``parallel/multihost.py::init_multihost``) every
+        process sees the same sorted listing and takes its round-robin
+        share, and the success counts are gathered so that each process
+        returns the global result."""
+        from video_restore_tpu_torch.parallel import multihost
+
         exts = {".mp4", ".avi", ".mov", ".mkv", ".webm", ".y4m", ".npz"}
         videos = sorted(
             p for p in Path(input_dir).iterdir() if p.suffix.lower() in exts
         )
         outdir = Path(output_dir)
         outdir.mkdir(parents=True, exist_ok=True)
+        nprocs = multihost.process_count()
+        mine = videos
+        if nprocs > 1:
+            mine = multihost.shard_items(videos)
+            log.info(
+                "[batch] multihost: process %d/%d takes %d of %d videos",
+                multihost.process_index(), nprocs, len(mine), len(videos),
+            )
         fmt = self.config.output_format
         suffix_override = "." + fmt.lstrip(".") if fmt else None
         pairs = [
             (v, outdir / f"{v.stem}_upscaled{suffix_override or v.suffix}")
-            for v in videos
+            for v in mine
         ]
         if self.config.batch_warmup:
             self._warmup_buckets(pairs)
@@ -677,4 +727,9 @@ class VideoRestorer:
             log.info("[batch] %s -> %s", v.name, out.name)
             if self.process_video(v, out, show_progress=show_progress):
                 ok += 1
+        if nprocs > 1:
+            rows = multihost.allgather_counts([ok, len(mine)])
+            ok = sum(r[0] for r in rows)
+            if sum(r[1] for r in rows) != len(videos):
+                raise RuntimeError(f"multihost: the shares {rows} do not cover {len(videos)} videos")
         return ok, len(videos)

@@ -2,8 +2,8 @@
 
 Charbonnier/L1 pixel losses, PSNR/SSIM on the device, the Adam train step
 on the models' differentiable forwards, degrade-on-the-fly patch sampling,
-the loop and the ``finetune`` CLI. One device: the sharded step is not
-ported yet.
+the loop and the ``finetune`` CLI, and the sharded (dp, tp) step over a
+``DeviceMesh`` (``train_step_sharded``, ``Trainer(mesh=)``).
 """
 
 from video_restore_tpu_torch.training.losses import (

@@ -9,6 +9,7 @@ error, never a silent move to the CPU.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator
 
 import torch
@@ -29,16 +30,25 @@ def resolve_device(cpu: bool = False) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+# the TF32 flags are process-wide: one thread at a time sets them
+_tf32_lock = threading.RLock()
+
+
 @contextlib.contextmanager
 def tf32(enabled: bool) -> Iterator[None]:
     """The TF32 flags of cuDNN convs and CUDA matmuls for one call, restored
     after it (on the CPU they change nothing). The port's fp32 library calls
-    (GFPGAN, training, the losses) run inside it with ``enabled=False``
-    unless the caller asks for TF32."""
+    (GFPGAN, the resize, training, the losses) run inside it with
+    ``enabled=False`` unless the caller asks for TF32. The flags belong to
+    the process, so the block holds a lock: the dispatch threads of a
+    sharded upscaler, each running its face pass, take turns, and no thread
+    restores the flags while another's calls inside the block still
+    launch."""
     cudnn, mm = torch.backends.cudnn, torch.backends.cuda.matmul
-    prev = (cudnn.allow_tf32, mm.allow_tf32)
-    cudnn.allow_tf32 = mm.allow_tf32 = enabled
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, mm.allow_tf32 = prev
+    with _tf32_lock:
+        prev = (cudnn.allow_tf32, mm.allow_tf32)
+        cudnn.allow_tf32 = mm.allow_tf32 = enabled
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32, mm.allow_tf32 = prev
