@@ -13,7 +13,7 @@ route), ``k5``, ``k3``, ``k6`` and ``k4``
 (all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``,
-``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
+``main_postbf16``, ``config3``, ``config2_1080p``, ``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
 ``gfpgan`` (phase 13), ``train`` (phase 16), ``multi`` (phase 17). Phases 1
 and 2 always run. A partial run prints
 neither the per-kernel record nor the final ``{"ok": true, ...}`` line; the
@@ -54,7 +54,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    0.02, and the flagship's 1x4320x7680x3, each ``torch.equal`` to the
    forced ``tile`` route and within ``compare``'s bound of plain; then the
    old kernel, the new one, the plain version and ``dst.copy_(src)`` of the
-   8K frame side by side, the new one at least 3x the old. K5's
+   8K frame side by side, the new one at least 3x the old. The same cases
+   on K2's bf16 instances (``unsharp_fused:rows:bf16``): ``rows`` equal to
+   ``tile`` bit for bit, each within one bf16 step of
+   ``unsharp_fused_plain``, and the 8K frame timed the same way. K5's
    tensor-core route (``rdb_fused_k5:mma``, ``rrdb_fused:mma``) the same
    way: one RDB (with and without ``x0``) and a whole RRDB in bf16 at nf 64
    / gc 32 at odd shapes (a frame smaller than one tile, ragged extents no
@@ -157,6 +160,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     kernel path (>= 45 dB on u8 per frame: one function, two kernel
     routes); the step's ms/frame and the path's peak memory are printed
     beside the default tail's;
+10b. ``[main_postbf16]``: the flagship flags with ``VRT_POST_DT=bf16``
+    (the post stack in bf16 after the full-frame model: K2's bf16 instance,
+    ``unsharp_fused:rows:bf16`` once per frame), 2 frames, with the checks
+    of phases 4 and 5, and the output against the default fp32 post
+    stack's kernel path (>= 45 dB on u8 per frame; JAX holds the pair
+    within 2 levels); the step's ms/frame and the peak memory printed
+    beside ``[main]``'s;
+10c. ``[config3]``: ``BASELINE.json`` config 3, ``--enhanced --quality
+    max`` with the CLI's default model (RealESRGAN_x4plus; the preset's
+    tiles 512 / overlap 64, ``full_frame`` "auto", which takes full frame
+    where the card's memory allows: the line says which), 2 frames of
+    720x1280, with the checks of phases 4 and 5;
+10d. ``[config2_1080p]``: ``BASELINE.json`` config 2 at its own 1080p,
+    RealESRGAN_x4plus through ``--tile-size 512 --tile-overlap 32``
+    (seamless, 12 tiles), 2 frames, with the checks of phases 4 and 5;
 11. ``[io]``: the pinned ring under stress, the
     native framecodec (it must load) against numpy on an 8K frame, and an
     mp4 clip with audio through the repo's fake ffmpeg: the planes on the
@@ -245,7 +263,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 The card's ``nvidia-smi`` line is printed first and again just before the
 per-kernel JSON record, which is the line before the last (``launches`` sums
-the counts of the CLI runs of phases 4, 6-10, 14-17 and of phase 12, the
+the counts of the CLI runs of phases 4, 6-10d, 14-17 and of phase 12, the
 static-A8 row those of ``bench_rdb``'s int8s run, which the wrapper counts
 under ``rdb_fused_i8``; phase 11's runs are counted and checked on their
 own, and left out of the sums);
@@ -284,6 +302,9 @@ PALLAS = {
     "up1_fused": "video_restore_tpu/ops/pallas_tail.py:603",
     "tail_fused": "video_restore_tpu/ops/pallas_tail.py:266",
     "unsharp_fused": "video_restore_tpu/ops/pallas_post.py:131",
+    # K2's bf16 instance on the rows route: unsharp_fused on the bf16 frames
+    # of VRT_POST_DT=bf16 (pallas_post.py:175, out_shape x.dtype)
+    "unsharp_fused:rows:bf16": "video_restore_tpu/ops/pallas_post.py:131",
     # also #15 srvgg_stripe2d_padded (:370) and #16 srvgg_stripe_padded (:131)
     "srvgg_body": "video_restore_tpu/ops/pallas_srvgg.py:635",
     # also #18 srvgg_up_fused (:854), the tiled form
@@ -323,7 +344,7 @@ CUDA_ROUTE = {
     "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:mma": "mma",
     "tail_fused_q": "mma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
     "rdb_fused_i8 static": "mma", "conv3x3:narrow conv_last": "narrow",
-    "unsharp_fused": "rows",
+    "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
 }
 SOURCE = {
     # K1 is three routes (ops/tail.py::conv3x3_route). This row times the
@@ -336,6 +357,7 @@ SOURCE = {
     # K2 is two kernels (ops/unsharp.py::unsharp_route); the paths' frames
     # (fp32, C = 3) take the rows one
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp_rows.cu",
+    "unsharp_fused:rows:bf16": "video_restore_tpu_torch/csrc/unsharp_rows.cu",
     "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up_mma.cu",
     # K4 is two kernels (ops/quant.py::conv3x3_i8_route); these rows' convs
@@ -353,6 +375,7 @@ SOURCE = {
 PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
+    "main_postbf16", "config3", "config2_1080p",
 )
 # the paths after the face prior's phase: the face pass and the outscale resize
 POST_TAGS = ("faces", "outscale")
@@ -747,74 +770,92 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     def phase_k2():
-        """K2's rows route (``unsharp_rows.cu``): odd shapes, edge cases of
-        its strips, runs and halo, and radii 0..16, each
-        ``torch.equal`` to the forced tile route (both sum in one order) and
-        within compare's fp32 bound of plain; then the old kernel (tile
-        forced), the new one, the plain version and a copy of the frame side
-        by side at the flagship's 1x4320x7680x3."""
+        """K2's rows route (``unsharp_rows.cu``), fp32 and bf16 instances:
+        odd shapes, edge cases of its strips, runs and halo, and radii
+        0..16, each ``torch.equal`` to the forced tile route of the same
+        dtype (both sum in one order) and, in fp32, within compare's fp32
+        bound of plain, in bf16 within one bf16 step of
+        ``unsharp_fused_plain``; then the old kernel (tile forced), the new
+        one, the plain version and a copy of the frame side by side at the
+        flagship's 1x4320x7680x3, in fp32 and in bf16."""
         def held(tag, x, radius=4, thr=0.0):
+            dname = "fp32" if x.dtype == torch.float32 else "bf16"
+            tag = f"{tag} {dname}"
             _build.reset_launches()
             k = unsharp.unsharp_fused(x, 0.3, 1.5, radius, thr)
             torch.cuda.synchronize()
             got = _build.launches()
-            expect = {"unsharp_fused": 1, "unsharp_fused:rows": 1}
+            expect = {"unsharp_fused": 1, "unsharp_fused:rows": 1, f"unsharp_fused:rows:{dname}": 1}
             check(got == expect, f"[k2] {tag}: launches {got} != {expect}")
             old = unsharp.unsharp_fused(x, 0.3, 1.5, radius, thr, route="tile")
-            diff = (k - old).abs().max().item()
+            diff = (k.float() - old.float()).abs().max().item()
             check(torch.equal(k, old), f"[k2] {tag}: rows != tile (max |diff| {diff:.3g})")
             del old
-            p = post.unsharp_mask(x, 0.3, 1.5, radius, thr)
-            e = compare(f"[k2] {tag}", k, p, torch.float32)
-            k2_stats["bit_equal_cases"] = k2_stats.get("bit_equal_cases", 0) + 1
-            k2_stats["max_err"] = max(k2_stats.get("max_err", 0.0), e)
-            log(f"[k2] {tag} r={radius} threshold={thr}: == tile, err vs plain {e:.3g}, "
+            if x.dtype == torch.float32:
+                p = post.unsharp_mask(x, 0.3, 1.5, radius, thr)
+                e = compare(f"[k2] {tag}", k, p, torch.float32)
+                err = f"err vs plain {e:.3g}"
+            else:
+                p = unsharp.unsharp_fused_plain(x, 0.3, 1.5, radius, thr)
+                e, st = bf16_steps(f"[k2] {tag}", k, p, n=1)
+                err = f"err vs plain {e:.3g} ({st:.2f} bf16 steps)"
+            key = f"bit_equal_cases_{dname}"
+            k2_stats[key] = k2_stats.get(key, 0) + 1
+            k2_stats[f"max_err_{dname}"] = max(k2_stats.get(f"max_err_{dname}", 0.0), e)
+            log(f"[k2] {tag} r={radius} threshold={thr}: == tile, {err}, "
                 f"bit-equal to plain: {torch.equal(k, p)}")
 
-        def frame(*shape):
-            return torch.rand(*shape, generator=gen).to(dev)
+        for dt in (torch.float32, torch.bfloat16):
+            def frame(*shape):
+                return torch.rand(*shape, generator=gen).to(dev, dt)
 
-        for thr in (0.0, 0.02):
-            held("2x37x53x3 (W*C % 4 != 0)", frame(2, 37, 53, 3), thr=thr)
-        for shp in ((1, 1, 1, 3), (1, 5, 9, 3)):  # frames smaller than the halo
-            held(f"{'x'.join(map(str, shp))} (below the halo)", frame(*shp))
-        # a run shorter than 2r + 1 rows, 9 strips of a row
-        held("1x4x3000x3 (4 rows, 9 strips)", frame(1, 4, 3000, 3))
-        # runs that start mid-frame and cross strips and frames: no run length
-        # divides H
-        held("2x1037x1283x3 (runs cross strips and frames)", frame(2, 1037, 1283, 3), thr=0.02)
-        for r in (0, 1, 4, 16):
-            held(f"2x37x53x3 radius {r}", frame(2, 37, 53, 3), radius=r)
-            held(f"1x301x2000x3 radius {r}", frame(1, 301, 2000, 3), radius=r, thr=0.02)
-        # 4 bytes past a 16-byte boundary: the 4-byte copies at W*C % 4 == 0
-        buf = torch.rand(1 + 2 * 40 * 64 * 3, generator=gen).to(dev)
-        held("2x40x64x3 x off 16 bytes", buf[1:].view(2, 40, 64, 3), thr=0.02)
-        xu = frame(1, 4 * H, 4 * W, 3)
-        for thr in (0.0, 0.02):
-            held(f"1x{4 * H}x{4 * W}x3 (flagship)", xu, thr=thr)
+            for thr in (0.0, 0.02):
+                held("2x37x53x3 (W*C % 4 != 0)", frame(2, 37, 53, 3), thr=thr)
+            for shp in ((1, 1, 1, 3), (1, 5, 9, 3)):  # frames smaller than the halo
+                held(f"{'x'.join(map(str, shp))} (below the halo)", frame(*shp))
+            # a run shorter than 2r + 1 rows, 9 strips of a row
+            held("1x4x3000x3 (4 rows, 9 strips)", frame(1, 4, 3000, 3))
+            # runs that start mid-frame and cross strips and frames: no run length
+            # divides H
+            held("2x1037x1283x3 (runs cross strips and frames)", frame(2, 1037, 1283, 3), thr=0.02)
+            for r in (0, 1, 4, 16):
+                held(f"2x37x53x3 radius {r}", frame(2, 37, 53, 3), radius=r)
+                held(f"1x301x2000x3 radius {r}", frame(1, 301, 2000, 3), radius=r, thr=0.02)
+            # one value past a 16-byte boundary: the narrow copies at W*C % G == 0
+            buf = frame(1 + 2 * 40 * 64 * 3)
+            held("2x40x64x3 x off one value", buf[1:].view(2, 40, 64, 3), thr=0.02)
+            xu = frame(1, 4 * H, 4 * W, 3)
+            for thr in (0.0, 0.02):
+                held(f"1x{4 * H}x{4 * W}x3 (flagship)", xu, thr=thr)
 
-        # old, new, plain and a copy of the frame at the flagship's shape
-        nbytes = 2 * xu.numel() * 4
-        dst = torch.empty_like(xu)
-        new_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4), 20)
-        old_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4, route="tile"), 10)
-        plain_ms = timed(lambda: post.unsharp_mask(xu, 0.3, 1.5, 4), 3)
-        copy_ms = timed(lambda: dst.copy_(xu), 20)
-        new2_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4), 20)
-        bound = nbytes / PEAK_BYTES * 1e3
-        log(
-            f"[k2] 1x{4 * H}x{4 * W}x3 fp32 r=4: tile (old kernel) {old_ms:.3f} ms "
-            f"({nbytes / old_ms / 1e9:.2f} TB/s), rows (new kernel) {new_ms:.3f} / {new2_ms:.3f} ms "
-            f"({nbytes / new_ms / 1e9:.2f} TB/s; {old_ms / new_ms:.2f}x), plain {plain_ms:.3f} ms, "
-            f"dst.copy_(src) {copy_ms:.3f} ms ({nbytes / copy_ms / 1e9:.2f} TB/s); bound {bound:.3f} ms "
-            f"(bytes; the new kernel at {100 * bound / new_ms:.1f}% of it); "
-            f"{k2_stats['bit_equal_cases']} cases bit-equal to tile"
-        )
-        k2_stats.update(tile_ms=old_ms, rows_ms=new_ms, rows_again_ms=new2_ms, plain_ms=plain_ms,
-                        copy_ms=copy_ms, bound_ms=bound)
-        check(new_ms * 3 <= old_ms,
-              f"[k2] the rows route ({new_ms:.3f} ms) is not 3x the tile kernel ({old_ms:.3f})")
-        del xu, dst, buf
+            # old, new, plain and a copy of the frame at the flagship's shape
+            dname = "fp32" if dt == torch.float32 else "bf16"
+            plain = post.unsharp_mask if dt == torch.float32 else unsharp.unsharp_fused_plain
+            nbytes = 2 * xu.numel() * xu.element_size()
+            dst = torch.empty_like(xu)
+            new_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4), 20)
+            old_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4, route="tile"), 10)
+            plain_ms = timed(lambda: plain(xu, 0.3, 1.5, 4), 3)
+            copy_ms = timed(lambda: dst.copy_(xu), 20)
+            new2_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4), 20)
+            bound = nbytes / PEAK_BYTES * 1e3
+            log(
+                f"[k2] 1x{4 * H}x{4 * W}x3 {dname} r=4: tile (old kernel) {old_ms:.3f} ms "
+                f"({nbytes / old_ms / 1e9:.2f} TB/s), rows (new kernel) {new_ms:.3f} / {new2_ms:.3f} ms "
+                f"({nbytes / new_ms / 1e9:.2f} TB/s; {old_ms / new_ms:.2f}x), plain {plain_ms:.3f} ms, "
+                f"dst.copy_(src) {copy_ms:.3f} ms ({nbytes / copy_ms / 1e9:.2f} TB/s); bound {bound:.3f} ms "
+                f"(bytes; the new kernel at {100 * bound / new_ms:.1f}% of it); "
+                f"{k2_stats['bit_equal_cases_' + dname]} cases bit-equal to tile"
+            )
+            sfx = "" if dt == torch.float32 else "_bf16"
+            k2_stats.update({f"tile_ms{sfx}": old_ms, f"rows_ms{sfx}": new_ms, f"rows_again_ms{sfx}": new2_ms,
+                             f"plain_ms{sfx}": plain_ms, f"copy_ms{sfx}": copy_ms, f"bound_ms{sfx}": bound})
+            if dt == torch.float32:
+                check(new_ms * 3 <= old_ms,
+                      f"[k2] the rows route ({new_ms:.3f} ms) is not 3x the tile kernel ({old_ms:.3f})")
+            del xu, dst, buf
+        log(f"[k2] 1x{4 * H}x{4 * W}x3 r=4, rows: bf16 {k2_stats['rows_ms_bf16']:.3f} ms against fp32 "
+            f"{k2_stats['rows_ms']:.3f} ms (bounds {k2_stats['bound_ms_bf16']:.3f} and {k2_stats['bound_ms']:.3f})")
 
     k2_stats = {}
     if want("k2", "kernels"):
@@ -1625,6 +1666,14 @@ def main(argv=None) -> int:
             2 * xu.numel() * 4, xu.numel() * (2 * 2 * 9 + 4), PEAK_FP32,
             torch.float32,
         )
+        # its bf16 instance (VRT_POST_DT=bf16): fp32 inside, half the bytes
+        xu = xu.to(bf)
+        record(
+            "unsharp_fused:rows:bf16", "1x4320x7680x3 bf16",
+            lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4),
+            lambda: unsharp.unsharp_fused_plain(xu, 0.3, 1.5, 4), 10,
+            2 * xu.numel() * 2, xu.numel() * (2 * 2 * 9 + 4), PEAK_FP32, bf,
+        )
         del xu
         # config 4 (SRVGGNetCompact, nf 64, 32 convs, r 4) at 1080x1920
         NC, R = 32, 4
@@ -1976,7 +2025,11 @@ def main(argv=None) -> int:
         n_frames = len(decoded)
         # the bucket process_video uses: the y4m sink takes device I420
         grid = restorer._upscaler_for(h, w, yuv_out=True).grid
-        check(grid.n_tiles == expect_tiles, f"[{tag}] {grid.n_tiles} tiles, expected {expect_tiles}")
+        if expect_tiles is None:  # full_frame "auto": the card's memory decides
+            log(f"[{tag}] full_frame=auto took {'full frame' if grid.n_tiles == 1 else 'tiles'}: "
+                f"{grid.n_tiles} tile(s) of {grid.tile_shape}")
+        else:
+            check(grid.n_tiles == expect_tiles, f"[{tag}] {grid.n_tiles} tiles, expected {expect_tiles}")
         s = restorer.model.scale
         expected = {k: v * grid.n_chunks * n_frames for k, v in per_call.items()}
         torch.cuda.synchronize()
@@ -2034,24 +2087,27 @@ def main(argv=None) -> int:
         if vs_default:
             runs.append(("default", cfg))
         for key, run_cfg in runs:
-            if key == "default":  # the module resolves its modes without the knob
-                knob = os.environ.pop(vs_default)
-                ups = Upscaler(model, grid, run_cfg, dev)
-                os.environ[vs_default] = knob
-            else:
+            # the default route runs without the knob, which the module reads
+            # where it is built (VRT_PALLAS, VRT_TAIL_Q) and the step at call
+            # time (VRT_POST_DT)
+            knob = os.environ.pop(vs_default) if key == "default" else None
+            try:
                 ups = Upscaler(model, grid, run_cfg, dev, plain=key is True,
                                yuv420_out=key == "yuv")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            if key == "yuv":  # fetched as the runner fetches: the pinned ring
-                outs[key] = []
-                for f in decoded:
-                    fetched = ups.fetch(ups.process_batch(f[None]))
-                    outs[key].append(fetched.wait()[0].copy())
-                    fetched.release()
-            else:
-                outs[key] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
-            dt_s = time.perf_counter() - t0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if key == "yuv":  # fetched as the runner fetches: the pinned ring
+                    outs[key] = []
+                    for f in decoded:
+                        fetched = ups.fetch(ups.process_batch(f[None]))
+                        outs[key].append(fetched.wait()[0].copy())
+                        fetched.release()
+                else:
+                    outs[key] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
+                dt_s = time.perf_counter() - t0
+            finally:
+                if knob is not None:
+                    os.environ[vs_default] = knob
             step_ms[key] = 1e3 * dt_s / n_frames
             name = {False: "kernel", True: "plain", "bf16": "bf16 kernel", "yuv": "kernel (I420 out, pinned fetch)",
                     "default": f"default (no {vs_default}) kernel"}[key]
@@ -2125,6 +2181,12 @@ def main(argv=None) -> int:
             log(f"[{tag}] vs the default (no {vs_default}) kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
             check(min(dbs) >= 45.0, f"[{tag}] vs the default route {min(dbs):.2f} dB < 45")
             path_stats[tag].update(default_step_ms=step_ms["default"], vs_default_db=dbs)
+            if "main" in path_stats:
+                m = path_stats["main"]
+                log(f"[{tag}] beside [main] (same weights, its own clip): step (RGB, .cpu()) "
+                    f"{step_ms[False]:.1f} against {m['step_ms']:.1f} ms/frame, step (I420, pinned) "
+                    f"{step_ms['yuv']:.1f} against {m['yuv_step_ms']:.1f}, peak {peak:.2f} against "
+                    f"{m['peak_gib']:.2f} GiB; the default route in this run {step_ms['default']:.1f} ms/frame")
         if post_split:
             split = stage_split(tag, model, grid, cfg, decoded, outs["yuv"])
             log(f"[post] {tag} step (host clock, the kernel paths above, same run): I420 out with the "
@@ -2162,7 +2224,9 @@ def main(argv=None) -> int:
         "conv3x3_i8:mma": n_rdb, "up1_fused": 1, "tail_fused": 3, **k1_routes(4, 1, 1),
     }
     # K2 of an enhanced frame: the sharpen stage on the rows route
-    K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1}
+    K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1, "unsharp_fused:rows:fp32": 1}
+    # ... and on its bf16 instance under VRT_POST_DT=bf16
+    K2_ROWS_BF16 = {"unsharp_fused": 1, "unsharp_fused:rows": 1, "unsharp_fused:rows:bf16": 1}
     flagship = ["--model", "RealESRGAN_x4plus", "--enhanced", "--sharpen", "0.3",
                 "--tile-size", "0", "--models-dir", str(models_dir)]
     config4 = ["--model", "RealESRGAN_x4_v3", "--anime-mode", "--quality", "fast",
@@ -2180,12 +2244,21 @@ def main(argv=None) -> int:
                           and c.sharpen == 0 and c.color_enhance and c.clahe_lr
                           and c.temporal and c.full_frame == "auto" and c.precision == precision)
 
+    def is_config3(c):
+        # BASELINE.json config 3: --enhanced --quality max, the CLI's default
+        # model; the preset's tiles (512, overlap 64), full_frame "auto"
+        return (c.model_name == "RealESRGAN_x4plus" and c.enhanced_mode and c.denoise == 0.5
+                and c.sharpen == 0 and c.color_enhance and c.clahe_lr and c.temporal
+                and c.tile_size == 512 and c.tile_overlap == 64 and c.full_frame == "auto"
+                and c.seamless and c.precision == "bf16")
+
     def is_tiled(precision):
         return lambda c: (c.tile_size == 512 and c.tile_overlap == 32
                           and c.full_frame == "off" and c.seamless
                           and not c.enhanced_mode and c.precision == precision)
 
-    # (tag, clip (h, w, frames), argv, per call, config check, tiles, knob, drive's keywords)
+    # (tag, clip (h, w, frames), argv, per call, config check, tiles (None:
+    # full_frame "auto" decides), knobs set around it, drive's keywords)
     PATHS = (
         # phases 4-5: the flagship
         ("main", (H, W, 3), flagship + ["--precision", "bf16"],
@@ -2212,13 +2285,24 @@ def main(argv=None) -> int:
          {"conv3x3_fused": 2, "rrdb_fused": spec.num_block,
           "rrdb_fused:mma": spec.num_block, "up1_fused": 1,
           "tail_fused": 3, **K2_ROWS, **k1_routes(4, 1, 1)},
-         is_flagship("bf16"), 1, "VRT_PALLAS", dict(vs_default="VRT_PALLAS")),
+         is_flagship("bf16"), 1, {"VRT_PALLAS": "1"}, dict(vs_default="VRT_PALLAS")),
         # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
         ("main_tailq", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1,
           "tail_fused_q": 1, "tail_fused_q:mma": 1, **K2_ROWS,
           **k1_routes(n_rdb + 2, 1, 0)},
-         is_flagship("bf16"), 1, "VRT_TAIL_Q", dict(vs_default="VRT_TAIL_Q")),
+         is_flagship("bf16"), 1, {"VRT_TAIL_Q": "1"}, dict(vs_default="VRT_TAIL_Q")),
+        # phase 10b: the flagship with VRT_POST_DT=bf16: the post stack in
+        # bf16, K2's bf16 instance once per frame
+        ("main_postbf16", (H, W, 2), flagship + ["--precision", "bf16"],
+         {**rrdb_call, **K2_ROWS_BF16}, is_flagship("bf16"), 1, {"VRT_POST_DT": "bf16"},
+         dict(vs_default="VRT_POST_DT")),
+        # phase 10c: BASELINE.json config 3, 720p (the card may take full frame)
+        ("config3", (720, 1280, 2), ["--enhanced", "--quality", "max", "--models-dir", str(models_dir)],
+         rrdb_call, is_config3, None, None, {}),
+        # phase 10d: BASELINE.json config 2 at its own 1080p (12 tiles)
+        ("config2_1080p", (H, W, 2), ["--model", "RealESRGAN_x4plus"] + tiled,
+         rrdb_call, is_tiled("bf16"), 12, None, {}),
     )
     check(tuple(p_[0] for p_ in PATHS) == PATH_TAGS, "path tags")
 
@@ -2259,13 +2343,12 @@ def main(argv=None) -> int:
         if clip not in clips:
             clips[clip] = work / "in_{}x{}_{}.y4m".format(*clip)
             make_clip(clips[clip], *clip)
-        if knob:
-            os.environ[knob] = "1"
+        os.environ.update(knob or {})
         try:
             drive(tag, clips[clip], argv_, per_call, cfg_check, tiles, **kw)
         finally:
-            if knob:
-                os.environ.pop(knob)
+            for name in knob or {}:
+                os.environ.pop(name)
 
     # ---- phases 13-15: the face prior, the face pass, the outscale resize ----
     from video_restore_tpu_torch.models import gfpgan as gfp

@@ -110,7 +110,7 @@ def _port_source_knobs() -> set:
 
 def test_knob_registry_is_the_ports_sources():
     assert knobs.KNOWN_KNOBS == _port_source_knobs()
-    assert len(knobs.KNOWN_KNOBS) == 8
+    assert len(knobs.KNOWN_KNOBS) == 12
 
 
 def test_warn_unknown_knobs(caplog):

@@ -4,7 +4,9 @@ kernel has to get right.
 
 ``"rows"`` (``csrc/unsharp_rows.cu``) streams down rows of a strip with
 16-byte copies and C a template parameter (3, RGB frames); ``"tile"``
-(``csrc/unsharp.cu``) takes every call. Both sum in ``ops/post.py``'s order,
+(``csrc/unsharp.cu``) takes every call. Each has an fp32 and a bf16
+instance (fp32 inside, one rounding on the store; the bf16 function against
+the JAX package is in ``test_torch_post_dt.py``). Both sum in ``ops/post.py``'s order,
 so their outputs are equal bit for bit (held on the card by ``chip_smoke.py
 --only k2``). The route is a pure function of the call, tested here on the
 CPU, where the wrapper runs the plain version and launches nothing.
@@ -49,7 +51,10 @@ def _x(b=1, h=4, w=5, c=3, dt=F32):
         (4, 4, 4, F32, "tile"),
         (2, 1, 3, F32, "tile"),
         (3, 17, 4, F32, "tile"),   # beyond either kernel (the wrapper refuses it)
-        (3, 4, 4, BF, "tile"),     # not fp32 (the wrapper refuses it)
+        (3, 4, 4, BF, "rows"),     # the bf16 instance (VRT_POST_DT=bf16 frames)
+        (3, 4, 53, BF, "rows"),    # W*C % 8 != 0: its 2-byte copies
+        (4, 4, 4, BF, "tile"),
+        (3, 4, 4, torch.float16, "tile"),  # neither instance (the wrapper refuses it)
     ],
 )
 def test_the_route_table(c, radius, w, dt, route):
@@ -82,14 +87,16 @@ def test_a_forced_route_is_checked():
 
 
 @pytest.mark.parametrize(
-    "case", ["radius 17", "radius -1", "bf16", "3-d", "route 'fma'", "forced rows at C 4", "meta device"]
+    "case", ["radius 17", "radius -1", "fp16", "fp64", "3-d", "route 'fma'", "forced rows at C 4",
+             "meta device"]
 )
 def test_the_wrapper_refuses(case):
     x = torch.rand(1, 6, 7, 3)
     call = {
         "radius 17": lambda: unsharp.unsharp_fused(x, 0.3, 1.5, 17),
         "radius -1": lambda: unsharp.unsharp_fused(x, 0.3, 1.5, -1),
-        "bf16": lambda: unsharp.unsharp_fused(x.to(BF), 0.3, 1.5, 4),
+        "fp16": lambda: unsharp.unsharp_fused(x.to(torch.float16), 0.3, 1.5, 4),
+        "fp64": lambda: unsharp.unsharp_fused(x.double(), 0.3, 1.5, 4),
         "3-d": lambda: unsharp.unsharp_fused(x[0], 0.3, 1.5, 4),
         "route 'fma'": lambda: unsharp.unsharp_fused(x, 0.3, 1.5, 4, route="fma"),
         "forced rows at C 4": lambda: unsharp.unsharp_fused(

@@ -2,9 +2,9 @@
 
 Port of ``video_restore_tpu/config.py``: ``RestoreConfig`` and
 ``apply_quality_preset`` are copied field for field, so the CLI and the
-preset matrix behave exactly as the JAX package's. Several fields select
-subsystems this package has not ported yet; the CLI refuses them with a
-"not yet ported" message instead of ignoring them.
+preset matrix behave exactly as the JAX package's. Every field is ported:
+the CLI refuses no flag, and each field reaches the subsystem that the JAX
+package's does.
 """
 
 from __future__ import annotations

@@ -198,6 +198,21 @@ def body_mode(device) -> str:
     return "pallas" if torch.device(device).type == "cuda" else "stripe"
 
 
+PRECISIONS = ("bf16", "int8")
+
+
+def default_precision() -> str:
+    """The body's precision when the caller names none: ``VRT_PRECISION``
+    ("bf16" by default, or "int8", any case), read at call time; any other
+    value raises ``ValueError`` (JAX ``rrdbnet.py:383-398``, the default of
+    its ``apply`` and of ``srvgg.py``'s). The CLI always passes
+    ``--precision``, so only callers of the API see it."""
+    v = os.environ.get("VRT_PRECISION", "bf16").lower()
+    if v not in PRECISIONS:
+        raise ValueError(f"VRT_PRECISION must be bf16 or int8 (got {v!r})")
+    return v
+
+
 TAIL_MODES = ("chain", "q")
 
 
@@ -254,7 +269,7 @@ class RRDBNet(nn.Module):
 
     @torch.no_grad()
     def prepare(
-        self, dtype: torch.dtype, device, precision: str = "bf16",
+        self, dtype: torch.dtype, device, precision: Optional[str] = None,
         mode: str = "stripe", tail: str = "chain",
     ) -> "RRDBNet":
         """Move the weights once to the compute dtype and device (biases
@@ -263,7 +278,10 @@ class RRDBNet(nn.Module):
         ``mode`` picks the body (:data:`MODES`). With ``precision="int8"``
         and the stripe body every RDB also quantises its cast weights (the
         W8A8 body); the pallas body ignores int8. ``tail`` picks the tail
-        (:data:`TAIL_MODES`), whatever the body. Returns self."""
+        (:data:`TAIL_MODES`), whatever the body. ``precision`` None:
+        :func:`default_precision`. Returns self."""
+        if precision is None:
+            precision = default_precision()
         if mode not in MODES:
             raise ValueError(f"unknown RRDBNet body mode {mode!r}")
         if tail not in TAIL_MODES:

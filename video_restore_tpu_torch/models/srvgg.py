@@ -34,7 +34,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from video_restore_tpu_torch.models.rrdbnet import Conv3x3, _conv_hwio, _conv_nchw
+from video_restore_tpu_torch.models.rrdbnet import (
+    Conv3x3,
+    _conv_hwio,
+    _conv_nchw,
+    default_precision,
+)
 from video_restore_tpu_torch.ops.quant import pack_i8_weights, quantize_conv_weights
 from video_restore_tpu_torch.ops.srvgg import (
     srvgg_body,
@@ -86,7 +91,7 @@ class SRVGGNet(nn.Module):
 
     @torch.no_grad()
     def prepare(
-        self, dtype: torch.dtype, device, precision: str = "bf16"
+        self, dtype: torch.dtype, device, precision: Optional[str] = None
     ) -> "SRVGGNet":
         """Move the weights once to the compute dtype and device (biases and
         alphas included, as the JAX zoo casts every float leaf). With
@@ -95,7 +100,11 @@ class SRVGGNet(nn.Module):
         (each conv's ``wq`` packed for K4's ``"mma"`` route). Where
         K3's tensor-core route reads conv_out with padded output columns
         (r 2: 12 -> 16), the padded copy is made here, once, as the buffer
-        ``w_up`` (``ops/srvgg.py::srvgg_up_weights``). Returns self."""
+        ``w_up`` (``ops/srvgg.py::srvgg_up_weights``). ``precision`` None:
+        ``rrdbnet.default_precision`` (``VRT_PRECISION``, as JAX
+        ``srvgg.py:301-304``). Returns self."""
+        if precision is None:
+            precision = default_precision()
         self.to(device=device, dtype=dtype)
         self.precision = precision
         w = self.conv_out.w

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
-from typing import Any, Dict, Iterator, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,10 +78,11 @@ class ModelHandle:
         return self.spec.scale
 
     def module(
-        self, dtype: torch.dtype, device, precision: str = "bf16"
+        self, dtype: torch.dtype, device, precision: Optional[str] = None
     ) -> Union[RRDBNet, SRVGGNet]:
         """The prepared network in ``dtype`` on ``device``; ``precision``
-        "int8" selects the W8A8 body, and an RRDBNet's body mode follows
+        "int8" selects the W8A8 body (None: ``VRT_PRECISION``, through
+        ``rrdbnet.default_precision``), and an RRDBNet's body mode follows
         ``VRT_PALLAS`` and its tail mode ``VRT_TAIL_Q`` on a CUDA device
         (``zoo.py:120-157`` of the JAX package, ``rrdbnet.body_mode``,
         ``rrdbnet.tail_mode``)."""

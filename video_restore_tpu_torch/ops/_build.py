@@ -155,8 +155,10 @@ def load() -> ctypes.CDLL:
                 _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _F, _F, _P,
             ]
             lib.vr_unsharp.restype = _I
-            lib.vr_unsharp_rows.argtypes = lib.vr_unsharp.argtypes
-            lib.vr_unsharp_rows.restype = _I
+            # the bf16 instances take the same arguments (x, y as void*)
+            for fn in (lib.vr_unsharp_rows, lib.vr_unsharp_bf16, lib.vr_unsharp_rows_bf16):
+                fn.argtypes = lib.vr_unsharp.argtypes
+                fn.restype = _I
             lib.vr_srvgg_up.argtypes = [
                 _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
             ]

@@ -3,12 +3,24 @@
 Port of ``video_restore_tpu/ops/color.py`` (``rgb_to_ycbcr``,
 ``ycbcr_to_rgb``, ``quantize_u8`` with its ordered dither). Rounding is
 half to even in both frameworks (``jnp.round``, ``torch.round``).
+
+On a bf16 tensor each operation rounds to bf16, as JAX's does, and a
+Python constant takes the tensor's dtype first (JAX's weak typing, which
+``weak`` reproduces: PyTorch would otherwise multiply by the constant in
+fp32 before it rounds).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def weak(v: float, dtype: torch.dtype) -> float:
+    """The Python scalar ``v`` as JAX's weak typing makes it an operand of
+    a ``dtype`` array: rounded to ``dtype``. fp32 is returned as is (its
+    op math already rounds the scalar to fp32)."""
+    return v if dtype == torch.float32 else float(torch.tensor(v, dtype=dtype))
 
 
 def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
@@ -59,7 +71,8 @@ def rgb_to_yuv420_planar(rgb: torch.Tensor, dither: bool = False) -> torch.Tenso
     frame and of ffmpeg's ``-pix_fmt yuv420p`` rawvideo input.
 
     Port of ``ops/color.py:72-110`` of the JAX package, in its operation
-    order: fp32 luma and chroma differences, the Bayer-dithered floor or
+    order: luma and chroma differences in the input's dtype (fp32 on the
+    default path, bf16 under ``VRT_POST_DT=bf16``), the Bayer-dithered floor or
     the half-to-even round for Y, chroma averaged over rows and then
     columns, each plane clipped before the cast. Requires H % 4 == 0 and
     W % 2 == 0 (the H/2 chroma rows are packed pairwise into full-width
@@ -67,10 +80,11 @@ def rgb_to_yuv420_planar(rgb: torch.Tensor, dither: bool = False) -> torch.Tenso
     b_, h, w, _ = rgb.shape
     if h % 4 or w % 2:
         raise ValueError(f"yuv420 packing needs H%4==0, W%2==0 (got {h}x{w})")
+    dt = rgb.dtype
     r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    u = (b - y) * (1.0 / (2.0 * (1.0 - 0.114)))
-    v = (r - y) * (1.0 / (2.0 * (1.0 - 0.299)))
+    y = weak(0.299, dt) * r + weak(0.587, dt) * g + weak(0.114, dt) * b
+    u = (b - y) * weak(1.0 / (2.0 * (1.0 - 0.114)), dt)
+    v = (r - y) * weak(1.0 / (2.0 * (1.0 - 0.299)), dt)
     if dither:
         yq = torch.floor(16.0 + 219.0 * y + dither_offsets(h, w, rgb.device))
     else:

@@ -6,16 +6,22 @@ semantics, ``post.py:39-96``), ``clahe`` (``:97-217``),
 version of kernel K2, ``ops/unsharp.py``). Same operation order as the JAX
 functions, so fp32 results agree to rounding. All functions take float
 tensors in [0, 1], NHWC (leading batch axis).
+
+``unsharp_mask`` reads two of the JAX knobs at call time, as JAX's does
+(``post.py:285-303``): ``VRT_POST_DT=bf16`` keeps a bf16 input in bf16
+(the blur computed in fp32 and rounded to bf16, the high-pass and the add
+in bf16), and ``VRT_POST_BF16=1`` blurs the fp32 input rounded to bf16.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from video_restore_tpu_torch.ops.color import rgb_to_ycbcr, ycbcr_to_rgb
+from video_restore_tpu_torch.ops.color import rgb_to_ycbcr, weak, ycbcr_to_rgb
 
 
 def _bilateral_offsets(d: int) -> Tuple[Tuple[int, int, float], ...]:
@@ -192,6 +198,24 @@ def gaussian_blur(
     return res.to(x.dtype)
 
 
+def _unsharp_f32(
+    xf: torch.Tensor,
+    amount: float,
+    sigma: float,
+    radius: int,
+    threshold: float,
+    blur_bf16: bool = False,
+) -> torch.Tensor:
+    """``clip(xf + amount * (xf - blur), 0, 1)`` on fp32 ``xf``, with the
+    optional threshold; ``blur_bf16``: the blur of ``xf`` rounded to bf16,
+    widened back (``VRT_POST_BF16=1``)."""
+    src = xf.to(torch.bfloat16) if blur_bf16 else xf
+    hp = xf - gaussian_blur(src, sigma, radius).float()
+    if threshold > 0:
+        hp = torch.where(torch.abs(hp) >= threshold, hp, 0.0)
+    return torch.clamp(xf + amount * hp, 0.0, 1.0)
+
+
 def unsharp_mask(
     x: torch.Tensor,
     amount: float = 0.5,
@@ -200,9 +224,17 @@ def unsharp_mask(
     threshold: float = 0.0,
 ) -> torch.Tensor:
     """``clip(x + amount * (x - blur(x)), 0, 1)`` in fp32, with an optional
-    threshold below which the highpass is dropped."""
-    xf = x.float()
-    hp = xf - gaussian_blur(xf, sigma, radius)
-    if threshold > 0:
-        hp = torch.where(torch.abs(hp) >= threshold, hp, 0.0)
-    return torch.clamp(xf + amount * hp, 0.0, 1.0).to(x.dtype)
+    threshold below which the highpass is dropped; in x's dtype.
+
+    Under ``VRT_POST_DT=bf16`` a bf16 x stays in bf16: the blur is rounded
+    to bf16, and the highpass, the threshold test and the add are bf16
+    operations (``amount`` and ``threshold`` rounded to bf16 first, as
+    JAX's weak typing does). Under ``VRT_POST_BF16=1`` the blur runs on x
+    rounded to bf16. Both are read at call time."""
+    if os.environ.get("VRT_POST_DT") == "bf16" and x.dtype == torch.bfloat16:
+        hp = x - gaussian_blur(x, sigma, radius)
+        if threshold > 0:
+            hp = torch.where(torch.abs(hp) >= threshold, hp, 0.0)
+        return torch.clamp(x + weak(amount, x.dtype) * hp, 0.0, 1.0)
+    blur_bf16 = os.environ.get("VRT_POST_BF16") == "1"
+    return _unsharp_f32(x.float(), amount, sigma, radius, threshold, blur_bf16).to(x.dtype)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -208,6 +209,14 @@ def auto_tile_chunk(
     return int(chunk)
 
 
+def device_budget(total_bytes: int) -> int:
+    """The device bytes that :func:`auto_full_frame` sizes against:
+    ``VRT_HBM_BYTES`` when it is set to digits (a cap on a shared card; JAX
+    ``ops/tiles.py:242-246``), else the device's ``total_bytes``."""
+    env = os.environ.get("VRT_HBM_BYTES")
+    return int(env) if env and env.isdigit() else total_bytes
+
+
 def auto_full_frame(
     height: int,
     width: int,
@@ -219,9 +228,10 @@ def auto_full_frame(
 ) -> bool:
     """Whether a full-frame (tile=0) pass fits device memory:
     :func:`full_frame_bytes` against half the device's memory.
-    ``device_bytes`` defaults to the current CUDA device's total memory."""
+    ``device_bytes`` defaults to :func:`device_budget` of the current CUDA
+    device's total memory."""
     if device_bytes is None:
-        device_bytes = torch.cuda.mem_get_info()[1]
+        device_bytes = device_budget(torch.cuda.mem_get_info()[1])
     est = full_frame_bytes(height, width, scale, feat_ch, frames, tail_in_memory)
     return est <= 0.5 * device_bytes
 
@@ -338,7 +348,8 @@ def tiled_apply(
 ) -> torch.Tensor:
     """Upscale (N, H, W, C) frames (any float dtype: the model runs in the
     frames' dtype) through the tiled model; returns (N, H*scale, W*scale, C)
-    fp32, blended in fp32.
+    fp32, blended in fp32; in full-frame mode under ``VRT_POST_DT=bf16``,
+    the model's output in its own dtype.
 
     ``tile_sharding``: spatial parallelism, all devices cooperating on one
     frame's tiles (``tiles.py:364-400``, where it is a ``NamedSharding`` of
@@ -365,6 +376,10 @@ def tiled_apply(
     out = out.reshape((n, grid.n_tiles) + tuple(out.shape[1:]))
     r, c = grid.rows, grid.cols
     if grid.n_tiles == 1 and r.padded == r.dim and c.padded == c.dim:
-        # full-frame mode: one exact tile, all-ones window — no canvas
+        # full-frame mode: one exact tile, all-ones window — no canvas.
+        # VRT_POST_DT=bf16 keeps the model's dtype into the post stack
+        # (tiles.py:408-413, read at call time); the default is fp32
+        if os.environ.get("VRT_POST_DT") == "bf16":
+            return out[:, 0]
         return out[:, 0].float()
     return _blend_tiles(out, grid)

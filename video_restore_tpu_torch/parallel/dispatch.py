@@ -11,7 +11,11 @@ uint8 frames out, with the enhancement stack around the model::
 The dtype flow is the JAX step's: bilateral and CLAHE in fp32, the model in
 the compute dtype (bf16: fp32 sums inside each kernel, bf16 between
 kernels; the tiles of a tiled grid are cut in that dtype), fp32 from the
-model's exit on (``tiled_apply`` blends the tiles in fp32). The model is
+model's exit on (``tiled_apply`` blends the tiles in fp32). With
+``VRT_POST_DT=bf16`` (read at call time, ``ops/tiles.py``) a full-frame
+step keeps the model's dtype to the end: K2's bf16 instance, the EMA in
+bf16 with its statistics reduced in fp32, and the quantisers on the bf16
+frame, operation for operation as JAX's (``dispatch.py:182-258``). The model is
 either family, through ``ModelHandle.module``. The temporal EMA carries an
 explicit ``{frame, valid}`` pair per carry shard (an all-black previous
 frame is still a previous frame); ``lax.scan`` over the frames becomes a
@@ -53,7 +57,7 @@ import torch
 
 from video_restore_tpu_torch.config import RestoreConfig
 from video_restore_tpu_torch.models.zoo import ModelHandle
-from video_restore_tpu_torch.ops.color import quantize_u8, rgb_to_yuv420_planar
+from video_restore_tpu_torch.ops.color import quantize_u8, rgb_to_yuv420_planar, weak
 from video_restore_tpu_torch.ops.post import bilateral_filter, clahe, unsharp_mask
 from video_restore_tpu_torch.ops.tiles import TileGrid, tiled_apply
 from video_restore_tpu_torch.ops.unsharp import unsharp_fused
@@ -105,12 +109,16 @@ def _luma_hist(x: torch.Tensor) -> torch.Tensor:
     (..., _HIST_BINS) normalized, each pixel's unit mass split between its
     two nearest bins by a triangular kernel (``dispatch.py:96-114``).
     Computed as a two-bin scatter instead of the JAX form's dense
-    (pixels x bins) weights; the same sums in another order."""
-    luma = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2]
+    (pixels x bins) weights; the same sums in another order. The luma and
+    the bin position are computed in x's dtype and only then widened, as in
+    JAX (``dispatch.py:102-110``): a bf16 position above 16 has a step of
+    0.125, so the rounding point moves the weights."""
+    dt = x.dtype
+    luma = weak(0.299, dt) * x[..., 0] + weak(0.587, dt) * x[..., 1] + weak(0.114, dt) * x[..., 2]
     pos = torch.clamp(
-        torch.clamp(luma.float(), 0.0, 1.0) * _HIST_BINS - 0.5,
+        torch.clamp(luma, 0.0, 1.0) * _HIST_BINS - 0.5,
         0.0, _HIST_BINS - 1.0,
-    )  # edge clamp: boundary pixels keep full mass in the edge bin
+    ).float()  # edge clamp: boundary pixels keep full mass in the edge bin
     lead = pos.shape[:-2]
     pos = pos.reshape(-1, pos.shape[-2] * pos.shape[-1])
     lo = torch.floor(pos)
@@ -159,7 +167,8 @@ def restore_step(
         x = clahe(x, step_cfg.clahe_clip)
 
     x = x.to(compute_dtype)
-    y = tiled_apply(model_apply, x, grid, tile_sharding=tile_sharding)  # fp32
+    # fp32; at full frame under VRT_POST_DT=bf16, the model's dtype
+    y = tiled_apply(model_apply, x, grid, tile_sharding=tile_sharding)
 
     if step_cfg.color_enhance and not step_cfg.clahe_lr:
         y = clahe(y, step_cfg.clahe_clip)
@@ -202,8 +211,12 @@ def _ema_chunk(
     """The temporal EMA over one chunk's k frames (``lax.scan`` over its
     time axis becomes a Python loop), from its carry row (``frame`` (H*s,
     W*s, 3) uint8, ``valid`` a 0-d flag); returns the k blended frames and
-    the last one, unquantised."""
-    cf = frame.to(y.dtype) * (1.0 / 255.0)
+    the last one, unquantised. The blends run in y's dtype (bf16 under
+    ``VRT_POST_DT=bf16``, each constant rounded to it as JAX's weak typing
+    does); the frame's mean delta reduces in fp32 and is then rounded to
+    y's dtype (``dispatch.py:229-231``), the histograms in fp32."""
+    dt = y.dtype
+    cf = frame.to(dt) * weak(1.0 / 255.0, dt)
     use_hist = step_cfg.scene_cut_hist > 0
     if use_hist:
         h_all = _luma_hist(y)
@@ -215,9 +228,10 @@ def _ema_chunk(
         # displacement-invariant gate: a gap-frames-old carry must be gap
         # times more static to blend at the same weight
         gap = gap0 if t == 0 else 1.0
-        w = step_cfg.temporal_strength * torch.exp(-diff * (gap / 0.05))
-        w = w * (valid.to(y.dtype) if t == 0 else 1.0)
-        mdelta = diff.mean(dtype=torch.float32)
+        rate = weak(weak(gap, dt) / weak(0.05, dt), dt)  # JAX: gap.astype(fr.dtype) / 0.05
+        w = weak(step_cfg.temporal_strength, dt) * torch.exp(-diff * rate)
+        w = w * (valid.to(dt) if t == 0 else 1.0)
+        mdelta = diff.mean(dtype=torch.float32).to(dt)
         if use_hist:
             tvd = 0.5 * torch.abs(h_all[t] - ch).sum()
             cut = (

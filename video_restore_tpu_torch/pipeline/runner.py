@@ -62,6 +62,7 @@ from video_restore_tpu_torch.ops.tiles import (
     TileGrid,
     auto_full_frame,
     auto_tile_chunk,
+    device_budget,
 )
 from video_restore_tpu_torch.parallel.dispatch import ShardedUpscaler
 from video_restore_tpu_torch.parallel.mesh import frame_mesh
@@ -227,7 +228,8 @@ class VideoRestorer:
         """The restore step for one bucket ``(height, width, yuv_out)``
         (``runner.py:194-276`` of the JAX package): full frame when
         ``full_frame`` is "on", or "auto" and the frame fits the smallest
-        card of the mesh (``auto_full_frame``); else the tile grid, with
+        card of the mesh (``auto_full_frame``, against ``VRT_HBM_BYTES``
+        where it is set); else the tile grid, with
         ``tile_chunk`` tiles per model call (0 = auto). Legacy tiling and
         shard mode "tiles" always tile. On the CPU, with no device memory
         to size against, "auto" keeps the tiles, as the JAX package does
@@ -244,7 +246,7 @@ class VideoRestorer:
                     and self.device.type == "cuda"
                     and auto_full_frame(
                         height, width, self.model.scale,
-                        min(torch.cuda.mem_get_info(d)[1] for d in self.mesh),
+                        device_budget(min(torch.cuda.mem_get_info(d)[1] for d in self.mesh)),
                         frames=max(cfg.frames_per_batch, 1),
                         tail_in_memory=self._tail_in_memory(),
                     )
