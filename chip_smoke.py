@@ -25,13 +25,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
    ``conv3x3_mma.cu`` on ``mma_tile.cuh``, ``conv3x3_narrow.cu`` and
    ``conv3x3.cu``, K2
-   ``unsharp_rows.cu`` and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
+   ``unsharp_rows.cu`` (fp32) and ``unsharp_rows_bf16.cu`` (bf16), both on
+   ``unsharp_rows.cuh``, and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
    ``srvgg_up.cu``, K4 ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and
    ``conv3x3_i8.cu`` with its amax entry point, K5
    ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and ``rdb_fused.cu``, each with
    its one-RDB and whole-RRDB entry points, K6 ``tail_fused_mma.cu`` on
    ``mma_tile.cuh`` and ``tail_fused.cu``), and
-   print each kernel's registers, shared memory and spills from ``ptxas``;
+   print each source's compile seconds (one ``nvcc`` each, all in
+   parallel: the slowest sets the build's time) and each kernel's
+   registers, shared memory and spills from ``ptxas``;
 3. K1's tensor-core route (``conv3x3:mma``) first: every single conv at odd
    shapes in bf16 (ragged 2x37x53, a frame smaller than one tile, each
    activation, the residuals, the growth-buffer slices with cin 64..192,
@@ -51,13 +54,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    shapes (B = 2 at W*C % 4 != 0, frames smaller than the halo, 4 rows over
    9 strips, a 2x1037x1283 frame whose runs cross strips and frames, an x
    4 bytes off a 16-byte boundary), radius 0, 1, 4 and 16, thresholds 0 and
-   0.02, and the flagship's 1x4320x7680x3, each ``torch.equal`` to the
+   0.02, an x four values off, W*C % 8 == 4, and the flagship's
+   1x4320x7680x3, each ``torch.equal`` to the
    forced ``tile`` route and within ``compare``'s bound of plain; then the
    old kernel, the new one, the plain version and ``dst.copy_(src)`` of the
    8K frame side by side, the new one at least 3x the old. The same cases
    on K2's bf16 instances (``unsharp_fused:rows:bf16``): ``rows`` equal to
    ``tile`` bit for bit, each within one bf16 step of
-   ``unsharp_fused_plain``, and the 8K frame timed the same way. K5's
+   ``unsharp_fused_plain``, and the 8K frame timed the same way; each
+   instance's registers and blocks per SM, both terms of its bound (bytes,
+   and fp32 instructions at one a lane a clock), and the bf16 time against
+   the bf16 instance's time before its redesign. K5's
    tensor-core route (``rdb_fused_k5:mma``, ``rrdb_fused:mma``) the same
    way: one RDB (with and without ``x0``) and a whole RRDB in bf16 at nf 64
    / gc 32 at odd shapes (a frame smaller than one tile, ragged extents no
@@ -295,6 +302,20 @@ PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
+# fp32 instructions that are no FMA (K2 rounds each product and each sum):
+# one a lane a clock, half the FLOP rate that counts an FMA as two
+PEAK_FP32_UNFUSED = PEAK_FP32 / 2
+# K2's bf16 rows instance at 1x4320x7680x3, r = 4, before its H100
+# redesign (8 values a thread, one block an SM; NVIDIA H100 80GB HBM3, 700 W)
+K2_BF16_BEFORE_MS = (0.482, 0.490)
+
+
+def k2_ops(numel, radius):
+    """K2's fp32 instructions a call: per value 2r + 1 products and 2r sums
+    in each pass, and the epilogue's 5 (difference, product, sum, clip)."""
+    n = 2 * radius + 1
+    return numel * (2 * (2 * n - 1) + 5)
+
 
 PALLAS = {
     "conv3x3_fused": "video_restore_tpu/ops/pallas_tail.py:767",
@@ -357,7 +378,7 @@ SOURCE = {
     # K2 is two kernels (ops/unsharp.py::unsharp_route); the paths' frames
     # (fp32, C = 3) take the rows one
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp_rows.cu",
-    "unsharp_fused:rows:bf16": "video_restore_tpu_torch/csrc/unsharp_rows.cu",
+    "unsharp_fused:rows:bf16": "video_restore_tpu_torch/csrc/unsharp_rows_bf16.cu",
     "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up_mma.cu",
     # K4 is two kernels (ops/quant.py::conv3x3_i8_route); these rows' convs
@@ -457,8 +478,10 @@ def main(argv=None) -> int:
     # the redesigned sources, whose ptxas lines are repeated under their
     # phase's tag
     new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3", "tail_fused_mma.cu": "k6",
-                   "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2"}
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+                   "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
+                   "unsharp_rows_bf16.cu": "k2"}
+    build_log = (_build.BUILD_DIR / "build.log").read_text()
+    for line in build_log.splitlines():
         if line.startswith("=="):
             log(f"[build] {line.strip()}")
             source = line.split()[1]
@@ -473,6 +496,9 @@ def main(argv=None) -> int:
             log(f"[build] {msg}")
             if source in new_sources:
                 log(f"[{new_sources[source]}] ptxas {source} {msg}")
+    log("[build] nvcc seconds by source, slowest first: " + ", ".join(
+        f"{n} {t:.1f}" for n, t in sorted(_build.compile_seconds(build_log).items(),
+                                          key=lambda kv: -kv[1])))
 
     # ---- phase 3: kernels against their plain versions -------------------
     gen = torch.Generator().manual_seed(0)
@@ -770,14 +796,15 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     def phase_k2():
-        """K2's rows route (``unsharp_rows.cu``), fp32 and bf16 instances:
+        """K2's rows route (``unsharp_rows.cuh``), fp32 and bf16 instances:
         odd shapes, edge cases of its strips, runs and halo, and radii
         0..16, each ``torch.equal`` to the forced tile route of the same
         dtype (both sum in one order) and, in fp32, within compare's fp32
         bound of plain, in bf16 within one bf16 step of
         ``unsharp_fused_plain``; then the old kernel (tile forced), the new
         one, the plain version and a copy of the frame side by side at the
-        flagship's 1x4320x7680x3, in fp32 and in bf16."""
+        flagship's 1x4320x7680x3, in fp32 and in bf16; then a frame of more
+        than 2^31 values against the tile route."""
         def held(tag, x, radius=4, thr=0.0):
             dname = "fp32" if x.dtype == torch.float32 else "bf16"
             tag = f"{tag} {dname}"
@@ -824,6 +851,11 @@ def main(argv=None) -> int:
             # one value past a 16-byte boundary: the narrow copies at W*C % G == 0
             buf = frame(1 + 2 * 40 * 64 * 3)
             held("2x40x64x3 x off one value", buf[1:].view(2, 40, 64, 3), thr=0.02)
+            # four values past it (8 bytes in bf16, 16 in fp32), and W*C % 8 == 4:
+            # the bf16 instance's 8-byte copies where a group of 8 did not fit
+            buf = frame(4 + 2 * 40 * 64 * 3)
+            held("2x40x64x3 x off four values", buf[4:].view(2, 40, 64, 3), thr=0.02)
+            held("2x40x68x3 (W*C % 8 == 4)", frame(2, 40, 68, 3))
             xu = frame(1, 4 * H, 4 * W, 3)
             for thr in (0.0, 0.02):
                 held(f"1x{4 * H}x{4 * W}x3 (flagship)", xu, thr=thr)
@@ -838,24 +870,62 @@ def main(argv=None) -> int:
             plain_ms = timed(lambda: plain(xu, 0.3, 1.5, 4), 3)
             copy_ms = timed(lambda: dst.copy_(xu), 20)
             new2_ms = timed(lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4), 20)
-            bound = nbytes / PEAK_BYTES * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            ops_ms = k2_ops(xu.numel(), 4) / PEAK_FP32_UNFUSED * 1e3
+            bound = max(bytes_ms, ops_ms)
+            regs, per_sm = unsharp.rows_kernel_info(dt, 4)
             log(
                 f"[k2] 1x{4 * H}x{4 * W}x3 {dname} r=4: tile (old kernel) {old_ms:.3f} ms "
                 f"({nbytes / old_ms / 1e9:.2f} TB/s), rows (new kernel) {new_ms:.3f} / {new2_ms:.3f} ms "
                 f"({nbytes / new_ms / 1e9:.2f} TB/s; {old_ms / new_ms:.2f}x), plain {plain_ms:.3f} ms, "
                 f"dst.copy_(src) {copy_ms:.3f} ms ({nbytes / copy_ms / 1e9:.2f} TB/s); bound {bound:.3f} ms "
-                f"(bytes; the new kernel at {100 * bound / new_ms:.1f}% of it); "
+                f"= max(bytes {bytes_ms:.3f}, ops {ops_ms:.3f}: {k2_ops(xu.numel(), 4) / 1e9:.2f} G fp32 "
+                f"instructions, no FMA) (the new kernel at {100 * bound / new_ms:.1f}% of it); "
+                f"rows: {regs} registers a thread, {per_sm} blocks of 256 threads per SM; "
                 f"{k2_stats['bit_equal_cases_' + dname]} cases bit-equal to tile"
             )
             sfx = "" if dt == torch.float32 else "_bf16"
             k2_stats.update({f"tile_ms{sfx}": old_ms, f"rows_ms{sfx}": new_ms, f"rows_again_ms{sfx}": new2_ms,
-                             f"plain_ms{sfx}": plain_ms, f"copy_ms{sfx}": copy_ms, f"bound_ms{sfx}": bound})
+                             f"plain_ms{sfx}": plain_ms, f"copy_ms{sfx}": copy_ms, f"bound_ms{sfx}": bound,
+                             f"bytes_ms{sfx}": bytes_ms, f"ops_ms{sfx}": ops_ms, f"registers{sfx}": regs,
+                             f"blocks_per_sm{sfx}": per_sm})
             if dt == torch.float32:
                 check(new_ms * 3 <= old_ms,
                       f"[k2] the rows route ({new_ms:.3f} ms) is not 3x the tile kernel ({old_ms:.3f})")
             del xu, dst, buf
+
+            # a frame of more than 2^31 values (a row's offset in its frame is
+            # 64-bit): rows == tile over the whole frame, and its last rows, past
+            # 2^31 values, against plain on a slab of the frame's last 40 rows
+            # (the slab's first r rows replicate another edge, so they are left out)
+            big = f"1x11200x64000x3 {dname} (2.15 G values)"
+            xb = torch.empty(1, 11200, 64000, 3, device=dev, dtype=dt)
+            xb.uniform_(generator=torch.Generator(device=dev).manual_seed(17))
+            _build.reset_launches()
+            kb = unsharp.unsharp_fused(xb, 0.3, 1.5, 4)
+            torch.cuda.synchronize()
+            got = _build.launches()
+            expect = {"unsharp_fused": 1, "unsharp_fused:rows": 1, f"unsharp_fused:rows:{dname}": 1}
+            check(got == expect, f"[k2] {big}: launches {got} != {expect}")
+            ob = unsharp.unsharp_fused(xb, 0.3, 1.5, 4, route="tile")
+            check(torch.equal(kb, ob), f"[k2] {big}: rows != tile")
+            del ob
+            ps = plain(xb[:, -40:], 0.3, 1.5, 4)[:, 4:]
+            if dt == torch.float32:
+                e = compare(f"[k2] {big} last rows", kb[:, -36:], ps, torch.float32)
+                err = f"err vs plain {e:.3g}"
+            else:
+                e, st = bf16_steps(f"[k2] {big} last rows", kb[:, -36:], ps, n=1)
+                err = f"err vs plain {e:.3g} ({st:.2f} bf16 steps)"
+            log(f"[k2] {big} r=4: == tile; its last 36 rows {err}")
+            del xb, kb, ps
+            torch.cuda.empty_cache()
+        lo, hi = K2_BF16_BEFORE_MS
+        bf_ms = min(k2_stats["rows_ms_bf16"], k2_stats["rows_again_ms_bf16"])
         log(f"[k2] 1x{4 * H}x{4 * W}x3 r=4, rows: bf16 {k2_stats['rows_ms_bf16']:.3f} ms against fp32 "
-            f"{k2_stats['rows_ms']:.3f} ms (bounds {k2_stats['bound_ms_bf16']:.3f} and {k2_stats['bound_ms']:.3f})")
+            f"{k2_stats['rows_ms']:.3f} ms (bounds {k2_stats['bound_ms_bf16']:.3f} and {k2_stats['bound_ms']:.3f}); "
+            f"bf16 against its {lo:.3f}-{hi:.3f} ms before the redesign: {bf_ms / hi:.3f}-{bf_ms / lo:.3f}x "
+            f"({k2_stats['registers_bf16']} registers, {k2_stats['blocks_per_sm_bf16']} blocks per SM)")
 
     k2_stats = {}
     if want("k2", "kernels"):
@@ -1663,7 +1733,7 @@ def main(argv=None) -> int:
             "unsharp_fused", "1x4320x7680x3 fp32",
             lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4),
             lambda: post.unsharp_mask(xu, 0.3, 1.5, 4), 10,
-            2 * xu.numel() * 4, xu.numel() * (2 * 2 * 9 + 4), PEAK_FP32,
+            2 * xu.numel() * 4, k2_ops(xu.numel(), 4), PEAK_FP32_UNFUSED,
             torch.float32,
         )
         # its bf16 instance (VRT_POST_DT=bf16): fp32 inside, half the bytes
@@ -1672,7 +1742,7 @@ def main(argv=None) -> int:
             "unsharp_fused:rows:bf16", "1x4320x7680x3 bf16",
             lambda: unsharp.unsharp_fused(xu, 0.3, 1.5, 4),
             lambda: unsharp.unsharp_fused_plain(xu, 0.3, 1.5, 4), 10,
-            2 * xu.numel() * 2, xu.numel() * (2 * 2 * 9 + 4), PEAK_FP32, bf,
+            2 * xu.numel() * 2, k2_ops(xu.numel(), 4), PEAK_FP32_UNFUSED, bf,
         )
         del xu
         # config 4 (SRVGGNetCompact, nf 64, 32 convs, r 4) at 1080x1920

@@ -1,0 +1,140 @@
+"""The kernel library's build and K2's probe, on a machine without nvcc.
+
+``ops/_build.py`` starts one ``nvcc`` per source, all together, then links;
+``build.log`` gives each source's wall seconds, so a run shows which source
+is the long pole. A fake ``nvcc`` (a Python script that writes its ``-o``
+file, prints a ``ptxas`` line, and sleeps or fails where an environment
+variable says) stands in for the compiler. ``tools/probe_k2.py`` builds K2's
+sources alone with probe defines; its list of builds and its reader of
+``ptxas`` output are held here, its timings on the card only
+(``python -m video_restore_tpu_torch.tools.probe_k2``).
+"""
+
+import shutil
+import sys
+
+import pytest
+import torch
+
+from video_restore_tpu_torch.ops import _build
+from video_restore_tpu_torch.tools import probe_k2
+
+# one intra-op thread: the suite runs in several worker processes at once
+torch.set_num_threads(1)
+
+FAKE_NVCC = """
+import os, pathlib, sys, time
+args = sys.argv[1:]
+out = pathlib.Path(args[args.index("-o") + 1])
+if "-c" in args:
+    name = pathlib.Path(args[args.index("-c") + 1]).name
+    if name == os.environ.get("FAKE_NVCC_FAIL"):
+        print(name + ": error: no such luck")
+        sys.exit(1)
+    slow = os.environ.get("FAKE_NVCC_SLOW", "=").split("=")
+    if name == slow[0]:
+        time.sleep(float(slow[1]))
+    print("ptxas info    : Used 10 registers, used 1 barriers")
+out.write_bytes(b"")
+"""
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    """``_build`` with a fake nvcc and its own build directory."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\n{FAKE_NVCC}")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    for name in ("FAKE_NVCC_FAIL", "FAKE_NVCC_SLOW"):
+        monkeypatch.delenv(name, raising=False)
+    return monkeypatch
+
+
+def test_the_build_times_each_source(fake_nvcc):
+    """Each source's seconds are its own nvcc's (not the wait for the ones
+    before it in the list): the slow source shows its 2 s, and some other
+    source less."""
+    fake_nvcc.setenv("FAKE_NVCC_SLOW", "unsharp_rows_bf16.cu=2")
+    out = _build.build()
+    assert out.exists() and out.parent == _build.BUILD_DIR
+    secs = _build.compile_seconds((_build.BUILD_DIR / "build.log").read_text())
+    assert list(secs) == list(_build.SOURCES)
+    assert secs["unsharp_rows_bf16.cu"] >= 2.0
+    assert min(secs.values()) < secs["unsharp_rows_bf16.cu"]
+    assert _build.build() == out  # built once: the hash names the library
+
+
+def test_a_failing_source_is_named(fake_nvcc):
+    fake_nvcc.setenv("FAKE_NVCC_FAIL", "unsharp_rows.cu")
+    with pytest.raises(RuntimeError, match=r"nvcc failed for \['unsharp_rows.cu'\]"):
+        _build.build()
+    log = (_build.BUILD_DIR / "build.log").read_text()
+    assert "== unsharp_rows.cu (rc 1, " in log and "no such luck" in log
+    assert "unsharp_rows.cu" in _build.compile_seconds(log)
+    assert not list(_build.BUILD_DIR.glob("*.so"))
+
+
+def test_compile_seconds_reads_the_log_lines():
+    log = "== a.cu (rc 0, 12.5 s)\nptxas info\n== b.cu (rc 1, 3.0 s)\n== c.cu (rc 0)\n"
+    assert _build.compile_seconds(log) == {"a.cu": 12.5, "b.cu": 3.0}
+    assert _build.compile_seconds("") == {}
+
+
+def test_an_edited_header_renames_the_library(tmp_path, monkeypatch):
+    """The rows kernel lives in ``unsharp_rows.cuh``, which neither source
+    list names: the library's hash reads every file under ``csrc/``."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path()
+    (csrc / "unsharp_rows.cuh").write_text((csrc / "unsharp_rows.cuh").read_text() + "\n")
+    assert _build.library_path() != before
+
+
+# ---- tools/probe_k2.py ---------------------------------------------------------
+
+
+def test_the_probe_builds_per_dtype():
+    bf = {name: (src.name, entry, defs) for name, src, entry, defs in probe_k2.builds("bf16")}
+    assert bf == {
+        "tile full": ("unsharp.cu", "vr_unsharp_bf16", ()),
+        "rows full": ("unsharp_rows_bf16.cu", "vr_unsharp_rows_bf16", ()),
+        "rows no_math": ("unsharp_rows_bf16.cu", "vr_unsharp_rows_bf16", ("-DVR_PROBE_NO_MATH",)),
+    }
+    f32 = [(name, src.name, entry) for name, src, entry, _ in probe_k2.builds("fp32")]
+    assert f32 == [
+        ("tile full", "unsharp.cu", "vr_unsharp"),
+        ("tile no_math", "unsharp.cu", "vr_unsharp"),
+        ("tile const_decode", "unsharp.cu", "vr_unsharp"),
+        ("rows full", "unsharp_rows.cu", "vr_unsharp_rows"),
+        ("rows no_math", "unsharp_rows.cu", "vr_unsharp_rows"),
+    ]
+    for _, src, _, _ in probe_k2.builds("fp32") + probe_k2.builds("bf16"):
+        assert src.exists()
+
+
+def test_the_probe_needs_the_card(capsys):
+    """Without a CUDA device it fails before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the probe would time it")
+    assert probe_k2.main(["--dtype", "bf16"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_the_probe_reads_ptxas_at_its_radius():
+    text = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119unsharp_rows_kernel"
+        "I13__nv_bfloat16Li3ELi4EEEvNS_6ParamsIT_EE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 79 registers, used 1 barriers, 400 bytes cmem[0]",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119unsharp_rows_kernel"
+        "I13__nv_bfloat16Li3ELi14EEEvNS_6ParamsIT_EE' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers, 400 bytes cmem[0]",
+    ])
+    assert probe_k2._ptxas_lines("rows full", text) == [
+        "[build] rows full: Used 79 registers, used 1 barriers, 400 bytes cmem[0]; "
+        "0 bytes spill stores, 0 bytes spill loads"
+    ]

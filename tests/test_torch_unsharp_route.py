@@ -2,14 +2,22 @@
 refuses, and the function against the JAX package at the shapes the rows
 kernel has to get right.
 
-``"rows"`` (``csrc/unsharp_rows.cu``) streams down rows of a strip with
-16-byte copies and C a template parameter (3, RGB frames); ``"tile"``
-(``csrc/unsharp.cu``) takes every call. Each has an fp32 and a bf16
-instance (fp32 inside, one rounding on the store; the bf16 function against
-the JAX package is in ``test_torch_post_dt.py``). Both sum in ``ops/post.py``'s order,
+``"rows"`` (``csrc/unsharp_rows.cuh``, its fp32 instance built in
+``unsharp_rows.cu`` and its bf16 one in ``unsharp_rows_bf16.cu``) streams
+down rows of a strip, four values a thread, with C a template parameter (3,
+RGB frames); ``"tile"`` (``csrc/unsharp.cu``) takes every call. Each has an
+fp32 and a bf16 instance (fp32 inside, one rounding on the store; the bf16
+function against the Pallas kernel is in ``test_torch_post_dt.py``, against
+``post.unsharp_mask`` of the widened frame here). Both sum in ``ops/post.py``'s order,
 so their outputs are equal bit for bit (held on the card by ``chip_smoke.py
 --only k2``). The route is a pure function of the call, tested here on the
 CPU, where the wrapper runs the plain version and launches nothing.
+
+The bf16 function (``unsharp_fused_plain``) against the JAX package's
+``post.unsharp_mask`` of the same bf16 frame widened to fp32, its result
+rounded once to bf16, as the kernels compute: both sum fp32 products of the
+same taps, in another order, so a value near a rounding boundary may round
+the other way: within one bf16 step (2^-8 relative) per value.
 
 Against the JAX package with the same numpy inputs, fp32 on both sides:
 ``pallas_post.unsharp_fused(interpret=True)`` where the Pallas kernel takes
@@ -62,6 +70,25 @@ def test_the_route_table(c, radius, w, dt, route):
     assert unsharp.ROUTES == ("rows", "tile")
 
 
+@pytest.mark.parametrize("radius", range(unsharp.MAX_RADIUS + 1))
+def test_the_bf16_route_table_at_every_radius(radius):
+    """``unsharp_rows_bf16.cu`` instantiates C = 3 at every radius 0..16, as
+    ``unsharp_rows.cu`` does in fp32; any other C takes the tile kernel."""
+    for dt in (BF, F32):
+        assert unsharp.unsharp_route(_x(w=7, dt=dt), radius) == "rows"
+        for c in (1, 2, 4, 5):
+            assert unsharp.unsharp_route(_x(w=7, c=c, dt=dt), radius) == "tile"
+
+
+@pytest.mark.parametrize("dtype,radius", [(torch.float16, 4), (F32, 17), (BF, -1)])
+def test_rows_kernel_info_refuses_what_has_no_instance(dtype, radius):
+    """The registers and blocks per SM are asked only of an instance that
+    exists (fp32 or bf16, radius 0..16); the question itself needs the
+    card."""
+    with pytest.raises(ValueError, match="no instance"):
+        unsharp.rows_kernel_info(dtype, radius)
+
+
 def test_the_route_is_a_function_of_c_and_radius_only():
     """H, W, B and strides do not move the route: the rows kernel takes
     every frame size and W*C % 4."""
@@ -69,6 +96,18 @@ def test_the_route_is_a_function_of_c_and_radius_only():
         assert unsharp.unsharp_route(_x(b, h, w), 4) == "rows"
         assert unsharp.unsharp_route(_x(b, h, w, c=4), 4) == "tile"
     assert unsharp.unsharp_route(_x(w=6)[:, :, ::2], 4) == "rows"
+
+
+@pytest.mark.parametrize("dt", [F32, BF])
+def test_a_frame_of_more_than_2_31_values_takes_rows(dt):
+    """The x4 output of a 10240x5760 frame, 40960x23040x3 (2.8 G values):
+    the rows kernel keeps a row's offset in its frame 64-bit, so it takes
+    such a frame (held against the tile kernel above 2^31 values on the card
+    by ``chip_smoke.py --only k2``)."""
+    x = torch.empty(1, 23040, 40960, 3, dtype=dt, device="meta")
+    assert x.numel() > 2**31
+    assert unsharp.unsharp_route(x, 4) == "rows"
+    assert unsharp.unsharp_route(x[..., :2], 4) == "tile"
 
 
 def test_a_forced_route_is_checked():
@@ -196,3 +235,37 @@ def test_plain_version_matches_jax(b, h, w, c, radius, thr):
     got = unsharp.unsharp_fused(torch.from_numpy(x), 0.3, 1.5, radius, thr)
     assert got.shape == (b, h, w, c)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+def _within_one_bf16_step(got, ref):
+    got, ref = got.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    mag = np.maximum(np.abs(got), np.abs(ref))
+    step = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0**-126))) - 7)
+    assert np.all(np.abs(got - ref) <= step), np.abs(got - ref).max()
+
+
+@pytest.mark.parametrize(
+    "b,h,w,radius,thr",
+    [
+        (1, 9, 13, 0, 0.0),     # radius 0
+        (2, 7, 5, 1, 0.02),     # B = 2, the threshold branch
+        (1, 24, 16, 4, 0.0),    # the paths' radius
+        (1, 5, 53, 4, 0.02),    # H < 2r + 1
+        (1, 37, 11, 16, 0.0),   # radius 16, W < r
+        (1, 3, 4, 16, 0.02),    # both extents below the halo
+    ],
+)
+def test_plain_bf16_is_unsharp_mask_of_the_widened_frame(monkeypatch, b, h, w, radius, thr):
+    from video_restore_tpu.ops.post import unsharp_mask as jax_unsharp_mask
+
+    for name in ("VRT_POST_DT", "VRT_POST_BF16"):
+        monkeypatch.delenv(name, raising=False)
+    x = np.random.default_rng(100 * h + 10 * w + radius).random((b, h, w, 3)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(BF)
+    ref = jax_unsharp_mask.__wrapped__(
+        xj.astype(jnp.float32), amount=0.3, sigma=1.5, radius=radius, threshold=thr
+    ).astype(jnp.bfloat16)
+    got = unsharp.unsharp_fused_plain(xt, 0.3, 1.5, radius, thr)
+    assert got.dtype == BF and got.shape == (b, h, w, 3)
+    _within_one_bf16_step(got, ref)

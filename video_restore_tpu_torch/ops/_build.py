@@ -2,8 +2,9 @@
 
 The sources in ``video_restore_tpu_torch/csrc/`` have a plain C interface.
 At first use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
-per source, all started together, then one link) into a single shared
-library under ``build/video_restore_tpu_torch/`` at the repository root,
+per source, all started together, then one link; the slowest source sets
+the build's time, and ``build.log`` gives each source's seconds) into a
+single shared library under ``build/video_restore_tpu_torch/`` at the repository root,
 named by a hash of every file under ``csrc/`` (headers included) and the
 flags, so an edited source or header rebuilds. The
 library is loaded with ``ctypes``. Nothing here runs at import time, so
@@ -21,18 +22,20 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_narrow.cu", "unsharp.cu",
-    "unsharp_rows.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
+    "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
     "conv3x3_i8_mma.cu", "rdb_fused.cu", "rdb_fused_mma.cu", "tail_fused.cu",
     "tail_fused_mma.cu",
 )
@@ -85,6 +88,13 @@ def _nvcc() -> str:
     return str(path)
 
 
+def compile_seconds(log: str) -> Dict[str, float]:
+    """Each source's ``nvcc`` wall seconds from a ``build.log``'s ``==``
+    lines, in build order (empty for a log that gives none)."""
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"^== (\S+) \(rc -?\d+, ([0-9.]+) s\)$", log, re.M)}
+
+
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + SOURCES).encode())
     for path in sorted(CSRC.iterdir()):  # the headers too
@@ -95,8 +105,9 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources (if this hash is not built yet); returns the
-    library path. The compiler's resource report (``-Xptxas -v``) goes to
-    ``build.log`` beside it."""
+    library path. Each source's compiler output, its resource report
+    (``-Xptxas -v``) included, goes to ``build.log`` beside it under a line
+    ``== NAME (rc N, S s)``: S is that ``nvcc``'s wall seconds."""
     out = library_path()
     if out.exists():
         return out
@@ -104,6 +115,7 @@ def build() -> Path:
     nvcc = _nvcc()
     tag = f"{out.stem}_{os.getpid()}"  # concurrent builds never share files
     procs = []
+    t0 = time.monotonic()
     for name in SOURCES:
         obj = BUILD_DIR / f"{tag}_{Path(name).stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
@@ -113,11 +125,23 @@ def build() -> Path:
                 text=True,
             ))
         )
+    done: Dict[str, Tuple[str, float]] = {}
+
+    def reap(name: str, p: subprocess.Popen) -> None:
+        # one reader per process: each end is timed when it happens
+        text, _ = p.communicate()
+        done[name] = (text, time.monotonic() - t0)
+
+    readers = [threading.Thread(target=reap, args=(name, p)) for name, _, p in procs]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     log = []
     failed = []
     for name, _, p in procs:
-        text, _ = p.communicate()
-        log.append(f"== {name} (rc {p.returncode})\n{text}")
+        text, secs = done[name]
+        log.append(f"== {name} (rc {p.returncode}, {secs:.1f} s)\n{text}")
         if p.returncode != 0:
             failed.append(name)
     (BUILD_DIR / "build.log").write_text("\n".join(log))
@@ -158,6 +182,10 @@ def load() -> ctypes.CDLL:
             # the bf16 instances take the same arguments (x, y as void*)
             for fn in (lib.vr_unsharp_rows, lib.vr_unsharp_bf16, lib.vr_unsharp_rows_bf16):
                 fn.argtypes = lib.vr_unsharp.argtypes
+                fn.restype = _I
+            # radius -> registers a thread, resident blocks per SM
+            for fn in (lib.vr_unsharp_rows_info, lib.vr_unsharp_rows_bf16_info):
+                fn.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
                 fn.restype = _I
             lib.vr_srvgg_up.argtypes = [
                 _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,

@@ -12,9 +12,11 @@ kernels take every frame height. The kernel's function in plain PyTorch is
 :func:`unsharp_fused_plain`.
 
 :func:`unsharp_route` says which kernel a call launches: ``"rows"``
-(``csrc/unsharp_rows.cu``: streams down rows of a strip with 16-byte loads
-and stores, C a template parameter, instantiated for :data:`ROWS_CHANNELS`)
-or ``"tile"`` (``csrc/unsharp.cu``: 32x16 tiles, any C). Each has an fp32
+(``csrc/unsharp_rows.cuh``: streams down rows of a strip, four values a
+thread in 16- or 8-byte loads and stores, C a template parameter,
+instantiated for :data:`ROWS_CHANNELS`; its fp32 instance is built in
+``unsharp_rows.cu``, its bf16 one in ``unsharp_rows_bf16.cu``) or
+``"tile"`` (``csrc/unsharp.cu``: 32x16 tiles, any C). Each has an fp32
 and a bf16 instance. Both routes sum the same rounded products in the same
 order, so their outputs are equal bit for bit (held on the card by
 ``chip_smoke.py --only k2``); each kernel's note is at the top of its
@@ -31,14 +33,14 @@ unset it equals :func:`unsharp_fused_plain`.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.post import _gaussian_kernel1d, _unsharp_f32, unsharp_mask
 
-MAX_RADIUS = 16  # kMaxRadius in csrc/unsharp.cu and csrc/unsharp_rows.cu
+MAX_RADIUS = 16  # kMaxRadius in csrc/unsharp.cu and csrc/unsharp_rows.cuh
 ROWS_CHANNELS = (3,)  # the C that vr_unsharp_rows instantiates: RGB frames
 ROUTES = ("rows", "tile")
 DTYPES = (torch.float32, torch.bfloat16)  # each route's instances
@@ -49,8 +51,9 @@ def unsharp_route(x: torch.Tensor, radius: int) -> str:
     """Which of K2's kernels a call on a CUDA tensor launches: a pure
     function of x's dtype and channel count and of the radius. ``"rows"``
     takes fp32 and bf16 with C in :data:`ROWS_CHANNELS` and radius 0..16,
-    at any H and W (rows whose W*C values are no whole number of 16-byte
-    groups take its narrow copies); ``"tile"`` takes every other call."""
+    at any H and B and up to 2^30 values a row (W*C; a frame may hold more
+    than 2^31 values; rows whose W*C values are no whole number of groups
+    take its narrow copies); ``"tile"`` takes every other call."""
     if x.dtype in DTYPES and x.shape[-1] in ROWS_CHANNELS and 0 <= radius <= MAX_RADIUS:
         return "rows"
     return "tile"
@@ -70,6 +73,20 @@ def _pick_route(x: torch.Tensor, radius: int, route: Optional[str]) -> str:
             f"unsharp_fused: the rows kernel takes C in {ROWS_CHANNELS} only"
         )
     return route
+
+
+def rows_kernel_info(dtype: torch.dtype, radius: int) -> Tuple[int, int]:
+    """The rows kernel's instance for ``dtype`` at ``radius`` (C = 3):
+    registers a thread and resident blocks per SM on the current CUDA
+    device, as the CUDA runtime reports them. Needs the card."""
+    if dtype not in DTYPES or not 0 <= radius <= MAX_RADIUS:
+        raise ValueError(f"rows_kernel_info: no instance for {dtype} at radius {radius}")
+    lib = _build.load()
+    fn = lib.vr_unsharp_rows_bf16_info if dtype == torch.bfloat16 else lib.vr_unsharp_rows_info
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    _build.check(lib, fn(radius, ctypes.byref(regs), ctypes.byref(blocks)),
+                 f"unsharp rows kernel info ({_TAG[dtype]})")
+    return regs.value, blocks.value
 
 
 def check_kernel_operand(x: torch.Tensor) -> None:
