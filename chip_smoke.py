@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA GPU and nvcc:
     python3 chip_smoke.py [--only NAME[,NAME...]]
 
 ``--only`` runs a subset for a quick probe: any of ``k1`` (K1's tensor-core
-route alone: its odd-shape checks and the old and new kernel side by side),
+routes alone: their odd-shape checks and the fma, mma and wgmma kernels side
+by side),
 ``k1n`` (the same for K1's narrow route), ``k2`` (the same for K2's rows
 route), ``k5``, ``k3``, ``k6`` and ``k4``
 (the same for K5's, K3's, K6's and K4's tensor-core routes), ``kernels``
@@ -23,8 +24,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
-   ``conv3x3_mma.cu`` on ``mma_tile.cuh``, ``conv3x3_narrow.cu`` and
-   ``conv3x3.cu``, K2
+   ``conv3x3_wgmma.cu`` (``wgmma`` + TMA), ``conv3x3_mma.cu`` on
+   ``mma_tile.cuh``, ``conv3x3_narrow.cu`` and ``conv3x3.cu``, K2
    ``unsharp_rows.cu`` (fp32) and ``unsharp_rows_bf16.cu`` (bf16), both on
    ``unsharp_rows.cuh``, and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
    ``srvgg_up.cu``, K4 ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and
@@ -35,13 +36,18 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    print each source's compile seconds (one ``nvcc`` each, all in
    parallel: the slowest sets the build's time) and each kernel's
    registers, shared memory and spills from ``ptxas``;
-3. K1's tensor-core route (``conv3x3:mma``) first: every single conv at odd
-   shapes in bf16 (ragged 2x37x53, a frame smaller than one tile, each
-   activation, the residuals, the growth-buffer slices with cin 64..192,
-   ``upsample2``) within one bf16 step of its plain version per value and
-   of a float64 conv of the same inputs, each launch counted under its
-   route; then one 1080p RDB on the old kernel (``conv3x3:fma``, forced)
-   and on the new one, side by side, with each conv's time. K1's narrow
+3. K1's tensor-core routes (``conv3x3:wgmma``; ``conv3x3:mma`` for
+   ``upsample2``) first: every single conv at odd shapes in bf16 (ragged
+   2x37x53, a frame smaller than one tile, each activation, the residuals,
+   the growth-buffer slices with cin 64..192, x with 1-4 blocks of a tail
+   at three shapes, ``upsample2``) within one bf16 step of its plain
+   version per value and of a float64 conv of the same inputs, each
+   ``wgmma`` one also within one step of the forced ``mma`` route, each
+   launch counted under its route, neither kernel writing outside a growth
+   buffer's slice; then each conv of a 1080p RDB as the wgmma route runs it
+   (c1 .. c4 in blocks) with its TFLOP/s and share of its own bound, the
+   RDB on the fma, mma (both forced) and wgmma routes and cuDNN's chain side
+   by side (mma at least 3x fma), and conv_body beside ``F.conv2d``. K1's narrow
    route (``conv3x3:narrow``): the stems (cin 3 and 12 -> 64, act none,
    PReLU and lrelu, odd shapes, a frame of one pixel, a strided cin-3 view,
    the flagship frame and the tile batch) and ``conv_last`` (64 -> 3, odd
@@ -122,9 +128,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    planar I420 from the device, fetched through the pinned ring) with
    every launch counter reset before and read after: 3 frames of 7680x4320
    out, decoded == inferred == encoded, and each wrapper launched exactly
-   its per-frame count times 3, K1 351 times per frame of which 349 on the
-   ``mma`` route and 2 on ``narrow`` (the stem and ``conv_last``, one on
-   each of its kernels), none on ``fma``, and K2 once on ``rows``; the
+   its per-frame count times 3, K1 351 times per frame of which 347 on the
+   ``wgmma`` route, 2 on ``mma`` (up1 and upconv2) and 2 on ``narrow`` (the
+   stem and ``conv_last``, one on each of its kernels), none on ``fma``,
+   and K2 once on ``rows``; the
    ``auto_full_frame`` estimate is printed beside the measured peak memory;
    the wall, the step and the encode thread's ``fetch`` and ``encode``
    totals per frame; then (``[post]``) the step by stage:
@@ -235,7 +242,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     3 fp32 steps under ``device_trace``: the device's busy share and the
     kernels that take its time.
     Then ``--profile``: config 4 on 2 frames of 1080x1920 with ``--profile
-    DIR`` (RGB out): the trace written, naming K1's ``conv3x3_mma_kernel``,
+    DIR`` (RGB out): the trace written, naming K1's ``conv3x3_wgmma_kernel``,
     and the device's busy share of the traced window;
 17. ``multi``: several devices and processes on the one card. (a) config
     4's program over ``frame_mesh(devices=[cuda:0] * 2)`` on 4 frames of
@@ -346,10 +353,10 @@ PALLAS = {
     # K4, static A8: the sa_static branch of _conv_prefix (_quant_act_static),
     # the sas arguments of #2 and #3; its launches count under rdb_fused_i8
     "rdb_fused_i8 static": "video_restore_tpu/ops/pallas_stripe.py:293",
-    # K1's tensor-core route, timed on conv_body + residual: the dense-block
-    # convs of #2-#4, #9, #10, conv_body (#1), up1 (#5), upconv2 and conv_hr
-    # (#6, #7) and the SRVGG body (#14-#16)
-    "conv3x3:mma": "video_restore_tpu/ops/pallas_stripe.py:1963",
+    # K1's Hopper route, timed on conv_body + residual: the dense-block convs
+    # of #2-#4, #9, #10, conv_body (#1), conv_hr (#6, #7) and the SRVGG body
+    # (#14-#16); up1 (#5) and upconv2 stay on the mma route (upsample2)
+    "conv3x3:wgmma": "video_restore_tpu/ops/pallas_stripe.py:1963",
     # K1's narrow route, conv_last (#6, #7: the tail's last conv, 64 -> 3);
     # its launches are those of the conv_last kernel
     "conv3x3:narrow conv_last": "video_restore_tpu/ops/pallas_tail.py:266",
@@ -360,26 +367,27 @@ PALLAS = {
 # ops/quant.py::conv3x3_i8_route, ops/unsharp.py::unsharp_route), as the
 # row's calls take it
 CUDA_ROUTE = {
-    "conv3x3_fused": "narrow", "rdb_fused": "mma", "up1_fused": "mma",
-    "tail_fused": "mma+narrow", "srvgg_body": "mma", "srvgg_up_fused": "mma",
-    "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:mma": "mma",
+    "conv3x3_fused": "narrow", "rdb_fused": "wgmma", "up1_fused": "mma",
+    "tail_fused": "mma+wgmma+narrow", "srvgg_body": "wgmma", "srvgg_up_fused": "mma",
+    "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:wgmma": "wgmma",
     "tail_fused_q": "mma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
     "rdb_fused_i8 static": "mma", "conv3x3:narrow conv_last": "narrow",
     "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
 }
 SOURCE = {
-    # K1 is three routes (ops/tail.py::conv3x3_route). This row times the
-    # stem (cin 3), on the narrow route; conv_body is conv3x3:mma's
+    # K1 is four routes (ops/tail.py::conv3x3_route). This row times the
+    # stem (cin 3), on the narrow route; conv_body is conv3x3:wgmma's
     "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
-    "rdb_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
+    "rdb_fused": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
     "up1_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
-    # upconv2 and conv_hr; conv_last (cout 3) is conv3x3:narrow conv_last's
+    # upconv2 (mma); conv_hr is conv3x3_wgmma.cu's, conv_last (cout 3)
+    # conv3x3:narrow conv_last's
     "tail_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
     # K2 is two kernels (ops/unsharp.py::unsharp_route); the paths' frames
     # (fp32, C = 3) take the rows one
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp_rows.cu",
     "unsharp_fused:rows:bf16": "video_restore_tpu_torch/csrc/unsharp_rows_bf16.cu",
-    "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
+    "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
     "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up_mma.cu",
     # K4 is two kernels (ops/quant.py::conv3x3_i8_route); these rows' convs
     # (nf 64 / gc 32) take the int8 tensor-core one
@@ -390,7 +398,7 @@ SOURCE = {
     "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
     "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_mma.cu",
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
-    "conv3x3:mma": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
+    "conv3x3:wgmma": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
     "conv3x3:narrow conv_last": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
 }
 PATH_TAGS = (
@@ -477,7 +485,8 @@ def main(argv=None) -> int:
     entry = spill = source = ""
     # the redesigned sources, whose ptxas lines are repeated under their
     # phase's tag
-    new_sources = {"rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3", "tail_fused_mma.cu": "k6",
+    new_sources = {"conv3x3_wgmma.cu": "k1", "rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3",
+                   "tail_fused_mma.cu": "k6",
                    "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
                    "unsharp_rows_bf16.cu": "k2"}
     build_log = (_build.BUILD_DIR / "build.log").read_text()
@@ -591,22 +600,29 @@ def main(argv=None) -> int:
     rows = {}
 
     def phase_k1():
-        """K1's tensor-core route: single convs at odd shapes, bf16, held per
-        value to their plain version and to a float64 conv; then the old and
-        the new kernel on one 1080p RDB."""
-        def one(tag, x, wt, bias, f64=False, **kw):
-            """One conv on the mma route against plain (and float64). Steps
-            are taken at no less than 2^-8 of the output's largest value:
-            the two sides add ~600-1700 fp32 products in different orders,
-            so a value that cancels below that keeps an absolute error of
-            the terms' rounding (~1e-6 here), which is many steps of a tiny
-            value and no sign of a wrong fragment (that would be O(1))."""
+        """K1's tensor-core routes: single convs at odd shapes, bf16, each on
+        its own route (``wgmma``; ``mma`` for upsample2) held per value to
+        its plain version, to a float64 conv and, on wgmma, to the forced
+        ``mma`` route; then one 1080p RDB on the fma, mma and wgmma routes
+        beside cuDNN's chain, and conv_body beside ``F.conv2d``."""
+        def one(tag, x, wt, bias, f64=False, mma_x=None, mma_out=None, **kw):
+            """One conv on its route against plain (and float64), and a wgmma
+            one against the forced mma route (``mma_x``, ``mma_out``: the
+            views of another buffer to run it on, where x and out are
+            views). Steps are taken at no less than 2^-8 of the output's
+            largest value: the two sides add ~600-1700 fp32 products in
+            different orders, so a value that cancels below that keeps an
+            absolute error of the terms' rounding (~1e-6 here), which is
+            many steps of a tiny value and no sign of a wrong fragment (that
+            would be O(1))."""
+            route = "mma" if kw.get("upsample2") else "wgmma"
             pk = {k_: (v.clone() if k_ == "out" else v) for k_, v in kw.items()}
             _build.reset_launches()
             k = tail.conv3x3(x, wt, bias, counter="check", **kw)
             torch.cuda.synchronize()
             got = _build.launches()
-            check(got == {"check": 1, "conv3x3:mma": 1}, f"{tag}: launches {got}, expected one on the mma route")
+            check(got == {"check": 1, f"conv3x3:{route}": 1},
+                  f"{tag}: launches {got}, expected one on the {route} route")
             p = tail.conv3x3_plain(x, wt, bias, **pk)
             floor = p.float().abs().max().item() * 2.0**-8
             extra = 0.0
@@ -615,14 +631,24 @@ def main(argv=None) -> int:
                 # before r2, so a flipped inner step reaches the output as s2
                 # x a step of the inner value, on top of the output's own
                 inner = tail.conv3x3_plain(
-                    x, wt, bias, **{k_: v for k_, v in pk.items() if k_ not in ("r2", "s2")}
+                    x, wt, bias,
+                    **{k_: v for k_, v in pk.items() if k_ not in ("r2", "s2", "out")}
                 ).float().abs()
                 inner = (inner * (1 + 2.0**-7)).clamp_min(inner.max().item() * 2.0**-8)
                 extra = kw["s2"] * bf16_step(inner)
             e, st = bf16_steps(tag, k, p, floor=floor, extra=extra)
-            msg = f"[k1] {tag} err={e:.3g} steps={st:.2f}"
+            msg = f"[k1] {tag} {route} err={e:.3g} steps={st:.2f}"
+            if route == "wgmma":
+                mk = {k_: v for k_, v in kw.items() if k_ != "x_tail"}
+                mk["out"] = mma_out  # None: a fresh tensor
+                km = tail.conv3x3(x if mma_x is None else mma_x, wt, bias, counter="check",
+                                  route="mma", **mk)
+                em, stm = bf16_steps(tag + " vs mma", k, km, floor=floor, extra=extra)
+                msg += f" vs_mma_err={em:.3g} vs_mma_steps={stm:.2f}"
             if f64:
                 xi = x.repeat_interleave(2, 1).repeat_interleave(2, 2) if kw.get("upsample2") else x
+                if kw.get("x_tail") is not None:
+                    xi = torch.cat([xi, *kw["x_tail"].unbind(0)], dim=-1)
                 ref = conv_ref64(xi, wt, bias)
                 if kw.get("act") == "lrelu":
                     ref = torch.where(ref >= 0, ref, 0.2 * ref)
@@ -646,64 +672,125 @@ def main(argv=None) -> int:
             one(f"{shp} 64->64 r1+r2", x, wt, bias, r1=r1, s1=0.2, r2=r2, s2=0.2)
             one(f"{shp} 64->64 upsample2 lrelu", x, wt, bias, f64=True, act="lrelu", upsample2=True)
             one(f"{shp} 64->32 none", x, rnd(3, 3, 64, 32, scale=0.05), bias[:32].clone(), f64=True)
+            # cin 48: the last 32-channel stage half past cin (TMA's zero fill)
+            one(f"{shp} 48->32 lrelu", x[..., :48], rnd(3, 3, 48, 32, scale=0.05),
+                bias[:32].clone(), f64=True, act="lrelu")
         # the growth-buffer case: conv k reads the prefix of a 192-channel
-        # buffer and writes its 32 channels at their offset in the same buffer
+        # buffer and writes its 32 channels at their offset in the same
+        # buffer, on both routes, neither writing outside its slice
         grow = rnd(b, h, w, 192)
+        rest = torch.ones(192, dtype=torch.bool, device=dev)
         for cin in (64, 96, 128, 160):
             wt, bias = rnd(3, 3, cin, 32, scale=0.03), rnd(32, scale=0.05)
-            gk = grow.clone()
-            k, p = one(f"growth buffer {cin}->32 into [{cin}:{cin + 32}]", gk[..., :cin], wt, bias,
-                       f64=True, act="lrelu", out=gk[..., cin : cin + 32])
-            gp = grow.clone()
-            gp[..., cin : cin + 32] = p
-            rest = torch.ones(192, dtype=torch.bool, device=dev)
+            gk, gm = grow.clone(), grow.clone()
+            one(f"growth buffer {cin}->32 into [{cin}:{cin + 32}]", gk[..., :cin], wt, bias,
+                f64=True, act="lrelu", out=gk[..., cin : cin + 32], mma_x=gm[..., :cin],
+                mma_out=gm[..., cin : cin + 32])
+            rest[:] = True
             rest[cin : cin + 32] = False
-            check(torch.equal(gk[..., rest], grow[..., rest]),
-                  f"growth buffer {cin}->32: the kernel wrote outside its channel slice")
+            for route, g_ in (("wgmma", gk), ("mma", gm)):
+                check(torch.equal(g_[..., rest], grow[..., rest]),
+                      f"growth buffer {cin}->32: the {route} kernel wrote outside its channel slice")
         wt, bias = rnd(3, 3, 192, 64, scale=0.03), rnd(64, scale=0.05)
         one("growth buffer 192->64 r1", grow, wt, bias, r1=grow[..., :64], s1=0.2)
         one("growth buffer 192->64 r1+r2", grow, wt, bias, r1=grow[..., :64], s1=0.2,
             r2=rnd(b, h, w, 64), s2=0.2)
+        # the RDB's layout on the wgmma route: x, then c1 .. c4 as blocks of a
+        # tail; conv k reads x and the blocks before it (mma: the same
+        # channels as one concatenated prefix)
+        for shp in ((b, h, w), (1, 5, 7), (6, 19, 70)):
+            x, tl = rnd(*shp, 64), rnd(4, *shp, 32)
+            for k_ in range(1, 5):
+                cout = 64 if k_ == 4 else 32
+                wt, bias = rnd(3, 3, 64 + 32 * k_, cout, scale=0.03), rnd(cout, scale=0.05)
+                cat = torch.cat([x, *tl[:k_].unbind(0)], dim=-1)
+                kw = dict(r1=x, s1=0.2) if k_ == 4 else dict(act="lrelu")
+                one(f"{shp} x + {k_} tail blocks -> {cout}", x, wt, bias, f64=k_ < 4,
+                    x_tail=tl[:k_], mma_x=cat, **kw)
         del grow
 
-        # one 1080p RDB: each conv on the new kernel, then the whole RDB on
-        # the old kernel (the fma route forced), the new one, and cuDNN
+        @contextlib.contextmanager
+        def forced(route):
+            """Every K1 call of the block on ``route`` where that kernel takes
+            it: ``"fma"`` all, ``"mma"`` those of ``"wgmma"``."""
+            own = tail.conv3x3_route
+
+            def pick(*a, **k):
+                r = own(*a, **k)
+                return route if route == "fma" or r == "wgmma" else r
+            tail.conv3x3_route = pick
+            try:
+                yield
+            finally:
+                tail.conv3x3_route = own
+
+        # one 1080p RDB: each conv as the wgmma route runs it (c1 .. c4 in
+        # blocks), with its share of its own bound; then the whole RDB on the
+        # fma, mma and wgmma routes and cuDNN's chain
         xb = rnd(1, H, W, NF)
         ws, bs = rdb_weights(NF, GC, bf)
-        grow = torch.empty(1, H, W, NF + 4 * GC, dtype=bf, device=dev)
-        grow[..., :NF] = xb
+        check(stripe.blocked(xb, ws, bs), "[k1] the 1080p RDB does not take the blocked layout")
+        tl = torch.empty(4, 1, H, W, GC, dtype=bf, device=dev)
+        out5 = torch.empty(1, H, W, NF, dtype=bf, device=dev)
+        conv_ms = []
         for k_ in range(5):
-            lo = NF + k_ * GC
-            cout = GC if k_ < 4 else NF
-            out = grow[..., lo : lo + GC] if k_ < 4 else torch.empty(1, H, W, NF, dtype=bf, device=dev)
-            ms = timed(lambda: tail.conv3x3(grow[..., :lo], ws[k_], bs[k_], act="lrelu", out=out, counter="check"), 10)
-            ops = 2 * H * W * 9 * lo * cout
-            log(f"[k1] conv{k_ + 1} {lo}->{cout} 1x{H}x{W} mma: {ms:.3f} ms, {ops / ms / 1e9:.1f} TFLOP/s")
-        del grow, out
+            cin, cout = NF + k_ * GC, (GC if k_ < 4 else NF)
+            kw = dict(act="lrelu", out=tl[k_]) if k_ < 4 else dict(out=out5, r1=xb, s1=0.2)
+            ms = timed(lambda: tail.conv3x3(xb, ws[k_], bs[k_], x_tail=tl[:k_] if k_ else None,
+                                            counter="check", **kw), 10)
+            ops = 2 * H * W * 9 * cin * cout
+            nbytes = H * W * 2 * (cin + cout + (NF if k_ == 4 else 0))
+            bms = max(nbytes / PEAK_BYTES, ops / PEAK_BF16) * 1e3
+            by = "bytes" if nbytes / PEAK_BYTES >= ops / PEAK_BF16 else "operations"
+            conv_ms.append(ms)
+            log(f"[k1] conv{k_ + 1} {cin}->{cout} 1x{H}x{W} wgmma: {ms:.3f} ms, "
+                f"{ops / ms / 1e9:.1f} TFLOP/s, {100 * bms / ms:.0f}% of its bound "
+                f"{bms:.3f} ms ({by})")
+        del tl, out5
         k_new = stripe.rdb_fused(xb, ws, bs)
         new_ms = timed(lambda: stripe.rdb_fused(xb, ws, bs), 5)
-        route = tail.conv3x3_route
-        tail.conv3x3_route = lambda *a, **k: "fma"
-        try:
-            _build.reset_launches()
-            k_old = stripe.rdb_fused(xb, ws, bs)
-            check(_build.launches() == {"rdb_fused": 5, "conv3x3:fma": 5}, f"forced fma route: {_build.launches()}")
-            old_ms = timed(lambda: stripe.rdb_fused(xb, ws, bs), 5)
-        finally:
-            tail.conv3x3_route = route
-        e = compare("rdb_fused mma vs fma", k_new, k_old, bf)
-        del k_new, k_old
+        outs, ms_by = {}, {}
+        for route in ("mma", "fma"):
+            with forced(route):
+                _build.reset_launches()
+                outs[route] = stripe.rdb_fused(xb, ws, bs)
+                got = _build.launches()
+                check(got == {"rdb_fused": 5, f"conv3x3:{route}": 5},
+                      f"forced {route} route: {got}")
+                ms_by[route] = timed(lambda: stripe.rdb_fused(xb, ws, bs), 5)
+        e = compare("rdb_fused mma vs fma", outs["mma"], outs["fma"], bf)
+        e_new = compare("rdb_fused wgmma vs mma", k_new, outs["mma"], bf)
+        del k_new, outs
         rdb_in = [rnd(1, NF + k_ * GC, H, W).contiguous(memory_format=torch.channels_last) for k_ in range(5)]
         rdb_w = [w_.permute(3, 2, 0, 1).contiguous() for w_ in ws]
         lib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1) for a, w_, b_ in zip(rdb_in, rdb_w, bs)], 5)
+        del rdb_in
         rdb_ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
+        five = sum(max(H * W * 2 * (NF + k_ * GC + (GC if k_ < 4 else 2 * NF)) / PEAK_BYTES,
+                       2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) / PEAK_BF16)
+                   for k_ in range(5)) * 1e3
+        old_ms, mma_ms = ms_by["fma"], ms_by["mma"]
         log(
-            f"[k1] rdb_fused 1x{H}x{W}x64 bf16: fma (old kernel) {old_ms:.3f} ms, mma (new kernel) "
-            f"{new_ms:.3f} ms ({old_ms / new_ms:.2f}x, {rdb_ops / new_ms / 1e9:.1f} TFLOP/s useful), "
-            f"library (cuDNN chain of 5) {lib_ms:.3f} ms; max |mma - fma| {e:.3g}"
+            f"[k1] rdb_fused 1x{H}x{W}x64 bf16: fma {old_ms:.3f} ms, mma {mma_ms:.3f} ms, wgmma "
+            f"(c1 .. c4 in blocks) {new_ms:.3f} ms ({mma_ms / new_ms:.2f}x mma, "
+            f"{rdb_ops / new_ms / 1e9:.1f} TFLOP/s useful, {100 * five / new_ms:.0f}% of the "
+            f"five-launch bound {five:.3f} ms), library (cuDNN chain of 5) {lib_ms:.3f} ms; "
+            f"max |mma - fma| {e:.3g}, max |wgmma - mma| {e_new:.3g}"
         )
-        k1_stats.update(rdb_fma_ms=old_ms, rdb_mma_ms=new_ms, rdb_library_ms=lib_ms)
-        check(new_ms * 3 <= old_ms, f"[k1] the mma route ({new_ms:.3f} ms per RDB) is not 3x the fma kernel ({old_ms:.3f})")
+        check(mma_ms * 3 <= old_ms, f"[k1] the mma route ({mma_ms:.3f} ms per RDB) is not 3x the fma kernel ({old_ms:.3f})")
+        # conv_body: 64 -> 64 + the long residual, beside F.conv2d
+        xc, rc = rnd(1, H, W, NF), rnd(1, H, W, NF)
+        wc, bc = rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
+        body = {r: timed(lambda r=r: tail.conv3x3(xc, wc, bc, r1=rc, counter="check", route=r), 10)
+                for r in ("wgmma", "mma")}
+        xc_nchw, wc_oihw = xc.permute(0, 3, 1, 2), wc.permute(3, 2, 0, 1).contiguous()
+        body_lib = timed(lambda: F.conv2d(xc_nchw, wc_oihw, bc, padding=1), 10)
+        log(f"[k1] conv_body 64->64 + residual 1x{H}x{W}: wgmma {body['wgmma']:.3f} ms, mma "
+            f"{body['mma']:.3f} ms, F.conv2d (conv only) {body_lib:.3f} ms")
+        k1_stats.update(rdb_fma_ms=old_ms, rdb_mma_ms=mma_ms, rdb_wgmma_ms=new_ms,
+                        rdb_library_ms=lib_ms, rdb_five_launch_bound_ms=five, conv_wgmma_ms=conv_ms,
+                        conv_body_wgmma_ms=body["wgmma"], conv_body_mma_ms=body["mma"],
+                        conv_body_library_ms=body_lib)
 
     k1_stats = {}
     if want("k1", "kernels"):
@@ -1549,7 +1636,7 @@ def main(argv=None) -> int:
         wb, bb = rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
         xb_nchw, wb_oihw = xb.permute(0, 3, 1, 2), oihw(wb)
         record(
-            "conv3x3:mma", "conv_body+res 1x1080x1920x64 (library: F.conv2d, conv only)",
+            "conv3x3:wgmma", "conv_body+res 1x1080x1920x64 (library: F.conv2d, conv only)",
             lambda: tail.conv3x3_fused(xb, wb, bb, rb),
             lambda: tail.conv3x3_fused_plain(xb, wb, bb, rb), 10,
             3 * H * W * NF * 2 + (wb.numel() + bb.numel()) * 2,
@@ -2269,29 +2356,30 @@ def main(argv=None) -> int:
     check((v3.num_feat, v3.num_conv, v3.scale) == (64, 32, 4), "config-4 spec")
     n_rdb = 3 * spec.num_block * 5
 
-    def k1_routes(mma, stem, last):
+    def k1_routes(wgmma, mma, stem, last):
         """K1 launches per model call by route (``conv3x3_route``) and, on
         the narrow route, by kernel; no call on the fma route."""
-        counts = (("conv3x3:mma", mma), ("conv3x3:narrow", stem + last),
+        counts = (("conv3x3:wgmma", wgmma), ("conv3x3:mma", mma),
+                  ("conv3x3:narrow", stem + last),
                   ("conv3x3:narrow stem", stem), ("conv3x3:narrow conv_last", last))
         return {k: v for k, v in counts if v}
 
     # per model call. K1 of an RRDBNet frame: the stem and conv_last on the
-    # narrow route; the dense-block convs, conv_body, up1, upconv2 and
-    # conv_hr on the mma route. A path that ran on an old kernel fails its
-    # counts.
+    # narrow route; the dense-block convs, conv_body and conv_hr on the
+    # wgmma route; up1 and upconv2 (upsample2) on the mma route. A path that
+    # ran on an old kernel fails its counts.
     rrdb_call = {
         "conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1, "tail_fused": 3,
-        **k1_routes(n_rdb + 4, 1, 1),
+        **k1_routes(n_rdb + 2, 2, 1, 1),
     }
     srvgg_call = {
         "conv3x3_fused": 1, "srvgg_body": v3.num_conv, "srvgg_up_fused": 1,
-        "srvgg_up_fused:mma": 1, **k1_routes(v3.num_conv, 1, 0),
+        "srvgg_up_fused:mma": 1, **k1_routes(v3.num_conv, 0, 1, 0),
     }
     # K4 of an int8 RRDBNet frame: every RDB conv on the int8 tensor cores
     rrdb_i8_call = {
         "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
-        "conv3x3_i8:mma": n_rdb, "up1_fused": 1, "tail_fused": 3, **k1_routes(4, 1, 1),
+        "conv3x3_i8:mma": n_rdb, "up1_fused": 1, "tail_fused": 3, **k1_routes(2, 2, 1, 1),
     }
     # K2 of an enhanced frame: the sharpen stage on the rows route
     K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1, "unsharp_fused:rows:fp32": 1}
@@ -2345,7 +2433,8 @@ def main(argv=None) -> int:
          {**rrdb_i8_call, **K2_ROWS}, is_flagship("int8"), 1, None, dict(vs_bf16=True)),
         ("config4_int8", (H, W, 2), config4 + ["--precision", "int8"],
          {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv,
-          "conv3x3_i8:mma": v3.num_conv, "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1, **k1_routes(0, 1, 0)},
+          "conv3x3_i8:mma": v3.num_conv, "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1,
+          **k1_routes(0, 0, 1, 0)},
          is_config4("int8"), 1, None, dict(vs_bf16=True)),
         ("tiled_x4plus_int8", (720, 1280, 2),
          ["--model", "RealESRGAN_x4plus", "--precision", "int8"] + tiled,
@@ -2354,13 +2443,13 @@ def main(argv=None) -> int:
         ("main_pallas", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rrdb_fused": spec.num_block,
           "rrdb_fused:mma": spec.num_block, "up1_fused": 1,
-          "tail_fused": 3, **K2_ROWS, **k1_routes(4, 1, 1)},
+          "tail_fused": 3, **K2_ROWS, **k1_routes(2, 2, 1, 1)},
          is_flagship("bf16"), 1, {"VRT_PALLAS": "1"}, dict(vs_default="VRT_PALLAS")),
         # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
         ("main_tailq", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1,
           "tail_fused_q": 1, "tail_fused_q:mma": 1, **K2_ROWS,
-          **k1_routes(n_rdb + 2, 1, 0)},
+          **k1_routes(n_rdb + 1, 1, 1, 0)},
          is_flagship("bf16"), 1, {"VRT_TAIL_Q": "1"}, dict(vs_default="VRT_TAIL_Q")),
         # phase 10b: the flagship with VRT_POST_DT=bf16: the post stack in
         # bf16, K2's bf16 instance once per frame
@@ -2908,7 +2997,7 @@ def main(argv=None) -> int:
             else:
                 n_rdb6 = 3 * spec_.num_block * 5
                 per_call = {"conv3x3_fused": 2, "rdb_fused": n_rdb6, "up1_fused": 1, "tail_fused": 3,
-                            **k1_routes(n_rdb6 + 4, 1, 1)}
+                            **k1_routes(n_rdb6 + 2, 2, 1, 1)}
             drive(f"train_{short}", serve_clip,
                   ["--model", name, "--tile-size", "0", "--models-dir", str(ft_dir)], per_call,
                   lambda c, name=name: c.model_name == name and c.tile_size == 0, 1)
@@ -2943,11 +3032,11 @@ def main(argv=None) -> int:
         trace = trace_dir / TRACE_FILE
         check(trace.exists(), f"[profile] no {trace}")
         by_name = trace_kernels(trace)
-        check(any("conv3x3_mma_kernel" in k for k in by_name),
-              f"[profile] K1's conv3x3_mma_kernel not in the trace's kernels {sorted(by_name)[:20]}")
+        check(any("conv3x3_wgmma_kernel" in k for k in by_name),
+              f"[profile] K1's conv3x3_wgmma_kernel not in the trace's kernels {sorted(by_name)[:20]}")
         busy = device_busy_share(trace)
         log(f"[profile] config 4, 2 frames {W}x{H}, --profile: {trace.stat().st_size / 2**20:.1f} MiB "
-            f"trace, {len(by_name)} kernel names, K1's conv3x3_mma_kernel among them; device busy "
+            f"trace, {len(by_name)} kernel names, K1's conv3x3_wgmma_kernel among them; device busy "
             f"{busy['busy_ms']:.1f} of {busy['window_ms']:.1f} ms traced ({100 * busy['share']:.2f}%, "
             f"idle {100 * (1 - busy['share']):.2f}%; {int(busy['events'])} kernels, copies and "
             f"memsets); wall {1e3 * st.wall_s / 2:.1f} ms/frame under the profiler; top kernels (ms): "
@@ -3200,7 +3289,7 @@ def main(argv=None) -> int:
         recs = []
         for modes, expected in (
             (bench_rdb.MODES[:-1],
-             {"rdb_fused": 5 * apps, "conv3x3:mma": 5 * apps, "rdb_fused_k5": apps,
+             {"rdb_fused": 5 * apps, "conv3x3:wgmma": 5 * apps, "rdb_fused_k5": apps,
               "rdb_fused_k5:mma": apps, "rrdb_fused": rrdb_apps,
               "rrdb_fused:mma": rrdb_apps, "rdb_fused_i8": 5 * apps,
               "conv3x3_i8:mma": 5 * apps, "act_amax": 1}),
@@ -3447,7 +3536,7 @@ def main(argv=None) -> int:
             calls = 2 if mode == "tiles" else grid.n_chunks
             n_rdb2 = 3 * x2.num_block * 5
             want = {"conv3x3_fused": 2, "rdb_fused": n_rdb2, "up1_fused": 1, "tail_fused": 3,
-                    **k1_routes(n_rdb2 + 4, 1, 1)}
+                    **k1_routes(n_rdb2 + 2, 2, 1, 1)}
             want = {k: v * calls * 2 for k, v in want.items()}
             check(counts == want, f"[multi] {mode}: launch counts {counts} != {want}")
             check(isinstance(ups, ShardedUpscaler) and ups.n_devices == len(mesh),

@@ -1,4 +1,4 @@
-"""The kernel library's build and K2's probe, on a machine without nvcc.
+"""The kernel library's build and the K2 and K1 probes, on a machine without nvcc.
 
 ``ops/_build.py`` starts one ``nvcc`` per source, all together, then links;
 ``build.log`` gives each source's wall seconds, so a run shows which source
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from video_restore_tpu_torch.ops import _build
-from video_restore_tpu_torch.tools import probe_k2
+from video_restore_tpu_torch.tools import probe_k1, probe_k2
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -61,6 +61,7 @@ def test_the_build_times_each_source(fake_nvcc):
     assert out.exists() and out.parent == _build.BUILD_DIR
     secs = _build.compile_seconds((_build.BUILD_DIR / "build.log").read_text())
     assert list(secs) == list(_build.SOURCES)
+    assert "conv3x3_wgmma.cu" in secs  # K1's Hopper route, its own nvcc
     assert secs["unsharp_rows_bf16.cu"] >= 2.0
     assert min(secs.values()) < secs["unsharp_rows_bf16.cu"]
     assert _build.build() == out  # built once: the hash names the library
@@ -138,3 +139,73 @@ def test_the_probe_reads_ptxas_at_its_radius():
         "[build] rows full: Used 79 registers, used 1 barriers, 400 bytes cmem[0]; "
         "0 bytes spill stores, 0 bytes spill loads"
     ]
+
+
+# ---- tools/probe_k1.py --route wgmma --------------------------------------------
+
+
+def test_the_k1_probe_builds_its_variants():
+    """The mma source as shipped first, then conv3x3_wgmma.cu's variants;
+    ``--only`` picks names, ``--variant`` adds one."""
+    builds = probe_k1.wgmma_builds()
+    assert builds[0] == ("mma", "conv3x3_mma.cu", ())
+    assert [b[0] for b in builds[1:]] == [n for n, _ in probe_k1.WGMMA_VARIANTS]
+    assert {src for _, src, _ in builds[1:]} == {"conv3x3_wgmma.cu"}
+    assert ("shipped", "conv3x3_wgmma.cu", ()) in builds
+    assert ("no_mma", "conv3x3_wgmma.cu", ("-DVR_PROBE_NO_MMA",)) in builds
+    extra = [probe_k1.parse_variant("deep=-DVR_WG_STAGES=6,-DVR_WG_ROWS=1")]
+    assert extra == [("deep", ("-DVR_WG_STAGES=6", "-DVR_WG_ROWS=1"))]
+    picked = probe_k1.wgmma_builds(extra, only=["shipped", "deep"])
+    assert [b[0] for b in picked] == ["mma", "shipped", "deep"]
+    for _, src, _ in builds:
+        assert (_build.CSRC / src).exists()
+    # every define names one of the source's switches
+    text = (_build.CSRC / "conv3x3_wgmma.cu").read_text()
+    for _, defs in probe_k1.WGMMA_VARIANTS:
+        for d in defs:
+            assert d[2:].split("=")[0] in text
+
+
+@pytest.mark.parametrize("bad", ["noequals", "=-DX=1", "x=DX=1"])
+def test_a_malformed_variant_is_refused(bad):
+    with pytest.raises(ValueError, match="expected NAME=-DDEF"):
+        probe_k1.parse_variant(bad)
+
+
+def test_the_k1_probe_reads_ptxas():
+    text = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120conv3x3_wgmma_kernel"
+        "ILi8EEEv14CUtensorMap_stS1_NS_8ConvArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 592 bytes cmem[0]",
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions "
+        "are serialized due to the presence of Extern calls",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120conv3x3_wgmma_kernel"
+        "ILi4EEEv14CUtensorMap_stS1_NS_8ConvArgsE' for 'sm_90a'",
+        "    0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 592 bytes cmem[0]",
+    ])
+    lines = probe_k1.ptxas_lines("shipped", text)
+    assert lines[0] == ("[build] shipped n64: Used 168 registers, used 1 barriers, 592 bytes "
+                        "cmem[0]; 0 bytes spill stores, 0 bytes spill loads")
+    assert lines[1].startswith("[build] shipped: ptxas info    : (C7515) Potential")
+    assert lines[2].startswith("[build] shipped n32: Used 96 registers") and "8 bytes spill" in lines[2]
+
+
+def test_the_k1_probe_bounds():
+    """Each conv's bound at 1x1080x1920: conv1-4 and conv_body by their
+    bytes, conv5 by its operations; the five launches sum to 1.177 ms."""
+    shape = (1, 1080, 1920)
+    b = [probe_k1.conv_bound_ms(shape, 64 + 32 * k, 32, False) for k in range(4)]
+    b.append(probe_k1.conv_bound_ms(shape, 192, 64, True))
+    assert [by for _, by in b] == ["bytes"] * 4 + ["operations"]
+    assert [round(t, 3) for t, _ in b] == [0.119, 0.158, 0.198, 0.238, 0.464]
+    assert round(sum(t for t, _ in b), 3) == 1.177
+    assert probe_k1.conv_bound_ms(shape, 64, 64, True) == pytest.approx((0.2377, "bytes"), abs=1e-4)
+
+
+def test_the_k1_probe_needs_the_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the probe would time it")
+    assert probe_k1.main(["--route", "wgmma", "--quick"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err

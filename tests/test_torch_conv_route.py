@@ -1,16 +1,18 @@
 """Which of K1's routes each conv of the port takes on the card, and the
 full-frame memory estimate with the chain tail counted.
 
-K1 is one function behind three routes of hand-written CUDA kernels:
-``"mma"`` (``csrc/conv3x3_mma.cu``, tensor cores), ``"narrow"``
+K1 is one function behind four routes of hand-written CUDA kernels:
+``"wgmma"`` (``csrc/conv3x3_wgmma.cu``, Hopper's ``wgmma`` fed by TMA),
+``"mma"`` (``csrc/conv3x3_mma.cu``, ``mma.sync``: the tensor-core widths
+read through nearest 2x, up1 and upconv2), ``"narrow"``
 (``csrc/conv3x3_narrow.cu``: the bf16 stems and conv_last) and ``"fma"``
 (``csrc/conv3x3.cu``, fp32 FMAs). ``ops/tail.py::conv3x3_route`` chooses
-from the call alone (dtype, widths, alignment), so the choice is tested
-here, on the CPU, without a kernel: every model runs at full width on a tiny
-frame in bf16 through the plain versions while a recorder asks the route of
-each K1 call. The numbers of the split are the ones the chip smoke test
-asserts on the card (349 ``mma`` + 2 ``narrow`` per flagship frame, no
-``fma``).
+from the call alone (dtype, widths, alignment, upsample2), so the choice is
+tested here, on the CPU, without a kernel: every model runs at full width on
+a tiny frame in bf16 through the plain versions while a recorder asks the
+route of each K1 call. The numbers of the split are the ones the chip smoke
+test asserts on the card (347 ``wgmma`` + 2 ``mma`` + 2 ``narrow`` per
+flagship frame, no ``fma``).
 
 ``auto_full_frame``: equal to the JAX function at its default (held in
 ``test_torch_tiles.py``); with ``tail_in_memory`` it also counts the two
@@ -57,8 +59,27 @@ BF, F32 = torch.bfloat16, torch.float32
     ],
 )
 def test_conv3x3_route(dtype, cin, cout, aligned, route):
-    assert tail.conv3x3_route(dtype, cin, cout, aligned) == route
+    """The tensor-core widths take ``"mma"`` read through nearest 2x (up1,
+    upconv2) and ``"wgmma"`` otherwise; the other cases take their route
+    either way but ``"narrow"``, which has no upsample2."""
+    up2 = route != "narrow"
+    assert tail.conv3x3_route(dtype, cin, cout, aligned, upsample2=up2) == route
+    assert tail.conv3x3_route(dtype, cin, cout, aligned) == ("wgmma" if route == "mma" else route)
     assert route in tail.ROUTES
+
+
+@pytest.mark.parametrize("up2", [False, True])
+@pytest.mark.parametrize(
+    "cin,cout",
+    [(64, 64), (64, 32), (96, 32), (128, 32), (160, 32), (192, 64), (16, 32), (208, 64)],
+)
+def test_the_tensor_core_widths_take_wgmma_but_upsample2(cin, cout, up2):
+    """Every call ``"mma"`` took before ``"wgmma"`` existed takes ``"wgmma"``
+    now, but for the upsample2 ones (a TMA box cannot read the 2x grid);
+    misaligned operands and fp32 stay on ``"fma"`` either way."""
+    assert tail.conv3x3_route(BF, cin, cout, upsample2=up2) == ("mma" if up2 else "wgmma")
+    assert tail.conv3x3_route(BF, cin, cout, False, upsample2=up2) == "fma"
+    assert tail.conv3x3_route(F32, cin, cout, upsample2=up2) == "fma"
 
 
 def _operands(cin=64, cout=64, dt=BF):
@@ -70,16 +91,17 @@ def _operands(cin=64, cout=64, dt=BF):
 
 def test_call_route_follows_alignment_of_every_operand():
     x, w, b = _operands()
-    assert tail.conv3x3_call_route(x, w, b) == "mma"
+    assert tail.conv3x3_call_route(x, w, b) == "wgmma"
+    assert tail.conv3x3_call_route(x, w, b, upsample2=True) == "mma"
     buf = torch.zeros(1, 4, 5, 192, dtype=BF)
     # the growth-buffer views: prefix in, 32 channels out at their offset
     for lo in (64, 96, 128, 160):
         wk = torch.zeros(3, 3, lo, 32, dtype=BF)
         assert tail.conv3x3_call_route(
             buf[..., :lo], wk, b[:32], out=buf[..., lo : lo + 32]
-        ) == "mma"
+        ) == "wgmma"
     w5 = torch.zeros(3, 3, 192, 64, dtype=BF)
-    assert tail.conv3x3_call_route(buf, w5, b, r1=buf[..., :64], r2=x) == "mma"
+    assert tail.conv3x3_call_route(buf, w5, b, r1=buf[..., :64], r2=x) == "wgmma"
     # a channel offset that is not a multiple of 8 elements (16 bytes)
     wide = torch.zeros(1, 4, 5, 72, dtype=BF)
     assert tail.conv3x3_call_route(wide[..., 4:68], w, b) == "fma"
@@ -93,7 +115,7 @@ def test_call_route_follows_alignment_of_every_operand():
     bb = torch.zeros(72, dtype=BF)
     assert tail.conv3x3_call_route(x, w, bb[4:68]) == "fma"
     assert tail.conv3x3_call_route(x, w, b, alpha=bb[4:68]) == "fma"
-    assert tail.conv3x3_call_route(x, w, b, alpha=bb[8:72]) == "mma"
+    assert tail.conv3x3_call_route(x, w, b, alpha=bb[8:72]) == "wgmma"
     # fp32 never takes the tensor-core route
     assert tail.conv3x3_call_route(*_operands(dt=F32)) == "fma"
 
@@ -117,8 +139,9 @@ def _record_routes(monkeypatch):
 
 
 def _split(calls):
+    """(tensor cores: wgmma + mma, narrow, fma) launches of the calls."""
     n = {r: sum(1 for _, r_ in calls if r_ == r) for r in tail.ROUTES}
-    return n["mma"], n["narrow"], n["fma"]
+    return n["wgmma"] + n["mma"], n["narrow"], n["fma"]
 
 
 @pytest.mark.parametrize(
@@ -138,16 +161,19 @@ def test_routes_of_one_frame_at_full_width(monkeypatch, name, n_mma, n_narrow, n
     calls = _record_routes(monkeypatch)
     y = net(torch.rand(1, 8, 8, 3))
     assert y.shape == (1, 8 * spec.scale, 8 * spec.scale, 3)
+    # n_mma: the tensor-core launches, of which every one but up1 and
+    # upconv2 (mma: upsample2) on wgmma
     assert _split(calls) == (n_mma, n_narrow, n_fma)
     narrow = [c for c, r in calls if r == "narrow"]
+    on = {r: [c for c, r_ in calls if r_ == r] for r in ("wgmma", "mma")}
     if isinstance(spec, RRDBNetSpec):
         assert narrow == ["conv3x3_fused", "tail_fused"]  # stem first, conv_last last
-        assert {c for c, r in calls if r == "mma"} == {
-            "rdb_fused", "conv3x3_fused", "up1_fused", "tail_fused"
-        }
+        assert set(on["wgmma"]) == {"rdb_fused", "conv3x3_fused", "tail_fused"}
+        assert len(on["wgmma"]) == n_mma - 2
+        assert on["mma"] == ["up1_fused", "tail_fused"]  # up1, upconv2
     else:
         assert narrow == ["conv3x3_fused"]
-        assert {c for c, r in calls if r == "mma"} == {"srvgg_body"}
+        assert on == {"wgmma": ["srvgg_body"] * n_mma, "mma": []}
 
 
 @pytest.mark.parametrize("family", ["rrdbnet", "srvgg"])
@@ -267,3 +293,41 @@ def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
         assert (grid.n_tiles > 1) is tiled, mode
         assert seen[-1]["tail_in_memory"] is (mode == "chain")
         assert seen[-1]["frames"] == 8
+
+
+# ---- the RDB's layout on the wgmma route -------------------------------------
+
+
+def _rdb_operands(nf=64, gc=32, dt=BF, shape=(2, 9, 11)):
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(*shape, nf, generator=g).to(dt)
+    ws = [((torch.rand(3, 3, nf + k * gc, gc if k < 4 else nf, generator=g) - 0.5) * 0.1).to(dt)
+          for k in range(5)]
+    bs = [((torch.rand(gc if k < 4 else nf, generator=g) - 0.5) * 0.1).to(dt) for k in range(5)]
+    return x, ws, bs
+
+
+@pytest.mark.parametrize("x0", [False, True])
+def test_the_blocked_rdb_is_the_growth_buffer_rdb(x0):
+    """On the wgmma route c1 .. c4 live in four blocks of one tail tensor and
+    conv k reads x and the blocks before it: the same function, value for
+    value, as the growth buffer (the plain versions of both layouts)."""
+    x, ws, bs = _rdb_operands()
+    r = torch.rand_like(x) if x0 else None
+    grow = stripe._rdb(tail.conv3x3_plain, x, ws, bs, r)
+    blk = stripe._rdb(tail.conv3x3_plain, x, ws, bs, r, blocked=True)
+    assert torch.equal(grow, blk)
+    assert torch.equal(grow, stripe.rdb_fused(x, ws, bs, r))
+
+
+def test_which_rdbs_take_the_blocked_layout():
+    """Only a CUDA x whose convs take wgmma with gc the route's 32-channel
+    stage: on the CPU, at nf 16 / gc 8 and in fp32 the growth buffer stays."""
+    x, ws, bs = _rdb_operands()
+    assert not stripe.blocked(x, ws, bs)  # the CPU
+    xm = x.to("meta")
+    assert not stripe.blocked(xm, ws, bs)
+    assert tail.conv3x3_call_route(x, ws[0], bs[0]) == "wgmma"
+    assert tail.WGMMA_KC == ws[0].shape[-1] == 32
+    x16, ws16, bs16 = _rdb_operands(16, 8)
+    assert tail.conv3x3_call_route(x16, ws16[0], bs16[0]) == "fma"

@@ -225,9 +225,11 @@ def test_upsampler_rejects_a_weight_of_another_width():
 
 def test_every_cuda_source_is_built():
     """One nvcc per source: each ``.cu`` under ``csrc/`` is in the build,
-    the tensor-core sources of K5, K3 and K6, K1's narrow source and K2's
-    rows sources (fp32 and bf16, each its own translation unit) included."""
+    the tensor-core sources of K5, K3 and K6, K1's narrow and wgmma sources
+    and K2's rows sources (fp32 and bf16, each its own translation unit)
+    included."""
     on_disk = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sorted(_build.SOURCES) == on_disk
     assert {"rdb_fused_mma.cu", "srvgg_up_mma.cu", "tail_fused_mma.cu",
-            "conv3x3_narrow.cu", "unsharp_rows.cu", "unsharp_rows_bf16.cu"} <= set(on_disk)
+            "conv3x3_narrow.cu", "unsharp_rows.cu", "unsharp_rows_bf16.cu",
+            "conv3x3_wgmma.cu"} <= set(on_disk)

@@ -66,7 +66,7 @@ def test_the_narrow_widths_take_the_narrow_route(cin, cout, act):
     alpha = torch.zeros(cout, dtype=BF) if act == "prelu" else None
     assert tail.conv3x3_route(BF, cin, cout) == "narrow"
     assert _route(x, w, b, alpha=alpha) == "narrow"
-    assert tail.ROUTES == ("mma", "narrow", "fma")
+    assert tail.ROUTES == ("wgmma", "mma", "narrow", "fma")
 
 
 def _view(c_buf, lo, hi, offset=0, h=4, w=5):
@@ -151,8 +151,14 @@ def test_a_forced_route_is_checked():
     assert _pick(stem, "narrow") == "narrow"
     assert _pick(stem, "fma") == "fma"
     assert _pick(last, "fma") == "fma"
-    assert _pick(wide, None) == "mma"
+    assert _pick(wide, None) == "wgmma"
+    assert _pick(wide, "mma") == "mma"  # the mma.sync kernel takes every wgmma call
+    assert _pick(wide, "wgmma") == "wgmma"
     assert _pick(wide, "fma") == "fma"
+    up2 = dict(upsample2=True)
+    assert _pick(wide, None, **up2) == "mma"
+    with pytest.raises(ValueError, match="the wgmma kernel takes .* without upsample2"):
+        _pick(wide, "wgmma", **up2)
     with pytest.raises(ValueError, match="the narrow kernel takes bf16 stems"):
         _pick(wide, "narrow")
     with pytest.raises(ValueError, match="the narrow kernel takes"):
@@ -196,19 +202,19 @@ def _record(monkeypatch):
 @pytest.mark.parametrize(
     "name,precision,tail_mode,split,narrow",
     [
-        ("RealESRGAN_x4plus", "bf16", "chain", (349, 2, 0),
+        ("RealESRGAN_x4plus", "bf16", "chain", (347, 2, 2, 0),
          [("conv3x3_fused", (3, 64)), ("tail_fused", (64, 3))]),
-        ("RealESRGAN_x2plus", "bf16", "chain", (349, 2, 0),
+        ("RealESRGAN_x2plus", "bf16", "chain", (347, 2, 2, 0),
          [("conv3x3_fused", (12, 64)), ("tail_fused", (64, 3))]),
-        ("RealESRGAN_x4plus_anime_6B", "bf16", "chain", (6 * 15 + 4, 2, 0),
+        ("RealESRGAN_x4plus_anime_6B", "bf16", "chain", (6 * 15 + 2, 2, 2, 0),
          [("conv3x3_fused", (3, 64)), ("tail_fused", (64, 3))]),
-        ("RealESRGAN_x4_v3", "bf16", None, (32, 1, 0), [("conv3x3_fused", (3, 64))]),
+        ("RealESRGAN_x4_v3", "bf16", None, (32, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
         # W8A8: the RDB convs are K4's; K1 keeps conv_body, up1, upconv2, conv_hr
-        ("RealESRGAN_x4plus", "int8", "chain", (4, 2, 0),
+        ("RealESRGAN_x4plus", "int8", "chain", (2, 2, 2, 0),
          [("conv3x3_fused", (3, 64)), ("tail_fused", (64, 3))]),
-        ("RealESRGAN_x4_v3", "int8", None, (0, 1, 0), [("conv3x3_fused", (3, 64))]),
+        ("RealESRGAN_x4_v3", "int8", None, (0, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
         # the one-launch tail (K6) takes upconv2, conv_hr and conv_last
-        ("RealESRGAN_x4plus", "bf16", "q", (347, 1, 0), [("conv3x3_fused", (3, 64))]),
+        ("RealESRGAN_x4plus", "bf16", "q", (346, 1, 1, 0), [("conv3x3_fused", (3, 64))]),
     ],
 )
 def test_routes_per_frame(monkeypatch, name, precision, tail_mode, split, narrow):
@@ -220,8 +226,9 @@ def test_routes_per_frame(monkeypatch, name, precision, tail_mode, split, narrow
     calls = _record(monkeypatch)
     y = net(torch.rand(1, 8, 8, 3))
     assert y.shape == (1, 8 * spec.scale, 8 * spec.scale, 3)
+    # (wgmma, mma: up1 and upconv2, narrow, fma)
     n = {r: sum(1 for _, r_, _ in calls if r_ == r) for r in tail.ROUTES}
-    assert (n["mma"], n["narrow"], n["fma"]) == split
+    assert (n["wgmma"], n["mma"], n["narrow"], n["fma"]) == split
     assert [(c, wh) for c, r, wh in calls if r == "narrow"] == narrow
 
 

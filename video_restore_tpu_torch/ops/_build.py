@@ -34,7 +34,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
-    "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_narrow.cu", "unsharp.cu",
+    "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu", "conv3x3_narrow.cu", "unsharp.cu",
     "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
     "conv3x3_i8_mma.cu", "rdb_fused.cu", "rdb_fused_mma.cu", "tail_fused.cu",
     "tail_fused_mma.cu",
@@ -173,6 +173,13 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3.restype = _I
             lib.vr_conv3x3_mma.argtypes = lib.vr_conv3x3.argtypes[1:]
             lib.vr_conv3x3_mma.restype = _I
+            # the mma arguments, then the plan (ops/tail.py::wgmma_plan)
+            lib.vr_conv3x3_wgmma.argtypes = lib.vr_conv3x3.argtypes[1:] + [
+                ctypes.POINTER(_L), _I, _P,
+            ]
+            lib.vr_conv3x3_wgmma.restype = _I
+            lib.vr_conv3x3_wgmma_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_conv3x3_wgmma_config.restype = _I
             lib.vr_conv3x3_narrow.argtypes = lib.vr_conv3x3.argtypes[1:]
             lib.vr_conv3x3_narrow.restype = _I
             lib.vr_unsharp.argtypes = [

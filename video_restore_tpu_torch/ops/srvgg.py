@@ -9,9 +9,10 @@ Port of ``video_restore_tpu/ops/pallas_srvgg.py``:
   conv i, ``h = prelu(conv3x3_SAME(h, w[i]) + b[i], alpha[i])`` with fp32
   sums, bias and PReLU, rounded to the activation dtype between convs
   (``pallas_srvgg.py:101-111``); they differ in TPU layout and launch split
-  only. Here: one K1 launch (``csrc/conv3x3.cu``, ``act="prelu"``) per
-  conv, whose bounds-checked reads give SAME zero padding at every frame
-  and tile edge.
+  only. Here: one K1 launch (``ops/tail.py::conv3x3``, ``act="prelu"``;
+  ``csrc/conv3x3_wgmma.cu`` at the zoo's widths) per conv, whose
+  bounds-checked reads give SAME zero padding at every frame and tile
+  edge.
 - :func:`srvgg_body_i8` is the same body with the W8A8 int8 convs of
   ``--precision int8`` (the ``sws`` argument of the same three entry
   points): one K4 launch (``csrc/conv3x3_i8_mma.cu`` on the int8 tensor

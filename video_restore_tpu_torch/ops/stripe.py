@@ -15,9 +15,14 @@ the frame so each conv has SAME zero padding (``:28-32``). Here the prefix
 idea becomes the memory layout: one growth buffer ``[x | c1 | c2 | c3 | c4]``
 (nf + 4 gc channels), conv k reads its prefix ``[0, nf + (k-1) gc)`` and
 writes c_k at its offset, so the concat never exists; each K1 launch
-bounds-checks its reads, which gives the same SAME padding. Five K1
-launches per RDB; c_k is rounded to the activation dtype between launches,
-as the Pallas kernel rounds it. The same function in one launch, with
+bounds-checks its reads, which gives the same SAME padding. On K1's
+``"wgmma"`` route (gc its 32-channel stage) the layout is blocked instead:
+c1 .. c4 are the four contiguous blocks of one (4, B, H, W, gc) tensor, and
+conv k reads x and blocks ``[0, k-1)`` through two TMA maps, so every
+c_k is written, and every stage read, in whole pixels (the 64-byte slices
+of the 384-byte pixels of the growth buffer wrote at half the card's rate,
+and x is not copied). Five K1 launches per RDB; c_k is rounded to the
+activation dtype between launches, as the Pallas kernel rounds it. The same function in one launch, with
 c1..c4 kept on chip, is ``ops/rdb.py`` (K5, the ``VRT_PALLAS=1`` body).
 
 :func:`rdb_fused_i8` is the same RDB with the W8A8 int8 convs of
@@ -50,28 +55,46 @@ from video_restore_tpu_torch.ops.quant import (
     conv3x3_i8_plain,
     rdb_segments,
 )
-from video_restore_tpu_torch.ops.tail import conv3x3, conv3x3_plain
+from video_restore_tpu_torch.ops.tail import (
+    WGMMA_KC,
+    conv3x3,
+    conv3x3_call_route,
+    conv3x3_plain,
+)
+
+
+def _check_rdb(x, ws, bs):
+    """(nf, gc) of an RDB, after checking that the five convs close one."""
+    if len(ws) != 5 or len(bs) != 5:
+        raise ValueError("an RDB has five convs")
+    nf, gc = x.shape[-1], ws[0].shape[-1]
+    if ws[4].shape[-1] != nf or ws[4].shape[-2] != nf + 4 * gc:
+        raise ValueError(
+            f"conv5 weight {tuple(ws[4].shape)} does not close an RDB of "
+            f"nf={nf}, gc={gc}"
+        )
+    return nf, gc
 
 
 def _growth_buffer(x, ws, bs):
     """The (B, H, W, nf + 4 gc) buffer ``[x | c1 .. c4]`` with x in place,
     after checking that the five convs close an RDB."""
-    if len(ws) != 5 or len(bs) != 5:
-        raise ValueError("an RDB has five convs")
-    bsz, h, w, nf = x.shape
-    gc = ws[0].shape[-1]
-    width = nf + 4 * gc
-    if ws[4].shape[-1] != nf or ws[4].shape[-2] != width:
-        raise ValueError(
-            f"conv5 weight {tuple(ws[4].shape)} does not close an RDB of "
-            f"nf={nf}, gc={gc}"
-        )
-    grow = torch.empty((bsz, h, w, width), dtype=x.dtype, device=x.device)
+    nf, gc = _check_rdb(x, ws, bs)
+    bsz, h, w, _ = x.shape
+    grow = torch.empty((bsz, h, w, nf + 4 * gc), dtype=x.dtype, device=x.device)
     grow[..., :nf] = x
     return grow, nf, gc
 
 
-def _rdb(conv, x, ws, bs, x0, **kw):
+def _rdb(conv, x, ws, bs, x0, blocked=False, **kw):
+    if blocked:
+        _check_rdb(x, ws, bs)
+        bsz, h, w, nf = x.shape
+        tail = torch.empty((4, bsz, h, w, ws[0].shape[-1]), dtype=x.dtype, device=x.device)
+        for k in range(4):
+            conv(x, ws[k], bs[k], act="lrelu", out=tail[k], x_tail=tail[:k] if k else None,
+                 **kw)
+        return conv(x, ws[4], bs[4], r1=x, s1=0.2, r2=x0, s2=0.2, x_tail=tail, **kw)
     grow, nf, gc = _growth_buffer(x, ws, bs)
     for k in range(4):
         lo = nf + k * gc
@@ -95,9 +118,21 @@ def rdb_fused(
 
     x, x0: (B, H, W, nf); ws: the five torch-ordered conv weights, HWIO
     (3, 3, nf + (k-1) gc, gc) for k < 5 and (3, 3, nf + 4 gc, nf) for
-    conv5; bs: their biases; all in x's dtype. Five K1 launches on CUDA,
+    conv5; bs: their biases; all in x's dtype. Five K1 launches on CUDA
+    (on the ``"wgmma"`` route with c1 .. c4 in blocks: :func:`blocked`),
     the plain version on the CPU."""
-    return _rdb(conv3x3, x, ws, bs, x0, counter="rdb_fused")
+    return _rdb(conv3x3, x, ws, bs, x0, blocked=blocked(x, ws, bs), counter="rdb_fused")
+
+
+def blocked(x: torch.Tensor, ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor]) -> bool:
+    """Whether :func:`rdb_fused` keeps c1 .. c4 in blocks: a CUDA x whose
+    first conv takes K1's ``"wgmma"`` route, with gc the route's stage
+    (``ops/tail.py::WGMMA_KC``) and nf whole stages of it."""
+    gc = ws[0].shape[-1]
+    return (
+        x.device.type == "cuda" and gc == WGMMA_KC and x.shape[-1] % WGMMA_KC == 0
+        and conv3x3_call_route(x, ws[0], bs[0]) == "wgmma"
+    )
 
 
 def rdb_fused_plain(x, ws, bs, x0=None):
