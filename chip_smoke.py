@@ -29,9 +29,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``unsharp_rows.cu`` (fp32) and ``unsharp_rows_bf16.cu`` (bf16), both on
    ``unsharp_rows.cuh``, and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
    ``srvgg_up.cu``, K4 ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and
-   ``conv3x3_i8.cu`` with its amax entry point, K5
-   ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and ``rdb_fused.cu``, each with
-   its one-RDB and whole-RRDB entry points, K6 ``tail_fused_mma.cu`` on
+   ``conv3x3_i8.cu`` with its amax entry point, K5 ``rdb_fused_wgmma.cu``
+   (``wgmma`` + TMA over rolling row rings, on ``wgmma_tile.cuh`` with K1's
+   wgmma source), ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and
+   ``rdb_fused.cu`` (its fp32-FMA instances in ``rdb_fused_f32.cu``,
+   ``rdb_fused_bf16.cu`` and ``rdb_fused_narrow.cu`` on ``rdb_fused.cuh``),
+   each with its one-RDB and whole-RRDB entry points, K6 ``tail_fused_mma.cu`` on
    ``mma_tile.cuh`` and ``tail_fused.cu``), and
    print each source's compile seconds (one ``nvcc`` each, all in
    parallel: the slowest sets the build's time) and each kernel's
@@ -71,14 +74,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    instance's registers and blocks per SM, both terms of its bound (bytes,
    and fp32 instructions at one a lane a clock), and the bf16 time against
    the bf16 instance's time before its redesign. K5's
-   tensor-core route (``rdb_fused_k5:mma``, ``rrdb_fused:mma``) the same
+   Hopper route (``rdb_fused_k5:wgmma``, ``rrdb_fused:wgmma``) the same
    way: one RDB (with and without ``x0``) and a whole RRDB in bf16 at nf 64
-   / gc 32 at odd shapes (a frame smaller than one tile, ragged extents no
-   tile divides, B = 2, more tiles than the persistent grid has blocks)
-   within ``compare``'s bf16 tolerance of the plain version, the largest
-   error in bf16 steps printed, then the old kernel (``fma``, forced) and
-   the new one side by side on one 1080p RDB and RRDB with the cuDNN
-   chain's time. K3's tensor-core route (``srvgg_up_fused:mma``) at r 2 and
+   / gc 32 at odd shapes (a frame smaller than one stripe, one tile of the
+   old kernel, ragged extents with B = 2, a ragged last stripe, more
+   segments than the persistent grid has blocks), at 1080p and at
+   ``bench_rdb``'s 4x384x504, each within ``compare``'s bf16 tolerance of
+   the plain version and bit-equal to the forced ``mma`` route and to K1's
+   five-launch chain (``stripe.rdb_fused``, three of them and the residual
+   for the RRDB), the forced ``fma`` route (``rdb_fused_bf16.cu``) held to
+   the plain version the same way at a ragged shape and at 1080p, then
+   ``wgmma``, ``mma``, ``fma`` (forced), the cuDNN
+   chain and K1's chain side by side on one 1080p RDB and RRDB, with
+   executed over useful work and TFLOP/s; the 1080p RDB on ``wgmma`` must
+   take at most half of ``mma``'s time in the same run. K3's tensor-core route (``srvgg_up_fused:mma``) at r 2 and
    r 4 at odd shapes, the config-4 frame and the tile batch, within one
    bf16 step per value of the plain version, old and new side by side. K6's
    tensor-core route (``tail_fused_q:mma``) in bf16 at nf 64 at odd shapes
@@ -162,7 +171,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``dp4a``), and the int8 output against the bf16 kernel path's (>= 35 dB
    on u8 per frame);
 9. ``[main_pallas]``: the flagship flags with ``VRT_PALLAS=1`` (one K5
-   launch per RRDB block, 23 per frame, and no five-K1 RDB), 2 frames, with
+   launch per RRDB block on the ``wgmma`` route, 23 ``rrdb_fused:wgmma``
+   per frame, and no five-K1 RDB), 2 frames, with
    the checks of phases 4 and 5, and the output against the default body's
    kernel path (>= 45 dB on u8 per frame: one function, summed in another
    order);
@@ -369,7 +379,7 @@ PALLAS = {
 CUDA_ROUTE = {
     "conv3x3_fused": "narrow", "rdb_fused": "wgmma", "up1_fused": "mma",
     "tail_fused": "mma+wgmma+narrow", "srvgg_body": "wgmma", "srvgg_up_fused": "mma",
-    "rdb_fused_k5": "mma", "rrdb_fused": "mma", "conv3x3:wgmma": "wgmma",
+    "rdb_fused_k5": "wgmma", "rrdb_fused": "wgmma", "conv3x3:wgmma": "wgmma",
     "tail_fused_q": "mma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
     "rdb_fused_i8 static": "mma", "conv3x3:narrow conv_last": "narrow",
     "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
@@ -394,8 +404,10 @@ SOURCE = {
     "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
     "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
     "act_amax": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
-    "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
-    "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused_mma.cu",
+    # K5 is three kernels (ops/rdb.py::rdb_route); bf16 at (64, 32) takes
+    # the Hopper one
+    "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused_wgmma.cu",
+    "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused_wgmma.cu",
     "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_mma.cu",
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
     "conv3x3:wgmma": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
@@ -485,7 +497,7 @@ def main(argv=None) -> int:
     entry = spill = source = ""
     # the redesigned sources, whose ptxas lines are repeated under their
     # phase's tag
-    new_sources = {"conv3x3_wgmma.cu": "k1", "rdb_fused_mma.cu": "k5", "srvgg_up_mma.cu": "k3",
+    new_sources = {"conv3x3_wgmma.cu": "k1", "rdb_fused_wgmma.cu": "k5", "srvgg_up_mma.cu": "k3",
                    "tail_fused_mma.cu": "k6",
                    "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
                    "unsharp_rows_bf16.cu": "k2"}
@@ -1032,93 +1044,155 @@ def main(argv=None) -> int:
 
     def k5_exec_ops(b, h, w):
         """Operations K5's mma route executes: every conv over its whole
-        window of every 12 x 12 tile (the recomputed halo included)."""
+        window of every 12 x 12 tile (the recomputed halo included). The
+        wgmma route's: ``rdb_wgmma_plan(...).executed_ops()``."""
         tiles = b * -(-h // 12) * -(-w // 12)
         return tiles * sum(2 * 9 * (22 - 2 * k) ** 2 * (NF + (k - 1) * GC) * (GC if k < 5 else NF)
                            for k in range(1, 6))
 
     def phase_k5():
-        """K5's tensor-core route: one RDB (with and without x0) and a whole
-        RRDB in bf16 at nf 64 / gc 32, at odd shapes, each launch counted
-        under its route, within compare's bf16 tolerance of the plain
-        version; then the old kernel (fma route forced) and the new one side
-        by side at 1080p."""
+        """K5's Hopper route (``"wgmma"``): one RDB (with and without x0) and
+        a whole RRDB in bf16 at nf 64 / gc 32, at odd shapes, at 1080p and at
+        ``bench_rdb``'s shape, each launch counted under its route, within
+        compare's bf16 tolerance of the plain version, and bit-equal to the
+        forced ``mma`` route and to K1's five-launch chain; the forced
+        ``fma`` route held to plain at a ragged shape and at 1080p; then
+        every route and the cuDNN and K1 chains side by side at 1080p."""
+        lib = _build.load()
+        geo = rdb.wgmma_geometry(lib)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         ws, bs = rdb_weights(NF, GC, bf)
         w3 = [(ws, bs)] + [rdb_weights(NF, GC, bf) for _ in range(2)]
 
-        def held(tag, counter, k_fn, p_fn):
-            k = one_launch(f"[k5] {tag}", k_fn, counter)
+        def k1_rdb(x, x0=None):
+            return stripe.rdb_fused(x, ws, bs, x0)
+
+        def k1_rrdb(x):
+            out = stripe.rdb_fused(x, *w3[0])
+            out = stripe.rdb_fused(out, *w3[1])
+            return stripe.rdb_fused(out, *w3[2], x0=x)
+
+        def held(tag, counter, k_fn, p_fn, mma_fn, chain_fn):
+            k = one_launch(f"[k5] {tag}", k_fn, counter, route="wgmma")
             p = p_fn()
             e = compare(f"[k5] {tag}", k, p, bf)
             # per value in bf16 steps, taken at no less than 2^-8 of plain's
             # largest value as in [k1]: reported, not held
             _, st = bf16_steps(f"[k5] {tag}", k, p, n=float("inf"),
                                floor=p.float().abs().max().item() * 2.0**-8)
+            del p
+            # the same fp32 sums in the same order (16 channels of the growth
+            # prefix at a time, taps in order) and the same epilogue as the
+            # mma route and K1's tensor-core chain: the same bits
+            same_mma = torch.equal(k, one_launch(f"[k5] {tag} forced mma", mma_fn, counter))
+            same_k1 = torch.equal(k, chain_fn())
+            check(same_mma, f"[k5] {tag}: wgmma differs from the forced mma route")
+            check(same_k1, f"[k5] {tag}: wgmma differs from K1's five-launch chain")
+            k5_stats["bit_equal_cases"] = k5_stats.get("bit_equal_cases", 0) + 1
             k5_stats["max_steps"] = max(k5_stats.get("max_steps", 0.0), st)
             k5_stats["max_err"] = max(k5_stats.get("max_err", 0.0), e)
-            log(f"[k5] {tag} err={e:.3g} steps={st:.2f} (|plain| max {p.float().abs().max().item():.3g})")
+            log(f"[k5] {tag} err={e:.3g} steps={st:.2f} == mma, == K1 chain")
             return k
 
-        # below one tile, one tile, ragged with B = 2, and more 12 x 12 tiles
-        # (2 x 11 x 13 = 286) than the persistent grid has blocks (132)
-        for shp in ((1, 5, 7), (1, 12, 12), (2, 37, 53), (2, 130, 150)):
+        def three(shp):
+            """One RDB, one with x0, one RRDB at ``shp``, each held."""
             x, x0 = rnd(*shp, NF), rnd(*shp, NF)
-            held(f"rdb_fused {shp}", "rdb_fused_k5",
-                 lambda: rdb.rdb_fused(x, ws, bs), lambda: rdb.rdb_fused_plain(x, ws, bs))
-            held(f"rdb_fused {shp} x0", "rdb_fused_k5",
-                 lambda: rdb.rdb_fused(x, ws, bs, x0), lambda: rdb.rdb_fused_plain(x, ws, bs, x0))
-            held(f"rrdb_fused {shp}", "rrdb_fused",
-                 lambda: rdb.rrdb_fused(x, w3), lambda: rdb.rrdb_fused_plain(x, w3))
+            held(f"rdb_fused {shp}", "rdb_fused_k5", lambda: rdb.rdb_fused(x, ws, bs),
+                 lambda: rdb.rdb_fused_plain(x, ws, bs),
+                 lambda: rdb.rdb_fused(x, ws, bs, route="mma"), lambda: k1_rdb(x))
+            held(f"rdb_fused {shp} x0", "rdb_fused_k5", lambda: rdb.rdb_fused(x, ws, bs, x0),
+                 lambda: rdb.rdb_fused_plain(x, ws, bs, x0),
+                 lambda: rdb.rdb_fused(x, ws, bs, x0, route="mma"), lambda: k1_rdb(x, x0))
+            held(f"rrdb_fused {shp}", "rrdb_fused", lambda: rdb.rrdb_fused(x, w3),
+                 lambda: rdb.rrdb_fused_plain(x, w3), lambda: rdb.rrdb_fused(x, w3, route="mma"),
+                 lambda: k1_rrdb(x))
+            return x
 
-        xb, x0b = rnd(1, H, W, NF), rnd(1, H, W, NF)
-        k_new = held(f"rdb_fused 1x{H}x{W}", "rdb_fused_k5",
-                     lambda: rdb.rdb_fused(xb, ws, bs), lambda: rdb.rdb_fused_plain(xb, ws, bs))
-        held(f"rdb_fused 1x{H}x{W} x0", "rdb_fused_k5",
-             lambda: rdb.rdb_fused(xb, ws, bs, x0b), lambda: rdb.rdb_fused_plain(xb, ws, bs, x0b))
-        k_old = one_launch("[k5] rdb_fused forced fma", lambda: rdb.rdb_fused(xb, ws, bs, route="fma"),
-                           "rdb_fused_k5", route="fma")
-        e_old = compare("[k5] rdb_fused mma vs fma", k_new, k_old, bf)
-        # the same fp32 sums in the same order as K1's tensor-core route (16
-        # channels of the growth prefix at a time, taps in order) and the same
-        # epilogue: expected bit-equal to the five-launch chain
-        same = torch.equal(k_new, stripe.rdb_fused(xb, ws, bs))
-        k5_stats["bit_equal_to_k1_chain"] = same
-        log(f"[k5] rdb_fused 1x{H}x{W} mma bit-equal to K1's five-launch chain: {same}")
-        del k_new, k_old
-        new_ms = timed(lambda: rdb.rdb_fused(xb, ws, bs), 10)
-        old_ms = timed(lambda: rdb.rdb_fused(xb, ws, bs, route="fma"), 3)
+        # below one stripe, one 12 x 12 tile of the old kernel, ragged with B
+        # = 2, a ragged last stripe (72 = 54 + 18), more segments than the
+        # persistent grid has blocks; bench_rdb's shape
+        for shp in ((1, 5, 7), (1, 12, 12), (2, 37, 53), (1, 20, 72), (2, 130, 150),
+                    (4, 384, 504)):
+            three(shp)
+        xb = three((1, H, W))
+
+        # the bf16 instance of rdb_fused.cu (fp32 FMAs), now a forced route
+        # only: one RDB, one with x0 and one RRDB at a ragged shape with B =
+        # 2 and at 1080p, each within compare's bf16 tolerance of plain
+        for shp in ((2, 37, 53), (1, H, W)):
+            x = xb if shp == (1, H, W) else rnd(*shp, NF)
+            x0 = rnd(*shp, NF)
+            for tag, counter, k_fn, p_fn in (
+                (f"rdb_fused {shp}", "rdb_fused_k5", lambda: rdb.rdb_fused(x, ws, bs, route="fma"),
+                 lambda: rdb.rdb_fused_plain(x, ws, bs)),
+                (f"rdb_fused {shp} x0", "rdb_fused_k5",
+                 lambda: rdb.rdb_fused(x, ws, bs, x0, route="fma"),
+                 lambda: rdb.rdb_fused_plain(x, ws, bs, x0)),
+                (f"rrdb_fused {shp}", "rrdb_fused", lambda: rdb.rrdb_fused(x, w3, route="fma"),
+                 lambda: rdb.rrdb_fused_plain(x, w3)),
+            ):
+                k = one_launch(f"[k5] {tag} forced fma", k_fn, counter, route="fma")
+                e = compare(f"[k5] {tag} forced fma", k, p_fn(), bf)
+                k5_stats["fma_max_err"] = max(k5_stats.get("fma_max_err", 0.0), e)
+                log(f"[k5] {tag} forced fma err={e:.3g}")
+                del k
+
+        ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
+        exe = rdb.rdb_wgmma_plan(1, H, W, geo, sms=sms).executed_ops()
+        exe_mma = k5_exec_ops(1, H, W)
         rdb_in = [rnd(1, NF + k_ * GC, H, W).contiguous(memory_format=torch.channels_last) for k_ in range(5)]
         rdb_w = [[w_.permute(3, 2, 0, 1).contiguous() for w_ in r_[0]] for r_ in w3]
-        lib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1) for a, w_, b_ in zip(rdb_in, rdb_w[0], bs)], 5)
-        ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
-        exe = k5_exec_ops(1, H, W)
+        t = {}
+        # in turns: wgmma, mma, the chains, fma, then wgmma and mma again
+        for name, fn, reps in (
+            ("wgmma", lambda: rdb.rdb_fused(xb, ws, bs), 10),
+            ("mma", lambda: rdb.rdb_fused(xb, ws, bs, route="mma"), 10),
+            ("k1", lambda: k1_rdb(xb), 10),
+            ("library", lambda: [F.conv2d(a, w_, b_, padding=1) for a, w_, b_ in zip(rdb_in, rdb_w[0], bs)], 5),
+            ("fma", lambda: rdb.rdb_fused(xb, ws, bs, route="fma"), 3),
+            ("wgmma2", lambda: rdb.rdb_fused(xb, ws, bs), 10),
+            ("mma2", lambda: rdb.rdb_fused(xb, ws, bs, route="mma"), 10),
+        ):
+            t[name] = timed(fn, reps)
+        new_ms, old_ms = min(t["wgmma"], t["wgmma2"]), min(t["mma"], t["mma2"])
         log(
-            f"[k5] rdb_fused 1x{H}x{W}x64 bf16: fma (old kernel) {old_ms:.3f} ms, mma (new kernel) "
-            f"{new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {ops / new_ms / 1e9:.1f} TFLOP/s useful, "
-            f"{exe / new_ms / 1e9:.1f} executed, executed/useful {exe / ops:.3f}), "
-            f"library (cuDNN chain of 5) {lib_ms:.3f} ms; max |mma - fma| {e_old:.3g}"
+            f"[k5] rdb_fused 1x{H}x{W}x64 bf16: wgmma (new kernel) {t['wgmma']:.3f} / {t['wgmma2']:.3f} ms "
+            f"({ops / new_ms / 1e9:.1f} TFLOP/s useful, {exe / new_ms / 1e9:.1f} executed, executed/useful "
+            f"{exe / ops:.3f}), mma (old kernel) {t['mma']:.3f} / {t['mma2']:.3f} ms ({ops / old_ms / 1e9:.1f} "
+            f"useful, {exe_mma / old_ms / 1e9:.1f} executed, executed/useful {exe_mma / ops:.3f}; "
+            f"{old_ms / new_ms:.2f}x), fma {t['fma']:.3f} ms, K1's five-launch chain {t['k1']:.3f} ms, "
+            f"library (cuDNN chain of 5) {t['library']:.3f} ms; bound {ops / PEAK_BF16 * 1e3:.3f} ms (ops)"
         )
-        k_new = held(f"rrdb_fused 1x{H}x{W}", "rrdb_fused",
-                     lambda: rdb.rrdb_fused(xb, w3), lambda: rdb.rrdb_fused_plain(xb, w3))
-        k_old = one_launch("[k5] rrdb_fused forced fma", lambda: rdb.rrdb_fused(xb, w3, route="fma"),
-                           "rrdb_fused", route="fma")
-        e_rold = compare("[k5] rrdb_fused mma vs fma", k_new, k_old, bf)
-        del k_new, k_old
-        rnew_ms = timed(lambda: rdb.rrdb_fused(xb, w3), 5)
-        rold_ms = timed(lambda: rdb.rrdb_fused(xb, w3, route="fma"), 2)
-        rlib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1) for r_, wo in zip(w3, rdb_w)
-                                 for a, w_, b_ in zip(rdb_in, wo, r_[1])], 3)
+        rt = {}
+        for name, fn, reps in (
+            ("wgmma", lambda: rdb.rrdb_fused(xb, w3), 5),
+            ("mma", lambda: rdb.rrdb_fused(xb, w3, route="mma"), 5),
+            ("k1", lambda: k1_rrdb(xb), 5),
+            ("library", lambda: [F.conv2d(a, w_, b_, padding=1) for r_, wo in zip(w3, rdb_w)
+                                 for a, w_, b_ in zip(rdb_in, wo, r_[1])], 3),
+            ("fma", lambda: rdb.rrdb_fused(xb, w3, route="fma"), 2),
+            ("wgmma2", lambda: rdb.rrdb_fused(xb, w3), 5),
+            ("mma2", lambda: rdb.rrdb_fused(xb, w3, route="mma"), 5),
+        ):
+            rt[name] = timed(fn, reps)
+        rnew_ms, rold_ms = min(rt["wgmma"], rt["wgmma2"]), min(rt["mma"], rt["mma2"])
         log(
-            f"[k5] rrdb_fused 1x{H}x{W}x64 bf16: fma (old kernel) {rold_ms:.3f} ms, mma (new kernel) "
-            f"{rnew_ms:.3f} ms ({rold_ms / rnew_ms:.2f}x; {3 * ops / rnew_ms / 1e9:.1f} TFLOP/s useful), "
-            f"library (cuDNN chain of 15) {rlib_ms:.3f} ms; max |mma - fma| {e_rold:.3g}; "
-            f"largest error at every shape: {k5_stats['max_err']:.3g}, {k5_stats['max_steps']:.2f} bf16 steps"
+            f"[k5] rrdb_fused 1x{H}x{W}x64 bf16: wgmma (new kernel) {rt['wgmma']:.3f} / {rt['wgmma2']:.3f} ms "
+            f"({3 * ops / rnew_ms / 1e9:.1f} TFLOP/s useful, {3 * exe / rnew_ms / 1e9:.1f} executed), mma "
+            f"(old kernel) {rt['mma']:.3f} / {rt['mma2']:.3f} ms ({rold_ms / rnew_ms:.2f}x), fma {rt['fma']:.3f} "
+            f"ms, K1's chain of 15 {rt['k1']:.3f} ms, library (cuDNN chain of 15) {rt['library']:.3f} ms; "
+            f"bound {3 * ops / PEAK_BF16 * 1e3:.3f} ms (ops); largest error at every shape: "
+            f"{k5_stats['max_err']:.3g}, {k5_stats['max_steps']:.2f} bf16 steps; "
+            f"{k5_stats['bit_equal_cases']} cases bit-equal to mma and to K1's chain"
         )
-        k5_stats.update(rdb_fma_ms=old_ms, rdb_mma_ms=new_ms, rdb_library_ms=lib_ms,
-                        rrdb_fma_ms=rold_ms, rrdb_mma_ms=rnew_ms, rrdb_library_ms=rlib_ms,
-                        executed_per_useful=exe / ops)
-        check(new_ms * 3 <= old_ms,
-              f"[k5] the mma route ({new_ms:.3f} ms per RDB) is not 3x the fma kernel ({old_ms:.3f})")
+        k5_stats.update(
+            rdb_wgmma_ms=new_ms, rdb_mma_ms=old_ms, rdb_fma_ms=t["fma"], rdb_library_ms=t["library"],
+            rdb_k1_chain_ms=t["k1"], rrdb_wgmma_ms=rnew_ms, rrdb_mma_ms=rold_ms, rrdb_fma_ms=rt["fma"],
+            rrdb_library_ms=rt["library"], rrdb_k1_chain_ms=rt["k1"], executed_per_useful=exe / ops,
+            executed_per_useful_mma=exe_mma / ops, bit_equal_to_mma=True, bit_equal_to_k1_chain=True,
+        )
+        check(new_ms * 2 <= old_ms,
+              f"[k5] the wgmma route ({new_ms:.3f} ms per RDB) is not twice as fast as mma ({old_ms:.3f})")
 
     def phase_k3():
         """K3's tensor-core route at r 2 and r 4: odd shapes, the config-4
@@ -2158,7 +2232,7 @@ def main(argv=None) -> int:
         return dict(mean, sum=total, loop_compute_ms=loops["compute"], loop_side_ms=loops["side"])
 
     def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False,
-              vs_default=None, post_split=False, rgb_check=False):
+              vs_default=None, equal_default=False, post_split=False, rgb_check=False):
         """One main path: the CLI's config through ``VideoRestorer`` with
         the launch counters reset before and read after (the y4m sink takes
         planar I420 from the device), then the kernel path (RGB and I420
@@ -2167,8 +2241,8 @@ def main(argv=None) -> int:
         is held to the plain one. With ``vs_bf16``, the bf16 kernel path,
         which the int8 output must stay within 35 dB of; with
         ``vs_default``, the name of the knob that is set, the kernel path of
-        the default route without that knob, which must stay within 45 dB;
-        with ``post_split``, the kernel path's step by stage,
+        the default route without that knob, which must stay within 45 dB
+        (with ``equal_default``: equal it byte for byte); with ``post_split``, the kernel path's step by stage,
         :func:`stage_split`; with ``rgb_check``, the CLI's config again with
         ``device_yuv="off"``, whose file must equal the RGB kernel path's
         frames after the y4m colour round trip."""
@@ -2337,6 +2411,9 @@ def main(argv=None) -> int:
             dbs = [psnr_u8(a, b_) for a, b_ in zip(outs[False], outs["default"])]
             log(f"[{tag}] vs the default (no {vs_default}) kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
             check(min(dbs) >= 45.0, f"[{tag}] vs the default route {min(dbs):.2f} dB < 45")
+            same = all(np.array_equal(a, b_) for a, b_ in zip(outs[False], outs["default"]))
+            log(f"[{tag}] u8 frames byte-equal to the default path's: {same}")
+            check(same or not equal_default, f"[{tag}] u8 frames differ from the default path's")
             path_stats[tag].update(default_step_ms=step_ms["default"], vs_default_db=dbs)
             if "main" in path_stats:
                 m = path_stats["main"]
@@ -2442,9 +2519,10 @@ def main(argv=None) -> int:
         # phase 9: the VRT_PALLAS=1 body (one K5 launch per RRDB block)
         ("main_pallas", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rrdb_fused": spec.num_block,
-          "rrdb_fused:mma": spec.num_block, "up1_fused": 1,
+          "rrdb_fused:wgmma": spec.num_block, "up1_fused": 1,
           "tail_fused": 3, **K2_ROWS, **k1_routes(2, 2, 1, 1)},
-         is_flagship("bf16"), 1, {"VRT_PALLAS": "1"}, dict(vs_default="VRT_PALLAS")),
+         is_flagship("bf16"), 1, {"VRT_PALLAS": "1"},
+         dict(vs_default="VRT_PALLAS", equal_default=True)),
         # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
         ("main_tailq", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1,
@@ -3290,8 +3368,8 @@ def main(argv=None) -> int:
         for modes, expected in (
             (bench_rdb.MODES[:-1],
              {"rdb_fused": 5 * apps, "conv3x3:wgmma": 5 * apps, "rdb_fused_k5": apps,
-              "rdb_fused_k5:mma": apps, "rrdb_fused": rrdb_apps,
-              "rrdb_fused:mma": rrdb_apps, "rdb_fused_i8": 5 * apps,
+              "rdb_fused_k5:wgmma": apps, "rrdb_fused": rrdb_apps,
+              "rrdb_fused:wgmma": rrdb_apps, "rdb_fused_i8": 5 * apps,
               "conv3x3_i8:mma": 5 * apps, "act_amax": 1}),
             (("int8s",), {"rdb_fused_i8": 5 * apps, "conv3x3_i8:mma": 5 * apps}),
         ):

@@ -1,4 +1,4 @@
-"""The kernel library's build and the K2 and K1 probes, on a machine without nvcc.
+"""The kernel library's build and the K2, K1 and K5 probes, on a machine without nvcc.
 
 ``ops/_build.py`` starts one ``nvcc`` per source, all together, then links;
 ``build.log`` gives each source's wall seconds, so a run shows which source
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from video_restore_tpu_torch.ops import _build
-from video_restore_tpu_torch.tools import probe_k1, probe_k2
+from video_restore_tpu_torch.tools import probe_k1, probe_k2, probe_k5k3
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -62,6 +62,10 @@ def test_the_build_times_each_source(fake_nvcc):
     secs = _build.compile_seconds((_build.BUILD_DIR / "build.log").read_text())
     assert list(secs) == list(_build.SOURCES)
     assert "conv3x3_wgmma.cu" in secs  # K1's Hopper route, its own nvcc
+    assert "rdb_fused_wgmma.cu" in secs  # K5's Hopper route, its own nvcc
+    # K5's fp32-FMA instances, each its own nvcc beside the entry points
+    assert {"rdb_fused.cu", "rdb_fused_f32.cu", "rdb_fused_bf16.cu",
+            "rdb_fused_narrow.cu"} <= set(secs)
     assert secs["unsharp_rows_bf16.cu"] >= 2.0
     assert min(secs.values()) < secs["unsharp_rows_bf16.cu"]
     assert _build.build() == out  # built once: the hash names the library
@@ -208,4 +212,34 @@ def test_the_k1_probe_needs_the_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the probe would time it")
     assert probe_k1.main(["--route", "wgmma", "--quick"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+# ---- tools/probe_k5k3.py --route wgmma ------------------------------------------
+
+
+def test_the_k5_probe_builds_its_variants():
+    """The mma source as shipped first, then rdb_fused_wgmma.cu's variants;
+    ``--only`` picks names, ``--variant`` adds one; every define is one of
+    the source's switches."""
+    builds = probe_k5k3.k5_builds()
+    assert builds[0] == ("mma", "rdb_fused_mma.cu", ())
+    assert [b[0] for b in builds[1:]] == [n for n, _ in probe_k5k3.K5_VARIANTS]
+    assert {src for _, src, _ in builds[1:]} == {"rdb_fused_wgmma.cu"}
+    assert ("shipped", "rdb_fused_wgmma.cu", ()) in builds
+    assert ("no_mma", "rdb_fused_wgmma.cu", ("-DVR_PROBE_NO_MMA",)) in builds
+    extra = [probe_k1.parse_variant("one=-DVR_K5_ROWS=1")]
+    picked = probe_k5k3.k5_builds(extra, only=["shipped", "one"])
+    assert [b[0] for b in picked] == ["mma", "shipped", "one"]
+    text = (_build.CSRC / "rdb_fused_wgmma.cu").read_text()
+    for _, defs in probe_k5k3.K5_VARIANTS:
+        for d in defs:
+            assert d[2:].split("=")[0] in text
+    assert set(probe_k5k3.UNCHECKED) <= {n for n, _ in probe_k5k3.K5_VARIANTS}
+
+
+def test_the_k5_probe_needs_the_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the probe would time it")
+    assert probe_k5k3.main(["--route", "wgmma", "--quick"]) == 1
     assert "no CUDA device" in capsys.readouterr().err

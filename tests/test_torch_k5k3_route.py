@@ -1,15 +1,17 @@
 """Which of K5's and K3's two kernels each call of the port takes on the card,
 and the padded conv_out weight of K3's tensor-core route.
 
-K5 (one RDB or a whole RRDB in one launch) and K3 (the SRVGG upsampler) are
-each one function behind two hand-written CUDA kernels: ``"mma"``
-(``csrc/rdb_fused_mma.cu``, ``csrc/srvgg_up_mma.cu``: tensor cores) and
-``"fma"`` (``csrc/rdb_fused.cu``, ``csrc/srvgg_up.cu``: fp32 FMAs).
+K5 (one RDB or a whole RRDB in one launch) is one function behind three
+hand-written CUDA kernels: ``"wgmma"`` (``csrc/rdb_fused_wgmma.cu``: Hopper
+tensor cores fed by TMA), ``"mma"`` (``csrc/rdb_fused_mma.cu``:
+``mma.sync``, reached only when a caller forces it) and ``"fma"``
+(``csrc/rdb_fused.cu``: fp32 FMAs); K3 (the SRVGG upsampler) is two:
+``"mma"`` (``csrc/srvgg_up_mma.cu``) and ``"fma"`` (``csrc/srvgg_up.cu``).
 ``ops/rdb.py::rdb_route`` and ``ops/srvgg.py::srvgg_up_route`` choose from
 the call alone, so the choice is tested here, on the CPU, without a kernel:
 each model runs at full width on a tiny frame in bf16 through the plain
 versions while a recorder asks the route of each call. The numbers are the
-ones the chip smoke test asserts on the card: 23 ``rrdb_fused:mma`` per
+ones the chip smoke test asserts on the card: 23 ``rrdb_fused:wgmma`` per
 frame of the ``VRT_PALLAS=1`` flagship body, one ``srvgg_up_fused:mma`` per
 config-4 frame.
 
@@ -43,7 +45,7 @@ BF, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize(
     "dtype,nf,gc,route",
     [
-        (BF, 64, 32, "mma"),   # every RRDBNet of the zoo
+        (BF, 64, 32, "wgmma"),  # every RRDBNet of the zoo
         (F32, 64, 32, "fma"),  # fp32: the tight checks
         (BF, 16, 8, "fma"),    # the narrow width of the tests and checks
         (F32, 16, 8, "fma"),
@@ -75,18 +77,21 @@ def test_srvgg_up_route(dtype, cin, r, route):
 
 
 def test_a_forced_route_is_checked():
-    """``route="fma"`` reaches the old kernel for a side-by-side timing; the
-    tensor-core kernel is never forced onto a call it is not built for."""
+    """``route="mma"`` and ``route="fma"`` reach the older kernels for a
+    side-by-side timing; neither tensor-core kernel is ever forced onto a
+    call it is not built for."""
     xb = torch.zeros(1, 4, 5, 64, dtype=BF)
-    assert rdb._pick_route("t", xb, 64, 32, None) == "mma"
+    assert rdb._pick_route("t", xb, 64, 32, None) == "wgmma"
     assert rdb._pick_route("t", xb, 64, 32, "fma") == "fma"
     assert rdb._pick_route("t", xb, 64, 32, "mma") == "mma"
-    with pytest.raises(ValueError, match="64, 32"):
-        rdb._pick_route("t", xb.float(), 64, 32, "mma")
-    with pytest.raises(ValueError, match="64, 32"):
-        rdb._pick_route("t", xb, 16, 8, "mma")
+    assert rdb._pick_route("t", xb, 64, 32, "wgmma") == "wgmma"
+    for route in ("mma", "wgmma"):
+        with pytest.raises(ValueError, match="64, 32"):
+            rdb._pick_route("t", xb.float(), 64, 32, route)
+        with pytest.raises(ValueError, match="64, 32"):
+            rdb._pick_route("t", xb, 16, 8, route)
     with pytest.raises(ValueError, match="unknown route"):
-        rdb._pick_route("t", xb, 64, 32, "wgmma")
+        rdb._pick_route("t", xb, 64, 32, "dp4a")
 
 
 def _record(monkeypatch, module, name, route_of):
@@ -112,13 +117,13 @@ def _rrdb_route(x, rdb_weights):
 )
 def test_pallas_body_at_full_width_takes_mma(monkeypatch, name, n):
     """The ``VRT_PALLAS=1`` body: one K5 launch per RRDB block, every one on
-    the tensor cores."""
+    the Hopper tensor cores (``"wgmma"``)."""
     spec = MODEL_ZOO[name].spec
     net = RRDBNet(spec).prepare(BF, "cpu", mode="pallas")
     calls = _record(monkeypatch, rrdbnet_mod, "rrdb_fused", _rrdb_route)
     y = net(torch.rand(1, 6, 7, 3))
     assert y.shape == (1, 6 * spec.scale, 7 * spec.scale, 3)
-    assert calls == ["mma"] * n
+    assert calls == ["wgmma"] * n
 
 
 @pytest.mark.parametrize("dt,nf,gc", [(F32, 64, 32), (BF, 16, 8), (F32, 16, 8)])
@@ -225,11 +230,13 @@ def test_upsampler_rejects_a_weight_of_another_width():
 
 def test_every_cuda_source_is_built():
     """One nvcc per source: each ``.cu`` under ``csrc/`` is in the build,
-    the tensor-core sources of K5, K3 and K6, K1's narrow and wgmma sources
-    and K2's rows sources (fp32 and bf16, each its own translation unit)
-    included."""
+    the tensor-core sources of K5, K3 and K6, K1's narrow and wgmma sources,
+    K5's wgmma source, K2's rows sources (fp32 and bf16, each its own
+    translation unit) and K5's fp32-FMA instances (each its own translation
+    unit on ``rdb_fused.cuh``) included."""
     on_disk = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sorted(_build.SOURCES) == on_disk
     assert {"rdb_fused_mma.cu", "srvgg_up_mma.cu", "tail_fused_mma.cu",
             "conv3x3_narrow.cu", "unsharp_rows.cu", "unsharp_rows_bf16.cu",
-            "conv3x3_wgmma.cu"} <= set(on_disk)
+            "conv3x3_wgmma.cu", "rdb_fused_wgmma.cu", "rdb_fused_f32.cu",
+            "rdb_fused_bf16.cu", "rdb_fused_narrow.cu"} <= set(on_disk)

@@ -1,0 +1,13 @@
+// K5, fp32-FMA route: the fp32 instances at (nf, gc) = (64, 32)
+// (the templates of rdb_fused.cuh), one translation unit, so that nvcc
+// compiles the instances in parallel.
+
+#include "rdb_fused.cuh"
+
+namespace rdb_fma {
+
+cudaError_t launch_f32_64(const RdbArgs& a, bool whole, cudaStream_t s) {
+  return launch<float, 64, 32, 8>(a, whole, s);
+}
+
+}  // namespace rdb_fma

@@ -36,7 +36,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu", "conv3x3_narrow.cu", "unsharp.cu",
     "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
-    "conv3x3_i8_mma.cu", "rdb_fused.cu", "rdb_fused_mma.cu", "tail_fused.cu",
+    "conv3x3_i8_mma.cu", "rdb_fused.cu", "rdb_fused_f32.cu", "rdb_fused_bf16.cu",
+    "rdb_fused_narrow.cu", "rdb_fused_mma.cu", "rdb_fused_wgmma.cu", "tail_fused.cu",
     "tail_fused_mma.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
@@ -217,6 +218,12 @@ def load() -> ctypes.CDLL:
                 # dtype, nf, gc, x, x0 | y, y | scratch, ws, bs, B, H, W, stream
                 fn.argtypes = [_I, _I, _I, _P, _P, _P, _PP, _PP, _I, _I, _I, _P]
                 fn.restype = _I
+            # the same, then the plan (ops/rdb.py::rdb_wgmma_plan)
+            for fn in (lib.vr_rdb_fused_wgmma, lib.vr_rrdb_fused_wgmma):
+                fn.argtypes = lib.vr_rdb_fused.argtypes + [ctypes.POINTER(_L), _I]
+                fn.restype = _I
+            lib.vr_rdb_fused_wgmma_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_rdb_fused_wgmma_config.restype = _I
             # dtype, nf, x, y, three (w, b) pairs, B, H2, W2, stream
             lib.vr_tail_fused.argtypes = [_I, _I] + [_P] * 8 + [_I, _I, _I, _P]
             lib.vr_tail_fused.restype = _I

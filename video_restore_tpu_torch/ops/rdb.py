@@ -14,12 +14,16 @@ Pallas entry points that compute the same two functions:
 Both take the torch-ordered HWIO weights of ``ops/stripe.py``; the TPU
 regroup and prefix layouts are not carried over. On a CUDA tensor a
 wrapper launches K5 or raises; on a CPU tensor it runs its plain version.
-K5 is two hand-written kernels of one function, and :func:`rdb_route` says
-which a call takes: ``"mma"`` (``csrc/rdb_fused_mma.cu``: bf16 ``mma.sync``
-on the tile routines of ``csrc/mma_tile.cuh``) for bf16 at nf 64 / gc 32,
-``"fma"`` (``csrc/rdb_fused.cu``: fp32 FMAs) for fp32 and the narrow nf 16
-/ gc 8 of the checks. The kernel notes (design, bound) are at the top of
-the two sources.
+K5 is three hand-written kernels of one function, and :func:`rdb_route`
+says which a call takes: ``"wgmma"`` (``csrc/rdb_fused_wgmma.cu``: Hopper
+``wgmma`` fed by TMA over rolling rings of rows, on the launch plan of
+:func:`rdb_wgmma_plan`) for bf16 at nf 64 / gc 32, ``"fma"``
+(``csrc/rdb_fused.cu``: fp32 FMAs) for fp32 and the narrow nf 16 / gc 8 of
+the checks. ``"mma"`` (``csrc/rdb_fused_mma.cu``: ``mma.sync`` on the tile
+routines of ``csrc/mma_tile.cuh``) takes the same calls as ``"wgmma"`` when
+a caller forces it (a side-by-side timing; its sums are in the same order,
+so the two give the same bits). The kernel notes (design, bound) are at the
+top of the sources.
 
 The border. The ``pallas_stripe.py`` forms mask every growth tensor to the
 frame, so each conv has exact SAME zero padding. The ``pallas_rdb.py`` forms
@@ -34,36 +38,214 @@ something to copy (``tests/test_torch_rdb.py`` measures it).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import ctypes
+from typing import Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.stripe import rdb_fused_plain
-from video_restore_tpu_torch.ops.tail import _DTYPES, PAIR_ROUTES as ROUTES, forced_route
+from video_restore_tpu_torch.ops.tail import _DTYPES, _sm_count, forced_route
 
 # (nf, gc) pairs K5 is instantiated for: every RRDBNet of the zoo, and the
 # narrow width of the tests and checks
 WIDTHS = ((64, 32), (16, 8))
+ROUTES = ("wgmma", "mma", "fma")
 
 RdbWeights = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]
 
 
 def rdb_route(dtype: torch.dtype, nf: int, gc: int) -> str:
-    """Which of K5's two kernels a call on a CUDA tensor launches: a pure
-    function of the call. ``"mma"`` (tensor cores) takes bf16 at (nf, gc) =
-    (64, 32), the width of every RRDBNet of the zoo; ``"fma"`` takes fp32
-    and the narrow (16, 8)."""
+    """Which of K5's kernels a call on a CUDA tensor launches: a pure
+    function of the call. ``"wgmma"`` (Hopper tensor cores) takes bf16 at
+    (nf, gc) = (64, 32), the width of every RRDBNet of the zoo; ``"fma"``
+    takes fp32 and the narrow (16, 8)."""
     if dtype == torch.bfloat16 and (nf, gc) == (64, 32):
-        return "mma"
+        return "wgmma"
     return "fma"
 
 
 def _pick_route(name: str, x: torch.Tensor, nf: int, gc: int, route: Optional[str]) -> str:
     """The route of a call: :func:`rdb_route`, or ``route`` when the caller
-    forces one (a side-by-side timing of the two kernels); ``"mma"`` only
-    where the tensor-core kernel is instantiated."""
-    return forced_route(name, rdb_route(x.dtype, nf, gc), route, "bf16 at (64, 32)")
+    forces one (a side-by-side timing of the kernels): ``"mma"`` where the
+    call's own route is ``"wgmma"`` (the ``mma.sync`` kernel takes every
+    such call), ``"fma"`` anywhere."""
+    own = rdb_route(x.dtype, nf, gc)
+    if route == "mma" and own == "wgmma":
+        return "mma"
+    return forced_route(name, own, route, "bf16 at (64, 32)", ROUTES)
+
+
+# rdb_fused_wgmma.cu as shipped: output rows a step (consumer warpgroups),
+# output columns of a stripe, pixels of an x ring row, x rows held, c_1 ..
+# c_4 rows held, weight slots, dynamic shared memory a block, the early x
+# release, threads a block (the build reports its own:
+# vr_rdb_fused_wgmma_config)
+K5_WGMMA = dict(step_rows=3, stripe=54, ring_px=64, x_rows=9, c_rows=(8, 7, 6, 5), slots=3,
+                smem=231744, early_x=1, threads=512)
+K5_MIN_ROWS = 32  # the fewest rows a block of the persistent grid takes
+SMEM_MAX = 232448  # dynamic shared memory a block can have on the H100
+_SLOT = 18432  # bytes of a weight stage (32 x 9 x 32 or 16 x 9 x 64 bf16)
+_TMA_DIM_MAX = 1 << 32
+_TMA_STRIDE_MAX = 1 << 40
+
+
+def k5_smem(x_rows: int, c_rows: Sequence[int], slots: int, ring_px: int = 64,
+            stripe: int = 54) -> int:
+    """Dynamic shared memory of a block of ``rdb_fused_wgmma.cu``: 1024
+    bytes of alignment, the weight slots, the four c rings end to end (c_k's
+    rows of the stripe + 10 - 2 k pixels a needed output reads, the region
+    rounded to 1024 bytes), the x ring (rows of ``ring_px`` pixels in two
+    32-channel planes) and 1024 bytes after it, the rings' barriers and
+    three RDBs' biases (bf16)."""
+    c_px = sum(d * (stripe + 10 - 2 * k) for k, d in enumerate(c_rows, 1))
+    return (1024 + slots * _SLOT + -(-c_px * 64 // 1024) * 1024 + x_rows * 2 * ring_px * 64
+            + 1024 + (2 * x_rows + 2 * slots) * 8 + 3 * (4 * 32 + 64) * 2)
+
+
+class RdbWgmmaPlan(NamedTuple):
+    """What ``vr_rdb_fused_wgmma`` / ``vr_rrdb_fused_wgmma`` check, encode
+    and launch: the build's geometry as the plan assumed it (rows a step,
+    stripe columns, x ring pixels, x and c_1 .. c_4 rows held, weight slots,
+    shared memory), the persistent grid, the stripes and the rows the blocks
+    share (B x stripes x H, cut into ``grid`` runs), x's 4-D map over
+    (channels, W, H, B) (dims, byte strides of dims 1-3, a box of 32
+    channels of one ring row, 64-byte swizzle) and the weight boxes of conv
+    1-4 (32 couts x 32 input channels x 9 taps, 64-byte swizzle) and conv 5
+    (64 x 16 x 9, 128-byte swizzle)."""
+
+    step_rows: int
+    stripe: int
+    ring_px: int
+    x_rows: int
+    c_rows: Tuple[int, int, int, int]
+    slots: int
+    smem: int
+    grid: int
+    stripes: int
+    rows: int
+    a_dims: Tuple[int, int, int, int]
+    a_strides: Tuple[int, int, int]
+    a_box: Tuple[int, int, int, int]
+    a_swizzle: int
+    w_box: Tuple[int, int, int]
+    w_swizzle: int
+    w5_box: Tuple[int, int, int]
+    w5_swizzle: int
+
+    def array(self) -> ctypes.Array:
+        """The plan as the C launcher reads it (33 int64 values)."""
+        vals = (self.step_rows, self.stripe, self.ring_px, self.x_rows, *self.c_rows,
+                self.slots, self.smem, self.grid, self.stripes, self.rows, *self.a_dims,
+                *self.a_strides, *self.a_box, self.a_swizzle, *self.w_box, self.w_swizzle,
+                *self.w5_box, self.w5_swizzle)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+    def block_rows(self, block: int) -> Tuple[int, int]:
+        """Block ``block``'s run [r0, r1) of the concatenated stripes' rows."""
+        return self.rows * block // self.grid, self.rows * (block + 1) // self.grid
+
+    def segments(self, block: int) -> Iterator[Tuple[int, int, int, int]]:
+        """Block ``block``'s segments, in its order: (image, the stripe's
+        first column, first row, end row), as the kernel walks them."""
+        h = self.a_dims[2]
+        r, r1 = self.block_rows(block)
+        while r < r1:
+            idx, y0 = divmod(r, h)
+            n = min(h - y0, r1 - r)
+            yield idx // self.stripes, (idx % self.stripes) * self.stripe, y0, y0 + n
+            r += n
+
+    def steps(self, seg_rows: int) -> int:
+        """Steps of a segment of ``seg_rows`` output rows: until conv 5,
+        four rows behind conv 1, has written the last."""
+        return (seg_rows + 7) // self.step_rows + 1
+
+    def first_step(self, k: int) -> int:
+        """The first step at which conv k (1..5) runs: the first whose rows
+        a needed output reads."""
+        return (2 * k - 2) // self.step_rows
+
+    def executed_ops(self, nf: int = 64, gc: int = 32) -> int:
+        """Operations (2 per MAC) the kernel executes for one RDB: every
+        conv over 64 pixels of each row it computes, the recomputed columns
+        and the fill rows of each segment included."""
+        per_row = [2 * 64 * 9 * (nf + (k - 1) * gc) * (gc if k < 5 else nf) for k in range(1, 6)]
+        total = 0
+        for blk in range(self.grid):
+            for _, _, y0, y1 in self.segments(blk):
+                t = self.steps(y1 - y0)
+                total += sum(self.step_rows * (t - self.first_step(k)) * per_row[k - 1]
+                             for k in range(1, 6))
+        return total
+
+
+def rdb_wgmma_plan(b: int, h: int, w: int, geometry: Optional[Dict] = None, *,
+                   sms: int = 132) -> RdbWgmmaPlan:
+    """The ``"wgmma"`` route's plan for a (b, h, w, 64) bf16 RDB or RRDB: a
+    pure function of the shape, the build's ``geometry`` (:data:`K5_WGMMA`,
+    or :func:`wgmma_geometry` of a loaded build) and the card's SM count.
+    Stripes of the build's output columns (54 as shipped), B x stripes x H
+    rows cut into one run a block (at least :data:`K5_MIN_ROWS` rows, at
+    most one block an SM).
+    Raises ValueError for what the kernel cannot take: an empty shape, a
+    geometry whose shared memory is not its own or exceeds the card's, a
+    frame TMA cannot describe (a dimension of 2^32 or more, a byte stride
+    of 2^40 or more)."""
+    g = dict(K5_WGMMA if geometry is None else geometry)
+    b, h, w = int(b), int(h), int(w)
+    if min(b, h, w) <= 0:
+        raise ValueError(f"rdb_wgmma_plan: empty shape {(b, h, w)}")
+    r, c_rows = g["step_rows"], tuple(g["c_rows"])
+    want = (r + 6, tuple(r + 6 - k for k in range(1, 5)))
+    if (g["x_rows"], c_rows) != want:
+        raise ValueError(f"rdb_wgmma_plan: rows held {g['x_rows']}, {c_rows} are not "
+                         f"{want} for {r} rows a step")
+    if g["ring_px"] != (g["stripe"] + 17) // 8 * 8:
+        raise ValueError(f"rdb_wgmma_plan: x ring rows of {g['ring_px']} pixels for a stripe of "
+                         f"{g['stripe']} columns (conv 1 reads {g['stripe'] + 10})")
+    smem = k5_smem(g["x_rows"], c_rows, g["slots"], g["ring_px"], g["stripe"])
+    if smem != g["smem"] or smem > SMEM_MAX:
+        raise ValueError(f"rdb_wgmma_plan: shared memory {smem} B (the build: {g['smem']} B, "
+                         f"the card: at most {SMEM_MAX} B)")
+    if max(w, h, b) >= _TMA_DIM_MAX:
+        raise ValueError(f"rdb_wgmma_plan: a dimension of {(b, h, w)} is 2^32 or more")
+    e = 2  # bf16
+    a_strides = (64 * e, w * 64 * e, h * w * 64 * e)
+    if max(a_strides) >= _TMA_STRIDE_MAX:
+        raise ValueError(f"rdb_wgmma_plan: byte stride {max(a_strides)} is 2^40 or more")
+    stripes = -(-w // g["stripe"])
+    rows = b * stripes * h
+    grid = max(1, min(sms, -(-rows // K5_MIN_ROWS)))
+    return RdbWgmmaPlan(
+        step_rows=r, stripe=g["stripe"], ring_px=g["ring_px"], x_rows=g["x_rows"],
+        c_rows=c_rows, slots=g["slots"], smem=smem, grid=grid, stripes=stripes, rows=rows,
+        a_dims=(64, w, h, b), a_strides=a_strides, a_box=(32, g["ring_px"], 1, 1), a_swizzle=64,
+        w_box=(32, 32, 9), w_swizzle=64, w5_box=(64, 16, 9), w5_swizzle=128,
+    )
+
+
+def wgmma_geometry(lib) -> Dict:
+    """:func:`rdb_wgmma_plan`'s ``geometry`` of a loaded build of
+    ``rdb_fused_wgmma.cu`` (``vr_rdb_fused_wgmma_config``)."""
+    cfg = (ctypes.c_int * 12)()
+    lib.vr_rdb_fused_wgmma_config(cfg)
+    return dict(step_rows=cfg[0], stripe=cfg[1], ring_px=cfg[2], x_rows=cfg[3],
+                c_rows=tuple(cfg[4:8]), slots=cfg[8], smem=cfg[9], early_x=cfg[10],
+                threads=cfg[11])
+
+
+_geometry: Optional[Dict] = None
+
+
+def _plan(x: torch.Tensor, lib) -> RdbWgmmaPlan:
+    """:func:`rdb_wgmma_plan` of a call, for the port's library (its
+    geometry read once)."""
+    global _geometry
+    if _geometry is None:
+        _geometry = wgmma_geometry(lib)
+    b, h, w, _ = x.shape
+    return rdb_wgmma_plan(b, h, w, _geometry, sms=_sm_count(x.device))
 
 
 def _check(name: str, x: torch.Tensor, rdbs: Sequence[RdbWeights]) -> Tuple[int, int]:
@@ -110,9 +292,9 @@ def rdb_fused(
     x, x0: (B, H, W, nf) contiguous; ws: the five HWIO conv weights
     (3, 3, nf + (k-1) gc, gc) and (3, 3, nf + 4 gc, nf); bs: their biases;
     all in x's dtype (fp32 or bf16). ``route``: None for :func:`rdb_route`'s
-    kernel, ``"fma"`` to force the fp32-FMA kernel. The launch is counted
-    under ``rdb_fused_k5`` and under its route, ``rdb_fused_k5:mma`` or
-    ``rdb_fused_k5:fma``."""
+    kernel, ``"mma"`` or ``"fma"`` to force another (:func:`_pick_route`).
+    The launch is counted under ``rdb_fused_k5`` and under its route,
+    ``rdb_fused_k5:wgmma``, ``:mma`` or ``:fma``."""
     if x.device.type == "cpu":
         return rdb_fused_plain(x, ws, bs, x0)
     nf, gc = _check("rdb_fused", x, [(ws, bs)])
@@ -125,14 +307,19 @@ def rdb_fused(
     out = torch.empty_like(x)
     b, h, w, _ = x.shape
     lib = _build.load()
-    fn = lib.vr_rdb_fused_mma if route == "mma" else lib.vr_rdb_fused
+    fn = {"wgmma": lib.vr_rdb_fused_wgmma, "mma": lib.vr_rdb_fused_mma,
+          "fma": lib.vr_rdb_fused}[route]
     with torch.cuda.device(x.device):
-        code = fn(
+        args = (
             _DTYPES[x.dtype], nf, gc, x.data_ptr(),
             x0.data_ptr() if x0 is not None else None, out.data_ptr(),
             _build.pointers(ws), _build.pointers(bs), b, h, w,
             _build.stream_ptr(x),
         )
+        if route == "wgmma":
+            plan = _plan(x, lib).array()
+            args += (plan, len(plan))
+        code = fn(*args)
     _build.check(lib, code, f"rdb_fused (K5) kernel ({route})")
     _build.count_launch("rdb_fused_k5")
     _build.count_launch(f"rdb_fused_k5:{route}")
@@ -148,7 +335,7 @@ def rrdb_fused(
     x: (B, H, W, nf) contiguous; rdb_weights: three ``(ws, bs)`` pairs as
     :func:`rdb_fused` takes them, in x's dtype. ``route`` as for
     :func:`rdb_fused`; the launch is counted under ``rrdb_fused`` and
-    ``rrdb_fused:<route>``."""
+    ``rrdb_fused:<route>`` (``wgmma``, ``mma`` or ``fma``)."""
     if x.device.type == "cpu":
         return rrdb_fused_plain(x, rdb_weights)
     if len(rdb_weights) != 3:
@@ -161,13 +348,18 @@ def rrdb_fused(
     ws = [t for r in rdb_weights for t in r[0]]
     bs = [t for r in rdb_weights for t in r[1]]
     lib = _build.load()
-    fn = lib.vr_rrdb_fused_mma if route == "mma" else lib.vr_rrdb_fused
+    fn = {"wgmma": lib.vr_rrdb_fused_wgmma, "mma": lib.vr_rrdb_fused_mma,
+          "fma": lib.vr_rrdb_fused}[route]
     with torch.cuda.device(x.device):
-        code = fn(
+        args = (
             _DTYPES[x.dtype], nf, gc, x.data_ptr(), out.data_ptr(),
             scratch.data_ptr(), _build.pointers(ws), _build.pointers(bs),
             b, h, w, _build.stream_ptr(x),
         )
+        if route == "wgmma":
+            plan = _plan(x, lib).array()
+            args += (plan, len(plan))
+        code = fn(*args)
     _build.check(lib, code, f"rrdb_fused (K5) kernel ({route})")
     _build.count_launch("rrdb_fused")
     _build.count_launch(f"rrdb_fused:{route}")
