@@ -34,20 +34,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    wgmma source), ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and
    ``rdb_fused.cu`` (its fp32-FMA instances in ``rdb_fused_f32.cu``,
    ``rdb_fused_bf16.cu`` and ``rdb_fused_narrow.cu`` on ``rdb_fused.cuh``),
-   each with its one-RDB and whole-RRDB entry points, K6 ``tail_fused_mma.cu`` on
-   ``mma_tile.cuh`` and ``tail_fused.cu``), and
+   each with its one-RDB and whole-RRDB entry points, the one-launch tail
+   ``tail_fused_wgmma.cu`` (``wgmma`` + TMA over rolling rows, on
+   ``wgmma_tile.cuh``) and K6 ``tail_fused_mma.cu`` on ``mma_tile.cuh`` and
+   ``tail_fused.cu``), and
    print each source's compile seconds (one ``nvcc`` each, all in
    parallel: the slowest sets the build's time) and each kernel's
    registers, shared memory and spills from ``ptxas``;
-3. K1's tensor-core routes (``conv3x3:wgmma``; ``conv3x3:mma`` for
-   ``upsample2``) first: every single conv at odd shapes in bf16 (ragged
-   2x37x53, a frame smaller than one tile, each activation, the residuals,
-   the growth-buffer slices with cin 64..192, x with 1-4 blocks of a tail
-   at three shapes, ``upsample2``) within one bf16 step of its plain
-   version per value and of a float64 conv of the same inputs, each
-   ``wgmma`` one also within one step of the forced ``mma`` route, each
-   launch counted under its route, neither kernel writing outside a growth
-   buffer's slice; then each conv of a 1080p RDB as the wgmma route runs it
+3. K1's tensor-core route (``conv3x3:wgmma``) first: every single conv at
+   odd shapes in bf16 (ragged 2x37x53, a frame smaller than one tile, each
+   activation, the residuals, the growth-buffer slices with cin 64..192, x
+   with 1-4 blocks of a tail at three shapes, ``upsample2`` at 64 -> 64, 64
+   -> 32 and 192 -> 64) within one bf16 step of its plain version per value
+   and of a float64 conv of the same inputs, each also within one step of
+   the forced ``mma`` route (the ``upsample2`` ones, read through its
+   nearest-2x producer, ``torch.equal`` to it), each launch counted under
+   its route, neither kernel writing outside a growth buffer's slice; up1
+   at 1x1080x1920 on ``wgmma``, ``torch.equal`` to forced ``mma`` and timed
+   beside it and ``F.conv2d``; then each conv of a 1080p RDB as the wgmma route runs it
    (c1 .. c4 in blocks) with its TFLOP/s and share of its own bound, the
    RDB on the fma, mma (both forced) and wgmma routes and cuDNN's chain side
    by side (mma at least 3x fma), and conv_body beside ``F.conv2d``. K1's narrow
@@ -89,15 +93,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    executed over useful work and TFLOP/s; the 1080p RDB on ``wgmma`` must
    take at most half of ``mma``'s time in the same run. K3's tensor-core route (``srvgg_up_fused:mma``) at r 2 and
    r 4 at odd shapes, the config-4 frame and the tile batch, within one
-   bf16 step per value of the plain version, old and new side by side. K6's
-   tensor-core route (``tail_fused_q:mma``) in bf16 at nf 64 at odd shapes
-   (B = 2, ragged extents no 16x28 tile divides, a frame smaller than one
-   tile, more tiles than the persistent grid has blocks) and at the
-   flagship's 1x2160x3840x64, within ``compare``'s bf16 bound of the plain
-   version with the largest error in bf16 steps; at the flagship shape
-   ``bit_equal_to_k1_chain`` (against the three K1 launches) and the old
-   kernel (``fma``, forced) and the new one side by side beside the cuDNN
-   chain of 3, the new one at least 3x the old. K4's tensor-core route
+   bf16 step per value of the plain version, old and new side by side. The
+   one-launch tail on Hopper (``tail_fused:wgmma`` and
+   ``tail_fused_q:wgmma``, ``tail_fused_wgmma.cu``) in bf16 at nf 64 at odd
+   shapes (B = 2 and 3, ragged extents, a frame narrower than one stripe, a
+   last stripe of 2 columns, more stripes' rows than the persistent grid
+   has blocks) and at the flagship's 1x2160x3840x64: each wrapper launches
+   it once, and it is ``torch.equal`` to the three-launch chain
+   (``tail_fused(route="chain")``: 3 K1 launches) and to K6's ``mma``
+   kernel (forced), within ``compare``'s bf16 bound of the plain version;
+   at the flagship shape it, K6's ``mma`` and ``fma`` kernels, the chain,
+   each of the chain's convs (upconv2 on ``wgmma`` and on forced ``mma``,
+   conv_hr, conv_last) and the cuDNN chain of 3 side by side, with
+   executed over useful work; the new kernel faster than the chain and at
+   least 3x the fma kernel. K4's tensor-core route
    (``conv3x3_i8:mma``), dynamic and static A8: each of the five RDB convs
    (growth-buffer prefix views, pixel stride 192) and an SRVGG PReLU conv at
    odd shapes (B = 2 ragged, below one tile, one pixel past a tile column,
@@ -137,10 +146,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    planar I420 from the device, fetched through the pinned ring) with
    every launch counter reset before and read after: 3 frames of 7680x4320
    out, decoded == inferred == encoded, and each wrapper launched exactly
-   its per-frame count times 3, K1 351 times per frame of which 347 on the
-   ``wgmma`` route, 2 on ``mma`` (up1 and upconv2) and 2 on ``narrow`` (the
-   stem and ``conv_last``, one on each of its kernels), none on ``fma``,
-   and K2 once on ``rows``; the
+   its per-frame count times 3, K1 348 times per frame of which 347 on the
+   ``wgmma`` route (up1 included) and 1 on ``narrow`` (the stem), none on
+   ``mma`` or ``fma``, the tail once on ``tail_fused:wgmma`` (upconv2,
+   conv_hr and conv_last in one launch), and K2 once on ``rows``; the
    ``auto_full_frame`` estimate is printed beside the measured peak memory;
    the wall, the step and the encode thread's ``fetch`` and ``encode``
    totals per frame; then (``[post]``) the step by stage:
@@ -176,9 +185,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the checks of phases 4 and 5, and the output against the default body's
    kernel path (>= 45 dB on u8 per frame: one function, summed in another
    order);
-10. ``[main_tailq]``: the flagship flags with ``VRT_TAIL_Q=1`` (one K6
-    launch per frame, on the ``mma`` route, in place of the three-K1 tail;
-    its frames are expected to equal the default tail's: inf dB), 2 frames,
+10. ``[main_tailq]``: the flagship flags with ``VRT_TAIL_Q=1`` (one launch
+    of ``tail_fused_q`` per frame, on the ``wgmma`` route, the kernel the
+    default tail launches; its frames are expected to equal the default
+    tail's: inf dB), 2 frames,
     with the
     checks of phases 4 and 5, and the output against the default tail's
     kernel path (>= 45 dB on u8 per frame: one function, two kernel
@@ -338,6 +348,8 @@ PALLAS = {
     "conv3x3_fused": "video_restore_tpu/ops/pallas_tail.py:767",
     "rdb_fused": "video_restore_tpu/ops/pallas_stripe.py:1963",
     "up1_fused": "video_restore_tpu/ops/pallas_tail.py:603",
+    # the default tail, #6 tail_fused_raw (and #7 tail_fused, :425), in one
+    # launch of the same kernel as #13
     "tail_fused": "video_restore_tpu/ops/pallas_tail.py:266",
     "unsharp_fused": "video_restore_tpu/ops/pallas_post.py:131",
     # K2's bf16 instance on the rows route: unsharp_fused on the bf16 frames
@@ -358,18 +370,17 @@ PALLAS = {
     # K5, a whole RRDB: #19 rrdb_fused (VRT_PALLAS=1), and #11
     # rrdb_stripe_padded (pallas_stripe.py:1016)
     "rrdb_fused": "video_restore_tpu/ops/pallas_rdb.py:257",
-    # K6: #13 tail_fused_q (VRT_TAIL_Q=1), the tail in one launch
+    # #13 tail_fused_q (VRT_TAIL_Q=1), the tail in one launch
     "tail_fused_q": "video_restore_tpu/ops/pallas_tail.py:1018",
     # K4, static A8: the sa_static branch of _conv_prefix (_quant_act_static),
     # the sas arguments of #2 and #3; its launches count under rdb_fused_i8
     "rdb_fused_i8 static": "video_restore_tpu/ops/pallas_stripe.py:293",
     # K1's Hopper route, timed on conv_body + residual: the dense-block convs
-    # of #2-#4, #9, #10, conv_body (#1), conv_hr (#6, #7) and the SRVGG body
-    # (#14-#16); up1 (#5) and upconv2 stay on the mma route (upsample2)
+    # of #2-#4, #9, #10, conv_body (#1), up1 (#5, through its nearest-2x
+    # producer) and the SRVGG body (#14-#16). conv_last (#6, #7) has no row
+    # of its own since the tail is one launch: K1's narrow conv_last kernel
+    # runs only in the forced chain of the checks
     "conv3x3:wgmma": "video_restore_tpu/ops/pallas_stripe.py:1963",
-    # K1's narrow route, conv_last (#6, #7: the tail's last conv, 64 -> 3);
-    # its launches are those of the conv_last kernel
-    "conv3x3:narrow conv_last": "video_restore_tpu/ops/pallas_tail.py:266",
 }
 # the hand-written kernel behind each row where a wrapper has two
 # (ops/tail.py::conv3x3_route, ops/rdb.py::rdb_route,
@@ -377,11 +388,11 @@ PALLAS = {
 # ops/quant.py::conv3x3_i8_route, ops/unsharp.py::unsharp_route), as the
 # row's calls take it
 CUDA_ROUTE = {
-    "conv3x3_fused": "narrow", "rdb_fused": "wgmma", "up1_fused": "mma",
-    "tail_fused": "mma+wgmma+narrow", "srvgg_body": "wgmma", "srvgg_up_fused": "mma",
+    "conv3x3_fused": "narrow", "rdb_fused": "wgmma", "up1_fused": "wgmma",
+    "tail_fused": "wgmma", "srvgg_body": "wgmma", "srvgg_up_fused": "mma",
     "rdb_fused_k5": "wgmma", "rrdb_fused": "wgmma", "conv3x3:wgmma": "wgmma",
-    "tail_fused_q": "mma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
-    "rdb_fused_i8 static": "mma", "conv3x3:narrow conv_last": "narrow",
+    "tail_fused_q": "wgmma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
+    "rdb_fused_i8 static": "mma",
     "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
 }
 SOURCE = {
@@ -389,10 +400,9 @@ SOURCE = {
     # stem (cin 3), on the narrow route; conv_body is conv3x3:wgmma's
     "conv3x3_fused": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
     "rdb_fused": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
-    "up1_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
-    # upconv2 (mma); conv_hr is conv3x3_wgmma.cu's, conv_last (cout 3)
-    # conv3x3:narrow conv_last's
-    "tail_fused": "video_restore_tpu_torch/csrc/conv3x3_mma.cu",
+    "up1_fused": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
+    # the tail in one launch (ops/tail.py::tail_fused_route), #6, #7 and #13
+    "tail_fused": "video_restore_tpu_torch/csrc/tail_fused_wgmma.cu",
     # K2 is two kernels (ops/unsharp.py::unsharp_route); the paths' frames
     # (fp32, C = 3) take the rows one
     "unsharp_fused": "video_restore_tpu_torch/csrc/unsharp_rows.cu",
@@ -408,10 +418,9 @@ SOURCE = {
     # the Hopper one
     "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused_wgmma.cu",
     "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused_wgmma.cu",
-    "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_mma.cu",
+    "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_wgmma.cu",
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
     "conv3x3:wgmma": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
-    "conv3x3:narrow conv_last": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
 }
 PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
@@ -498,7 +507,7 @@ def main(argv=None) -> int:
     # the redesigned sources, whose ptxas lines are repeated under their
     # phase's tag
     new_sources = {"conv3x3_wgmma.cu": "k1", "rdb_fused_wgmma.cu": "k5", "srvgg_up_mma.cu": "k3",
-                   "tail_fused_mma.cu": "k6",
+                   "tail_fused_mma.cu": "k6", "tail_fused_wgmma.cu": "k6",
                    "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
                    "unsharp_rows_bf16.cu": "k2"}
     build_log = (_build.BUILD_DIR / "build.log").read_text()
@@ -613,10 +622,12 @@ def main(argv=None) -> int:
 
     def phase_k1():
         """K1's tensor-core routes: single convs at odd shapes, bf16, each on
-        its own route (``wgmma``; ``mma`` for upsample2) held per value to
-        its plain version, to a float64 conv and, on wgmma, to the forced
-        ``mma`` route; then one 1080p RDB on the fma, mma and wgmma routes
-        beside cuDNN's chain, and conv_body beside ``F.conv2d``."""
+        the ``wgmma`` route (upsample2 through its nearest-2x producer) held
+        per value to its plain version, to a float64 conv and to the forced
+        ``mma`` route (the upsample2 ones bit for bit); up1 at 1080p on both
+        routes, bit-equal, timed beside ``F.conv2d``; then one 1080p RDB on
+        the fma, mma and wgmma routes beside cuDNN's chain, and conv_body
+        beside ``F.conv2d``."""
         def one(tag, x, wt, bias, f64=False, mma_x=None, mma_out=None, **kw):
             """One conv on its route against plain (and float64), and a wgmma
             one against the forced mma route (``mma_x``, ``mma_out``: the
@@ -627,7 +638,7 @@ def main(argv=None) -> int:
             absolute error of the terms' rounding (~1e-6 here), which is
             many steps of a tiny value and no sign of a wrong fragment (that
             would be O(1))."""
-            route = "mma" if kw.get("upsample2") else "wgmma"
+            route = "wgmma"
             pk = {k_: (v.clone() if k_ == "out" else v) for k_, v in kw.items()}
             _build.reset_launches()
             k = tail.conv3x3(x, wt, bias, counter="check", **kw)
@@ -657,6 +668,9 @@ def main(argv=None) -> int:
                                   route="mma", **mk)
                 em, stm = bf16_steps(tag + " vs mma", k, km, floor=floor, extra=extra)
                 msg += f" vs_mma_err={em:.3g} vs_mma_steps={stm:.2f}"
+                if kw.get("upsample2"):  # the nearest-2x producer: mma's sums, mma's bits
+                    check(torch.equal(k, km), f"{tag}: wgmma is not bit-equal to mma")
+                    msg += " bit_equal_to_mma=True"
             if f64:
                 xi = x.repeat_interleave(2, 1).repeat_interleave(2, 2) if kw.get("upsample2") else x
                 if kw.get("x_tail") is not None:
@@ -683,6 +697,11 @@ def main(argv=None) -> int:
             one(f"{shp} 64->64 r1", x, wt, bias, r1=r1, s1=0.2)
             one(f"{shp} 64->64 r1+r2", x, wt, bias, r1=r1, s1=0.2, r2=r2, s2=0.2)
             one(f"{shp} 64->64 upsample2 lrelu", x, wt, bias, f64=True, act="lrelu", upsample2=True)
+            one(f"{shp} 64->32 upsample2 lrelu", x, rnd(3, 3, 64, 32, scale=0.05), bias[:32].clone(),
+                act="lrelu", upsample2=True)
+            # six stages: the weights stream beside the producer's windows
+            one(f"{shp} 192->64 upsample2 lrelu", rnd(*shp, 192), rnd(3, 3, 192, 64, scale=0.03),
+                bias, act="lrelu", upsample2=True)
             one(f"{shp} 64->32 none", x, rnd(3, 3, 64, 32, scale=0.05), bias[:32].clone(), f64=True)
             # cin 48: the last 32-channel stage half past cin (TMA's zero fill)
             one(f"{shp} 48->32 lrelu", x[..., :48], rnd(3, 3, 48, 32, scale=0.05),
@@ -720,6 +739,35 @@ def main(argv=None) -> int:
                 one(f"{shp} x + {k_} tail blocks -> {cout}", x, wt, bias, f64=k_ < 4,
                     x_tail=tl[:k_], mma_x=cat, **kw)
         del grow
+        # up1 at the flagship's shape: 1x1080x1920x64 -> 1x2160x3840x64 on
+        # the wgmma route (its nearest-2x producer), against forced mma
+        xu, wu, bu = rnd(1, H, W, NF), rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.1)
+        _build.reset_launches()
+        ku = tail.up1_fused(xu, wu, bu)
+        torch.cuda.synchronize()
+        got = _build.launches()
+        check(got == {"up1_fused": 1, "conv3x3:wgmma": 1}, f"[k1] up1: launches {got}")
+        km = tail.conv3x3(xu, wu, bu, act="lrelu", upsample2=True, counter="check", route="mma")
+        same = torch.equal(ku, km)
+        check(same, "[k1] up1 on wgmma is not bit-equal to forced mma")
+        del ku, km
+        up1_ms = {r: timed(lambda r=r: tail.conv3x3(xu, wu, bu, act="lrelu", upsample2=True,
+                                                    counter="check", route=r), 10)
+                  for r in ("wgmma", "mma")}
+        up_nchw = rnd(1, NF, 2 * H, 2 * W).contiguous(memory_format=torch.channels_last)
+        wu_oihw = wu.permute(3, 2, 0, 1).contiguous()
+        up1_lib = timed(lambda: F.conv2d(up_nchw, wu_oihw, bu, padding=1), 10)
+        del up_nchw, xu
+        up_ops = 2 * 4 * H * W * 9 * NF * NF
+        up_bytes = (H * W * NF + 4 * H * W * NF) * 2
+        log(f"[k1] up1 64->64 1x{H}x{W} -> 1x{2 * H}x{2 * W} (upsample2, lrelu): wgmma "
+            f"{up1_ms['wgmma']:.3f} ms, mma {up1_ms['mma']:.3f} ms "
+            f"({up1_ms['mma'] / up1_ms['wgmma']:.2f}x), F.conv2d of the upsampled frame "
+            f"{up1_lib:.3f} ms; {up_ops / up1_ms['wgmma'] / 1e9:.1f} TFLOP/s (9-tap ops), bound "
+            f"{up_bytes / PEAK_BYTES * 1e3:.3f} ms (bytes), 9-tap floor "
+            f"{up_ops / PEAK_BF16 * 1e3:.3f} ms (ops); bit_equal_to_mma={same}")
+        k1_stats.update(up1_wgmma_ms=up1_ms["wgmma"], up1_mma_ms=up1_ms["mma"],
+                        up1_library_ms=up1_lib)
 
         @contextlib.contextmanager
         def forced(route):
@@ -1243,52 +1291,83 @@ def main(argv=None) -> int:
                   f"[k3] the mma route ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
 
     def phase_k6():
-        """K6's tensor-core route (``tail_fused_q:mma``) in bf16 at nf 64:
-        B = 2 with ragged extents, a frame smaller than one tile, more tiles
-        than the persistent grid has blocks, and the flagship's
-        1x2160x3840x64, each within compare's bf16 bound of the plain
-        version, the largest error in bf16 steps printed; at the flagship
-        shape its equality with K1's three-launch chain, and the old kernel
-        (fma route forced) and the new one side by side beside the cuDNN
-        chain of 3."""
+        """The one-launch tail on Hopper (``csrc/tail_fused_wgmma.cu``) in
+        bf16 at nf 64: B = 2 and 3 with ragged extents, a frame narrower than
+        one stripe, a last stripe of 2 columns, more stripes' rows than the
+        persistent grid has blocks, and the flagship's 1x2160x3840x64. At
+        each, ``tail_fused_q`` and ``tail_fused`` launch it once
+        (``:wgmma``), and it is equal bit for bit to the three-launch chain
+        (``route="chain"``) and to K6's ``mma`` kernel (forced), within
+        compare's bf16 bound of the plain version. Then, at the flagship
+        shape, it, K6's mma and fma kernels (forced), the chain and each of
+        its convs, and cuDNN's chain of 3 side by side."""
         tw = tail_weights(NF, bf)
 
         def held(tag, x):
-            k = one_launch(f"[k6] {tag}", lambda: tail.tail_fused_q(x, *tw), "tail_fused_q")
+            k = one_launch(f"[k6] {tag}", lambda: tail.tail_fused_q(x, *tw), "tail_fused_q",
+                           route="wgmma")
             b_, h_, w_ = x.shape[:3]
             check(k.shape == (b_, 2 * h_, 2 * w_, 3) and k.dtype == bf, f"[k6] {tag}: shape {k.shape}")
+            kd = one_launch(f"[k6] {tag} tail_fused", lambda: tail.tail_fused(x, *tw), "tail_fused",
+                            route="wgmma")
             p = tail.tail_fused_q_plain(x, *tw)
             e = compare(f"[k6] {tag}", k, p, bf)
             _, st = bf16_steps(f"[k6] {tag}", k, p, n=float("inf"),
                                floor=p.float().abs().max().item() * 2.0**-8)
             del p
-            chain = tail.tail_fused(x, *tw)
-            same = torch.equal(k, chain)
-            _, st_chain = bf16_steps(f"[k6] {tag} vs chain", k, chain, n=float("inf"))
-            del chain
+            _build.reset_launches()
+            chain = tail.tail_fused(x, *tw, route="chain")
+            torch.cuda.synchronize()
+            got = _build.launches()
+            want = {"tail_fused": 3, "conv3x3:wgmma": 2, "conv3x3:narrow": 1,
+                    "conv3x3:narrow conv_last": 1}
+            check(got == want, f"[k6] {tag}: the chain's launches {got} != {want}")
+            mma = one_launch(f"[k6] {tag} K6 mma", lambda: tail.tail_fused_q(x, *tw, route="mma"),
+                             "tail_fused_q", route="mma")
+            same = dict(tail_fused=torch.equal(k, kd), chain=torch.equal(k, chain),
+                        k6_mma=torch.equal(k, mma))
+            del chain, mma, kd
             k6_stats["max_steps"] = max(k6_stats.get("max_steps", 0.0), st)
             k6_stats["max_err"] = max(k6_stats.get("max_err", 0.0), e)
-            k6_stats["max_steps_vs_chain"] = max(k6_stats.get("max_steps_vs_chain", 0.0), st_chain)
-            log(f"[k6] {tag} err={e:.3g} steps={st:.2f} bit_equal_to_k1_chain={same} "
-                f"steps_vs_chain={st_chain:.2f}")
-            return k, same
+            log(f"[k6] {tag} wgmma err={e:.3g} steps={st:.2f} bit_equal_to_k1_chain={same['chain']} "
+                f"bit_equal_to_k6_mma={same['k6_mma']} tail_fused==tail_fused_q={same['tail_fused']}")
+            check(all(same.values()), f"[k6] {tag}: not bit-equal {same}")
+            return k
 
-        # 16 x 28 output tiles: (2, 37, 53) -> 74 x 106 (ragged, B = 2);
-        # (1, 5, 7) -> 10 x 14, below one tile; (1, 9, 13) ragged both ways;
-        # (2, 100, 150) -> 2 x 13 x 11 = 286 tiles on 132 blocks
-        for shp in ((2, 37, 53), (1, 5, 7), (1, 9, 13), (2, 100, 150)):
+        # stripes of 60 output columns: (2, 37, 53) -> 74 x 106 (ragged, B =
+        # 2); (1, 5, 7) -> 10 x 14, narrower than one stripe; (1, 9, 13)
+        # ragged both ways; (2, 100, 150) -> 2 x 5 stripes x 200 rows over
+        # 63 blocks; (1, 1, 61) -> 2 x 122, a last stripe of 2 columns;
+        # (3, 7, 200) -> 3 x 7 stripes x 14 rows, segments across images
+        for shp in ((2, 37, 53), (1, 5, 7), (1, 9, 13), (2, 100, 150), (1, 1, 61), (3, 7, 200)):
             held(str(shp), rnd(*shp, NF))
         h2, w2 = 2 * H, 2 * W
         x2 = rnd(1, h2, w2, NF)
-        k_new, same = held(f"1x{h2}x{w2}x64", x2)
-        k6_stats["bit_equal_to_k1_chain"] = same
+        k_new = held(f"1x{h2}x{w2}x64", x2)
+        k6_stats["bit_equal_to_k1_chain"] = True
         k_old = one_launch("[k6] forced fma", lambda: tail.tail_fused_q(x2, *tw, route="fma"),
                            "tail_fused_q", route="fma")
-        e_old = compare("[k6] mma vs fma", k_new, k_old, bf)
+        e_old = compare("[k6] wgmma vs fma", k_new, k_old, bf)
         del k_new, k_old
-        new_ms = timed(lambda: tail.tail_fused_q(x2, *tw), 10)
+        new_ms = timed(lambda: tail.tail_fused(x2, *tw), 10)
+        q_ms = timed(lambda: tail.tail_fused_q(x2, *tw), 10)
+        mma_ms = timed(lambda: tail.tail_fused_q(x2, *tw, route="mma"), 5)
         old_ms = timed(lambda: tail.tail_fused_q(x2, *tw, route="fma"), 2)
-        chain_ms = timed(lambda: tail.tail_fused(x2, *tw), 5)
+        chain_ms = timed(lambda: tail.tail_fused(x2, *tw, route="chain"), 5)
+        # the chain per conv: upconv2 (wgmma, and forced mma as the chain ran
+        # it before this slice), conv_hr (wgmma), conv_last (narrow)
+        u2 = tail.conv3x3(x2, tw[0], tw[1], act="lrelu", upsample2=True, counter="check")
+        hr = tail.conv3x3(u2, tw[2], tw[3], act="lrelu", counter="check")
+        split = dict(
+            upconv2=timed(lambda: tail.conv3x3(x2, tw[0], tw[1], act="lrelu", upsample2=True,
+                                               counter="check", out=u2), 5),
+            upconv2_mma=timed(lambda: tail.conv3x3(x2, tw[0], tw[1], act="lrelu", upsample2=True,
+                                                   counter="check", out=u2, route="mma"), 5),
+            conv_hr=timed(lambda: tail.conv3x3(u2, tw[2], tw[3], act="lrelu", counter="check",
+                                               out=hr), 5),
+            conv_last=timed(lambda: tail.conv3x3(hr, tw[4], tw[5], counter="check"), 5),
+        )
+        del u2, hr
         tail_in = rnd(1, NF, 2 * h2, 2 * w2).contiguous(memory_format=torch.channels_last)
         tw_oihw = [tw[i].permute(3, 2, 0, 1).contiguous() for i in (0, 2, 4)]
 
@@ -1301,21 +1380,29 @@ def main(argv=None) -> int:
         del tail_in, x2
         npx = 4 * h2 * w2
         wide = 2 * 2 * npx * 9 * NF * NF  # useful, upconv2 as 9 taps
+        plan = tail.tail_wgmma_plan(1, h2, w2, sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+        exe = plan.executed_ops()
         tiles = -(-2 * h2 // 16) * -(-2 * w2 // 28)
-        exe = tiles * 2 * 9 * NF * NF * (20 * 32 + 34 * 16)
+        exe_mma = tiles * 2 * 9 * NF * NF * (20 * 32 + 34 * 16)
         log(
-            f"[k6] tail_fused_q 1x{h2}x{w2}x64 bf16: fma (old kernel) {old_ms:.3f} ms, mma (new kernel) "
-            f"{new_ms:.3f} ms ({old_ms / new_ms:.2f}x; wide convs {wide / new_ms / 1e9:.1f} TFLOP/s "
-            f"useful, {exe / new_ms / 1e9:.1f} executed, executed/useful {exe / wide:.3f}), K1's "
-            f"three launches {chain_ms:.3f} ms, library (cuDNN chain of 3) {lib_ms:.3f} ms; max "
-            f"|mma - fma| {e_old:.3g}; bit_equal_to_k1_chain={same}; largest error at every shape: "
-            f"{k6_stats['max_err']:.3g}, {k6_stats['max_steps']:.2f} bf16 steps "
-            f"({k6_stats['max_steps_vs_chain']:.2f} against the chain)"
+            f"[k6] tail 1x{h2}x{w2}x64 -> 1x{2 * h2}x{2 * w2}x3 bf16: wgmma (new kernel) "
+            f"{new_ms:.3f} ms (tail_fused_q {q_ms:.3f}; wide convs {wide / new_ms / 1e9:.1f} TFLOP/s "
+            f"useful, {exe / new_ms / 1e9:.1f} executed, executed/useful {exe / wide:.3f}), K6 mma "
+            f"{mma_ms:.3f} ms (executed/useful {exe_mma / wide:.3f}), K6 fma {old_ms:.3f} ms, the "
+            f"chain of three K1 launches {chain_ms:.3f} ms (upconv2 {split['upconv2']:.3f} on wgmma, "
+            f"{split['upconv2_mma']:.3f} on mma; conv_hr {split['conv_hr']:.3f}; conv_last "
+            f"{split['conv_last']:.3f}), library (cuDNN chain of 3) {lib_ms:.3f} ms; "
+            f"{chain_ms / new_ms:.2f}x the chain, {mma_ms / new_ms:.2f}x K6 mma; max |wgmma - fma| "
+            f"{e_old:.3g}; largest error at every shape: {k6_stats['max_err']:.3g}, "
+            f"{k6_stats['max_steps']:.2f} bf16 steps"
         )
-        k6_stats.update(fma_ms=old_ms, mma_ms=new_ms, chain_ms=chain_ms, library_ms=lib_ms,
+        k6_stats.update(wgmma_ms=new_ms, tail_q_ms=q_ms, mma_ms=mma_ms, fma_ms=old_ms,
+                        chain_ms=chain_ms, chain_split_ms=split, library_ms=lib_ms,
                         executed_per_useful=exe / wide)
+        check(new_ms < chain_ms,
+              f"[k6] the one-launch tail ({new_ms:.3f} ms) is not faster than the chain ({chain_ms:.3f})")
         check(new_ms * 3 <= old_ms,
-              f"[k6] the mma route ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
+              f"[k6] the wgmma tail ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
 
     def phase_k4():
         """K4's tensor-core route (``conv3x3_i8:mma``), dynamic and static A8:
@@ -1565,7 +1652,7 @@ def main(argv=None) -> int:
                 check(kq.shape == (shp[0], 2 * shp[1], 2 * shp[2], 3) and kq.dtype == dt,
                       f"tail_fused_q shape {kq.shape}")
                 e = compare("tail_fused_q", kq, tail.tail_fused_q_plain(xq, *tq), dt)
-                e1 = (kq.float() - tail.tail_fused(xq, *tq).float()).abs().max().item()
+                e1 = (kq.float() - tail.tail_fused(xq, *tq, route="chain").float()).abs().max().item()
                 log(f"[check] tail_fused_q {dt} {shp} nf {nf_} err={e:.3g} vs_three_K1={e1:.3g}")
             ws, bs = rdb_weights(64, 32, dt)
             for x0 in (None, rnd(b, h, w, 64, dt=dt)):
@@ -1864,7 +1951,8 @@ def main(argv=None) -> int:
             (h2 * w2 * NF + 4 * h2 * w2 * 3) * 2, tail_ops, PEAK_BF16, bf,
             lib_fn=tail_lib,
         )
-        e1 = (tail.tail_fused_q(x2, *tw).float() - tail.tail_fused(x2, *tw).float()).abs().max().item()
+        e1 = (tail.tail_fused_q(x2, *tw).float()
+              - tail.tail_fused(x2, *tw, route="chain").float()).abs().max().item()
         log(f"[check] tail_fused_q vs the three-K1 tail_fused at 1x2160x3840x64: max |diff| {e1:.3g}")
         record(
             "tail_fused_q", "1x2160x3840x64 -> 1x4320x7680x3, one launch (library: chain of 3 convs)",
@@ -1874,20 +1962,6 @@ def main(argv=None) -> int:
             lib_fn=tail_lib,
         )
         del x2, tail_in
-        torch.cuda.empty_cache()
-        # conv_last alone, on K1's narrow route, at the flagship tail's shape
-        xl = rnd(1, 4 * H, 4 * W, NF)
-        wl, bl = tw[4], tw[5]
-        xl_nchw, wl_oihw = xl.permute(0, 3, 1, 2), oihw(wl)
-        npx = 16 * H * W
-        record(
-            "conv3x3:narrow conv_last", "1x4320x7680x64 -> 3 (library: F.conv2d of conv_last alone)",
-            lambda: tail.conv3x3(xl, wl, bl, counter="check"),
-            lambda: tail.conv3x3_plain(xl, wl, bl), 5,
-            (npx * (NF + 3) + wl.numel() + bl.numel()) * 2, 2 * npx * 9 * NF * 3, PEAK_BF16, bf,
-            lib_fn=lambda: F.conv2d(xl_nchw, wl_oihw, bl, padding=1),
-        )
-        del xl, xl_nchw
         torch.cuda.empty_cache()
         xu = torch.rand(1, 4 * H, 4 * W, 3, generator=gen).to(dev)
         record(
@@ -2441,13 +2515,14 @@ def main(argv=None) -> int:
                   ("conv3x3:narrow stem", stem), ("conv3x3:narrow conv_last", last))
         return {k: v for k, v in counts if v}
 
-    # per model call. K1 of an RRDBNet frame: the stem and conv_last on the
-    # narrow route; the dense-block convs, conv_body and conv_hr on the
-    # wgmma route; up1 and upconv2 (upsample2) on the mma route. A path that
-    # ran on an old kernel fails its counts.
+    # per model call. K1 of an RRDBNet frame: the stem on the narrow route;
+    # the dense-block convs, conv_body and up1 on the wgmma route; the tail
+    # (upconv2, conv_hr, conv_last) one launch of tail_fused_wgmma.cu. A path
+    # that ran on an old kernel fails its counts.
+    TAIL_ONE = {"tail_fused": 1, "tail_fused:wgmma": 1}
     rrdb_call = {
-        "conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1, "tail_fused": 3,
-        **k1_routes(n_rdb + 2, 2, 1, 1),
+        "conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1, **TAIL_ONE,
+        **k1_routes(n_rdb + 2, 0, 1, 0),
     }
     srvgg_call = {
         "conv3x3_fused": 1, "srvgg_body": v3.num_conv, "srvgg_up_fused": 1,
@@ -2456,7 +2531,7 @@ def main(argv=None) -> int:
     # K4 of an int8 RRDBNet frame: every RDB conv on the int8 tensor cores
     rrdb_i8_call = {
         "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
-        "conv3x3_i8:mma": n_rdb, "up1_fused": 1, "tail_fused": 3, **k1_routes(2, 2, 1, 1),
+        "conv3x3_i8:mma": n_rdb, "up1_fused": 1, **TAIL_ONE, **k1_routes(2, 0, 1, 0),
     }
     # K2 of an enhanced frame: the sharpen stage on the rows route
     K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1, "unsharp_fused:rows:fp32": 1}
@@ -2520,14 +2595,14 @@ def main(argv=None) -> int:
         ("main_pallas", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rrdb_fused": spec.num_block,
           "rrdb_fused:wgmma": spec.num_block, "up1_fused": 1,
-          "tail_fused": 3, **K2_ROWS, **k1_routes(2, 2, 1, 1)},
+          **TAIL_ONE, **K2_ROWS, **k1_routes(2, 0, 1, 0)},
          is_flagship("bf16"), 1, {"VRT_PALLAS": "1"},
          dict(vs_default="VRT_PALLAS", equal_default=True)),
-        # phase 10: the VRT_TAIL_Q=1 tail (one K6 launch per frame, no K1 tail)
+        # phase 10: the VRT_TAIL_Q=1 tail (one tail_fused_q launch per frame)
         ("main_tailq", (H, W, 2), flagship + ["--precision", "bf16"],
          {"conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1,
-          "tail_fused_q": 1, "tail_fused_q:mma": 1, **K2_ROWS,
-          **k1_routes(n_rdb + 1, 1, 1, 0)},
+          "tail_fused_q": 1, "tail_fused_q:wgmma": 1, **K2_ROWS,
+          **k1_routes(n_rdb + 2, 0, 1, 0)},
          is_flagship("bf16"), 1, {"VRT_TAIL_Q": "1"}, dict(vs_default="VRT_TAIL_Q")),
         # phase 10b: the flagship with VRT_POST_DT=bf16: the post stack in
         # bf16, K2's bf16 instance once per frame
@@ -3074,8 +3149,8 @@ def main(argv=None) -> int:
                 per_call = srvgg_call
             else:
                 n_rdb6 = 3 * spec_.num_block * 5
-                per_call = {"conv3x3_fused": 2, "rdb_fused": n_rdb6, "up1_fused": 1, "tail_fused": 3,
-                            **k1_routes(n_rdb6 + 2, 2, 1, 1)}
+                per_call = {"conv3x3_fused": 2, "rdb_fused": n_rdb6, "up1_fused": 1, **TAIL_ONE,
+                            **k1_routes(n_rdb6 + 2, 0, 1, 0)}
             drive(f"train_{short}", serve_clip,
                   ["--model", name, "--tile-size", "0", "--models-dir", str(ft_dir)], per_call,
                   lambda c, name=name: c.model_name == name and c.tile_size == 0, 1)
@@ -3350,8 +3425,9 @@ def main(argv=None) -> int:
     if "main_tailq" in path_stats and "main" in path_stats:
         tq = path_stats["main_tailq"]
         log(
-            f"[main_tailq] step {tq['step_ms']:.1f} ms/frame with the one-launch tail, "
-            f"{tq['default_step_ms']:.1f} with the default three-K1 tail (same run); peak device "
+            f"[main_tailq] step {tq['step_ms']:.1f} ms/frame with VRT_TAIL_Q=1, "
+            f"{tq['default_step_ms']:.1f} with the default tail mode (same run; both launch "
+            f"tail_fused_wgmma.cu once a frame); peak device "
             f"memory {tq['peak_gib']:.2f} GiB, the flagship [main] {path_stats['main']['peak_gib']:.2f}"
         )
 
@@ -3613,8 +3689,8 @@ def main(argv=None) -> int:
             grid = ups.grid
             calls = 2 if mode == "tiles" else grid.n_chunks
             n_rdb2 = 3 * x2.num_block * 5
-            want = {"conv3x3_fused": 2, "rdb_fused": n_rdb2, "up1_fused": 1, "tail_fused": 3,
-                    **k1_routes(n_rdb2 + 2, 2, 1, 1)}
+            want = {"conv3x3_fused": 2, "rdb_fused": n_rdb2, "up1_fused": 1, **TAIL_ONE,
+                    **k1_routes(n_rdb2 + 2, 0, 1, 0)}
             want = {k: v * calls * 2 for k, v in want.items()}
             check(counts == want, f"[multi] {mode}: launch counts {counts} != {want}")
             check(isinstance(ups, ShardedUpscaler) and ups.n_devices == len(mesh),

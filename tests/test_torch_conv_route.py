@@ -2,22 +2,25 @@
 full-frame memory estimate with the chain tail counted.
 
 K1 is one function behind four routes of hand-written CUDA kernels:
-``"wgmma"`` (``csrc/conv3x3_wgmma.cu``, Hopper's ``wgmma`` fed by TMA),
-``"mma"`` (``csrc/conv3x3_mma.cu``, ``mma.sync``: the tensor-core widths
-read through nearest 2x, up1 and upconv2), ``"narrow"``
+``"wgmma"`` (``csrc/conv3x3_wgmma.cu``, Hopper's ``wgmma`` fed by TMA, or,
+for the tensor-core widths read through nearest 2x (up1, upconv2), by its
+producer warpgroup's copies at the fine grid), ``"mma"``
+(``csrc/conv3x3_mma.cu``, ``mma.sync``: forced beside it), ``"narrow"``
 (``csrc/conv3x3_narrow.cu``: the bf16 stems and conv_last) and ``"fma"``
 (``csrc/conv3x3.cu``, fp32 FMAs). ``ops/tail.py::conv3x3_route`` chooses
 from the call alone (dtype, widths, alignment, upsample2), so the choice is
 tested here, on the CPU, without a kernel: every model runs at full width on
 a tiny frame in bf16 through the plain versions while a recorder asks the
 route of each K1 call. The numbers of the split are the ones the chip smoke
-test asserts on the card (347 ``wgmma`` + 2 ``mma`` + 2 ``narrow`` per
-flagship frame, no ``fma``).
+test asserts on the card (347 ``wgmma`` + 1 ``narrow`` per flagship frame,
+no ``mma``, no ``fma``; the tail is one launch of its own kernel,
+``tests/test_torch_k6_route.py``).
 
 ``auto_full_frame``: equal to the JAX function at its default (held in
 ``test_torch_tiles.py``); with ``tail_in_memory`` it also counts the two
 64-channel tensors at output resolution that the three-launch tail writes
-to device memory, and the runner passes the keyword by tail mode.
+to device memory, and the runner passes the keyword by the tail's route:
+only where the tail runs as three K1 launches (fp32, a width other than 64).
 """
 
 import dataclasses
@@ -40,12 +43,12 @@ BF, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize(
     "dtype,cin,cout,aligned,route",
     [
-        (BF, 64, 64, True, "mma"),   # conv_body, up1, upconv2, conv_hr, SRVGG body
-        (BF, 64, 32, True, "mma"),   # RDB conv1
-        (BF, 96, 32, True, "mma"),   # RDB conv2: 6 k16 steps
-        (BF, 128, 32, True, "mma"),
-        (BF, 160, 32, True, "mma"),  # RDB conv4: 10 k16 steps
-        (BF, 192, 64, True, "mma"),  # RDB conv5
+        (BF, 64, 64, True, "wgmma"),   # conv_body, up1, upconv2, conv_hr, SRVGG body
+        (BF, 64, 32, True, "wgmma"),   # RDB conv1
+        (BF, 96, 32, True, "wgmma"),   # RDB conv2: 6 k16 steps
+        (BF, 128, 32, True, "wgmma"),
+        (BF, 160, 32, True, "wgmma"),  # RDB conv4: 10 k16 steps
+        (BF, 192, 64, True, "wgmma"),  # RDB conv5
         (F32, 64, 64, True, "fma"),  # fp32: the tight checks
         (BF, 3, 64, True, "narrow"),   # the stem
         (BF, 12, 64, True, "narrow"),  # x2plus's pixel-unshuffled stem
@@ -59,12 +62,12 @@ BF, F32 = torch.bfloat16, torch.float32
     ],
 )
 def test_conv3x3_route(dtype, cin, cout, aligned, route):
-    """The tensor-core widths take ``"mma"`` read through nearest 2x (up1,
-    upconv2) and ``"wgmma"`` otherwise; the other cases take their route
-    either way but ``"narrow"``, which has no upsample2."""
+    """The tensor-core widths take ``"wgmma"``, read through nearest 2x (up1,
+    upconv2) or not; the other cases take their route either way but
+    ``"narrow"``, which has no upsample2."""
     up2 = route != "narrow"
     assert tail.conv3x3_route(dtype, cin, cout, aligned, upsample2=up2) == route
-    assert tail.conv3x3_route(dtype, cin, cout, aligned) == ("wgmma" if route == "mma" else route)
+    assert tail.conv3x3_route(dtype, cin, cout, aligned) == route
     assert route in tail.ROUTES
 
 
@@ -75,9 +78,11 @@ def test_conv3x3_route(dtype, cin, cout, aligned, route):
 )
 def test_the_tensor_core_widths_take_wgmma_but_upsample2(cin, cout, up2):
     """Every call ``"mma"`` took before ``"wgmma"`` existed takes ``"wgmma"``
-    now, but for the upsample2 ones (a TMA box cannot read the 2x grid);
-    misaligned operands and fp32 stay on ``"fma"`` either way."""
-    assert tail.conv3x3_route(BF, cin, cout, upsample2=up2) == ("mma" if up2 else "wgmma")
+    now, the upsample2 ones too since its producer warpgroup copies their
+    windows at the fine grid (a TMA box cannot read the 2x grid: the test's
+    name is from before); misaligned operands and fp32 stay on ``"fma"``
+    either way."""
+    assert tail.conv3x3_route(BF, cin, cout, upsample2=up2) == "wgmma"
     assert tail.conv3x3_route(BF, cin, cout, False, upsample2=up2) == "fma"
     assert tail.conv3x3_route(F32, cin, cout, upsample2=up2) == "fma"
 
@@ -92,7 +97,7 @@ def _operands(cin=64, cout=64, dt=BF):
 def test_call_route_follows_alignment_of_every_operand():
     x, w, b = _operands()
     assert tail.conv3x3_call_route(x, w, b) == "wgmma"
-    assert tail.conv3x3_call_route(x, w, b, upsample2=True) == "mma"
+    assert tail.conv3x3_call_route(x, w, b, upsample2=True) == "wgmma"
     buf = torch.zeros(1, 4, 5, 192, dtype=BF)
     # the growth-buffer views: prefix in, 32 channels out at their offset
     for lo in (64, 96, 128, 160):
@@ -147,10 +152,11 @@ def _split(calls):
 @pytest.mark.parametrize(
     "name,n_mma,n_narrow,n_fma",
     [
-        # 345 dense-block convs + conv_body, up1, upconv2, conv_hr | stem, conv_last
-        ("RealESRGAN_x4plus", 349, 2, 0),
-        ("RealESRGAN_x2plus", 349, 2, 0),  # the stem has cin 12
-        ("RealESRGAN_x4plus_anime_6B", 6 * 15 + 4, 2, 0),
+        # 345 dense-block convs + conv_body, up1 | the stem; the tail is
+        # one launch of tail_fused_wgmma.cu, no K1 call
+        ("RealESRGAN_x4plus", 347, 1, 0),
+        ("RealESRGAN_x2plus", 347, 1, 0),  # the stem has cin 12
+        ("RealESRGAN_x4plus_anime_6B", 6 * 15 + 2, 1, 0),
         ("RealESRGAN_x4_v3", 32, 1, 0),  # config 4: the body | the stem
     ],
 )
@@ -161,16 +167,15 @@ def test_routes_of_one_frame_at_full_width(monkeypatch, name, n_mma, n_narrow, n
     calls = _record_routes(monkeypatch)
     y = net(torch.rand(1, 8, 8, 3))
     assert y.shape == (1, 8 * spec.scale, 8 * spec.scale, 3)
-    # n_mma: the tensor-core launches, of which every one but up1 and
-    # upconv2 (mma: upsample2) on wgmma
+    # n_mma: the tensor-core launches, every one on wgmma (up1 too)
     assert _split(calls) == (n_mma, n_narrow, n_fma)
     narrow = [c for c, r in calls if r == "narrow"]
     on = {r: [c for c, r_ in calls if r_ == r] for r in ("wgmma", "mma")}
     if isinstance(spec, RRDBNetSpec):
-        assert narrow == ["conv3x3_fused", "tail_fused"]  # stem first, conv_last last
-        assert set(on["wgmma"]) == {"rdb_fused", "conv3x3_fused", "tail_fused"}
-        assert len(on["wgmma"]) == n_mma - 2
-        assert on["mma"] == ["up1_fused", "tail_fused"]  # up1, upconv2
+        assert narrow == ["conv3x3_fused"]  # the stem
+        assert set(on["wgmma"]) == {"rdb_fused", "conv3x3_fused", "up1_fused"}
+        assert len(on["wgmma"]) == n_mma and on["wgmma"][-1] == "up1_fused"
+        assert on["mma"] == []
     else:
         assert narrow == ["conv3x3_fused"]
         assert on == {"wgmma": ["srvgg_body"] * n_mma, "mma": []}
@@ -235,14 +240,19 @@ def test_full_frame_bytes_terms():
 
 
 @pytest.mark.parametrize(
-    "model,knob,expected",
+    "model,knob,precision,expected",
     [
-        ("RealESRGAN_x4plus", None, True),   # chain tail: three K1 launches
-        ("RealESRGAN_x4plus", "1", True),    # the knob counts only on a CUDA device
-        ("RealESRGAN_x4_v3", None, False),   # SRVGG has no such tail
+        # the chain tail mode in bf16 at nf 64: one launch, nothing in memory
+        ("RealESRGAN_x4plus", None, "bf16", False),
+        ("RealESRGAN_x4plus", None, "int8", False),
+        # fp32: the chain runs as three K1 launches
+        ("RealESRGAN_x4plus", None, "fp32", True),
+        ("RealESRGAN_x4plus", "1", "fp32", True),  # the knob counts only on a CUDA device
+        ("RealESRGAN_x4_v3", None, "bf16", False),   # SRVGG has no such tail
     ],
 )
-def test_runner_passes_tail_in_memory_by_tail_mode(monkeypatch, model, knob, expected):
+def test_runner_passes_tail_in_memory_by_tail_mode(monkeypatch, model, knob, precision,
+                                                    expected):
     from video_restore_tpu_torch.config import RestoreConfig
     from video_restore_tpu_torch.models.zoo import ModelHandle
     from video_restore_tpu_torch.pipeline import runner
@@ -252,7 +262,8 @@ def test_runner_passes_tail_in_memory_by_tail_mode(monkeypatch, model, knob, exp
     else:
         monkeypatch.delenv("VRT_TAIL_Q", raising=False)
     handle = ModelHandle(model, MODEL_ZOO[model].spec, {})
-    r = runner.VideoRestorer(RestoreConfig(model_name=model), model=handle, cpu=True)
+    cfg = RestoreConfig(model_name=model, precision=precision)
+    r = runner.VideoRestorer(cfg, model=handle, cpu=True)
     assert r._tail_in_memory() is expected
     # on a CUDA device the tail mode "q" keeps both intermediates on chip
     monkeypatch.setattr(runner, "tail_mode", lambda device: "q")
@@ -261,8 +272,9 @@ def test_runner_passes_tail_in_memory_by_tail_mode(monkeypatch, model, knob, exp
 
 def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
     """The decision as the runner makes it on a card with 80e9 bytes and
-    ``--frames-per-batch 8``: tiles for the chain tail, full frame for the
-    one-launch tail."""
+    ``--frames-per-batch 8``: tiles for the chain tail where it runs as three
+    K1 launches (fp32), full frame for the one-launch tails (``"q"``, and
+    the chain mode in bf16)."""
     from video_restore_tpu_torch.config import RestoreConfig
     from video_restore_tpu_torch.models.zoo import ModelHandle
     from video_restore_tpu_torch.pipeline import runner
@@ -284,15 +296,46 @@ def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(runner, "auto_full_frame", spy)
-    for mode, tiled in (("chain", True), ("q", False)):
+    for mode, precision, tiled in (("chain", "fp32", True), ("chain", "bf16", False),
+                                   ("q", "fp32", False)):
         monkeypatch.setattr(runner, "tail_mode", lambda device, m=mode: m)
-        cfg = RestoreConfig(model_name=name, frames_per_batch=8, full_frame="auto")
+        cfg = RestoreConfig(model_name=name, frames_per_batch=8, full_frame="auto",
+                            precision=precision)
         r = runner.VideoRestorer(cfg, model=handle, cpu=True)
         r.device = torch.device("cuda", 0)  # only the decision is exercised
         grid = r._upscaler_for(1080, 1920).grid
-        assert (grid.n_tiles > 1) is tiled, mode
-        assert seen[-1]["tail_in_memory"] is (mode == "chain")
+        assert (grid.n_tiles > 1) is tiled, (mode, precision)
+        assert seen[-1]["tail_in_memory"] is tiled
         assert seen[-1]["frames"] == 8
+
+
+@pytest.mark.parametrize(
+    "precision,nf,route,gib",
+    [
+        ("bf16", 64, "wgmma", 3.34),   # the flagship: nothing of the tail in memory
+        ("fp32", 64, "fma", 11.25),    # the chain of three K1 launches
+        ("bf16", 32, "fma", None),     # a width the one launch is not built for
+    ],
+)
+def test_tail_in_memory_follows_the_route(monkeypatch, precision, nf, route, gib):
+    """For each route of the tail the runner's flag, and at 1080p scale 4
+    the estimate ``auto_full_frame`` weighs: 3.34 GiB on the one-launch
+    route, 11.25 GiB where both 64-channel intermediates go through device
+    memory."""
+    from video_restore_tpu_torch.config import RestoreConfig
+    from video_restore_tpu_torch.models.zoo import ModelHandle
+    from video_restore_tpu_torch.pipeline import runner
+
+    monkeypatch.delenv("VRT_TAIL_Q", raising=False)
+    dt = F32 if precision == "fp32" else BF
+    assert tail.tail_fused_route(dt, nf) == route
+    spec = dataclasses.replace(MODEL_ZOO["RealESRGAN_x4plus"].spec, num_feat=nf)
+    handle = ModelHandle("RealESRGAN_x4plus", spec, {})
+    r = runner.VideoRestorer(RestoreConfig(precision=precision), model=handle, cpu=True)
+    assert r._tail_in_memory() is (route != "wgmma")
+    if gib is not None:
+        est = pt.full_frame_bytes(1080, 1920, 4, tail_in_memory=r._tail_in_memory())
+        assert round(est / 2**30, 2) == gib
 
 
 # ---- the RDB's layout on the wgmma route -------------------------------------

@@ -231,7 +231,7 @@ def test_upsampler_rejects_a_weight_of_another_width():
 def test_every_cuda_source_is_built():
     """One nvcc per source: each ``.cu`` under ``csrc/`` is in the build,
     the tensor-core sources of K5, K3 and K6, K1's narrow and wgmma sources,
-    K5's wgmma source, K2's rows sources (fp32 and bf16, each its own
+    K5's wgmma source, the tail's wgmma source, K2's rows sources (fp32 and bf16, each its own
     translation unit) and K5's fp32-FMA instances (each its own translation
     unit on ``rdb_fused.cuh``) included."""
     on_disk = sorted(p.name for p in _build.CSRC.glob("*.cu"))
@@ -239,4 +239,4 @@ def test_every_cuda_source_is_built():
     assert {"rdb_fused_mma.cu", "srvgg_up_mma.cu", "tail_fused_mma.cu",
             "conv3x3_narrow.cu", "unsharp_rows.cu", "unsharp_rows_bf16.cu",
             "conv3x3_wgmma.cu", "rdb_fused_wgmma.cu", "rdb_fused_f32.cu",
-            "rdb_fused_bf16.cu", "rdb_fused_narrow.cu"} <= set(on_disk)
+            "rdb_fused_bf16.cu", "rdb_fused_narrow.cu", "tail_fused_wgmma.cu"} <= set(on_disk)

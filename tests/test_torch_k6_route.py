@@ -1,15 +1,21 @@
-"""Which of K6's two kernels each one-launch tail call of the port takes on
-the card, and the tail's plain version against the JAX quad tail.
+"""Which kernel each one-launch tail call of the port takes on the card,
+and the tail's plain version against the JAX quad tail.
 
-K6 (``ops/tail.py::tail_fused_q``, the ``VRT_TAIL_Q=1`` tail: upconv2 ->
-conv_hr -> conv_last in one launch) is one function behind two hand-written
-CUDA kernels: ``"mma"`` (``csrc/tail_fused_mma.cu``: tensor cores, summing in
-the order of K1's tensor-core route) and ``"fma"`` (``csrc/tail_fused.cu``:
-fp32 FMAs). ``tail_fused_route`` chooses from the call alone, so the choice
-is tested here, on the CPU, without a kernel: each model runs on a tiny
-frame through the plain versions while a recorder asks the route of each
-tail call. The number is the one the chip smoke test asserts on the card:
-one ``tail_fused_q:mma`` per frame of the ``VRT_TAIL_Q=1`` flagship.
+The one-launch tail (upconv2 -> conv_hr -> conv_last) is one function
+behind three hand-written CUDA kernels: ``"wgmma"``
+(``csrc/tail_fused_wgmma.cu``: Hopper's tensor cores over rolling rows),
+K6's ``"mma"`` (``csrc/tail_fused_mma.cu``: ``mma.sync``, forced beside it)
+and ``"fma"`` (``csrc/tail_fused.cu``: fp32 FMAs), all summing in the order
+of K1's tensor-core route. ``ops/tail.py::tail_fused_q`` (the
+``VRT_TAIL_Q=1`` tail) launches it; so does ``tail_fused`` (the default
+tail) where ``chain_route`` takes the call, else it runs as three K1
+launches. ``tail_fused_route`` and ``chain_route`` choose from the call
+alone, so the choice is tested here, on the CPU, without a kernel: each
+model runs on a tiny frame through the plain versions while a recorder asks
+the route of each tail call. The numbers are the ones the chip smoke test
+asserts on the card: one ``tail_fused_q:wgmma`` per frame of the
+``VRT_TAIL_Q=1`` flagship, one ``tail_fused:wgmma`` per frame of the
+default one.
 
 The plain version the kernels are held to on the card is held here against
 the JAX ``tail_fused_q`` (``pallas_tail.py:1018``) fed by ``up1_fused(
@@ -39,7 +45,7 @@ BF, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize(
     "dtype,nf,aligned,route",
     [
-        (BF, 64, True, "mma"),    # every RRDBNet of the zoo
+        (BF, 64, True, "wgmma"),  # every RRDBNet of the zoo
         (BF, 64, False, "fma"),   # an operand off a 16-byte boundary
         (F32, 64, True, "fma"),   # fp32: the tight checks
         (BF, 16, True, "fma"),    # the narrow width of the tests and checks
@@ -49,7 +55,7 @@ BF, F32 = torch.bfloat16, torch.float32
 )
 def test_tail_fused_route(dtype, nf, aligned, route):
     assert tail.tail_fused_route(dtype, nf, aligned) == route
-    assert route in tail.ROUTES
+    assert route in tail.ROUTES and route in tail.TAIL_ROUTES
 
 
 def _operands(nf, dt, b=1, h=4, w=5):
@@ -59,18 +65,21 @@ def _operands(nf, dt, b=1, h=4, w=5):
 
 
 def test_a_forced_route_is_checked():
-    """``route="fma"`` reaches the old kernel for a side-by-side timing; the
-    tensor-core kernel is never forced onto a call it is not built for."""
+    """``route="mma"`` and ``route="fma"`` reach K6's kernels for a
+    side-by-side timing; no tensor-core kernel is forced onto a call it is
+    not built for."""
     ops = _operands(64, BF)
-    assert tail._pick_tail_route(*ops, None) == "mma"
+    assert tail._pick_tail_route(*ops, None) == "wgmma"
+    assert tail._pick_tail_route(*ops, "wgmma") == "wgmma"
     assert tail._pick_tail_route(*ops, "fma") == "fma"
     assert tail._pick_tail_route(*ops, "mma") == "mma"
-    with pytest.raises(ValueError, match="bf16 at nf 64"):
-        tail._pick_tail_route(*_operands(64, F32), "mma")
-    with pytest.raises(ValueError, match="bf16 at nf 64"):
-        tail._pick_tail_route(*_operands(16, BF), "mma")
+    for route in ("mma", "wgmma"):
+        with pytest.raises(ValueError, match="bf16 at nf 64"):
+            tail._pick_tail_route(*_operands(64, F32), route)
+        with pytest.raises(ValueError, match="bf16 at nf 64"):
+            tail._pick_tail_route(*_operands(16, BF), route)
     with pytest.raises(ValueError, match="unknown route"):
-        tail._pick_tail_route(*ops, "wgmma")
+        tail._pick_tail_route(*ops, "chain")
 
 
 def test_a_misaligned_input_takes_fma():
@@ -81,8 +90,10 @@ def test_a_misaligned_input_takes_fma():
     assert x.data_ptr() % 16 and x.is_contiguous()
     ops = [x] + _operands(64, BF)[1:]
     assert tail._pick_tail_route(*ops, None) == "fma"
-    with pytest.raises(ValueError, match="bf16 at nf 64"):
-        tail._pick_tail_route(*ops, "mma")
+    assert tail.chain_route(*ops) == "chain"
+    for route in ("mma", "wgmma"):
+        with pytest.raises(ValueError, match="bf16 at nf 64"):
+            tail._pick_tail_route(*ops, route)
 
 
 def _record(monkeypatch):
@@ -102,8 +113,9 @@ def _record(monkeypatch):
 @pytest.mark.parametrize("frames", [1, 2])
 def test_flagship_tail_q_takes_mma_once_per_frame(monkeypatch, frames):
     """RealESRGAN_x4plus at full width in bf16 with ``VRT_TAIL_Q=1`` (the
-    tail mode a CUDA device resolves): one K6 call per frame, on the tensor
-    cores, and no three-launch tail."""
+    tail mode a CUDA device resolves): one call per frame, on Hopper's
+    tensor cores (``"wgmma"``; K6's ``"mma"`` before it: the test's name is
+    from then), and no three-launch tail."""
     monkeypatch.setenv("VRT_TAIL_Q", "1")
     mode = rrdbnet_mod.tail_mode("cuda")
     assert mode == "q"
@@ -119,8 +131,79 @@ def test_flagship_tail_q_takes_mma_once_per_frame(monkeypatch, frames):
     for _ in range(frames):
         y = net(torch.rand(1, 5, 6, 3))
         assert y.shape == (1, 20, 24, 3) and y.dtype == BF
-    assert calls == ["mma"] * frames and chain == []
+    assert calls == ["wgmma"] * frames and chain == []
     assert _build.launches() == {}  # CPU tensors: the plain versions
+
+
+def _record_chain(monkeypatch):
+    """Patch the model's ``tail_fused`` with a recorder of each call's
+    ``chain_route``; the wrapper (the plain versions, on CPU tensors) still
+    computes, and each K1 call of a chain is recorded too."""
+    calls, k1 = [], []
+    real, real_k1 = rrdbnet_mod.tail_fused, tail.conv3x3
+
+    def recorder(*a, **kw):
+        calls.append(tail.chain_route(*a))
+        return real(*a, **kw)
+
+    def k1_recorder(x, w, b, *, counter, **kw):
+        k1.append(counter)
+        return real_k1(x, w, b, counter=counter, **kw)
+
+    monkeypatch.setattr(rrdbnet_mod, "tail_fused", recorder)
+    monkeypatch.setattr(tail, "conv3x3", k1_recorder)
+    return calls, k1
+
+
+@pytest.mark.parametrize("name", ["RealESRGAN_x4plus", "RealESRGAN_x2plus",
+                                  "RealESRGAN_x4plus_anime_6B"])
+@pytest.mark.parametrize("frames", [1, 2])
+def test_the_default_tail_takes_the_one_launch_route(monkeypatch, name, frames):
+    """The default ``"chain"`` tail mode of every RRDBNet of the zoo, in
+    bf16 at full width: one ``tail_fused`` call per frame on the ``"wgmma"``
+    route, so no K1 launch of upconv2, conv_hr or conv_last (the chip smoke
+    test's ``tail_fused:wgmma`` once a frame, ``conv3x3:mma`` 0)."""
+    monkeypatch.delenv("VRT_TAIL_Q", raising=False)
+    assert rrdbnet_mod.tail_mode("cuda") == "chain"
+    spec = MODEL_ZOO[name].spec
+    net = RRDBNet(spec).prepare(BF, "cpu")
+    calls, k1 = _record_chain(monkeypatch)
+    for _ in range(frames):
+        y = net(torch.rand(1, 6, 8, 3))  # even: x2plus unshuffles by 2
+        assert y.shape == (1, 6 * spec.scale, 8 * spec.scale, 3)
+    assert calls == ["wgmma"] * frames and "tail_fused" not in k1
+
+
+@pytest.mark.parametrize("dt,nf,gc", [(F32, 64, 32), (BF, 16, 8), (F32, 16, 8)])
+def test_the_default_tail_of_fp32_and_narrow_models_is_the_chain(monkeypatch, dt, nf, gc):
+    """fp32 and nf 16: ``tail_fused`` runs as its three K1 calls."""
+    net = RRDBNet(RRDBNetSpec(num_feat=nf, num_block=1, num_grow_ch=gc, scale=4))
+    net.prepare(dt, "cpu")
+    calls, k1 = _record_chain(monkeypatch)
+    net(torch.rand(1, 5, 6, 3))
+    assert calls == ["chain"] and k1.count("tail_fused") == 3
+
+
+def test_a_forced_chain_route_is_checked():
+    """``route="chain"`` takes every call (the side-by-side timing of the
+    three K1 launches); ``route="wgmma"`` only bf16 at nf 64 with aligned
+    operands; and both give the plain version's bits on the CPU."""
+    g = torch.Generator().manual_seed(3)
+
+    def r(*shape):
+        return ((torch.rand(*shape, generator=g) - 0.5) * 0.2).to(BF)
+
+    tw = [r(3, 3, 64, 64), r(64), r(3, 3, 64, 64), r(64), r(3, 3, 64, 3), r(3)]
+    x = r(1, 4, 5, 64)
+    assert tail.chain_route(x, *tw) == "wgmma"
+    assert tail.chain_route(x, *tw, route="chain") == "chain"
+    with pytest.raises(ValueError, match="unknown route"):
+        tail.chain_route(x, *tw, route="mma")
+    with pytest.raises(ValueError, match="bf16 at nf 64"):
+        tail.chain_route(x.float(), *(t.float() for t in tw), route="wgmma")
+    want = tail.tail_fused_plain(x, *tw)
+    assert torch.equal(tail.tail_fused(x, *tw), want)
+    assert torch.equal(tail.tail_fused(x, *tw, route="chain"), want)
 
 
 @pytest.mark.parametrize("dt,nf,gc", [(F32, 64, 32), (BF, 16, 8), (F32, 16, 8)])

@@ -144,8 +144,8 @@ def _pick(ops, route, **kw):
 
 def test_a_forced_route_is_checked():
     """``route="fma"`` reaches the old kernel for any call (a side-by-side
-    timing); ``"narrow"`` and ``"mma"`` only where their kernel takes the
-    call."""
+    timing); ``"narrow"``, ``"wgmma"`` and ``"mma"`` only where their kernel
+    takes the call."""
     stem, last, wide = _ops(3, 64), _ops(64, 3), _ops(64, 64)
     assert _pick(stem, None) == "narrow"
     assert _pick(stem, "narrow") == "narrow"
@@ -155,10 +155,12 @@ def test_a_forced_route_is_checked():
     assert _pick(wide, "mma") == "mma"  # the mma.sync kernel takes every wgmma call
     assert _pick(wide, "wgmma") == "wgmma"
     assert _pick(wide, "fma") == "fma"
-    up2 = dict(upsample2=True)
-    assert _pick(wide, None, **up2) == "mma"
-    with pytest.raises(ValueError, match="the wgmma kernel takes .* without upsample2"):
-        _pick(wide, "wgmma", **up2)
+    up2 = dict(upsample2=True)  # up1, upconv2: wgmma's nearest-2x producer
+    assert _pick(wide, None, **up2) == "wgmma"
+    assert _pick(wide, "wgmma", **up2) == "wgmma"
+    assert _pick(wide, "mma", **up2) == "mma"
+    with pytest.raises(ValueError, match="the wgmma kernel takes bf16"):
+        _pick(_ops(64, 64, F32), "wgmma", **up2)
     with pytest.raises(ValueError, match="the narrow kernel takes bf16 stems"):
         _pick(wide, "narrow")
     with pytest.raises(ValueError, match="the narrow kernel takes"):
@@ -204,19 +206,18 @@ def _record(monkeypatch):
 @pytest.mark.parametrize(
     "name,precision,tail_mode,split,narrow",
     [
-        ("RealESRGAN_x4plus", "bf16", "chain", (347, 2, 2, 0),
-         [("conv3x3_fused", (3, 64)), ("tail_fused", (64, 3))]),
-        ("RealESRGAN_x2plus", "bf16", "chain", (347, 2, 2, 0),
-         [("conv3x3_fused", (12, 64)), ("tail_fused", (64, 3))]),
-        ("RealESRGAN_x4plus_anime_6B", "bf16", "chain", (6 * 15 + 2, 2, 2, 0),
-         [("conv3x3_fused", (3, 64)), ("tail_fused", (64, 3))]),
+        # the default tail mode in bf16 at nf 64 is one launch of
+        # tail_fused_wgmma.cu: upconv2, conv_hr and conv_last are no K1 call
+        ("RealESRGAN_x4plus", "bf16", "chain", (347, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
+        ("RealESRGAN_x2plus", "bf16", "chain", (347, 0, 1, 0), [("conv3x3_fused", (12, 64))]),
+        ("RealESRGAN_x4plus_anime_6B", "bf16", "chain", (6 * 15 + 2, 0, 1, 0),
+         [("conv3x3_fused", (3, 64))]),
         ("RealESRGAN_x4_v3", "bf16", None, (32, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
-        # W8A8: the RDB convs are K4's; K1 keeps conv_body, up1, upconv2, conv_hr
-        ("RealESRGAN_x4plus", "int8", "chain", (2, 2, 2, 0),
-         [("conv3x3_fused", (3, 64)), ("tail_fused", (64, 3))]),
+        # W8A8: the RDB convs are K4's; K1 keeps conv_body and up1
+        ("RealESRGAN_x4plus", "int8", "chain", (2, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
         ("RealESRGAN_x4_v3", "int8", None, (0, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
-        # the one-launch tail (K6) takes upconv2, conv_hr and conv_last
-        ("RealESRGAN_x4plus", "bf16", "q", (346, 1, 1, 0), [("conv3x3_fused", (3, 64))]),
+        # the VRT_TAIL_Q=1 tail: the same one launch
+        ("RealESRGAN_x4plus", "bf16", "q", (347, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
     ],
 )
 def test_routes_per_frame(monkeypatch, name, precision, tail_mode, split, narrow):
@@ -228,7 +229,7 @@ def test_routes_per_frame(monkeypatch, name, precision, tail_mode, split, narrow
     calls = _record(monkeypatch)
     y = net(torch.rand(1, 8, 8, 3))
     assert y.shape == (1, 8 * spec.scale, 8 * spec.scale, 3)
-    # (wgmma, mma: up1 and upconv2, narrow, fma)
+    # (wgmma, mma, narrow, fma)
     n = {r: sum(1 for _, r_, _ in calls if r_ == r) for r in tail.ROUTES}
     assert (n["wgmma"], n["mma"], n["narrow"], n["fma"]) == split
     assert [(c, wh) for c, r, wh in calls if r == "narrow"] == narrow

@@ -2,23 +2,22 @@
 // weights, as an implicit GEMM on `wgmma` fed by TMA.
 //
 // It computes the function of conv3x3.cu and conv3x3_mma.cu (bias, act in
-// {none, lrelu 0.2, PReLU}, r1 + s1 * v, r2 + s2 * T(v), every activation
+// {none, lrelu 0.2, PReLU}, r1 + s1 * v, r2 + s2 * T(v), `up2` input read
+// through nearest 2x with zero padding on the 2x grid, every activation
 // operand a channel-prefix view with its own pixel stride, `out` possibly a
-// channel slice of a wider buffer) for the calls that conv3x3_mma.cu takes
-// without `up2`: bf16, cin a multiple of 16, cout 32 or 64, 16-byte-aligned
-// operands. x may also carry a tail: KC-channel blocks of a contiguous
+// channel slice of a wider buffer) for the calls that conv3x3_mma.cu takes:
+// bf16, cin a multiple of 16, cout 32 or 64, 16-byte-aligned operands. x
+// may also carry a tail (not with `up2`): KC-channel blocks of a contiguous
 // (blocks, B, H, W, KC) tensor whose channels follow x's (the RDB's c1 ..
 // c4, ops/stripe.py). It serves the same Pallas entry points:
 //   pallas_stripe.py rdb_stripe2d_split / rdb_stripe2d_padded /
 //                    rdb_res_stripe2d_padded / rdb_stripe_padded /
 //                    rdb_res_stripe_padded (the five dense-block convs)
-//   pallas_tail.py   conv3x3_fused (conv_body + residual), tail_fused_raw /
-//                    tail_fused (conv_hr)
+//   pallas_tail.py   conv3x3_fused (conv_body + residual), up1_fused (up2),
+//                    tail_fused_raw / tail_fused (upconv2 and conv_hr, where
+//                    the tail runs as three launches)
 //   pallas_srvgg.py  srvgg_stripe2d_split / srvgg_stripe2d_padded /
 //                    srvgg_stripe_padded (the chained conv + PReLU body)
-// The `up2` calls (up1, upconv2) stay on conv3x3_mma.cu: TMA copies boxes of
-// the tensor as it lies, and the nearest 2x grid is not one
-// (ops/tail.py::conv3x3_route).
 //
 // The GEMM: M = output pixels (a `wgmma` m64 tile = 64 neighbouring pixels
 // of one output row), N = cout (32 or 64), K = 9 taps x cin, KC = 32 input
@@ -46,6 +45,16 @@
 //    zero-filled: SAME padding at every edge, no per-thread address
 //    bookkeeping; a 5-D map over the tail's blocks for its stages) and,
 //    streamed, the weights (a 3-D map over (cout, cin, 9)).
+//  - The nearest-2x producer (`up2`: up1, and upconv2 where the tail runs as
+//    three launches): a TMA box copies the tensor as it lies, and the 2x
+//    grid is not one. So the producer warpgroup's 128 threads fill each
+//    stage's window at the fine grid themselves: one 16-byte `cp.async` a
+//    (fine pixel, 8 channels) from coarse pixel (y >> 1, x >> 1) into the
+//    swizzled address TMA would have written, zero fill outside the 2x
+//    frame (SAME padding there) and past cin; each thread waits for its
+//    copies of the stage before, fences them to the async proxy and arrives
+//    on that stage's full barrier (128 arrivals, and the weights' expect_tx
+//    where they stream). The consumers are the same.
 //  - Two consumer warpgroups share each tile, RPC = 2 output rows each (two
 //    64 x cout fp32 accumulators a thread); per stage a warpgroup issues 18
 //    `wgmma`s a k16 step, commits them, and releases the stage before once
@@ -59,6 +68,11 @@
 //    conv3x3.cu's arithmetic and rounding points, and stores bf16 pairs
 //    from registers, a row's residuals loaded before its first store;
 //    partial tiles mask their stores.
+// Measured with the `up2` producer (NVIDIA H100 80GB HBM3, 700 W; up1,
+// 1x1080x1920x64 -> 2160x3840, lrelu): 1.832 ms against conv3x3_mma.cu's
+// 2.101 in the same run (chip_smoke.py [k1]; tools/probe_k1.py --route
+// wgmma: 1.861-1.872 against 2.105-2.169), 334 TFLOP/s of 9-tap work, the
+// same bits; its bound is 0.396 ms of bytes, 0.618 of 9-tap operations.
 // Measured and not kept (tools/probe_k1.py; PERF.md): 16-byte stores after
 // a transpose in each quad, staging the tile for a TMA store (with r1 by
 // TMA), consumer warpgroups on tiles of their own (ping-pong), 8-row tiles
@@ -134,12 +148,15 @@ constexpr int CONSUMER_REGS = CONSUMER_REGS_ > 256 ? 256 : CONSUMER_REGS_;
 constexpr int PLAN_LEN = 34;
 
 struct ConvArgs {
+  const __nv_bfloat16* x;      // up2: (B, ih, iw, >=cin) pixel stride xs
   const __nv_bfloat16* b;      // (cout,)
   const __nv_bfloat16* alpha;  // (cout,) for PReLU, else null
   const __nv_bfloat16* r1;     // (B, H, W, >=cout) pixel stride r1s, or null
   const __nv_bfloat16* r2;     // (B, H, W, >=cout) pixel stride r2s, or null
   __nv_bfloat16* y;            // (B, H, W, >=cout) pixel stride ys
-  int B, H, W, nk;             // nk = ceil(cin / KC)
+  int B, H, W, nk;             // the output's B, H, W; nk = ceil(cin / KC)
+  int ih, iw, cin;             // up2: x's H and W (half the output's), cin
+  long long xs;
   int head;                    // stages read from x; the rest from the tail
   int tiles_x, tiles_y, tiles;
   long long ys, r1s, r2s;
@@ -170,9 +187,33 @@ struct Geo {
   static constexpr int B_SBO = 8 * N * 2;           // 8 rows of cout
 };
 
+// The swizzled address of 16-byte chunk `ch` of window pixel `pix`, as TMA
+// writes it.
+__device__ __forceinline__ uint32_t window_at(uint32_t st, int pix, int ch) {
+  return swizzle<A_ROW>(st + pix * A_ROW + ch * 16);
+}
+
+// The up2 producer's share of one stage: the (TH + 2) x (TW + 2) window at
+// the fine grid from output pixel (oy0 - 1, ox0 - 1), KC channels from c0,
+// each fine pixel read from coarse pixel (y >> 1, x >> 1); zero outside the
+// 2x frame and past cin. Thread pt of 128.
+__device__ __forceinline__ void up2_window(uint32_t st, const ConvArgs& a, int n, int oy0,
+                                           int ox0, int c0, int pt) {
+  constexpr int CH = KC / 8;  // 16-byte chunks a pixel
+  for (int i = pt; i < PH * PW * CH; i += 128) {
+    const int pix = i / CH, ch = i - pix * CH;
+    const int py = pix / PW, px = pix - py * PW;
+    const int fy = oy0 - 1 + py, fx = ox0 - 1 + px, c = c0 + ch * 8;
+    const bool ok = fy >= 0 && fy < a.H && fx >= 0 && fx < a.W && c < a.cin;
+    const __nv_bfloat16* src =
+        ok ? a.x + ((((long long)n * a.ih + (fy >> 1)) * a.iw + (fx >> 1)) * a.xs + c) : a.x;
+    cp_async16(window_at(st, pix, ch), src, ok);
+  }
+}
+
 // ---- the kernel -------------------------------------------------------------------
 
-template <int NT, bool RES>
+template <int NT, bool RES, bool UP2>
 __global__ void __launch_bounds__(kThreads, CTAS)
     conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
                          const __grid_constant__ CUtensorMap tm_t,
@@ -190,7 +231,9 @@ __global__ void __launch_bounds__(kThreads, CTAS)
   const int warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
     for (int s = 0; s < DEPTH; ++s) {
-      mbar_init(full0 + 8 * s, 1);        // the producer's expect_tx
+      // the producer's expect_tx; up2: its 128 threads' arrivals, and the
+      // streamed weights' expect_tx
+      mbar_init(full0 + 8 * s, UP2 ? 128 + (RES ? 0 : 1) : 1);
       mbar_init(empty0 + 8 * s, NC * 4);  // one arrive a consumer warp
     }
     mbar_init(wbar, 1);
@@ -203,7 +246,47 @@ __global__ void __launch_bounds__(kThreads, CTAS)
   if (warp >= NC * 4) {
     // ---- producer: one thread issues every copy ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    if (warp == NC * 4 && lane == 0) {
+    if constexpr (UP2) {
+      const int pt = tid - NC * 128;
+      if (RES && pt == 0) {  // every weight, once
+        mbar_expect_tx(wbar, a.nk * G::CHUNK);
+        for (int k = 0; k < a.nk; ++k)
+          tma_load_3d(base + k * G::CHUNK, &tm_w, wbar, 0, k * KC, 0);
+      }
+      int s = 0, pend = -1;  // pend: the stage whose copies are in flight
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < a.tiles; t += gridDim.x) {
+        const int n = t / per_image, rem = t - n * per_image;
+        const int ty = rem / a.tiles_x, tx = rem - ty * a.tiles_x;
+        for (int k = 0; k < a.nk; ++k) {
+          mbar_wait(empty0 + 8 * s, ph ^ 1);
+          const uint32_t st = ring + s * G::STAGE_BYTES;
+          if (!RES && pt == 0) {
+            mbar_expect_tx(full0 + 8 * s, G::CHUNK);
+            tma_load_3d(st + G::A_PAD, &tm_w, full0 + 8 * s, 0, k * KC, 0);
+          }
+#ifndef VR_PROBE_NO_LOADS
+          up2_window(st, a, n, ty * TH, tx * TW, k * KC, pt);
+#endif
+          cp_async_commit();
+          if (pend >= 0) {  // the stage before has landed: hand it over
+            cp_async_wait<1>();
+            fence_async_shared();
+            mbar_arrive(full0 + 8 * pend);
+          }
+          pend = s;
+          if (++s == DEPTH) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+      if (pend >= 0) {
+        cp_async_wait<0>();
+        fence_async_shared();
+        mbar_arrive(full0 + 8 * pend);
+      }
+    } else if (warp == NC * 4 && lane == 0) {
       if (RES) {  // every weight, once
         mbar_expect_tx(wbar, a.nk * G::CHUNK);
         for (int k = 0; k < a.nk; ++k)
@@ -383,28 +466,35 @@ __global__ void __launch_bounds__(kThreads, CTAS)
 
 // ---- host -------------------------------------------------------------------------
 
-template <int NT, bool RES>
+template <int NT, bool RES, bool UP2>
 cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_t, const CUtensorMap& tm_w,
                    const ConvArgs& a, int grid, cudaStream_t stream) {
   using G = Geo<NT, RES>;
-  cudaError_t e = cudaFuncSetAttribute(conv3x3_wgmma_kernel<NT, RES>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  auto kernel = conv3x3_wgmma_kernel<NT, RES, UP2>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(conv3x3_wgmma_kernel<NT, RES>,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  conv3x3_wgmma_kernel<NT, RES><<<grid, kThreads, G::SMEM, stream>>>(tm_x, tm_t, tm_w, a);
+  kernel<<<grid, kThreads, G::SMEM, stream>>>(tm_x, tm_t, tm_w, a);
   return cudaGetLastError();
 }
 
 // The weights stay resident when all their KC-channel chunks fit.
-template <int NT>
+template <int NT, bool UP2>
 cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_t, const CUtensorMap& tm_w,
                    const ConvArgs& a, int grid, cudaStream_t stream) {
   if ((long long)a.nk * Geo<NT, true>::CHUNK <= RES_BYTES)
-    return launch<NT, true>(tm_x, tm_t, tm_w, a, grid, stream);
-  return launch<NT, false>(tm_x, tm_t, tm_w, a, grid, stream);
+    return launch<NT, true, UP2>(tm_x, tm_t, tm_w, a, grid, stream);
+  return launch<NT, false, UP2>(tm_x, tm_t, tm_w, a, grid, stream);
+}
+
+template <int NT>
+cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_t, const CUtensorMap& tm_w,
+                   const ConvArgs& a, int grid, bool up2, cudaStream_t stream) {
+  return up2 ? launch<NT, true>(tm_x, tm_t, tm_w, a, grid, stream)
+             : launch<NT, false>(tm_x, tm_t, tm_w, a, grid, stream);
 }
 
 }  // namespace
@@ -431,11 +521,13 @@ int vr_conv3x3_wgmma_config(int* out) {
   return 0;
 }
 
-// bf16 only, no up2. plan: PLAN_LEN int64 values from ops/tail.py::wgmma_plan
-// (x's 4-D map: dims, byte strides, box, swizzle bytes; w's 3-D map: dims,
-// byte strides, box, swizzle bytes; the grid; the tile; the tail's blocks,
-// its 5-D map's byte strides and box). xt: the tail, (blocks, B, H, W, KC)
-// contiguous, whose channels follow x's (null without one). Returns the
+// bf16 only. plan: PLAN_LEN int64 values from ops/tail.py::wgmma_plan (x's
+// 4-D map: dims, byte strides, box, swizzle bytes; w's 3-D map: dims, byte
+// strides, box, swizzle bytes; the grid; the tile; the tail's blocks, its
+// 5-D map's byte strides and box). up2: x is read through nearest 2x (the
+// output is 2H x 2W; x's map is checked, not encoded: the producer copies
+// the windows itself). xt: the tail, (blocks, B, H, W, KC) contiguous,
+// whose channels follow x's (null without one; never with up2). Returns the
 // cudaError_t of the
 // launch; cudaErrorInvalidValue for a call the route does not take or a plan
 // that does not fit this build; cudaErrorNotSupported when no tensor map
@@ -445,7 +537,7 @@ int vr_conv3x3_wgmma(const void* x, const void* w, const void* b, const void* al
                      int cin, int cout, long long xs, long long ys, long long r1s,
                      long long r2s, int act, int up2, float s1, float s2, void* stream,
                      const long long* plan, int plan_len, const void* xt) {
-  if (up2 || cin <= 0 || cin % 16 != 0 || (cout != 32 && cout != 64))
+  if (cin <= 0 || cin % 16 != 0 || (cout != 32 && cout != 64) || (up2 && xt))
     return cudaErrorInvalidValue;
   if (!aligned16(x) || !aligned16(w) || !aligned16(b) || !aligned16(alpha) ||
       !aligned16(r1) || !aligned16(r2) || !aligned16(y) || xs % 8 || ys % 8 ||
@@ -471,28 +563,35 @@ int vr_conv3x3_wgmma(const void* x, const void* w, const void* b, const void* al
       w_swz != 2 * cout || plan[22] != TH || plan[23] != TW || grid <= 0 ||
       grid > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  const long long tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
+  const long long OH = up2 ? 2LL * H : H, OW = up2 ? 2LL * W : W;
+  if (OH > 0x7fffffffLL || OW > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long tiles_x = (OW + TW - 1) / TW, tiles_y = (OH + TH - 1) / TH;
   if ((long long)B * tiles_x * tiles_y > 0x7fffffffLL) return cudaErrorInvalidValue;
-  CUtensorMap tm_x, tm_w, tm_t = {};
+  CUtensorMap tm_x = {}, tm_w, tm_t = {};
   const long long t_dims[5] = {KC, W, H, B, nblk};
   const CUtensorMapSwizzle a_mode = KC == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
                                    : KC == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                                               : CU_TENSOR_MAP_SWIZZLE_128B;
   const CUtensorMapSwizzle n_mode =
       cout == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  if (!encode(&tm_x, x, 4, a_dims, a_strides, a_box, a_mode) ||
+  if ((!up2 && !encode(&tm_x, x, 4, a_dims, a_strides, a_box, a_mode)) ||
       !encode(&tm_w, w, 3, w_dims, w_strides, w_box, n_mode) ||
       (nblk > 0 && !encode(&tm_t, xt, 5, t_dims, t_strides, t_box, a_mode)))
     return cudaErrorNotSupported;
   ConvArgs a;
+  a.x = static_cast<const __nv_bfloat16*>(x);
   a.b = static_cast<const __nv_bfloat16*>(b);
   a.alpha = static_cast<const __nv_bfloat16*>(alpha);
   a.r1 = static_cast<const __nv_bfloat16*>(r1);
   a.r2 = static_cast<const __nv_bfloat16*>(r2);
   a.y = static_cast<__nv_bfloat16*>(y);
   a.B = B;
-  a.H = H;
-  a.W = W;
+  a.H = (int)OH;
+  a.W = (int)OW;
+  a.ih = H;
+  a.iw = W;
+  a.cin = cin;
+  a.xs = xs;
   a.nk = (cin + KC - 1) / KC;  // a last stage past cin reads TMA's zero fill
   a.head = nblk > 0 ? (int)(head / KC) : a.nk;
   a.tiles_x = (int)tiles_x;
@@ -505,8 +604,8 @@ int vr_conv3x3_wgmma(const void* x, const void* w, const void* b, const void* al
   a.s1 = s1;
   a.s2 = s2;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return cout == 64 ? launch<8>(tm_x, tm_t, tm_w, a, (int)grid, st)
-                    : launch<4>(tm_x, tm_t, tm_w, a, (int)grid, st);
+  return cout == 64 ? launch<8>(tm_x, tm_t, tm_w, a, (int)grid, up2 != 0, st)
+                    : launch<4>(tm_x, tm_t, tm_w, a, (int)grid, up2 != 0, st);
 }
 
 }  // extern "C"

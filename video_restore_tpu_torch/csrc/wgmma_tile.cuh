@@ -1,6 +1,8 @@
 // Hopper building blocks shared by the `wgmma` + TMA kernels (K1's
-// conv3x3_wgmma.cu, K5's rdb_fused_wgmma.cu): `mbarrier`s with a watchdog,
-// TMA tensor loads, shared-memory matrix descriptors, bf16 `wgmma` m64nNk16
+// conv3x3_wgmma.cu, K5's rdb_fused_wgmma.cu, the tail's
+// tail_fused_wgmma.cu): `mbarrier`s with a watchdog, TMA tensor loads, the
+// `cp.async` copies and swizzled addresses of the nearest-2x producers,
+// shared-memory matrix descriptors, bf16 `wgmma` m64nNk16
 // with fp32 accumulators, and the host-side tensor-map encoding
 // (cuTensorMapEncodeTiled, got through cudaGetDriverEntryPointByVersion: no
 // link flag). Built for sm_90a only.
@@ -98,6 +100,41 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- cp.async: the nearest-2x producers -----------------------------------------
+
+// 16 bytes from global to shared memory through L1 (a coarse pixel is read
+// for two fine ones); zero fill when !pred.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// This thread's generic-proxy writes to shared memory (st.shared, cp.async)
+// before any async-proxy read (`wgmma`, TMA) that a barrier orders after it.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The address that a K-major row of `bytes` bytes (32, 64 or 128: the
+// 32-, 64- or 128-byte swizzle) is stored at, as TMA writes and `wgmma`
+// reads it: bits 4.. of the address XOR bits 7.. (the swizzle follows the
+// absolute shared-memory address).
+template <int BYTES>
+__device__ __forceinline__ uint32_t swizzle(uint32_t a) {
+  static_assert(BYTES == 32 || BYTES == 64 || BYTES == 128, "a swizzle of 32, 64 or 128 B");
+  return a ^ ((a >> 3) & (BYTES == 32 ? 0x10u : BYTES == 64 ? 0x30u : 0x70u));
 }
 
 // ---- wgmma ------------------------------------------------------------------------

@@ -38,7 +38,7 @@ SOURCES = (
     "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
     "conv3x3_i8_mma.cu", "rdb_fused.cu", "rdb_fused_f32.cu", "rdb_fused_bf16.cu",
     "rdb_fused_narrow.cu", "rdb_fused_mma.cu", "rdb_fused_wgmma.cu", "tail_fused.cu",
-    "tail_fused_mma.cu",
+    "tail_fused_mma.cu", "tail_fused_wgmma.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -229,6 +229,13 @@ def load() -> ctypes.CDLL:
             lib.vr_tail_fused.restype = _I
             lib.vr_tail_fused_mma.argtypes = lib.vr_tail_fused.argtypes
             lib.vr_tail_fused_mma.restype = _I
+            # the same, then the plan (ops/tail.py::tail_wgmma_plan)
+            lib.vr_tail_fused_wgmma.argtypes = lib.vr_tail_fused.argtypes + [
+                ctypes.POINTER(_L), _I,
+            ]
+            lib.vr_tail_fused_wgmma.restype = _I
+            lib.vr_tail_fused_wgmma_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_tail_fused_wgmma_config.restype = _I
             lib.vr_error_string.argtypes = [_I]
             lib.vr_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -2,8 +2,9 @@
 and ``csrc/conv3x3_mma.cu`` on the tensor cores, ``csrc/conv3x3_narrow.cu``
 for the stems and conv_last,
 ``csrc/conv3x3.cu`` for the rest, both on the CUDA cores), and the
-one-launch tail on kernel K6 (``csrc/tail_fused_mma.cu`` on the tensor cores,
-``csrc/tail_fused.cu`` on the CUDA cores).
+one-launch tail (``csrc/tail_fused_wgmma.cu`` on Hopper's tensor cores; K6's
+``csrc/tail_fused_mma.cu`` on ``mma.sync`` and ``csrc/tail_fused.cu`` on the
+CUDA cores).
 
 Port of ``video_restore_tpu/ops/pallas_tail.py``:
 
@@ -15,14 +16,16 @@ Port of ``video_restore_tpu/ops/pallas_tail.py``:
   tensor (the port has no raw or masked layout);
 - :func:`tail_fused` replaces ``tail_fused_raw`` (``:266``) and
   ``tail_fused`` (``:425``): upconv2 (lrelu, nearest 2x) -> conv_hr (lrelu)
-  -> conv_last, three K1 launches with intermediates in the activation
-  dtype, as the Pallas tail rounds them (``pallas_tail.py:188-212``);
+  -> conv_last with intermediates in the activation dtype, as the Pallas
+  tail rounds them (``pallas_tail.py:188-212``): one launch of
+  ``csrc/tail_fused_wgmma.cu`` that keeps both 64-channel intermediates in
+  shared memory (bf16 at nf 64), else three K1 launches (``"chain"``);
 - :func:`tail_fused_q` replaces ``tail_fused_q`` (``pallas_tail.py:1018``,
-  the ``VRT_TAIL_Q=1`` tail): the same function as :func:`tail_fused` in
-  one K6 launch that reads up1's output and keeps both 64-channel
-  intermediates in shared memory, each zeroed outside the frame and rounded
-  to the activation dtype as it is stored (``_tail_q_kernel``'s ``post_u2``
-  and ``post_hr``). What is not carried over is the TPU layout: the 4-way
+  the ``VRT_TAIL_Q=1`` tail): the same function, in the same one launch
+  (bf16 at nf 64), else in one K6 launch; each kernel reads up1's output
+  and keeps both intermediates on chip, each zeroed outside the frame and
+  rounded to the activation dtype as it is stored (``_tail_q_kernel``'s
+  ``post_u2`` and ``post_hr``). What is not carried over is the TPU layout: the 4-way
   column packing with its structural-zero weight matrices
   (``wsd_kernel_r``, ``:907``) and up1's ``masked=True`` raw output of
   (b, o) lane pairs exist to fill 128 lanes; here x is a plain NHWC tensor
@@ -38,25 +41,28 @@ one function behind four routes of hand-written kernels, and
 :func:`conv3x3_route` says which a call takes: ``"wgmma"``
 (``csrc/conv3x3_wgmma.cu``: Hopper's ``wgmma`` on shared-memory operands
 that TMA fills, warp-specialised, persistent; its tensor maps from
-:func:`wgmma_plan`) for the bf16 convs whose widths feed the tensor cores,
-``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed by ``ldmatrix``
-from shared memory that ``cp.async`` fills) for the same widths read
-through nearest 2x (up1, upconv2: TMA copies boxes of the tensor as it
-lies, and the 2x grid is not one), and forced beside ``"wgmma"`` for
-side-by-side runs, ``"narrow"`` (``csrc/conv3x3_narrow.cu``: fp32 FMAs in
-``conv3x3.cu``'s order, one kernel for the bf16 stems, cin 3 or 12 -> 64,
-and one for ``conv_last``, 64 -> 3), ``"fma"`` (``csrc/conv3x3.cu``: fp32
-FMAs) for the rest: fp32 and the narrow test widths. K6 is two kernels the
-same way, chosen by :func:`tail_fused_route`: ``"mma"``
-(``csrc/tail_fused_mma.cu``) for bf16 at nf 64, ``"fma"``
-(``csrc/tail_fused.cu``) for fp32 and nf 16. The kernel notes (what bounds each kernel on the H100 and what its design does about
-it) are at the top of the sources.
+:func:`wgmma_plan`; read through nearest 2x (up1, upconv2) its producer
+warpgroup copies each window at the fine grid with ``cp.async``, since a
+TMA box cannot read the 2x grid) for the bf16 convs whose widths feed the
+tensor cores, ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed by
+``ldmatrix`` from shared memory that ``cp.async`` fills), forced beside
+``"wgmma"`` for side-by-side runs, ``"narrow"`` (``csrc/conv3x3_narrow.cu``:
+fp32 FMAs in ``conv3x3.cu``'s order, one kernel for the bf16 stems, cin 3
+or 12 -> 64, and one for ``conv_last``, 64 -> 3), ``"fma"``
+(``csrc/conv3x3.cu``: fp32 FMAs) for the rest: fp32 and the narrow test
+widths. The one-launch tail is three kernels the same way, chosen by
+:func:`tail_fused_route`: ``"wgmma"`` (``csrc/tail_fused_wgmma.cu``, on the
+launch plan of :func:`tail_wgmma_plan`) for bf16 at nf 64, ``"fma"``
+(K6's ``csrc/tail_fused.cu``) for fp32 and nf 16, and K6's ``"mma"``
+(``csrc/tail_fused_mma.cu``) where a caller forces it beside ``"wgmma"``.
+The kernel notes (what bounds each kernel on the H100 and what its design
+does about it) are at the top of the sources.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,12 +74,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 ROUTES = ("wgmma", "mma", "narrow", "fma")  # K1's kernels; "fma" takes every call
 PAIR_ROUTES = ("mma", "fma")  # the wrappers with a tensor-core and an fp32-FMA kernel
+TAIL_ROUTES = ("wgmma", "mma", "fma")  # tail_fused_q's kernels; "fma" takes every call
+CHAIN_ROUTES = ("wgmma", "chain")  # tail_fused: one launch, or three K1 launches
 _MMA_COUT = (32, 64)  # the widths conv3x3_mma.cu and conv3x3_wgmma.cu are built for
 # (cin, cout) of conv3x3_narrow.cu's kernels: the stems and conv_last
 _NARROW = ((3, 64), (12, 64), (64, 3))
 _K1_TAKES = {
-    "wgmma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands, "
-             "without upsample2",
+    "wgmma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
     "mma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
     "narrow": "bf16 stems (cin 3 or 12 -> 64) and conv_last (64 -> 3) without residuals "
               "or upsample2, with operands it can load",
@@ -89,14 +96,14 @@ def conv3x3_route(
     multiple of 16 (one k16 step per 16 input channels), cout 32 or 64 (gc
     and nf of every released model) and ``aligned`` operands
     (:func:`operands_aligned`: 16-byte copies and TMA boxes, paired
-    stores); ``"wgmma"`` takes them, and ``"mma"`` takes them read through
-    nearest 2x (``upsample2``: up1 and upconv2), which a TMA box cannot
-    express; ``"narrow"`` takes bf16 stems (cin 3 or 12 -> cout 64) and
+    stores); ``"wgmma"`` takes them, also read through nearest 2x
+    (``upsample2``: up1 and upconv2, whose windows its producer copies at
+    the fine grid); ``"narrow"`` takes bf16 stems (cin 3 or 12 -> cout 64) and
     ``conv_last`` (cin 64 -> cout 3) where ``narrow`` says the rest of the
     call suits it (:func:`narrow_operands`); ``"fma"`` takes every other
     call."""
     if dtype == torch.bfloat16 and cin % 16 == 0 and cout in _MMA_COUT and aligned:
-        return "mma" if upsample2 else "wgmma"
+        return "wgmma"
     if dtype == torch.bfloat16 and (cin, cout) in _NARROW and narrow:
         return "narrow"
     return "fma"
@@ -204,6 +211,7 @@ class WgmmaPlan(NamedTuple):
 def wgmma_plan(
     shape: Sequence[int], xs: int, cout: int, *, sms: int, tail: int = 0,
     tile: Tuple[int, int] = WGMMA_TILE, per_sm: int = WGMMA_PER_SM, kc: int = WGMMA_KC,
+    upsample2: bool = False,
 ) -> WgmmaPlan:
     """The ``"wgmma"`` route's tensor maps and grid for a bf16 call: a pure
     function of x's shape (B, H, W, cin), its pixel stride ``xs`` in
@@ -212,7 +220,10 @@ def wgmma_plan(
     H, W, kc) tensor whose channels follow x's: the conv reads cin + tail
     kc channels) and the build's tile (rows, pixels), blocks per SM and
     channels a stage ``kc`` (a last stage past cin reads the maps' zero
-    fill). Raises ValueError for a call TMA cannot describe: a pixel stride
+    fill). ``upsample2``: x is read through nearest 2x, so the tiles cover
+    the (2H, 2W) output; x's map is then only checked by the launcher (its
+    producer copies the windows itself), and there is no tail. Raises
+    ValueError for a call TMA cannot describe: a pixel stride
     that is not a multiple of 8 elements (16 bytes), cin not a multiple of
     16, cout other than 32 or 64, a box or stride over TMA's limits."""
     bsz, h, w, cin = (int(v) for v in shape)
@@ -227,6 +238,8 @@ def wgmma_plan(
         raise ValueError(f"wgmma_plan: cin {cin} (a multiple of 16), cout {cout} (32 or 64)")
     if tail and cin % kc:
         raise ValueError(f"wgmma_plan: a tail follows whole stages of x: cin {cin}, kc {kc}")
+    if tail and upsample2:
+        raise ValueError("wgmma_plan: no tail is read through nearest 2x")
     e = 2  # bf16
     a_strides = (xs * e, w * xs * e, h * w * xs * e)
     a_box = (kc, tw + 2, th + 2, 1)
@@ -240,7 +253,8 @@ def wgmma_plan(
     for st in a_strides + w_strides + t_strides[: 4 if tail else 0]:
         if st % 16 or st >= _TMA_STRIDE_MAX:
             raise ValueError(f"wgmma_plan: byte stride {st} (a multiple of 16, < 2^40)")
-    tiles = bsz * -(-h // th) * -(-w // tw)
+    up = 2 if upsample2 else 1
+    tiles = bsz * -(-up * h // th) * -(-up * w // tw)
     return WgmmaPlan(
         a_dims=(cin, w, h, bsz), a_strides=a_strides, a_box=a_box, a_swizzle=kc * e,
         w_dims=(cout, cin_all, 9), w_strides=w_strides, w_box=w_box,
@@ -441,7 +455,7 @@ def conv3x3(
     # current device: make it x's
     with torch.cuda.device(x.device):
         if route == "wgmma":
-            plan = wgmma_call_plan(x, w, x_tail, sms=_sm_count(x.device),
+            plan = wgmma_call_plan(x, w, x_tail, sms=_sm_count(x.device), upsample2=upsample2,
                                    **_wgmma_geometry(lib)).array()
             code = lib.vr_conv3x3_wgmma(
                 *args, plan, len(plan), None if x_tail is None else x_tail.data_ptr()
@@ -490,6 +504,162 @@ def up1_fused_plain(x, w, b):
     return conv3x3_plain(x, w, b, act="lrelu", upsample2=True)
 
 
+# tail_fused_wgmma.cu as shipped: output rows a step (consumer warpgroups),
+# output columns of a stripe, pixels of an x ring row, coarse x, u2 and hr
+# rows held, weight slots, dynamic shared memory a block, threads a block
+# (the build reports its own: vr_tail_fused_wgmma_config)
+TAIL_WGMMA = dict(step_rows=3, stripe=60, ring_px=72, x_rows=5, u2_rows=5, hr_rows=6, slots=3,
+                  smem=206960, threads=512)
+TAIL_MIN_ROWS = 32  # the fewest rows a block of the persistent grid takes
+SMEM_MAX = 232448  # dynamic shared memory a block can have on the H100
+_TAIL_SLOT = 18432  # bytes of a weight stage: 16 cin x 9 taps x 64 cout, bf16
+
+
+def tail_hr_row(stripe: int) -> int:
+    """Bytes of an hr ring row of ``tail_fused_wgmma.cu``: its even pixels
+    (144 bytes each), then, from an offset of 64 mod 128 bytes (16 banks
+    on), its odd ones."""
+    px = stripe + 2
+    return (-(-px // 2) * 144 + 64 + 127) // 128 * 128 - 64 + px // 2 * 144
+
+
+def tail_smem(step_rows: int, stripe: int, slots: int) -> int:
+    """Dynamic shared memory of a block of ``tail_fused_wgmma.cu``: 1024
+    bytes of alignment, the weight slots, the x ring (R + 2 rows of two
+    32-channel planes of the stripe's SW + 6 fine pixels, whole 8-pixel
+    atoms), the u2 ring (R + 2 rows of 64 pixels, two planes), the hr ring
+    (R + 3 rows of :func:`tail_hr_row` bytes: the SW + 2 pixels conv_last
+    reads, 144 bytes each), conv_last's fp32 weights, the biases, the slots'
+    barriers and the hr ring's two."""
+    r = step_rows
+    ring_px = (stripe + 6 + 7) // 8 * 8
+    return (1024 + slots * _TAIL_SLOT + (r + 2) * 2 * ring_px * 64 + (r + 2) * 2 * 64 * 64
+            + (r + 3) * tail_hr_row(stripe) + 9 * 64 * 16 + 2 * 64 * 2 + 16
+            + (2 * slots + 2) * 8)
+
+
+class TailWgmmaPlan(NamedTuple):
+    """What ``vr_tail_fused_wgmma`` checks, encodes and launches: the
+    build's geometry as the plan assumed it (rows a step, stripe columns, x
+    ring pixels, x, u2 and hr rows held, weight slots, shared memory), the
+    persistent grid, the stripes and the rows the blocks share (B x stripes
+    x OH, cut into ``grid`` runs), the weight maps' box (64 couts x 16 input
+    channels x 9 taps) and swizzle, the threads a block; ``frame`` (B, OH,
+    OW) is the output's, kept for :meth:`segments` and not sent."""
+
+    step_rows: int
+    stripe: int
+    ring_px: int
+    x_rows: int
+    u2_rows: int
+    hr_rows: int
+    slots: int
+    smem: int
+    grid: int
+    stripes: int
+    rows: int
+    w_box: Tuple[int, int, int]
+    w_swizzle: int
+    threads: int
+    frame: Tuple[int, int, int]
+
+    def array(self) -> ctypes.Array:
+        """The plan as the C launcher reads it (16 int64 values)."""
+        vals = (self.step_rows, self.stripe, self.ring_px, self.x_rows, self.u2_rows,
+                self.hr_rows, self.slots, self.smem, self.grid, self.stripes, self.rows,
+                *self.w_box, self.w_swizzle, self.threads)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+    def block_rows(self, block: int) -> Tuple[int, int]:
+        """Block ``block``'s run [r0, r1) of the concatenated stripes' rows."""
+        return self.rows * block // self.grid, self.rows * (block + 1) // self.grid
+
+    def segments(self, block: int) -> Iterator[Tuple[int, int, int, int]]:
+        """Block ``block``'s segments, in its order: (image, the stripe's
+        first output column, first row, end row), as the kernel walks them."""
+        oh = self.frame[1]
+        r, r1 = self.block_rows(block)
+        while r < r1:
+            idx, y0 = divmod(r, oh)
+            n = min(oh - y0, r1 - r)
+            yield idx // self.stripes, (idx % self.stripes) * self.stripe, y0, y0 + n
+            r += n
+
+    def steps(self, seg_rows: int) -> int:
+        """Steps of a segment of ``seg_rows`` output rows: until conv_last,
+        three rows behind upconv2's, has written the last."""
+        r = self.step_rows
+        return (seg_rows + r + 4) // r
+
+    def executed_ops(self, nf: int = 64) -> int:
+        """Operations (2 per MAC) the kernel's two wide convs execute: 64
+        pixels of every row each computes, the stripes' recomputed columns
+        and each segment's fill rows included."""
+        per_row = 2 * 2 * 64 * 9 * nf * nf
+        return sum(self.step_rows * self.steps(y1 - y0) * per_row
+                   for blk in range(self.grid) for _, _, y0, y1 in self.segments(blk))
+
+
+def tail_wgmma_plan(b: int, h2: int, w2: int, geometry: Optional[dict] = None, *,
+                    sms: int = 132) -> TailWgmmaPlan:
+    """The ``"wgmma"`` tail's plan for x of shape (b, h2, w2, 64) (the
+    output is (b, 2 h2, 2 w2, 3)): a pure function of the shape, the build's
+    ``geometry`` (:data:`TAIL_WGMMA`, or :func:`tail_geometry` of a loaded
+    build) and the card's SM count. Stripes of the build's output columns
+    (60 as shipped), B x stripes x OH rows cut into one run a block (at
+    least :data:`TAIL_MIN_ROWS` rows, at most one block an SM). Raises
+    ValueError for what the kernel cannot take: an empty shape, a frame of
+    2^30 rows or columns or more, a geometry whose rings or shared memory
+    are not its own or exceed the card's."""
+    g = dict(TAIL_WGMMA if geometry is None else geometry)
+    b, h2, w2 = int(b), int(h2), int(w2)
+    if min(b, h2, w2) <= 0:
+        raise ValueError(f"tail_wgmma_plan: empty shape {(b, h2, w2)}")
+    if max(h2, w2) > 1 << 29:
+        raise ValueError(f"tail_wgmma_plan: a frame of {(2 * h2, 2 * w2)} is 2^30 or more")
+    r, sw = g["step_rows"], g["stripe"]
+    want = dict(x_rows=r + 2, u2_rows=r + 2, hr_rows=r + 3, threads=128 * r + 128,
+                ring_px=(sw + 6 + 7) // 8 * 8)
+    if any(g[k] != v for k, v in want.items()) or sw % 2 or sw + 4 > 64 or not 1 <= r <= 3:
+        raise ValueError(f"tail_wgmma_plan: geometry {g} is not its own ({want}; an even "
+                         f"stripe of at most 60 columns, 1-3 rows a step)")
+    smem = tail_smem(r, sw, g["slots"])
+    if smem != g["smem"] or smem > SMEM_MAX:
+        raise ValueError(f"tail_wgmma_plan: shared memory {smem} B (the build: {g['smem']} B, "
+                         f"the card: at most {SMEM_MAX} B)")
+    oh, ow = 2 * h2, 2 * w2
+    stripes = -(-ow // sw)
+    rows = b * stripes * oh
+    grid = max(1, min(sms, -(-rows // TAIL_MIN_ROWS)))
+    return TailWgmmaPlan(
+        step_rows=r, stripe=sw, ring_px=g["ring_px"], x_rows=g["x_rows"], u2_rows=g["u2_rows"],
+        hr_rows=g["hr_rows"], slots=g["slots"], smem=smem, grid=grid, stripes=stripes,
+        rows=rows, w_box=(64, 16, 9), w_swizzle=128, threads=g["threads"], frame=(b, oh, ow),
+    )
+
+
+def tail_geometry(lib) -> dict:
+    """:func:`tail_wgmma_plan`'s ``geometry`` of a loaded build of
+    ``tail_fused_wgmma.cu`` (``vr_tail_fused_wgmma_config``)."""
+    cfg = (ctypes.c_int * 9)()
+    lib.vr_tail_fused_wgmma_config(cfg)
+    return dict(step_rows=cfg[0], stripe=cfg[1], ring_px=cfg[2], x_rows=cfg[3],
+                u2_rows=cfg[4], hr_rows=cfg[5], slots=cfg[6], smem=cfg[7], threads=cfg[8])
+
+
+_tail_build: Optional[dict] = None
+
+
+def _tail_plan(x: torch.Tensor, lib) -> TailWgmmaPlan:
+    """:func:`tail_wgmma_plan` of a call, for the port's library (its
+    geometry read once)."""
+    global _tail_build
+    if _tail_build is None:
+        _tail_build = tail_geometry(lib)
+    b, h2, w2, _ = x.shape
+    return tail_wgmma_plan(b, h2, w2, _tail_build, sms=_sm_count(x.device))
+
+
 def tail_fused(
     x: torch.Tensor,
     w_up2: torch.Tensor,
@@ -498,6 +668,8 @@ def tail_fused(
     b_hr: torch.Tensor,
     w_last: torch.Tensor,
     b_last: torch.Tensor,
+    *,
+    route: Optional[str] = None,
 ) -> torch.Tensor:
     """(B, H2, W2, nf) -> (B, 2 H2, 2 W2, 3): equivalent to::
 
@@ -505,11 +677,35 @@ def tail_fused(
         f = leaky_relu(conv2d(f, w_hr, b_hr))
         return conv2d(f, w_last, b_last)
 
-    (``pallas_tail.py:266`` / ``:425``). Three K1 launches; both
-    64-channel intermediates go through device memory."""
+    (``pallas_tail.py:266`` / ``:425``). ``"wgmma"`` (:func:`tail_fused_route`:
+    bf16 at nf 64, aligned contiguous operands) is one launch of
+    ``csrc/tail_fused_wgmma.cu`` on a CUDA tensor, both intermediates on
+    chip, counted under ``tail_fused`` and ``tail_fused:wgmma``; any other
+    call, or ``route="chain"`` (forced, a side-by-side run), is three K1
+    calls whose 64-channel intermediates go through device memory, each
+    counted under ``tail_fused`` and its K1 route (:func:`chain_route`). On
+    the CPU the one launch is the plain version, and each K1 call its
+    own."""
+    ops = (x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
+    if chain_route(*ops, route=route) == "wgmma":
+        if x.device.type == "cpu":
+            return tail_fused_plain(*ops)
+        return _tail_wgmma(*ops, counter="tail_fused")
     f = conv3x3(x, w_up2, b_up2, act="lrelu", upsample2=True, counter="tail_fused")
     f = conv3x3(f, w_hr, b_hr, act="lrelu", counter="tail_fused")
     return conv3x3(f, w_last, b_last, counter="tail_fused")
+
+
+def chain_route(x, w_up2, b_up2, w_hr, b_hr, w_last=None, b_last=None, *,
+                route: Optional[str] = None) -> str:
+    """The route of a :func:`tail_fused` call: ``"wgmma"`` (one launch)
+    where :func:`tail_fused_route` takes its operands, else ``"chain"``
+    (three K1 calls); or the forced ``route`` (:func:`forced_route` with
+    :data:`CHAIN_ROUTES`: ``"chain"`` takes every call)."""
+    own = "wgmma" if _tail_own_route(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last) == "wgmma" \
+        else "chain"
+    return forced_route("tail_fused", own, route, "bf16 at nf 64 with aligned operands",
+                        routes=CHAIN_ROUTES)
 
 
 def tail_fused_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last):
@@ -519,16 +715,78 @@ def tail_fused_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last):
 
 
 def tail_fused_route(dtype: torch.dtype, nf: int, aligned: bool = True) -> str:
-    """Which of K6's two kernels a call on a CUDA tensor launches: a pure
-    function of the call. ``"mma"`` (``csrc/tail_fused_mma.cu``: tensor
-    cores, summing in K1's order) takes bf16 at nf 64, the width of every
-    RRDBNet of the zoo, with ``aligned`` operands (x and the two wide convs'
-    weights and biases on 16-byte boundaries: :func:`operands_aligned`);
-    ``"fma"`` (``csrc/tail_fused.cu``: fp32 FMAs) takes fp32 and the narrow
-    nf 16 of the checks."""
+    """Which kernel a one-launch tail call on a CUDA tensor launches: a pure
+    function of the call. ``"wgmma"`` (``csrc/tail_fused_wgmma.cu``:
+    Hopper's tensor cores, summing in K1's order) takes bf16 at nf 64, the
+    width of every RRDBNet of the zoo, with ``aligned`` operands (x and the
+    two wide convs' weights and biases on 16-byte boundaries, every operand
+    contiguous: :func:`_tail_own_route`); ``"fma"`` (K6's
+    ``csrc/tail_fused.cu``: fp32 FMAs) takes fp32 and the narrow nf 16 of
+    the checks. K6's ``"mma"`` (``csrc/tail_fused_mma.cu``) takes the calls
+    of ``"wgmma"`` when :func:`tail_fused_q`'s caller forces it."""
     if dtype == torch.bfloat16 and nf == 64 and aligned:
-        return "mma"
+        return "wgmma"
     return "fma"
+
+
+def _tail_own_route(x, w_up2, b_up2, w_hr, b_hr, w_last=None, b_last=None) -> str:
+    """:func:`tail_fused_route` of one call's operands."""
+    dense = all(t is None or t.is_contiguous() for t in (x, w_up2, b_up2, w_hr, b_hr, w_last, b_last))
+    return tail_fused_route(
+        x.dtype, x.shape[-1], dense and operands_aligned(x, w_up2, b_up2, w_hr, b_hr)
+    )
+
+
+def _check_tail(name, x, w_up2, b_up2, w_hr, b_hr, w_last, b_last) -> None:
+    """Validate a one-launch tail call on a CUDA tensor: fp32 or bf16, nf
+    64 or 16, every operand of its shape, contiguous, in x's dtype on x's
+    device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    dt = x.dtype
+    if dt not in _DTYPES:
+        raise TypeError(f"{name}: dtype {dt} not supported (fp32, bf16)")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: x must be NHWC, got {tuple(x.shape)}")
+    bsz, h2, w2, nf = x.shape
+    if nf not in (64, 16):
+        raise ValueError(f"{name}: nf {nf} not built (64, 16)")
+    shapes = {
+        "x": (x, (bsz, h2, w2, nf)),
+        "w_up2": (w_up2, (3, 3, nf, nf)), "b_up2": (b_up2, (nf,)),
+        "w_hr": (w_hr, (3, 3, nf, nf)), "b_hr": (b_hr, (nf,)),
+        "w_last": (w_last, (3, 3, nf, 3)), "b_last": (b_last, (3,)),
+    }
+    for what, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {what} shape {tuple(t.shape)} != {shape}")
+        if t.device != x.device or t.dtype != dt:
+            raise ValueError(
+                f"{name}: {what} is {t.dtype} on {t.device}, expected {dt} on {x.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _tail_wgmma(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last, *, counter: str) -> torch.Tensor:
+    """One launch of ``csrc/tail_fused_wgmma.cu``, counted under ``counter``
+    and ``<counter>:wgmma``."""
+    _check_tail(counter, x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
+    bsz, h2, w2, nf = x.shape
+    out = torch.empty((bsz, 2 * h2, 2 * w2, 3), dtype=x.dtype, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        plan = _tail_plan(x, lib).array()
+        code = lib.vr_tail_fused_wgmma(
+            _DTYPES[x.dtype], nf, x.data_ptr(), out.data_ptr(),
+            w_up2.data_ptr(), b_up2.data_ptr(), w_hr.data_ptr(), b_hr.data_ptr(),
+            w_last.data_ptr(), b_last.data_ptr(), bsz, h2, w2,
+            _build.stream_ptr(x), plan, len(plan),
+        )
+    _build.check(lib, code, f"{counter} kernel (wgmma)")
+    _build.count_launch(counter)
+    _build.count_launch(f"{counter}:wgmma")
+    return out
 
 
 def tail_fused_q(
@@ -544,46 +802,26 @@ def tail_fused_q(
 ) -> torch.Tensor:
     """:func:`tail_fused` in one launch (``pallas_tail.py:1018``): x (B, H2,
     W2, nf), up1's output, -> (B, 2 H2, 2 W2, 3), with upconv2's and
-    conv_hr's outputs kept on chip. One K6 launch on CUDA (fp32 or bf16,
-    nf 64 or 16, contiguous operands) or an error; the plain version on the
-    CPU. ``route``: None for :func:`tail_fused_route`'s kernel, ``"fma"`` to
-    force the fp32-FMA kernel (a side-by-side timing). The launch is counted
-    under ``tail_fused_q`` and ``tail_fused_q:<route>``."""
+    conv_hr's outputs kept on chip. One launch on CUDA (fp32 or bf16, nf 64
+    or 16, contiguous operands) or an error; the plain version on the CPU.
+    ``route``: None for :func:`tail_fused_route`'s kernel, ``"mma"`` to
+    force K6's ``mma.sync`` kernel where ``"wgmma"`` takes the call,
+    ``"fma"`` to force the fp32-FMA kernel (side-by-side timings). The
+    launch is counted under ``tail_fused_q`` and ``tail_fused_q:<route>``."""
     if x.device.type == "cpu":
         return tail_fused_q_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
-    if x.device.type != "cuda":
-        raise ValueError(f"tail_fused_q: unsupported device {x.device}")
-    dt = x.dtype
-    if dt not in _DTYPES:
-        raise TypeError(f"tail_fused_q: dtype {dt} not supported (fp32, bf16)")
-    if x.dim() != 4:
-        raise ValueError(f"tail_fused_q: x must be NHWC, got {tuple(x.shape)}")
-    bsz, h2, w2, nf = x.shape
-    if nf not in (64, 16):
-        raise ValueError(f"tail_fused_q: nf {nf} not built (64, 16)")
-    shapes = {
-        "x": (x, (bsz, h2, w2, nf)),
-        "w_up2": (w_up2, (3, 3, nf, nf)), "b_up2": (b_up2, (nf,)),
-        "w_hr": (w_hr, (3, 3, nf, nf)), "b_hr": (b_hr, (nf,)),
-        "w_last": (w_last, (3, 3, nf, 3)), "b_last": (b_last, (3,)),
-    }
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"tail_fused_q: {name} shape {tuple(t.shape)} != {shape}")
-        if t.device != x.device or t.dtype != dt:
-            raise ValueError(
-                f"tail_fused_q: {name} is {t.dtype} on {t.device}, expected "
-                f"{dt} on {x.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"tail_fused_q: {name} must be contiguous")
+    ops = (x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
+    _check_tail("tail_fused_q", *ops)
     route = _pick_tail_route(x, w_up2, b_up2, w_hr, b_hr, route)
-    out = torch.empty((bsz, 2 * h2, 2 * w2, 3), dtype=dt, device=x.device)
+    if route == "wgmma":
+        return _tail_wgmma(*ops, counter="tail_fused_q")
+    bsz, h2, w2, nf = x.shape
+    out = torch.empty((bsz, 2 * h2, 2 * w2, 3), dtype=x.dtype, device=x.device)
     lib = _build.load()
     fn = lib.vr_tail_fused_mma if route == "mma" else lib.vr_tail_fused
     with torch.cuda.device(x.device):
         code = fn(
-            _DTYPES[dt], nf, x.data_ptr(), out.data_ptr(),
+            _DTYPES[x.dtype], nf, x.data_ptr(), out.data_ptr(),
             w_up2.data_ptr(), b_up2.data_ptr(), w_hr.data_ptr(), b_hr.data_ptr(),
             w_last.data_ptr(), b_last.data_ptr(), bsz, h2, w2,
             _build.stream_ptr(x),
@@ -626,12 +864,15 @@ def _pick_conv_route(x, w, b, alpha, out, r1, r2, upsample2, route: Optional[str
 
 
 def _pick_tail_route(x, w_up2, b_up2, w_hr, b_hr, route: Optional[str]) -> str:
-    """The route of a K6 call: :func:`tail_fused_route` of its operands, or
-    the forced ``route`` (:func:`forced_route`)."""
-    own = tail_fused_route(
-        x.dtype, x.shape[-1], operands_aligned(x, w_up2, b_up2, w_hr, b_hr)
-    )
-    return forced_route("tail_fused_q", own, route, "bf16 at nf 64 with aligned operands")
+    """The route of a one-launch tail call: :func:`tail_fused_route` of its
+    operands, or the forced ``route`` (:func:`forced_route` with
+    :data:`TAIL_ROUTES`; ``"mma"`` also where the call's own route is
+    ``"wgmma"``: K6's ``mma.sync`` kernel takes every such call)."""
+    own = _tail_own_route(x, w_up2, b_up2, w_hr, b_hr)
+    if route == "mma" and own == "wgmma":
+        return "mma"
+    return forced_route("tail_fused_q", own, route, "bf16 at nf 64 with aligned operands",
+                        routes=TAIL_ROUTES)
 
 
 # the same function with the same rounding points: both intermediates in the

@@ -58,6 +58,7 @@ import torch
 from video_restore_tpu_torch.config import RestoreConfig
 from video_restore_tpu_torch.models.rrdbnet import RRDBNetSpec, tail_mode
 from video_restore_tpu_torch.models.zoo import ModelHandle, get_model
+from video_restore_tpu_torch.ops.tail import tail_fused_route
 from video_restore_tpu_torch.ops.tiles import (
     TileGrid,
     auto_full_frame,
@@ -296,11 +297,16 @@ class VideoRestorer:
 
     def _tail_in_memory(self) -> bool:
         """Whether the model's tail writes its two 4x-resolution
-        intermediates to device memory: an RRDBNet on the three-launch
-        ``"chain"`` tail; not the one-launch ``"q"`` tail, not SRVGG."""
-        return tail_mode(self.device) == "chain" and isinstance(
-            self.model.spec, RRDBNetSpec
-        )
+        intermediates to device memory: an RRDBNet whose ``"chain"`` tail
+        (:func:`tail_mode`) runs as three K1 launches, which is where
+        ``ops/tail.py::tail_fused_route`` does not take it in one launch
+        (fp32, a width other than 64). The one-launch tails keep both on
+        chip, and SRVGG has none."""
+        spec = self.model.spec
+        if not isinstance(spec, RRDBNetSpec) or tail_mode(self.device) == "q":
+            return False
+        dtype = torch.float32 if self.config.precision == "fp32" else torch.bfloat16
+        return tail_fused_route(dtype, spec.num_feat) != "wgmma"
 
     def process_video(
         self,

@@ -29,9 +29,11 @@ epilogue alone), plus
 any ``--variant NAME=-DDEF,...``. Each build's ``ptxas`` lines (registers,
 spills, ``wgmma`` serialisation notes) and shared memory a block are
 printed; each is checked at odd shapes against the plain version and at
-1x1080x1920 against the ``mma`` build (``no_mma`` is not checked), then the
-RDB's five convs (on one 192-channel growth buffer) and conv_body (64 -> 64
-+ residual) are timed with every build, in order and back: ms, TFLOP/s and
+1x1080x1920 against the ``mma`` build (``no_mma`` is not checked), the
+``up2`` convs (64 -> 64, 64 -> 32, 192 -> 64 with streamed weights) bit for
+bit against it, then the RDB's five convs (on one 192-channel growth buffer),
+conv_body (64 -> 64 + residual) and up1 (64 -> 64 read through nearest 2x,
+1x1080x1920 -> 2160x3840) are timed with every build, in order and back: ms, TFLOP/s and
 the share of each conv's own bound (max of its bytes, each input read once
 and each output written once, over 3.35 TB/s, and its operations over 989
 TFLOP/s bf16). ``--quick`` stops after the odd shapes: a first call on a
@@ -281,7 +283,7 @@ def probe_wgmma(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
         return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).to(dev, bf)
 
     def launch(name, x, w, b, out, act=0, alpha=None, r1=None, s1=1.0, r2=None, s2=1.0,
-               x_tail=None):
+               x_tail=None, up2=False):
         bsz, h, wd, _ = x.shape
         cin, cout = w.shape[-2], w.shape[-1]
         args = (
@@ -290,13 +292,13 @@ def probe_wgmma(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
             None if r1 is None else r1.data_ptr(), None if r2 is None else r2.data_ptr(),
             out.data_ptr(), bsz, h, wd, cin, cout, x.stride(2), out.stride(2),
             0 if r1 is None else r1.stride(2), 0 if r2 is None else r2.stride(2),
-            act, 0, s1, s2, stream,
+            act, int(up2), s1, s2, stream,
         )
         if name == "mma":
             code = libs[name].vr_conv3x3_mma(*args)
         else:
             tail = 0 if x_tail is None else x_tail.shape[0]
-            plan = wgmma_plan(x.shape, x.stride(2), cout, sms=sms, tail=tail,
+            plan = wgmma_plan(x.shape, x.stride(2), cout, sms=sms, tail=tail, upsample2=up2,
                               **geo[name]).array()
             code = libs[name].vr_conv3x3_wgmma(
                 *args, plan, len(plan), None if x_tail is None else x_tail.data_ptr())
@@ -355,6 +357,35 @@ def probe_wgmma(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
                     print(f"[check] FAILED {e}", flush=True)
                     continue
                 print(f"[check] {shp} {tag} {name}: err {err:.3g}", flush=True)
+        # read through nearest 2x (up1, upconv2): the producer's fine-grid
+        # windows, bit for bit the mma build's (the same sums in the same
+        # order); 192 -> 64 streams its weights beside the windows
+        for tag, xi, w in (("64->64 lrelu up2", x[..., :64], rnd(3, 3, 64, 64, scale=0.05)),
+                           ("64->32 lrelu up2", x[..., :64], rnd(3, 3, 64, 32, scale=0.05)),
+                           ("192->64 lrelu up2 (weights streamed)", x,
+                            rnd(3, 3, 192, 64, scale=0.03))):
+            cout = w.shape[-1]
+            b = rnd(cout, scale=0.1)
+            ref = conv3x3_plain(xi, w, b, act="lrelu", upsample2=True)
+            outs = {}
+            for name, _, _ in specs:
+                if name in UNCHECKED or name in bad:
+                    continue
+                try:
+                    out = torch.full_like(ref, float("nan"))
+                    launch(name, xi, w, b, out, 1, up2=True)
+                    torch.cuda.synchronize()
+                    err = check(f"{shp} {tag}", name, out, ref)
+                    if "mma" in outs and not torch.equal(out, outs["mma"]):
+                        n_diff = (out != outs["mma"]).sum().item()
+                        raise RuntimeError(f"{shp} {tag} ({name}): {n_diff} values differ from mma")
+                except RuntimeError as e:
+                    bad[name] = str(e)
+                    print(f"[check] FAILED {e}", flush=True)
+                    continue
+                outs[name] = out
+                print(f"[check] {shp} {tag} {name}: err {err:.3g}"
+                      + (", == mma" if name != "mma" else ""), flush=True)
     specs = [sp for sp in specs if sp[0] not in bad]
     if bad:
         print(f"[check] left out: {sorted(bad)}", flush=True)
@@ -376,6 +407,9 @@ def probe_wgmma(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
     convs.append(("conv_body 64->64 +res", x64, rnd(3, 3, 64, 64, scale=0.03),
                   rnd(64, scale=0.05), torch.empty(1, H, W, 64, dtype=bf, device=dev),
                   dict(r1=res), 64, 64, True))
+    convs.append(("up1 64->64 up2 lrelu", x64, rnd(3, 3, 64, 64, scale=0.03),
+                  rnd(64, scale=0.05), torch.empty(1, 2 * H, 2 * W, 64, dtype=bf, device=dev),
+                  dict(act=1, up2=True), 64, 64, False))
     names = [n for n, _, _ in specs]
     rdb = {n: [0.0, 0.0] for n in names}
     for tag, x, w, b, out, kw, cin, cout, resid in convs:
@@ -390,6 +424,10 @@ def probe_wgmma(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
         del ref
         bound, by = conv_bound_ms((1, H, W), cin, cout, resid)
         ops = 2 * H * W * 9 * cin * cout
+        if kw.get("up2"):  # x read once at (H, W); 9 taps at each of (2H, 2W)
+            ops *= 4
+            t_b, t_o = H * W * 2 * (cin + 4 * cout) / HBM_BYTES_S * 1e3, ops / BF16_OPS_S * 1e3
+            bound, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
         ms = {n: [] for n in names}
         for name in names + names[::-1]:
             ms[name].append(timed(lambda n=name: launch(n, x, w, b, out, **kw)))

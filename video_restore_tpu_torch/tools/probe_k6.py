@@ -1,4 +1,5 @@
-"""Probe of K6's tensor-core route on the card: where the time goes.
+"""Probe of the one-launch tail's tensor-core routes on the card: where the
+time goes.
 
 The card's machine has no kernel profiler, so this builds
 ``csrc/tail_fused_mma.cu`` alone (seconds; the whole library takes about two
@@ -14,7 +15,32 @@ and times each build on the flagship's tail, 1x2160x3840x64 -> 1x4320x7680x3
 in bf16. ``full`` minus ``no_mma`` is what the MMAs and their operand feed
 add on top of the rest; ``full`` minus ``no_last`` is conv_last's share.
 
-    python -m video_restore_tpu_torch.tools.probe_k6 [--reps N]
+``--route wgmma``: ``csrc/tail_fused_mma.cu`` as shipped beside
+``csrc/tail_fused_wgmma.cu`` in the compile-time variants of
+:data:`WG_VARIANTS`:
+
+- ``rows2``: two consumer warpgroups, two rows a step; ``rows2_s4`` the
+  same with a fourth weight slot; ``rows1``: one; ``s4``: three with a
+  fourth weight slot;
+- ``no_mma``: without the ``wgmma``s (the rings, loads, epilogues and
+  conv_last); ``no_last``: without conv_last's FMAs and stores;
+  ``no_loads``: without the x copies and the weights' TMA (the MMAs,
+  epilogues and conv_last on whatever the rings hold); ``no_wload`` and
+  ``no_hload``: conv_last without its weights' or its hr rows' loads from
+  shared memory;
+
+plus any ``--variant NAME=-DDEF,...``. Each build's ``ptxas`` lines and
+geometry are printed; each is held at odd shapes (B = 2 with ragged
+extents, a frame narrower than one stripe, a last stripe of 2 columns, more
+stripes' rows than the grid has blocks) against the plain version and bit
+for bit against the ``mma`` build (the probe builds are not checked), then
+the flagship's tail is timed with every build, in order and back: ms,
+TFLOP/s of useful and of executed work (the plan's count).
+``--quick`` stops after the odd shapes and a check at the flagship shape: a
+first call on a new kernel.
+
+    python -m video_restore_tpu_torch.tools.probe_k6 [--route mma|wgmma]
+        [--reps N] [--quick] [--only NAME,...] [--variant NAME=-DDEF,...]
 
 Needs a CUDA device and ``nvcc``. Prints the card's ``nvidia-smi`` line and
 each build's ms and TFLOP/s (useful operations of the two wide convs, as
@@ -27,13 +53,32 @@ import argparse
 import ctypes
 import subprocess
 import sys
-from typing import Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from video_restore_tpu_torch.tools.probe_k1 import parse_variant, ptxas_lines
 
 BUILDS = (("full", ()), ("no_mma", ("-DVR_PROBE_NO_MMA",)), ("no_last", ("-DVR_PROBE_NO_LAST",)))
 SOURCE = "tail_fused_mma.cu"
 H2, W2, NF = 2160, 3840, 64
+# tail_fused_wgmma.cu's variants: (name, defines); "shipped" is the source's own
+WG_VARIANTS = (
+    ("shipped", ()),
+    ("rows2", ("-DVR_TAIL_ROWS=2",)),
+    ("rows2_s4", ("-DVR_TAIL_ROWS=2", "-DVR_TAIL_WSLOTS=4")),
+    ("rows1", ("-DVR_TAIL_ROWS=1",)),
+    ("s4", ("-DVR_TAIL_WSLOTS=4",)),
+    ("no_mma", ("-DVR_PROBE_NO_MMA",)),
+    ("no_last", ("-DVR_PROBE_NO_LAST",)),
+    ("no_loads", ("-DVR_PROBE_NO_LOADS",)),
+    ("no_wload", ("-DVR_PROBE_NO_WLOAD",)),
+    ("no_hload", ("-DVR_PROBE_NO_HLOAD",)),
+)
+# builds whose output is not the function
+UNCHECKED = ("no_mma", "no_last", "no_loads", "no_wload", "no_hload")
+_I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+_TAIL_ARGS = [_I, _I] + [_P] * 8 + [_I, _I, _I, _P]
 
 
 def build_all():
@@ -123,12 +168,201 @@ def probe(reps: int = 10) -> None:
     print(line, flush=True)
 
 
+def wg_builds(extra: Sequence[Tuple[str, Tuple[str, ...]]] = (),
+              only: Sequence[str] = ()) -> List[Tuple[str, str, Tuple[str, ...]]]:
+    """(build, source, defines) of ``--route wgmma``: K6's ``mma`` source as
+    shipped, then the wgmma variants (``only``: those names; ``extra``
+    appended)."""
+    out = [("mma", "tail_fused_mma.cu", ())]
+    for name, defs in tuple(WG_VARIANTS) + tuple(extra):
+        if not only or name in only:
+            out.append((name, "tail_fused_wgmma.cu", tuple(defs)))
+    return out
+
+
+def _compile_wg(specs) -> Dict[str, ctypes.CDLL]:
+    """{build: loaded library}, every build compiled in parallel."""
+    from video_restore_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "probe_k6_wgmma"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, source, defs in specs:
+        so = out / f"libtail_{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-shared", "-o", str(so),
+               str(_build.CSRC / source)]
+        procs.append((name, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {}
+    for name, so, p in procs:
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} build:\n{text[-4000:]}")
+        for line in ptxas_lines(name, text):
+            print(line, flush=True)
+        lib = ctypes.CDLL(str(so))
+        if hasattr(lib, "vr_tail_fused_wgmma"):
+            lib.vr_tail_fused_wgmma.argtypes = _TAIL_ARGS + [ctypes.POINTER(_L), _I]
+            lib.vr_tail_fused_wgmma.restype = _I
+            lib.vr_tail_fused_wgmma_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_tail_fused_wgmma_config.restype = _I
+        else:
+            lib.vr_tail_fused_mma.argtypes = _TAIL_ARGS
+            lib.vr_tail_fused_mma.restype = _I
+        libs[name] = lib
+    return libs
+
+
+def probe_wgmma(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
+                extra: Sequence[Tuple[str, Tuple[str, ...]]] = ()) -> None:
+    """``--route wgmma``: the variants of ``tail_fused_wgmma.cu`` beside the
+    shipped ``tail_fused_mma.cu``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: this probe times the card")
+    from video_restore_tpu_torch.ops.tail import tail_fused_plain, tail_geometry, tail_wgmma_plan
+
+    dev, bf = torch.device("cuda", 0), torch.bfloat16
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    )
+    print((smi.stdout or smi.stderr).strip(), flush=True)
+    specs = wg_builds(extra, only)
+    libs = _compile_wg(specs)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo = {}
+    for name, source, _ in specs:
+        if source == "tail_fused_wgmma.cu":
+            geo[name] = tail_geometry(libs[name])
+            print(f"[build] {name}: {geo[name]}", flush=True)
+    gen = torch.Generator().manual_seed(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def rnd(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).to(dev, bf)
+
+    tw = [rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.05),
+          rnd(3, 3, NF, NF, scale=0.05), rnd(NF, scale=0.05),
+          rnd(3, 3, NF, 3, scale=0.05), rnd(3, scale=0.05)]
+
+    def launch(name, x, y):
+        b, h2, w2, _ = x.shape
+        lib = libs[name]
+        args = (1, NF, x.data_ptr(), y.data_ptr(), *(t.data_ptr() for t in tw), b, h2, w2,
+                stream)
+        if name == "mma":
+            code = lib.vr_tail_fused_mma(*args)
+        else:
+            plan = tail_wgmma_plan(b, h2, w2, geo[name], sms=sms).array()
+            code = lib.vr_tail_fused_wgmma(*args, plan, len(plan))
+        if code != 0:
+            raise RuntimeError(f"{name} launch: CUDA error {code}")
+
+    def check(tag, name, got, ref):
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = max(1.0, ref.float().abs().max().item())
+        if not err <= 2e-2 * scale:
+            raise RuntimeError(f"{tag} ({name}): max |kernel - plain| {err:.3g}")
+        return err
+
+    # odd shapes (output 2 H2 x 2 W2, stripes of 60 columns as shipped): B =
+    # 2 ragged (74 x 106: a last stripe of 46), a frame narrower than one
+    # stripe (10 x 14), one column past a stripe (4 x 62: a last stripe of
+    # 2), three stripes' rows of 200 over 132 blocks (200 x 300), rows of
+    # one segment shorter than a step's fill (2 x 122)
+    bad = {}
+    names = [n for n, _, _ in specs]
+    shapes = [(2, 37, 53), (1, 5, 7), (1, 2, 31), (2, 100, 150), (1, 1, 61), (3, 7, 200)]
+    if quick:
+        shapes.append((1, H2, W2))
+    for shp in shapes:
+        x = rnd(*shp, NF)
+        ref = tail_fused_plain(x, *tw)
+        outs = {}
+        for name in names:
+            if name in UNCHECKED or name in bad:
+                continue
+            y = torch.full_like(ref, float("nan"))
+            try:
+                launch(name, x, y)
+                torch.cuda.synchronize()
+                err = check(str(shp), name, y, ref)
+                if "mma" in outs and not torch.equal(y, outs["mma"]):
+                    n_diff = (y != outs["mma"]).sum().item()
+                    raise RuntimeError(f"{shp} ({name}): {n_diff} values differ from mma")
+            except RuntimeError as e:
+                bad[name] = str(e)
+                print(f"[check] FAILED {e}", flush=True)
+                continue
+            outs[name] = y
+            print(f"[check] {shp} {name}: err {err:.3g}" + (", == mma" if name != "mma" else ""),
+                  flush=True)
+        del ref, outs
+    specs = [sp for sp in specs if sp[0] not in bad]
+    if bad:
+        print(f"[check] left out: {sorted(bad)}", flush=True)
+    if quick or "mma" in bad:
+        if bad:
+            raise RuntimeError(f"builds disagree with the plain version or mma: {sorted(bad)}")
+        return
+
+    timed = _timer(reps)
+    names = [n for n, _, _ in specs]
+    x = rnd(1, H2, W2, NF)
+    y = torch.empty(1, 2 * H2, 2 * W2, 3, dtype=bf, device=dev)
+    useful = 2 * 2 * (4 * H2 * W2) * 9 * NF * NF
+    ms = {n: [] for n in names}
+    for name in names + names[::-1]:
+        ms[name].append(timed(lambda n=name: launch(n, x, y)))
+    line = f"[probe] tail 1x{H2}x{W2}x64:"
+    for name in names:
+        a, b_ = ms[name]
+        t = min(a, b_)
+        exe = ""
+        if name != "mma":
+            ex = tail_wgmma_plan(1, H2, W2, geo[name], sms=sms).executed_ops()
+            exe = f", {ex / t / 1e9:.1f} executed (x{ex / useful:.3f})"
+        line += f" {name} {a:.3f} / {b_:.3f} ms ({useful / t / 1e9:.1f} TFLOP/s useful{exe});"
+    print(line.rstrip(";"), flush=True)
+    if bad:
+        raise RuntimeError(f"builds disagree with the plain version or mma: {sorted(bad)}")
+
+
+def _timer(reps: int):
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+    return timed
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--route", choices=("mma", "wgmma"), default="mma",
+                    help="the tail source probed (default: K6's mma)")
     ap.add_argument("--reps", type=int, default=10, help="timed launches per build")
+    ap.add_argument("--quick", action="store_true",
+                    help="wgmma: build and check at odd shapes and the flagship shape only")
+    ap.add_argument("--only", default="", help="wgmma: comma-separated variant names")
+    ap.add_argument("--variant", action="append", default=[],
+                    help="wgmma: another variant, NAME=-DDEF[,-DDEF...] (repeatable)")
     args = ap.parse_args(argv)
     try:
-        probe(args.reps)
+        extra = [parse_variant(v) for v in args.variant]
+    except ValueError as e:
+        ap.error(str(e))
+    try:
+        if args.route == "mma":
+            probe(args.reps)
+        else:
+            probe_wgmma(args.reps, args.quick, [n for n in args.only.split(",") if n], extra)
     except RuntimeError as e:
         print(f"E {e}", file=sys.stderr)
         return 1
