@@ -28,7 +28,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``mma_tile.cuh``, ``conv3x3_narrow.cu`` and ``conv3x3.cu``, K2
    ``unsharp_rows.cu`` (fp32) and ``unsharp_rows_bf16.cu`` (bf16), both on
    ``unsharp_rows.cuh``, and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
-   ``srvgg_up.cu``, K4 ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and
+   ``srvgg_up.cu``, K4 ``conv3x3_i8_wgmma.cu`` (``wgmma`` + TMA, a
+   quantiser warpgroup, on ``wgmma_tile.cuh`` and ``i8_quant.cuh``),
+   ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and ``i8_quant.cuh`` and
    ``conv3x3_i8.cu`` with its amax entry point, K5 ``rdb_fused_wgmma.cu``
    (``wgmma`` + TMA over rolling row rings, on ``wgmma_tile.cuh`` with K1's
    wgmma source), ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and
@@ -106,17 +108,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    each of the chain's convs (upconv2 on ``wgmma`` and on forced ``mma``,
    conv_hr, conv_last) and the cuDNN chain of 3 side by side, with
    executed over useful work; the new kernel faster than the chain and at
-   least 3x the fma kernel. K4's tensor-core route
-   (``conv3x3_i8:mma``), dynamic and static A8: each of the five RDB convs
-   (growth-buffer prefix views, pixel stride 192) and an SRVGG PReLU conv at
-   odd shapes (B = 2 ragged, below one tile, one pixel past a tile column,
-   more tiles than the card has SMs), the quantiser on all 65280 finite bf16
-   values through a centre-tap identity at 38 scales, and the whole int8 RDB
-   at 1x1080x1920x64 and 6x376x448x64, each ``torch.equal`` to the forced
-   ``dp4a`` route and to the plain version with equal output amax; then the
-   old and the new kernel side by side beside K1's bf16 RDB and the bf16
-   cuDNN chain (the new one at least 3x the old at 1080p), and the same for
-   the SRVGG int8 body. Then
+   least 3x the fma kernel. K4's Hopper route (``conv3x3_i8:wgmma``),
+   dynamic and static A8: each of the five RDB convs (growth-buffer prefix
+   views, pixel stride 192, and x with the blocks of a c1 .. c4 tail) and an
+   SRVGG PReLU conv at odd shapes (B = 2 ragged, below one tile, one pixel
+   past a tile column, more tiles than the card has SMs) and at
+   6x376x448 and 1x1080x1920, the quantiser on all 65280 finite bf16 values
+   through a centre-tap identity at 38 scales, and the whole int8 RDB at
+   1x1080x1920x64 and 6x376x448x64, each ``torch.equal`` to the forced
+   ``mma`` and ``dp4a`` routes (``dp4a`` not at the paths' per-conv
+   shapes) and to the plain version with equal output amax; then wgmma
+   beside mma per conv, per RDB (dynamic and static, with dp4a, K1's bf16
+   RDB and the bf16 cuDNN chain) and for the SRVGG int8 body, each beside
+   the bound of its launches' bytes and operations (wgmma faster than mma
+   at the 1080p RDB and the SRVGG body, and at least 3x dp4a). Then
    every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
@@ -176,8 +181,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 8. the int8 paths (``--precision int8``, the W8A8 body on K4), 2 frames
    each: the flagship flags at 1080p, config 4, and 720p tiles with
    RealESRGAN_x4plus, with the checks of phases 4 and 5 (K4 by route: 345
-   ``conv3x3_i8:mma`` per flagship frame, 32 per config-4 frame, no
-   ``dp4a``), and the int8 output against the bf16 kernel path's (>= 35 dB
+   ``conv3x3_i8:wgmma`` per flagship frame, 32 per config-4 frame, no
+   ``mma`` or ``dp4a``), and the int8 output against the bf16 kernel path's (>= 35 dB
    on u8 per frame);
 9. ``[main_pallas]``: the flagship flags with ``VRT_PALLAS=1`` (one K5
    launch per RRDB block on the ``wgmma`` route, 23 ``rrdb_fused:wgmma``
@@ -391,8 +396,8 @@ CUDA_ROUTE = {
     "conv3x3_fused": "narrow", "rdb_fused": "wgmma", "up1_fused": "wgmma",
     "tail_fused": "wgmma", "srvgg_body": "wgmma", "srvgg_up_fused": "mma",
     "rdb_fused_k5": "wgmma", "rrdb_fused": "wgmma", "conv3x3:wgmma": "wgmma",
-    "tail_fused_q": "wgmma", "rdb_fused_i8": "mma", "srvgg_body_i8": "mma",
-    "rdb_fused_i8 static": "mma",
+    "tail_fused_q": "wgmma", "rdb_fused_i8": "wgmma", "srvgg_body_i8": "wgmma",
+    "rdb_fused_i8 static": "wgmma",
     "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
 }
 SOURCE = {
@@ -409,17 +414,17 @@ SOURCE = {
     "unsharp_fused:rows:bf16": "video_restore_tpu_torch/csrc/unsharp_rows_bf16.cu",
     "srvgg_body": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
     "srvgg_up_fused": "video_restore_tpu_torch/csrc/srvgg_up_mma.cu",
-    # K4 is two kernels (ops/quant.py::conv3x3_i8_route); these rows' convs
-    # (nf 64 / gc 32) take the int8 tensor-core one
-    "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
-    "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
+    # K4 is three kernels (ops/quant.py::conv3x3_i8_route); these rows' convs
+    # (nf 64 / gc 32) take the Hopper one
+    "rdb_fused_i8": "video_restore_tpu_torch/csrc/conv3x3_i8_wgmma.cu",
+    "srvgg_body_i8": "video_restore_tpu_torch/csrc/conv3x3_i8_wgmma.cu",
     "act_amax": "video_restore_tpu_torch/csrc/conv3x3_i8.cu",
     # K5 is three kernels (ops/rdb.py::rdb_route); bf16 at (64, 32) takes
     # the Hopper one
     "rdb_fused_k5": "video_restore_tpu_torch/csrc/rdb_fused_wgmma.cu",
     "rrdb_fused": "video_restore_tpu_torch/csrc/rdb_fused_wgmma.cu",
     "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_wgmma.cu",
-    "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_mma.cu",
+    "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_wgmma.cu",
     "conv3x3:wgmma": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
 }
 PATH_TAGS = (
@@ -508,7 +513,8 @@ def main(argv=None) -> int:
     # phase's tag
     new_sources = {"conv3x3_wgmma.cu": "k1", "rdb_fused_wgmma.cu": "k5", "srvgg_up_mma.cu": "k3",
                    "tail_fused_mma.cu": "k6", "tail_fused_wgmma.cu": "k6",
-                   "conv3x3_i8_mma.cu": "k4", "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
+                   "conv3x3_i8_mma.cu": "k4", "conv3x3_i8_wgmma.cu": "k4",
+                   "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
                    "unsharp_rows_bf16.cu": "k2"}
     build_log = (_build.BUILD_DIR / "build.log").read_text()
     for line in build_log.splitlines():
@@ -1405,35 +1411,41 @@ def main(argv=None) -> int:
               f"[k6] the wgmma tail ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
 
     def phase_k4():
-        """K4's tensor-core route (``conv3x3_i8:mma``), dynamic and static A8:
-        each of the five RDB convs (growth-buffer prefix views, pixel stride
-        192) and an SRVGG PReLU conv at odd shapes, the quantiser on every
-        finite bf16 value, and the whole int8 RDB at 1x1080x1920x64 and the
-        tile batch 6x376x448x64, each ``torch.equal`` to the forced ``dp4a``
-        route and to the plain version, with equal output amax; then the old
-        and the new kernel side by side beside K1's bf16 RDB and the bf16
-        cuDNN chain, and the same for the SRVGG int8 body."""
+        """K4's tensor-core routes, dynamic and static A8: the ``wgmma`` route
+        (``conv3x3_i8:wgmma``, each call's own) held ``torch.equal`` to the
+        forced ``mma`` and ``dp4a`` routes and to the plain version, outputs
+        and output amax: each of the five RDB convs on growth-buffer prefix
+        views (pixel stride 192) and, as the wgmma route's RDB runs them, on
+        x and the blocks of a c1 .. c4 tail, and an SRVGG PReLU conv, at odd
+        shapes (B = 2 ragged, below one tile, one pixel past a tile column,
+        more tiles than the card has SMs) and at 1x1080x1920 and 6x376x448;
+        the quantiser on every finite bf16 value at 38 scales; the whole int8
+        RDB at 1x1080x1920x64 and 6x376x448x64. Then wgmma beside mma (and
+        dp4a) per conv, per RDB and for the SRVGG int8 body, each beside its
+        bound: the larger of the bytes its launches move (bf16 in and out,
+        residuals) and its int8 operations."""
         ws8, bs8, wq8, sw8 = i8_rdb(NF, GC)
         wp8 = [quant.pack_i8_weights(q) for q in wq8]
         sv, swq, ssw = i8_srvgg(1, NF)
         swp = quant.pack_i8_weights(swq[0])
         SAS = (0.0075, 0.0079, 0.0081, 0.0068, 0.0090)  # below |max| / 127: some saturate
+        ROUTES = ("mma", "dp4a", "plain")
 
-        def held(tag, run, expect):
-            """run(route) -> (out, amax or None) for route None (the call's own),
-            "dp4a" (forced) and "plain": the first with the counters reset
-            before and read after (``expect``), all three equal bit for bit."""
+        def held(tag, run, expect, routes=ROUTES):
+            """run(route) -> (out, amax or None) for route None (the call's own,
+            wgmma), with the counters reset before and read after
+            (``expect``), and for each of ``routes`` (forced mma and dp4a, the
+            plain version), all equal bit for bit."""
             torch.cuda.synchronize()
             _build.reset_launches()
             k, ka = run(None)
             torch.cuda.synchronize()
             got = _build.launches()
             check(got == expect, f"[k4] {tag}: launches {got} != {expect}")
-            d, da = run("dp4a")
-            p, pa = run("plain")
-            for name, o, oa in (("dp4a", d, da), ("plain", p, pa)):
+            for name in routes:
+                o, oa = run(name)
                 diff = (k.float() - o.float()).abs().max().item()
-                check(torch.equal(k, o), f"[k4] {tag}: mma != {name} (max |diff| {diff:.3g})")
+                check(torch.equal(k, o), f"[k4] {tag}: wgmma != {name} (max |diff| {diff:.3g})")
                 check((ka is None and oa is None) or torch.equal(ka, oa),
                       f"[k4] {tag}: output amax {ka} != {name}'s {oa}")
             k4_stats["bit_equal_cases"] = k4_stats.get("bit_equal_cases", 0) + 1
@@ -1444,12 +1456,14 @@ def main(argv=None) -> int:
                 return quant.conv3x3_i8_plain(x, segs, amax, wq, sw, b, **kw)
             return quant.conv3x3_i8(x, segs, amax, wq, sw, b, wp=wp, route=route, counter="k4", **kw)
 
-        one = {"k4": 1, "conv3x3_i8:mma": 1}
-        # (1, 5, 7) below one 8 x 32 tile; (2, 37, 53) B = 2, ragged both ways;
-        # (1, 9, 33) one pixel past a tile column; (2, 130, 150) 170 tiles,
-        # more than the card has SMs
-        for shp in ((2, 37, 53), (1, 5, 7), (1, 9, 33), (2, 130, 150)):
+        one = {"k4": 1, "conv3x3_i8:wgmma": 1}
+
+        def conv_cases(shp, routes=ROUTES):
+            """The five RDB convs (growth buffer and blocked) and the SRVGG
+            conv at one shape, dynamic and static."""
             grow = rnd(*shp, NF + 4 * GC)
+            xk = grow[..., :NF].contiguous()
+            tail_t = torch.stack([grow[..., NF + GC * j:NF + GC * (j + 1)] for j in range(4)]).contiguous()
             amax = torch.stack([quant.act_amax_plain(grow[..., lo:lo + (NF if lo == 0 else GC)])
                                 for lo in quant.rdb_segments(NF, GC, 5)[:5]], 1).contiguous()
             r2 = rnd(*shp, NF)
@@ -1457,20 +1471,29 @@ def main(argv=None) -> int:
                 segs = quant.rdb_segments(NF, GC, k_ + 1)
                 lo, cout = segs[-1], GC if k_ < 4 else NF
                 for static in (False, True):
-                    def run(route, k_=k_, segs=segs, lo=lo, cout=cout, static=static):
-                        dst = torch.zeros_like(grow)  # written as a channel slice, pixel stride 192
-                        out = dst[..., lo:lo + cout] if k_ < 4 else dst[..., :NF]
-                        kw = (dict(act="lrelu") if k_ < 4 else
-                              dict(r1=grow[..., :NF], s1=0.2, r2=r2, s2=0.2))
-                        if static:
-                            kw.update(sas=SAS[: k_ + 1])
-                        else:
-                            kw.update(out_amax=torch.zeros(shp[0], device=dev))
-                        conv(grow[..., :lo], segs, None if static else amax, wq8[k_], sw8[k_],
-                             bs8[k_], wp8[k_], route, out=out, **kw)
-                        return out, kw.get("out_amax")
+                    for blocked in (False, True):
+                        def run(route, k_=k_, segs=segs, lo=lo, cout=cout, static=static,
+                                blocked=blocked):
+                            dst = torch.zeros_like(grow)  # written as a channel slice, pixel stride 192
+                            out = dst[..., lo:lo + cout] if k_ < 4 else dst[..., :NF]
+                            kw = (dict(act="lrelu") if k_ < 4 else
+                                  dict(r1=grow[..., :NF], s1=0.2, r2=r2, s2=0.2))
+                            if static:
+                                kw.update(sas=SAS[: k_ + 1])
+                            else:
+                                kw.update(out_amax=torch.zeros(shp[0], device=dev))
+                            a8 = None if static else amax
+                            if blocked and route is None:  # x and the tail's first k_ blocks
+                                out = torch.zeros(*shp, cout, dtype=bf, device=dev)
+                                conv(xk, segs, a8, wq8[k_], sw8[k_], bs8[k_], wp8[k_], route,
+                                     out=out, x_tail=tail_t[:k_] if k_ else None, **kw)
+                            else:
+                                conv(grow[..., :lo], segs, a8, wq8[k_], sw8[k_], bs8[k_], wp8[k_],
+                                     route, out=out, **kw)
+                            return out.contiguous(), kw.get("out_amax")
 
-                    held(f"{shp} RDB conv{k_ + 1} {'static' if static else 'dynamic'}", run, one)
+                        held(f"{shp} RDB conv{k_ + 1} {'static' if static else 'dynamic'}"
+                             f"{' blocked' if blocked else ''}", run, one, routes)
             x = rnd(*shp, NF)
             ax = quant.act_amax_plain(x)[:, None].contiguous()
             for static in (False, True):
@@ -1480,10 +1503,19 @@ def main(argv=None) -> int:
                     y = conv(x, (0, NF), None if static else ax, swq[0], ssw, sv[1][0], swp, route, **kw)
                     return y, kw.get("out_amax")
 
-                held(f"{shp} SRVGG conv {'static' if static else 'dynamic'}", run, one)
-            log(f"[k4] {shp}: 5 RDB convs and an SRVGG conv, dynamic and static: mma == dp4a == plain, "
-                "output amax equal")
-            del grow
+                held(f"{shp} SRVGG conv {'static' if static else 'dynamic'}", run, one, routes)
+            log(f"[k4] {shp}: 5 RDB convs (growth buffer and blocked) and an SRVGG conv, dynamic and "
+                f"static: wgmma == {' == '.join(routes)}, output amax equal")
+
+        # (1, 5, 7) below one tile; (2, 37, 53) B = 2, ragged both ways; (1, 9, 33)
+        # one pixel past a tile column; (2, 130, 150) more tiles than the card
+        # has SMs; then the paths' shapes, where the plain version is the one
+        # reference beside forced mma (dp4a at 1080p: the RDB below)
+        for shp in ((2, 37, 53), (1, 5, 7), (1, 9, 33), (2, 130, 150)):
+            conv_cases(shp)
+        for shp in ((6, 376, 448), (1, H, W)):
+            conv_cases(shp, ("mma", "plain"))
+            torch.cuda.empty_cache()
 
         # the quantiser on every finite bf16 value: a 1x32x32x64 frame of all
         # 65536 bit patterns (inf and NaN as 0) through the centre-tap
@@ -1519,12 +1551,61 @@ def main(argv=None) -> int:
             held(f"quantiser dynamic amax {amax_v:g}", run, one)
             n_scales += 1
         log(f"[k4] quantiser: all {int(((bits.int() & 0x7F80) != 0x7F80).sum())} finite bf16 values at "
-            f"{n_scales} scales: bf16x2 quantiser (mma) == fp32 quantiser (dp4a) == plain")
+            f"{n_scales} scales: wgmma's quantiser warpgroup == mma's bf16x2 quantiser == dp4a's fp32 "
+            "quantiser == plain")
         k4_stats["quantiser_scales"] = n_scales
         del xq
 
+        def rdb_bound_ms(n_px, x0):
+            """The five launches' bytes (each conv's bf16 input prefix read
+            once and its output written once, conv 5's r1 and, with x0, r2)
+            over the card's memory rate, against the RDB's int8 operations
+            over 1979 TOPS: (ms, "bytes" or "operations")."""
+            nbytes = n_px * 2 * (sum(NF + k_ * GC + GC for k_ in range(4)) + 5 * NF + (NF if x0 else 0))
+            ops = sum(2 * n_px * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
+            t_b, t_o = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT8 * 1e3
+            return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+        # each conv of the 1080p RDB alone: wgmma (x and the tail's blocks)
+        # against mma (the growth buffer), in order and back
+        xk = rnd(1, H, W, NF)
+        grow = torch.zeros(1, H, W, NF + 4 * GC, dtype=bf, device=dev)
+        grow[..., :NF] = xk
+        tail_t = torch.zeros(4, 1, H, W, GC, dtype=bf, device=dev)
+        out5 = torch.empty(1, H, W, NF, dtype=bf, device=dev)
+        amax = torch.ones(1, 6, dtype=torch.float32, device=dev)
+
+        def conv_k(k_, route):
+            segs = quant.rdb_segments(NF, GC, k_ + 1)
+            lo = segs[-1]
+            kw = dict(act="lrelu") if k_ < 4 else dict(r1=xk, s1=0.2)
+            if route is None:
+                x_, out = xk, tail_t[k_] if k_ < 4 else out5
+                kw["x_tail"] = tail_t[:k_] if k_ else None
+            else:
+                x_, out = grow[..., :lo], grow[..., lo:lo + GC] if k_ < 4 else out5
+            conv(x_, segs, amax, wq8[k_], sw8[k_], bs8[k_], wp8[k_], route, out=out,
+                 out_amax=amax[:, k_ + 1], **kw)
+
+        per_conv = []
+        for k_ in range(5):
+            cin, cout = NF + k_ * GC, GC if k_ < 4 else NF
+            nbytes = H * W * 2 * (cin + cout + (NF if k_ == 4 else 0))
+            t_b, t_o = nbytes / PEAK_BYTES * 1e3, 2 * H * W * 9 * cin * cout / PEAK_INT8 * 1e3
+            ms = {"wgmma": [], "mma": []}
+            for name in ("wgmma", "mma", "mma", "wgmma"):
+                ms[name].append(timed(lambda: conv_k(k_, None if name == "wgmma" else name), 10))
+            w_ms, m_ms = min(ms["wgmma"]), min(ms["mma"])
+            per_conv.append(dict(conv=k_ + 1, wgmma_ms=w_ms, mma_ms=m_ms, bound_ms=max(t_b, t_o),
+                                 bound_by="bytes" if t_b >= t_o else "operations"))
+            log(f"[k4] 1x{H}x{W} conv{k_ + 1} {cin}->{cout}: wgmma {w_ms:.3f} ms, mma {m_ms:.3f} ms "
+                f"({m_ms / w_ms:.2f}x); bound {max(t_b, t_o):.3f} ms "
+                f"({'bytes' if t_b >= t_o else 'operations'}), wgmma at "
+                f"{100 * max(t_b, t_o) / w_ms:.0f}% of it")
+        k4_stats["per_conv_1080p"] = per_conv
+        del grow, tail_t, out5
+
         # the whole int8 RDB at the flagship and tile-batch shapes
-        rdb_ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
         for tag, shp in (("1080p", (1, H, W)), ("tiles", (6, 376, 448))):
             xk = rnd(*shp, NF)
             x0 = rnd(*shp, NF) if tag == "tiles" else None
@@ -1536,31 +1617,45 @@ def main(argv=None) -> int:
                 return stripe.rdb_fused_i8(xk, wq8, sw8, bs8, x0, sas=sas_ if static else None,
                                            wp=wp8, route=route)
 
-            five = {"rdb_fused_i8": 5, "conv3x3_i8:mma": 5}
+            five = {"rdb_fused_i8": 5, "conv3x3_i8:wgmma": 5}
             held(f"rdb_fused_i8 {shp} dynamic", rdb_run, {**five, "act_amax": 1})
             held(f"rdb_fused_i8 {shp} static", lambda r: rdb_run(r, True), five)
-            new_ms = timed(lambda: rdb_run(None), 10)
-            old_ms = timed(lambda: rdb_run("dp4a"), 3)
-            snew_ms = timed(lambda: rdb_run(None, True), 10)
-            sold_ms = timed(lambda: rdb_run("dp4a", True), 3)
+            ms = {"wgmma": [], "mma": [], "wgmma static": [], "mma static": []}
+            for name in ("wgmma", "mma", "mma", "wgmma"):
+                r_ = None if name == "wgmma" else name
+                ms[name].append(timed(lambda: rdb_run(r_), 10))
+                ms[name + " static"].append(timed(lambda: rdb_run(r_, True), 10))
+            new_ms, mma_ms = min(ms["wgmma"]), min(ms["mma"])
+            snew_ms, smma_ms = min(ms["wgmma static"]), min(ms["mma static"])
+            old_ms = timed(lambda: rdb_run("dp4a"), 2)
             k1_ms = timed(lambda: stripe.rdb_fused(xk, ws8, bs8, x0), 10)
             ins = [rnd(shp[0], NF + k_ * GC, shp[1], shp[2]).contiguous(memory_format=torch.channels_last)
                    for k_ in range(5)]
             w_oihw = [w_.permute(3, 2, 0, 1).contiguous() for w_ in ws8]
             lib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1) for a, w_, b_ in zip(ins, w_oihw, bs8)], 5)
             del ins
-            ops = rdb_ops * shp[0] * shp[1] * shp[2] // (H * W)
+            bnd, by = rdb_bound_ms(shp[0] * shp[1] * shp[2], x0 is not None)
+            ops = sum(2 * shp[0] * shp[1] * shp[2] * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF)
+                      for k_ in range(5))
             log(
-                f"[k4] rdb_fused_i8 {shp}x64: dp4a (old kernel) {old_ms:.3f} ms, mma (new kernel) "
-                f"{new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {ops / new_ms / 1e9:.1f} TOPS useful); static "
-                f"A8: dp4a {sold_ms:.3f}, mma {snew_ms:.3f} ms ({sold_ms / snew_ms:.2f}x); K1's bf16 RDB "
+                f"[k4] rdb_fused_i8 {shp}x64{' + x0' if x0 is not None else ''}: wgmma (new kernel) "
+                f"{new_ms:.3f} ms, mma {mma_ms:.3f} ms ({mma_ms / new_ms:.2f}x; wgmma "
+                f"{ops / new_ms / 1e9:.1f} TOPS useful, {100 * bnd / new_ms:.0f}% of the five "
+                f"launches' bound {bnd:.3f} ms, {by}); static A8: wgmma {snew_ms:.3f}, mma "
+                f"{smma_ms:.3f} ms ({smma_ms / snew_ms:.2f}x); dp4a {old_ms:.3f} ms; K1's bf16 RDB "
                 f"{k1_ms:.3f} ms, library (bf16 cuDNN chain of 5) {lib_ms:.3f} ms"
             )
-            check(tag != "1080p" or new_ms * 3 <= old_ms,
-                  f"[k4] the mma route ({new_ms:.3f} ms per RDB) is not 3x the dp4a kernel ({old_ms:.3f})")
-            k4_stats.update({f"rdb_{tag}_dp4a_ms": old_ms, f"rdb_{tag}_mma_ms": new_ms,
-                             f"rdb_{tag}_static_dp4a_ms": sold_ms, f"rdb_{tag}_static_mma_ms": snew_ms,
-                             f"rdb_{tag}_k1_bf16_ms": k1_ms, f"rdb_{tag}_library_ms": lib_ms})
+            if tag == "1080p":
+                check(new_ms < mma_ms and snew_ms < smma_ms,
+                      f"[k4] the wgmma RDB ({new_ms:.3f} / {snew_ms:.3f} ms static) is not faster than "
+                      f"mma's ({mma_ms:.3f} / {smma_ms:.3f})")
+                check(new_ms * 3 <= old_ms,
+                      f"[k4] the wgmma RDB ({new_ms:.3f} ms) is not 3x the dp4a kernel ({old_ms:.3f})")
+            k4_stats.update({f"rdb_{tag}_wgmma_ms": new_ms, f"rdb_{tag}_mma_ms": mma_ms,
+                             f"rdb_{tag}_dp4a_ms": old_ms, f"rdb_{tag}_static_wgmma_ms": snew_ms,
+                             f"rdb_{tag}_static_mma_ms": smma_ms, f"rdb_{tag}_k1_bf16_ms": k1_ms,
+                             f"rdb_{tag}_library_ms": lib_ms, f"rdb_{tag}_bound_ms": bnd,
+                             f"rdb_{tag}_bound_by": by})
             del xk, x0
             torch.cuda.empty_cache()
 
@@ -1570,14 +1665,19 @@ def main(argv=None) -> int:
         swp = torch.stack([quant.pack_i8_weights(q) for q in swq])
         xb = rnd(1, H, W, NF)
         k_ = srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp)
-        check(torch.equal(k_, srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp, route="dp4a")),
-              "[k4] srvgg_body_i8 1080p: mma != dp4a")
+        for name in ("mma", "dp4a"):
+            check(torch.equal(k_, srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp, route=name)),
+                  f"[k4] srvgg_body_i8 1080p: wgmma != {name}")
         check(torch.equal(k_, srvgg.srvgg_body_i8_plain(xb, swq, ssw, sv[1], sv[2])),
-              "[k4] srvgg_body_i8 1080p: mma != plain")
+              "[k4] srvgg_body_i8 1080p: wgmma != plain")
         del k_
-        new_ms = timed(lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp), 5)
-        old_ms = timed(lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp, route="dp4a"), 2)
-        bf_ms = timed(lambda: srvgg.srvgg_body(xb, *sv), 5)
+        ms = {"wgmma": [], "mma": []}
+        for name in ("wgmma", "mma", "mma", "wgmma"):
+            r_ = None if name == "wgmma" else name
+            ms[name].append(timed(lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp, route=r_), 3))
+        new_ms, mma_ms = min(ms["wgmma"]), min(ms["mma"])
+        old_ms = timed(lambda: srvgg.srvgg_body_i8(xb, swq, ssw, sv[1], sv[2], swp, route="dp4a"), 1)
+        bf_ms = timed(lambda: srvgg.srvgg_body(xb, *sv), 3)
         xb_nchw = xb.permute(0, 3, 1, 2)
         sv_oihw = [w_.permute(3, 2, 0, 1).contiguous() for w_ in sv[0]]
 
@@ -1588,14 +1688,24 @@ def main(argv=None) -> int:
 
         lib_ms = timed(lambda: body_lib(xb_nchw), 3)
         ops = NC * 2 * H * W * 9 * NF * NF
+        # each conv reads its 64-channel input and writes its output, bf16,
+        # and its input's amax pass reads the input again (the body's first
+        # from the amax kernel, the others from the conv before)
+        t_b, t_o = NC * H * W * 2 * (NF + NF) / PEAK_BYTES * 1e3, ops / PEAK_INT8 * 1e3
+        bnd, by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
         log(
-            f"[k4] srvgg_body_i8 1x{H}x{W}x64, 32 convs: dp4a (old kernel) {old_ms:.3f} ms, mma (new "
-            f"kernel) {new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {ops / new_ms / 1e9:.1f} TOPS useful), "
-            f"K1's bf16 body {bf_ms:.3f} ms, library (bf16 cuDNN chain of 32 conv + prelu) {lib_ms:.3f} "
-            f"ms; bit-equal to dp4a and plain; {k4_stats['bit_equal_cases']} cases bit-equal in all"
+            f"[k4] srvgg_body_i8 1x{H}x{W}x64, 32 convs: wgmma (new kernel) {new_ms:.3f} ms, mma "
+            f"{mma_ms:.3f} ms ({mma_ms / new_ms:.2f}x; wgmma {ops / new_ms / 1e9:.1f} TOPS useful, "
+            f"{100 * bnd / new_ms:.0f}% of the 32 launches' bound {bnd:.3f} ms, {by}), dp4a "
+            f"{old_ms:.3f} ms, K1's bf16 body {bf_ms:.3f} ms, library (bf16 cuDNN chain of 32 conv + "
+            f"prelu) {lib_ms:.3f} ms; bit-equal to mma, dp4a and plain; "
+            f"{k4_stats['bit_equal_cases']} cases bit-equal in all"
         )
-        k4_stats.update(srvgg_dp4a_ms=old_ms, srvgg_mma_ms=new_ms, srvgg_k1_bf16_ms=bf_ms,
-                        srvgg_library_ms=lib_ms)
+        check(new_ms < mma_ms,
+              f"[k4] the wgmma SRVGG body ({new_ms:.3f} ms) is not faster than mma's ({mma_ms:.3f})")
+        k4_stats.update(srvgg_wgmma_ms=new_ms, srvgg_mma_ms=mma_ms, srvgg_dp4a_ms=old_ms,
+                        srvgg_k1_bf16_ms=bf_ms, srvgg_library_ms=lib_ms, srvgg_bound_ms=bnd,
+                        srvgg_bound_by=by)
 
     k5_stats, k3_stats, k6_stats = {}, {}, {}
     if want("k5", "kernels"):
@@ -1850,7 +1960,7 @@ def main(argv=None) -> int:
 
         k5_rows("", xb, rdb_in, H * W)
         ws8, bs8, wq8, sw8 = i8_rdb(NF, GC)
-        wp8 = [quant.pack_i8_weights(q) for q in wq8]  # K4's mma route, as a model prepares them
+        wp8 = [quant.pack_i8_weights(q) for q in wq8]  # K4's tensor-core routes, as a model prepares them
         rdb_i8_wbytes = sum(
             q.numel() + s_.numel() * 4 + b_.numel() * 2 for q, s_, b_ in zip(wq8, sw8, bs8)
         )
@@ -1874,8 +1984,8 @@ def main(argv=None) -> int:
             k_out = stripe.rdb_fused_i8(xk, wq8, sw8, bs8, sas=sas_, wp=wp8)[0]
             torch.cuda.synchronize()
             got = _build.launches()
-            check(got == {"rdb_fused_i8": 5, "conv3x3_i8:mma": 5},
-                  f"static RDB launches {got} != 5 K4 on the mma route and no amax")
+            check(got == {"rdb_fused_i8": 5, "conv3x3_i8:wgmma": 5},
+                  f"static RDB launches {got} != 5 K4 on the wgmma route and no amax")
             e, st = bf16_steps(
                 "rdb_fused_i8 static" + tag, k_out,
                 stripe.rdb_fused_i8_plain(xk, wq8, sw8, bs8, sas=sas_)[0],
@@ -2531,7 +2641,7 @@ def main(argv=None) -> int:
     # K4 of an int8 RRDBNet frame: every RDB conv on the int8 tensor cores
     rrdb_i8_call = {
         "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
-        "conv3x3_i8:mma": n_rdb, "up1_fused": 1, **TAIL_ONE, **k1_routes(2, 0, 1, 0),
+        "conv3x3_i8:wgmma": n_rdb, "up1_fused": 1, **TAIL_ONE, **k1_routes(2, 0, 1, 0),
     }
     # K2 of an enhanced frame: the sharpen stage on the rows route
     K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1, "unsharp_fused:rows:fp32": 1}
@@ -2585,7 +2695,7 @@ def main(argv=None) -> int:
          {**rrdb_i8_call, **K2_ROWS}, is_flagship("int8"), 1, None, dict(vs_bf16=True)),
         ("config4_int8", (H, W, 2), config4 + ["--precision", "int8"],
          {"conv3x3_fused": 1, "act_amax": 1, "srvgg_body_i8": v3.num_conv,
-          "conv3x3_i8:mma": v3.num_conv, "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1,
+          "conv3x3_i8:wgmma": v3.num_conv, "srvgg_up_fused": 1, "srvgg_up_fused:mma": 1,
           **k1_routes(0, 0, 1, 0)},
          is_config4("int8"), 1, None, dict(vs_bf16=True)),
         ("tiled_x4plus_int8", (720, 1280, 2),
@@ -3446,8 +3556,8 @@ def main(argv=None) -> int:
              {"rdb_fused": 5 * apps, "conv3x3:wgmma": 5 * apps, "rdb_fused_k5": apps,
               "rdb_fused_k5:wgmma": apps, "rrdb_fused": rrdb_apps,
               "rrdb_fused:wgmma": rrdb_apps, "rdb_fused_i8": 5 * apps,
-              "conv3x3_i8:mma": 5 * apps, "act_amax": 1}),
-            (("int8s",), {"rdb_fused_i8": 5 * apps, "conv3x3_i8:mma": 5 * apps}),
+              "conv3x3_i8:wgmma": 5 * apps, "act_amax": 1}),
+            (("int8s",), {"rdb_fused_i8": 5 * apps, "conv3x3_i8:wgmma": 5 * apps}),
         ):
             _build.reset_launches()
             recs += bench_rdb.bench(modes, bench_rdb.SHAPE, "cuda", iters)

@@ -1,25 +1,27 @@
-"""Which of K4's two kernels each int8 conv of the port takes on the card, the
-packed weights its tensor-core kernel reads, and the int8 RDB's plain
-version against the JAX kernels at the width that kernel serves.
+"""Which of K4's kernels each int8 conv of the port takes on the card, the
+packed weights its tensor-core kernels read, and the int8 RDB's plain
+version against the JAX kernels at the width those kernels serve.
 
 K4 (``ops/quant.py::conv3x3_i8``, the W8A8 conv of ``--precision int8``) is
-one function behind two hand-written CUDA kernels: ``"mma"``
-(``csrc/conv3x3_i8_mma.cu``: int8 ``mma.sync`` m16n8k32) and ``"dp4a"``
+one function behind three hand-written CUDA kernels: ``"wgmma"``
+(``csrc/conv3x3_i8_wgmma.cu``: int8 ``wgmma`` m64nNk32 fed by TMA, with a
+quantiser warpgroup), ``"mma"`` (``csrc/conv3x3_i8_mma.cu``: int8
+``mma.sync`` m16n8k32, taken only when forced) and ``"dp4a"``
 (``csrc/conv3x3_i8.cu``: ``__dp4a`` on the CUDA cores). ``conv3x3_i8_route``
 chooses from the call alone, so the choice is tested here, on the CPU,
 without a kernel: each model runs on a tiny frame through the plain versions
 while a recorder asks the route of each int8 conv. The numbers are the ones
-the chip smoke test asserts on the card: 345 ``conv3x3_i8:mma`` per int8
+the chip smoke test asserts on the card: 345 ``conv3x3_i8:wgmma`` per int8
 flagship frame (69 RDBs x 5 convs), 32 per int8 config-4 frame, no
-``dp4a``.
+``mma`` or ``dp4a``.
 
-The ``"mma"`` kernel reads each weight packed (9, cout, cin) by
+The tensor-core kernels read each weight packed (9, cout, cin) by
 ``pack_i8_weights``, made once at prepare time beside the HWIO ``wq``.
 
 The plain version the kernels are held to on the card (bit for bit) is held
-here to the JAX kernels at nf 64 / gc 32, the widths of the ``"mma"`` route
-(``tests/test_torch_int8.py`` does so at nf 16 / gc 8), on a 1x12x20 frame,
-bf16, exact: dynamic A8 against ``rdb_stripe_padded`` and
+here to the JAX kernels at nf 64 / gc 32, the widths of the tensor-core
+routes (``tests/test_torch_int8.py`` does so at nf 16 / gc 8), on a
+1x12x20 frame, bf16, exact: dynamic A8 against ``rdb_stripe_padded`` and
 ``rdb_res_stripe_padded(sws)`` with one stripe (one scale per image, as the
 port), static A8 against ``rdb_stripe2d_padded(sws, sas)`` with two 12x16
 blocks (fixed scales, the same in every block). All in interpret mode.
@@ -45,9 +47,9 @@ BF, F32 = torch.bfloat16, torch.float32
     "dtype,segs,cout,aligned,route",
     [
         # every RDB conv at nf 64 / gc 32 (1..5 segments) and an SRVGG conv
-        *[(BF, quant.rdb_segments(64, 32, k), 32 if k < 5 else 64, True, "mma")
+        *[(BF, quant.rdb_segments(64, 32, k), 32 if k < 5 else 64, True, "wgmma")
           for k in range(1, 6)],
-        (BF, (0, 64), 64, True, "mma"),
+        (BF, (0, 64), 64, True, "wgmma"),
         (BF, quant.rdb_segments(16, 8, 3), 8, True, "dp4a"),   # nf 16 / gc 8
         (BF, quant.rdb_segments(16, 8, 5), 16, True, "dp4a"),
         (BF, (0, 64, 96), 32, False, "dp4a"),                   # unaligned
@@ -71,31 +73,65 @@ def _conv(cin=96, cout=32, segs=(0, 64, 96), dt=BF, x=None):
 
 
 def test_a_forced_route_is_checked():
-    """``route="dp4a"`` reaches the old kernel for a side-by-side timing; the
-    tensor-core kernel is never forced onto a call it is not built for, and
-    the route names are K4's own."""
+    """``route="mma"`` and ``route="dp4a"`` reach the older kernels for a
+    side-by-side timing; neither tensor-core kernel is ever forced onto a
+    call it is not built for, and the route names are K4's own."""
     ops = _conv()
-    assert quant.pick_i8_route(*ops) == "mma"
+    assert quant.pick_i8_route(*ops) == "wgmma"
+    assert quant.pick_i8_route(*ops, route="wgmma") == "wgmma"
     assert quant.pick_i8_route(*ops, route="dp4a") == "dp4a"
     assert quant.pick_i8_route(*ops, route="mma") == "mma"
-    with pytest.raises(ValueError, match="segments of multiples of 32"):
-        quant.pick_i8_route(*_conv(24, 8, (0, 16, 24)), route="mma")
-    with pytest.raises(ValueError, match="segments of multiples of 32"):
-        quant.pick_i8_route(*_conv(dt=F32), route="mma")
+    for route in ("mma", "wgmma"):
+        with pytest.raises(ValueError, match="segments of multiples of 32"):
+            quant.pick_i8_route(*_conv(24, 8, (0, 16, 24)), route=route)
+        with pytest.raises(ValueError, match="segments of multiples of 32"):
+            quant.pick_i8_route(*_conv(dt=F32), route=route)
     with pytest.raises(ValueError, match="unknown route"):
         quant.pick_i8_route(*ops, route="fma")
 
 
 def test_a_misaligned_input_takes_dp4a():
     """A view of x that starts off a 16-byte boundary is not the tensor-core
-    kernel's: its route is ``"dp4a"`` and a forced ``"mma"`` raises."""
+    kernel's: its route is ``"dp4a"`` and a forced ``"mma"`` or ``"wgmma"``
+    raises."""
     buf = torch.zeros(1 * 4 * 5 * 96 + 1, dtype=BF)
     x = buf[1:].view(1, 4, 5, 96)
     assert x.data_ptr() % 16 and x.is_contiguous()
     ops = _conv(x=x)
     assert quant.pick_i8_route(*ops) == "dp4a"
-    with pytest.raises(ValueError, match="aligned operands"):
-        quant.pick_i8_route(*ops, route="mma")
+    for route in ("mma", "wgmma"):
+        with pytest.raises(ValueError, match="aligned operands"):
+            quant.pick_i8_route(*ops, route=route)
+
+
+def test_only_the_wgmma_kernel_reads_a_tail():
+    """The blocked RDB's c1 .. c4 (``x_tail``) are read by the ``"wgmma"``
+    kernel only: a forced ``"mma"`` or ``"dp4a"`` with a tail raises; on the
+    CPU the wrapper is the plain version of the concatenation."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand(2, 3, 5, 64, generator=g).to(BF)
+    t = torch.rand(2, 2, 3, 5, 32, generator=g).to(BF)
+    wq = torch.randint(-127, 128, (3, 3, 128, 32), generator=g).to(torch.int8)
+    b = torch.zeros(32, dtype=BF)
+    segs = quant.rdb_segments(64, 32, 3)
+    assert quant.pick_i8_route(x, segs, wq, b, x_tail=t) == "wgmma"
+    for route in ("mma", "dp4a"):
+        with pytest.raises(ValueError, match="x_tail is read by the wgmma kernel only"):
+            quant.pick_i8_route(x, segs, wq, b, route=route, x_tail=t)
+    sw = torch.rand(3, 32, generator=g) * 1e-2
+    cat = torch.cat([x, t[0], t[1]], dim=-1)
+    amax = torch.stack([quant.act_amax_plain(cat[..., lo:hi])
+                        for lo, hi in zip(segs[:-1], segs[1:])], 1)
+    got = quant.conv3x3_i8(x, segs, amax, wq, sw, b, act="lrelu", x_tail=t, counter="t")
+    assert torch.equal(got, quant.conv3x3_i8_plain(cat, segs, amax, wq, sw, b, act="lrelu"))
+
+
+def test_the_blocked_int8_rdb_is_for_the_card_only():
+    """On the CPU the int8 RDB keeps its growth buffer (the plain version);
+    the blocks are the wgmma route's layout on the card."""
+    wq = [torch.zeros(3, 3, 64 + 32 * k, 32 if k < 4 else 64, dtype=torch.int8) for k in range(5)]
+    bs = [torch.zeros(32 if k < 4 else 64, dtype=BF) for k in range(5)]
+    assert not stripe.blocked_i8(torch.zeros(1, 4, 5, 64, dtype=BF), wq, bs)
 
 
 @pytest.mark.parametrize("cin,cout", [(64, 32), (192, 64), (24, 8)])
@@ -141,9 +177,9 @@ def _record(monkeypatch, module):
     return calls
 
 
-def test_int8_flagship_frame_takes_345_mma(monkeypatch):
+def test_int8_flagship_frame_takes_345_wgmma(monkeypatch):
     """RealESRGAN_x4plus at full width (nf 64, gc 32, 23 blocks) with
-    ``--precision int8``: 69 RDBs x 5 int8 convs per frame, all on the
+    ``--precision int8``: 69 RDBs x 5 int8 convs per frame, all on Hopper's
     tensor cores."""
     spec = MODEL_ZOO["RealESRGAN_x4plus"].spec
     assert (spec.num_feat, spec.num_grow_ch, spec.num_block) == (64, 32, 23)
@@ -152,18 +188,18 @@ def test_int8_flagship_frame_takes_345_mma(monkeypatch):
     _build.reset_launches()
     y = net(torch.rand(1, 5, 6, 3))
     assert y.shape == (1, 20, 24, 3) and y.dtype == BF
-    assert calls == ["mma"] * 345
+    assert calls == ["wgmma"] * 345
     assert _build.launches() == {}  # CPU tensors: the plain versions
 
 
-def test_int8_config4_frame_takes_32_mma(monkeypatch):
+def test_int8_config4_frame_takes_32_wgmma(monkeypatch):
     spec = MODEL_ZOO["RealESRGAN_x4_v3"].spec
     assert (spec.num_feat, spec.num_conv) == (64, 32)
     net = SRVGGNet(spec).prepare(BF, "cpu", precision="int8")
     calls = _record(monkeypatch, srvgg)
     y = net(torch.rand(1, 5, 6, 3))
     assert y.shape == (1, 20, 24, 3)
-    assert calls == ["mma"] * 32
+    assert calls == ["wgmma"] * 32
 
 
 @pytest.mark.parametrize("dt", [BF, F32])

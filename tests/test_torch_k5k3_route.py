@@ -115,7 +115,7 @@ def _rrdb_route(x, rdb_weights):
 @pytest.mark.parametrize(
     "name,n", [("RealESRGAN_x4plus", 23), ("RealESRGAN_x4plus_anime_6B", 6)]
 )
-def test_pallas_body_at_full_width_takes_mma(monkeypatch, name, n):
+def test_pallas_body_at_full_width_takes_wgmma(monkeypatch, name, n):
     """The ``VRT_PALLAS=1`` body: one K5 launch per RRDB block, every one on
     the Hopper tensor cores (``"wgmma"``)."""
     spec = MODEL_ZOO[name].spec

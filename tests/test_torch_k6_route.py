@@ -111,11 +111,10 @@ def _record(monkeypatch):
 
 
 @pytest.mark.parametrize("frames", [1, 2])
-def test_flagship_tail_q_takes_mma_once_per_frame(monkeypatch, frames):
+def test_flagship_tail_q_takes_wgmma_once_per_frame(monkeypatch, frames):
     """RealESRGAN_x4plus at full width in bf16 with ``VRT_TAIL_Q=1`` (the
     tail mode a CUDA device resolves): one call per frame, on Hopper's
-    tensor cores (``"wgmma"``; K6's ``"mma"`` before it: the test's name is
-    from then), and no three-launch tail."""
+    tensor cores (``"wgmma"``), and no three-launch tail."""
     monkeypatch.setenv("VRT_TAIL_Q", "1")
     mode = rrdbnet_mod.tail_mode("cuda")
     assert mode == "q"

@@ -39,13 +39,10 @@
 //    16-byte chunks of step g + 1 into the other int8 patch, so the
 //    quantiser runs beside the tensor cores and needs no barrier between the
 //    copy and the read. One barrier per step.
-//  - The quantiser on bf16x2 pairs: `mul.rn.bf16x2` (a * inv), the sign of
-//    p | 0.5 (copysign), `add.rn.bf16x2`, `max`/`min.bf16x2` (clip to
-//    +-127.5), then truncation to int. A bf16 product and a bf16 sum are
-//    exact in fp32, so the fp32 chain of conv3x3_i8.cu's `quant` rounds the
-//    same exact values once to bf16, as these do (explicit `.rn`, so nothing
-//    fuses the two into one rounding); chip_smoke.py's [k4] phase checks all
-//    finite bf16 values through both kernels.
+//  - The quantiser on bf16x2 pairs (i8_quant.cuh, shared with
+//    conv3x3_i8_wgmma.cu): `mul.rn.bf16x2` (a * inv), the sign of p | 0.5
+//    (copysign), `add.rn.bf16x2`, `max`/`min.bf16x2` (clip to +-127.5), then
+//    truncation to int: the same values as conv3x3_i8.cu's fp32 chain.
 //  - Scales: each step's (image, segment) amax is loaded an iteration before
 //    it is needed; weight scales, bias and alpha sit in shared memory.
 //  - Sums: int32 for the segment in flight and, with several segments, fp32
@@ -66,15 +63,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "i8_quant.cuh"
 #include "mma_tile.cuh"
 
 namespace {
 
 using namespace mma_tile;
+using namespace i8_quant;
 
 constexpr int kMaxSeg = 5;
 constexpr int kMaxCin = 192;  // every stage of the weights stays resident
-constexpr float kInv127 = 1.0f / 127.0f;
 
 struct I8Args {
   const __nv_bfloat16* x;  // (B, H, W, >=cin), pixel stride xs
@@ -121,37 +119,6 @@ struct Geo {
                 "alignment");
 };
 
-__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t mul_rn_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-__device__ __forceinline__ uint32_t add_rn_bf16x2(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-
-// conv3x3_i8.cu's `quant` of two bf16 values (inv2: bf16(inv) twice), as two
-// int8 bytes in the low half of the result
-__device__ __forceinline__ uint32_t quant_pair(uint32_t v, uint32_t inv2) {
-  const uint32_t p = mul_rn_bf16x2(v, inv2);
-  const uint32_t half = (p & 0x80008000u) | 0x3f003f00u;  // copysign(0.5, p)
-  __nv_bfloat162 t;
-  *reinterpret_cast<uint32_t*>(&t) = add_rn_bf16x2(p, half);
-  t = __hmin2(__hmax2(t, __floats2bfloat162_rn(-127.5f, -127.5f)),
-              __floats2bfloat162_rn(127.5f, 127.5f));
-  const uint32_t tb = bf2_bits(t);
-  const int lo = __float2int_rz(__uint_as_float(tb << 16));
-  const int hi = __float2int_rz(__uint_as_float(tb & 0xffff0000u));
-  return __byte_perm(lo, hi, 0x0040);
-}
-
 // 4 x 4 transpose of 32-bit values across each quad of lanes (t = lane & 3):
 // on return a[s] holds what lane s of the quad held in a[t]
 __device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int t) {
@@ -172,10 +139,6 @@ __device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int t) {
   } else {
     a[2] = x; a[3] = y;
   }
-}
-
-__device__ __forceinline__ float act_scale(float amax) {
-  return __fmul_rn(fmaxf(amax, 1e-12f), kInv127);
 }
 
 // NT, TH, WN: as Geo. STATIC: the segments' scales from a.sa / a.inv.

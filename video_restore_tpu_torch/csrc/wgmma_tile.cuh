@@ -3,7 +3,8 @@
 // tail_fused_wgmma.cu): `mbarrier`s with a watchdog, TMA tensor loads, the
 // `cp.async` copies and swizzled addresses of the nearest-2x producers,
 // shared-memory matrix descriptors, bf16 `wgmma` m64nNk16
-// with fp32 accumulators, and the host-side tensor-map encoding
+// with fp32 accumulators, int8 `wgmma` m64nNk32 with s32 accumulators (K4's
+// conv3x3_i8_wgmma.cu), and the host-side tensor-map encoding
 // (cuTensorMapEncodeTiled, got through cudaGetDriverEntryPointByVersion: no
 // link flag). Built for sm_90a only.
 #pragma once
@@ -168,6 +169,12 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int R>
+__device__ __forceinline__ void fence_acc(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // d (+)= A (64 x 16, K-major) * B (16 x N, N-major: the transpose bit);
 // scale_d 0 overwrites d.
 template <int N>
@@ -209,6 +216,47 @@ struct Wgmma<32> {
   }
 };
 
+// d (+)= A (64 x 32 int8, K-major) * B (32 x N int8, K-major: int8 `wgmma`
+// has no transpose), exact s32 sums; scale_d 0 overwrites d.
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void run(int (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
+        "%31}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+          "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),
+          "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),
+          "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void run(int (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
 // ---- host: tensor maps ----------------------------------------------------------
 
 inline PFN_cuTensorMapEncodeTiled_v12000 encoder() {
@@ -229,10 +277,12 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encoder() {
   return fn;
 }
 
-// One tensor map of bf16 elements: rank dims, rank - 1 byte strides, a box.
+// One tensor map of bf16 (or `type`) elements: rank dims, rank - 1 byte
+// strides, a box.
 inline bool encode(CUtensorMap* map, const void* base, int rank, const long long* dims,
                    const long long* strides, const long long* box,
-                   CUtensorMapSwizzle swizzle) {
+                   CUtensorMapSwizzle swizzle,
+                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const PFN_cuTensorMapEncodeTiled_v12000 fn = encoder();
   if (!fn) return false;
   cuuint64_t d[5], st[4];
@@ -243,7 +293,7 @@ inline bool encode(CUtensorMap* map, const void* base, int rank, const long long
     es[i] = 1;
     if (i + 1 < rank) st[i] = (cuuint64_t)strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+  return fn(map, type, (cuuint32_t)rank,
             const_cast<void*>(base), d, st, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

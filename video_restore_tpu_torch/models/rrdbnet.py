@@ -39,10 +39,13 @@ int8 applies only to the stripe body: ``"pallas"`` keeps the compute dtype.
 :func:`body_mode` resolves the mode the way the JAX ``default_use_pallas``
 does.
 
-``prepare(..., tail="q")`` selects the one-launch tail of the JAX
-``VRT_TAIL_Q=1`` (``rrdbnet.py:783-800``): one K6 launch
-(``ops/tail.py::tail_fused_q``) in place of the default ``"chain"`` tail's
-three K1 launches, for the nets with two upsample stages. It is
+``prepare(..., tail="q")`` selects the entry point of the JAX
+``VRT_TAIL_Q=1`` (``rrdbnet.py:783-800``), ``ops/tail.py::tail_fused_q``,
+in place of the default ``"chain"`` mode's ``ops/tail.py::tail_fused``, for
+the nets with two upsample stages. In bf16 at nf 64 both modes launch
+``csrc/tail_fused_wgmma.cu`` once a frame; ``"q"`` runs K6
+(``csrc/tail_fused.cu``) for fp32 or nf 16, or K6's ``mma`` kernel when a
+caller forces it, where ``"chain"`` runs three K1 launches. It is
 independent of the body mode and of the precision; :func:`tail_mode`
 resolves it from the knob.
 
@@ -217,9 +220,12 @@ TAIL_MODES = ("chain", "q")
 
 
 def tail_mode(device) -> str:
-    """The tail mode for ``device``: ``"q"`` (one K6 launch) when
+    """The tail mode for ``device``: ``"q"`` (``tail_fused_q``) when
     ``VRT_TAIL_Q=1`` and the device is a CUDA device, else ``"chain"``
-    (three K1 launches). JAX reads the knob only where its tail kernels run
+    (``tail_fused``); in bf16 at nf 64 both are one launch of
+    ``csrc/tail_fused_wgmma.cu``, and they differ only where that kernel
+    does not run (``"q"``: one K6 launch, ``"chain"``: three K1 launches;
+    module note). JAX reads the knob only where its tail kernels run
     (``default_use_tail_kernel``, ``rrdbnet.py:939-955``: the TPU); on the
     CPU it changes nothing, there or here."""
     if os.environ.get("VRT_TAIL_Q") != "1":

@@ -36,9 +36,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu", "conv3x3_narrow.cu", "unsharp.cu",
     "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
-    "conv3x3_i8_mma.cu", "rdb_fused.cu", "rdb_fused_f32.cu", "rdb_fused_bf16.cu",
-    "rdb_fused_narrow.cu", "rdb_fused_mma.cu", "rdb_fused_wgmma.cu", "tail_fused.cu",
-    "tail_fused_mma.cu", "tail_fused_wgmma.cu",
+    "conv3x3_i8_mma.cu", "conv3x3_i8_wgmma.cu", "rdb_fused.cu", "rdb_fused_f32.cu",
+    "rdb_fused_bf16.cu", "rdb_fused_narrow.cu", "rdb_fused_mma.cu", "rdb_fused_wgmma.cu",
+    "tail_fused.cu", "tail_fused_mma.cu", "tail_fused_wgmma.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -211,6 +211,13 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3_i8.restype = _I
             lib.vr_conv3x3_i8_mma.argtypes = lib.vr_conv3x3_i8.argtypes
             lib.vr_conv3x3_i8_mma.restype = _I
+            # the same, then the plan (ops/quant.py::i8_wgmma_plan) and the tail
+            lib.vr_conv3x3_i8_wgmma.argtypes = lib.vr_conv3x3_i8.argtypes + [
+                ctypes.POINTER(_L), _I, _P,
+            ]
+            lib.vr_conv3x3_i8_wgmma.restype = _I
+            lib.vr_conv3x3_i8_wgmma_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_conv3x3_i8_wgmma_config.restype = _I
             lib.vr_amax_bf16.argtypes = [_P, _P, _I, _I, _I, _L, _L, _P]
             lib.vr_amax_bf16.restype = _I
             for fn in (lib.vr_rdb_fused, lib.vr_rrdb_fused,

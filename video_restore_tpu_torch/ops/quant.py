@@ -34,49 +34,63 @@ window; the port takes one per image (per tile when tiled). The two agree
 when one stripe and one chunk cover the frame (ROADMAP queue 3).
 
 :func:`conv3x3_i8` and :func:`act_amax` take their plain versions for CPU
-tensors; for CUDA tensors they launch K4 (bf16 only) or raise. K4 is two
+tensors; for CUDA tensors they launch K4 (bf16 only) or raise. K4 is three
 hand-written kernels of one function, and :func:`conv3x3_i8_route` says
-which a call takes: ``"mma"`` (``csrc/conv3x3_i8_mma.cu``: int8
-``mma.sync`` m16n8k32 on the tile routines of ``csrc/mma_tile.cuh``, reading
-the weights packed by :func:`pack_i8_weights`) for the calls whose widths
-feed the tensor cores, ``"dp4a"`` (``csrc/conv3x3_i8.cu``: ``__dp4a`` on the
-CUDA cores, HWIO weights) for the rest. The integer sums are exact in any
-order and both kernels repeat the same fp32 steps, so they agree bit for
-bit.
+which a call takes: ``"wgmma"`` (``csrc/conv3x3_i8_wgmma.cu``: int8
+``wgmma`` m64nNk32 fed by TMA, a producer warpgroup quantising on load; its
+launch plan is :func:`i8_wgmma_plan`) for the calls whose widths feed the
+tensor cores, ``"dp4a"`` (``csrc/conv3x3_i8.cu``: ``__dp4a`` on the CUDA
+cores, HWIO weights) for the rest; ``"mma"`` (``csrc/conv3x3_i8_mma.cu``:
+int8 ``mma.sync`` m16n8k32 on the tile routines of ``csrc/mma_tile.cuh``)
+takes the same calls as ``"wgmma"`` when forced (side-by-side timings and
+checks). The tensor-core kernels read the weights packed by
+:func:`pack_i8_weights`. The integer sums are exact in any order and the
+kernels repeat the same fp32 steps, so they agree bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.conv import conv2d_f32
-from video_restore_tpu_torch.ops.tail import _ACTS, _pixel_stride, forced_route, operands_aligned
+from video_restore_tpu_torch.ops.tail import (
+    _ACTS,
+    _TMA_BOX_MAX,
+    _TMA_STRIDE_MAX,
+    _pixel_stride,
+    _sm_count,
+    forced_route,
+    operands_aligned,
+)
 
 _INV127 = float(np.float32(1.0 / 127.0))  # the fp32 constant JAX multiplies by
 MAX_SEGMENTS = 5
-I8_ROUTES = ("mma", "dp4a")
-_I8_MMA_K = 32  # input channels per k32 step of m16n8k32
-_I8_MMA_COUT = (32, 64)  # the widths conv3x3_i8_mma.cu is instantiated for
+I8_ROUTES = ("wgmma", "mma", "dp4a")  # K4's kernels; "dp4a" takes every call
+_I8_MMA_K = 32  # input channels per k32 step (m16n8k32, m64nNk32)
+_I8_MMA_COUT = (32, 64)  # the widths the tensor-core kernels are instantiated for
 _I8_MMA_MAX_CIN = 192  # every stage of the weights resident in shared memory
+_I8_TAKES = ("bf16 with segments of multiples of 32, cin up to 192, cout 32 or 64 and aligned "
+             "operands")
 
 
 def conv3x3_i8_route(
     dtype: torch.dtype, segs: Sequence[int], cout: int, aligned: bool = True
 ) -> str:
-    """Which of K4's two kernels a call on a CUDA tensor launches: a pure
-    function of the call. ``"mma"`` (int8 tensor cores) takes bf16 with
+    """Which of K4's kernels a call on a CUDA tensor launches: a pure
+    function of the call. ``"wgmma"`` (int8 tensor cores) takes bf16 with
     every segment width a multiple of 32 (one k32 step per 32 input
     channels, each step inside one segment: every RDB at nf 64 / gc 32, the
     SRVGG body at nf 64), cin up to 192 (the conv's weights stay in shared
     memory), cout 32 or 64, and ``aligned`` operands
     (:func:`~video_restore_tpu_torch.ops.tail.operands_aligned`);
     ``"dp4a"`` takes every other call: the narrow test widths (nf 16 / gc 8)
-    and unaligned views."""
+    and unaligned views. ``"mma"`` takes the calls of ``"wgmma"`` only when
+    forced (:func:`pick_i8_route`)."""
     if (
         dtype == torch.bfloat16
         and all((hi - lo) % _I8_MMA_K == 0 for lo, hi in zip(segs[:-1], segs[1:]))
@@ -84,34 +98,194 @@ def conv3x3_i8_route(
         and cout in _I8_MMA_COUT
         and aligned
     ):
-        return "mma"
+        return "wgmma"
     return "dp4a"
 
 
 def pick_i8_route(x, segs, wq, b, alpha=None, out=None, r1=None, r2=None, wp=None,
-                  route: Optional[str] = None) -> str:
+                  route: Optional[str] = None, x_tail=None) -> str:
     """The route of a K4 call: :func:`conv3x3_i8_route` of its operands
     (``out=None``: a fresh contiguous tensor; ``wp=None``: a fresh packed
     copy; both are aligned), or the forced ``route``
     (``ops/tail.py::forced_route`` with K4's route names :data:`I8_ROUTES`:
-    ``"dp4a"`` for any call, ``"mma"`` only where the tensor-core kernel
-    takes it)."""
+    ``"dp4a"`` for any call, ``"wgmma"`` only where it is the call's own
+    route, ``"mma"`` also there: the ``mma.sync`` kernel takes every such
+    call). Only ``"wgmma"`` reads an ``x_tail``."""
     own = conv3x3_i8_route(
-        x.dtype, segs, wq.shape[-1], operands_aligned(x, wp, b, alpha, out, r1, r2)
+        x.dtype, segs, wq.shape[-1], operands_aligned(x, wp, b, alpha, out, r1, r2, x_tail)
     )
-    return forced_route(
-        "conv3x3_i8", own, route,
-        "bf16 with segments of multiples of 32, cin up to 192, cout 32 or 64 and aligned operands",
-        routes=I8_ROUTES,
+    if route == "mma" and own == "wgmma":
+        route = "mma"
+    else:
+        route = forced_route("conv3x3_i8", own, route, _I8_TAKES, routes=I8_ROUTES)
+    if x_tail is not None and route != "wgmma":
+        raise ValueError(f"conv3x3_i8: x_tail is read by the wgmma kernel only, not {route}")
+    return route
+
+
+# conv3x3_i8_wgmma.cu as shipped (the build reports its own:
+# vr_conv3x3_i8_wgmma_config): output rows of a tile by cout (two consumer
+# warpgroups of 4 m64 rows at cout 32, of 2 at cout 64, whose s32 and fp32
+# sums take twice the registers), pixels of a tile row, channels a stage, the
+# int8 ring's depth, the most raw slots, the bytes of the parameters and the
+# dynamic shared memory a block can have
+I8_WGMMA = dict(rows={32: 8, 64: 4}, tw=64, kc=32, q_depth=3, raw_max=6, param_bytes=2048,
+                smem_max=232448)
+
+
+def i8_wgmma_window(cout: int, geometry: Optional[dict] = None) -> Tuple[int, int]:
+    """Bytes of a raw slot (a stage's bf16 window, (rows + 2) x (tw + 2)
+    pixels of kc channels) and of an int8 slot (the same window quantised,
+    padded to 1024 bytes) at cout."""
+    g = I8_WGMMA if geometry is None else geometry
+    px = (g["rows"][cout] + 2) * (g["tw"] + 2)
+    return px * g["kc"] * 2, -(-px * g["kc"] // 1024) * 1024
+
+
+class I8WgmmaPlan(NamedTuple):
+    """What ``vr_conv3x3_i8_wgmma`` encodes and launches: x's 4-D tensor map
+    over (channels, W, H, B) (dims, the byte strides of dims 1-3, the box:
+    kc channels of a (TH + 2) x (TW + 2) window, bf16, no swizzle), the
+    tail's 32-channel blocks, the byte strides of its 5-D map over (kc, W,
+    H, B, blocks) and that map's box (zeros without a tail), the packed
+    weights' 3-D map over (cin, cout, 9) int8 (a box of one stage's kc input
+    channels of every tap and cout, in the ``w_swizzle``-byte swizzle), the
+    persistent grid, the tile, the raw ring's depth (as many bf16 windows as
+    fit beside the resident weights), the int8 ring's, the dynamic shared
+    memory, and the stage schedule: each stage's segment and the stages
+    that start and end one (``folds``: where the s32 sums are folded into
+    the fp32 ones)."""
+
+    a_dims: Tuple[int, int, int, int]
+    a_strides: Tuple[int, int, int]
+    a_box: Tuple[int, int, int, int]
+    tail: int
+    t_strides: Tuple[int, int, int, int]
+    t_box: Tuple[int, int, int, int, int]
+    w_dims: Tuple[int, int, int]
+    w_strides: Tuple[int, int]
+    w_box: Tuple[int, int, int]
+    w_swizzle: int
+    grid: int
+    tiles: int
+    tile: Tuple[int, int]
+    raw_depth: int
+    q_depth: int
+    smem: int
+    stage_seg: Tuple[int, ...]
+    starts: Tuple[int, ...]
+    folds: Tuple[int, ...]
+
+    def array(self) -> ctypes.Array:
+        """The plan as the C launcher reads it (40 int64 values)."""
+        seg_of = sum(s << (4 * k) for k, s in enumerate(self.stage_seg))
+        vals = (*self.a_dims, *self.a_strides, *self.a_box, self.tail, *self.t_strides,
+                *self.t_box, *self.w_dims, *self.w_strides, *self.w_box, self.w_swizzle,
+                self.grid, *self.tile, self.raw_depth, self.q_depth, self.smem,
+                len(self.stage_seg), seg_of, sum(1 << k for k in self.starts),
+                sum(1 << k for k in self.folds))
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def i8_wgmma_smem(nk: int, cout: int, raw_depth: int, geometry: Optional[dict] = None) -> int:
+    """Dynamic shared memory of a ``"wgmma"`` call (``smem_bytes`` of the
+    source): the 1024-byte alignment, nk stages of resident weights (9 x
+    cout x kc bytes each), the int8 ring, ``raw_depth`` raw windows, the
+    parameters and the barriers (the int8 ring's full and empty, the raw
+    ring's full, the weights')."""
+    g = I8_WGMMA if geometry is None else geometry
+    raw, q = i8_wgmma_window(cout, g)
+    return (1024 + nk * 9 * cout * g["kc"] + g["q_depth"] * q + raw_depth * raw
+            + g["param_bytes"] + (2 * g["q_depth"] + raw_depth + 1) * 8)
+
+
+def i8_wgmma_plan(
+    shape: Sequence[int], xs: int, segs: Sequence[int], cout: int, *, sms: int, tail: int = 0,
+    geometry: Optional[dict] = None,
+) -> I8WgmmaPlan:
+    """The ``"wgmma"`` route's tensor maps, grid, rings and stage schedule
+    for a bf16 call: a pure function of x's shape (B, H, W, cx), its pixel
+    stride ``xs`` in elements (a channel-prefix view of a wider buffer has
+    xs > cx), the segments ``segs`` of the cin = cx + 32 ``tail`` channels
+    read (x's, then the tail's blocks), cout (which sets the tile's rows),
+    the card's SM count and the build's ``geometry`` (:data:`I8_WGMMA`).
+    The same plan serves dynamic and static A8. Raises ValueError for a
+    call the kernel does not take or TMA cannot describe."""
+    g = I8_WGMMA if geometry is None else geometry
+    bsz, h, w, cx = (int(v) for v in shape)
+    kc = g["kc"]
+    cin = cx + tail * kc
+    if min(bsz, h, w, cx) <= 0:
+        raise ValueError(f"i8_wgmma_plan: empty shape {tuple(shape)}")
+    if xs % 8 or xs < cx:
+        raise ValueError(f"i8_wgmma_plan: pixel stride {xs} (a multiple of 8, >= {cx})")
+    if (segs[0] != 0 or segs[-1] != cin or len(segs) - 1 > MAX_SEGMENTS
+            or any(hi <= lo or (hi - lo) % kc for lo, hi in zip(segs[:-1], segs[1:]))):
+        raise ValueError(f"i8_wgmma_plan: segments {tuple(segs)} of cin {cin} (widths of {kc})")
+    if cx % kc or cin > _I8_MMA_MAX_CIN or cout not in _I8_MMA_COUT:
+        raise ValueError(f"i8_wgmma_plan: x's {cx} channels, cin {cin} (<= {_I8_MMA_MAX_CIN}), "
+                         f"cout {cout} (32 or 64)")
+    th, tw = g["rows"][cout], g["tw"]
+    e = 2  # bf16
+    a_strides = (xs * e, w * xs * e, h * w * xs * e)
+    a_box = (kc, tw + 2, th + 2, 1)
+    t_strides = (kc * e, w * kc * e, h * w * kc * e, bsz * h * w * kc * e) if tail else (0,) * 4
+    t_box = (kc, tw + 2, th + 2, 1, 1) if tail else (0,) * 5
+    w_dims, w_strides, w_box = (cin, cout, 9), (cin, cout * cin), (kc, cout, 9)
+    if max(a_box + w_box) > _TMA_BOX_MAX:
+        raise ValueError(f"i8_wgmma_plan: a box over {_TMA_BOX_MAX} elements")
+    for st in a_strides + w_strides + t_strides[: 4 if tail else 0]:
+        if st % 16 or st >= _TMA_STRIDE_MAX:
+            raise ValueError(f"i8_wgmma_plan: byte stride {st} (a multiple of 16, < 2^40)")
+    nk = cin // kc
+    stage_seg = tuple(max(s for s in range(len(segs) - 1) if segs[s] <= k * kc) for k in range(nk))
+    starts = tuple(k for k in range(nk) if k * kc in segs)
+    folds = tuple(k for k in range(nk) if (k + 1) * kc in segs)
+    room = g["smem_max"] - i8_wgmma_smem(nk, cout, 0, g)
+    raw_depth = min(g["raw_max"], room // (i8_wgmma_window(cout, g)[0] + 8))
+    if raw_depth < 1:
+        raise ValueError(f"i8_wgmma_plan: {nk} stages of cout {cout} leave no room for a window")
+    tiles = bsz * -(-h // th) * -(-w // tw)
+    return I8WgmmaPlan(
+        a_dims=(cx, w, h, bsz), a_strides=a_strides, a_box=a_box, tail=tail,
+        t_strides=t_strides, t_box=t_box, w_dims=w_dims, w_strides=w_strides, w_box=w_box,
+        w_swizzle=kc, grid=min(tiles, sms), tiles=tiles, tile=(th, tw), raw_depth=raw_depth,
+        q_depth=g["q_depth"], smem=i8_wgmma_smem(nk, cout, raw_depth, g),
+        stage_seg=stage_seg, starts=starts, folds=folds,
     )
+
+
+def i8_wgmma_geometry(lib) -> dict:
+    """:data:`I8_WGMMA` as a loaded build of ``conv3x3_i8_wgmma.cu`` reports
+    it (``vr_conv3x3_i8_wgmma_config``)."""
+    cfg = (ctypes.c_int * 13)()
+    lib.vr_conv3x3_i8_wgmma_config(cfg)
+    g = dict(rows={32: cfg[0], 64: cfg[1]}, tw=cfg[2], kc=cfg[3], q_depth=cfg[4],
+             raw_max=cfg[5], param_bytes=cfg[7], smem_max=cfg[8])
+    windows = ((cfg[9], cfg[10]), (cfg[11], cfg[12]))
+    if (i8_wgmma_window(32, g), i8_wgmma_window(64, g)) != windows:
+        raise RuntimeError(f"conv3x3_i8_wgmma: the build's windows {windows} are not the plan's")
+    return g
+
+
+_i8_build: Optional[dict] = None
+
+
+def _i8_geometry(lib) -> dict:
+    """:func:`i8_wgmma_geometry` of the port's library, read once."""
+    global _i8_build
+    if _i8_build is None:
+        _i8_build = i8_wgmma_geometry(lib)
+    return _i8_build
 
 
 def pack_i8_weights(wq: torch.Tensor) -> torch.Tensor:
-    """The int8 HWIO weight (3, 3, cin, cout) as the ``"mma"`` route reads
-    it: (9, cout, cin), contiguous (n-major, k contiguous, so that a plain
-    ``ldmatrix`` gives the m16n8k32 B fragment). A pure function, for the
-    model to call once at prepare time, beside the HWIO ``wq`` that the
-    plain version and the ``"dp4a"`` route read."""
+    """The int8 HWIO weight (3, 3, cin, cout) as the tensor-core routes read
+    it: (9, cout, cin), contiguous (n-major, k contiguous: a plain
+    ``ldmatrix`` gives the m16n8k32 B fragment, and int8 ``wgmma`` takes
+    only K-major operands). A pure function, for the model to call once at
+    prepare time, beside the HWIO ``wq`` that the plain version and the
+    ``"dp4a"`` route read."""
     if wq.dim() != 4 or tuple(wq.shape[:2]) != (3, 3) or wq.dtype != torch.int8:
         raise ValueError(f"pack_i8_weights: {tuple(wq.shape)} {wq.dtype} is not int8 (3, 3, cin, cout)")
     return wq.reshape(9, wq.shape[2], wq.shape[3]).transpose(1, 2).contiguous()
@@ -244,6 +418,7 @@ def conv3x3_i8_plain(
     r2: Optional[torch.Tensor] = None,
     s2: float = 1.0,
     sas: Optional[Sequence[float]] = None,
+    x_tail: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K4 (same arguments as :func:`conv3x3_i8`),
     in x's dtype (bf16, or fp32 as JAX's fp32 branch). The integer dot is
@@ -253,6 +428,8 @@ def conv3x3_i8_plain(
     dequantised terms ``acc_s * (sa_s sw_s)`` added in source order, the
     bias after a single source, and the residuals."""
     dt = x.dtype
+    if x_tail is not None:
+        x = torch.cat([x, *x_tail.unbind(0)], dim=-1)
     bias = b.float()
     _check_static(sas, len(segs) - 1, amax, out_amax)
     for s, (lo, hi) in enumerate(zip(segs[:-1], segs[1:])):
@@ -314,6 +491,7 @@ def conv3x3_i8(
     sas: Optional[Sequence[float]] = None,
     wp: Optional[torch.Tensor] = None,
     route: Optional[str] = None,
+    x_tail: Optional[torch.Tensor] = None,
     counter: str,
 ) -> torch.Tensor:
     """W8A8 ``out = r2 + s2 * (r1 + s1 * act(conv3x3_SAME(x, w) + b))``.
@@ -328,16 +506,20 @@ def conv3x3_i8(
     |max| of the stored output (the next conv's scale). ``sas``: static
     A8, one fixed activation scale per segment (python floats) in place of
     ``amax``, which is then None, as is ``out_amax``. ``wp``: ``wq`` packed
-    by :func:`pack_i8_weights`, which the ``"mma"`` route reads (packed here
-    when not given). ``route``: None for :func:`conv3x3_i8_route`'s kernel,
-    ``"dp4a"`` to force the ``__dp4a`` kernel (a side-by-side timing).
-    ``counter`` names the launch counter the calling wrapper owns; the
-    launch is also counted under ``conv3x3_i8:<route>``."""
+    by :func:`pack_i8_weights`, which the tensor-core routes read (packed
+    here when not given). ``route``: None for :func:`conv3x3_i8_route`'s
+    kernel, ``"mma"`` or ``"dp4a"`` to force that kernel where it takes the
+    call (:func:`pick_i8_route`: side-by-side timings). ``x_tail``: a
+    contiguous (n, B, H, W, 32) tensor of n blocks whose channels follow
+    x's (cin, the segments and the weights count them), which only the
+    ``"wgmma"`` kernel reads (the RDB's c1 .. c4 on that route:
+    ``ops/stripe.py``). ``counter`` names the launch counter the calling
+    wrapper owns; the launch is also counted under ``conv3x3_i8:<route>``."""
     nseg = len(segs) - 1
     if x.device.type == "cpu":
         return conv3x3_i8_plain(
             x, segs, amax, wq, sw, b, act=act, alpha=alpha, out=out,
-            out_amax=out_amax, r1=r1, s1=s1, r2=r2, s2=s2, sas=sas,
+            out_amax=out_amax, r1=r1, s1=s1, r2=r2, s2=s2, sas=sas, x_tail=x_tail,
         )
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_i8: unsupported device {x.device}")
@@ -350,6 +532,14 @@ def conv3x3_i8(
         raise ValueError("conv3x3_i8: act='prelu' needs alpha (cout,)")
     bsz, h, wd, cin = x.shape
     cout = wq.shape[-1]
+    if x_tail is not None:
+        if (x_tail.dim() != 5 or tuple(x_tail.shape[1:]) != (bsz, h, wd, _I8_MMA_K)
+                or not x_tail.is_contiguous() or x_tail.dtype != dt or x_tail.device != x.device):
+            raise ValueError(
+                f"conv3x3_i8: x_tail {tuple(x_tail.shape)} is not contiguous {dt} "
+                f"(n, {bsz}, {h}, {wd}, {_I8_MMA_K}) on {x.device}"
+            )
+        cin += x_tail.shape[0] * _I8_MMA_K
     if not 1 <= nseg <= MAX_SEGMENTS or segs[0] != 0 or segs[-1] != cin or any(
         lo >= hi for lo, hi in zip(segs[:-1], segs[1:])
     ):
@@ -393,11 +583,11 @@ def conv3x3_i8(
         or wp.device != x.device or not wp.is_contiguous()
     ):
         raise ValueError(f"conv3x3_i8: wp {tuple(wp.shape)} {wp.dtype} != contiguous int8 (9, {cout}, {cin})")
-    route = pick_i8_route(x, segs, wq, b, alpha, out, r1, r2, wp, route)
-    if route == "mma":
-        wk, fn = pack_i8_weights(wq) if wp is None else wp, "vr_conv3x3_i8_mma"
-    else:
+    route = pick_i8_route(x, segs, wq, b, alpha, out, r1, r2, wp, route, x_tail)
+    if route == "dp4a":
         wk, fn = wq, "vr_conv3x3_i8"
+    else:
+        wk, fn = pack_i8_weights(wq) if wp is None else wp, f"vr_conv3x3_i8_{route}"
     if out_amax is not None:
         out_amax.zero_()
     seg_arr = (ctypes.c_int * (MAX_SEGMENTS + 1))(*segs)
@@ -406,7 +596,14 @@ def conv3x3_i8(
         sa_arr = (ctypes.c_float * nseg)(*(float(v) for v in sas))
         inv_arr = (ctypes.c_float * nseg)(*(static_act_inverse(float(v), dt) for v in sas))
     lib = _build.load()
+    extra = ()
     with torch.cuda.device(x.device):  # the launch's device is x's
+        if route == "wgmma":
+            plan = i8_wgmma_plan(
+                x.shape, xs, segs, cout, sms=_sm_count(x.device),
+                tail=0 if x_tail is None else x_tail.shape[0], geometry=_i8_geometry(lib),
+            ).array()
+            extra = (plan, len(plan), None if x_tail is None else x_tail.data_ptr())
         code = getattr(lib, fn)(
             x.data_ptr(), amax.data_ptr() if amax is not None else None,
             wk.data_ptr(), sw.data_ptr(),
@@ -420,7 +617,7 @@ def conv3x3_i8(
             amax.stride(0) if amax is not None else 0,
             out_amax.stride(0) if out_amax is not None else 0,
             nseg, seg_arr, sa_arr, inv_arr, _ACTS[act], float(s1), float(s2),
-            _build.stream_ptr(x),
+            _build.stream_ptr(x), *extra,
         )
     _build.check(lib, code, f"conv3x3_i8 kernel ({route})")
     _build.count_launch(counter)

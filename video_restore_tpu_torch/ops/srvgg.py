@@ -15,7 +15,7 @@ Port of ``video_restore_tpu/ops/pallas_srvgg.py``:
   edge.
 - :func:`srvgg_body_i8` is the same body with the W8A8 int8 convs of
   ``--precision int8`` (the ``sws`` argument of the same three entry
-  points): one K4 launch (``csrc/conv3x3_i8_mma.cu`` on the int8 tensor
+  points): one K4 launch (``csrc/conv3x3_i8_wgmma.cu`` on the int8 tensor
   cores at nf 64, ``csrc/conv3x3_i8.cu`` otherwise:
   ``ops/quant.py::conv3x3_i8_route``) per conv, each conv's
   input quantised with its per-image scale, which the launch before wrote

@@ -27,11 +27,12 @@ c1..c4 kept on chip, is ``ops/rdb.py`` (K5, the ``VRT_PALLAS=1`` body).
 
 :func:`rdb_fused_i8` is the same RDB with the W8A8 int8 convs of
 ``--precision int8`` (the ``sws`` arguments of the same entry points): five
-launches of K4 (``csrc/conv3x3_i8_mma.cu`` on the int8 tensor cores at nf
+launches of K4 (``csrc/conv3x3_i8_wgmma.cu`` on the int8 tensor cores at nf
 64 / gc 32, ``csrc/conv3x3_i8.cu`` otherwise: ``ops/quant.py::
-conv3x3_i8_route``) on the same growth buffer, conv k
-reading its prefix as the segments x, c1 .. c_{k-1}, each quantised with
-its own per-image scale. The |max| of each segment comes from the launch
+conv3x3_i8_route``), conv k reading the segments x, c1 .. c_{k-1}, each
+quantised with its own per-image scale: on the ``"wgmma"`` route c1 .. c4
+in K1's blocks (:func:`blocked_i8`), on the others (and forced ``"mma"``)
+in the growth buffer, conv k reading its prefix. The |max| of each segment comes from the launch
 that wrote it (K4's output amax) or, for x, from the caller (the previous
 RDB's output amax) or the amax kernel, so no conv waits on the host.
 
@@ -53,6 +54,7 @@ from video_restore_tpu_torch.ops.quant import (
     act_amax_plain,
     conv3x3_i8,
     conv3x3_i8_plain,
+    pick_i8_route,
     rdb_segments,
 )
 from video_restore_tpu_torch.ops.tail import (
@@ -140,7 +142,15 @@ def rdb_fused_plain(x, ws, bs, x0=None):
 
 
 def _rdb_i8(conv, amax_fn, x, wq, sw, bs, x0, x_amax, sas, wp=None, **kw):
-    grow, nf, gc = _growth_buffer(x, wq, bs)
+    route = kw.get("route")
+    blocked = blocked_i8(x, wq, bs, route)
+    if blocked:
+        nf, gc = _check_rdb(x, wq, bs)
+        # c1 .. c4 as the four blocks of one tail; conv k reads x and the
+        # first k - 1 of them
+        tail = torch.empty((4, *x.shape[:3], gc), dtype=x.dtype, device=x.device)
+    else:
+        grow, nf, gc = _growth_buffer(x, wq, bs)
     static = sas is not None
     if static:
         if x_amax is not None:
@@ -163,18 +173,41 @@ def _rdb_i8(conv, amax_fn, x, wq, sw, bs, x0, x_amax, sas, wp=None, **kw):
         a8 = dict(sas=tuple(sas[:k])) if static else dict(out_amax=amax[:, k])
         return a8 if wp is None else dict(a8, wp=wp[k - 1])
 
-    for k in range(4):
-        lo = nf + k * gc
+    def src(k):
+        """Conv k's input (x, or the growth buffer's prefix) and, for k < 5,
+        where c_k goes."""
+        if blocked:
+            return dict(x_tail=tail[: k - 1] if k > 1 else None), x, tail[k - 1] if k < 5 else None
+        lo = nf + (k - 1) * gc
+        return {}, grow[..., :lo], grow[..., lo : lo + gc] if k < 5 else None
+
+    for k in range(1, 5):
+        t, xk, out = src(k)
         conv(
-            grow[..., :lo], rdb_segments(nf, gc, k + 1), amax, wq[k], sw[k],
-            bs[k], act="lrelu", out=grow[..., lo : lo + gc],
-            **scales(k + 1), **kw,
+            xk, rdb_segments(nf, gc, k), amax, wq[k - 1], sw[k - 1], bs[k - 1],
+            act="lrelu", out=out, **t, **scales(k), **kw,
         )
+    t, xk, _ = src(5)
     out = conv(
-        grow, rdb_segments(nf, gc, 5), amax, wq[4], sw[4], bs[4],
-        r1=grow[..., :nf], s1=0.2, r2=x0, s2=0.2, **scales(5), **kw,
+        xk, rdb_segments(nf, gc, 5), amax, wq[4], sw[4], bs[4],
+        r1=x if blocked else grow[..., :nf], s1=0.2, r2=x0, s2=0.2, **t, **scales(5), **kw,
     )
     return out, None if static else amax[:, 5]
+
+
+def blocked_i8(x: torch.Tensor, wq: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+               route: Optional[str] = None) -> bool:
+    """Whether :func:`rdb_fused_i8` keeps c1 .. c4 in blocks (as
+    :func:`blocked` does for K1): a CUDA x whose first conv takes K4's
+    ``"wgmma"`` route (its own, or forced), gc that route's 32-channel
+    stage and nf whole stages of it. Forced ``"mma"`` or ``"dp4a"`` keep
+    the growth buffer, the layout those kernels read."""
+    gc = wq[0].shape[-1]
+    return (
+        x.device.type == "cuda" and route in (None, "wgmma") and gc == WGMMA_KC
+        and x.shape[-1] % WGMMA_KC == 0
+        and pick_i8_route(x, rdb_segments(x.shape[-1], gc, 1), wq[0], bs[0]) == "wgmma"
+    )
 
 
 def rdb_fused_i8(
@@ -203,10 +236,10 @@ def rdb_fused_i8(
     returned |max| is None.
 
     wp: the five weights packed by ``quant.pack_i8_weights``, which K4's
-    ``"mma"`` route reads (each conv packs its own when not given); the
+    tensor-core routes read (each conv packs its own when not given); the
     plain version reads ``wq`` and ignores them. route: None for each
-    conv's own K4 route, ``"dp4a"`` to force the ``__dp4a`` kernel (a
-    side-by-side timing)."""
+    conv's own K4 route, ``"mma"`` or ``"dp4a"`` to force that kernel (a
+    side-by-side timing, on the growth buffer)."""
     return _rdb_i8(
         conv3x3_i8, act_amax, x, wq, sw, bs, x0, x_amax, sas, wp,
         route=route, counter="rdb_fused_i8",

@@ -95,7 +95,7 @@ def _steps(mode: str, ws, bs, x: torch.Tensor, plain: bool):
             for k in range(5)
         ]
         wq, sw = [q for q, _ in qs], [s for _, s in qs]
-        wp = [quant.pack_i8_weights(q) for q in wq]  # K4's mma route, as a model prepares it
+        wp = [quant.pack_i8_weights(q) for q in wq]  # K4's tensor-core routes, as a model prepares it
         fn = stripe.rdb_fused_i8_plain if plain else stripe.rdb_fused_i8
         if mode == "int8s":
             sas = calibrate_rdb_act_scales(ws, bs, x[:1, :128, :128])
