@@ -14,7 +14,8 @@ route), ``k5``, ``k3``, ``k6`` and ``k4``
 (all of phase 3), ``paths`` (phases 4-10) or single path tags
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``,
-``main_postbf16``, ``config3``, ``config2_1080p``, ``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
+``main_postbf16``, ``config3``, ``config2_1080p``, ``main_fp32``,
+``config4_fp32``, ``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
 ``gfpgan`` (phase 13), ``train`` (phase 16), ``multi`` (phase 17). Phases 1
 and 2 always run. A partial run prints
 neither the per-kernel record nor the final ``{"ok": true, ...}`` line; the
@@ -24,7 +25,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc;
 2. build the CUDA kernels from ``video_restore_tpu_torch/csrc`` (K1
-   ``conv3x3_wgmma.cu`` (``wgmma`` + TMA), ``conv3x3_mma.cu`` on
+   ``conv3x3_wgmma.cu`` (``wgmma`` + TMA), ``conv3x3_bf16x3_wgmma.cu``
+   (fp32 on bf16 ``wgmma``: three parts a value, a producer warpgroup that
+   splits on load), ``conv3x3_mma.cu`` on
    ``mma_tile.cuh``, ``conv3x3_narrow.cu`` and ``conv3x3.cu``, K2
    ``unsharp_rows.cu`` (fp32) and ``unsharp_rows_bf16.cu`` (bf16), both on
    ``unsharp_rows.cuh``, and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
@@ -56,7 +59,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    beside it and ``F.conv2d``; then each conv of a 1080p RDB as the wgmma route runs it
    (c1 .. c4 in blocks) with its TFLOP/s and share of its own bound, the
    RDB on the fma, mma (both forced) and wgmma routes and cuDNN's chain side
-   by side (mma at least 3x fma), and conv_body beside ``F.conv2d``. K1's narrow
+   by side (mma at least 3x fma), and conv_body beside ``F.conv2d``. K1's
+   fp32 route (``conv3x3:bf16x3``): the same single convs in fp32 at odd
+   shapes (B = 2 ragged, below one tile, two tile columns, every act, r1,
+   r1 + r2, ``upsample2``, cin 48, weights written in place between calls,
+   growth-buffer prefixes and ``out`` slices) and a whole fp32 RDB with and without x0,
+   each within ``compare``'s fp32 bound (1e-4 x scale) of plain and of the
+   forced ``fma`` route, neither writing outside a slice; the 1080p fp32
+   RDB per conv (share of six bf16 products a MAC at 989 TFLOP/s) and whole
+   on ``bf16x3``, forced ``fma`` and cuDNN's fp32 chain (TF32 off),
+   ``bf16x3`` at most half of ``fma``'s time; then ``[kernel32]``: conv_body,
+   an SRVGG conv, up1, upconv2 and conv_hr on ``bf16x3``, the fp32 stem and
+   conv_last on ``fma``, K3's ``srvgg_up.cu``, K5's ``rdb_fused_f32.cu``
+   (``VRT_PALLAS=1``) and K6's ``tail_fused.cu`` (``VRT_TAIL_Q=1``) at the
+   paths' shapes, each against plain with its plain, cuDNN fp32 and bound
+   times. K1's narrow
    route (``conv3x3:narrow``): the stems (cin 3 and 12 -> 64, act none,
    PReLU and lrelu, odd shapes, a frame of one pixel, a strided cin-3 view,
    the flagship frame and the tile batch) and ``conv_last`` (64 -> 3, odd
@@ -214,6 +231,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 10d. ``[config2_1080p]``: ``BASELINE.json`` config 2 at its own 1080p,
     RealESRGAN_x4plus through ``--tile-size 512 --tile-overlap 32``
     (seamless, 12 tiles), 2 frames, with the checks of phases 4 and 5;
+10e. ``[main_fp32]`` and ``[config4_fp32]``: the flagship flags and config
+    4 at ``--precision fp32``, 2 frames each, with the checks of phases 4
+    and 5 at 60 dB (K1 by route: 349 ``conv3x3:bf16x3`` and 2
+    ``conv3x3:fma`` per flagship frame, the stem and conv_last, the tail as
+    three K1 launches; 32 + 1 per config-4 frame and K3 once on ``fma``),
+    the peak memory beside ``auto_full_frame``'s estimate at 4 bytes a
+    feature value, and the bf16 kernel path's frames beside them (>= 35
+    dB);
 11. ``[io]``: the pinned ring under stress, the
     native framecodec (it must load) against numpy on an 8K frame, and an
     mp4 clip with audio through the repo's fake ffmpeg: the planes on the
@@ -302,7 +327,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 
 The card's ``nvidia-smi`` line is printed first and again just before the
 per-kernel JSON record, which is the line before the last (``launches`` sums
-the counts of the CLI runs of phases 4, 6-10d, 14-17 and of phase 12, the
+the counts of the CLI runs of phases 4, 6-10e, 14-17 and of phase 12, the
 static-A8 row those of ``bench_rdb``'s int8s run, which the wrapper counts
 under ``rdb_fused_i8``; phase 11's runs are counted and checked on their
 own, and left out of the sums);
@@ -340,6 +365,10 @@ PEAK_FP32_UNFUSED = PEAK_FP32 / 2
 # K2's bf16 rows instance at 1x4320x7680x3, r = 4, before its H100
 # redesign (8 values a thread, one block an SM; NVIDIA H100 80GB HBM3, 700 W)
 K2_BF16_BEFORE_MS = (0.482, 0.490)
+# K1 bf16x3: most error of an fp32 sum over cin channels, as a share of the
+# sum's largest value against float64, per input channel (read on an H100 at
+# 6.9e-8 - 7.4e-8 x cin for cin 16, 64 and 192; cuDNN fp32 0.9e-8 - 2.8e-8 x cin)
+SUM_REL_PER_CIN = 1.5e-7
 
 
 def k2_ops(numel, radius):
@@ -386,6 +415,10 @@ PALLAS = {
     # of its own since the tail is one launch: K1's narrow conv_last kernel
     # runs only in the forced chain of the checks
     "conv3x3:wgmma": "video_restore_tpu/ops/pallas_stripe.py:1963",
+    # K1's fp32 route at --precision fp32, timed on the 1080p RDB: the same
+    # Pallas convs as conv3x3:wgmma (#1-#5, #9, #10, #14-#16, the chain
+    # tail's upconv2 and conv_hr)
+    "conv3x3:bf16x3": "video_restore_tpu/ops/pallas_stripe.py:1963",
 }
 # the hand-written kernel behind each row where a wrapper has two
 # (ops/tail.py::conv3x3_route, ops/rdb.py::rdb_route,
@@ -397,7 +430,7 @@ CUDA_ROUTE = {
     "tail_fused": "wgmma", "srvgg_body": "wgmma", "srvgg_up_fused": "mma",
     "rdb_fused_k5": "wgmma", "rrdb_fused": "wgmma", "conv3x3:wgmma": "wgmma",
     "tail_fused_q": "wgmma", "rdb_fused_i8": "wgmma", "srvgg_body_i8": "wgmma",
-    "rdb_fused_i8 static": "wgmma",
+    "rdb_fused_i8 static": "wgmma", "conv3x3:bf16x3": "bf16x3",
     "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
 }
 SOURCE = {
@@ -426,11 +459,12 @@ SOURCE = {
     "tail_fused_q": "video_restore_tpu_torch/csrc/tail_fused_wgmma.cu",
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_wgmma.cu",
     "conv3x3:wgmma": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
+    "conv3x3:bf16x3": "video_restore_tpu_torch/csrc/conv3x3_bf16x3_wgmma.cu",
 }
 PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
-    "main_postbf16", "config3", "config2_1080p",
+    "main_postbf16", "config3", "config2_1080p", "main_fp32", "config4_fp32",
 )
 # the paths after the face prior's phase: the face pass and the outscale resize
 POST_TAGS = ("faces", "outscale")
@@ -511,7 +545,8 @@ def main(argv=None) -> int:
     entry = spill = source = ""
     # the redesigned sources, whose ptxas lines are repeated under their
     # phase's tag
-    new_sources = {"conv3x3_wgmma.cu": "k1", "rdb_fused_wgmma.cu": "k5", "srvgg_up_mma.cu": "k3",
+    new_sources = {"conv3x3_wgmma.cu": "k1", "conv3x3_bf16x3_wgmma.cu": "k1",
+                   "rdb_fused_wgmma.cu": "k5", "srvgg_up_mma.cu": "k3",
                    "tail_fused_mma.cu": "k6", "tail_fused_wgmma.cu": "k6",
                    "conv3x3_i8_mma.cu": "k4", "conv3x3_i8_wgmma.cu": "k4",
                    "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
@@ -625,6 +660,21 @@ def main(argv=None) -> int:
     H, W, NF, GC = 1080, 1920, 64, 32
     bf = torch.bfloat16
     rows = {}
+
+    @contextlib.contextmanager
+    def forced(route):
+        """Every K1 call of the block on ``route`` where that kernel takes
+        it: ``"fma"`` all, ``"mma"`` those of ``"wgmma"``."""
+        own = tail.conv3x3_route
+
+        def pick(*a, **k):
+            r = own(*a, **k)
+            return route if route == "fma" or r == "wgmma" else r
+        tail.conv3x3_route = pick
+        try:
+            yield
+        finally:
+            tail.conv3x3_route = own
 
     def phase_k1():
         """K1's tensor-core routes: single convs at odd shapes, bf16, each on
@@ -775,21 +825,6 @@ def main(argv=None) -> int:
         k1_stats.update(up1_wgmma_ms=up1_ms["wgmma"], up1_mma_ms=up1_ms["mma"],
                         up1_library_ms=up1_lib)
 
-        @contextlib.contextmanager
-        def forced(route):
-            """Every K1 call of the block on ``route`` where that kernel takes
-            it: ``"fma"`` all, ``"mma"`` those of ``"wgmma"``."""
-            own = tail.conv3x3_route
-
-            def pick(*a, **k):
-                r = own(*a, **k)
-                return route if route == "fma" or r == "wgmma" else r
-            tail.conv3x3_route = pick
-            try:
-                yield
-            finally:
-                tail.conv3x3_route = own
-
         # one 1080p RDB: each conv as the wgmma route runs it (c1 .. c4 in
         # blocks), with its share of its own bound; then the whole RDB on the
         # fma, mma and wgmma routes and cuDNN's chain
@@ -861,6 +896,346 @@ def main(argv=None) -> int:
     k1_stats = {}
     if want("k1", "kernels"):
         phase_k1()
+        torch.cuda.empty_cache()
+
+    def phase_k1_fp32():
+        """K1's fp32 route (``conv3x3:bf16x3``, ``conv3x3_bf16x3_wgmma.cu``:
+        three bf16 parts a value, six ``wgmma`` products a MAC): single convs
+        at odd shapes (B = 2 ragged, below one tile, two tile columns; every
+        act, r1, r1 + r2, upsample2, a last stage of 16 channels, weights
+        written in place between calls; growth-buffer prefixes and ``out`` slices, neither route
+        writing outside the slice) and a whole RDB with and without x0, each
+        within compare's fp32 bound of plain and of the forced fma route; the
+        1080p RDB per conv and whole on bf16x3, forced fma and cuDNN's fp32
+        chain (bf16x3 at most half of fma's time); conv_body, up1, upconv2,
+        conv_hr and an SRVGG conv at the paths' shapes; then the other fp32
+        instances of the fp32 paths (``[kernel32]``: the fma stem and
+        conv_last, K3, K5's ``VRT_PALLAS=1`` RRDB and K6's ``VRT_TAIL_Q=1``
+        tail), each beside its plain version, cuDNN's fp32 chain (TF32 off)
+        and its bound (fp32 bytes over 3.35 TB/s; FMA kernels' operations
+        over 67 TFLOP/s, bf16x3's six products a MAC over 989 TFLOP/s)."""
+        f32 = torch.float32
+        st = k1_stats.setdefault("fp32", {})
+        worst = [0.0]
+
+        def rf(*shape, scale=1.0):
+            return rnd(*shape, scale=scale, dt=f32)
+
+        def one(tag, x, wt, bias, fma_x=None, fma_out=None, **kw):
+            """One fp32 conv on the bf16x3 route against plain and the forced
+            fma route (``fma_x``, ``fma_out``: the views of another buffer to
+            run it on, where x and out are views)."""
+            pk = {k_: (v.clone() if k_ == "out" else v) for k_, v in kw.items()}
+            _build.reset_launches()
+            k = tail.conv3x3(x, wt, bias, counter="check", **kw)
+            torch.cuda.synchronize()
+            got = _build.launches()
+            check(got == {"check": 1, "conv3x3:bf16x3": 1},
+                  f"[k1] fp32 {tag}: launches {got}, expected one on the bf16x3 route")
+            e = compare(f"[k1] fp32 {tag} vs plain", k, tail.conv3x3_plain(x, wt, bias, **pk), f32)
+            mk = dict(kw, out=fma_out)
+            kf = tail.conv3x3(x if fma_x is None else fma_x, wt, bias, counter="check",
+                              route="fma", **mk)
+            ef = compare(f"[k1] fp32 {tag} vs fma", k, kf, f32)
+            worst[0] = max(worst[0], e)
+            log(f"[k1] fp32 {tag} bf16x3 err={e:.3g} vs_fma_err={ef:.3g}")
+            return k
+
+        b, h, w = 2, 37, 53
+        for shp in ((b, h, w), (1, 5, 7), (6, 19, 70)):
+            x = rf(*shp, 64)
+            wt, bias = rf(3, 3, 64, 64, scale=0.05), rf(64, scale=0.1)
+            al = rf(64, scale=0.3)
+            r1, r2 = rf(*shp, 64), rf(*shp, 64)
+            one(f"{shp} 64->64 none", x, wt, bias)
+            one(f"{shp} 64->64 lrelu", x, wt, bias, act="lrelu")
+            one(f"{shp} 64->64 prelu", x, wt, bias, act="prelu", alpha=al)
+            one(f"{shp} 64->64 r1", x, wt, bias, r1=r1, s1=0.2)
+            one(f"{shp} 64->64 r1+r2", x, wt, bias, r1=r1, s1=0.2, r2=r2, s2=0.2)
+            # the weights' kept parts follow a write in place
+            wk = wt.clone()
+            one(f"{shp} 64->64 lrelu, parts kept", x, wk, bias, act="lrelu")
+            wk.mul_(-0.5)
+            one(f"{shp} 64->64 lrelu, weights written in place", x, wk, bias, act="lrelu")
+            one(f"{shp} 64->64 upsample2 lrelu", x, wt, bias, act="lrelu", upsample2=True)
+            one(f"{shp} 64->32 upsample2 lrelu", x, rf(3, 3, 64, 32, scale=0.05),
+                bias[:32].clone(), act="lrelu", upsample2=True)
+            one(f"{shp} 192->64 upsample2 lrelu", rf(*shp, 192), rf(3, 3, 192, 64, scale=0.03),
+                bias, act="lrelu", upsample2=True)
+            one(f"{shp} 64->32 none", x, rf(3, 3, 64, 32, scale=0.05), bias[:32].clone())
+            # cin 48 of a 64-channel buffer: three stages of 16
+            one(f"{shp} 48->32 lrelu", x[..., :48], rf(3, 3, 48, 32, scale=0.05),
+                bias[:32].clone(), act="lrelu")
+        # the fp32 RDB's layout: conv k reads the prefix of a 192-channel
+        # buffer (a pixel of 768 bytes) and writes its 32 channels at their
+        # offset in the same buffer, on both routes
+        grow = rf(b, h, w, 192)
+        rest = torch.ones(192, dtype=torch.bool, device=dev)
+        for cin in (64, 96, 128, 160):
+            wt, bias = rf(3, 3, cin, 32, scale=0.03), rf(32, scale=0.05)
+            gk, gm = grow.clone(), grow.clone()
+            one(f"growth buffer {cin}->32 into [{cin}:{cin + 32}]", gk[..., :cin], wt, bias,
+                act="lrelu", out=gk[..., cin : cin + 32], fma_x=gm[..., :cin],
+                fma_out=gm[..., cin : cin + 32])
+            rest[:] = True
+            rest[cin : cin + 32] = False
+            for route, g_ in (("bf16x3", gk), ("fma", gm)):
+                check(torch.equal(g_[..., rest], grow[..., rest]),
+                      f"fp32 growth buffer {cin}->32: the {route} kernel wrote outside its slice")
+        wt, bias = rf(3, 3, 192, 64, scale=0.03), rf(64, scale=0.05)
+        one("growth buffer 192->64 r1", grow, wt, bias, r1=grow[..., :64], s1=0.2)
+        one("growth buffer 192->64 r1+r2", grow, wt, bias, r1=grow[..., :64], s1=0.2,
+            r2=rf(b, h, w, 64), s2=0.2)
+        del grow
+        ws, bs = rdb_weights(NF, GC, f32)
+        for shp in ((b, h, w), (6, 19, 70)):
+            xr = rf(*shp, NF)
+            for x0 in (None, rf(*shp, NF)):
+                _build.reset_launches()
+                kr = stripe.rdb_fused(xr, ws, bs, x0)
+                torch.cuda.synchronize()
+                got = _build.launches()
+                check(got == {"rdb_fused": 5, "conv3x3:bf16x3": 5}, f"[k1] fp32 RDB launches {got}")
+                e = compare("[k1] fp32 RDB", kr, stripe.rdb_fused_plain(xr, ws, bs, x0), f32)
+                with forced("fma"):
+                    ef = compare("[k1] fp32 RDB vs fma", kr, stripe.rdb_fused(xr, ws, bs, x0), f32)
+                worst[0] = max(worst[0], e)
+                log(f"[k1] fp32 RDB {shp} x0={x0 is not None} bf16x3 err={e:.3g} vs_fma_err={ef:.3g}")
+
+        # precision: a single product (one nonzero input value, all three
+        # parts in play) is fp32's own to 2^-22; a sum of cin channels within
+        # 1.5e-7 x cin of its largest value against float64 (the tensor
+        # cores' fp32 adds of the k16 groups: read at about 7e-8 x cin, so a
+        # change that doubles it fails), beside cuDNN's fp32 (TF32 off) and
+        # the six products summed in float64
+        for cout in (32, 64):
+            for val in (1.0 + 2.0**-9 + 2.0**-18, 0.7390851332151607):
+                xd = torch.zeros(1, 9, 9, 16, dtype=torch.float64)
+                xd[0, 4, 4, 3] = val
+                wd = (rf(3, 3, 16, cout, scale=0.05)).double().cpu()
+                got = tail.conv3x3(xd.float().to(dev), wd.float().to(dev),
+                                   torch.zeros(cout, device=dev), counter="check").double().cpu()
+                ref = conv_ref64(xd, wd, torch.zeros(cout, dtype=torch.float64))
+                rel = (got - ref).abs().max().item() / ref.abs().max().item()
+                check(rel <= 2.0**-22, f"[k1] fp32 one product {val!r} cout {cout}: relative "
+                      f"error {rel:.3g} > 2^-22 (a part's product is missing or wrong)")
+                log(f"[k1] fp32 precision: one product ({val!r}, cout {cout}) relative error "
+                    f"{rel:.3g}")
+            for cin in (16, 64, 192):
+                xd, wd, bd = rf(1, 32, 64, cin), rf(3, 3, cin, cout, scale=0.05), rf(cout, scale=0.1)
+                ref = conv_ref64(xd, wd, bd)
+                sc = ref.abs().max().item()
+                got = tail.conv3x3(xd, wd, bd, counter="check").double().cpu()
+                lib = F.conv2d(xd.permute(0, 3, 1, 2), wd.permute(3, 2, 0, 1), bd,
+                               padding=1).permute(0, 2, 3, 1).double().cpu()
+                xp_, wp_ = tail.split3(xd).double().cpu(), tail.split3(wd).double().cpu()
+                six = sum(F.conv2d(xp_[i].permute(0, 3, 1, 2), wp_[j].permute(3, 2, 0, 1),
+                                   padding=1) for i, j in ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1),
+                                                           (0, 0))).permute(0, 2, 3, 1) + bd.double().cpu()
+                errs = [(t - ref).abs().max().item() / sc for t in (got, lib, six)]
+                limit = SUM_REL_PER_CIN * cin
+                st.setdefault("precision", []).append(dict(cin=cin, cout=cout, bf16x3=errs[0],
+                                                           cudnn=errs[1], six_f64=errs[2],
+                                                           limit=limit))
+                log(f"[k1] fp32 precision cin {cin} -> {cout} (1x32x64), max error over the "
+                    f"largest value against float64: bf16x3 {errs[0]:.3g} (limit {limit:.3g}), "
+                    f"cuDNN fp32 {errs[1]:.3g}, the six products summed in float64 "
+                    f"{errs[2]:.3g}")
+                check(errs[0] <= limit, f"[k1] fp32 sum of cin {cin} -> {cout}: error "
+                      f"{errs[0]:.3g} of the largest value > {limit:.3g} (1.5e-7 x cin)")
+
+        def bound32(nbytes, ops, x3):
+            """(ms, by) of fp32 work: its bytes, and its operations at 67
+            TFLOP/s (FMA kernels) or six bf16 products a MAC at 989 (bf16x3)."""
+            t_o = (6 * ops / PEAK_BF16) if x3 else ops / PEAK_FP32
+            t_b = nbytes / PEAK_BYTES
+            return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+
+        # the 1080p RDB: each conv on bf16x3 in the growth buffer, then the
+        # whole RDB on bf16x3, on forced fma and as cuDNN's fp32 chain
+        xb = rf(1, H, W, NF)
+        gb = torch.empty(1, H, W, NF + 4 * GC, dtype=f32, device=dev)
+        gb[..., :NF] = xb
+        out5 = torch.empty(1, H, W, NF, dtype=f32, device=dev)
+        convs = []
+        for k_ in range(5):
+            cin, cout = NF + k_ * GC, (GC if k_ < 4 else NF)
+            kw = (dict(act="lrelu", out=gb[..., cin : cin + cout]) if k_ < 4
+                  else dict(out=out5, r1=gb[..., :NF], s1=0.2))
+            ms = timed(lambda: tail.conv3x3(gb[..., :cin], ws[k_], bs[k_], counter="check", **kw),
+                       5)
+            ops = 2 * H * W * 9 * cin * cout
+            bms, by = bound32(H * W * 4 * (cin + cout + (NF if k_ == 4 else 0)), ops, True)
+            convs.append(dict(ms=ms, bound_ms=bms))
+            log(f"[k1] fp32 conv{k_ + 1} {cin}->{cout} 1x{H}x{W} bf16x3: {ms:.3f} ms, "
+                f"{ops / ms / 1e9:.1f} TFLOP/s useful, {100 * bms / ms:.0f}% of its bound "
+                f"{bms:.3f} ms ({by}: six bf16 products a MAC)")
+        del gb, out5
+        k_x3 = stripe.rdb_fused(xb, ws, bs)
+        x3_ms = timed(lambda: stripe.rdb_fused(xb, ws, bs), 5)
+        p_rdb = stripe.rdb_fused_plain(xb, ws, bs)
+        e_p = compare("[k1] fp32 RDB 1080p vs plain", k_x3, p_rdb, f32)
+        p_ms = timed(lambda: stripe.rdb_fused_plain(xb, ws, bs), 2)
+        del p_rdb
+        with forced("fma"):
+            _build.reset_launches()
+            k_fma = stripe.rdb_fused(xb, ws, bs)
+            got = _build.launches()
+            check(got == {"rdb_fused": 5, "conv3x3:fma": 5}, f"[k1] fp32 forced fma: {got}")
+            fma_ms = timed(lambda: stripe.rdb_fused(xb, ws, bs), 2)
+        e_f = compare("[k1] fp32 RDB 1080p vs fma", k_x3, k_fma, f32)
+        del k_x3, k_fma
+        rdb_in = [rf(1, NF + k_ * GC, H, W).contiguous(memory_format=torch.channels_last)
+                  for k_ in range(5)]
+        rdb_w = [w_.permute(3, 2, 0, 1).contiguous() for w_ in ws]
+        lib_ms = timed(lambda: [F.conv2d(a, w_, b_, padding=1)
+                                for a, w_, b_ in zip(rdb_in, rdb_w, bs)], 3)
+        del rdb_in
+        rdb_ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
+        rdb_bytes = 2 * H * W * NF * 4 + sum(t.numel() * 4 for t in (*ws, *bs))
+        rdb_bms, rdb_by = bound32(rdb_bytes, rdb_ops, True)
+        log(f"[k1] fp32 rdb_fused 1x{H}x{W}x64: bf16x3 {x3_ms:.3f} ms ({fma_ms / x3_ms:.2f}x fma, "
+            f"{rdb_ops / x3_ms / 1e9:.1f} TFLOP/s useful, {100 * rdb_bms / x3_ms:.0f}% of its "
+            f"bound {rdb_bms:.3f} ms ({rdb_by}: six bf16 products a MAC; fp32 FMAs at 67 TFLOP/s: "
+            f"{rdb_ops / PEAK_FP32 * 1e3:.3f} ms)), fma (forced) {fma_ms:.3f} ms, cuDNN's fp32 "
+            f"chain of 5 (TF32 off) {lib_ms:.3f} ms, plain {p_ms:.3f} ms; max |bf16x3 - plain| "
+            f"{e_p:.3g}, max |bf16x3 - fma| {e_f:.3g}")
+        check(x3_ms * 2 <= fma_ms,
+              f"[k1] the fp32 RDB on bf16x3 ({x3_ms:.3f} ms) is not at most half of fma's ({fma_ms:.3f})")
+        rows["conv3x3:bf16x3"] = dict(max_abs_err=e_p, ms=x3_ms, plain_ms=p_ms, bound_ms=rdb_bms,
+                                      bound_by=rdb_by, library_ms=lib_ms)
+        st.update(rdb_bf16x3_ms=x3_ms, rdb_fma_ms=fma_ms, rdb_library_ms=lib_ms, rdb_plain_ms=p_ms,
+                  rdb_bound_ms=rdb_bms, rdb_fp32_fma_floor_ms=rdb_ops / PEAK_FP32 * 1e3,
+                  conv_bf16x3=convs)
+        del xb
+
+        # the other bf16x3 shapes of the paths, and the fp32 instances of the
+        # other kernels they launch (the stem and conv_last on fma, K3) or
+        # that their knobs select (K5 at VRT_PALLAS=1, K6 at VRT_TAIL_Q=1)
+        table = st.setdefault("rows", {})
+
+        def row32(name, shape, k_fn, p_fn, lib_fn, nbytes, ops, x3, per_frame, reps=3):
+            """One fp32 instance against plain; a bf16x3 one also against the
+            forced fma route (``k_fn(route)``), both timed."""
+            k = k_fn(None) if x3 else k_fn()
+            e = compare(f"[kernel32] {name}", k, p_fn(), f32)
+            fma = ""
+            if x3:
+                k = k.clone()
+                ef = compare(f"[kernel32] {name} vs fma", k, k_fn("fma"), f32)
+                fms = timed(lambda: k_fn("fma"), 1)
+                fma = f", fma (forced) {fms:.3f} ms, err vs fma {ef:.3g}"
+            del k
+            torch.cuda.synchronize()
+            ms = timed(k_fn if not x3 else (lambda: k_fn(None)), reps)
+            pms = timed(p_fn, 1)
+            lms = timed(lib_fn, reps)
+            bms, by = bound32(nbytes, ops, x3)
+            table[name] = dict(shape=shape, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
+                               bound_by=by, max_abs_err=e, launches_per_frame=per_frame,
+                               fma_ms=fms if x3 else None)
+            log(f"[kernel32] {name} {shape}: kernel {ms:.3f} ms, plain {pms:.3f} ms, library "
+                f"{lms:.3f} ms, bound {bms:.3f} ms ({by}), {per_frame}, err={e:.3g}{fma}")
+            torch.cuda.empty_cache()
+
+        def nchw(x_):
+            return x_.permute(0, 3, 1, 2)
+
+        def oihw(w_):
+            return w_.permute(3, 2, 0, 1).contiguous()
+
+        x64, res = rf(1, H, W, NF), rf(1, H, W, NF)
+        wc, bc = rf(3, 3, NF, NF, scale=0.05), rf(NF, scale=0.1)
+        row32("conv_body + res (bf16x3)", f"1x{H}x{W}x64",
+              lambda r: tail.conv3x3(x64, wc, bc, r1=res, route=r, counter="check"),
+              lambda: tail.conv3x3_fused_plain(x64, wc, bc, res),
+              lambda: F.conv2d(nchw(x64), oihw(wc), bc, padding=1),
+              H * W * NF * 4 * 3, 2 * H * W * 9 * NF * NF, True, "1 a flagship frame", 5)
+        al = (rf(NF, scale=0.2) + 0.2)
+        row32("SRVGG body conv, prelu (bf16x3)", f"1x{H}x{W}x64",
+              lambda r: tail.conv3x3(x64, wc, bc, act="prelu", alpha=al, route=r,
+                                     counter="check"),
+              lambda: tail.conv3x3_plain(x64, wc, bc, act="prelu", alpha=al),
+              lambda: F.prelu(F.conv2d(nchw(x64), oihw(wc), bc, padding=1), al),
+              H * W * NF * 4 * 2, 2 * H * W * 9 * NF * NF, True, "32 a config-4 frame", 5)
+        x2 = rf(1, 2 * H, 2 * W, NF)
+        up_in = nchw(x2)  # the upsampled frame, as cuDNN reads it
+        row32("up1 (bf16x3)", f"1x{H}x{W}x64 -> 1x{2 * H}x{2 * W}x64",
+              lambda r: tail.conv3x3(x64, wc, bc, act="lrelu", upsample2=True, route=r,
+                                     counter="check"),
+              lambda: tail.up1_fused_plain(x64, wc, bc),
+              lambda: F.conv2d(up_in, oihw(wc), bc, padding=1),
+              H * W * NF * 4 * 5, 4 * 2 * H * W * 9 * NF * NF, True, "1 a flagship frame")
+        del up_in
+        up2_out = torch.empty(1, 4 * H, 4 * W, NF, dtype=f32, device=dev)
+        row32("upconv2 (bf16x3)", f"1x{2 * H}x{2 * W}x64 -> 1x{4 * H}x{4 * W}x64",
+              lambda r: tail.conv3x3(x2, wc, bc, act="lrelu", upsample2=True, out=up2_out,
+                                     route=r, counter="check"),
+              lambda: tail.conv3x3_plain(x2, wc, bc, act="lrelu", upsample2=True),
+              lambda: F.conv2d(nchw(up2_out), oihw(wc), bc, padding=1),
+              4 * H * W * NF * 4 * 5, 16 * 2 * H * W * 9 * NF * NF, True, "1 a flagship frame")
+        del x2
+        x8 = up2_out  # an 8K 64-channel frame for conv_hr and conv_last
+        wl, bl = rf(3, 3, NF, 3, scale=0.05), rf(3, scale=0.1)
+        hr_out = torch.empty_like(x8)
+        row32("conv_hr (bf16x3)", f"1x{4 * H}x{4 * W}x64",
+              lambda r: tail.conv3x3(x8, wc, bc, act="lrelu", out=hr_out, route=r,
+                                     counter="check"),
+              lambda: tail.conv3x3_plain(x8, wc, bc, act="lrelu"),
+              lambda: F.conv2d(nchw(x8), oihw(wc), bc, padding=1),
+              16 * H * W * NF * 4 * 2, 16 * 2 * H * W * 9 * NF * NF, True, "1 a flagship frame")
+        del hr_out
+        row32("conv_last (fma)", f"1x{4 * H}x{4 * W}x64 -> 3",
+              lambda: tail.conv3x3(x8, wl, bl, counter="check"),
+              lambda: tail.conv3x3_plain(x8, wl, bl),
+              lambda: F.conv2d(nchw(x8), oihw(wl), bl, padding=1),
+              16 * H * W * (NF + 3) * 4, 16 * 2 * H * W * 9 * NF * 3, False, "1 a flagship frame")
+        del x8, up2_out
+        xs3 = rf(1, H, W, 3)
+        wsm, bsm = rf(3, 3, 3, NF, scale=0.2), rf(NF, scale=0.1)
+        row32("stem (fma)", f"1x{H}x{W}x3 -> 64",
+              lambda: tail.conv3x3_fused(xs3, wsm, bsm),
+              lambda: tail.conv3x3_fused_plain(xs3, wsm, bsm),
+              lambda: F.conv2d(nchw(xs3), oihw(wsm), bsm, padding=1),
+              H * W * (3 + NF) * 4, 2 * H * W * 9 * 3 * NF, False,
+              "1 a flagship and 1 a config-4 frame", 10)
+        R = 4
+        wo, bo = rf(3, 3, NF, 3 * R * R, scale=0.05), rf(3 * R * R, scale=0.1)
+        xin = rf(1, H, W, 3).abs()
+        row32("srvgg_up_fused K3 (fma, srvgg_up.cu)", f"1x{H}x{W}x64 -> 1x{R * H}x{R * W}x3",
+              lambda: srvgg.srvgg_up_fused(x64, wo, bo, xin, R),
+              lambda: srvgg.srvgg_up_fused_plain(x64, wo, bo, xin, R),
+              lambda: F.conv2d(nchw(x64), oihw(wo), bo, padding=1),
+              H * W * (NF + 3 + 3 * R * R) * 4, 2 * H * W * 9 * NF * 3 * R * R, False,
+              "1 a config-4 frame")
+        rrdb_w = [rdb_weights(NF, GC, f32) for _ in range(3)]
+        rrdb_w_oihw = [[oihw(w_) for w_ in ws_] for ws_, _ in rrdb_w]
+        ins = [rf(1, NF + k_ * GC, H, W).contiguous(memory_format=torch.channels_last)
+               for k_ in range(5)]
+        row32("rrdb_fused K5 (fma, rdb_fused_f32.cu)", f"1x{H}x{W}x64, 3 RDBs + residual",
+              lambda: rdb.rrdb_fused(x64, rrdb_w), lambda: rdb.rrdb_fused_plain(x64, rrdb_w),
+              lambda: [F.conv2d(a, w_, b_, padding=1) for (_, bs_), wo_ in zip(rrdb_w, rrdb_w_oihw)
+                       for a, w_, b_ in zip(ins, wo_, bs_)],
+              2 * H * W * NF * 4, 3 * rdb_ops, False, "23 a VRT_PALLAS=1 fp32 frame", 2)
+        del ins
+        tw = tail_weights(NF, f32)
+        x2 = rf(1, 2 * H, 2 * W, NF)
+        up8 = rf(1, NF, 4 * H, 4 * W).contiguous(memory_format=torch.channels_last)
+        tw_oihw = [oihw(tw[0]), oihw(tw[2]), oihw(tw[4])]
+        row32("tail_fused_q K6 (fma, tail_fused.cu)",
+              f"1x{2 * H}x{2 * W}x64 -> 1x{4 * H}x{4 * W}x3",
+              lambda: tail.tail_fused_q(x2, *tw), lambda: tail.tail_fused_q_plain(x2, *tw),
+              lambda: [F.conv2d(up8, tw_oihw[0], tw[1], padding=1),
+                       F.conv2d(up8, tw_oihw[1], tw[3], padding=1),
+                       F.conv2d(up8, tw_oihw[2], tw[5], padding=1)],
+              4 * H * W * NF * 4 + 16 * H * W * 3 * 4,
+              16 * 2 * H * W * 9 * NF * (2 * NF + 3), False, "1 a VRT_TAIL_Q=1 fp32 frame", 2)
+        del x2, up8, x64, res
+        st["max_err_odd_shapes"] = worst[0]
+        torch.cuda.empty_cache()
+
+    if want("k1", "kernels"):
+        phase_k1_fp32()
         torch.cuda.empty_cache()
 
     def phase_k1n():
@@ -2416,14 +2791,16 @@ def main(argv=None) -> int:
         return dict(mean, sum=total, loop_compute_ms=loops["compute"], loop_side_ms=loops["side"])
 
     def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False,
-              vs_default=None, equal_default=False, post_split=False, rgb_check=False):
+              vs_default=None, equal_default=False, post_split=False, rgb_check=False,
+              min_db=45.0):
         """One main path: the CLI's config through ``VideoRestorer`` with
         the launch counters reset before and read after (the y4m sink takes
         planar I420 from the device), then the kernel path (RGB and I420
         out) and the plain path on the decoded frames: the file's planes
         equal the I420 kernel path's byte for byte, and the RGB kernel path
-        is held to the plain one. With ``vs_bf16``, the bf16 kernel path,
-        which the int8 output must stay within 35 dB of; with
+        is held to the plain one (``min_db``: the least u8 PSNR of a frame,
+        45 dB; the fp32 paths ask 60). With ``vs_bf16``, the bf16 kernel path,
+        which the int8 or fp32 output must stay within 35 dB of; with
         ``vs_default``, the name of the knob that is set, the kernel path of
         the default route without that knob, which must stay within 45 dB
         (with ``equal_default``: equal it byte for byte); with ``post_split``, the kernel path's step by stage,
@@ -2484,12 +2861,15 @@ def main(argv=None) -> int:
         log(f"[{tag}] launches {json.dumps(counts)}")
         frames_ = max(cfg.frames_per_batch, 1)
         in_memory = restorer._tail_in_memory()
-        est = tiles_mod.full_frame_bytes(h, w, s, frames=frames_, tail_in_memory=in_memory)
+        vbytes = restorer._value_bytes()
+        est = tiles_mod.full_frame_bytes(h, w, s, frames=frames_, tail_in_memory=in_memory,
+                                         value_bytes=vbytes)
         jax_est = tiles_mod.full_frame_bytes(h, w, s, frames=frames_)
         log(
             f"[{tag}] auto_full_frame estimate for {frames_} frame(s) of {w}x{h}: "
             f"{est / 2**30:.2f} GiB (tail intermediates in device memory: {in_memory}; "
-            f"without them {jax_est / 2**30:.2f}); measured peak {peak:.2f} GiB"
+            f"{vbytes} bytes a feature value; the JAX estimate {jax_est / 2**30:.2f}); "
+            f"measured peak {peak:.2f} GiB"
             + ("" if grid.n_tiles == 1 else " (tiled: the estimate is of a full frame)")
         )
         model = restorer.model
@@ -2533,15 +2913,17 @@ def main(argv=None) -> int:
             )
             del ups
             torch.cuda.empty_cache()
+        vs_plain_db = []
         for i in range(n_frames):
             a, b_ = outs[False][i], outs[True][i]
             psnr = psnr_u8(a, b_)
+            vs_plain_db.append(psnr)
             d = np.abs(a.astype(np.int32) - b_.astype(np.int32))
             log(
                 f"[{tag}] frame {i}: kernel vs plain PSNR {psnr:.2f} dB, "
                 f"{100 * (d > 0).mean():.3f}% of values differ, max {d.max()}"
             )
-            check(psnr >= 45.0, f"[{tag}] frame {i}: kernel vs plain {psnr:.2f} dB < 45")
+            check(psnr >= min_db, f"[{tag}] frame {i}: kernel vs plain {psnr:.2f} dB < {min_db:g}")
             check(
                 np.array_equal(outs["yuv"][i], out_planes[i]),
                 f"[{tag}] frame {i}: the CLI's planes != the I420 kernel step's",
@@ -2556,6 +2938,7 @@ def main(argv=None) -> int:
         path_stats[tag] = dict(
             wall_ms_per_frame=1e3 * st.wall_s / n_frames, fps=st.fps,
             step_ms=step_ms[False], plain_step_ms=step_ms[True], peak_gib=peak,
+            estimate_gib=est / 2**30, vs_plain_db=vs_plain_db,
             yuv_step_ms=step_ms["yuv"], fetch_ms=per_frame_ms["fetch"],
             encode_ms=per_frame_ms["encode"], stages_s=st.stages,
         )
@@ -2588,9 +2971,10 @@ def main(argv=None) -> int:
                                               fetch_ms=rgb_ms["fetch"], encode_ms=rgb_ms["encode"])
         if vs_bf16:
             dbs = [psnr_u8(a, b_) for a, b_ in zip(outs[False], outs["bf16"])]
-            log(f"[{tag}] int8 vs bf16 kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
-            check(min(dbs) >= 35.0, f"[{tag}] int8 vs bf16 {min(dbs):.2f} dB < 35")
-            path_stats[tag].update(bf16_step_ms=step_ms["bf16"], int8_vs_bf16_db=dbs)
+            pr = cfg.precision
+            log(f"[{tag}] {pr} vs bf16 kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
+            check(min(dbs) >= 35.0, f"[{tag}] {pr} vs bf16 {min(dbs):.2f} dB < 35")
+            path_stats[tag].update({"bf16_step_ms": step_ms["bf16"], f"{pr}_vs_bf16_db": dbs})
         if vs_default:
             dbs = [psnr_u8(a, b_) for a, b_ in zip(outs[False], outs["default"])]
             log(f"[{tag}] vs the default (no {vs_default}) kernel path PSNR per frame: {', '.join(f'{d:.2f}' for d in dbs)} dB")
@@ -2642,6 +3026,13 @@ def main(argv=None) -> int:
     rrdb_i8_call = {
         "conv3x3_fused": 2, "act_amax": 1, "rdb_fused_i8": n_rdb,
         "conv3x3_i8:wgmma": n_rdb, "up1_fused": 1, **TAIL_ONE, **k1_routes(2, 0, 1, 0),
+    }
+    # the fp32 flagship: every wide conv on K1's bf16x3 route (345 dense-block
+    # convs, conv_body, up1, the chain tail's upconv2 and conv_hr), the stem
+    # and conv_last on fma, the tail as three K1 launches
+    rrdb_fp32_call = {
+        "conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1, "tail_fused": 3,
+        "conv3x3:bf16x3": n_rdb + 4, "conv3x3:fma": 2,
     }
     # K2 of an enhanced frame: the sharpen stage on the rows route
     K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1, "unsharp_fused:rows:fp32": 1}
@@ -2725,6 +3116,15 @@ def main(argv=None) -> int:
         # phase 10d: BASELINE.json config 2 at its own 1080p (12 tiles)
         ("config2_1080p", (H, W, 2), ["--model", "RealESRGAN_x4plus"] + tiled,
          rrdb_call, is_tiled("bf16"), 12, None, {}),
+        # phase 10e: --precision fp32, the flagship and config 4, 2 frames
+        # each, held to their plain fp32 paths at 60 dB, the bf16 path beside
+        ("main_fp32", (H, W, 2), flagship + ["--precision", "fp32"],
+         {**rrdb_fp32_call, **K2_ROWS}, is_flagship("fp32"), 1, None,
+         dict(vs_bf16=True, min_db=60.0)),
+        ("config4_fp32", (H, W, 2), config4 + ["--precision", "fp32"],
+         {"conv3x3_fused": 1, "srvgg_body": v3.num_conv, "conv3x3:bf16x3": v3.num_conv,
+          "conv3x3:fma": 1, "srvgg_up_fused": 1, "srvgg_up_fused:fma": 1},
+         is_config4("fp32"), 1, None, dict(vs_bf16=True, min_db=60.0)),
     )
     check(tuple(p_[0] for p_ in PATHS) == PATH_TAGS, "path tags")
 

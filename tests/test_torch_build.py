@@ -1,4 +1,4 @@
-"""The kernel library's build and the K2, K1 and K5 probes, on a machine without nvcc.
+"""The kernel library's build and the K2, K1 (bf16 and fp32) and K5 probes, on a machine without nvcc.
 
 ``ops/_build.py`` starts one ``nvcc`` per source, all together, then links;
 ``build.log`` gives each source's wall seconds, so a run shows which source
@@ -62,6 +62,7 @@ def test_the_build_times_each_source(fake_nvcc):
     secs = _build.compile_seconds((_build.BUILD_DIR / "build.log").read_text())
     assert list(secs) == list(_build.SOURCES)
     assert "conv3x3_wgmma.cu" in secs  # K1's Hopper route, its own nvcc
+    assert "conv3x3_bf16x3_wgmma.cu" in secs  # K1's fp32 route, its own nvcc beside it
     assert "rdb_fused_wgmma.cu" in secs  # K5's Hopper route, its own nvcc
     # K5's fp32-FMA instances, each its own nvcc beside the entry points
     assert {"rdb_fused.cu", "rdb_fused_f32.cu", "rdb_fused_bf16.cu",
@@ -208,10 +209,65 @@ def test_the_k1_probe_bounds():
     assert probe_k1.conv_bound_ms(shape, 64, 64, True) == pytest.approx((0.2377, "bytes"), abs=1e-4)
 
 
+def test_the_k1_probe_builds_its_fp32_variants():
+    """``--dtype fp32``: the fp32-FMA source as shipped first, then the
+    bf16x3 source's variants; every define is one of its switches."""
+    builds = probe_k1.fp32_builds()
+    assert builds[0] == ("fma", "conv3x3.cu", ())
+    assert [b[0] for b in builds[1:]] == [n for n, _ in probe_k1.FP32_VARIANTS]
+    assert {src for _, src, _ in builds[1:]} == {"conv3x3_bf16x3_wgmma.cu"}
+    extra = [probe_k1.parse_variant("r2=-DVR_X3_ROWS32=2")]
+    assert [b[0] for b in probe_k1.fp32_builds(extra, only=["shipped", "r2"])] == [
+        "fma", "shipped", "r2"]
+    text = (_build.CSRC / "conv3x3_bf16x3_wgmma.cu").read_text()
+    for _, defs in probe_k1.FP32_VARIANTS:
+        for d in defs:
+            assert d[2:].split("=")[0] in text
+    for name in ("VR_X3_ROWS32", "VR_X3_ROWS64"):
+        assert f"#define {name} " in text
+
+
+@pytest.mark.parametrize("source,variant,bad", [
+    ("conv3x3_bf16x3_wgmma.cu", "s3=-DVR_X3_STAGES=3", ["-DVR_X3_STAGES=3"]),
+    ("conv3x3_bf16x3_wgmma.cu", "r2=-DVR_X3_ROWS32=2,-DVR_PROBE_NO_MMA", []),
+    ("conv3x3_wgmma.cu", "deep=-DVR_WG_STAGES=6,-DVR_WG_ROWS=1,-DVR_WG_ROW=1",
+     ["-DVR_WG_ROW=1"]),
+])
+def test_the_k1_probe_refuses_a_define_its_source_never_reads(source, variant, bad):
+    """A misspelt knob would rebuild the shipped kernel under another name:
+    ``--variant`` names only macros the source (or a header it includes)
+    defines or tests."""
+    assert probe_k1.unknown_defines(source, [probe_k1.parse_variant(variant)]) == bad
+    own = probe_k1.FP32_VARIANTS if "bf16x3" in source else probe_k1.WGMMA_VARIANTS
+    assert probe_k1.unknown_defines(source, own) == []
+    if bad:  # refused before anything is built
+        args = ["--variant", variant] + (["--dtype", "fp32"] if "bf16x3" in source
+                                         else ["--route", "wgmma"])
+        with pytest.raises(SystemExit) as e:
+            probe_k1.main(args)
+        assert e.value.code == 2
+
+
+def test_the_k1_probe_fp32_bounds():
+    """The fp32 RDB's bound at 1x1080x1920: six bf16 products a MAC at 989
+    TFLOP/s, 6.03 ms for the five convs, each set by its operations (its
+    fp32 bytes are less); up1 counts x once at the coarse grid."""
+    shape = (1, 1080, 1920)
+    b = [probe_k1.fp32_bound_ms(shape, 64 + 32 * k, 32, False) for k in range(4)]
+    b.append(probe_k1.fp32_bound_ms(shape, 192, 64, True))
+    assert [by for _, by in b] == ["operations"] * 5
+    assert [round(t, 3) for t, _ in b] == [0.464, 0.696, 0.927, 1.159, 2.782]
+    assert round(sum(t for t, _ in b), 3) == 6.029
+    t, by = probe_k1.fp32_bound_ms((1, 2160, 3840), 64, 64, False, up2=True)
+    assert by == "operations" and round(t, 3) == 3.71
+
+
 def test_the_k1_probe_needs_the_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the probe would time it")
     assert probe_k1.main(["--route", "wgmma", "--quick"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert probe_k1.main(["--dtype", "fp32", "--quick"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
 
 

@@ -1,10 +1,12 @@
 """Which of K1's routes each conv of the port takes on the card, and the
 full-frame memory estimate with the chain tail counted.
 
-K1 is one function behind four routes of hand-written CUDA kernels:
+K1 is one function behind five routes of hand-written CUDA kernels:
 ``"wgmma"`` (``csrc/conv3x3_wgmma.cu``, Hopper's ``wgmma`` fed by TMA, or,
 for the tensor-core widths read through nearest 2x (up1, upconv2), by its
-producer warpgroup's copies at the fine grid), ``"mma"``
+producer warpgroup's copies at the fine grid), ``"bf16x3"``
+(``csrc/conv3x3_bf16x3_wgmma.cu``: the same widths in fp32, on three bf16
+parts a value), ``"mma"``
 (``csrc/conv3x3_mma.cu``, ``mma.sync``: forced beside it), ``"narrow"``
 (``csrc/conv3x3_narrow.cu``: the bf16 stems and conv_last) and ``"fma"``
 (``csrc/conv3x3.cu``, fp32 FMAs). ``ops/tail.py::conv3x3_route`` chooses
@@ -14,7 +16,8 @@ a tiny frame in bf16 through the plain versions while a recorder asks the
 route of each K1 call. The numbers of the split are the ones the chip smoke
 test asserts on the card (347 ``wgmma`` + 1 ``narrow`` per flagship frame,
 no ``mma``, no ``fma``; the tail is one launch of its own kernel,
-``tests/test_torch_k6_route.py``).
+``tests/test_torch_k6_route.py``; at fp32 349 ``bf16x3`` and 2 ``fma``, the
+stem and conv_last, with the tail as three K1 launches).
 
 ``auto_full_frame``: equal to the JAX function at its default (held in
 ``test_torch_tiles.py``); with ``tail_in_memory`` it also counts the two
@@ -49,7 +52,17 @@ BF, F32 = torch.bfloat16, torch.float32
         (BF, 128, 32, True, "wgmma"),
         (BF, 160, 32, True, "wgmma"),  # RDB conv4: 10 k16 steps
         (BF, 192, 64, True, "wgmma"),  # RDB conv5
-        (F32, 64, 64, True, "fma"),  # fp32: the tight checks
+        (F32, 64, 64, True, "bf16x3"),  # fp32 conv_body, up1, upconv2, conv_hr, SRVGG body
+        (F32, 64, 32, True, "bf16x3"),  # fp32 RDB conv1
+        (F32, 160, 32, True, "bf16x3"),
+        (F32, 192, 64, True, "bf16x3"),  # fp32 RDB conv5
+        (F32, 3, 64, True, "fma"),     # the fp32 stem
+        (F32, 12, 64, True, "fma"),
+        (F32, 64, 3, True, "fma"),     # the fp32 conv_last
+        (F32, 16, 8, True, "fma"),     # fp32 nf 16 / gc 8: the checks' widths
+        (F32, 48, 16, True, "fma"),
+        (F32, 64, 48, True, "fma"),
+        (F32, 64, 64, False, "fma"),   # misaligned fp32 operands
         (BF, 3, 64, True, "narrow"),   # the stem
         (BF, 12, 64, True, "narrow"),  # x2plus's pixel-unshuffled stem
         (BF, 64, 3, True, "narrow"),   # conv_last
@@ -63,8 +76,9 @@ BF, F32 = torch.bfloat16, torch.float32
 )
 def test_conv3x3_route(dtype, cin, cout, aligned, route):
     """The tensor-core widths take ``"wgmma"``, read through nearest 2x (up1,
-    upconv2) or not; the other cases take their route either way but
-    ``"narrow"``, which has no upsample2."""
+    upconv2) or not, and so do the same widths in fp32 on ``"bf16x3"``; the
+    other cases take their route either way but ``"narrow"``, which has no
+    upsample2."""
     up2 = route != "narrow"
     assert tail.conv3x3_route(dtype, cin, cout, aligned, upsample2=up2) == route
     assert tail.conv3x3_route(dtype, cin, cout, aligned) == route
@@ -80,11 +94,13 @@ def test_the_tensor_core_widths_take_wgmma_but_upsample2(cin, cout, up2):
     """Every call ``"mma"`` took before ``"wgmma"`` existed takes ``"wgmma"``
     now, the upsample2 ones too since its producer warpgroup copies their
     windows at the fine grid (a TMA box cannot read the 2x grid: the test's
-    name is from before); misaligned operands and fp32 stay on ``"fma"``
-    either way."""
+    name is from before); misaligned operands stay on ``"fma"`` either way;
+    fp32 takes ``"bf16x3"``, whose producer copies the fine-grid windows
+    too."""
     assert tail.conv3x3_route(BF, cin, cout, upsample2=up2) == "wgmma"
     assert tail.conv3x3_route(BF, cin, cout, False, upsample2=up2) == "fma"
-    assert tail.conv3x3_route(F32, cin, cout, upsample2=up2) == "fma"
+    assert tail.conv3x3_route(F32, cin, cout, upsample2=up2) == "bf16x3"
+    assert tail.conv3x3_route(F32, cin, cout, False, upsample2=up2) == "fma"
 
 
 def _operands(cin=64, cout=64, dt=BF):
@@ -121,8 +137,14 @@ def test_call_route_follows_alignment_of_every_operand():
     assert tail.conv3x3_call_route(x, w, bb[4:68]) == "fma"
     assert tail.conv3x3_call_route(x, w, b, alpha=bb[4:68]) == "fma"
     assert tail.conv3x3_call_route(x, w, b, alpha=bb[8:72]) == "wgmma"
-    # fp32 never takes the tensor-core route
-    assert tail.conv3x3_call_route(*_operands(dt=F32)) == "fma"
+    # fp32 takes the tensor cores on three bf16 parts, under the same
+    # alignment rules
+    assert tail.conv3x3_call_route(*_operands(dt=F32)) == "bf16x3"
+    xf, wf, bf_ = _operands(dt=F32)
+    assert tail.conv3x3_call_route(xf, wf, bf_, upsample2=True) == "bf16x3"
+    wide32 = torch.zeros(1, 4, 5, 72, dtype=F32)
+    assert tail.conv3x3_call_route(wide32[..., 2:66], wf, bf_) == "fma"  # 8 bytes off
+    assert tail.conv3x3_call_route(xf, wf, bf_, out=wide32[..., 8:72]) == "bf16x3"
 
 
 def _record_routes(monkeypatch):
@@ -198,12 +220,46 @@ def test_routes_of_the_narrow_test_models_stay_on_fma(monkeypatch, family, dt):
     assert _split(calls) == (0, 0, n)
 
 
-def test_full_width_fp32_stays_on_fma(monkeypatch):
+def _full_width_fp32_routes(monkeypatch):
     spec = dataclasses.replace(MODEL_ZOO["RealESRGAN_x4plus"].spec, num_block=1)
     net = RRDBNet(spec).prepare(F32, "cpu")
     calls = _record_routes(monkeypatch)
     net(torch.rand(1, 6, 6, 3))
-    assert _split(calls) == (0, 0, 15 + 6)
+    return calls
+
+
+def test_full_width_fp32_stays_on_fma(monkeypatch):
+    """At full width in fp32 the convs the tensor cores cannot take stay on
+    ``"fma"``: the stem (cin 3) and conv_last (cout 3), 2 a frame; no fp32
+    call takes a bf16 route."""
+    calls = _full_width_fp32_routes(monkeypatch)
+    assert _split(calls) == (0, 0, 2)
+    assert [c for c, r in calls if r == "fma"] == ["conv3x3_fused", "tail_fused"]
+
+
+def test_full_width_fp32_takes_bf16x3_but_stem_and_conv_last(monkeypatch):
+    """The other fp32 convs take ``"bf16x3"``: one RRDB's 15 dense-block
+    convs, conv_body, up1, and the chain tail's upconv2 and conv_hr (349 a
+    frame of the 23-block flagship)."""
+    calls = _full_width_fp32_routes(monkeypatch)
+    on = [c for c, r in calls if r == "bf16x3"]
+    assert on == ["rdb_fused"] * 15 + ["conv3x3_fused", "up1_fused", "tail_fused", "tail_fused"]
+    assert len(on) + 2 == len(calls)
+
+
+@pytest.mark.parametrize("name,n_x3", [("RealESRGAN_x4plus", 349), ("RealESRGAN_x4_v3", 32)])
+def test_the_fp32_paths_launch_bf16x3_per_frame(monkeypatch, name, n_x3):
+    """The counts the chip smoke test asserts on its fp32 paths: 349
+    ``bf16x3`` launches per flagship frame (345 dense-block convs, conv_body,
+    up1, upconv2, conv_hr) and 2 ``fma`` (the stem, conv_last); 32 per
+    config-4 frame (the body) and 1 ``fma`` (the stem)."""
+    spec = MODEL_ZOO[name].spec
+    net = (RRDBNet if isinstance(spec, RRDBNetSpec) else SRVGGNet)(spec).prepare(F32, "cpu")
+    calls = _record_routes(monkeypatch)
+    net(torch.rand(1, 4, 4, 3))
+    n = {r: sum(1 for _, r_ in calls if r_ == r) for r in tail.ROUTES}
+    assert n == {"wgmma": 0, "bf16x3": n_x3, "mma": 0, "narrow": 0,
+                 "fma": 2 if isinstance(spec, RRDBNetSpec) else 1}
 
 
 # ---- auto_full_frame with the chain tail's intermediates ---------------------
@@ -237,6 +293,49 @@ def test_full_frame_bytes_terms():
     # the measured flagship peak (9.65 GiB) lies under the new estimate and
     # far above the old one
     assert base < 4 * 10**9 < 10.36 * 10**9 < base + tail_bytes
+
+
+@pytest.mark.parametrize("frames", [1, 3])
+def test_full_frame_bytes_counts_the_compute_dtype(frames):
+    """At fp32 (4 bytes a value) the feature terms double: the body, up1 and
+    the chain tail's two 8.5 GB intermediates at 1080p x4; the RGB buffers
+    are fp32 either way. The default (2 bytes) is the JAX estimate."""
+    hw = 1080 * 1920
+    rgb = 3 * 16 * hw * 3 * 4
+    feats = 5 * hw * 64 + 4 * hw * 64 + 2 * 16 * hw * 64  # values, the tail's included
+    assert pt.full_frame_bytes(1080, 1920, 4, frames=frames, tail_in_memory=True) == frames * (
+        2 * feats + rgb)
+    got = pt.full_frame_bytes(1080, 1920, 4, frames=frames, tail_in_memory=True, value_bytes=4)
+    assert got == frames * (4 * feats + rgb)
+    assert pt.full_frame_bytes(1080, 1920, 4, value_bytes=4) == 4 * 9 * hw * 64 + rgb
+    # 3 fp32 frames (64 GiB) no longer fit half of an 80 GB card; bf16 ones did
+    assert pt.auto_full_frame(1080, 1920, 4, GB80, frames=3, tail_in_memory=True)
+    assert not pt.auto_full_frame(1080, 1920, 4, GB80, frames=3, tail_in_memory=True,
+                                  value_bytes=4)
+
+
+@pytest.mark.parametrize("precision,vb", [("fp32", 4), ("bf16", 2), ("int8", 2)])
+def test_runner_counts_the_compute_dtype(monkeypatch, precision, vb):
+    from video_restore_tpu_torch.config import RestoreConfig
+    from video_restore_tpu_torch.models.zoo import ModelHandle
+    from video_restore_tpu_torch.pipeline import runner
+
+    name = "RealESRGAN_x4plus"
+    handle = ModelHandle(name, MODEL_ZOO[name].spec, {})
+    seen = []
+
+    class FakeUpscaler:
+        def __init__(self, model, grid, cfg, mesh, yuv420_out=False):
+            self.grid = grid
+
+    monkeypatch.setattr(runner, "ShardedUpscaler", FakeUpscaler)
+    monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (GB80, GB80))
+    monkeypatch.setattr(runner, "auto_full_frame", lambda *a, **kw: seen.append(kw) or True)
+    r = runner.VideoRestorer(RestoreConfig(model_name=name, full_frame="auto",
+                                           precision=precision), model=handle, cpu=True)
+    r.device = torch.device("cuda", 0)  # only the decision is exercised
+    assert r._upscaler_for(1080, 1920).grid.n_tiles == 1
+    assert seen[-1]["value_bytes"] == vb
 
 
 @pytest.mark.parametrize(
@@ -273,8 +372,10 @@ def test_runner_passes_tail_in_memory_by_tail_mode(monkeypatch, model, knob, pre
 def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
     """The decision as the runner makes it on a card with 80e9 bytes and
     ``--frames-per-batch 8``: tiles for the chain tail where it runs as three
-    K1 launches (fp32), full frame for the one-launch tails (``"q"``, and
-    the chain mode in bf16)."""
+    K1 launches (fp32), full frame for the one-launch tails in bf16 (``"q"``,
+    and the chain mode); fp32 with ``"q"`` keeps its tail off the estimate
+    but counts 4 bytes a feature value, and 8 such frames (47.8 GB) do not
+    fit half the card either."""
     from video_restore_tpu_torch.config import RestoreConfig
     from video_restore_tpu_torch.models.zoo import ModelHandle
     from video_restore_tpu_torch.pipeline import runner
@@ -296,8 +397,9 @@ def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(runner, "auto_full_frame", spy)
-    for mode, precision, tiled in (("chain", "fp32", True), ("chain", "bf16", False),
-                                   ("q", "fp32", False)):
+    for mode, precision, tiled, in_memory in (
+            ("chain", "fp32", True, True), ("chain", "bf16", False, False),
+            ("q", "fp32", True, False), ("q", "bf16", False, False)):
         monkeypatch.setattr(runner, "tail_mode", lambda device, m=mode: m)
         cfg = RestoreConfig(model_name=name, frames_per_batch=8, full_frame="auto",
                             precision=precision)
@@ -305,23 +407,24 @@ def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
         r.device = torch.device("cuda", 0)  # only the decision is exercised
         grid = r._upscaler_for(1080, 1920).grid
         assert (grid.n_tiles > 1) is tiled, (mode, precision)
-        assert seen[-1]["tail_in_memory"] is tiled
+        assert seen[-1]["tail_in_memory"] is in_memory
         assert seen[-1]["frames"] == 8
+        assert seen[-1]["value_bytes"] == (4 if precision == "fp32" else 2)
 
 
 @pytest.mark.parametrize(
     "precision,nf,route,gib",
     [
         ("bf16", 64, "wgmma", 3.34),   # the flagship: nothing of the tail in memory
-        ("fp32", 64, "fma", 11.25),    # the chain of three K1 launches
+        ("fp32", 64, "fma", 21.38),    # the chain of three K1 launches, 4 bytes a value
         ("bf16", 32, "fma", None),     # a width the one launch is not built for
     ],
 )
 def test_tail_in_memory_follows_the_route(monkeypatch, precision, nf, route, gib):
     """For each route of the tail the runner's flag, and at 1080p scale 4
     the estimate ``auto_full_frame`` weighs: 3.34 GiB on the one-launch
-    route, 11.25 GiB where both 64-channel intermediates go through device
-    memory."""
+    route, 21.38 GiB where both 64-channel intermediates go through device
+    memory at fp32 (11.25 GiB if they were bf16: ``value_bytes`` 2)."""
     from video_restore_tpu_torch.config import RestoreConfig
     from video_restore_tpu_torch.models.zoo import ModelHandle
     from video_restore_tpu_torch.pipeline import runner
@@ -334,8 +437,12 @@ def test_tail_in_memory_follows_the_route(monkeypatch, precision, nf, route, gib
     r = runner.VideoRestorer(RestoreConfig(precision=precision), model=handle, cpu=True)
     assert r._tail_in_memory() is (route != "wgmma")
     if gib is not None:
-        est = pt.full_frame_bytes(1080, 1920, 4, tail_in_memory=r._tail_in_memory())
+        est = pt.full_frame_bytes(1080, 1920, 4, tail_in_memory=r._tail_in_memory(),
+                                  value_bytes=r._value_bytes())
         assert round(est / 2**30, 2) == gib
+        if precision == "fp32":
+            bf16_est = pt.full_frame_bytes(1080, 1920, 4, tail_in_memory=True)
+            assert round(bf16_est / 2**30, 2) == 11.25
 
 
 # ---- the RDB's layout on the wgmma route -------------------------------------

@@ -66,7 +66,7 @@ def test_the_narrow_widths_take_the_narrow_route(cin, cout, act):
     alpha = torch.zeros(cout, dtype=BF) if act == "prelu" else None
     assert tail.conv3x3_route(BF, cin, cout) == "narrow"
     assert _route(x, w, b, alpha=alpha) == "narrow"
-    assert tail.ROUTES == ("wgmma", "mma", "narrow", "fma")
+    assert tail.ROUTES == ("wgmma", "bf16x3", "mma", "narrow", "fma")
 
 
 def _view(c_buf, lo, hi, offset=0, h=4, w=5):
@@ -161,6 +161,14 @@ def test_a_forced_route_is_checked():
     assert _pick(wide, "mma", **up2) == "mma"
     with pytest.raises(ValueError, match="the wgmma kernel takes bf16"):
         _pick(_ops(64, 64, F32), "wgmma", **up2)
+    # fp32 at the tensor-core widths: its own route, or fma forced
+    assert _pick(_ops(64, 64, F32), None, **up2) == "bf16x3"
+    assert _pick(_ops(64, 64, F32), "fma", **up2) == "fma"
+    assert _pick(_ops(64, 64, F32), "bf16x3") == "bf16x3"
+    with pytest.raises(ValueError, match="the bf16x3 kernel takes fp32"):
+        _pick(wide, "bf16x3")
+    with pytest.raises(ValueError, match="the bf16x3 kernel takes fp32"):
+        _pick(_ops(3, 64, F32), "bf16x3")
     with pytest.raises(ValueError, match="the narrow kernel takes bf16 stems"):
         _pick(wide, "narrow")
     with pytest.raises(ValueError, match="the narrow kernel takes"):

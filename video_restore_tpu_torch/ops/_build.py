@@ -34,7 +34,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
-    "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu", "conv3x3_narrow.cu", "unsharp.cu",
+    "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu", "conv3x3_bf16x3_wgmma.cu",
+    "conv3x3_narrow.cu", "unsharp.cu",
     "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
     "conv3x3_i8_mma.cu", "conv3x3_i8_wgmma.cu", "rdb_fused.cu", "rdb_fused_f32.cu",
     "rdb_fused_bf16.cu", "rdb_fused_narrow.cu", "rdb_fused_mma.cu", "rdb_fused_wgmma.cu",
@@ -181,6 +182,14 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3_wgmma.restype = _I
             lib.vr_conv3x3_wgmma_config.argtypes = [ctypes.POINTER(_I)]
             lib.vr_conv3x3_wgmma_config.restype = _I
+            # fp32 on the bf16 tensor cores: the mma arguments (w the split
+            # parts), then the plan (ops/tail.py::bf16x3_plan)
+            lib.vr_conv3x3_bf16x3.argtypes = lib.vr_conv3x3.argtypes[1:] + [
+                ctypes.POINTER(_L), _I,
+            ]
+            lib.vr_conv3x3_bf16x3.restype = _I
+            lib.vr_conv3x3_bf16x3_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_conv3x3_bf16x3_config.restype = _I
             lib.vr_conv3x3_narrow.argtypes = lib.vr_conv3x3.argtypes[1:]
             lib.vr_conv3x3_narrow.restype = _I
             lib.vr_unsharp.argtypes = [

@@ -10,7 +10,8 @@ Port of ``video_restore_tpu/ops/pallas_srvgg.py``:
   sums, bias and PReLU, rounded to the activation dtype between convs
   (``pallas_srvgg.py:101-111``); they differ in TPU layout and launch split
   only. Here: one K1 launch (``ops/tail.py::conv3x3``, ``act="prelu"``;
-  ``csrc/conv3x3_wgmma.cu`` at the zoo's widths) per conv, whose
+  ``csrc/conv3x3_wgmma.cu`` at the zoo's widths in bf16,
+  ``csrc/conv3x3_bf16x3_wgmma.cu`` in fp32) per conv, whose
   bounds-checked reads give SAME zero padding at every frame and tile
   edge.
 - :func:`srvgg_body_i8` is the same body with the W8A8 int8 convs of
@@ -110,7 +111,8 @@ def srvgg_body(
 ) -> torch.Tensor:
     """``num_conv`` chained ``prelu(conv3x3(x) + b)``: x (B, H, W, nf), w
     (num_conv, 3, 3, nf, nf) HWIO, b and alpha (num_conv, nf), all in x's
-    dtype. One K1 launch per conv on CUDA, the plain version on the CPU."""
+    dtype. One K1 launch per conv on CUDA (fp32 on the ``"bf16x3"``
+    route), the plain version on the CPU."""
     return _body(conv3x3, x, w, b, alpha, counter="srvgg_body")
 
 

@@ -1,4 +1,4 @@
-"""One residual dense block (RDB) on kernel K1 (``csrc/conv3x3.cu``).
+"""One residual dense block (RDB) on kernel K1 (``ops/tail.py::conv3x3``).
 
 Port of the RDB entry points of ``video_restore_tpu/ops/pallas_stripe.py``:
 ``rdb_stripe2d_split`` (``:1963``, the production form) and its fallbacks
@@ -121,8 +121,9 @@ def rdb_fused(
     x, x0: (B, H, W, nf); ws: the five torch-ordered conv weights, HWIO
     (3, 3, nf + (k-1) gc, gc) for k < 5 and (3, 3, nf + 4 gc, nf) for
     conv5; bs: their biases; all in x's dtype. Five K1 launches on CUDA
-    (on the ``"wgmma"`` route with c1 .. c4 in blocks: :func:`blocked`),
-    the plain version on the CPU."""
+    (on the ``"wgmma"`` route with c1 .. c4 in blocks: :func:`blocked`;
+    fp32 on ``"bf16x3"`` in the growth buffer, conv k reading its prefix
+    at a pixel stride of nf + 4 gc values), the plain version on the CPU."""
     return _rdb(conv3x3, x, ws, bs, x0, blocked=blocked(x, ws, bs), counter="rdb_fused")
 
 

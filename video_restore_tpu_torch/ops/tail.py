@@ -1,6 +1,6 @@
-"""The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3_wgmma.cu``
-and ``csrc/conv3x3_mma.cu`` on the tensor cores, ``csrc/conv3x3_narrow.cu``
-for the stems and conv_last,
+"""The 3x3 convs around the RRDBNet body, on kernel K1 (``csrc/conv3x3_wgmma.cu``,
+``csrc/conv3x3_bf16x3_wgmma.cu`` (fp32) and ``csrc/conv3x3_mma.cu`` on the
+tensor cores, ``csrc/conv3x3_narrow.cu`` for the stems and conv_last,
 ``csrc/conv3x3.cu`` for the rest, both on the CUDA cores), and the
 one-launch tail (``csrc/tail_fused_wgmma.cu`` on Hopper's tensor cores; K6's
 ``csrc/tail_fused_mma.cu`` on ``mma.sync`` and ``csrc/tail_fused.cu`` on the
@@ -37,20 +37,23 @@ Port of ``video_restore_tpu/ops/pallas_tail.py``:
 :func:`conv3x3` is the binding of K1 itself, with :func:`conv3x3_plain`,
 its plain PyTorch version, beside it. A wrapper given a CPU tensor runs the
 plain version; given a CUDA tensor it launches the kernel or raises. K1 is
-one function behind four routes of hand-written kernels, and
+one function behind five routes of hand-written kernels, and
 :func:`conv3x3_route` says which a call takes: ``"wgmma"``
 (``csrc/conv3x3_wgmma.cu``: Hopper's ``wgmma`` on shared-memory operands
 that TMA fills, warp-specialised, persistent; its tensor maps from
 :func:`wgmma_plan`; read through nearest 2x (up1, upconv2) its producer
 warpgroup copies each window at the fine grid with ``cp.async``, since a
 TMA box cannot read the 2x grid) for the bf16 convs whose widths feed the
-tensor cores, ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed by
+tensor cores, ``"bf16x3"`` (``csrc/conv3x3_bf16x3_wgmma.cu``: the same
+``wgmma``s on the three bf16 parts of each fp32 value, six products a MAC
+summed in fp32, :func:`split3`; its plan from :func:`bf16x3_plan`) for the
+fp32 calls of those widths, ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed by
 ``ldmatrix`` from shared memory that ``cp.async`` fills), forced beside
 ``"wgmma"`` for side-by-side runs, ``"narrow"`` (``csrc/conv3x3_narrow.cu``:
 fp32 FMAs in ``conv3x3.cu``'s order, one kernel for the bf16 stems, cin 3
 or 12 -> 64, and one for ``conv_last``, 64 -> 3), ``"fma"``
-(``csrc/conv3x3.cu``: fp32 FMAs) for the rest: fp32 and the narrow test
-widths. The one-launch tail is three kernels the same way, chosen by
+(``csrc/conv3x3.cu``: fp32 FMAs) for the rest: the fp32 stems and
+conv_last, and the narrow test widths. The one-launch tail is three kernels the same way, chosen by
 :func:`tail_fused_route`: ``"wgmma"`` (``csrc/tail_fused_wgmma.cu``, on the
 launch plan of :func:`tail_wgmma_plan`) for bf16 at nf 64, ``"fma"``
 (K6's ``csrc/tail_fused.cu``) for fp32 and nf 16, and K6's ``"mma"``
@@ -65,6 +68,7 @@ import ctypes
 from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.conv import conv2d_f32, upsample_nearest
@@ -72,15 +76,16 @@ from video_restore_tpu_torch.ops.conv import conv2d_f32, upsample_nearest
 _ACTS = {"none": 0, "lrelu": 1, "prelu": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-ROUTES = ("wgmma", "mma", "narrow", "fma")  # K1's kernels; "fma" takes every call
+ROUTES = ("wgmma", "bf16x3", "mma", "narrow", "fma")  # K1's kernels; "fma" takes every call
 PAIR_ROUTES = ("mma", "fma")  # the wrappers with a tensor-core and an fp32-FMA kernel
 TAIL_ROUTES = ("wgmma", "mma", "fma")  # tail_fused_q's kernels; "fma" takes every call
 CHAIN_ROUTES = ("wgmma", "chain")  # tail_fused: one launch, or three K1 launches
-_MMA_COUT = (32, 64)  # the widths conv3x3_mma.cu and conv3x3_wgmma.cu are built for
+_MMA_COUT = (32, 64)  # the widths of conv3x3_mma.cu, conv3x3_wgmma.cu and the bf16x3 kernel
 # (cin, cout) of conv3x3_narrow.cu's kernels: the stems and conv_last
 _NARROW = ((3, 64), (12, 64), (64, 3))
 _K1_TAKES = {
     "wgmma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
+    "bf16x3": "fp32 with cin a multiple of 16, cout 32 or 64 and aligned operands",
     "mma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
     "narrow": "bf16 stems (cin 3 or 12 -> 64) and conv_last (64 -> 3) without residuals "
               "or upsample2, with operands it can load",
@@ -98,12 +103,18 @@ def conv3x3_route(
     (:func:`operands_aligned`: 16-byte copies and TMA boxes, paired
     stores); ``"wgmma"`` takes them, also read through nearest 2x
     (``upsample2``: up1 and upconv2, whose windows its producer copies at
-    the fine grid); ``"narrow"`` takes bf16 stems (cin 3 or 12 -> cout 64) and
+    the fine grid); ``"bf16x3"`` takes the same widths in fp32 (the fp32
+    flagship's dense-block convs, conv_body, up1, upconv2 and conv_hr, the
+    SRVGG body), read through nearest 2x or not; ``"narrow"`` takes bf16
+    stems (cin 3 or 12 -> cout 64) and
     ``conv_last`` (cin 64 -> cout 3) where ``narrow`` says the rest of the
     call suits it (:func:`narrow_operands`); ``"fma"`` takes every other
-    call."""
-    if dtype == torch.bfloat16 and cin % 16 == 0 and cout in _MMA_COUT and aligned:
-        return "wgmma"
+    call (the fp32 stems and conv_last among them)."""
+    if cin % 16 == 0 and cout in _MMA_COUT and aligned:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "bf16x3"
     if dtype == torch.bfloat16 and (cin, cout) in _NARROW and narrow:
         return "narrow"
     return "fma"
@@ -272,6 +283,168 @@ def wgmma_call_plan(
     return wgmma_plan(x.shape, _pixel_stride(x, "x"), w.shape[-1], tail=tail, **kw)
 
 
+def split3(t: torch.Tensor) -> torch.Tensor:
+    """The three bf16 parts of an fp32 tensor, stacked on a new first axis
+    (contiguous): ``t0 = bf16(t)``, ``t1 = bf16(t - t0)``, ``t2 = bf16(t -
+    t0 - t1)``, so that ``t0 + t1 + t2 == t`` exactly (each difference is
+    exact in fp32, and bf16 has fp32's exponent range). Of HWIO weights it
+    is the (3, 3, 3, cin, cout) tensor the ``"bf16x3"`` kernel reads
+    (:func:`weight_parts` keeps it)."""
+    t = t.float()
+    p0 = t.to(torch.bfloat16)
+    r = t - p0.float()
+    p1 = r.to(torch.bfloat16)
+    p2 = (r - p1.float()).to(torch.bfloat16)
+    return torch.stack([p0, p1, p2]).contiguous()
+
+
+# weight -> {(offset, shape, strides, address, version): its split3 parts};
+# keyed on the tensor that owns the storage, so that a view taken anew at
+# every call (an SRVGG body conv's w[i]) finds the parts of the last one
+_PARTS = WeakIdKeyDictionary()
+
+
+def weight_parts(w: torch.Tensor) -> torch.Tensor:
+    """:func:`split3` of K1 weights, split once: kept beside the tensor
+    that owns ``w``'s storage for as long as that tensor lives, and split
+    again when ``w`` was written in place (its version counter moved) or
+    now lies elsewhere. An inference-mode tensor has no version counter,
+    so its parts are split at every call."""
+    if w.is_inference():
+        return split3(w)
+    base = w if w._base is None else w._base
+    key = (w.storage_offset(), tuple(w.shape), w.stride(), w.data_ptr(), w._version)
+    kept = _PARTS.get(base)
+    if kept is None or key not in kept:
+        kept = _PARTS[base] = {k: v for k, v in (kept or {}).items() if k[:3] != key[:3]}
+        kept[key] = split3(w)
+    return kept[key]
+
+
+# conv3x3_bf16x3_wgmma.cu as shipped: tile rows at cout 32 and 64, pixels of
+# a tile row, input channels a stage (the build reports its own:
+# vr_conv3x3_bf16x3_config)
+BF16X3 = dict(th32=8, th64=4, tw=64, kc=16)
+_BF16X3_STAGES = 2  # stages of split windows and their weights: a third cannot fit
+
+
+def bf16x3_smem(cout: int, th: int, kc: int = 16, tw: int = 64) -> int:
+    """Dynamic shared memory bytes of a block of
+    ``conv3x3_bf16x3_wgmma.cu`` at ``cout`` with ``th``-row tiles: 1024
+    bytes of alignment, two stages of the three weight parts (9 taps x kc
+    x cout bf16 each) and the three window parts ((th + 2) x (tw + 2)
+    pixels of kc bf16, each part on 1024 bytes), one raw fp32 window, then
+    the barriers."""
+    ph, pw = th + 2, tw + 2
+    w_part = 9 * kc * cout * 2
+    a_part = -(-ph * pw * kc * 2 // 1024) * 1024
+    raw = ph * pw * kc * 4
+    stages = _BF16X3_STAGES
+    return 1024 + stages * (3 * w_part + 3 * a_part) + raw + (2 * stages + 1) * 8
+
+
+class Bf16x3Plan(NamedTuple):
+    """What ``vr_conv3x3_bf16x3`` encodes and launches: x's fp32 4-D tensor
+    map over (channels, W, H, B) (dims, the byte strides of dims 1-3, the
+    box: kc channels of a (TH + 2) x (TW + 2) window, no swizzle), the split
+    weights' bf16 4-D map over (cout, cin, 9, 3) (a box of one stage's kc
+    input channels of every tap of the three parts, in the ``w_swizzle``-byte
+    swizzle), the persistent grid, the tile and the block's shared memory;
+    ``tiles`` is kept for the checks and not sent."""
+
+    a_dims: Tuple[int, int, int, int]
+    a_strides: Tuple[int, int, int]
+    a_box: Tuple[int, int, int, int]
+    w_dims: Tuple[int, int, int, int]
+    w_strides: Tuple[int, int, int]
+    w_box: Tuple[int, int, int, int]
+    w_swizzle: int
+    grid: int
+    tiles: int
+    tile: Tuple[int, int]
+    smem: int
+
+    def array(self) -> ctypes.Array:
+        """The plan as the C launcher reads it (27 int64 values)."""
+        vals = (*self.a_dims, *self.a_strides, *self.a_box, *self.w_dims, *self.w_strides,
+                *self.w_box, self.w_swizzle, self.grid, *self.tile, self.smem)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def bf16x3_plan(
+    shape: Sequence[int], xs: int, cout: int, *, sms: int, upsample2: bool = False,
+    geometry: Optional[dict] = None,
+) -> Bf16x3Plan:
+    """The ``"bf16x3"`` route's tensor maps, grid and shared memory for an
+    fp32 call: a pure function of x's shape (B, H, W, cin), its pixel stride
+    ``xs`` in elements (a channel-prefix view of a wider buffer has xs >
+    cin), cout, the card's SM count and the build's ``geometry``
+    (:data:`BF16X3`, or :func:`bf16x3_geometry` of a loaded build): tiles of
+    ``th32`` rows at cout 32 and ``th64`` at cout 64, ``tw`` pixels wide.
+    ``upsample2``: x is read through nearest 2x, so the tiles cover the (2H,
+    2W) output; x's map is then only checked by the launcher (the producer
+    copies the windows itself). Raises ValueError for a call the kernel
+    cannot take: an empty shape, a pixel stride that is not a multiple of 4
+    elements (16 bytes) or is below cin, cin not a multiple of 16, cout
+    other than 32 or 64, a box or stride over TMA's limits."""
+    g = dict(BF16X3 if geometry is None else geometry)
+    bsz, h, w, cin = (int(v) for v in shape)
+    kc, tw = g["kc"], g["tw"]
+    if min(bsz, h, w, cin) <= 0:
+        raise ValueError(f"bf16x3_plan: empty shape {tuple(shape)}")
+    if xs % 4:
+        raise ValueError(f"bf16x3_plan: pixel stride {xs} is not a multiple of 4 elements")
+    if xs < cin:
+        raise ValueError(f"bf16x3_plan: pixel stride {xs} < cin {cin}")
+    if cin % kc or cout not in _MMA_COUT:
+        raise ValueError(f"bf16x3_plan: cin {cin} (a multiple of {kc}), cout {cout} (32 or 64)")
+    th = g["th32"] if cout == 32 else g["th64"]
+    a_strides = (xs * 4, w * xs * 4, h * w * xs * 4)
+    a_box = (kc, tw + 2, th + 2, 1)
+    w_strides = (cout * 2, cin * cout * 2, 9 * cin * cout * 2)
+    w_box = (cout, kc, 9, 3)
+    if max(a_box + w_box) > _TMA_BOX_MAX:
+        raise ValueError(f"bf16x3_plan: a box over {_TMA_BOX_MAX} elements")
+    for st in a_strides + w_strides:
+        if st % 16 or st >= _TMA_STRIDE_MAX:
+            raise ValueError(f"bf16x3_plan: byte stride {st} (a multiple of 16, < 2^40)")
+    smem = bf16x3_smem(cout, th, kc, tw)
+    if smem > SMEM_MAX:
+        raise ValueError(f"bf16x3_plan: shared memory {smem} B over {SMEM_MAX}")
+    up = 2 if upsample2 else 1
+    tiles = bsz * -(-up * h // th) * -(-up * w // tw)
+    return Bf16x3Plan(
+        a_dims=(cin, w, h, bsz), a_strides=a_strides, a_box=a_box,
+        w_dims=(cout, cin, 9, 3), w_strides=w_strides, w_box=w_box, w_swizzle=cout * 2,
+        grid=min(tiles, sms), tiles=tiles, tile=(th, tw), smem=smem,
+    )
+
+
+def bf16x3_geometry(lib) -> dict:
+    """:func:`bf16x3_plan`'s ``geometry`` of a loaded build of
+    ``conv3x3_bf16x3_wgmma.cu`` (``vr_conv3x3_bf16x3_config``)."""
+    cfg = (ctypes.c_int * 7)()
+    lib.vr_conv3x3_bf16x3_config(cfg)
+    return dict(th32=cfg[0], th64=cfg[1], tw=cfg[2], kc=cfg[3])
+
+
+_bf16x3_build: Optional[dict] = None
+
+
+def _bf16x3_geometry(lib) -> dict:
+    """:func:`bf16x3_geometry` of the port's library, read once."""
+    global _bf16x3_build
+    if _bf16x3_build is None:
+        _bf16x3_build = bf16x3_geometry(lib)
+    return _bf16x3_build
+
+
+def bf16x3_call_plan(x: torch.Tensor, w: torch.Tensor, **kw) -> Bf16x3Plan:
+    """:func:`bf16x3_plan` of one call's x (a tensor or a channel-prefix
+    view of a wider NHWC buffer) and HWIO weights; ``kw`` as there."""
+    return bf16x3_plan(x.shape, _pixel_stride(x, "x"), w.shape[-1], **kw)
+
+
 def launch_args(x, w, b, alpha, out, r1, r2, act, upsample2, s1, s2) -> tuple:
     """The arguments every K1 kernel takes but the stream: the operands'
     addresses (None for an absent one), x's shape, cin and cout, the pixel
@@ -385,10 +558,12 @@ def conv3x3(
     channels; b, alpha:
     (cout,). r1, r2 and ``out`` are NHWC at the output grid, each possibly
     a channel slice of a wider buffer (``out`` is written in place). Every
-    tensor has x's dtype (fp32 or bf16); sums are fp32. ``counter`` names
+    tensor has x's dtype (fp32 or bf16); sums are fp32 (the ``"bf16x3"``
+    kernel reads the weights' three bf16 parts, :func:`weight_parts`,
+    split once a weight). ``counter`` names
     the launch counter the calling wrapper owns; the launch is also counted
-    under its route, ``conv3x3:wgmma``, ``conv3x3:mma``, ``conv3x3:narrow`` or
-    ``conv3x3:fma``
+    under its route, ``conv3x3:wgmma``, ``conv3x3:bf16x3``, ``conv3x3:mma``,
+    ``conv3x3:narrow`` or ``conv3x3:fma``
     (:func:`conv3x3_route`), and a narrow one under its kernel,
     ``conv3x3:narrow stem`` or ``conv3x3:narrow conv_last``. ``route``:
     None for :func:`conv3x3_route`'s kernel, or a route forced where its
@@ -459,6 +634,14 @@ def conv3x3(
                                    **_wgmma_geometry(lib)).array()
             code = lib.vr_conv3x3_wgmma(
                 *args, plan, len(plan), None if x_tail is None else x_tail.data_ptr()
+            )
+        elif route == "bf16x3":
+            plan = bf16x3_call_plan(x, w, sms=_sm_count(x.device), upsample2=upsample2,
+                                    geometry=_bf16x3_geometry(lib)).array()
+            code = lib.vr_conv3x3_bf16x3(
+                *launch_args(x, weight_parts(w), b, alpha, out, r1, r2, act, upsample2, s1,
+                             s2),
+                _build.stream_ptr(x), plan, len(plan),
             )
         elif route == "mma":
             code = lib.vr_conv3x3_mma(*args)

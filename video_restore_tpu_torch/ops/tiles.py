@@ -225,6 +225,7 @@ def auto_full_frame(
     feat_ch: int = 64,
     frames: int = 1,
     tail_in_memory: bool = False,
+    value_bytes: int = 2,
 ) -> bool:
     """Whether a full-frame (tile=0) pass fits device memory:
     :func:`full_frame_bytes` against half the device's memory.
@@ -232,7 +233,7 @@ def auto_full_frame(
     device's total memory."""
     if device_bytes is None:
         device_bytes = device_budget(torch.cuda.mem_get_info()[1])
-    est = full_frame_bytes(height, width, scale, feat_ch, frames, tail_in_memory)
+    est = full_frame_bytes(height, width, scale, feat_ch, frames, tail_in_memory, value_bytes)
     return est <= 0.5 * device_bytes
 
 
@@ -243,6 +244,7 @@ def full_frame_bytes(
     feat_ch: int = 64,
     frames: int = 1,
     tail_in_memory: bool = False,
+    value_bytes: int = 2,
 ) -> int:
     """The estimate behind :func:`auto_full_frame`: ~5 body feature buffers
     (bf16), the upconv1 output at 2x resolution, and ~3 output-resolution
@@ -251,12 +253,15 @@ def full_frame_bytes(
     upconv2's and conv_hr's outputs on chip. ``tail_in_memory`` adds those
     two ``feat_ch``-channel tensors at output resolution (bf16, ``2 x 16 hw
     x feat_ch x 2`` bytes at scale 4), which the three-launch tail
-    (``ops/tail.py::tail_fused``) writes to device memory."""
+    (``ops/tail.py::tail_fused``) writes to device memory. ``value_bytes``:
+    the bytes of a feature value in the compute dtype (2: bf16, the JAX
+    estimate; 4: ``--precision fp32``, whose features and tail tensors take
+    twice the bytes); the RGB buffers are fp32 either way."""
     hw = height * width
-    body = 5 * hw * feat_ch * 2
-    up1 = 4 * hw * feat_ch * 2
+    body = 5 * hw * feat_ch * value_bytes
+    up1 = 4 * hw * feat_ch * value_bytes
     out_rgb = 3 * (scale * scale * hw) * 3 * 4
-    tail = 2 * (scale * scale * hw) * feat_ch * 2 if tail_in_memory else 0
+    tail = 2 * (scale * scale * hw) * feat_ch * value_bytes if tail_in_memory else 0
     return (body + up1 + out_rgb + tail) * max(frames, 1)
 
 

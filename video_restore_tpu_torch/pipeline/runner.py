@@ -250,6 +250,7 @@ class VideoRestorer:
                         device_budget(min(torch.cuda.mem_get_info(d)[1] for d in self.mesh)),
                         frames=max(cfg.frames_per_batch, 1),
                         tail_in_memory=self._tail_in_memory(),
+                        value_bytes=self._value_bytes(),
                     )
                 ):
                     tile = 0
@@ -294,6 +295,12 @@ class VideoRestorer:
         from video_restore_tpu_torch.video.backends import writer_supports_yuv420
 
         return writer_supports_yuv420(output_path)
+
+    def _value_bytes(self) -> int:
+        """Bytes of a feature value in the compute dtype, as
+        ``auto_full_frame`` counts them: 4 at ``--precision fp32``, else 2
+        (bf16; the int8 body's activations are bf16 too)."""
+        return 4 if self.config.precision == "fp32" else 2
 
     def _tail_in_memory(self) -> bool:
         """Whether the model's tail writes its two 4x-resolution

@@ -41,8 +41,24 @@ new kernel. ``A`` from registers is not a variant: a tap's A tile is the
 window moved by one pixel, which registers cannot move, so it would be
 loaded from shared memory once per ``wgmma`` all the same.
 
-    python -m video_restore_tpu_torch.tools.probe_k1 [--route mma|wgmma] [--reps N]
-        [--quick] [--only NAME,...] [--variant NAME=-DDEF,...]
+``--dtype fp32``: the fp32 route instead, ``csrc/conv3x3_bf16x3_wgmma.cu``
+(``"bf16x3"``: three bf16 parts a value, six ``wgmma`` products a MAC) in
+the variants of :data:`FP32_VARIANTS` (``no_mma``: the TMA ring and the
+split without the MMAs; ``no_store``: without the epilogue's loads and
+stores; ``no_split``: the producer's stores of the parts left out;
+``products4``, ``products2``: only the largest 4 or 2 of the six products)
+plus any ``--variant``, beside ``csrc/conv3x3.cu`` (``fma``, fp32
+FMAs): each build checked at odd shapes (ragged B = 2, below one tile,
+growth-buffer prefixes and ``out`` slices, ``up2``, PReLU, r1 and r2)
+within 1e-4 of the largest value of the plain version (TF32 off), then the
+1080p RDB's five convs on one 192-channel fp32 growth buffer, conv_body
+and up1 timed with every build, in order and back, beside cuDNN's fp32
+``F.conv2d`` (TF32 off), with each conv's share of its bound (its fp32
+bytes over 3.35 TB/s, or six bf16 products a MAC over 989 TFLOP/s); then
+the RDB (five launches) on every build and as cuDNN's chain of five.
+
+    python -m video_restore_tpu_torch.tools.probe_k1 [--route mma|wgmma] [--dtype bf16|fp32]
+        [--reps N] [--quick] [--only NAME,...] [--variant NAME=-DDEF,...]
 
 Needs a CUDA device and ``nvcc``. Prints the card's ``nvidia-smi`` line.
 """
@@ -51,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import subprocess
 import sys
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -77,8 +94,17 @@ WGMMA_VARIANTS = (
     ("loads", ("-DVR_PROBE_NO_MMA", "-DVR_PROBE_NO_STORE")),
     ("epilogue", ("-DVR_PROBE_NO_MMA", "-DVR_PROBE_NO_LOADS")),
 )
+# conv3x3_bf16x3_wgmma.cu's variants (--dtype fp32): (name, defines)
+FP32_VARIANTS = (
+    ("shipped", ()),
+    ("no_mma", ("-DVR_PROBE_NO_MMA",)),
+    ("no_store", ("-DVR_PROBE_NO_STORE",)),
+    ("no_split", ("-DVR_PROBE_NO_SPLIT",)),
+    ("products4", ("-DVR_PROBE_PRODUCTS=4",)),
+    ("products2", ("-DVR_PROBE_PRODUCTS=2",)),
+)
 # builds whose output is not the function
-UNCHECKED = ("no_mma", "no_store", "loads", "epilogue")
+UNCHECKED = ("no_mma", "no_store", "loads", "epilogue", "no_split", "products4", "products2")
 H, W = 1080, 1920
 HBM_BYTES_S, BF16_OPS_S = 3.35e12, 989e12
 
@@ -95,6 +121,33 @@ def parse_variant(text: str) -> Tuple[str, Tuple[str, ...]]:
     return name, flags
 
 
+def source_macros(source: str) -> set:
+    """The macro names that ``csrc/<source>`` and the headers it includes
+    from ``csrc`` define or test (``#define``, ``#ifdef``, ``#ifndef``,
+    ``#if``, ``defined(...)``): the names a ``-D`` can set."""
+    from video_restore_tpu_torch.ops import _build
+
+    names, seen, todo = set(), set(), [source]
+    while todo:
+        path = _build.CSRC / todo.pop()
+        if path in seen or not path.exists():
+            continue
+        seen.add(path)
+        text = path.read_text()
+        names.update(re.findall(r"^\s*#\s*(?:define|ifdef|ifndef|if)\s+(\w+)", text, re.M))
+        names.update(re.findall(r"defined\s*\(?\s*(\w+)", text))
+        todo.extend(re.findall(r'^\s*#\s*include\s+"([^"]+)"', text, re.M))
+    return names
+
+
+def unknown_defines(source: str, extra: Sequence[Tuple[str, Tuple[str, ...]]]) -> List[str]:
+    """The ``-D`` names of ``extra``'s variants that ``source`` never reads
+    (:func:`source_macros`): a misspelt knob would rebuild the shipped
+    kernel under another name."""
+    known = source_macros(source)
+    return [d for _, defs in extra for d in defs if d[2:].split("=")[0] not in known]
+
+
 def wgmma_builds(extra: Sequence[Tuple[str, Tuple[str, ...]]] = (),
                  only: Sequence[str] = ()) -> List[Tuple[str, str, Tuple[str, ...]]]:
     """(build, source, defines) of ``--route wgmma``: the ``mma`` source as
@@ -105,6 +158,31 @@ def wgmma_builds(extra: Sequence[Tuple[str, Tuple[str, ...]]] = (),
         if not only or name in only:
             out.append((name, "conv3x3_wgmma.cu", tuple(defs)))
     return out
+
+
+def fp32_builds(extra: Sequence[Tuple[str, Tuple[str, ...]]] = (),
+                only: Sequence[str] = ()) -> List[Tuple[str, str, Tuple[str, ...]]]:
+    """(build, source, defines) of ``--dtype fp32``: the fp32-FMA source as
+    shipped, then the bf16x3 variants (``only``: those names; ``extra``
+    appended)."""
+    out = [("fma", "conv3x3.cu", ())]
+    for name, defs in tuple(FP32_VARIANTS) + tuple(extra):
+        if not only or name in only:
+            out.append((name, "conv3x3_bf16x3_wgmma.cu", tuple(defs)))
+    return out
+
+
+def fp32_bound_ms(shape: Sequence[int], cin: int, cout: int, residual: bool,
+                  up2: bool = False) -> Tuple[float, str]:
+    """(least ms, "bytes" or "operations") of one fp32 conv on the bf16x3
+    route at its output's (B, H, W): its fp32 input read once (at half the
+    extent when ``up2``), its output (and residual) written once, at 4 bytes
+    a value; six bf16 products a MAC at the tensor rate."""
+    px = shape[0] * shape[1] * shape[2]
+    nbytes = 4 * (px // (4 if up2 else 1) * cin + px * (cout + (cout if residual else 0)))
+    ops = 6 * 2 * px * 9 * cin * cout
+    t_b, t_o = nbytes / HBM_BYTES_S * 1e3, ops / BF16_OPS_S * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
 def ptxas_lines(name: str, text: str) -> List[str]:
@@ -145,7 +223,15 @@ def _compile(specs, subdir: str):
         for line in ptxas_lines(name, text):
             print(line, flush=True)
         lib = ctypes.CDLL(str(so))
-        if hasattr(lib, "vr_conv3x3_wgmma"):
+        if hasattr(lib, "vr_conv3x3_bf16x3"):
+            lib.vr_conv3x3_bf16x3.argtypes = _MMA_ARGS + [ctypes.POINTER(_L), _I]
+            lib.vr_conv3x3_bf16x3.restype = _I
+            lib.vr_conv3x3_bf16x3_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_conv3x3_bf16x3_config.restype = _I
+        elif hasattr(lib, "vr_conv3x3"):
+            lib.vr_conv3x3.argtypes = [_I] + _MMA_ARGS
+            lib.vr_conv3x3.restype = _I
+        elif hasattr(lib, "vr_conv3x3_wgmma"):
             lib.vr_conv3x3_wgmma.argtypes = _MMA_ARGS + [ctypes.POINTER(_L), _I, _P]
             lib.vr_conv3x3_wgmma.restype = _I
             lib.vr_conv3x3_wgmma_config.argtypes = [ctypes.POINTER(_I)]
@@ -487,26 +573,229 @@ def probe_wgmma(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
         raise RuntimeError(f"builds disagree with the plain version: {sorted(bad)}")
 
 
+def probe_fp32(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
+               extra: Sequence[Tuple[str, Tuple[str, ...]]] = ()) -> None:
+    """``--dtype fp32``: the variants of ``conv3x3_bf16x3_wgmma.cu`` beside
+    ``conv3x3.cu`` and cuDNN's fp32 convolution."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: this probe times the card")
+    import torch.nn.functional as F
+
+    from video_restore_tpu_torch.ops.tail import (
+        bf16x3_geometry,
+        bf16x3_plan,
+        conv3x3_plain,
+        split3,
+    )
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, f32 = torch.device("cuda", 0), torch.float32
+    _smi()
+    specs = fp32_builds(extra, only)
+    libs = _compile(specs, "probe_k1_fp32")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    geo: Dict[str, dict] = {}
+    for name, source, _ in specs:
+        if source == "conv3x3_bf16x3_wgmma.cu":
+            cfg = (ctypes.c_int * 7)()
+            libs[name].vr_conv3x3_bf16x3_config(cfg)
+            geo[name] = bf16x3_geometry(libs[name])
+            print(f"[build] {name}: tiles {cfg[0]}x{cfg[2]} (cout 32), {cfg[1]}x{cfg[2]} (cout "
+                  f"64), {cfg[3]} channels a stage, {cfg[4]} consumer warpgroups, shared memory "
+                  f"{cfg[5]} / {cfg[6]} B (cout 32 / 64)", flush=True)
+    gen = torch.Generator().manual_seed(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def rnd(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).to(dev, f32)
+
+    # each weight's parts, split once; the entry holds the weight, so that
+    # its id is not reused while the entry lives
+    w3_of: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def launch(name, x, w, b, out, act=0, alpha=None, r1=None, s1=1.0, r2=None, s2=1.0,
+               up2=False):
+        bsz, h, wd, _ = x.shape
+        cin, cout = w.shape[-2], w.shape[-1]
+        if name != "fma" and id(w) not in w3_of:
+            w3_of[id(w)] = (w, split3(w))
+        args = (
+            x.data_ptr(), (w if name == "fma" else w3_of[id(w)][1]).data_ptr(), b.data_ptr(),
+            None if alpha is None else alpha.data_ptr(),
+            None if r1 is None else r1.data_ptr(), None if r2 is None else r2.data_ptr(),
+            out.data_ptr(), bsz, h, wd, cin, cout, x.stride(2), out.stride(2),
+            0 if r1 is None else r1.stride(2), 0 if r2 is None else r2.stride(2),
+            act, int(up2), s1, s2, stream,
+        )
+        if name == "fma":
+            code = libs[name].vr_conv3x3(0, *args)
+        else:
+            plan = bf16x3_plan(x.shape, x.stride(2), cout, sms=sms, upsample2=up2,
+                               geometry=geo[name]).array()
+            code = libs[name].vr_conv3x3_bf16x3(*args, plan, len(plan))
+        if code != 0:
+            raise RuntimeError(f"{name} launch: CUDA error {code}")
+
+    acts = {"none": 0, "lrelu": 1, "prelu": 2}
+
+    def check(tag, name, got, ref):
+        err = (got.float() - ref.float()).abs().max().item()
+        scale = max(1.0, ref.float().abs().max().item())
+        if not err <= 1e-4 * scale:
+            raise RuntimeError(f"{tag} ({name}): max |kernel - reference| {err:.3g}")
+        return err
+
+    # odd shapes, each build against the plain version (fp32, TF32 off); the
+    # growth-buffer case also checks that nothing outside the slice was
+    # written. A build that disagrees is named and left out of the timings.
+    bad = {}
+    for shp in ((1, 5, 7), (2, 37, 53), (6, 19, 70)):
+        x = rnd(*shp, 192)
+        cases = [
+            ("64->64 lrelu", x[..., :64], rnd(3, 3, 64, 64, scale=0.05), "lrelu", False, {}),
+            ("64->32 none", x[..., :64], rnd(3, 3, 64, 32, scale=0.05), "none", False, {}),
+            ("96->32 lrelu into [96:128]", x[..., :96], rnd(3, 3, 96, 32, scale=0.05), "lrelu",
+             True, {}),
+            ("192->64 prelu r1+r2", x, rnd(3, 3, 192, 64, scale=0.03), "prelu", False,
+             dict(r1=x[..., :64], s1=0.2, r2=rnd(*shp, 64), s2=0.2)),
+            ("64->64 lrelu up2", x[..., :64], rnd(3, 3, 64, 64, scale=0.05), "lrelu", False,
+             dict(up2=True)),
+            ("64->32 none up2", x[..., :64], rnd(3, 3, 64, 32, scale=0.05), "none", False,
+             dict(up2=True)),
+            ("192->64 lrelu up2", x, rnd(3, 3, 192, 64, scale=0.03), "lrelu", False,
+             dict(up2=True)),
+        ]
+        for tag, xi, w, act, into, kw in cases:
+            cout = w.shape[-1]
+            b, al = rnd(cout, scale=0.1), rnd(cout, scale=0.3)
+            alpha = al if act == "prelu" else None
+            pk = {k: v for k, v in kw.items() if k != "up2"}
+            ref = conv3x3_plain(xi, w, b, act=act, alpha=alpha, upsample2=kw.get("up2", False),
+                                **pk)
+            for name, _, _ in specs:
+                if name in UNCHECKED or name in bad:
+                    continue
+                try:
+                    if into:
+                        buf = x.clone()
+                        out = buf[..., 96:128]
+                        launch(name, buf[..., :96], w, b, out, acts[act])
+                    else:
+                        out = torch.full_like(ref, float("nan"))
+                        launch(name, xi, w, b, out, acts[act], alpha, **kw)
+                    torch.cuda.synchronize()
+                    err = check(f"{shp} {tag}", name, out, ref)
+                    if into:
+                        keep = torch.ones(192, dtype=torch.bool, device=dev)
+                        keep[96:128] = False
+                        if not torch.equal(buf[..., keep], x[..., keep]):
+                            raise RuntimeError(f"{shp} {tag} ({name}): wrote outside its slice")
+                except RuntimeError as e:
+                    bad[name] = str(e)
+                    print(f"[check] FAILED {e}", flush=True)
+                    continue
+                print(f"[check] fp32 {shp} {tag} {name}: err {err:.3g}", flush=True)
+    specs = [sp for sp in specs if sp[0] not in bad]
+    if bad:
+        print(f"[check] left out: {sorted(bad)}", flush=True)
+    if quick or "fma" in bad:
+        if bad:
+            raise RuntimeError(f"builds disagree with the plain version: {sorted(bad)}")
+        return
+
+    timed = _timer(reps)
+    grow = rnd(1, H, W, 192)
+    x64, res = rnd(1, H, W, 64), rnd(1, H, W, 64)
+    convs = []  # (tag, x, w, b, out, kwargs, cin, cout, residual)
+    for k, lo in enumerate((64, 96, 128, 160)):
+        convs.append((f"conv{k + 1} {lo}->32", grow[..., :lo], rnd(3, 3, lo, 32, scale=0.03),
+                      rnd(32, scale=0.05), grow[..., lo : lo + 32], dict(act=1), lo, 32, False))
+    convs.append(("conv5 192->64 +x", grow, rnd(3, 3, 192, 64, scale=0.03), rnd(64, scale=0.05),
+                  torch.empty(1, H, W, 64, dtype=f32, device=dev),
+                  dict(r1=grow[..., :64], s1=0.2), 192, 64, True))
+    convs.append(("conv_body 64->64 +res", x64, rnd(3, 3, 64, 64, scale=0.03),
+                  rnd(64, scale=0.05), torch.empty(1, H, W, 64, dtype=f32, device=dev),
+                  dict(r1=res), 64, 64, True))
+    convs.append(("up1 64->64 up2 lrelu", x64, rnd(3, 3, 64, 64, scale=0.03),
+                  rnd(64, scale=0.05), torch.empty(1, 2 * H, 2 * W, 64, dtype=f32, device=dev),
+                  dict(act=1, up2=True), 64, 64, False))
+    names = [n for n, _, _ in specs]
+    rdb = {n: [0.0, 0.0] for n in names + ["cudnn"]}
+    for tag, x, w, b, out, kw, cin, cout, resid in convs:
+        up2 = kw.get("up2", False)
+        launch("fma", x, w, b, out, **kw)
+        torch.cuda.synchronize()
+        ref = out.clone()
+        for name in names:
+            if name not in UNCHECKED and name != "fma":
+                launch(name, x, w, b, out, **kw)
+                torch.cuda.synchronize()
+                check(f"1x{H}x{W} {tag}", name, out, ref)
+        del ref
+        oshape = (1, 2 * H, 2 * W) if up2 else (1, H, W)
+        bound, by = fp32_bound_ms(oshape, cin, cout, resid, up2)
+        ops = 2 * oshape[1] * oshape[2] * 9 * cin * cout
+        xin = torch.empty(1, cin, *oshape[1:], dtype=f32, device=dev).contiguous(
+            memory_format=torch.channels_last)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        ms = {n: [] for n in names + ["cudnn"]}
+        for name in names + ["cudnn"] + ["cudnn"] + names[::-1]:
+            if name == "cudnn":
+                ms[name].append(timed(lambda: F.conv2d(xin, w_oihw, b, padding=1)))
+            else:
+                ms[name].append(timed(lambda n=name: launch(n, x, w, b, out, **kw)))
+        del xin
+        line = f"[probe] fp32 1x{oshape[1]}x{oshape[2]} {tag} (bound {bound:.3f} ms, {by}):"
+        for name in names + ["cudnn"]:
+            a, b_ = ms[name]
+            t = min(a, b_)
+            if tag.startswith("conv"):
+                rdb[name][0] += a
+                rdb[name][1] += b_
+            line += (f" {name} {a:.3f} / {b_:.3f} ms ({ops / t / 1e9:.1f} TFLOP/s useful, "
+                     f"{100 * bound / t:.0f}% of bound);")
+        print(line.rstrip(";"), flush=True)
+    five = sum(fp32_bound_ms((1, H, W), 64 + 32 * k, 32, False)[0] for k in range(4))
+    five += fp32_bound_ms((1, H, W), 192, 64, True)[0]
+    print(f"[probe] fp32 1x{H}x{W} RDB, five launches (bound {five:.3f} ms; cudnn: F.conv2d "
+          "alone, TF32 off):" + ";".join(f" {n} {a:.3f} / {b_:.3f} ms" for n, (a, b_) in rdb.items()),
+          flush=True)
+    if bad:
+        raise RuntimeError(f"builds disagree with the plain version: {sorted(bad)}")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--route", choices=("mma", "wgmma"), default="mma",
                     help="the source probed (default: mma)")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
+                    help="fp32: the bf16x3 route beside the fp32-FMA kernel (any --route)")
     ap.add_argument("--reps", type=int, default=10, help="timed launches per build")
     ap.add_argument("--quick", action="store_true",
-                    help="wgmma: build and check at odd shapes only")
-    ap.add_argument("--only", default="", help="wgmma: comma-separated variant names")
+                    help="wgmma, fp32: build and check at odd shapes only")
+    ap.add_argument("--only", default="", help="wgmma, fp32: comma-separated variant names")
     ap.add_argument("--variant", action="append", default=[],
-                    help="wgmma: another variant, NAME=-DDEF[,-DDEF...] (repeatable)")
+                    help="wgmma, fp32: another variant, NAME=-DDEF[,-DDEF...] (repeatable)")
     args = ap.parse_args(argv)
     try:
         extra = [parse_variant(v) for v in args.variant]
     except ValueError as e:
         ap.error(str(e))
+    only = [n for n in args.only.split(",") if n]
+    source = ("conv3x3_bf16x3_wgmma.cu" if args.dtype == "fp32" else
+              "conv3x3_wgmma.cu" if args.route == "wgmma" else None)
+    if source and extra:
+        bad = unknown_defines(source, extra)
+        if bad:
+            ap.error(f"--variant: {source} reads no macro of {bad}")
     try:
-        if args.route == "mma":
+        if args.dtype == "fp32":
+            probe_fp32(args.reps, args.quick, only + [n for n, _ in extra] if only else (),
+                       extra)
+        elif args.route == "mma":
             probe(args.reps)
         else:
-            only = [n for n in args.only.split(",") if n]
             probe_wgmma(args.reps, args.quick, only + [n for n, _ in extra] if only else (),
                         extra)
     except RuntimeError as e:
