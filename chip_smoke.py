@@ -15,7 +15,8 @@ route), ``k5``, ``k3``, ``k6`` and ``k4``
 (``main``, ``config4``, ``tiled_x4plus``, ``tiled_x4_v3``, ``main_int8``,
 ``config4_int8``, ``tiled_x4plus_int8``, ``main_pallas``, ``main_tailq``,
 ``main_postbf16``, ``config3``, ``config2_1080p``, ``main_fp32``,
-``config4_fp32``, ``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
+``main_fp32_fused`` (which runs ``main_fp32`` too), ``config4_fp32``,
+``faces``, ``outscale``), ``io`` (phase 11), ``bench`` (phase 12),
 ``gfpgan`` (phase 13), ``train`` (phase 16), ``multi`` (phase 17). Phases 1
 and 2 always run. A partial run prints
 neither the per-kernel record nor the final ``{"ok": true, ...}`` line; the
@@ -39,10 +40,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    wgmma source), ``rdb_fused_mma.cu`` on ``mma_tile.cuh`` and
    ``rdb_fused.cu`` (its fp32-FMA instances in ``rdb_fused_f32.cu``,
    ``rdb_fused_bf16.cu`` and ``rdb_fused_narrow.cu`` on ``rdb_fused.cuh``),
-   each with its one-RDB and whole-RRDB entry points, the one-launch tail
-   ``tail_fused_wgmma.cu`` (``wgmma`` + TMA over rolling rows, on
-   ``wgmma_tile.cuh``) and K6 ``tail_fused_mma.cu`` on ``mma_tile.cuh`` and
-   ``tail_fused.cu``), and
+   each with its one-RDB and whole-RRDB entry points, and its fp32 route
+   ``rdb_fused_bf16x3.cu`` (K1 ``bf16x3``'s conv as the phases of one
+   cooperative launch), the one-launch tail ``tail_fused_wgmma.cu``
+   (``wgmma`` + TMA over rolling rows, on ``wgmma_tile.cuh``), its fp32
+   route ``tail_fused_bf16x3.cu`` and K6 ``tail_fused_mma.cu`` on
+   ``mma_tile.cuh`` and ``tail_fused.cu``), and
    print each source's compile seconds (one ``nvcc`` each, all in
    parallel: the slowest sets the build's time) and each kernel's
    registers, shared memory and spills from ``ptxas``;
@@ -70,10 +73,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    on ``bf16x3``, forced ``fma`` and cuDNN's fp32 chain (TF32 off),
    ``bf16x3`` at most half of ``fma``'s time; then ``[kernel32]``: conv_body,
    an SRVGG conv, up1, upconv2 and conv_hr on ``bf16x3``, the fp32 stem and
-   conv_last on ``fma``, K3's ``srvgg_up.cu``, K5's ``rdb_fused_f32.cu``
-   (``VRT_PALLAS=1``) and K6's ``tail_fused.cu`` (``VRT_TAIL_Q=1``) at the
-   paths' shapes, each against plain with its plain, cuDNN fp32 and bound
-   times. K1's narrow
+   conv_last on ``fma``, K3's ``srvgg_up.cu``, K5's RRDB on
+   ``rdb_fused_bf16x3.cu`` (``VRT_PALLAS=1``) and the tail on
+   ``tail_fused_bf16x3.cu`` (``VRT_TAIL_Q=1``) at the paths' shapes, each
+   against plain with its plain, cuDNN fp32 and bound times (the
+   ``bf16x3`` ones also against forced ``fma``; K5's and the tail's at
+   most half of its time). K1's narrow
    route (``conv3x3:narrow``): the stems (cin 3 and 12 -> 64, act none,
    PReLU and lrelu, odd shapes, a frame of one pixel, a strided cin-3 view,
    the flagship frame and the tile batch) and ``conv_last`` (64 -> 3, odd
@@ -110,7 +115,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    ``wgmma``, ``mma``, ``fma`` (forced), the cuDNN
    chain and K1's chain side by side on one 1080p RDB and RRDB, with
    executed over useful work and TFLOP/s; the 1080p RDB on ``wgmma`` must
-   take at most half of ``mma``'s time in the same run. K3's tensor-core route (``srvgg_up_fused:mma``) at r 2 and
+   take at most half of ``mma``'s time in the same run. K5's fp32 route
+   (``rdb_fused_k5:bf16x3``, ``rrdb_fused:bf16x3``, ``[k5] fp32``): one RDB
+   (with and without ``x0``) and a whole RRDB at odd shapes (below one
+   tile, B = 2 ragged, a second tile column, more tiles than blocks) and at
+   1080p, each ``torch.equal`` to K1 ``bf16x3``'s five-launch chain (three
+   and the residual) and within ``compare``'s fp32 bound of plain; the
+   1080p RDB and RRDB timed in turns beside the chain, forced ``fma``,
+   cuDNN's fp32 chain (TF32 off) and plain: the RRDB at most half of
+   ``fma``'s time and at most 1.05x the chain's. K3's tensor-core route (``srvgg_up_fused:mma``) at r 2 and
    r 4 at odd shapes, the config-4 frame and the tile batch, within one
    bf16 step per value of the plain version, old and new side by side. The
    one-launch tail on Hopper (``tail_fused:wgmma`` and
@@ -125,7 +138,14 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    each of the chain's convs (upconv2 on ``wgmma`` and on forced ``mma``,
    conv_hr, conv_last) and the cuDNN chain of 3 side by side, with
    executed over useful work; the new kernel faster than the chain and at
-   least 3x the fma kernel. K4's Hopper route (``conv3x3_i8:wgmma``),
+   least 3x the fma kernel. The fp32 one-launch tail
+   (``tail_fused_q:bf16x3``, ``[k6] fp32``) at the same odd shapes and the
+   flagship's 1x2160x3840x64: ``torch.equal`` to the fp32 three-launch
+   chain (the default fp32 ``tail_fused``: upconv2 and conv_hr on K1
+   ``bf16x3``, conv_last on ``fma``), within ``compare``'s fp32 bound of
+   plain; at the flagship shape it, the chain, forced K6 ``fma``, cuDNN's
+   fp32 chain and plain in turns, each one's device memory: at most half
+   of ``fma``'s time. K4's Hopper route (``conv3x3_i8:wgmma``),
    dynamic and static A8: each of the five RDB convs (growth-buffer prefix
    views, pixel stride 192, and x with the blocks of a c1 .. c4 tail) and an
    SRVGG PReLU conv at odd shapes (B = 2 ragged, below one tile, one pixel
@@ -182,10 +202,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    a side stream; and the same config with ``device_yuv="off"`` (RGB out,
    host colour conversion), whose file equals the RGB kernel path's frames
    after the y4m colour round trip;
-5. the same frames through the kernel path (RGB and I420 out) and the plain
-   path on the card: the RGB kernel path >= 45 dB PSNR on u8 against the
-   plain one, and the CLI's planes equal to the I420 kernel path's byte for
-   byte;
+5. the same frames through the kernel path (RGB and I420 out) and the first
+   through the plain path on the card: the RGB kernel path's first frame >=
+   45 dB PSNR on u8 against the plain one, and the CLI's planes equal to the
+   I420 kernel path's byte for byte;
 6. path A, config 4: the same clip through ``--model RealESRGAN_x4_v3
    --anime-mode --quality fast`` (SRVGGNetCompact at full width, nf 64,
    32 convs, synthetic weights from a seed; full frame chosen by
@@ -239,6 +259,12 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     the peak memory beside ``auto_full_frame``'s estimate at 4 bytes a
     feature value, and the bf16 kernel path's frames beside them (>= 35
     dB);
+10f. ``[main_fp32_fused]``: the flagship flags at ``--precision fp32``
+    with ``VRT_PALLAS=1`` and ``VRT_TAIL_Q=1``, 2 frames: 23
+    ``rrdb_fused:bf16x3``, 2 ``conv3x3:bf16x3`` (conv_body, up1), 1
+    ``conv3x3:fma`` (the stem) and 1 ``tail_fused_q:bf16x3`` a frame, its
+    frames byte-equal to ``[main_fp32]``'s (which stand in for a plain
+    run), its step and peak memory printed beside them;
 11. ``[io]``: the pinned ring under stress, the
     native framecodec (it must load) against numpy on an 8K frame, and an
     mp4 clip with audio through the repo's fake ffmpeg: the planes on the
@@ -342,6 +368,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import queue
 import shutil
@@ -419,6 +446,12 @@ PALLAS = {
     # Pallas convs as conv3x3:wgmma (#1-#5, #9, #10, #14-#16, the chain
     # tail's upconv2 and conv_hr)
     "conv3x3:bf16x3": "video_restore_tpu/ops/pallas_stripe.py:1963",
+    # K5's fp32 route: #19 rrdb_fused (VRT_PALLAS=1 at --precision fp32), and
+    # #11 rrdb_stripe_padded (pallas_stripe.py:1016)
+    "rrdb_fused:bf16x3": "video_restore_tpu/ops/pallas_rdb.py:257",
+    # the fp32 one-launch tail: #13 tail_fused_q (VRT_TAIL_Q=1 at --precision
+    # fp32)
+    "tail_fused_q:bf16x3": "video_restore_tpu/ops/pallas_tail.py:1018",
 }
 # the hand-written kernel behind each row where a wrapper has two
 # (ops/tail.py::conv3x3_route, ops/rdb.py::rdb_route,
@@ -430,7 +463,8 @@ CUDA_ROUTE = {
     "tail_fused": "wgmma", "srvgg_body": "wgmma", "srvgg_up_fused": "mma",
     "rdb_fused_k5": "wgmma", "rrdb_fused": "wgmma", "conv3x3:wgmma": "wgmma",
     "tail_fused_q": "wgmma", "rdb_fused_i8": "wgmma", "srvgg_body_i8": "wgmma",
-    "rdb_fused_i8 static": "wgmma", "conv3x3:bf16x3": "bf16x3",
+    "rdb_fused_i8 static": "wgmma", "conv3x3:bf16x3": "bf16x3", "rrdb_fused:bf16x3": "bf16x3",
+    "tail_fused_q:bf16x3": "bf16x3",
     "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
 }
 SOURCE = {
@@ -460,11 +494,15 @@ SOURCE = {
     "rdb_fused_i8 static": "video_restore_tpu_torch/csrc/conv3x3_i8_wgmma.cu",
     "conv3x3:wgmma": "video_restore_tpu_torch/csrc/conv3x3_wgmma.cu",
     "conv3x3:bf16x3": "video_restore_tpu_torch/csrc/conv3x3_bf16x3_wgmma.cu",
+    # K5 and the one-launch tail at --precision fp32 (ops/rdb.py::rdb_route,
+    # ops/tail.py::tail_fused_route: fp32 at nf 64)
+    "rrdb_fused:bf16x3": "video_restore_tpu_torch/csrc/rdb_fused_bf16x3.cu",
+    "tail_fused_q:bf16x3": "video_restore_tpu_torch/csrc/tail_fused_bf16x3.cu",
 }
 PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
     "config4_int8", "tiled_x4plus_int8", "main_pallas", "main_tailq",
-    "main_postbf16", "config3", "config2_1080p", "main_fp32", "config4_fp32",
+    "main_postbf16", "config3", "config2_1080p", "main_fp32", "main_fp32_fused", "config4_fp32",
 )
 # the paths after the face prior's phase: the face pass and the outscale resize
 POST_TAGS = ("faces", "outscale")
@@ -550,7 +588,8 @@ def main(argv=None) -> int:
                    "tail_fused_mma.cu": "k6", "tail_fused_wgmma.cu": "k6",
                    "conv3x3_i8_mma.cu": "k4", "conv3x3_i8_wgmma.cu": "k4",
                    "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
-                   "unsharp_rows_bf16.cu": "k2"}
+                   "unsharp_rows_bf16.cu": "k2", "rdb_fused_bf16x3.cu": "k5",
+                   "tail_fused_bf16x3.cu": "k6"}
     build_log = (_build.BUILD_DIR / "build.log").read_text()
     for line in build_log.splitlines():
         if line.startswith("=="):
@@ -574,7 +613,18 @@ def main(argv=None) -> int:
     # ---- phase 3: kernels against their plain versions -------------------
     gen = torch.Generator().manual_seed(0)
 
+    big_draws = [0]
+
     def rnd(*shape, scale=1.0, dt=torch.bfloat16):
+        """Seeded values in [-scale, scale): from the CPU generator, or, for
+        the tensors of 2^27 values and more (whole 8K frames, the timing
+        inputs), on the card from a generator seeded by their order (a CPU
+        draw of an 8K 64-channel frame takes seconds)."""
+        if math.prod(shape) >= 1 << 27:
+            big_draws[0] += 1
+            g_ = torch.Generator(dev).manual_seed(1000 + big_draws[0])
+            t = torch.rand(*shape, generator=g_, device=dev)
+            return t.mul_(2).sub_(1).mul_(scale).to(dt)
         t = (torch.rand(*shape, generator=gen) * 2 - 1) * scale
         return t.to(dev, dt)
 
@@ -589,6 +639,19 @@ def main(argv=None) -> int:
         e1.record()
         torch.cuda.synchronize()
         return e0.elapsed_time(e1) / reps
+
+    phase_secs = {}  # each phase's wall seconds, for the [time] line
+
+    @contextlib.contextmanager
+    def clock(name):
+        """Time a phase (host clock, the card synchronised at both ends)."""
+        torch.cuda.synchronize()
+        t_ = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            phase_secs[name] = phase_secs.get(name, 0.0) + time.perf_counter() - t_
 
     def compare(name, k, p, dt):
         err = (k.float() - p.float()).abs().max().item()
@@ -895,7 +958,8 @@ def main(argv=None) -> int:
 
     k1_stats = {}
     if want("k1", "kernels"):
-        phase_k1()
+        with clock("k1"):
+            phase_k1()
         torch.cuda.empty_cache()
 
     def phase_k1_fp32():
@@ -910,9 +974,9 @@ def main(argv=None) -> int:
         chain (bf16x3 at most half of fma's time); conv_body, up1, upconv2,
         conv_hr and an SRVGG conv at the paths' shapes; then the other fp32
         instances of the fp32 paths (``[kernel32]``: the fma stem and
-        conv_last, K3, K5's ``VRT_PALLAS=1`` RRDB and K6's ``VRT_TAIL_Q=1``
-        tail), each beside its plain version, cuDNN's fp32 chain (TF32 off)
-        and its bound (fp32 bytes over 3.35 TB/s; FMA kernels' operations
+        conv_last, K3, K5's ``VRT_PALLAS=1`` RRDB and the ``VRT_TAIL_Q=1``
+        tail, both on ``bf16x3``), each beside its plain version, cuDNN's
+        fp32 chain (TF32 off) and its bound (fp32 bytes over 3.35 TB/s; FMA kernels' operations
         over 67 TFLOP/s, bf16x3's six products a MAC over 989 TFLOP/s)."""
         f32 = torch.float32
         st = k1_stats.setdefault("fp32", {})
@@ -1044,10 +1108,12 @@ def main(argv=None) -> int:
                 check(errs[0] <= limit, f"[k1] fp32 sum of cin {cin} -> {cout}: error "
                       f"{errs[0]:.3g} of the largest value > {limit:.3g} (1.5e-7 x cin)")
 
-        def bound32(nbytes, ops, x3):
+        def bound32(nbytes, ops, x3, fma_ops=0):
             """(ms, by) of fp32 work: its bytes, and its operations at 67
-            TFLOP/s (FMA kernels) or six bf16 products a MAC at 989 (bf16x3)."""
-            t_o = (6 * ops / PEAK_BF16) if x3 else ops / PEAK_FP32
+            TFLOP/s (FMA kernels) or six bf16 products a MAC at 989 (bf16x3;
+            ``fma_ops`` on the CUDA cores run beside the tensor cores, so the
+            larger of the two times)."""
+            t_o = max(6 * ops / PEAK_BF16, fma_ops / PEAK_FP32) if x3 else ops / PEAK_FP32
             t_b = nbytes / PEAK_BYTES
             return max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
 
@@ -1114,9 +1180,11 @@ def main(argv=None) -> int:
         # that their knobs select (K5 at VRT_PALLAS=1, K6 at VRT_TAIL_Q=1)
         table = st.setdefault("rows", {})
 
-        def row32(name, shape, k_fn, p_fn, lib_fn, nbytes, ops, x3, per_frame, reps=3):
+        def row32(name, shape, k_fn, p_fn, lib_fn, nbytes, ops, x3, per_frame, reps=3,
+                  fma_ops=0, half_fma=False):
             """One fp32 instance against plain; a bf16x3 one also against the
-            forced fma route (``k_fn(route)``), both timed."""
+            forced fma route (``k_fn(route)``), both timed (``half_fma``: at
+            most half of fma's time)."""
             k = k_fn(None) if x3 else k_fn()
             e = compare(f"[kernel32] {name}", k, p_fn(), f32)
             fma = ""
@@ -1130,7 +1198,10 @@ def main(argv=None) -> int:
             ms = timed(k_fn if not x3 else (lambda: k_fn(None)), reps)
             pms = timed(p_fn, 1)
             lms = timed(lib_fn, reps)
-            bms, by = bound32(nbytes, ops, x3)
+            bms, by = bound32(nbytes, ops, x3, fma_ops)
+            if half_fma:
+                check(2 * ms <= fms,
+                      f"[kernel32] {name}: {ms:.3f} ms is not at most half of fma's {fms:.3f}")
             table[name] = dict(shape=shape, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                                bound_by=by, max_abs_err=e, launches_per_frame=per_frame,
                                fma_ms=fms if x3 else None)
@@ -1212,30 +1283,35 @@ def main(argv=None) -> int:
         rrdb_w_oihw = [[oihw(w_) for w_ in ws_] for ws_, _ in rrdb_w]
         ins = [rf(1, NF + k_ * GC, H, W).contiguous(memory_format=torch.channels_last)
                for k_ in range(5)]
-        row32("rrdb_fused K5 (fma, rdb_fused_f32.cu)", f"1x{H}x{W}x64, 3 RDBs + residual",
-              lambda: rdb.rrdb_fused(x64, rrdb_w), lambda: rdb.rrdb_fused_plain(x64, rrdb_w),
+        row32("rrdb_fused K5 (bf16x3, rdb_fused_bf16x3.cu)", f"1x{H}x{W}x64, 3 RDBs + residual",
+              lambda r: rdb.rrdb_fused(x64, rrdb_w, route=r),
+              lambda: rdb.rrdb_fused_plain(x64, rrdb_w),
               lambda: [F.conv2d(a, w_, b_, padding=1) for (_, bs_), wo_ in zip(rrdb_w, rrdb_w_oihw)
                        for a, w_, b_ in zip(ins, wo_, bs_)],
-              2 * H * W * NF * 4, 3 * rdb_ops, False, "23 a VRT_PALLAS=1 fp32 frame", 2)
+              2 * H * W * NF * 4, 3 * rdb_ops, True, "23 a VRT_PALLAS=1 fp32 frame", 3,
+              half_fma=True)
         del ins
         tw = tail_weights(NF, f32)
         x2 = rf(1, 2 * H, 2 * W, NF)
         up8 = rf(1, NF, 4 * H, 4 * W).contiguous(memory_format=torch.channels_last)
         tw_oihw = [oihw(tw[0]), oihw(tw[2]), oihw(tw[4])]
-        row32("tail_fused_q K6 (fma, tail_fused.cu)",
+        row32("tail_fused_q (bf16x3, tail_fused_bf16x3.cu)",
               f"1x{2 * H}x{2 * W}x64 -> 1x{4 * H}x{4 * W}x3",
-              lambda: tail.tail_fused_q(x2, *tw), lambda: tail.tail_fused_q_plain(x2, *tw),
+              lambda r: tail.tail_fused_q(x2, *tw, route=r),
+              lambda: tail.tail_fused_q_plain(x2, *tw),
               lambda: [F.conv2d(up8, tw_oihw[0], tw[1], padding=1),
                        F.conv2d(up8, tw_oihw[1], tw[3], padding=1),
                        F.conv2d(up8, tw_oihw[2], tw[5], padding=1)],
               4 * H * W * NF * 4 + 16 * H * W * 3 * 4,
-              16 * 2 * H * W * 9 * NF * (2 * NF + 3), False, "1 a VRT_TAIL_Q=1 fp32 frame", 2)
+              16 * 2 * H * W * 9 * NF * 2 * NF, True, "1 a VRT_TAIL_Q=1 fp32 frame", 3,
+              fma_ops=16 * 2 * H * W * 9 * NF * 3, half_fma=True)
         del x2, up8, x64, res
         st["max_err_odd_shapes"] = worst[0]
         torch.cuda.empty_cache()
 
     if want("k1", "kernels"):
-        phase_k1_fp32()
+        with clock("k1 fp32"):
+            phase_k1_fp32()
         torch.cuda.empty_cache()
 
     def phase_k1n():
@@ -1320,7 +1396,8 @@ def main(argv=None) -> int:
 
     k1n_stats = {}
     if want("k1n", "kernels"):
-        phase_k1n()
+        with clock("k1n"):
+            phase_k1n()
         torch.cuda.empty_cache()
 
     def phase_k2():
@@ -1457,7 +1534,8 @@ def main(argv=None) -> int:
 
     k2_stats = {}
     if want("k2", "kernels"):
-        phase_k2()
+        with clock("k2"):
+            phase_k2()
         torch.cuda.empty_cache()
 
     def one_launch(tag, fn, counter, route="mma"):
@@ -2082,19 +2160,220 @@ def main(argv=None) -> int:
                         srvgg_k1_bf16_ms=bf_ms, srvgg_library_ms=lib_ms, srvgg_bound_ms=bnd,
                         srvgg_bound_by=by)
 
+    def x3_timed(order, reps):
+        """{name: (first, second) ms}, ``order`` timed in turns: each
+        (name, fn, reps scale) in order, then back."""
+        t = {n: [] for n, _, _ in order}
+        for n, fn, r in order + order[::-1]:
+            t[n].append(timed(fn, max(1, reps // r)))
+        return t
+
+    def phase_k5_fp32():
+        """K5's fp32 route (``"bf16x3"``, ``rdb_fused_bf16x3.cu``): one RDB
+        (with and without x0) and a whole RRDB at nf 64 / gc 32 at odd shapes
+        (below one tile, B = 2 ragged, a second tile column, more tiles than
+        blocks) and at 1080p, each launch counted under its route,
+        ``torch.equal`` to K1 ``"bf16x3"``'s five-launch chain (three and the
+        residual for the RRDB) and within compare's fp32 bound of plain;
+        then at 1080p the new route, the chain, forced ``"fma"``
+        (``rdb_fused_f32.cu``), cuDNN's fp32 chain (TF32 off) and plain in
+        turns: the RRDB at most half of fma's time and at most 1.05x the
+        chain's; last the RRDB beside the chain at two small shapes
+        (``torch.equal``, timed in turns)."""
+        f32 = torch.float32
+        w3 = [rdb_weights(NF, GC, f32) for _ in range(3)]
+        ws, bs = w3[0]
+
+        def chain(x, rdbs, x0=None):
+            if rdbs == 1:
+                return stripe.rdb_fused(x, ws, bs, x0)
+            o = stripe.rdb_fused(x, *w3[0])
+            o = stripe.rdb_fused(o, *w3[1])
+            return stripe.rdb_fused(o, *w3[2], x0=x)
+
+        st = k5_stats.setdefault("fp32", {"cases": 0, "max_err": 0.0})
+        for shp in ((1, 5, 7), (2, 37, 53), (1, 20, 72), (2, 130, 150), (1, H, W)):
+            x, x0 = rnd(*shp, NF, dt=f32), rnd(*shp, NF, dt=f32)
+            for tag, counter, k_fn, p_fn, c_fn in (
+                ("rdb_fused", "rdb_fused_k5", lambda: rdb.rdb_fused(x, ws, bs),
+                 lambda: rdb.rdb_fused_plain(x, ws, bs), lambda: chain(x, 1)),
+                ("rdb_fused x0", "rdb_fused_k5", lambda: rdb.rdb_fused(x, ws, bs, x0),
+                 lambda: rdb.rdb_fused_plain(x, ws, bs, x0), lambda: chain(x, 1, x0)),
+                ("rrdb_fused", "rrdb_fused", lambda: rdb.rrdb_fused(x, w3),
+                 lambda: rdb.rrdb_fused_plain(x, w3), lambda: chain(x, 3)),
+            ):
+                k = one_launch(f"[k5] fp32 {tag} {shp}", k_fn, counter, route="bf16x3")
+                e = compare(f"[k5] fp32 {tag} {shp}", k, p_fn(), f32)
+                check(torch.equal(k, c_fn()),
+                      f"[k5] fp32 {tag} {shp}: bf16x3 differs from K1's five-launch chain")
+                st["cases"] += 1
+                st["max_err"] = max(st["max_err"], e)
+                log(f"[k5] fp32 {tag} {shp} bf16x3 err={e:.3g} == K1 chain")
+                del k
+        xb = rnd(1, H, W, NF, dt=f32)
+        rdb_in = [rnd(1, NF + k_ * GC, H, W, dt=f32).contiguous(memory_format=torch.channels_last)
+                  for k_ in range(5)]
+        rdb_w = [[w_.permute(3, 2, 0, 1).contiguous() for w_ in r_[0]] for r_ in w3]
+        ops = sum(2 * H * W * 9 * (NF + k_ * GC) * (GC if k_ < 4 else NF) for k_ in range(5))
+        for tag, rdbs, fn, plain_fn, fma_fn in (
+            ("RDB", 1, lambda: rdb.rdb_fused(xb, ws, bs), lambda: rdb.rdb_fused_plain(xb, ws, bs),
+             lambda: rdb.rdb_fused(xb, ws, bs, route="fma")),
+            ("RRDB", 3, lambda: rdb.rrdb_fused(xb, w3), lambda: rdb.rrdb_fused_plain(xb, w3),
+             lambda: rdb.rrdb_fused(xb, w3, route="fma")),
+        ):
+            lib = (lambda r=rdbs: [F.conv2d(a, w_, b_, padding=1) for r_, wo in zip(w3[:r], rdb_w)
+                                   for a, w_, b_ in zip(rdb_in, wo, r_[1])])
+            t = x3_timed([("bf16x3", fn, 1), ("chain", lambda r=rdbs: chain(xb, r), 1),
+                          ("library", lib, 1)], 6)
+            new_ms, chain_ms = min(t["bf16x3"]), min(t["chain"])
+            fma_ms = timed(fma_fn, 1)
+            plain_ms = timed(plain_fn, 1)
+            bms = 6 * rdbs * ops / PEAK_BF16 * 1e3
+            log(f"[k5] fp32 {tag} 1x{H}x{W}x64: bf16x3 (one launch) {t['bf16x3'][0]:.3f} / "
+                f"{t['bf16x3'][1]:.3f} ms ({rdbs * ops / new_ms / 1e9:.1f} TFLOP/s useful, "
+                f"{100 * bms / new_ms:.0f}% of its bound {bms:.3f} ms: six bf16 products a MAC), "
+                f"K1 bf16x3 chain of {5 * rdbs} {t['chain'][0]:.3f} / {t['chain'][1]:.3f} ms "
+                f"({new_ms / chain_ms:.3f}x), fma (forced) {fma_ms:.3f} ms "
+                f"({fma_ms / new_ms:.2f}x), cuDNN's fp32 chain (TF32 off) {t['library'][0]:.3f} / "
+                f"{t['library'][1]:.3f} ms, plain {plain_ms:.3f} ms")
+            st[tag] = dict(bf16x3_ms=t["bf16x3"], chain_ms=t["chain"], fma_ms=fma_ms,
+                           library_ms=t["library"], plain_ms=plain_ms, bound_ms=bms)
+            if rdbs == 3:
+                check(2 * new_ms <= fma_ms,
+                      f"[k5] fp32 RRDB: bf16x3 {new_ms:.3f} ms is not at most half of fma's {fma_ms:.3f}")
+                check(new_ms <= 1.05 * chain_ms,
+                      f"[k5] fp32 RRDB: bf16x3 {new_ms:.3f} ms is over 1.05x the chain's {chain_ms:.3f}")
+                k_ = rdb.rrdb_fused(xb, w3)
+                e = compare("[k5] fp32 RRDB 1080p", k_, rdb.rrdb_fused_plain(xb, w3), f32)
+                del k_
+                rows["rrdb_fused:bf16x3"] = dict(
+                    max_abs_err=e, ms=new_ms, plain_ms=plain_ms, bound_ms=bms,
+                    bound_by="operations", library_ms=min(t["library"]))
+        del rdb_in, xb
+        # where the 15 phases are short, so their barriers and the chain's
+        # launches weigh most: the tile batch of bench_rdb and a 32x128 frame
+        for shp in ((4, 384, 504), (1, 32, 128)):
+            xs = rnd(*shp, NF, dt=f32)
+            check(torch.equal(rdb.rrdb_fused(xs, w3), chain(xs, 3)),
+                  f"[k5] fp32 RRDB {shp}: bf16x3 differs from K1's chain")
+            t = x3_timed([("bf16x3", lambda: rdb.rrdb_fused(xs, w3), 1),
+                          ("chain", lambda: chain(xs, 3), 1)], 20)
+            log(f"[k5] fp32 RRDB {shp}: bf16x3 (one launch) {t['bf16x3'][0]:.3f} / "
+                f"{t['bf16x3'][1]:.3f} ms, K1 bf16x3 chain of 15 {t['chain'][0]:.3f} / "
+                f"{t['chain'][1]:.3f} ms ({min(t['bf16x3']) / min(t['chain']):.3f}x), == chain")
+            st[f"RRDB {shp}"] = dict(bf16x3_ms=t["bf16x3"], chain_ms=t["chain"])
+            del xs
+
+    def phase_k6_fp32():
+        """The fp32 one-launch tail (``"bf16x3"``, ``tail_fused_bf16x3.cu``)
+        at nf 64: at odd shapes (B = 2 and 3 ragged, a frame narrower than
+        one stripe, a last stripe of 2 columns, more stripes' rows than
+        blocks) and at the flagship's 1x2160x3840x64, ``tail_fused_q``
+        launches it once and it is ``torch.equal`` to the fp32 three-launch
+        chain (upconv2 and conv_hr on K1 ``"bf16x3"``, conv_last on K1
+        ``"fma"``; the default fp32 ``tail_fused``), within compare's fp32
+        bound of plain; then at the flagship shape the new route, the chain,
+        forced K6 ``"fma"``, cuDNN's fp32 chain (TF32 off) and plain in
+        turns, with each one's peak device memory: the new route at most
+        half of fma's time."""
+        f32 = torch.float32
+        tw = tail_weights(NF, f32)
+        chain_launches = {"tail_fused": 3, "conv3x3:bf16x3": 2, "conv3x3:fma": 1}
+        st = k6_stats.setdefault("fp32", {"cases": 0, "max_err": 0.0})
+        for shp in ((2, 37, 53), (1, 5, 7), (1, 9, 13), (2, 100, 150), (1, 1, 61), (3, 7, 200),
+                    (1, 2 * H, 2 * W)):
+            x = rnd(*shp, NF, dt=f32)
+            k = one_launch(f"[k6] fp32 {shp}", lambda: tail.tail_fused_q(x, *tw), "tail_fused_q",
+                           route="bf16x3")
+            check(k.shape == (shp[0], 2 * shp[1], 2 * shp[2], 3) and k.dtype == f32,
+                  f"[k6] fp32 {shp}: shape {k.shape}")
+            e = compare(f"[k6] fp32 {shp}", k, tail.tail_fused_q_plain(x, *tw), f32)
+            _build.reset_launches()
+            c = tail.tail_fused(x, *tw)
+            torch.cuda.synchronize()
+            got = _build.launches()
+            check(got == chain_launches, f"[k6] fp32 {shp}: the default tail's launches {got}")
+            check(torch.equal(k, c), f"[k6] fp32 {shp}: bf16x3 differs from the fp32 chain")
+            st["cases"] += 1
+            st["max_err"] = max(st["max_err"], e)
+            log(f"[k6] fp32 {shp} bf16x3 err={e:.3g} == the fp32 chain")
+            del k, c
+        x2 = rnd(1, 2 * H, 2 * W, NF, dt=f32)
+        up8 = rnd(1, NF, 4 * H, 4 * W, dt=f32).contiguous(memory_format=torch.channels_last)
+        tw_oihw = [tw[i].permute(3, 2, 0, 1).contiguous() for i in (0, 2, 4)]
+
+        def lib():
+            f = F.conv2d(up8, tw_oihw[0], tw[1], padding=1)
+            f = F.conv2d(f, tw_oihw[1], tw[3], padding=1)
+            return F.conv2d(f, tw_oihw[2], tw[5], padding=1)
+
+        peaks = {}
+        for name, fn in (("bf16x3", lambda: tail.tail_fused_q(x2, *tw)),
+                         ("chain", lambda: tail.tail_fused(x2, *tw))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        t = x3_timed([("bf16x3", lambda: tail.tail_fused_q(x2, *tw), 1),
+                      ("chain", lambda: tail.tail_fused(x2, *tw), 1), ("library", lib, 1)], 3)
+        del up8
+        fma_ms = timed(lambda: tail.tail_fused_q(x2, *tw, route="fma"), 1)
+        plain_ms = timed(lambda: tail.tail_fused_q_plain(x2, *tw), 1)
+        new_ms, chain_ms = min(t["bf16x3"]), min(t["chain"])
+        npx = 16 * H * W
+        wide, last = 2 * 2 * npx * 9 * NF * NF, 2 * npx * 9 * NF * 3
+        # conv_last runs on a warp of its own beside the MMAs: the larger time
+        bms = max(6 * wide / PEAK_BF16, last / PEAK_FP32) * 1e3
+        exe = tail.tail_x3_plan(1, 2 * H, 2 * W,
+                                sms=torch.cuda.get_device_properties(dev).multi_processor_count
+                                ).executed_ops()
+        log(f"[k6] fp32 tail 1x{2 * H}x{2 * W}x64 -> 1x{4 * H}x{4 * W}x3: bf16x3 (one launch) "
+            f"{t['bf16x3'][0]:.3f} / {t['bf16x3'][1]:.3f} ms ({wide / new_ms / 1e9:.1f} TFLOP/s useful, "
+            f"{exe / new_ms / 1e9:.1f} executed (x{exe / wide:.3f}), {100 * bms / new_ms:.0f}% of its "
+            f"bound {bms:.3f} ms: six bf16 products a MAC of the wide convs, conv_last's FMAs "
+            f"beside them), the "
+            f"fp32 chain of three K1 launches {t['chain'][0]:.3f} / {t['chain'][1]:.3f} ms "
+            f"({new_ms / chain_ms:.3f}x), K6 fma (forced) {fma_ms:.3f} ms ({fma_ms / new_ms:.2f}x), "
+            f"cuDNN's fp32 chain of 3 (TF32 off) {t['library'][0]:.3f} / {t['library'][1]:.3f} ms, "
+            f"plain {plain_ms:.3f} ms; device memory above the input: one launch "
+            f"{peaks['bf16x3']:.2f} GiB, the chain {peaks['chain']:.2f} GiB")
+        st.update(bf16x3_ms=t["bf16x3"], chain_ms=t["chain"], fma_ms=fma_ms,
+                  library_ms=t["library"], plain_ms=plain_ms, bound_ms=bms,
+                  peak_gib=peaks, executed_per_useful=exe / wide)
+        check(2 * new_ms <= fma_ms,
+              f"[k6] fp32 tail: bf16x3 {new_ms:.3f} ms is not at most half of fma's {fma_ms:.3f}")
+        k_ = tail.tail_fused_q(x2, *tw)
+        e = compare("[k6] fp32 tail 8K", k_, tail.tail_fused_q_plain(x2, *tw), f32)
+        del k_, x2
+        rows["tail_fused_q:bf16x3"] = dict(
+            max_abs_err=e, ms=new_ms, plain_ms=plain_ms, bound_ms=bms,
+            bound_by="operations", library_ms=min(t["library"]))
+
     k5_stats, k3_stats, k6_stats = {}, {}, {}
     if want("k5", "kernels"):
-        phase_k5()
+        with clock("k5"):
+            phase_k5()
+        torch.cuda.empty_cache()
+        with clock("k5 fp32"):
+            phase_k5_fp32()
         torch.cuda.empty_cache()
     if want("k3", "kernels"):
-        phase_k3()
+        with clock("k3"):
+            phase_k3()
         torch.cuda.empty_cache()
     if want("k6", "kernels"):
-        phase_k6()
+        with clock("k6"):
+            phase_k6()
+        torch.cuda.empty_cache()
+        with clock("k6 fp32"):
+            phase_k6_fp32()
         torch.cuda.empty_cache()
     k4_stats = {}
     if want("k4", "kernels"):
-        phase_k4()
+        with clock("k4"):
+            phase_k4()
         torch.cuda.empty_cache()
 
     def phase_kernels():
@@ -2572,7 +2851,8 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     if want("kernels"):
-        phase_kernels()
+        with clock("kernels"):
+            phase_kernels()
 
     # ---- phases 4-7: the main paths ----------------------------------------
     from video_restore_tpu_torch.cli import build_parser, config_from_args
@@ -2790,23 +3070,28 @@ def main(argv=None) -> int:
             f"{', '.join(f'{v:.2f}' for v in loops['side'])}")
         return dict(mean, sum=total, loop_compute_ms=loops["compute"], loop_side_ms=loops["side"])
 
+    kept_frames = {}  # a path's RGB kernel frames that a later path is held to
+
     def drive(tag, src, argv, per_call, cfg_check, expect_tiles, vs_bf16=False,
               vs_default=None, equal_default=False, post_split=False, rgb_check=False,
-              min_db=45.0):
+              min_db=45.0, keep=False, equal_to=None):
         """One main path: the CLI's config through ``VideoRestorer`` with
         the launch counters reset before and read after (the y4m sink takes
         planar I420 from the device), then the kernel path (RGB and I420
-        out) and the plain path on the decoded frames: the file's planes
-        equal the I420 kernel path's byte for byte, and the RGB kernel path
-        is held to the plain one (``min_db``: the least u8 PSNR of a frame,
-        45 dB; the fp32 paths ask 60). With ``vs_bf16``, the bf16 kernel path,
+        out) on the decoded frames and the plain path on the first: the
+        file's planes equal the I420 kernel path's byte for byte, and the
+        RGB kernel path's first frame is held to the plain one (``min_db``:
+        the least u8 PSNR, 45 dB; the fp32 paths ask 60). With ``vs_bf16``, the bf16 kernel path,
         which the int8 or fp32 output must stay within 35 dB of; with
         ``vs_default``, the name of the knob that is set, the kernel path of
         the default route without that knob, which must stay within 45 dB
         (with ``equal_default``: equal it byte for byte); with ``post_split``, the kernel path's step by stage,
         :func:`stage_split`; with ``rgb_check``, the CLI's config again with
         ``device_yuv="off"``, whose file must equal the RGB kernel path's
-        frames after the y4m colour round trip."""
+        frames after the y4m colour round trip. ``keep``: the RGB kernel
+        frames are kept for a later path; ``equal_to``: the tag of such a
+        path, whose frames this path's must equal byte for byte, in place of
+        a plain run of its own."""
         dst = work / f"out_{tag}.y4m"
         cfg = config_from_args(build_parser().parse_args([str(src), str(dst)] + argv))
         check(cfg_check(cfg), f"[{tag}] unexpected config {cfg}")
@@ -2876,7 +3161,8 @@ def main(argv=None) -> int:
         del restorer
         torch.cuda.empty_cache()
         outs, step_ms = {}, {}
-        runs = [(False, cfg), (True, cfg), ("yuv", cfg)]
+        # the plain path (~10x the kernel path's step) runs on the first frame
+        runs = [(False, cfg), ("yuv", cfg)] if equal_to else [(False, cfg), (True, cfg), ("yuv", cfg)]
         if vs_bf16:
             runs.append(("bf16", dataclasses.replace(cfg, precision="bf16")))
         if vs_default:
@@ -2886,6 +3172,7 @@ def main(argv=None) -> int:
             # where it is built (VRT_PALLAS, VRT_TAIL_Q) and the step at call
             # time (VRT_POST_DT)
             knob = os.environ.pop(vs_default) if key == "default" else None
+            run_frames = decoded[:1] if key is True else decoded
             try:
                 ups = Upscaler(model, grid, run_cfg, dev, plain=key is True,
                                yuv420_out=key == "yuv")
@@ -2893,17 +3180,17 @@ def main(argv=None) -> int:
                 t0 = time.perf_counter()
                 if key == "yuv":  # fetched as the runner fetches: the pinned ring
                     outs[key] = []
-                    for f in decoded:
+                    for f in run_frames:
                         fetched = ups.fetch(ups.process_batch(f[None]))
                         outs[key].append(fetched.wait()[0].copy())
                         fetched.release()
                 else:
-                    outs[key] = [ups.process_batch(f[None])[0].cpu().numpy() for f in decoded]
+                    outs[key] = [ups.process_batch(f[None])[0].cpu().numpy() for f in run_frames]
                 dt_s = time.perf_counter() - t0
             finally:
                 if knob is not None:
                     os.environ[vs_default] = knob
-            step_ms[key] = 1e3 * dt_s / n_frames
+            step_ms[key] = 1e3 * dt_s / len(run_frames)
             name = {False: "kernel", True: "plain", "bf16": "bf16 kernel", "yuv": "kernel (I420 out, pinned fetch)",
                     "default": f"default (no {vs_default}) kernel"}[key]
             log(
@@ -2915,15 +3202,20 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         vs_plain_db = []
         for i in range(n_frames):
-            a, b_ = outs[False][i], outs[True][i]
-            psnr = psnr_u8(a, b_)
-            vs_plain_db.append(psnr)
-            d = np.abs(a.astype(np.int32) - b_.astype(np.int32))
-            log(
-                f"[{tag}] frame {i}: kernel vs plain PSNR {psnr:.2f} dB, "
-                f"{100 * (d > 0).mean():.3f}% of values differ, max {d.max()}"
-            )
-            check(psnr >= min_db, f"[{tag}] frame {i}: kernel vs plain {psnr:.2f} dB < {min_db:g}")
+            if equal_to:
+                check(np.array_equal(outs[False][i], kept_frames[equal_to][i]),
+                      f"[{tag}] frame {i}: not byte-equal to [{equal_to}]'s")
+                log(f"[{tag}] frame {i}: byte-equal to [{equal_to}]'s kernel frame")
+            elif i < len(outs[True]):
+                a, b_ = outs[False][i], outs[True][i]
+                psnr = psnr_u8(a, b_)
+                vs_plain_db.append(psnr)
+                d = np.abs(a.astype(np.int32) - b_.astype(np.int32))
+                log(
+                    f"[{tag}] frame {i}: kernel vs plain PSNR {psnr:.2f} dB, "
+                    f"{100 * (d > 0).mean():.3f}% of values differ, max {d.max()}"
+                )
+                check(psnr >= min_db, f"[{tag}] frame {i}: kernel vs plain {psnr:.2f} dB < {min_db:g}")
             check(
                 np.array_equal(outs["yuv"][i], out_planes[i]),
                 f"[{tag}] frame {i}: the CLI's planes != the I420 kernel step's",
@@ -2935,9 +3227,18 @@ def main(argv=None) -> int:
             f"fetch {per_frame_ms['fetch']:.1f}, encode {per_frame_ms['encode']:.1f} ms/frame; the "
             "CLI's planes equal the I420 kernel step's byte for byte"
         )
+        if keep:
+            kept_frames[tag] = outs[False]
+        if equal_to:
+            del kept_frames[equal_to]
+            m = path_stats[equal_to]
+            log(f"[{tag}] beside [{equal_to}] (same clip and weights): step (RGB, .cpu()) "
+                f"{step_ms[False]:.1f} against {m['step_ms']:.1f} ms/frame, step (I420, pinned) "
+                f"{step_ms['yuv']:.1f} against {m['yuv_step_ms']:.1f}, peak {peak:.2f} against "
+                f"{m['peak_gib']:.2f} GiB")
         path_stats[tag] = dict(
             wall_ms_per_frame=1e3 * st.wall_s / n_frames, fps=st.fps,
-            step_ms=step_ms[False], plain_step_ms=step_ms[True], peak_gib=peak,
+            step_ms=step_ms[False], plain_step_ms=step_ms.get(True), peak_gib=peak,
             estimate_gib=est / 2**30, vs_plain_db=vs_plain_db,
             yuv_step_ms=step_ms["yuv"], fetch_ms=per_frame_ms["fetch"],
             encode_ms=per_frame_ms["encode"], stages_s=st.stages,
@@ -3120,7 +3421,16 @@ def main(argv=None) -> int:
         # each, held to their plain fp32 paths at 60 dB, the bf16 path beside
         ("main_fp32", (H, W, 2), flagship + ["--precision", "fp32"],
          {**rrdb_fp32_call, **K2_ROWS}, is_flagship("fp32"), 1, None,
-         dict(vs_bf16=True, min_db=60.0)),
+         dict(vs_bf16=True, min_db=60.0, keep=True)),
+        # phase 10f: the fp32 flagship with VRT_PALLAS=1 and VRT_TAIL_Q=1:
+        # each RRDB one launch of rdb_fused_bf16x3.cu, the tail one of
+        # tail_fused_bf16x3.cu; its frames byte-equal to [main_fp32]'s
+        ("main_fp32_fused", (H, W, 2), flagship + ["--precision", "fp32"],
+         {"conv3x3_fused": 2, "rrdb_fused": spec.num_block, "rrdb_fused:bf16x3": spec.num_block,
+          "up1_fused": 1, "conv3x3:bf16x3": 2, "conv3x3:fma": 1, "tail_fused_q": 1,
+          "tail_fused_q:bf16x3": 1, **K2_ROWS},
+         is_flagship("fp32"), 1, {"VRT_PALLAS": "1", "VRT_TAIL_Q": "1"},
+         dict(equal_to="main_fp32")),
         ("config4_fp32", (H, W, 2), config4 + ["--precision", "fp32"],
          {"conv3x3_fused": 1, "srvgg_body": v3.num_conv, "conv3x3:bf16x3": v3.num_conv,
           "conv3x3:fma": 1, "srvgg_up_fused": 1, "srvgg_up_fused:fma": 1},
@@ -3159,15 +3469,18 @@ def main(argv=None) -> int:
 
     config4_weights()
     clips = {}
+    # a path that another is held to runs where that one is asked for
+    held_to = {kw_["equal_to"]: t_ for t_, *_, kw_ in PATHS if "equal_to" in kw_}
     for tag, clip, argv_, per_call, cfg_check, tiles, knob, kw in PATHS:
-        if not want("paths", tag):
+        if not want("paths", tag) and not (tag in held_to and want(held_to[tag])):
             continue
         if clip not in clips:
             clips[clip] = work / "in_{}x{}_{}.y4m".format(*clip)
             make_clip(clips[clip], *clip)
         os.environ.update(knob or {})
         try:
-            drive(tag, clips[clip], argv_, per_call, cfg_check, tiles, **kw)
+            with clock(tag):
+                drive(tag, clips[clip], argv_, per_call, cfg_check, tiles, **kw)
         finally:
             for name in knob or {}:
                 os.environ.pop(name)
@@ -3252,7 +3565,8 @@ def main(argv=None) -> int:
                                     peak_gib=peak)
 
     if want("gfpgan"):
-        phase_gfpgan()
+        with clock("gfpgan"):
+            phase_gfpgan()
 
     def tap_writes():
         """Records the RGB frames the runner hands the y4m writer (the
@@ -3499,9 +3813,11 @@ def main(argv=None) -> int:
 
     with without_cv2():
         if want("paths", "faces"):
-            phase_faces()
+            with clock("faces"):
+                phase_faces()
         if want("paths", "outscale"):
-            phase_outscale()
+            with clock("outscale"):
+                phase_outscale()
 
     # ---- phase 16: fine-tuning, and --profile ------------------------------
     from video_restore_tpu_torch.models.zoo import get_model
@@ -3711,7 +4027,8 @@ def main(argv=None) -> int:
         path_stats["train"] = stats
 
     if want("train"):
-        phase_train()
+        with clock("train"):
+            phase_train()
 
 
     def phase_io():
@@ -3931,7 +4248,8 @@ def main(argv=None) -> int:
         path_stats["io"] = stats
 
     if want("io"):
-        phase_io()
+        with clock("io"):
+            phase_io()
     if "main_tailq" in path_stats and "main" in path_stats:
         tq = path_stats["main_tailq"]
         log(
@@ -3977,7 +4295,8 @@ def main(argv=None) -> int:
                                                    err=r["err"]) for r in recs}
 
     if want("bench"):
-        phase_bench()
+        with clock("bench"):
+            phase_bench()
 
     # ---- phase 17: several devices and several processes --------------------
     def run_procs(tag, argvs, env_fn, timeout):
@@ -4425,10 +4744,14 @@ def main(argv=None) -> int:
         path_stats["multi"] = stats
 
     if want("multi"):
-        phase_multi()
+        with clock("multi"):
+            phase_multi()
     shutil.rmtree(work, ignore_errors=True)
     path_stats.update(k1=k1_stats, k1n=k1n_stats, k2=k2_stats, k5=k5_stats, k3=k3_stats, k6=k6_stats, k4=k4_stats)
     log(f"[paths] {json.dumps(path_stats)}")
+    log("[time] phase seconds (after the build), largest first: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(phase_secs.items(), key=lambda kv: -kv[1]))
+        + f"; sum {sum(phase_secs.values()):.1f}")
     if only:
         log(f"[partial] ran only {sorted(only)} after the build: no result line")
         return 0

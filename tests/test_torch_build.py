@@ -1,4 +1,4 @@
-"""The kernel library's build and the K2, K1 (bf16 and fp32) and K5 probes, on a machine without nvcc.
+"""The kernel library's build and the K2, K1 (bf16 and fp32), K5 and tail probes, on a machine without nvcc.
 
 ``ops/_build.py`` starts one ``nvcc`` per source, all together, then links;
 ``build.log`` gives each source's wall seconds, so a run shows which source
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from video_restore_tpu_torch.ops import _build
-from video_restore_tpu_torch.tools import probe_k1, probe_k2, probe_k5k3
+from video_restore_tpu_torch.tools import probe_k1, probe_k2, probe_k5k3, probe_k6
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -298,4 +298,46 @@ def test_the_k5_probe_needs_the_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the probe would time it")
     assert probe_k5k3.main(["--route", "wgmma", "--quick"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+# ---- --dtype fp32 of tools/probe_k5k3.py and tools/probe_k6.py -------------------
+
+
+@pytest.mark.parametrize("probe,source", [(probe_k5k3, "rdb_fused_bf16x3.cu"),
+                                          (probe_k6, "tail_fused_bf16x3.cu")])
+def test_the_fp32_probes_build_their_variants(probe, source):
+    """The shipped build first; every define is one of the source's switches
+    (or of K1's, whose roles it includes); ``--only`` picks names,
+    ``--variant`` adds one; the unchecked builds are variants."""
+    assert probe.X3_SOURCE == source
+    names = [n for n, _ in probe.X3_VARIANTS]
+    assert names[0] == "shipped" and set(probe.X3_UNCHECKED) <= set(names)
+    assert probe_k1.unknown_defines(source, probe.X3_VARIANTS) == []
+    extra = [probe_k1.parse_variant("p2=-DVR_PROBE_PRODUCTS=2")]
+    picked = probe.x3_builds(extra, only=["shipped", "p2"])
+    assert [b[0] for b in picked][-2:] == ["shipped", "p2"]
+
+
+def test_the_tail_probe_times_k6_fma_first():
+    builds = probe_k6.x3_builds()
+    assert builds[0] == ("fma", "tail_fused.cu", ())
+    assert {src for _, src, _ in builds[1:]} == {"tail_fused_bf16x3.cu"}
+    assert [slot for slot, _, _ in probe_k6.X3_CLOCKS] and set(probe_k6.X3_WALK) == {
+        role for _, role, _ in probe_k6.X3_CLOCKS}
+
+
+@pytest.mark.parametrize("probe", [probe_k5k3, probe_k6])
+def test_the_fp32_probes_refuse_a_define_their_source_never_reads(probe, capsys):
+    with pytest.raises(SystemExit) as e:
+        probe.main(["--dtype", "fp32", "--variant", "bad=-DVR_X3_STAGES=3"])
+    assert e.value.code == 2
+    assert "never reads -DVR_X3_STAGES=3" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("probe", [probe_k5k3, probe_k6])
+def test_the_fp32_probes_need_the_card(probe, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the probe would time it")
+    assert probe.main(["--dtype", "fp32", "--quick"]) == 1
     assert "no CUDA device" in capsys.readouterr().err

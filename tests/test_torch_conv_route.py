@@ -416,15 +416,17 @@ def test_runner_hands_the_keyword_to_auto_full_frame(monkeypatch):
     "precision,nf,route,gib",
     [
         ("bf16", 64, "wgmma", 3.34),   # the flagship: nothing of the tail in memory
-        ("fp32", 64, "fma", 21.38),    # the chain of three K1 launches, 4 bytes a value
+        ("fp32", 64, "bf16x3", 21.38),  # the default tail: the chain of three K1 launches
         ("bf16", 32, "fma", None),     # a width the one launch is not built for
     ],
 )
 def test_tail_in_memory_follows_the_route(monkeypatch, precision, nf, route, gib):
-    """For each route of the tail the runner's flag, and at 1080p scale 4
-    the estimate ``auto_full_frame`` weighs: 3.34 GiB on the one-launch
-    route, 21.38 GiB where both 64-channel intermediates go through device
-    memory at fp32 (11.25 GiB if they were bf16: ``value_bytes`` 2)."""
+    """For each route of the one-launch tail the runner's flag, and at 1080p
+    scale 4 the estimate ``auto_full_frame`` weighs: 3.34 GiB where the
+    default tail is one launch, 21.38 GiB where both 64-channel
+    intermediates go through device memory at fp32 (11.25 GiB if they were
+    bf16: ``value_bytes`` 2). fp32's one launch (``"bf16x3"``) serves
+    ``VRT_TAIL_Q=1`` only: the default fp32 tail is the chain."""
     from video_restore_tpu_torch.config import RestoreConfig
     from video_restore_tpu_torch.models.zoo import ModelHandle
     from video_restore_tpu_torch.pipeline import runner
@@ -435,6 +437,7 @@ def test_tail_in_memory_follows_the_route(monkeypatch, precision, nf, route, gib
     spec = dataclasses.replace(MODEL_ZOO["RealESRGAN_x4plus"].spec, num_feat=nf)
     handle = ModelHandle("RealESRGAN_x4plus", spec, {})
     r = runner.VideoRestorer(RestoreConfig(precision=precision), model=handle, cpu=True)
+    assert r._tail_in_memory() is (tail.default_tail_route(dt, nf) == "chain")
     assert r._tail_in_memory() is (route != "wgmma")
     if gib is not None:
         est = pt.full_frame_bytes(1080, 1920, 4, tail_in_memory=r._tail_in_memory(),
@@ -443,6 +446,30 @@ def test_tail_in_memory_follows_the_route(monkeypatch, precision, nf, route, gib
         if precision == "fp32":
             bf16_est = pt.full_frame_bytes(1080, 1920, 4, tail_in_memory=True)
             assert round(bf16_est / 2**30, 2) == 11.25
+
+
+@pytest.mark.parametrize(
+    "precision,route,in_memory",
+    [("fp32", "chain", True), ("bf16", "wgmma", False), ("int8", "wgmma", False)],
+)
+def test_tail_in_memory_at_fp32_matches_the_default_tail(monkeypatch, precision, route,
+                                                         in_memory):
+    """The flagship's default tail at each precision: fp32 keeps the chain
+    of three K1 launches (its one launch, ``"bf16x3"``, is slower on the
+    card and serves ``VRT_TAIL_Q=1`` only), so ``auto_full_frame`` counts
+    both 4x intermediates; bf16 and int8 run the one launch."""
+    from video_restore_tpu_torch.config import RestoreConfig
+    from video_restore_tpu_torch.models.zoo import ModelHandle
+    from video_restore_tpu_torch.pipeline import runner
+
+    monkeypatch.delenv("VRT_TAIL_Q", raising=False)
+    dt = F32 if precision == "fp32" else BF
+    assert tail.default_tail_route(dt, 64) == route
+    assert route in tail.CHAIN_ROUTES and (route == "chain") is in_memory
+    name = "RealESRGAN_x4plus"
+    handle = ModelHandle(name, MODEL_ZOO[name].spec, {})
+    r = runner.VideoRestorer(RestoreConfig(precision=precision), model=handle, cpu=True)
+    assert r._tail_in_memory() is in_memory
 
 
 # ---- the RDB's layout on the wgmma route -------------------------------------

@@ -46,7 +46,7 @@ BF, F32 = torch.bfloat16, torch.float32
     "dtype,nf,gc,route",
     [
         (BF, 64, 32, "wgmma"),  # every RRDBNet of the zoo
-        (F32, 64, 32, "fma"),  # fp32: the tight checks
+        (F32, 64, 32, "bf16x3"),  # fp32: three bf16 parts a value on the same tensor cores
         (BF, 16, 8, "fma"),    # the narrow width of the tests and checks
         (F32, 16, 8, "fma"),
         (BF, 64, 16, "fma"),   # a growth the kernel is not built for
@@ -55,6 +55,24 @@ BF, F32 = torch.bfloat16, torch.float32
 def test_rdb_route(dtype, nf, gc, route):
     assert rdb.rdb_route(dtype, nf, gc) == route
     assert route in rdb.ROUTES
+
+
+def test_fp32_operands_off_16_bytes_take_fma():
+    """``"bf16x3"`` reads x, x0 and the biases 16 bytes at a time: an fp32
+    call with one of them off a 16-byte boundary takes ``"fma"``, and a
+    forced ``"bf16x3"`` raises."""
+    assert rdb.rdb_route(F32, 64, 32, aligned=False) == "fma"
+    buf = torch.zeros(1 * 4 * 5 * 64 + 1)
+    x = buf[1:].view(1, 4, 5, 64)
+    assert rdb._pick_route("t", x, 64, 32, None) == "fma"
+    with pytest.raises(ValueError, match="fp32 at \\(64, 32\\)"):
+        rdb._pick_route("t", x, 64, 32, "bf16x3")
+    xa = torch.zeros(1, 4, 5, 64)
+    assert rdb._pick_route("t", xa, 64, 32, None) == "bf16x3"
+    assert rdb._pick_route("t", xa, 64, 32, "fma") == "fma"
+    assert rdb._pick_route("t", xa, 64, 32, "bf16x3") == "bf16x3"
+    with pytest.raises(ValueError, match="bf16 at \\(64, 32\\)"):
+        rdb._pick_route("t", xa, 64, 32, "wgmma")
 
 
 @pytest.mark.parametrize(
@@ -128,11 +146,14 @@ def test_pallas_body_at_full_width_takes_wgmma(monkeypatch, name, n):
 
 @pytest.mark.parametrize("dt,nf,gc", [(F32, 64, 32), (BF, 16, 8), (F32, 16, 8)])
 def test_pallas_body_of_fp32_and_narrow_models_takes_fma(monkeypatch, dt, nf, gc):
+    """The narrow widths take the fp32-FMA kernel; fp32 at full width the
+    one-launch RRDB on three bf16 parts a value (``"bf16x3"``)."""
     net = RRDBNet(RRDBNetSpec(num_feat=nf, num_block=2, num_grow_ch=gc, scale=4))
     net.prepare(dt, "cpu", mode="pallas")
     calls = _record(monkeypatch, rrdbnet_mod, "rrdb_fused", _rrdb_route)
     net(torch.rand(1, 5, 6, 3))
-    assert calls == ["fma", "fma"]
+    route = "bf16x3" if (dt, nf, gc) == (F32, 64, 32) else "fma"
+    assert calls == [route, route]
 
 
 def _up_route(feat, w_out, b_out, x_in, r):

@@ -47,7 +47,8 @@ BF, F32 = torch.bfloat16, torch.float32
     [
         (BF, 64, True, "wgmma"),  # every RRDBNet of the zoo
         (BF, 64, False, "fma"),   # an operand off a 16-byte boundary
-        (F32, 64, True, "fma"),   # fp32: the tight checks
+        (F32, 64, True, "bf16x3"),  # fp32: three bf16 parts a value on the same tensor cores
+        (F32, 64, False, "fma"),  # an fp32 operand off a 16-byte boundary
         (BF, 16, True, "fma"),    # the narrow width of the tests and checks
         (F32, 16, True, "fma"),
         (BF, 32, True, "fma"),    # a width no kernel is built for
@@ -207,11 +208,13 @@ def test_a_forced_chain_route_is_checked():
 
 @pytest.mark.parametrize("dt,nf,gc", [(F32, 64, 32), (BF, 16, 8), (F32, 16, 8)])
 def test_tail_q_of_fp32_and_narrow_models_takes_fma(monkeypatch, dt, nf, gc):
+    """The narrow widths take K6's fp32-FMA kernel; fp32 at nf 64 the
+    one-launch tail on three bf16 parts a value (``"bf16x3"``)."""
     net = RRDBNet(RRDBNetSpec(num_feat=nf, num_block=1, num_grow_ch=gc, scale=4))
     net.prepare(dt, "cpu", tail="q")
     calls = _record(monkeypatch)
     net(torch.rand(1, 5, 6, 3))
-    assert calls == ["fma"]
+    assert calls == ["bf16x3" if (dt, nf) == (F32, 64) else "fma"]
 
 
 def _t(a):

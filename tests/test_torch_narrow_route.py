@@ -184,10 +184,11 @@ def test_a_forced_route_is_checked():
 
 
 def test_the_two_kernel_wrappers_have_no_narrow_route():
-    """K3 and K6 keep their two routes, K5 its three (its Hopper ``"wgmma"``
-    before them): ``"narrow"`` is unknown there."""
+    """K3 and K6 keep their two routes, K5 its four (its Hopper ``"wgmma"``
+    and, for fp32, ``"bf16x3"`` before them): ``"narrow"`` is unknown
+    there."""
     assert srvgg.ROUTES == tail.PAIR_ROUTES == ("mma", "fma")
-    assert rdb.ROUTES == ("wgmma", "mma", "fma")
+    assert rdb.ROUTES == ("wgmma", "bf16x3", "mma", "fma")
     with pytest.raises(ValueError, match="unknown route"):
         rdb._pick_route("t", torch.zeros(1, 4, 5, 64, dtype=BF), 64, 32, "narrow")
     with pytest.raises(ValueError, match="unknown route"):

@@ -220,141 +220,181 @@ __device__ __forceinline__ void split8(const float4& lo, const float4& hi, uint4
 __host__ __device__ constexpr int PA(int p) { return p == 0 ? 2 : p == 1 || p == 3 ? 1 : 0; }
 __host__ __device__ constexpr int PWP(int p) { return p == 2 ? 2 : p == 1 || p == 4 ? 1 : 0; }
 
-// ---- the kernel -------------------------------------------------------------------
+// ---- the roles --------------------------------------------------------------------
+//
+// The producer's and the consumers' walks over one conv's tiles, as device
+// functions: the kernel below runs one conv; rdb_fused_bf16x3.cu and
+// tail_fused_bf16x3.cu include this source (VR_X3_DEVICE_ONLY: without the
+// kernel and the entry points) and run several convs on the same ring.
 
-template <int NT, bool UP2>
-__global__ void __launch_bounds__(kThreads, 1)
-    conv3x3_bf16x3_kernel(const __grid_constant__ CUtensorMap tm_x,
-                          const __grid_constant__ CUtensorMap tm_w, const X3Args a) {
-  using G = Geo<NT>;
-  constexpr int N = G::N, RPC = G::RPC, TH = G::TH;
-  extern __shared__ __align__(1024) unsigned char smem[];
-  const uint32_t s0 = smem_u32(smem);
-  const uint32_t ring = (s0 + 1023u) & ~1023u;  // QS stages
-  const uint32_t raw = ring + QS * G::STAGE;     // DR raw windows
-  const uint32_t qfull0 = raw + DR * G::RAW_BYTES;
-  const uint32_t qempty0 = qfull0 + QS * 8;
-  const uint32_t rfull0 = qempty0 + QS * 8;
+// A block's shared memory: its generic base and shared address, the ring of
+// QS stages (1024-aligned; the raw slot follows a conv's stages) and the
+// barriers (the stages' full and empty, the raw slots' full).
+struct X3Smem {
+  unsigned char* base;
+  uint32_t s0, ring, qfull0, qempty0, rfull0;
+};
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  if (tid == 0) {
+// `bars`: the barriers' offset from the ring (past the largest ring a
+// kernel uses).
+__device__ __forceinline__ X3Smem x3_smem(unsigned char* smem, int bars) {
+  X3Smem m;
+  m.base = smem;
+  m.s0 = smem_u32(smem);
+  m.ring = (m.s0 + 1023u) & ~1023u;
+  m.qfull0 = m.ring + bars;
+  m.qempty0 = m.qfull0 + QS * 8;
+  m.rfull0 = m.qempty0 + QS * 8;
+  return m;
+}
+
+__device__ __forceinline__ void x3_init_barriers(const X3Smem& m) {
+  if (threadIdx.x == 0) {
     for (int s = 0; s < QS; ++s) {
-      mbar_init(qfull0 + 8 * s, PT / 32 + 1);  // every producer warp, and the weights' expect_tx
-      mbar_init(qempty0 + 8 * s, NC * 4);      // one arrive a consumer warp
+      mbar_init(m.qfull0 + 8 * s, PT / 32 + 1);  // every producer warp, and the weights' expect_tx
+      mbar_init(m.qempty0 + 8 * s, NC * 4);      // one arrive a consumer warp
     }
-    for (int s = 0; s < DR; ++s) mbar_init(rfull0 + 8 * s, 1);  // the window's expect_tx
+    for (int s = 0; s < DR; ++s) mbar_init(m.rfull0 + 8 * s, 1);  // the window's expect_tx
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+}
 
-  const int my_tiles =
-      (int)blockIdx.x < a.tiles ? (a.tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+// Where a role is in the ring (raw slot and phase, stage and phase), carried
+// from one conv to the next.
+struct X3Ring {
+  int rs = 0, qs = 0;
+  uint32_t rph = 0, qph = 0;
+};
 
-  if (warp >= NC * 4) {
-    // ---- producer: TMA copies (thread 0), the up2 windows and the split (all PT) ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
-    const int pt = tid - NC * 128;
-    const int steps = my_tiles * a.nk;
-    // step i: stage i % nk of this block's tile i / nk, into raw slot i % DR
-    auto issue = [&](int i) {
-      const int j = i / a.nk, k = i - j * a.nk;
-      int n, oy0, ox0;
-      tile_of(a, j, TH, n, oy0, ox0);
-      const int slot = i % DR;
-      const uint32_t dst = raw + slot * G::RAW_BYTES;
-      if constexpr (UP2) {
-        // the window at the fine grid from output pixel (oy0 - 1, ox0 - 1),
-        // each fine pixel read from coarse pixel (y >> 1, x >> 1): 16 bytes
-        // (4 channels) a copy, zero outside the 2x frame
-        constexpr int CH = KC / 4;
-        for (int u = pt; u < G::PH * PW * CH; u += PT) {
-          const int pix = u / CH, ch = u - pix * CH;
-          const int py = pix / PW, px = pix - py * PW;
-          const int fy = oy0 - 1 + py, fx = ox0 - 1 + px;
-          const bool ok = fy >= 0 && fy < a.H && fx >= 0 && fx < a.W;
-          const float* src =
-              ok ? a.x + ((((long long)n * a.ih + (fy >> 1)) * a.iw + (fx >> 1)) * a.xs +
-                          k * KC + ch * 4)
-                 : a.x;
-          cp_async16(dst + pix * RAW_ROW + ch * 16, src, ok);
-        }
-        cp_async_commit();
-      } else if (pt == 0) {
-        const uint32_t bar = rfull0 + 8 * slot;
-        mbar_expect_tx(bar, G::RAW_BYTES);
-        tma_load_4d(dst, &tm_x, bar, k * KC, ox0 - 1, oy0 - 1, n);
+__device__ __forceinline__ int x3_my_tiles(const X3Args& a) {
+  return (int)blockIdx.x < a.tiles ? (a.tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1 : 0;
+}
+
+// The producer warpgroup's walk (TMA copies by its thread 0, the up2
+// windows and the split by all PT): stage k < ka of a tile reads tm_x at
+// channel k * KC, a later one tm_x2 at channel (k - ka) * KC (K5's input
+// and its c_1 .. c_4; K1 passes tm_x twice and ka = nk).
+template <int NT, bool UP2>
+__device__ __forceinline__ void x3_produce(const X3Smem& m, const CUtensorMap* tm_x,
+                                           const CUtensorMap* tm_x2, int ka,
+                                           const CUtensorMap* tm_w, const X3Args& a,
+                                           int my_tiles, X3Ring& r) {
+  using G = Geo<NT>;
+  constexpr int TH = G::TH;
+  unsigned char* smem = m.base;
+  const uint32_t s0 = m.s0, ring = m.ring;
+  const uint32_t raw = ring + QS * G::STAGE;  // DR raw windows
+  const uint32_t qfull0 = m.qfull0, qempty0 = m.qempty0, rfull0 = m.rfull0;
+  const int pt = threadIdx.x - NC * 128;
+  const int steps = my_tiles * a.nk;
+  const int rs0 = r.rs;
+  // step i: stage i % nk of this block's tile i / nk, into raw slot (rs0 + i) % DR
+  auto issue = [&](int i) {
+    const int j = i / a.nk, k = i - j * a.nk;
+    int n, oy0, ox0;
+    tile_of(a, j, TH, n, oy0, ox0);
+    const int slot = (rs0 + i) % DR;
+    const uint32_t dst = raw + slot * G::RAW_BYTES;
+    if constexpr (UP2) {
+      // the window at the fine grid from output pixel (oy0 - 1, ox0 - 1),
+      // each fine pixel read from coarse pixel (y >> 1, x >> 1): 16 bytes
+      // (4 channels) a copy, zero outside the 2x frame
+      constexpr int CH = KC / 4;
+      for (int u = pt; u < G::PH * PW * CH; u += PT) {
+        const int pix = u / CH, ch = u - pix * CH;
+        const int py = pix / PW, px = pix - py * PW;
+        const int fy = oy0 - 1 + py, fx = ox0 - 1 + px;
+        const bool ok = fy >= 0 && fy < a.H && fx >= 0 && fx < a.W;
+        const float* src =
+            ok ? a.x + ((((long long)n * a.ih + (fy >> 1)) * a.iw + (fx >> 1)) * a.xs +
+                        k * KC + ch * 4)
+               : a.x;
+        cp_async16(dst + pix * RAW_ROW + ch * 16, src, ok);
       }
+      cp_async_commit();
+    } else if (pt == 0) {
+      const uint32_t bar = rfull0 + 8 * slot;
+      mbar_expect_tx(bar, G::RAW_BYTES);
+      if (k < ka)
+        tma_load_4d(dst, tm_x, bar, k * KC, ox0 - 1, oy0 - 1, n);
+      else
+        tma_load_4d(dst, tm_x2, bar, (k - ka) * KC, ox0 - 1, oy0 - 1, n);
+    }
+  };
+  for (int i = 0; i < DR && i < steps; ++i) issue(i);
+  for (int i = 0; i < steps; ++i) {
+    const int k = i % a.nk;
+    const int rs = r.rs, qs = r.qs;
+    if constexpr (UP2) {
+      cp_async_wait<0>();  // this thread's copies; the barrier below, everyone's
+      asm volatile("bar.sync 1, %0;\n" ::"n"(PT) : "memory");
+    } else {
+      mbar_wait(rfull0 + 8 * rs, r.rph);
+    }
+    mbar_wait(qempty0 + 8 * qs, r.qph ^ 1);
+    const uint32_t st = ring + qs * G::STAGE;
+    if (pt == 0) {  // the stage's weights: KC channels of every tap of the three parts
+      mbar_expect_tx(qfull0 + 8 * qs, 3 * G::W_PART);
+      tma_load_4d(st, tm_w, qfull0 + 8 * qs, 0, k * KC, 0, 0);
+    }
+    // chunk c: 8 channels of window pixel c / 2, 32 bytes at c * 32 of the
+    // raw window and 16 bytes at c * 16 of each part (swizzled); a thread's
+    // chunks are c = pt + PT u, BATCH loaded ahead of their splits
+    const uint32_t src = raw + rs * G::RAW_BYTES, dst = st + 3 * G::W_PART;
+    const float4* __restrict__ rw = reinterpret_cast<const float4*>(smem + (src - s0));
+    constexpr int FULL = G::CHUNKS / PT, TAIL = G::CHUNKS % PT, BATCH = 4;
+    auto split = [&](int c, const float4& lo, const float4& hi) {
+      uint4 p0, p1, p2;
+      split8(lo, hi, p0, p1, p2);
+      const uint32_t off = swizzle<32>(dst + c * 16) - s0;
+      *reinterpret_cast<uint4*>(smem + off) = p0;
+      *reinterpret_cast<uint4*>(smem + off + G::A_PART) = p1;
+      *reinterpret_cast<uint4*>(smem + off + 2 * G::A_PART) = p2;
     };
-    for (int i = 0; i < DR && i < steps; ++i) issue(i);
-    int rs = 0, qs = 0;
-    uint32_t rph = 0, qph = 0;
-    for (int i = 0; i < steps; ++i) {
-      const int k = i % a.nk;
-      if constexpr (UP2) {
-        cp_async_wait<0>();  // this thread's copies; the barrier below, everyone's
-        asm volatile("bar.sync 1, %0;\n" ::"n"(PT) : "memory");
-      } else {
-        mbar_wait(rfull0 + 8 * rs, rph);
-      }
-      mbar_wait(qempty0 + 8 * qs, qph ^ 1);
-      const uint32_t st = ring + qs * G::STAGE;
-      if (pt == 0) {  // the stage's weights: KC channels of every tap of the three parts
-        mbar_expect_tx(qfull0 + 8 * qs, 3 * G::W_PART);
-        tma_load_4d(st, &tm_w, qfull0 + 8 * qs, 0, k * KC, 0, 0);
-      }
-      // chunk c: 8 channels of window pixel c / 2, 32 bytes at c * 32 of the
-      // raw window and 16 bytes at c * 16 of each part (swizzled); a thread's
-      // chunks are c = pt + PT u, BATCH loaded ahead of their splits
-      const uint32_t src = raw + rs * G::RAW_BYTES, dst = st + 3 * G::W_PART;
-      const float4* __restrict__ rw = reinterpret_cast<const float4*>(smem + (src - s0));
-      constexpr int FULL = G::CHUNKS / PT, TAIL = G::CHUNKS % PT, BATCH = 4;
-      auto split = [&](int c, const float4& lo, const float4& hi) {
-        uint4 p0, p1, p2;
-        split8(lo, hi, p0, p1, p2);
-        const uint32_t off = swizzle<32>(dst + c * 16) - s0;
-        *reinterpret_cast<uint4*>(smem + off) = p0;
-        *reinterpret_cast<uint4*>(smem + off + G::A_PART) = p1;
-        *reinterpret_cast<uint4*>(smem + off + 2 * G::A_PART) = p2;
-      };
 #ifndef VR_PROBE_NO_SPLIT  // tools/probe_k1.py: the parts as they lie
 #pragma unroll
-      for (int u0 = 0; u0 < FULL; u0 += BATCH) {
-        float4 v[BATCH][2];
+    for (int u0 = 0; u0 < FULL; u0 += BATCH) {
+      float4 v[BATCH][2];
 #pragma unroll
-        for (int u = 0; u < BATCH; ++u)
-          if (u0 + u < FULL) {
-            v[u][0] = rw[2 * (pt + PT * (u0 + u))];
-            v[u][1] = rw[2 * (pt + PT * (u0 + u)) + 1];
-          }
+      for (int u = 0; u < BATCH; ++u)
+        if (u0 + u < FULL) {
+          v[u][0] = rw[2 * (pt + PT * (u0 + u))];
+          v[u][1] = rw[2 * (pt + PT * (u0 + u)) + 1];
+        }
 #pragma unroll
-        for (int u = 0; u < BATCH; ++u)
-          if (u0 + u < FULL) split(pt + PT * (u0 + u), v[u][0], v[u][1]);
-      }
-      if (TAIL && pt < TAIL) {
-        const int c = pt + PT * FULL;
-        split(c, rw[2 * c], rw[2 * c + 1]);
-      }
-#endif
-      fence_async_shared();  // this thread's stores, before `wgmma` reads them
-      __syncwarp();
-      if ((pt & 31) == 0) mbar_arrive(qfull0 + 8 * qs);  // this warp's share is stored
-      asm volatile("bar.sync 1, %0;\n" ::"n"(PT) : "memory");  // raw slot rs is read
-      if (i + DR < steps) issue(i + DR);
-      if (++rs == DR) {
-        rs = 0;
-        rph ^= 1;
-      }
-      if (++qs == QS) {
-        qs = 0;
-        qph ^= 1;
-      }
+      for (int u = 0; u < BATCH; ++u)
+        if (u0 + u < FULL) split(pt + PT * (u0 + u), v[u][0], v[u][1]);
     }
-    return;
+    if (TAIL && pt < TAIL) {
+      const int c = pt + PT * FULL;
+      split(c, rw[2 * c], rw[2 * c + 1]);
+    }
+#endif
+    fence_async_shared();  // this thread's stores, before `wgmma` reads them
+    __syncwarp();
+    if ((pt & 31) == 0) mbar_arrive(qfull0 + 8 * qs);  // this warp's share is stored
+    asm volatile("bar.sync 1, %0;\n" ::"n"(PT) : "memory");  // raw slot rs is read
+    if (i + DR < steps) issue(i + DR);
+    if (++r.rs == DR) {
+      r.rs = 0;
+      r.rph ^= 1;
+    }
+    if (++r.qs == QS) {
+      r.qs = 0;
+      r.qph ^= 1;
+    }
   }
+}
 
-  // ---- consumers ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+// The consumer warpgroups' walk: the MMAs of each stage and each tile's
+// epilogue (r.qs, r.qph: the ring's stage and phase).
+template <int NT>
+__device__ __forceinline__ void x3_consume(const X3Smem& m, const X3Args& a, int my_tiles,
+                                           X3Ring& r) {
+  using G = Geo<NT>;
+  constexpr int N = G::N, RPC = G::RPC, TH = G::TH;
+  const uint32_t ring = m.ring, qfull0 = m.qfull0, qempty0 = m.qempty0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2;  // this warpgroup's rows of a tile: wg * RPC ..
   const int wl = warp & 3, g = lane >> 2, q = lane & 3;
 
@@ -378,8 +418,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint64_t db0 = make_desc(ring, 16, G::B_SBO, G::B_LAYOUT);
 
   float acc[RPC][NT * 4];
-  int s = 0;
-  uint32_t ph = 0;
+  int s = r.qs;
+  uint32_t ph = r.qph;
   for (int j = 0; j < my_tiles; ++j) {
     int n, oy0, ox0;
     tile_of(a, j, TH, n, oy0, ox0);
@@ -476,6 +516,32 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
+  r.qs = s;
+  r.qph = ph;
+}
+
+#ifndef VR_X3_DEVICE_ONLY
+
+// ---- the kernel -------------------------------------------------------------------
+
+template <int NT, bool UP2>
+__global__ void __launch_bounds__(kThreads, 1)
+    conv3x3_bf16x3_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w, const X3Args a) {
+  using G = Geo<NT>;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const X3Smem m = x3_smem(smem, QS * G::STAGE + DR * G::RAW_BYTES);
+  x3_init_barriers(m);
+  __syncthreads();
+  const int my_tiles = x3_my_tiles(a);
+  X3Ring r;
+  if ((threadIdx.x >> 5) >= NC * 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    x3_produce<NT, UP2>(m, &tm_x, &tm_x, a.nk, &tm_w, a, my_tiles, r);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  x3_consume<NT>(m, a, my_tiles, r);
 }
 
 // ---- host -------------------------------------------------------------------------
@@ -502,7 +568,11 @@ cudaError_t launch(const CUtensorMap& tm_x, const CUtensorMap& tm_w, const X3Arg
              : launch<NT, false>(tm_x, tm_w, a, grid, stream);
 }
 
+#endif  // VR_X3_DEVICE_ONLY
+
 }  // namespace
+
+#ifndef VR_X3_DEVICE_ONLY
 
 extern "C" {
 
@@ -596,3 +666,5 @@ int vr_conv3x3_bf16x3(const void* x, const void* w, const void* b, const void* a
 }
 
 }  // extern "C"
+
+#endif  // VR_X3_DEVICE_ONLY

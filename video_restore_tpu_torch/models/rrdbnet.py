@@ -43,9 +43,10 @@ does.
 ``VRT_TAIL_Q=1`` (``rrdbnet.py:783-800``), ``ops/tail.py::tail_fused_q``,
 in place of the default ``"chain"`` mode's ``ops/tail.py::tail_fused``, for
 the nets with two upsample stages. In bf16 at nf 64 both modes launch
-``csrc/tail_fused_wgmma.cu`` once a frame; ``"q"`` runs K6
-(``csrc/tail_fused.cu``) for fp32 or nf 16, or K6's ``mma`` kernel when a
-caller forces it, where ``"chain"`` runs three K1 launches. It is
+``csrc/tail_fused_wgmma.cu`` once a frame; in fp32 at nf 64 ``"q"``
+launches ``csrc/tail_fused_bf16x3.cu`` once a frame, where ``"chain"``
+runs three K1 launches; ``"q"`` runs K6 (``csrc/tail_fused.cu``) for nf 16,
+or K6's ``mma`` kernel when a caller forces it. It is
 independent of the body mode and of the precision; :func:`tail_mode`
 resolves it from the knob.
 

@@ -39,7 +39,8 @@ SOURCES = (
     "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
     "conv3x3_i8_mma.cu", "conv3x3_i8_wgmma.cu", "rdb_fused.cu", "rdb_fused_f32.cu",
     "rdb_fused_bf16.cu", "rdb_fused_narrow.cu", "rdb_fused_mma.cu", "rdb_fused_wgmma.cu",
-    "tail_fused.cu", "tail_fused_mma.cu", "tail_fused_wgmma.cu",
+    "rdb_fused_bf16x3.cu",
+    "tail_fused.cu", "tail_fused_mma.cu", "tail_fused_wgmma.cu", "tail_fused_bf16x3.cu",
 )
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "video_restore_tpu_torch"
 NVCC_FLAGS = (
@@ -240,6 +241,13 @@ def load() -> ctypes.CDLL:
                 fn.restype = _I
             lib.vr_rdb_fused_wgmma_config.argtypes = [ctypes.POINTER(_I)]
             lib.vr_rdb_fused_wgmma_config.restype = _I
+            # nf, gc, rdbs, x, x0, y, scratch, c, ws (parts), bs, B, H, W,
+            # stream, then the plan (ops/rdb.py::rdb_x3_plan)
+            lib.vr_rdb_fused_bf16x3.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P, _PP, _PP, _I, _I,
+                                                _I, _P, ctypes.POINTER(_L), _I]
+            lib.vr_rdb_fused_bf16x3.restype = _I
+            lib.vr_rdb_fused_bf16x3_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_rdb_fused_bf16x3_config.restype = _I
             # dtype, nf, x, y, three (w, b) pairs, B, H2, W2, stream
             lib.vr_tail_fused.argtypes = [_I, _I] + [_P] * 8 + [_I, _I, _I, _P]
             lib.vr_tail_fused.restype = _I
@@ -252,6 +260,12 @@ def load() -> ctypes.CDLL:
             lib.vr_tail_fused_wgmma.restype = _I
             lib.vr_tail_fused_wgmma_config.argtypes = [ctypes.POINTER(_I)]
             lib.vr_tail_fused_wgmma_config.restype = _I
+            # fp32: nf, x, y, three (w, b) pairs (the wide ones' weights as
+            # split parts), B, H2, W2, stream, then the plan
+            # (ops/tail.py::tail_x3_plan)
+            lib.vr_tail_fused_bf16x3.argtypes = [_I] + [_P] * 8 + [_I, _I, _I, _P,
+                                                                   ctypes.POINTER(_L), _I]
+            lib.vr_tail_fused_bf16x3.restype = _I
             lib.vr_error_string.argtypes = [_I]
             lib.vr_error_string.restype = ctypes.c_char_p
             _lib = lib

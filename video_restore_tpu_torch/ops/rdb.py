@@ -14,15 +14,20 @@ Pallas entry points that compute the same two functions:
 Both take the torch-ordered HWIO weights of ``ops/stripe.py``; the TPU
 regroup and prefix layouts are not carried over. On a CUDA tensor a
 wrapper launches K5 or raises; on a CPU tensor it runs its plain version.
-K5 is three hand-written kernels of one function, and :func:`rdb_route`
+K5 is four hand-written kernels of one function, and :func:`rdb_route`
 says which a call takes: ``"wgmma"`` (``csrc/rdb_fused_wgmma.cu``: Hopper
 ``wgmma`` fed by TMA over rolling rings of rows, on the launch plan of
-:func:`rdb_wgmma_plan`) for bf16 at nf 64 / gc 32, ``"fma"``
-(``csrc/rdb_fused.cu``: fp32 FMAs) for fp32 and the narrow nf 16 / gc 8 of
-the checks. ``"mma"`` (``csrc/rdb_fused_mma.cu``: ``mma.sync`` on the tile
+:func:`rdb_wgmma_plan`) for bf16 at nf 64 / gc 32, ``"bf16x3"``
+(``csrc/rdb_fused_bf16x3.cu``: K1 ``"bf16x3"``'s conv, three bf16 parts a
+fp32 value on ``wgmma``, as the phases of one persistent cooperative launch,
+on the plan of :func:`rdb_x3_plan`) for fp32 at nf 64 / gc 32 with aligned
+operands, ``"fma"`` (``csrc/rdb_fused.cu``: fp32 FMAs) for the narrow nf 16
+/ gc 8 of the checks and every forced call. ``"mma"`` (``csrc/rdb_fused_mma.cu``: ``mma.sync`` on the tile
 routines of ``csrc/mma_tile.cuh``) takes the same calls as ``"wgmma"`` when
 a caller forces it (a side-by-side timing; its sums are in the same order,
-so the two give the same bits). The kernel notes (design, bound) are at the
+so the two give the same bits); ``"bf16x3"`` sums as K1's ``"bf16x3"``
+route does, so it gives the bits of ``ops/stripe.py::rdb_fused``'s five
+fp32 launches. The kernel notes (design, bound) are at the
 top of the sources.
 
 The border. The ``pallas_stripe.py`` forms mask every growth tensor to the
@@ -45,35 +50,52 @@ import torch
 
 from video_restore_tpu_torch.ops import _build
 from video_restore_tpu_torch.ops.stripe import rdb_fused_plain
-from video_restore_tpu_torch.ops.tail import _DTYPES, _sm_count, forced_route
+from video_restore_tpu_torch.ops.tail import (
+    _DTYPES,
+    _sm_count,
+    bf16x3_smem,
+    forced_route,
+    operands_aligned,
+    weight_parts,
+)
 
 # (nf, gc) pairs K5 is instantiated for: every RRDBNet of the zoo, and the
 # narrow width of the tests and checks
 WIDTHS = ((64, 32), (16, 8))
-ROUTES = ("wgmma", "mma", "fma")
+ROUTES = ("wgmma", "bf16x3", "mma", "fma")
+_TAKES = {"wgmma": "bf16 at (64, 32)", "mma": "bf16 at (64, 32)",
+          "bf16x3": "fp32 at (64, 32) with aligned operands"}
 
 RdbWeights = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]
 
 
-def rdb_route(dtype: torch.dtype, nf: int, gc: int) -> str:
+def rdb_route(dtype: torch.dtype, nf: int, gc: int, aligned: bool = True) -> str:
     """Which of K5's kernels a call on a CUDA tensor launches: a pure
-    function of the call. ``"wgmma"`` (Hopper tensor cores) takes bf16 at
-    (nf, gc) = (64, 32), the width of every RRDBNet of the zoo; ``"fma"``
-    takes fp32 and the narrow (16, 8)."""
-    if dtype == torch.bfloat16 and (nf, gc) == (64, 32):
-        return "wgmma"
+    function of the call. At (nf, gc) = (64, 32), the width of every RRDBNet
+    of the zoo, ``"wgmma"`` (Hopper tensor cores) takes bf16 and
+    ``"bf16x3"`` (the same tensor cores on three bf16 parts a value) fp32
+    whose operands are ``aligned`` (x, x0 and the biases on 16-byte
+    boundaries: :func:`_pick_route`); ``"fma"`` takes the rest (the narrow
+    (16, 8))."""
+    if (nf, gc) == (64, 32):
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32 and aligned:
+            return "bf16x3"
     return "fma"
 
 
-def _pick_route(name: str, x: torch.Tensor, nf: int, gc: int, route: Optional[str]) -> str:
-    """The route of a call: :func:`rdb_route`, or ``route`` when the caller
-    forces one (a side-by-side timing of the kernels): ``"mma"`` where the
-    call's own route is ``"wgmma"`` (the ``mma.sync`` kernel takes every
-    such call), ``"fma"`` anywhere."""
-    own = rdb_route(x.dtype, nf, gc)
+def _pick_route(name: str, x: torch.Tensor, nf: int, gc: int, route: Optional[str],
+                x0: Optional[torch.Tensor] = None, bs: Sequence[torch.Tensor] = ()) -> str:
+    """The route of a call: :func:`rdb_route` (with x, x0 and the biases
+    ``bs`` as its operands), or ``route`` when the caller forces one (a
+    side-by-side timing of the kernels): ``"mma"`` where the call's own
+    route is ``"wgmma"`` (the ``mma.sync`` kernel takes every such call),
+    ``"fma"`` anywhere."""
+    own = rdb_route(x.dtype, nf, gc, operands_aligned(x, x0, *bs))
     if route == "mma" and own == "wgmma":
         return "mma"
-    return forced_route(name, own, route, "bf16 at (64, 32)", ROUTES)
+    return forced_route(name, own, route, _TAKES.get(route, ""), ROUTES)
 
 
 # rdb_fused_wgmma.cu as shipped: output rows a step (consumer warpgroups),
@@ -235,6 +257,135 @@ def wgmma_geometry(lib) -> Dict:
                 threads=cfg[11])
 
 
+# rdb_fused_bf16x3.cu as shipped: tile rows at cout 32 and 64, tile pixels,
+# input channels a stage, dynamic shared memory a block, threads a block,
+# the plan's length (the build reports its own: vr_rdb_fused_bf16x3_config)
+K5_X3 = dict(th32=8, th64=4, tw=64, kc=16, smem=227624, threads=384, plan_len=31)
+
+
+class RdbX3Plan(NamedTuple):
+    """What ``vr_rdb_fused_bf16x3`` checks, encodes and launches: the
+    build's geometry as the plan assumed it (tile rows at cout 32 and 64,
+    tile pixels, input channels a stage, shared memory), the persistent
+    grid, the tile columns and the tile rows at each width, the 4-D maps
+    over (channels, W, H, B) of an RDB's input (64 fp32 channels) and of
+    c_1 .. c_4 (one 128-channel buffer): dims and byte strides, and the two
+    boxes (kc channels of a (TH + 2) x (TW + 2) window at each width)."""
+
+    th32: int
+    th64: int
+    tw: int
+    kc: int
+    smem: int
+    grid: int
+    tiles_x: int
+    tiles_y32: int
+    tiles_y64: int
+    in_dims: Tuple[int, int, int, int]
+    in_strides: Tuple[int, int, int]
+    c_dims: Tuple[int, int, int, int]
+    c_strides: Tuple[int, int, int]
+    box32: Tuple[int, int, int, int]
+    box64: Tuple[int, int, int, int]
+
+    def array(self) -> ctypes.Array:
+        """The plan as the C launcher reads it (31 int64 values)."""
+        vals = (self.th32, self.th64, self.tw, self.kc, self.smem, self.grid, self.tiles_x,
+                self.tiles_y32, self.tiles_y64, *self.in_dims, *self.in_strides, *self.c_dims,
+                *self.c_strides, *self.box32, *self.box64)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+    def phases(self, rdbs: int = 1, nf: int = 64, gc: int = 32) -> Iterator[Tuple[int, int, int]]:
+        """(cin, cout, tiles) of each phase, in launch order: conv 1 .. 5
+        of each RDB."""
+        b = self.in_dims[3]
+        for _ in range(rdbs):
+            for k in range(5):
+                rows = self.tiles_y32 if k < 4 else self.tiles_y64
+                yield nf + k * gc, gc if k < 4 else nf, b * self.tiles_x * rows
+
+    def executed_ops(self, rdbs: int = 1) -> int:
+        """Operations (2 per MAC, one product a MAC) the phases' tiles
+        execute, the ragged tiles' masked pixels included."""
+        return sum(tiles * (self.th32 if cout == 32 else self.th64) * self.tw * 2 * 9 * cin * cout
+                   for cin, cout, tiles in self.phases(rdbs))
+
+
+def rdb_x3_plan(b: int, h: int, w: int, geometry: Optional[Dict] = None, *,
+                sms: int = 132) -> RdbX3Plan:
+    """The ``"bf16x3"`` route's plan for a (b, h, w, 64) fp32 RDB or RRDB:
+    a pure function of the shape, the build's ``geometry`` (:data:`K5_X3`,
+    or :func:`x3_geometry` of a loaded build) and the card's SM count. The
+    grid is one block an SM, at most the tiles of the widest phase; a block
+    with no tile in a phase waits at its barrier. Raises ValueError for what
+    the kernel cannot take: an empty shape, 2^31 pixels or more, a geometry
+    whose shared memory is not its own or exceeds the card's, a byte stride
+    TMA cannot describe (2^40 or more)."""
+    g = dict(K5_X3 if geometry is None else geometry)
+    b, h, w = int(b), int(h), int(w)
+    if min(b, h, w) <= 0:
+        raise ValueError(f"rdb_x3_plan: empty shape {(b, h, w)}")
+    if b * h * w >= 1 << 31:
+        raise ValueError(f"rdb_x3_plan: {(b, h, w)} is 2^31 pixels or more")
+    th32, th64, tw, kc = g["th32"], g["th64"], g["tw"], g["kc"]
+    smem = max(bf16x3_smem(32, th32, kc, tw), bf16x3_smem(64, th64, kc, tw))
+    if smem != g["smem"] or smem > SMEM_MAX:
+        raise ValueError(f"rdb_x3_plan: shared memory {smem} B (the build: {g['smem']} B, "
+                         f"the card: at most {SMEM_MAX} B)")
+    in_strides = (64 * 4, w * 64 * 4, h * w * 64 * 4)
+    c_strides = (128 * 4, w * 128 * 4, h * w * 128 * 4)
+    if max(c_strides) >= _TMA_STRIDE_MAX:
+        raise ValueError(f"rdb_x3_plan: byte stride {max(c_strides)} is 2^40 or more")
+    tiles_x = -(-w // tw)
+    ty32, ty64 = -(-h // th32), -(-h // th64)
+    return RdbX3Plan(
+        th32=th32, th64=th64, tw=tw, kc=kc, smem=smem,
+        grid=min(sms, b * tiles_x * max(ty32, ty64)), tiles_x=tiles_x, tiles_y32=ty32,
+        tiles_y64=ty64, in_dims=(64, w, h, b), in_strides=in_strides, c_dims=(128, w, h, b),
+        c_strides=c_strides, box32=(kc, tw + 2, th32 + 2, 1), box64=(kc, tw + 2, th64 + 2, 1),
+    )
+
+
+def x3_geometry(lib) -> Dict:
+    """:func:`rdb_x3_plan`'s ``geometry`` of a loaded build of
+    ``rdb_fused_bf16x3.cu`` (``vr_rdb_fused_bf16x3_config``)."""
+    cfg = (ctypes.c_int * 7)()
+    lib.vr_rdb_fused_bf16x3_config(cfg)
+    return dict(th32=cfg[0], th64=cfg[1], tw=cfg[2], kc=cfg[3], smem=cfg[4], threads=cfg[5],
+                plan_len=cfg[6])
+
+
+_x3_geometry: Optional[Dict] = None
+
+
+def _x3(name: str, x: torch.Tensor, rdb_weights: Sequence[RdbWeights],
+        x0: Optional[torch.Tensor]) -> torch.Tensor:
+    """One launch of ``rdb_fused_bf16x3.cu``: one RDB (one ``(ws, bs)``
+    pair, with x0) or an RRDB (three), fp32 at (64, 32)."""
+    global _x3_geometry
+    lib = _build.load()
+    if _x3_geometry is None:
+        _x3_geometry = x3_geometry(lib)
+    b, h, w, nf = x.shape
+    gc = rdb_weights[0][0][0].shape[-1]
+    rdbs = len(rdb_weights)
+    out = torch.empty_like(x)
+    scratch = torch.empty_like(x) if rdbs == 3 else None
+    c = torch.empty((b, h, w, 4 * gc), dtype=x.dtype, device=x.device)
+    parts = [weight_parts(t) for ws, _ in rdb_weights for t in ws]
+    bs = [t for _, bs_ in rdb_weights for t in bs_]
+    with torch.cuda.device(x.device):
+        plan = rdb_x3_plan(b, h, w, _x3_geometry, sms=_sm_count(x.device)).array()
+        code = lib.vr_rdb_fused_bf16x3(
+            nf, gc, rdbs, x.data_ptr(), None if x0 is None else x0.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), c.data_ptr(),
+            _build.pointers(parts), _build.pointers(bs), b, h, w, _build.stream_ptr(x), plan,
+            len(plan),
+        )
+    _build.check(lib, code, f"{name} (K5) kernel (bf16x3)")
+    return out
+
+
 _geometry: Optional[Dict] = None
 
 
@@ -292,18 +443,24 @@ def rdb_fused(
     x, x0: (B, H, W, nf) contiguous; ws: the five HWIO conv weights
     (3, 3, nf + (k-1) gc, gc) and (3, 3, nf + 4 gc, nf); bs: their biases;
     all in x's dtype (fp32 or bf16). ``route``: None for :func:`rdb_route`'s
-    kernel, ``"mma"`` or ``"fma"`` to force another (:func:`_pick_route`).
+    kernel, ``"mma"`` or ``"fma"`` to force another (:func:`_pick_route`;
+    ``"fma"`` is the yardstick of the ``"bf16x3"`` route).
     The launch is counted under ``rdb_fused_k5`` and under its route,
-    ``rdb_fused_k5:wgmma``, ``:mma`` or ``:fma``."""
+    ``rdb_fused_k5:wgmma``, ``:bf16x3``, ``:mma`` or ``:fma``."""
     if x.device.type == "cpu":
         return rdb_fused_plain(x, ws, bs, x0)
     nf, gc = _check("rdb_fused", x, [(ws, bs)])
-    route = _pick_route("rdb_fused", x, nf, gc, route)
     if x0 is not None and (
         x0.shape != x.shape or x0.dtype != x.dtype or x0.device != x.device
         or not x0.is_contiguous()
     ):
         raise ValueError("rdb_fused: x0 must be contiguous like x")
+    route = _pick_route("rdb_fused", x, nf, gc, route, x0, bs)
+    if route == "bf16x3":
+        out = _x3("rdb_fused", x, [(ws, bs)], x0)
+        _build.count_launch("rdb_fused_k5")
+        _build.count_launch("rdb_fused_k5:bf16x3")
+        return out
     out = torch.empty_like(x)
     b, h, w, _ = x.shape
     lib = _build.load()
@@ -335,13 +492,19 @@ def rrdb_fused(
     x: (B, H, W, nf) contiguous; rdb_weights: three ``(ws, bs)`` pairs as
     :func:`rdb_fused` takes them, in x's dtype. ``route`` as for
     :func:`rdb_fused`; the launch is counted under ``rrdb_fused`` and
-    ``rrdb_fused:<route>`` (``wgmma``, ``mma`` or ``fma``)."""
+    ``rrdb_fused:<route>`` (``wgmma``, ``bf16x3``, ``mma`` or ``fma``)."""
     if x.device.type == "cpu":
         return rrdb_fused_plain(x, rdb_weights)
     if len(rdb_weights) != 3:
         raise ValueError("rrdb_fused: an RRDB has three RDBs")
     nf, gc = _check("rrdb_fused", x, rdb_weights)
-    route = _pick_route("rrdb_fused", x, nf, gc, route)
+    route = _pick_route("rrdb_fused", x, nf, gc, route,
+                        bs=[t for _, bs_ in rdb_weights for t in bs_])
+    if route == "bf16x3":
+        out = _x3("rrdb_fused", x, rdb_weights, None)
+        _build.count_launch("rrdb_fused")
+        _build.count_launch("rrdb_fused:bf16x3")
+        return out
     out = torch.empty_like(x)
     scratch = torch.empty_like(x)
     b, h, w, _ = x.shape

@@ -2,7 +2,8 @@
 ``csrc/conv3x3_bf16x3_wgmma.cu`` (fp32) and ``csrc/conv3x3_mma.cu`` on the
 tensor cores, ``csrc/conv3x3_narrow.cu`` for the stems and conv_last,
 ``csrc/conv3x3.cu`` for the rest, both on the CUDA cores), and the
-one-launch tail (``csrc/tail_fused_wgmma.cu`` on Hopper's tensor cores; K6's
+one-launch tail (``csrc/tail_fused_wgmma.cu`` and, for fp32,
+``csrc/tail_fused_bf16x3.cu`` on Hopper's tensor cores; K6's
 ``csrc/tail_fused_mma.cu`` on ``mma.sync`` and ``csrc/tail_fused.cu`` on the
 CUDA cores).
 
@@ -19,10 +20,13 @@ Port of ``video_restore_tpu/ops/pallas_tail.py``:
   -> conv_last with intermediates in the activation dtype, as the Pallas
   tail rounds them (``pallas_tail.py:188-212``): one launch of
   ``csrc/tail_fused_wgmma.cu`` that keeps both 64-channel intermediates in
-  shared memory (bf16 at nf 64), else three K1 launches (``"chain"``);
+  shared memory (bf16 at nf 64: :func:`default_tail_route`), else three K1
+  launches (``"chain"``; fp32 among them);
 - :func:`tail_fused_q` replaces ``tail_fused_q`` (``pallas_tail.py:1018``,
   the ``VRT_TAIL_Q=1`` tail): the same function, in the same one launch
-  (bf16 at nf 64), else in one K6 launch; each kernel reads up1's output
+  (bf16 at nf 64), in one launch of ``csrc/tail_fused_bf16x3.cu`` (fp32 at
+  nf 64, on the plan of :func:`tail_x3_plan`), else in one K6 launch; each
+  kernel reads up1's output
   and keeps both intermediates on chip, each zeroed outside the frame and
   rounded to the activation dtype as it is stored (``_tail_q_kernel``'s
   ``post_u2`` and ``post_hr``). What is not carried over is the TPU layout: the 4-way
@@ -53,11 +57,14 @@ fp32 calls of those widths, ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`
 fp32 FMAs in ``conv3x3.cu``'s order, one kernel for the bf16 stems, cin 3
 or 12 -> 64, and one for ``conv_last``, 64 -> 3), ``"fma"``
 (``csrc/conv3x3.cu``: fp32 FMAs) for the rest: the fp32 stems and
-conv_last, and the narrow test widths. The one-launch tail is three kernels the same way, chosen by
+conv_last, and the narrow test widths. The one-launch tail is four kernels the same way, chosen by
 :func:`tail_fused_route`: ``"wgmma"`` (``csrc/tail_fused_wgmma.cu``, on the
-launch plan of :func:`tail_wgmma_plan`) for bf16 at nf 64, ``"fma"``
-(K6's ``csrc/tail_fused.cu``) for fp32 and nf 16, and K6's ``"mma"``
-(``csrc/tail_fused_mma.cu``) where a caller forces it beside ``"wgmma"``.
+launch plan of :func:`tail_wgmma_plan`) for bf16 at nf 64, ``"bf16x3"``
+(``csrc/tail_fused_bf16x3.cu``, on :func:`tail_x3_plan`; upconv2 and
+conv_hr as K1's ``"bf16x3"`` convs, conv_last as its ``"fma"``) for fp32 at
+nf 64, ``"fma"`` (K6's ``csrc/tail_fused.cu``) for nf 16 and forced calls,
+and K6's ``"mma"`` (``csrc/tail_fused_mma.cu``) where a caller forces it
+beside ``"wgmma"``.
 The kernel notes (what bounds each kernel on the H100 and what its design
 does about it) are at the top of the sources.
 """
@@ -78,8 +85,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 ROUTES = ("wgmma", "bf16x3", "mma", "narrow", "fma")  # K1's kernels; "fma" takes every call
 PAIR_ROUTES = ("mma", "fma")  # the wrappers with a tensor-core and an fp32-FMA kernel
-TAIL_ROUTES = ("wgmma", "mma", "fma")  # tail_fused_q's kernels; "fma" takes every call
-CHAIN_ROUTES = ("wgmma", "chain")  # tail_fused: one launch, or three K1 launches
+TAIL_ROUTES = ("wgmma", "bf16x3", "mma", "fma")  # tail_fused_q's kernels; "fma" takes every call
+# the one-launch routes the default tail (tail_fused) takes where
+# tail_fused_route chooses them; any other call runs as the chain. The fp32
+# one launch ("bf16x3") is not among them: on the H100 it is slower than
+# the fp32 chain (PERF.md), so it serves tail_fused_q (VRT_TAIL_Q=1) only
+DEFAULT_ONE_LAUNCH = ("wgmma",)
+CHAIN_ROUTES = (*DEFAULT_ONE_LAUNCH, "chain")  # tail_fused: one launch, or three K1 launches
+_TAIL_TAKES = {"wgmma": "bf16 at nf 64 with aligned operands",
+               "mma": "bf16 at nf 64 with aligned operands",
+               "bf16x3": "fp32 at nf 64 with aligned operands"}
 _MMA_COUT = (32, 64)  # the widths of conv3x3_mma.cu, conv3x3_wgmma.cu and the bf16x3 kernel
 # (cin, cout) of conv3x3_narrow.cu's kernels: the stems and conv_last
 _NARROW = ((3, 64), (12, 64), (64, 3))
@@ -721,6 +736,25 @@ def tail_smem(step_rows: int, stripe: int, slots: int) -> int:
             + (2 * slots + 2) * 8)
 
 
+def _block_rows(plan, block: int) -> Tuple[int, int]:
+    """Block ``block``'s run [r0, r1) of a tail plan's concatenated
+    stripes' rows."""
+    return plan.rows * block // plan.grid, plan.rows * (block + 1) // plan.grid
+
+
+def _stripe_segments(plan, block: int) -> Iterator[Tuple[int, int, int, int]]:
+    """Block ``block``'s segments of a tail plan, in its order: (image, the
+    stripe's first output column, first row, end row), as the kernels walk
+    them."""
+    oh = plan.frame[1]
+    r, r1 = _block_rows(plan, block)
+    while r < r1:
+        idx, y0 = divmod(r, oh)
+        n = min(oh - y0, r1 - r)
+        yield idx // plan.stripes, (idx % plan.stripes) * plan.stripe, y0, y0 + n
+        r += n
+
+
 class TailWgmmaPlan(NamedTuple):
     """What ``vr_tail_fused_wgmma`` checks, encodes and launches: the
     build's geometry as the plan assumed it (rows a step, stripe columns, x
@@ -753,20 +787,8 @@ class TailWgmmaPlan(NamedTuple):
                 *self.w_box, self.w_swizzle, self.threads)
         return (ctypes.c_longlong * len(vals))(*vals)
 
-    def block_rows(self, block: int) -> Tuple[int, int]:
-        """Block ``block``'s run [r0, r1) of the concatenated stripes' rows."""
-        return self.rows * block // self.grid, self.rows * (block + 1) // self.grid
-
-    def segments(self, block: int) -> Iterator[Tuple[int, int, int, int]]:
-        """Block ``block``'s segments, in its order: (image, the stripe's
-        first output column, first row, end row), as the kernel walks them."""
-        oh = self.frame[1]
-        r, r1 = self.block_rows(block)
-        while r < r1:
-            idx, y0 = divmod(r, oh)
-            n = min(oh - y0, r1 - r)
-            yield idx // self.stripes, (idx % self.stripes) * self.stripe, y0, y0 + n
-            r += n
+    block_rows = _block_rows
+    segments = _stripe_segments
 
     def steps(self, seg_rows: int) -> int:
         """Steps of a segment of ``seg_rows`` output rows: until conv_last,
@@ -870,7 +892,8 @@ def tail_fused(
     the CPU the one launch is the plain version, and each K1 call its
     own."""
     ops = (x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
-    if chain_route(*ops, route=route) == "wgmma":
+    one = chain_route(*ops, route=route)
+    if one != "chain":
         if x.device.type == "cpu":
             return tail_fused_plain(*ops)
         return _tail_wgmma(*ops, counter="tail_fused")
@@ -879,15 +902,25 @@ def tail_fused(
     return conv3x3(f, w_last, b_last, counter="tail_fused")
 
 
+def default_tail_route(dtype: torch.dtype, nf: int, aligned: bool = True) -> str:
+    """The route of the default tail (:func:`tail_fused`) for a call of
+    ``dtype`` at ``nf``: :func:`tail_fused_route`'s where it is one of
+    :data:`DEFAULT_ONE_LAUNCH` (one launch, both intermediates on chip),
+    else ``"chain"`` (three K1 calls, both intermediates in device
+    memory)."""
+    own = tail_fused_route(dtype, nf, aligned)
+    return own if own in DEFAULT_ONE_LAUNCH else "chain"
+
+
 def chain_route(x, w_up2, b_up2, w_hr, b_hr, w_last=None, b_last=None, *,
                 route: Optional[str] = None) -> str:
-    """The route of a :func:`tail_fused` call: ``"wgmma"`` (one launch)
-    where :func:`tail_fused_route` takes its operands, else ``"chain"``
-    (three K1 calls); or the forced ``route`` (:func:`forced_route` with
+    """The route of a :func:`tail_fused` call: :func:`default_tail_route`
+    of its operands (``"wgmma"``, one launch, or ``"chain"``, three K1
+    calls); or the forced ``route`` (:func:`forced_route` with
     :data:`CHAIN_ROUTES`: ``"chain"`` takes every call)."""
-    own = "wgmma" if _tail_own_route(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last) == "wgmma" \
-        else "chain"
-    return forced_route("tail_fused", own, route, "bf16 at nf 64 with aligned operands",
+    own = default_tail_route(x.dtype, x.shape[-1],
+                             _tail_aligned(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last))
+    return forced_route("tail_fused", own, route, _TAIL_TAKES.get(route, ""),
                         routes=CHAIN_ROUTES)
 
 
@@ -899,24 +932,36 @@ def tail_fused_plain(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last):
 
 def tail_fused_route(dtype: torch.dtype, nf: int, aligned: bool = True) -> str:
     """Which kernel a one-launch tail call on a CUDA tensor launches: a pure
-    function of the call. ``"wgmma"`` (``csrc/tail_fused_wgmma.cu``:
-    Hopper's tensor cores, summing in K1's order) takes bf16 at nf 64, the
-    width of every RRDBNet of the zoo, with ``aligned`` operands (x and the
-    two wide convs' weights and biases on 16-byte boundaries, every operand
-    contiguous: :func:`_tail_own_route`); ``"fma"`` (K6's
-    ``csrc/tail_fused.cu``: fp32 FMAs) takes fp32 and the narrow nf 16 of
-    the checks. K6's ``"mma"`` (``csrc/tail_fused_mma.cu``) takes the calls
-    of ``"wgmma"`` when :func:`tail_fused_q`'s caller forces it."""
-    if dtype == torch.bfloat16 and nf == 64 and aligned:
-        return "wgmma"
+    function of the call. At nf 64, the width of every RRDBNet of the zoo,
+    with ``aligned`` operands (x and the two wide convs' weights and biases
+    on 16-byte boundaries, every operand contiguous: :func:`_tail_aligned`),
+    ``"wgmma"`` (``csrc/tail_fused_wgmma.cu``: Hopper's tensor cores,
+    summing in K1's order) takes bf16 and ``"bf16x3"``
+    (``csrc/tail_fused_bf16x3.cu``: the same tensor cores on three bf16
+    parts a value, summing as K1's ``"bf16x3"`` route, conv_last as K1's
+    ``"fma"``) takes fp32; ``"fma"`` (K6's ``csrc/tail_fused.cu``: fp32
+    FMAs) takes the rest (the narrow nf 16 of the checks) and every forced
+    call. K6's ``"mma"`` (``csrc/tail_fused_mma.cu``) takes the calls of
+    ``"wgmma"`` when :func:`tail_fused_q`'s caller forces it."""
+    if nf == 64 and aligned:
+        if dtype == torch.bfloat16:
+            return "wgmma"
+        if dtype == torch.float32:
+            return "bf16x3"
     return "fma"
+
+
+def _tail_aligned(x, w_up2, b_up2, w_hr, b_hr, w_last=None, b_last=None) -> bool:
+    """Whether one call's operands are contiguous, with x and the two wide
+    convs' weights and biases on 16-byte boundaries."""
+    dense = all(t is None or t.is_contiguous() for t in (x, w_up2, b_up2, w_hr, b_hr, w_last, b_last))
+    return dense and operands_aligned(x, w_up2, b_up2, w_hr, b_hr)
 
 
 def _tail_own_route(x, w_up2, b_up2, w_hr, b_hr, w_last=None, b_last=None) -> str:
     """:func:`tail_fused_route` of one call's operands."""
-    dense = all(t is None or t.is_contiguous() for t in (x, w_up2, b_up2, w_hr, b_hr, w_last, b_last))
     return tail_fused_route(
-        x.dtype, x.shape[-1], dense and operands_aligned(x, w_up2, b_up2, w_hr, b_hr)
+        x.dtype, x.shape[-1], _tail_aligned(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
     )
 
 
@@ -972,6 +1017,115 @@ def _tail_wgmma(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last, *, counter: str) ->
     return out
 
 
+# tail_fused_bf16x3.cu's constants: output columns of a stripe, weight slots
+# (stages of one tap row), threads a block; its launcher refuses a plan that
+# does not carry them and its shared memory (tail_x3_smem)
+TAIL_X3_STRIPE, TAIL_X3_SLOTS, TAIL_X3_THREADS = 60, 3, 448
+_X3_SLOT = 3 * 3 * 16 * 64 * 2  # a weight stage: 3 taps x 3 parts x 16 cin x 64 couts, bf16
+
+
+def tail_x3_smem() -> int:
+    """Dynamic shared memory of a block of ``tail_fused_bf16x3.cu``: 1024
+    bytes of alignment, the weight slots, two stages of the three parts of
+    upconv2's 3 x 66-pixel window of 16 channels (each part on 256 bytes),
+    the u2 ring (3 rows of 4 x 3 planes, a 16-channel stage of one part of
+    66 pixels, bf16), the hr ring (3 rows of the stripe + 2 pixels conv_last
+    reads, 272 bytes each, fp32), conv_last's fp32 weights (a float4 a tap
+    and channel), the biases (64 + 64 + 4 fp32) and 2 slots + 6 barriers."""
+    a_part = -(-3 * 66 * 32 // 256) * 256
+    slots = TAIL_X3_SLOTS
+    return (1024 + slots * _X3_SLOT + 2 * 3 * a_part + 3 * 4 * 3 * 66 * 32
+            + 3 * (TAIL_X3_STRIPE + 2) * 272 + 9 * 64 * 16 + (2 * 64 + 4) * 4
+            + (2 * slots + 6) * 8)
+
+
+class TailX3Plan(NamedTuple):
+    """What ``vr_tail_fused_bf16x3`` checks, encodes and launches: the
+    build's stripe, weight slots, shared memory and threads as the plan
+    assumed them, the persistent grid, the stripes and the rows the blocks
+    share (B x stripes x OH, cut into ``grid`` runs), the weight boxes (32
+    couts x 16 input channels x 3 taps, of each of the three parts);
+    ``frame`` (B, OH, OW) is the output's, kept for :meth:`segments` and not
+    sent."""
+
+    stripe: int
+    slots: int
+    smem: int
+    threads: int
+    grid: int
+    stripes: int
+    rows: int
+    w_box: Tuple[int, int, int]
+    frame: Tuple[int, int, int]
+
+    def array(self) -> ctypes.Array:
+        """The plan as the C launcher reads it (10 int64 values)."""
+        vals = (self.stripe, self.slots, self.smem, self.threads, self.grid, self.stripes,
+                self.rows, *self.w_box)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+    block_rows = _block_rows
+    segments = _stripe_segments
+
+    @staticmethod
+    def steps(seg_rows: int) -> int:
+        """Steps of a segment of ``seg_rows`` output rows, one row a step:
+        upconv2 from the segment's first row - 2 until conv_last, two rows
+        behind it, has written the last."""
+        return seg_rows + 4
+
+    def executed_ops(self, nf: int = 64) -> int:
+        """Operations (2 per MAC, one product a MAC) the two wide convs
+        execute: 64 pixels of every row each computes, the stripes'
+        recomputed columns and each segment's fill rows included."""
+        per_row = 2 * 2 * 64 * 9 * nf * nf
+        return sum(self.steps(y1 - y0) * per_row
+                   for blk in range(self.grid) for _, _, y0, y1 in self.segments(blk))
+
+
+def tail_x3_plan(b: int, h2: int, w2: int, *, sms: int = 132) -> TailX3Plan:
+    """The ``"bf16x3"`` tail's plan for fp32 x of shape (b, h2, w2, 64) (the
+    output is (b, 2 h2, 2 w2, 3)): a pure function of the shape and the
+    card's SM count. Stripes of :data:`TAIL_X3_STRIPE` output columns, B x
+    stripes x OH rows cut into one run a block (at least
+    :data:`TAIL_MIN_ROWS` rows, at most one block an SM). Raises ValueError
+    for what the kernel cannot take: an empty shape, a frame of 2^30 rows
+    or columns or more."""
+    b, h2, w2 = int(b), int(h2), int(w2)
+    if min(b, h2, w2) <= 0:
+        raise ValueError(f"tail_x3_plan: empty shape {(b, h2, w2)}")
+    if max(h2, w2) > 1 << 29:
+        raise ValueError(f"tail_x3_plan: a frame of {(2 * h2, 2 * w2)} is 2^30 or more")
+    oh, ow = 2 * h2, 2 * w2
+    stripes = -(-ow // TAIL_X3_STRIPE)
+    rows = b * stripes * oh
+    grid = max(1, min(sms, -(-rows // TAIL_MIN_ROWS)))
+    return TailX3Plan(stripe=TAIL_X3_STRIPE, slots=TAIL_X3_SLOTS, smem=tail_x3_smem(),
+                      threads=TAIL_X3_THREADS, grid=grid, stripes=stripes, rows=rows,
+                      w_box=(32, 16, 3), frame=(b, oh, ow))
+
+
+def _tail_x3(x, w_up2, b_up2, w_hr, b_hr, w_last, b_last, *, counter: str) -> torch.Tensor:
+    """One launch of ``csrc/tail_fused_bf16x3.cu`` (the two wide convs'
+    weights as :func:`weight_parts`), counted under ``counter`` and
+    ``<counter>:bf16x3``."""
+    _check_tail(counter, x, w_up2, b_up2, w_hr, b_hr, w_last, b_last)
+    bsz, h2, w2, nf = x.shape
+    out = torch.empty((bsz, 2 * h2, 2 * w2, 3), dtype=x.dtype, device=x.device)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        plan = tail_x3_plan(bsz, h2, w2, sms=_sm_count(x.device)).array()
+        code = lib.vr_tail_fused_bf16x3(
+            nf, x.data_ptr(), out.data_ptr(), weight_parts(w_up2).data_ptr(), b_up2.data_ptr(),
+            weight_parts(w_hr).data_ptr(), b_hr.data_ptr(), w_last.data_ptr(), b_last.data_ptr(),
+            bsz, h2, w2, _build.stream_ptr(x), plan, len(plan),
+        )
+    _build.check(lib, code, f"{counter} kernel (bf16x3)")
+    _build.count_launch(counter)
+    _build.count_launch(f"{counter}:bf16x3")
+    return out
+
+
 def tail_fused_q(
     x: torch.Tensor,
     w_up2: torch.Tensor,
@@ -998,6 +1152,8 @@ def tail_fused_q(
     route = _pick_tail_route(x, w_up2, b_up2, w_hr, b_hr, route)
     if route == "wgmma":
         return _tail_wgmma(*ops, counter="tail_fused_q")
+    if route == "bf16x3":
+        return _tail_x3(*ops, counter="tail_fused_q")
     bsz, h2, w2, nf = x.shape
     out = torch.empty((bsz, 2 * h2, 2 * w2, 3), dtype=x.dtype, device=x.device)
     lib = _build.load()
@@ -1054,7 +1210,7 @@ def _pick_tail_route(x, w_up2, b_up2, w_hr, b_hr, route: Optional[str]) -> str:
     own = _tail_own_route(x, w_up2, b_up2, w_hr, b_hr)
     if route == "mma" and own == "wgmma":
         return "mma"
-    return forced_route("tail_fused_q", own, route, "bf16 at nf 64 with aligned operands",
+    return forced_route("tail_fused_q", own, route, _TAIL_TAKES.get(route, ""),
                         routes=TAIL_ROUTES)
 
 

@@ -58,7 +58,7 @@ import torch
 from video_restore_tpu_torch.config import RestoreConfig
 from video_restore_tpu_torch.models.rrdbnet import RRDBNetSpec, tail_mode
 from video_restore_tpu_torch.models.zoo import ModelHandle, get_model
-from video_restore_tpu_torch.ops.tail import tail_fused_route
+from video_restore_tpu_torch.ops.tail import default_tail_route
 from video_restore_tpu_torch.ops.tiles import (
     TileGrid,
     auto_full_frame,
@@ -306,14 +306,15 @@ class VideoRestorer:
         """Whether the model's tail writes its two 4x-resolution
         intermediates to device memory: an RRDBNet whose ``"chain"`` tail
         (:func:`tail_mode`) runs as three K1 launches, which is where
-        ``ops/tail.py::tail_fused_route`` does not take it in one launch
-        (fp32, a width other than 64). The one-launch tails keep both on
+        ``ops/tail.py::default_tail_route`` does not take it in one launch:
+        fp32 at any width (its one launch serves ``VRT_TAIL_Q=1`` only) and
+        bf16 at a width other than 64. The one-launch tails keep both on
         chip, and SRVGG has none."""
         spec = self.model.spec
         if not isinstance(spec, RRDBNetSpec) or tail_mode(self.device) == "q":
             return False
         dtype = torch.float32 if self.config.precision == "fp32" else torch.bfloat16
-        return tail_fused_route(dtype, spec.num_feat) != "wgmma"
+        return default_tail_route(dtype, spec.num_feat) == "chain"
 
     def process_video(
         self,

@@ -41,8 +41,26 @@ segment length is the plan's (B x stripes x H rows over one block an SM:
 294-295 rows at 1080p), not a build variant; the kernel multicasts nothing, so
 a cluster size is not one either.
 
+``--dtype fp32``: K5's fp32 route, ``csrc/rdb_fused_bf16x3.cu`` (K1
+``"bf16x3"``'s conv as the phases of one cooperative launch), in the
+compile-time variants of :data:`X3_VARIANTS` beside the fp32 five-launch
+chain (``ops/stripe.py::rdb_fused``: K1 ``"bf16x3"``) and the forced
+``"fma"`` route (``rdb_fused_f32.cu``), both from the port's library:
+
+- ``rows32_2``: tiles of 4 rows at cout 32 (two a consumer warpgroup);
+- ``no_mma``: without the ``wgmma``s; ``products2``: two of the six
+  products a tap; ``no_split``: the window stages as they lie;
+  ``no_store``: without the epilogues' loads and stores;
+
+plus any ``--variant NAME=-DDEF,...`` (refused where the source never reads
+the name). The shipped build and the checked variants are held at odd
+shapes (one RDB with and without x0, one RRDB) bit for bit against the
+chain; then the 1080p RDB and RRDB are timed with every build and the
+chain, in order and back, and the forced ``"fma"`` route once.
+
     python -m video_restore_tpu_torch.tools.probe_k5k3 [--route mma|wgmma]
-        [--reps N] [--quick] [--only NAME,...] [--variant NAME=-DDEF,...]
+        [--dtype bf16|fp32] [--reps N] [--quick] [--only NAME,...]
+        [--variant NAME=-DDEF,...]
 
 Needs a CUDA device and ``nvcc``. Prints the card's ``nvidia-smi`` line and,
 per case, ms and TFLOP/s (useful operations) of each build.
@@ -58,7 +76,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from video_restore_tpu_torch.tools.probe_k1 import parse_variant, ptxas_lines
+from video_restore_tpu_torch.tools.probe_k1 import parse_variant, ptxas_lines, unknown_defines
 
 BUILDS = (("full", ()), ("no_mma", ("-DVR_PROBE_NO_MMA",)))
 SOURCES = ("rdb_fused_mma.cu", "srvgg_up_mma.cu")
@@ -78,6 +96,17 @@ K5_VARIANTS = (
 )
 # builds whose output is not the function
 UNCHECKED = ("no_mma", "loads", "no_loads")
+# rdb_fused_bf16x3.cu's variants (--dtype fp32): (name, defines)
+X3_SOURCE = "rdb_fused_bf16x3.cu"
+X3_VARIANTS = (
+    ("shipped", ()),
+    ("rows32_2", ("-DVR_X3_ROWS32=2",)),
+    ("no_mma", ("-DVR_PROBE_NO_MMA",)),
+    ("products2", ("-DVR_PROBE_PRODUCTS=2",)),
+    ("no_split", ("-DVR_PROBE_NO_SPLIT",)),
+    ("no_store", ("-DVR_PROBE_NO_STORE",)),
+)
+X3_UNCHECKED = ("no_mma", "products2", "no_split", "no_store")
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _K5_ARGS = [_I, _I, _I, _P, _P, _P, _PP, _PP, _I, _I, _I, _P]
@@ -395,6 +424,150 @@ def probe_wgmma(reps: int = 10, quick: bool = False, only: Sequence[str] = (),
         raise RuntimeError(f"builds disagree with the plain version or mma: {sorted(bad)}")
 
 
+def x3_builds(extra: Sequence[Tuple[str, Tuple[str, ...]]] = (),
+              only: Sequence[str] = ()) -> List[Tuple[str, Tuple[str, ...]]]:
+    """(build, defines) of ``--dtype fp32``: the variants of
+    ``rdb_fused_bf16x3.cu`` (``only``: those names; ``extra`` appended)."""
+    return [(n, tuple(d)) for n, d in tuple(X3_VARIANTS) + tuple(extra) if not only or n in only]
+
+
+def probe_fp32(reps: int = 5, quick: bool = False, only: Sequence[str] = (),
+               extra: Sequence[Tuple[str, Tuple[str, ...]]] = ()) -> None:
+    """``--dtype fp32``: the variants of ``rdb_fused_bf16x3.cu`` beside the
+    fp32 five-launch chain and the forced ``"fma"`` route."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: this probe times the card")
+    import threading
+
+    from video_restore_tpu_torch.ops import _build, rdb, stripe
+    from video_restore_tpu_torch.ops.tail import weight_parts
+
+    dev, f32 = torch.device("cuda", 0), torch.float32
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    )
+    print((smi.stdout or smi.stderr).strip(), flush=True)
+    specs = x3_builds(extra, only)
+    # the port's library (the chain and the fma route) builds beside the
+    # variants; a build that failed there raises here
+    lib_thread = threading.Thread(target=_build.load)
+    lib_thread.start()
+    out = _build.BUILD_DIR / "probe_k5_fp32"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, defs in specs:
+        so = out / f"librdb_{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *defs, "-shared", "-o", str(so),
+               str(_build.CSRC / X3_SOURCE)]
+        procs.append((name, so, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs, geo = {}, {}
+    for name, so, p in procs:
+        text, _ = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} build:\n{text[-4000:]}")
+        for line in ptxas_lines(name, text):
+            print(line, flush=True)
+        lib = ctypes.CDLL(str(so))
+        lib.vr_rdb_fused_bf16x3.argtypes = [_I, _I, _I] + [_P] * 5 + [
+            ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I, _P, ctypes.POINTER(_L), _I]
+        lib.vr_rdb_fused_bf16x3.restype = _I
+        lib.vr_rdb_fused_bf16x3_config.argtypes = [ctypes.POINTER(_I)]
+        lib.vr_rdb_fused_bf16x3_config.restype = _I
+        libs[name] = lib
+        geo[name] = rdb.x3_geometry(lib)
+        print(f"[build] {name}: {geo[name]}", flush=True)
+    lib_thread.join()
+    _build.load()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def rnd(*shape, scale=1.0):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).to(dev, f32)
+
+    def weights():
+        return ([rnd(3, 3, NF + k * GC, GC if k < 4 else NF, scale=0.03) for k in range(5)],
+                [rnd(GC if k < 4 else NF, scale=0.05) for k in range(5)])
+
+    w3 = [weights() for _ in range(3)]
+    parts = [weight_parts(t) for ws, _ in w3 for t in ws]
+    biases = [t for _, bs in w3 for t in bs]
+
+    def launch(name, x, rdbs, x0=None):
+        b, h, w, _ = x.shape
+        y = torch.empty_like(x)
+        scratch = torch.empty_like(x) if rdbs == 3 else None
+        c = torch.empty(b, h, w, 4 * GC, dtype=f32, device=dev)
+        plan = rdb.rdb_x3_plan(b, h, w, geo[name], sms=sms).array()
+        n = 5 * rdbs
+        code = libs[name].vr_rdb_fused_bf16x3(
+            NF, GC, rdbs, x.data_ptr(), None if x0 is None else x0.data_ptr(), y.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), c.data_ptr(),
+            _build.pointers(parts[:n]), _build.pointers(biases[:n]), b, h, w, stream, plan,
+            len(plan))
+        if code != 0:
+            raise RuntimeError(f"{name} launch: CUDA error {code}")
+        return y
+
+    def chain(x, rdbs, x0=None):
+        if rdbs == 1:
+            return stripe.rdb_fused(x, *w3[0], x0)
+        o = stripe.rdb_fused(x, *w3[0])
+        o = stripe.rdb_fused(o, *w3[1])
+        return stripe.rdb_fused(o, *w3[2], x0=x)
+
+    bad = {}
+    names = [n for n, _ in specs]
+    for shp in ((1, 5, 7), (2, 37, 53), (1, 20, 72), (2, 130, 150)):
+        x, x0 = rnd(*shp, NF), rnd(*shp, NF)
+        for tag, rdbs, xx0 in (("rdb", 1, None), ("rdb x0", 1, x0), ("rrdb", 3, None)):
+            want = chain(x, rdbs, xx0)
+            for name in names:
+                if name in X3_UNCHECKED or name in bad:
+                    continue
+                try:
+                    got = launch(name, x, rdbs, xx0)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        n_diff = (got != want).sum().item()
+                        raise RuntimeError(f"{shp} {tag} ({name}): {n_diff} values differ "
+                                           "from the chain")
+                except RuntimeError as e:
+                    bad[name] = str(e)
+                    print(f"[check] FAILED {e}", flush=True)
+                    continue
+                print(f"[check] {shp} {tag} {name}: == chain", flush=True)
+    names = [n for n in names if n not in bad]
+    if bad:
+        print(f"[check] left out: {sorted(bad)}", flush=True)
+    if quick:
+        if bad:
+            raise RuntimeError(f"builds disagree with the chain: {sorted(bad)}")
+        return
+    timed = _timer(reps)
+    x = rnd(1, H, W, NF)
+    useful = sum(2 * H * W * 9 * (NF + k * GC) * (GC if k < 4 else NF) for k in range(5))
+    for tag, rdbs in (("RDB", 1), ("RRDB", 3)):
+        order = names + ["chain"]
+        ms = {n: [] for n in order}
+        for name in order + order[::-1]:
+            fn = ((lambda: chain(x, rdbs)) if name == "chain"
+                  else (lambda n=name: launch(n, x, rdbs)))
+            ms[name].append(timed(fn))
+        fma = _timer(1)((lambda: rdb.rdb_fused(x, *w3[0], route="fma")) if rdbs == 1
+                        else (lambda: rdb.rrdb_fused(x, w3, route="fma")))
+        line = f"[probe] fp32 {tag} 1x{H}x{W}x64:"
+        for name in order:
+            a, b_ = ms[name]
+            line += (f" {name} {a:.3f} / {b_:.3f} ms "
+                     f"({rdbs * useful / min(a, b_) / 1e9:.1f} TFLOP/s useful);")
+        print(line + f" fma (forced) {fma:.3f} ms", flush=True)
+    if bad:
+        raise RuntimeError(f"builds disagree with the chain: {sorted(bad)}")
+
+
 def _timer(reps: int):
     def timed(fn):
         fn()
@@ -414,6 +587,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--route", choices=("mma", "wgmma"), default="mma",
                     help="the K5 source probed (default: mma, with K3)")
+    ap.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16",
+                    help="fp32: the variants of rdb_fused_bf16x3.cu")
     ap.add_argument("--reps", type=int, default=10, help="timed launches per build")
     ap.add_argument("--quick", action="store_true",
                     help="wgmma: build and check at odd shapes only")
@@ -425,11 +600,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         extra = [parse_variant(v) for v in args.variant]
     except ValueError as e:
         ap.error(str(e))
+    if args.dtype == "fp32":
+        bad = unknown_defines(X3_SOURCE, extra)
+        if bad:
+            ap.error(f"--variant: {X3_SOURCE} never reads {' '.join(bad)}")
+    only = [n for n in args.only.split(",") if n]
     try:
-        if args.route == "mma":
+        if args.dtype == "fp32":
+            probe_fp32(min(args.reps, 5), args.quick, only, extra)
+        elif args.route == "mma":
             probe(args.reps)
         else:
-            probe_wgmma(args.reps, args.quick, [n for n in args.only.split(",") if n], extra)
+            probe_wgmma(args.reps, args.quick, only, extra)
     except RuntimeError as e:
         print(f"E {e}", file=sys.stderr)
         return 1
