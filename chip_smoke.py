@@ -31,7 +31,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    splits on load), ``conv3x3_mma.cu`` on
    ``mma_tile.cuh``, ``conv3x3_narrow.cu`` and ``conv3x3.cu``, K2
    ``unsharp_rows.cu`` (fp32) and ``unsharp_rows_bf16.cu`` (bf16), both on
-   ``unsharp_rows.cuh``, and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on ``mma_tile.cuh`` and
+   ``unsharp_rows.cuh``, and ``unsharp.cu``, K3 ``srvgg_up_mma.cu`` on
+   ``mma_tile.cuh``, ``srvgg_up_bf16x3.cu`` (fp32: K1 ``bf16x3``'s producer
+   warpgroup at N 48 and 16 with K-major weights) and
    ``srvgg_up.cu``, K4 ``conv3x3_i8_wgmma.cu`` (``wgmma`` + TMA, a
    quantiser warpgroup, on ``wgmma_tile.cuh`` and ``i8_quant.cuh``),
    ``conv3x3_i8_mma.cu`` on ``mma_tile.cuh`` and ``i8_quant.cuh`` and
@@ -72,14 +74,16 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    RDB per conv (share of six bf16 products a MAC at 989 TFLOP/s) and whole
    on ``bf16x3``, forced ``fma`` and cuDNN's fp32 chain (TF32 off),
    ``bf16x3`` at most half of ``fma``'s time; then ``[kernel32]``: conv_body,
-   an SRVGG conv, up1, upconv2 and conv_hr on ``bf16x3``, the fp32 stem and
-   conv_last on ``fma``, K3's ``srvgg_up.cu``, K5's RRDB on
+   an SRVGG conv, up1, upconv2 and conv_hr on ``bf16x3``, the fp32 stem on
+   ``narrow`` (``torch.equal`` to forced ``fma``), conv_last on ``fma``, K3
+   on ``srvgg_up_bf16x3.cu``, K5's RRDB on
    ``rdb_fused_bf16x3.cu`` (``VRT_PALLAS=1``) and the tail on
    ``tail_fused_bf16x3.cu`` (``VRT_TAIL_Q=1``) at the paths' shapes, each
    against plain with its plain, cuDNN fp32 and bound times (the
-   ``bf16x3`` ones also against forced ``fma``; K5's and the tail's at
-   most half of its time). K1's narrow
-   route (``conv3x3:narrow``): the stems (cin 3 and 12 -> 64, act none,
+   ``bf16x3`` ones and the stem also against forced ``fma``; K5's, the
+   tail's, K3's and the stem's at most half of its time, K3 and the stem
+   under the library call). K1's narrow
+   route (``conv3x3:narrow``): the stems in bf16 and fp32 (cin 3 and 12 -> 64, act none,
    PReLU and lrelu, odd shapes, a frame of one pixel, a strided cin-3 view,
    the flagship frame and the tile batch) and ``conv_last`` (64 -> 3, odd
    shapes, a prefix view of a wider buffer, the flagship's 1x4320x7680x64
@@ -125,7 +129,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    cuDNN's fp32 chain (TF32 off) and plain: the RRDB at most half of
    ``fma``'s time and at most 1.05x the chain's. K3's tensor-core route (``srvgg_up_fused:mma``) at r 2 and
    r 4 at odd shapes, the config-4 frame and the tile batch, within one
-   bf16 step per value of the plain version, old and new side by side. The
+   bf16 step per value of the plain version, old and new side by side; its
+   fp32 route (``srvgg_up_fused:bf16x3``) at r 2 and 4 at odd shapes, the
+   config-4 frame and the tile batch, within ``compare``'s fp32 bound of
+   plain, its error against forced ``fma`` printed. The
    one-launch tail on Hopper (``tail_fused:wgmma`` and
    ``tail_fused_q:wgmma``, ``tail_fused_wgmma.cu``) in bf16 at nf 64 at odd
    shapes (B = 2 and 3, ragged extents, a frame narrower than one stripe, a
@@ -162,7 +169,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    every kernel wrapper against its plain PyTorch version on the card, in
    fp32 (tight) and bf16 (the working type), at odd shapes and at the
    shapes of the main paths (the flagship frame, the config-4 frame and
-   phase 7's tile batch), with kernel, plain and library times (one cuDNN
+   phase 7's tile batch), with kernel (the least of three timing windows,
+   each printed with its host time a call), plain and library times (one cuDNN
    call or chain of calls over the same convs, never used by the port) and
    the bound; K4 (bf16 only) within one bf16 step of its plain version per
    value, for each of the five RDB convs and an SRVGG conv at odd shapes
@@ -253,16 +261,17 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     (seamless, 12 tiles), 2 frames, with the checks of phases 4 and 5;
 10e. ``[main_fp32]`` and ``[config4_fp32]``: the flagship flags and config
     4 at ``--precision fp32``, 2 frames each, with the checks of phases 4
-    and 5 at 60 dB (K1 by route: 349 ``conv3x3:bf16x3`` and 2
-    ``conv3x3:fma`` per flagship frame, the stem and conv_last, the tail as
-    three K1 launches; 32 + 1 per config-4 frame and K3 once on ``fma``),
+    and 5 at 60 dB (K1 by route: 349 ``conv3x3:bf16x3``, 1 ``conv3x3:fma``
+    (conv_last) and the stem once on ``conv3x3:narrow stem`` per flagship
+    frame, the tail as three K1 launches; 32 ``bf16x3`` and the narrow stem
+    per config-4 frame and K3 once on ``srvgg_up_fused:bf16x3``),
     the peak memory beside ``auto_full_frame``'s estimate at 4 bytes a
     feature value, and the bf16 kernel path's frames beside them (>= 35
     dB);
 10f. ``[main_fp32_fused]``: the flagship flags at ``--precision fp32``
     with ``VRT_PALLAS=1`` and ``VRT_TAIL_Q=1``, 2 frames: 23
-    ``rrdb_fused:bf16x3``, 2 ``conv3x3:bf16x3`` (conv_body, up1), 1
-    ``conv3x3:fma`` (the stem) and 1 ``tail_fused_q:bf16x3`` a frame, its
+    ``rrdb_fused:bf16x3``, 2 ``conv3x3:bf16x3`` (conv_body, up1), the stem
+    on ``conv3x3:narrow stem`` and 1 ``tail_fused_q:bf16x3`` a frame, its
     frames byte-equal to ``[main_fp32]``'s (which stand in for a plain
     run), its step and peak memory printed beside them;
 11. ``[io]``: the pinned ring under stress, the
@@ -452,6 +461,12 @@ PALLAS = {
     # the fp32 one-launch tail: #13 tail_fused_q (VRT_TAIL_Q=1 at --precision
     # fp32)
     "tail_fused_q:bf16x3": "video_restore_tpu/ops/pallas_tail.py:1018",
+    # K1's fp32 stem on the narrow route: #1 conv3x3_fused in its stem form
+    # at --precision fp32
+    "conv3x3:narrow stem:fp32": "video_restore_tpu/ops/pallas_tail.py:767",
+    # K3 at --precision fp32: #17 srvgg_up_fused_raw, and #18 srvgg_up_fused
+    # (pallas_srvgg.py:854)
+    "srvgg_up_fused:bf16x3": "video_restore_tpu/ops/pallas_srvgg.py:1025",
 }
 # the hand-written kernel behind each row where a wrapper has two
 # (ops/tail.py::conv3x3_route, ops/rdb.py::rdb_route,
@@ -464,7 +479,8 @@ CUDA_ROUTE = {
     "rdb_fused_k5": "wgmma", "rrdb_fused": "wgmma", "conv3x3:wgmma": "wgmma",
     "tail_fused_q": "wgmma", "rdb_fused_i8": "wgmma", "srvgg_body_i8": "wgmma",
     "rdb_fused_i8 static": "wgmma", "conv3x3:bf16x3": "bf16x3", "rrdb_fused:bf16x3": "bf16x3",
-    "tail_fused_q:bf16x3": "bf16x3",
+    "tail_fused_q:bf16x3": "bf16x3", "conv3x3:narrow stem:fp32": "narrow",
+    "srvgg_up_fused:bf16x3": "bf16x3",
     "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
 }
 SOURCE = {
@@ -498,6 +514,10 @@ SOURCE = {
     # ops/tail.py::tail_fused_route: fp32 at nf 64)
     "rrdb_fused:bf16x3": "video_restore_tpu_torch/csrc/rdb_fused_bf16x3.cu",
     "tail_fused_q:bf16x3": "video_restore_tpu_torch/csrc/tail_fused_bf16x3.cu",
+    # the fp32 stem (ops/tail.py::conv3x3_route) and K3 at fp32
+    # (ops/srvgg.py::srvgg_up_route)
+    "conv3x3:narrow stem:fp32": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
+    "srvgg_up_fused:bf16x3": "video_restore_tpu_torch/csrc/srvgg_up_bf16x3.cu",
 }
 PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
@@ -589,7 +609,7 @@ def main(argv=None) -> int:
                    "conv3x3_i8_mma.cu": "k4", "conv3x3_i8_wgmma.cu": "k4",
                    "conv3x3_narrow.cu": "k1n", "unsharp_rows.cu": "k2",
                    "unsharp_rows_bf16.cu": "k2", "rdb_fused_bf16x3.cu": "k5",
-                   "tail_fused_bf16x3.cu": "k6"}
+                   "tail_fused_bf16x3.cu": "k6", "srvgg_up_bf16x3.cu": "k3"}
     build_log = (_build.BUILD_DIR / "build.log").read_text()
     for line in build_log.splitlines():
         if line.startswith("=="):
@@ -1181,30 +1201,47 @@ def main(argv=None) -> int:
         table = st.setdefault("rows", {})
 
         def row32(name, shape, k_fn, p_fn, lib_fn, nbytes, ops, x3, per_frame, reps=3,
-                  fma_ops=0, half_fma=False):
-            """One fp32 instance against plain; a bf16x3 one also against the
-            forced fma route (``k_fn(route)``), both timed (``half_fma``: at
-            most half of fma's time)."""
-            k = k_fn(None) if x3 else k_fn()
+                  fma_ops=0, half_fma=False, vs_fma=None, bit_equal=False,
+                  under_library=False, json_row=None):
+            """One fp32 instance against plain; one that has a forced fma
+            route (``vs_fma``, by default the bf16x3 ones: ``k_fn(route)``)
+            also against it, both timed (``half_fma``: at most half of fma's
+            time; ``bit_equal``: ``torch.equal`` to it; ``under_library``:
+            faster than the library call). ``json_row``: the kernels line's
+            row it fills."""
+            vs_fma = x3 if vs_fma is None else vs_fma
+            k = k_fn(None) if vs_fma else k_fn()
             e = compare(f"[kernel32] {name}", k, p_fn(), f32)
             fma = ""
-            if x3:
+            if vs_fma:
                 k = k.clone()
-                ef = compare(f"[kernel32] {name} vs fma", k, k_fn("fma"), f32)
+                kf = k_fn("fma")
+                ef = compare(f"[kernel32] {name} vs fma", k, kf, f32)
+                if bit_equal:
+                    check(torch.equal(k, kf), f"[kernel32] {name}: not bit-equal to fma "
+                          f"(max |diff| {ef:.3g})")
+                del kf
                 fms = timed(lambda: k_fn("fma"), 1)
-                fma = f", fma (forced) {fms:.3f} ms, err vs fma {ef:.3g}"
+                fma = (f", fma (forced) {fms:.3f} ms, err vs fma {ef:.3g}"
+                       + (" (bit-equal)" if bit_equal else ""))
             del k
             torch.cuda.synchronize()
-            ms = timed(k_fn if not x3 else (lambda: k_fn(None)), reps)
+            ms = timed(k_fn if not vs_fma else (lambda: k_fn(None)), reps)
             pms = timed(p_fn, 1)
             lms = timed(lib_fn, reps)
             bms, by = bound32(nbytes, ops, x3, fma_ops)
             if half_fma:
                 check(2 * ms <= fms,
                       f"[kernel32] {name}: {ms:.3f} ms is not at most half of fma's {fms:.3f}")
+            if under_library:
+                check(ms < lms, f"[kernel32] {name}: {ms:.3f} ms is not under the library's "
+                      f"{lms:.3f}")
             table[name] = dict(shape=shape, ms=ms, plain_ms=pms, library_ms=lms, bound_ms=bms,
                                bound_by=by, max_abs_err=e, launches_per_frame=per_frame,
-                               fma_ms=fms if x3 else None)
+                               fma_ms=fms if vs_fma else None)
+            if json_row:
+                rows[json_row] = dict(max_abs_err=e, ms=ms, plain_ms=pms, bound_ms=bms,
+                                      bound_by=by, library_ms=lms)
             log(f"[kernel32] {name} {shape}: kernel {ms:.3f} ms, plain {pms:.3f} ms, library "
                 f"{lms:.3f} ms, bound {bms:.3f} ms ({by}), {per_frame}, err={e:.3g}{fma}")
             torch.cuda.empty_cache()
@@ -1264,21 +1301,24 @@ def main(argv=None) -> int:
         del x8, up2_out
         xs3 = rf(1, H, W, 3)
         wsm, bsm = rf(3, 3, 3, NF, scale=0.2), rf(NF, scale=0.1)
-        row32("stem (fma)", f"1x{H}x{W}x3 -> 64",
-              lambda: tail.conv3x3_fused(xs3, wsm, bsm),
+        row32("stem (narrow, conv3x3_narrow.cu)", f"1x{H}x{W}x3 -> 64",
+              lambda r: tail.conv3x3(xs3, wsm, bsm, route=r, counter="check"),
               lambda: tail.conv3x3_fused_plain(xs3, wsm, bsm),
               lambda: F.conv2d(nchw(xs3), oihw(wsm), bsm, padding=1),
               H * W * (3 + NF) * 4, 2 * H * W * 9 * 3 * NF, False,
-              "1 a flagship and 1 a config-4 frame", 10)
+              "1 a flagship and 1 a config-4 frame", 10, vs_fma=True, bit_equal=True,
+              half_fma=True, under_library=True, json_row="conv3x3:narrow stem:fp32")
         R = 4
         wo, bo = rf(3, 3, NF, 3 * R * R, scale=0.05), rf(3 * R * R, scale=0.1)
         xin = rf(1, H, W, 3).abs()
-        row32("srvgg_up_fused K3 (fma, srvgg_up.cu)", f"1x{H}x{W}x64 -> 1x{R * H}x{R * W}x3",
-              lambda: srvgg.srvgg_up_fused(x64, wo, bo, xin, R),
+        row32("srvgg_up_fused K3 (bf16x3, srvgg_up_bf16x3.cu)",
+              f"1x{H}x{W}x64 -> 1x{R * H}x{R * W}x3",
+              lambda r: srvgg.srvgg_up_fused(x64, wo, bo, xin, R, route=r),
               lambda: srvgg.srvgg_up_fused_plain(x64, wo, bo, xin, R),
               lambda: F.conv2d(nchw(x64), oihw(wo), bo, padding=1),
-              H * W * (NF + 3 + 3 * R * R) * 4, 2 * H * W * 9 * NF * 3 * R * R, False,
-              "1 a config-4 frame")
+              H * W * (NF + 3 + 3 * R * R) * 4, 2 * H * W * 9 * NF * 3 * R * R, True,
+              "1 a config-4 frame", 10, half_fma=True, under_library=True,
+              json_row="srvgg_up_fused:bf16x3")
         rrdb_w = [rdb_weights(NF, GC, f32) for _ in range(3)]
         rrdb_w_oihw = [[oihw(w_) for w_ in ws_] for ws_, _ in rrdb_w]
         ins = [rf(1, NF + k_ * GC, H, W).contiguous(memory_format=torch.channels_last)
@@ -1315,17 +1355,20 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     def phase_k1n():
-        """K1's narrow route (``conv3x3_narrow.cu``): the stems and conv_last
-        at odd shapes and at the paths' shapes, each ``torch.equal`` to the
-        forced fma route (both sum in one order) and within compare's bf16
-        bound of plain; then the old kernel (fma forced), the new one and
-        ``F.conv2d`` side by side at the flagship's two shapes."""
+        """K1's narrow route (``conv3x3_narrow.cu``): the stems (bf16 and
+        fp32) and conv_last (bf16) at odd shapes and at the paths' shapes,
+        each ``torch.equal`` to the forced fma route (both sum in one order)
+        and within compare's bound of plain in its dtype; then the old kernel
+        (fma forced), the new one and ``F.conv2d`` side by side at the
+        flagship's two shapes (the fp32 stem's times: ``[kernel32]``)."""
         def held(tag, x, wt, bias, kind, **kw):
             _build.reset_launches()
             k = tail.conv3x3(x, wt, bias, counter="k1n", **kw)
             torch.cuda.synchronize()
             got = _build.launches()
             expect = {"k1n": 1, "conv3x3:narrow": 1, f"conv3x3:narrow {kind}": 1}
+            if x.dtype == torch.float32:
+                expect[f"conv3x3:narrow {kind}:fp32"] = 1
             check(got == expect, f"[k1n] {tag}: launches {got} != {expect}")
             if "out" in kw:  # the forced route writes the same slice
                 k = k.clone()
@@ -1333,9 +1376,10 @@ def main(argv=None) -> int:
             diff = (k.float() - old.float()).abs().max().item()
             check(torch.equal(k, old), f"[k1n] {tag}: narrow != fma (max |diff| {diff:.3g})")
             del old
-            e = compare(f"[k1n] {tag}", k, tail.conv3x3_plain(x, wt, bias, **kw), bf)
-            k1n_stats["bit_equal_cases"] = k1n_stats.get("bit_equal_cases", 0) + 1
-            k1n_stats["max_err"] = max(k1n_stats.get("max_err", 0.0), e)
+            e = compare(f"[k1n] {tag}", k, tail.conv3x3_plain(x, wt, bias, **kw), x.dtype)
+            sfx = "_fp32" if x.dtype == torch.float32 else ""
+            k1n_stats["bit_equal_cases" + sfx] = k1n_stats.get("bit_equal_cases" + sfx, 0) + 1
+            k1n_stats["max_err" + sfx] = max(k1n_stats.get("max_err" + sfx, 0.0), e)
             log(f"[k1n] {tag} {kind}: == fma, err vs plain {e:.3g}")
             return k
 
@@ -1367,6 +1411,34 @@ def main(argv=None) -> int:
         for shp in ((1, 4 * H, 4 * W), (6, 1504, 1792)):
             held(f"conv_last 64->3 {shp}", rnd(*shp, NF), wl, bl, "conv_last")
             torch.cuda.empty_cache()
+        # the fp32 stems (the fp32 paths' conv_first and conv_in): the same
+        # cases in fp32, a cin-3 view of a 4-channel buffer (pixel stride 4,
+        # 16 bytes) into a slice of a growth buffer (pixel stride 68, 16-byte
+        # aligned at channel 4), the paths' shapes
+        f32 = torch.float32
+        for cin in (3, 12):
+            wt, bias = rnd(3, 3, cin, NF, scale=0.2, dt=f32), rnd(NF, scale=0.1, dt=f32)
+            al = rnd(NF, scale=0.3, dt=f32)
+            for shp in odd:
+                x = rnd(*shp, cin, dt=f32)
+                held(f"fp32 stem {cin}->64 {shp} none", x, wt, bias, "stem")
+                held(f"fp32 stem {cin}->64 {shp} prelu", x, wt, bias, "stem", act="prelu",
+                     alpha=al)
+                held(f"fp32 stem {cin}->64 {shp} lrelu", x, wt, bias, "stem", act="lrelu")
+        wt, bias = rnd(3, 3, 3, NF, scale=0.2, dt=f32), rnd(NF, scale=0.1, dt=f32)
+        al = rnd(NF, scale=0.3, dt=f32)
+        dst = torch.zeros(2, 37, 53, 68, dtype=f32, device=dev)
+        held("fp32 stem 3->64 (2, 37, 53) strided x, out a slice",
+             rnd(2, 37, 53, 4, dt=f32)[..., :3], wt, bias, "stem", act="prelu", alpha=al,
+             out=dst[..., 4:68])
+        check(not dst[..., :4].any(), "[k1n] the fp32 stem wrote outside its channel slice")
+        for shp in ((1, H, W), (6, 376, 448)):
+            x = rnd(*shp, 3, dt=f32)
+            held(f"fp32 stem 3->64 {shp} none", x, wt, bias, "stem")
+            held(f"fp32 stem 3->64 {shp} prelu", x, wt, bias, "stem", act="prelu", alpha=al)
+        held("fp32 stem 12->64 (1, 540, 960) none", rnd(1, 540, 960, 12, dt=f32),
+             rnd(3, 3, 12, NF, scale=0.2, dt=f32), bias, "stem")
+        torch.cuda.empty_cache()
 
         # old, new and cuDNN at the flagship's shapes
         for tag, cin, cout, shp, reps in (("stem", 3, NF, (1, H, W), 20),
@@ -1706,7 +1778,11 @@ def main(argv=None) -> int:
         frame and the tile batch, each within one bf16 step per value of the
         plain version (steps taken at no less than 2^-8 of the output's
         largest value); then the old kernel (fma route forced) and the new
-        one side by side."""
+        one side by side. Then K3's fp32 route (``srvgg_up_bf16x3.cu``) at r 2
+        and r 4: odd shapes (below one tile, ragged, B = 2, an odd width at
+        r 2, more tiles than blocks), the config-4 frame and the tile batch,
+        each within compare's fp32 bound of plain, its error against the
+        forced fma route printed (the time: ``[kernel32]``)."""
         def held(tag, x, wo, bo, xin, r):
             wu = srvgg.srvgg_up_weights(wo, r)
             k = one_launch(f"[k3] {tag}", lambda: srvgg.srvgg_up_fused(x, wu, bo, xin, r), "srvgg_up_fused")
@@ -1748,6 +1824,33 @@ def main(argv=None) -> int:
             k3_stats.update({f"{key}_fma_ms": old_ms, f"{key}_mma_ms": new_ms, f"{key}_library_ms": lib_ms})
             check(key == "tiles" or new_ms * 3 <= old_ms,
                   f"[k3] the mma route ({new_ms:.3f} ms) is not 3x the fma kernel ({old_ms:.3f})")
+
+        f32 = torch.float32
+        worst = 0.0
+        cases = [(r, shp) for r in srvgg.UP_SCALES
+                 for shp in ((1, 5, 7), (2, 37, 53), (1, 9, 33), (1, 20, 130), (3, 70, 200))]
+        cases += [(4, (1, H, W)), (4, (6, 376, 448)), (2, (1, 270, 481))]
+        for r, shp in cases:
+            tag = f"fp32 r {r} {shp}"
+            x, xin = rnd(*shp, NF, dt=f32), rnd(*shp, 3, dt=f32).abs()
+            wo, bo = rnd(3, 3, NF, 3 * r * r, scale=0.05, dt=f32), rnd(3 * r * r, scale=0.1, dt=f32)
+            wu = srvgg.srvgg_up_weights(wo, r)
+            k = one_launch(f"[k3] {tag}", lambda: srvgg.srvgg_up_fused(x, wu, bo, xin, r),
+                           "srvgg_up_fused", route="bf16x3")
+            check(k.shape == (shp[0], r * shp[1], r * shp[2], 3), f"[k3] {tag}: shape {k.shape}")
+            e = compare(f"[k3] {tag}", k, srvgg.srvgg_up_fused_plain(x, wo, bo, xin, r), f32)
+            if wu.shape != wo.shape:  # a direct caller's unpadded weight
+                check(torch.equal(srvgg.srvgg_up_fused(x, wo, bo, xin, r), k),
+                      f"[k3] {tag}: unpadded weight")
+            k_old = one_launch(f"[k3] {tag} forced fma",
+                               lambda: srvgg.srvgg_up_fused(x, wo, bo, xin, r, route="fma"),
+                               "srvgg_up_fused", route="fma")
+            e_old = (k.float() - k_old.float()).abs().max().item()
+            worst = max(worst, e)
+            log(f"[k3] {tag} bf16x3 err vs plain {e:.3g}, vs fma {e_old:.3g}")
+            del k, k_old
+            torch.cuda.empty_cache()
+        k3_stats["fp32_max_err"] = worst
 
     def phase_k6():
         """The one-launch tail on Hopper (``csrc/tail_fused_wgmma.cu``) in
@@ -2522,9 +2625,32 @@ def main(argv=None) -> int:
                 "bytes" if nbytes / PEAK_BYTES >= ops / peak else "operations"
             )
 
+        def windows(fn, reps, n=3):
+            """n timing windows of reps calls after one warm-up call: each
+            window's device ms a call (CUDA events) and host ms a call (the
+            loop's own time; near the device's, the host held the card)."""
+            fn()
+            torch.cuda.synchronize()
+            out = []
+            for _ in range(n):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                t_ = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                host = (time.perf_counter() - t_) * 1e3 / reps
+                e1.record()
+                torch.cuda.synchronize()
+                out.append((e0.elapsed_time(e1) / reps, host))
+            return out
+
         def record(name, shape, k_fn, p_fn, reps, nbytes, ops, peak, dt, lib_fn=None):
             e = compare(name, k_fn(), p_fn(), dt)
-            ms = timed(k_fn, reps)
+            # the least of three windows: a window that one stall of the
+            # host or the card lengthens does not set the row
+            wins = windows(k_fn, reps)
+            ms = min(d for d, _ in wins)
             pms = timed(p_fn, max(1, reps // 2))
             lms = timed(lib_fn, reps) if lib_fn is not None else None
             bms, by = bound(nbytes, ops, peak)
@@ -2535,7 +2661,9 @@ def main(argv=None) -> int:
             log(
                 f"[kernel] {name} {shape} err={e:.3g} kernel_ms={ms:.3f} "
                 f"plain_ms={pms:.3f} library_ms="
-                f"{'null' if lms is None else f'{lms:.3f}'} bound_ms={bms:.3f} ({by})"
+                f"{'null' if lms is None else f'{lms:.3f}'} bound_ms={bms:.3f} ({by}) "
+                f"windows (device/host ms a call)="
+                + ", ".join(f"{d:.3f}/{h:.3f}" for d, h in wins)
             )
 
         def nchw(*shape):
@@ -3330,10 +3458,11 @@ def main(argv=None) -> int:
     }
     # the fp32 flagship: every wide conv on K1's bf16x3 route (345 dense-block
     # convs, conv_body, up1, the chain tail's upconv2 and conv_hr), the stem
-    # and conv_last on fma, the tail as three K1 launches
+    # on narrow, conv_last on fma, the tail as three K1 launches
+    STEM32 = {"conv3x3:narrow": 1, "conv3x3:narrow stem": 1, "conv3x3:narrow stem:fp32": 1}
     rrdb_fp32_call = {
         "conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1, "tail_fused": 3,
-        "conv3x3:bf16x3": n_rdb + 4, "conv3x3:fma": 2,
+        "conv3x3:bf16x3": n_rdb + 4, "conv3x3:fma": 1, **STEM32,
     }
     # K2 of an enhanced frame: the sharpen stage on the rows route
     K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1, "unsharp_fused:rows:fp32": 1}
@@ -3427,13 +3556,13 @@ def main(argv=None) -> int:
         # tail_fused_bf16x3.cu; its frames byte-equal to [main_fp32]'s
         ("main_fp32_fused", (H, W, 2), flagship + ["--precision", "fp32"],
          {"conv3x3_fused": 2, "rrdb_fused": spec.num_block, "rrdb_fused:bf16x3": spec.num_block,
-          "up1_fused": 1, "conv3x3:bf16x3": 2, "conv3x3:fma": 1, "tail_fused_q": 1,
-          "tail_fused_q:bf16x3": 1, **K2_ROWS},
+          "up1_fused": 1, "conv3x3:bf16x3": 2, "tail_fused_q": 1,
+          "tail_fused_q:bf16x3": 1, **STEM32, **K2_ROWS},
          is_flagship("fp32"), 1, {"VRT_PALLAS": "1", "VRT_TAIL_Q": "1"},
          dict(equal_to="main_fp32")),
         ("config4_fp32", (H, W, 2), config4 + ["--precision", "fp32"],
          {"conv3x3_fused": 1, "srvgg_body": v3.num_conv, "conv3x3:bf16x3": v3.num_conv,
-          "conv3x3:fma": 1, "srvgg_up_fused": 1, "srvgg_up_fused:fma": 1},
+          "srvgg_up_fused": 1, "srvgg_up_fused:bf16x3": 1, **STEM32},
          is_config4("fp32"), 1, None, dict(vs_bf16=True, min_db=60.0)),
     )
     check(tuple(p_[0] for p_ in PATHS) == PATH_TAGS, "path tags")

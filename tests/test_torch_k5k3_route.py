@@ -5,17 +5,19 @@ K5 (one RDB or a whole RRDB in one launch) is one function behind three
 hand-written CUDA kernels: ``"wgmma"`` (``csrc/rdb_fused_wgmma.cu``: Hopper
 tensor cores fed by TMA), ``"mma"`` (``csrc/rdb_fused_mma.cu``:
 ``mma.sync``, reached only when a caller forces it) and ``"fma"``
-(``csrc/rdb_fused.cu``: fp32 FMAs); K3 (the SRVGG upsampler) is two:
-``"mma"`` (``csrc/srvgg_up_mma.cu``) and ``"fma"`` (``csrc/srvgg_up.cu``).
+(``csrc/rdb_fused.cu``: fp32 FMAs); K3 (the SRVGG upsampler) is three:
+``"mma"`` (``csrc/srvgg_up_mma.cu``, bf16), ``"bf16x3"``
+(``csrc/srvgg_up_bf16x3.cu``, fp32 on the bf16 tensor cores) and ``"fma"``
+(``csrc/srvgg_up.cu``).
 ``ops/rdb.py::rdb_route`` and ``ops/srvgg.py::srvgg_up_route`` choose from
 the call alone, so the choice is tested here, on the CPU, without a kernel:
 each model runs at full width on a tiny frame in bf16 through the plain
 versions while a recorder asks the route of each call. The numbers are the
 ones the chip smoke test asserts on the card: 23 ``rrdb_fused:wgmma`` per
 frame of the ``VRT_PALLAS=1`` flagship body, one ``srvgg_up_fused:mma`` per
-config-4 frame.
+config-4 frame (``srvgg_up_fused:bf16x3`` at fp32).
 
-K3's ``"mma"`` kernel reads conv_out with its output columns padded to a
+K3's tensor-core kernels read conv_out with its output columns padded to a
 multiple of 16 (r 2: 12 -> 16 zero columns), which
 ``srvgg_up_weights`` prepares once; the plain version takes either width.
 Held here against the JAX ``srvgg_up_fused`` (``pallas_srvgg.py:854``) in
@@ -35,6 +37,7 @@ from video_restore_tpu_torch.models.rrdbnet import RRDBNet, RRDBNetSpec
 from video_restore_tpu_torch.models.srvgg import SRVGGNet, SRVGGSpec
 from video_restore_tpu_torch.models.zoo import MODEL_ZOO
 from video_restore_tpu_torch.ops import _build, rdb, srvgg
+from video_restore_tpu_torch.ops.tail import forced_route
 
 # one intra-op thread: the suite runs in several worker processes at once
 torch.set_num_threads(1)
@@ -82,11 +85,16 @@ def test_fp32_operands_off_16_bytes_take_fma():
         (BF, 64, 2, "mma"),   # cout 12, padded to 16
         (BF, 16, 4, "mma"),   # one k16 step
         (BF, 48, 2, "mma"),
-        (F32, 64, 4, "fma"),  # fp32 stays on the FMA kernel
+        (F32, 64, 4, "bf16x3"),  # fp32: three bf16 parts a value on the tensor cores
         (BF, 24, 4, "fma"),   # cin not a multiple of 16
         (BF, 8, 2, "fma"),
         (BF, 128, 4, "fma"),  # above what one block holds in shared memory
         (BF, 64, 3, "fma"),   # not a scale of the fused upsampler
+        (F32, 64, 2, "bf16x3"),  # cout 12, padded to 16
+        (F32, 16, 4, "bf16x3"),
+        (F32, 24, 4, "fma"),  # the widths the tensor-core kernels are not built for
+        (F32, 128, 4, "fma"),
+        (F32, 64, 3, "fma"),
     ],
 )
 def test_srvgg_up_route(dtype, cin, r, route):
@@ -110,6 +118,26 @@ def test_a_forced_route_is_checked():
             rdb._pick_route("t", xb, 16, 8, route)
     with pytest.raises(ValueError, match="unknown route"):
         rdb._pick_route("t", xb, 64, 32, "dp4a")
+
+
+def test_a_forced_k3_route_is_checked():
+    """K3: ``"fma"`` takes every call (the side-by-side timings); ``"mma"``
+    only bf16 and ``"bf16x3"`` only fp32 at the tensor-core widths."""
+    own = srvgg.srvgg_up_route(F32, 64, 4)
+    assert own == "bf16x3"
+
+    def pick(own, route):
+        return forced_route("srvgg_up_fused", own, route, srvgg._UP_TAKES.get(route, ""),
+                            routes=srvgg.ROUTES)
+
+    assert pick(own, None) == pick(own, "bf16x3") == "bf16x3"
+    assert pick(own, "fma") == pick("fma", "fma") == "fma"
+    with pytest.raises(ValueError, match="the mma kernel takes bf16"):
+        pick(own, "mma")
+    with pytest.raises(ValueError, match="the bf16x3 kernel takes fp32"):
+        pick(srvgg.srvgg_up_route(BF, 64, 4), "bf16x3")
+    with pytest.raises(ValueError, match="the bf16x3 kernel takes fp32"):
+        pick(srvgg.srvgg_up_route(F32, 24, 4), "bf16x3")
 
 
 def _record(monkeypatch, module, name, route_of):
@@ -165,15 +193,16 @@ def _up_route(feat, w_out, b_out, x_in, r):
     [
         (MODEL_ZOO["RealESRGAN_x4_v3"].spec, BF, [("mma", 48)]),  # config 4
         (SRVGGSpec(num_feat=64, num_conv=2, scale=2), BF, [("mma", 16)]),  # padded once
-        (MODEL_ZOO["RealESRGAN_x4_v3"].spec, F32, [("fma", 48)]),
-        (SRVGGSpec(num_feat=64, num_conv=2, scale=2), F32, [("fma", 12)]),
+        (MODEL_ZOO["RealESRGAN_x4_v3"].spec, F32, [("bf16x3", 48)]),
+        (SRVGGSpec(num_feat=64, num_conv=2, scale=2), F32, [("bf16x3", 16)]),  # padded once
         (SRVGGSpec(num_feat=8, num_conv=2, scale=4), BF, [("fma", 48)]),
     ],
 )
 def test_upsampler_call_of_one_frame(monkeypatch, spec, dt, expected):
     """One upsampler call per frame; its route, and the conv_out width the
     model hands it (prepared once: the padded buffer ``w_up`` exists only
-    where the tensor-core route reads a padded weight)."""
+    where a tensor-core route, ``"mma"`` or ``"bf16x3"``, reads a padded
+    weight)."""
     net = SRVGGNet(spec).prepare(dt, "cpu")
     assert hasattr(net, "w_up") is (expected[0][1] != 3 * spec.scale**2)
     calls = _record(monkeypatch, srvgg_model, "srvgg_up_fused", _up_route)
@@ -253,11 +282,14 @@ def test_every_cuda_source_is_built():
     """One nvcc per source: each ``.cu`` under ``csrc/`` is in the build,
     the tensor-core sources of K5, K3 and K6, K1's narrow and wgmma sources,
     K5's wgmma source, the tail's wgmma source, K2's rows sources (fp32 and bf16, each its own
-    translation unit) and K5's fp32-FMA instances (each its own translation
-    unit on ``rdb_fused.cuh``) included."""
+    translation unit), K5's fp32-FMA instances (each its own translation
+    unit on ``rdb_fused.cuh``) and the fp32 ``bf16x3`` sources of K1, K5,
+    the tail and K3 included."""
     on_disk = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert sorted(_build.SOURCES) == on_disk
     assert {"rdb_fused_mma.cu", "srvgg_up_mma.cu", "tail_fused_mma.cu",
             "conv3x3_narrow.cu", "unsharp_rows.cu", "unsharp_rows_bf16.cu",
             "conv3x3_wgmma.cu", "rdb_fused_wgmma.cu", "rdb_fused_f32.cu",
-            "rdb_fused_bf16.cu", "rdb_fused_narrow.cu", "tail_fused_wgmma.cu"} <= set(on_disk)
+            "rdb_fused_bf16.cu", "rdb_fused_narrow.cu", "tail_fused_wgmma.cu",
+            "conv3x3_bf16x3_wgmma.cu", "rdb_fused_bf16x3.cu", "tail_fused_bf16x3.cu",
+            "srvgg_up_bf16x3.cu"} <= set(on_disk)

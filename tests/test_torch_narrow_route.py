@@ -2,12 +2,13 @@
 many K1 calls of each full-width model take it per frame, and its function
 against the JAX conv at the route's exact widths.
 
-``"narrow"`` (``csrc/conv3x3_narrow.cu``) is the third route of K1
-(``ops/tail.py::conv3x3_route``): one kernel for the bf16 stems (cin 3 or 12
--> cout 64, act none, lrelu or PReLU) and one for ``conv_last`` (cin 64 ->
-cout 3), both summing in ``csrc/conv3x3.cu``'s order, so a forced ``"fma"``
-gives their outputs bit for bit (held on the card by ``chip_smoke.py
---only k1n``). The choice is a pure function of the call, tested here on the
+``"narrow"`` (``csrc/conv3x3_narrow.cu``) is a route of K1
+(``ops/tail.py::conv3x3_route``): one kernel for the stems in bf16 and fp32
+(cin 3 or 12 -> cout 64, act none, lrelu or PReLU) and one for the bf16
+``conv_last`` (cin 64 -> cout 3), both summing in ``csrc/conv3x3.cu``'s
+order, so a forced ``"fma"`` gives their outputs bit for bit (held on the
+card by ``chip_smoke.py --only k1n``; the fp32 conv_last stays on
+``"fma"``). The choice is a pure function of the call, tested here on the
 CPU without a kernel: every model runs at full width on a tiny frame
 through the plain versions while a recorder asks the route of each K1 call.
 The per-frame numbers are the ones the chip smoke test asserts on the card.
@@ -69,10 +70,22 @@ def test_the_narrow_widths_take_the_narrow_route(cin, cout, act):
     assert tail.ROUTES == ("wgmma", "bf16x3", "mma", "narrow", "fma")
 
 
-def _view(c_buf, lo, hi, offset=0, h=4, w=5):
-    """buf[..., lo:hi] of a (1, h, w, c_buf) bf16 buffer that starts
-    ``offset`` elements into its storage."""
-    flat = torch.zeros(offset + h * w * c_buf, dtype=BF)
+@pytest.mark.parametrize("cin", [3, 12])
+@pytest.mark.parametrize("act", ["none", "lrelu", "prelu"])
+def test_fp32_stems_take_the_narrow_route(cin, act):
+    """The fp32 paths' conv_first (cin 3; 12 after x2plus's unshuffle) and
+    SRVGG's conv_in: the narrow stem kernel's fp32 instance."""
+    x, w, b = _ops(cin, 64, F32)
+    alpha = torch.zeros(64) if act == "prelu" else None
+    assert tail.conv3x3_route(F32, cin, 64) == "narrow"
+    assert _route(x, w, b, alpha=alpha) == "narrow"
+    assert _pick((x, w, b), None, alpha=alpha) == "narrow"
+
+
+def _view(c_buf, lo, hi, offset=0, h=4, w=5, dt=BF):
+    """buf[..., lo:hi] of a (1, h, w, c_buf) buffer that starts ``offset``
+    elements into its storage."""
+    flat = torch.zeros(offset + h * w * c_buf, dtype=dt)
     return flat[offset:].view(1, h, w, c_buf)[..., lo:hi]
 
 
@@ -80,15 +93,19 @@ def _view(c_buf, lo, hi, offset=0, h=4, w=5):
     "case",
     ["fp32 stem", "fp32 conv_last", "upsample2", "stem r1", "conv_last r2", "cout 48",
      "cin 3 cout 32", "nf 16 stem", "nf 16 conv_last", "stem out misaligned",
-     "stem out pixel stride 68", "conv_last x misaligned", "conv_last x pixel stride 68"],
+     "stem out pixel stride 68", "conv_last x misaligned", "conv_last x pixel stride 68",
+     "fp32 stem out misaligned", "fp32 stem r1", "fp32 stem upsample2", "fp32 nf 16 stem"],
 )
 def test_the_rest_stays_off_the_narrow_route(case):
-    """fp32 (the tight checks), residuals, ``upsample2``, other widths, and
-    operands the narrow kernels cannot load take the fma kernel."""
+    """The fp32 conv_last, residuals, ``upsample2``, other widths, and
+    operands the narrow kernels cannot load take the fma kernel: an fp32
+    stem's ``out`` too must be written in whole 16-byte pieces (pixel stride
+    66: 264 bytes)."""
     x3, w3, b3 = _ops(3, 64)
     x64, wl, bl = _ops(64, 3)
+    s3 = _ops(3, 64, F32)
     route = {
-        "fp32 stem": lambda: _route(*_ops(3, 64, F32)),
+        "fp32 stem": lambda: _route(*s3, out=_view(66, 0, 64, dt=F32)),
         "fp32 conv_last": lambda: _route(*_ops(64, 3, F32)),
         "upsample2": lambda: _route(x3, w3, b3, upsample2=True),
         "stem r1": lambda: _route(x3, w3, b3, r1=torch.zeros(1, 4, 5, 64, dtype=BF)),
@@ -101,6 +118,10 @@ def test_the_rest_stays_off_the_narrow_route(case):
         "stem out pixel stride 68": lambda: _route(x3, w3, b3, out=_view(68, 0, 64)),
         "conv_last x misaligned": lambda: _route(_view(72, 4, 68), wl, bl),
         "conv_last x pixel stride 68": lambda: _route(_view(68, 0, 64), wl, bl),
+        "fp32 stem out misaligned": lambda: _route(*s3, out=_view(68, 2, 66, dt=F32)),
+        "fp32 stem r1": lambda: _route(*s3, r1=torch.zeros(1, 4, 5, 64)),
+        "fp32 stem upsample2": lambda: _route(*s3, upsample2=True),
+        "fp32 nf 16 stem": lambda: _route(*_ops(3, 16, F32)),
     }[case]()
     assert route == "fma"
 
@@ -109,15 +130,19 @@ def test_the_rest_stays_off_the_narrow_route(case):
     "case",
     ["cin 3 pixel stride 3", "cin 3 pixel stride 4", "cin 3 off 16 bytes",
      "stem out a slice", "stem alpha off 16 bytes", "conv_last x a prefix of 72",
-     "conv_last out off 16 bytes"],
+     "conv_last out off 16 bytes", "fp32 cin 3 pixel stride 3", "fp32 cin 3 off 16 bytes",
+     "fp32 stem out a slice of stride 68", "fp32 stem out a slice of stride 132"],
 )
 def test_the_narrow_operand_rule(case):
-    """The narrow route has its own operand rule: a stem's x is read 2 bytes
-    at a time (any pixel stride, any start) and its out written 16 bytes at a
-    time; conv_last's x is read 16 bytes at a time and its out 2 bytes at a
-    time. ``operands_aligned``, the mma rule, is False for every cin-3 x."""
+    """The narrow route has its own operand rule: a stem's x is read one
+    value at a time (any pixel stride, any start) and its out written 16
+    bytes at a time (8 bf16 or 4 fp32 couts: a pixel stride that is a
+    multiple of 8 or of 4 elements); conv_last's x is read 16 bytes at a
+    time and its out 2 bytes at a time. ``operands_aligned``, the mma rule,
+    is False for every cin-3 x."""
     x3, w3, b3 = _ops(3, 64)
     x64, wl, bl = _ops(64, 3)
+    s3 = _ops(3, 64, F32)
     assert not tail.operands_aligned(x3)
     xs = {
         "cin 3 pixel stride 3": lambda: _route(x3, w3, b3),
@@ -128,6 +153,11 @@ def test_the_narrow_operand_rule(case):
             x3, w3, b3, alpha=torch.zeros(65, dtype=BF)[1:]),
         "conv_last x a prefix of 72": lambda: _route(_view(72, 0, 64), wl, bl),
         "conv_last out off 16 bytes": lambda: _route(x64, wl, bl, out=_view(4, 1, 4)),
+        "fp32 cin 3 pixel stride 3": lambda: _route(*s3),
+        "fp32 cin 3 off 16 bytes": lambda: _route(_view(3, 0, 3, offset=1, dt=F32), *s3[1:]),
+        "fp32 stem out a slice of stride 68": lambda: _route(*s3, out=_view(68, 4, 68, dt=F32)),
+        "fp32 stem out a slice of stride 132": lambda: _route(
+            *s3, out=_view(132, 64, 128, dt=F32)),
     }
     assert xs[case]() == "narrow"
 
@@ -169,10 +199,14 @@ def test_a_forced_route_is_checked():
         _pick(wide, "bf16x3")
     with pytest.raises(ValueError, match="the bf16x3 kernel takes fp32"):
         _pick(_ops(3, 64, F32), "bf16x3")
-    with pytest.raises(ValueError, match="the narrow kernel takes bf16 stems"):
+    with pytest.raises(ValueError, match="the narrow kernel takes stems"):
         _pick(wide, "narrow")
+    # the fp32 stems: their own route is narrow, fma forced beside it
+    assert _pick(_ops(3, 64, F32), "narrow") == "narrow"
+    assert _pick(_ops(12, 64, F32), None) == "narrow"
+    assert _pick(_ops(3, 64, F32), "fma") == "fma"
     with pytest.raises(ValueError, match="the narrow kernel takes"):
-        _pick(_ops(3, 64, F32), "narrow")
+        _pick(_ops(64, 3, F32), "narrow")
     with pytest.raises(ValueError, match="the narrow kernel takes"):
         _pick(stem, "narrow", upsample2=True)
     with pytest.raises(ValueError, match="the narrow kernel takes"):
@@ -184,10 +218,13 @@ def test_a_forced_route_is_checked():
 
 
 def test_the_two_kernel_wrappers_have_no_narrow_route():
-    """K3 and K6 keep their two routes, K5 its four (its Hopper ``"wgmma"``
-    and, for fp32, ``"bf16x3"`` before them): ``"narrow"`` is unknown
-    there."""
-    assert srvgg.ROUTES == tail.PAIR_ROUTES == ("mma", "fma")
+    """K6 keeps its two routes, K3 its three (for fp32, ``"bf16x3"`` between
+    them), K5 its four (its Hopper ``"wgmma"`` and, for fp32, ``"bf16x3"``
+    before them): ``"narrow"`` is unknown there."""
+    assert tail.PAIR_ROUTES == ("mma", "fma")
+    assert srvgg.ROUTES == ("mma", "bf16x3", "fma")
+    with pytest.raises(ValueError, match="unknown route"):
+        tail.forced_route("srvgg_up_fused", "bf16x3", "narrow", "", routes=srvgg.ROUTES)
     assert rdb.ROUTES == ("wgmma", "bf16x3", "mma", "fma")
     with pytest.raises(ValueError, match="unknown route"):
         rdb._pick_route("t", torch.zeros(1, 4, 5, 64, dtype=BF), 64, 32, "narrow")
@@ -227,20 +264,30 @@ def _record(monkeypatch):
         ("RealESRGAN_x4_v3", "int8", None, (0, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
         # the VRT_TAIL_Q=1 tail: the same one launch
         ("RealESRGAN_x4plus", "bf16", "q", (347, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
+        # fp32: the wide convs on bf16x3 (counted first in ``split``), the
+        # stem on narrow's fp32 instance, conv_last of the chain tail on fma
+        ("RealESRGAN_x4plus", "fp32", "chain", (349, 0, 1, 1), [("conv3x3_fused", (3, 64))]),
+        ("RealESRGAN_x2plus", "fp32", "chain", (349, 0, 1, 1), [("conv3x3_fused", (12, 64))]),
+        ("RealESRGAN_x4_v3", "fp32", None, (32, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
+        # the VRT_TAIL_Q=1 fp32 tail: one launch, conv_last inside it
+        ("RealESRGAN_x4plus", "fp32", "q", (347, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
     ],
 )
 def test_routes_per_frame(monkeypatch, name, precision, tail_mode, split, narrow):
     spec = MODEL_ZOO[name].spec
+    dt = F32 if precision == "fp32" else BF
     if tail_mode is None:
-        net = SRVGGNet(spec).prepare(BF, "cpu", precision=precision)
+        net = SRVGGNet(spec).prepare(dt, "cpu", precision=precision)
     else:
-        net = RRDBNet(spec).prepare(BF, "cpu", precision=precision, tail=tail_mode)
+        net = RRDBNet(spec).prepare(dt, "cpu", precision=precision, tail=tail_mode)
     calls = _record(monkeypatch)
     y = net(torch.rand(1, 8, 8, 3))
     assert y.shape == (1, 8 * spec.scale, 8 * spec.scale, 3)
-    # (wgmma, mma, narrow, fma)
+    # (the tensor-core route: wgmma, bf16x3 in fp32; mma, narrow, fma)
     n = {r: sum(1 for _, r_, _ in calls if r_ == r) for r in tail.ROUTES}
-    assert (n["wgmma"], n["mma"], n["narrow"], n["fma"]) == split
+    tc = "bf16x3" if precision == "fp32" else "wgmma"
+    assert (n[tc], n["mma"], n["narrow"], n["fma"]) == split
+    assert n["wgmma" if precision == "fp32" else "bf16x3"] == 0
     assert [(c, wh) for c, r, wh in calls if r == "narrow"] == narrow
 
 

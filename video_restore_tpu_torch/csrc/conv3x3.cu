@@ -25,13 +25,15 @@
 // prefix [0, 64 + 32(k-1)) of one growth buffer and writes its 32 channels
 // at their offset in the same buffer).
 //
-// K1 has three routes behind one wrapper (ops/tail.py::conv3x3_route). This
-// kernel, the "fma" route, takes what the tensor-core route (conv3x3_mma.cu)
-// and the narrow route (conv3x3_narrow.cu: the bf16 stems, cin 3 or 12 ->
-// 64, and conv_last, 64 -> 3) do not: fp32 (the tight checks), the narrow
-// test widths, cout 48, and operands the other kernels cannot load. The
-// narrow route sums in this kernel's order, so a call forced onto this
-// kernel gives the narrow kernels' outputs bit for bit.
+// K1 has five routes behind one wrapper (ops/tail.py::conv3x3_route). This
+// kernel, the "fma" route, takes what the tensor-core routes
+// (conv3x3_wgmma.cu, conv3x3_bf16x3_wgmma.cu, conv3x3_mma.cu) and the narrow
+// route (conv3x3_narrow.cu: the stems, cin 3 or 12 -> 64, in bf16 and fp32,
+// and the bf16 conv_last, 64 -> 3) do not: the fp32 conv_last, the narrow
+// test widths, cout 48, and operands the other kernels cannot load; and any
+// call forced onto it. The narrow route sums in this kernel's order, so a
+// call forced onto this kernel gives the narrow kernels' outputs bit for
+// bit.
 //
 // What bounds it on the H100: a wide conv does 9*cin FMAs per output value,
 // far above the card's bytes-to-operations balance, so it is compute bound

@@ -101,7 +101,7 @@
 // checks the plan against this build (vr_conv3x3_bf16x3_config) and the
 // call, and refuses one that does not match. The tile rows are
 // compile-time (-DVR_X3_ROWS32, -DVR_X3_ROWS64; tools/probe_k1.py --dtype
-// fp32 builds and times variants).
+// fp32 builds and times variants); K3's rows at N 48 and 16 are fixed.
 
 #include <stdint.h>
 
@@ -138,31 +138,45 @@ constexpr int CONSUMER_REGS_ = ((65536 - PT * PRODUCER_REGS) / (NC * 128)) / 8 *
 constexpr int CONSUMER_REGS = CONSUMER_REGS_ > 256 ? 256 : CONSUMER_REGS_;
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block can have
 constexpr int PLAN_LEN = 27;
+constexpr int ROWS48 = 2;  // output rows a consumer warpgroup at N 48 (K3 at r 4: srvgg_up_bf16x3.cu)
+constexpr int ROWS16 = 4;  // the same at N 16 (K3 at r 2, 12 columns padded to 16)
 
 constexpr int pad1k(int v) { return (v + 1023) / 1024 * 1024; }
 
-// The tile of NT = cout / 8 and its shared memory: a ring of QS stages, each
-// the three weight parts (KC channels of every tap) then the three window
-// parts, then DR raw fp32 windows, then the barriers (the stages' full and
-// empty, the raw slots' full).
+// The tile of NT = N / 8 and its shared memory: a ring of QS stages, each
+// the three weight parts (KC channels of every tap) then, from the next 1024
+// bytes, the three window parts, then DR raw fp32 windows, then the barriers
+// (the stages' full and empty, the raw slots' full). NT 4 and 8 are K1's
+// cout 32 and 64, whose weights are N-major (the transpose bit) in the
+// cout * 2-byte swizzle; NT 6 and 2 are K3's N 48 and 16
+// (srvgg_up_bf16x3.cu), whose 96-byte N-major rows no swizzle mode fits:
+// their weights are K-major, a cout's KC channels one 32-byte row in the
+// 32-byte swizzle, as the windows are.
 template <int NT>
 struct Geo {
   static constexpr int N = NT * 8;
-  static constexpr int RPC = NT == 4 ? VR_X3_ROWS32 : VR_X3_ROWS64;
+  static constexpr bool B_KMAJOR = NT == 6 || NT == 2;
+  static constexpr int RPC = NT == 4   ? VR_X3_ROWS32
+                             : NT == 8 ? VR_X3_ROWS64
+                             : NT == 6 ? ROWS48
+                                       : ROWS16;
   static constexpr int TH = NC * RPC;
   static constexpr int PH = TH + 2;
-  static constexpr int TAP_BYTES = KC * N * 2;            // KC rows of cout bf16
+  static constexpr int TAP_BYTES = KC * N * 2;            // KC x cout bf16
   static constexpr int W_PART = 9 * TAP_BYTES;            // a part's weights, every tap
+  static constexpr int A_OFF = pad1k(3 * W_PART);         // the window parts in a stage
   static constexpr int A_PART = pad1k(PH * PW * A_ROW);   // a part's window, swizzled
-  static constexpr int STAGE = 3 * W_PART + 3 * A_PART;   // a multiple of 1024
+  static constexpr int STAGE = A_OFF + 3 * A_PART;        // a multiple of 1024
   static constexpr int RAW_BYTES = PH * PW * RAW_ROW;     // as TMA writes it
   static constexpr int SMEM = 1024 + QS * STAGE + DR * RAW_BYTES + (2 * QS + DR) * 8;
-  static constexpr int B_LAYOUT = N == 64 ? 1 : 2;  // 128 B : 64 B swizzle
-  static constexpr int B_SBO = 8 * N * 2;           // 8 rows of cout
+  // 128 B : 64 B swizzle (N-major), 32 B (K-major)
+  static constexpr int B_LAYOUT = B_KMAJOR ? 3 : N == 64 ? 1 : 2;
+  static constexpr int B_SBO = B_KMAJOR ? 8 * KC * 2 : 8 * N * 2;  // 8 rows of K or of cout
   static constexpr int CHUNKS = PH * PW * KC / 8;   // 8-channel chunks of a window
   static_assert(SMEM <= SMEM_MAX, "the stages and the raw window must fit");
   static_assert(RAW_BYTES % 128 == 0, "TMA destinations on 128 bytes");
-  static_assert(W_PART % 1024 == 0, "weight parts on the swizzle's atoms");
+  static_assert(W_PART % (B_KMAJOR ? 256 : 1024) == 0, "weight parts on the swizzle's atoms");
+  static_assert(B_KMAJOR || A_OFF == 3 * W_PART, "K1's stage layout");
 };
 
 struct X3Args {
@@ -225,7 +239,9 @@ __host__ __device__ constexpr int PWP(int p) { return p == 2 ? 2 : p == 1 || p =
 // The producer's and the consumers' walks over one conv's tiles, as device
 // functions: the kernel below runs one conv; rdb_fused_bf16x3.cu and
 // tail_fused_bf16x3.cu include this source (VR_X3_DEVICE_ONLY: without the
-// kernel and the entry points) and run several convs on the same ring.
+// kernel and the entry points) and run several convs on the same ring;
+// srvgg_up_bf16x3.cu runs the producer at its own widths (N 48 and 16,
+// K-major weights) beside consumers of its own.
 
 // A block's shared memory: its generic base and shared address, the ring of
 // QS stages (1024-aligned; the raw slot follows a conv's stages) and the
@@ -335,12 +351,15 @@ __device__ __forceinline__ void x3_produce(const X3Smem& m, const CUtensorMap* t
     const uint32_t st = ring + qs * G::STAGE;
     if (pt == 0) {  // the stage's weights: KC channels of every tap of the three parts
       mbar_expect_tx(qfull0 + 8 * qs, 3 * G::W_PART);
-      tma_load_4d(st, tm_w, qfull0 + 8 * qs, 0, k * KC, 0, 0);
+      if constexpr (G::B_KMAJOR)  // a map over (cin, cout, 9, 3)
+        tma_load_4d(st, tm_w, qfull0 + 8 * qs, k * KC, 0, 0, 0);
+      else  // over (cout, cin, 9, 3)
+        tma_load_4d(st, tm_w, qfull0 + 8 * qs, 0, k * KC, 0, 0);
     }
     // chunk c: 8 channels of window pixel c / 2, 32 bytes at c * 32 of the
     // raw window and 16 bytes at c * 16 of each part (swizzled); a thread's
     // chunks are c = pt + PT u, BATCH loaded ahead of their splits
-    const uint32_t src = raw + rs * G::RAW_BYTES, dst = st + 3 * G::W_PART;
+    const uint32_t src = raw + rs * G::RAW_BYTES, dst = st + G::A_OFF;
     const float4* __restrict__ rw = reinterpret_cast<const float4*>(smem + (src - s0));
     constexpr int FULL = G::CHUNKS / PT, TAIL = G::CHUNKS % PT, BATCH = 4;
     auto split = [&](int c, const float4& lo, const float4& hi) {
@@ -436,7 +455,7 @@ __device__ __forceinline__ void x3_consume(const X3Smem& m, const X3Args& a, int
         const int ky = tap / 3, kx = tap - ky * 3;
 #pragma unroll
         for (int p = 6 - VR_PROBE_PRODUCTS; p < 6; ++p) {
-          const uint32_t a_off = st + 3 * G::W_PART + PA(p) * G::A_PART;
+          const uint32_t a_off = st + G::A_OFF + PA(p) * G::A_PART;
           const uint32_t b_off = st + PWP(p) * G::W_PART + tap * G::TAP_BYTES;
 #pragma unroll
           for (int rr = 0; rr < RPC; ++rr)

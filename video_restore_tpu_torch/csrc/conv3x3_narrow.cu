@@ -1,10 +1,11 @@
 // K1, narrow route: the two narrow shapes of K1's function on every
-// default path, in bf16, each on a kernel of its own.
+// default path, each on a kernel of its own.
 //
-//   stem_kernel   cin 3 or 12 -> cout 64, act none / lrelu / PReLU:
-//                 RRDBNet's conv_first (cin 12 after x2plus's pixel
-//                 unshuffle) and SRVGG's conv_in
-//   last_kernel   cin 64 -> cout 3: RRDBNet's conv_last, after conv_hr
+//   stem_kernel   cin 3 or 12 -> cout 64, act none / lrelu / PReLU, in bf16
+//                 or fp32 (two instances of one template): RRDBNet's
+//                 conv_first (cin 12 after x2plus's pixel unshuffle) and
+//                 SRVGG's conv_in, at --precision bf16 / int8 and fp32
+//   last_kernel   cin 64 -> cout 3, bf16: RRDBNet's conv_last, after conv_hr
 //
 // Replaces, for these calls, the Pallas convs of video_restore_tpu/ops:
 //   pallas_tail.py conv3x3_fused (the stem form of the conv)
@@ -16,22 +17,33 @@
 // Exactness. Every output value is one fp32 accumulator starting at 0,
 // fmaf(x, w, acc) over ci ascending, then ky, then kx (taps outside the
 // frame multiply a zero, as in conv3x3.cu), then conv3x3.cu's epilogue:
-// __fadd_rn of the bias, its lrelu / PReLU and one round-to-nearest to
-// bf16. That is conv3x3.cu's order for any chunking of ci, so the outputs
-// equal the fp32-FMA kernel's bit for bit, and conv_last's equal K6's
-// conv_last stage (tail_fused_mma.cu sums in the same order).
+// __fadd_rn of the bias, its lrelu / PReLU and, in bf16, one
+// round-to-nearest to bf16 (in fp32 nothing is rounded after the sum).
+// That is conv3x3.cu's order for any chunking of ci, so the outputs equal
+// the fp32-FMA kernel's bit for bit in either type, and conv_last's equal
+// K6's conv_last stage (tail_fused_mma.cu sums in the same order).
 //
 // What bounds them on the H100. A stem does 27 (cin 12: 108) FMAs per
-// output value and writes 128 bytes per pixel: at 1080p its stores (265 MB,
-// 0.079 ms at 3.35 TB/s) and its fp32 FMAs (0.107 ms at 67 TFLOP/s) are
-// near each other. A block of 256 threads keeps every weight resident in
-// shared memory as fp32 (couts permuted so that a warp's eight 16-byte
-// weight reads are one contiguous 128 bytes), stages each 10 x 34 input
-// patch as a contiguous run of cin x 34 bf16 per row (cin 3: 6-byte pixels)
-// into fp32 planes, and gives each thread 8 pixels x 8 couts, so each
-// 16-byte weight read feeds 32 FMAs; the next tile's patch is loaded into
-// registers while this one's FMAs run, and each thread stores whole
-// 16-byte pieces, a warp one 4 KB output row at a time. Persistent blocks.
+// output value and writes 128 bytes per pixel in bf16, 256 in fp32: at
+// 1080p its stores (265 MB, 0.079 ms at 3.35 TB/s; fp32 531 MB and 25 MB
+// of input, 0.166 ms) and its fp32 FMAs (0.107 ms at 67 TFLOP/s) are near
+// each other, and at fp32 the bytes bound it. A block of 256 threads keeps
+// every weight resident in shared memory as fp32 (in bf16 the couts
+// permuted so that a warp's eight 16-byte weight reads are one contiguous
+// 128 bytes; in fp32 they lie in order), stages each 10 x 34 input patch
+// as a contiguous run of cin x 34 values per row (cin 3: 6-byte pixels in
+// bf16, 12-byte in fp32, at any pixel stride) into fp32 planes, and gives
+// each thread 8 pixels x 8 couts, so each 16-byte weight read feeds 32
+// FMAs; the next tile's patch is loaded into registers while this one's
+// FMAs run, and each thread stores whole 16-byte pieces: in bf16 its 8
+// couts 8 g .. 8 g + 7 (a warp one 4 KB output row at a time), in fp32
+// couts 4 g .. 4 g + 3 and 32 + 4 g .. 32 + 4 g + 3, so that each of the
+// two stores of a warp writes whole 128-byte halves of four pixels.
+// Persistent blocks. Measured (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py
+// [k1n], [kernel32]): the bf16 stem 0.213-0.218 ms against the fma
+// kernel's 1.325-1.364; the fp32 stem 0.223 ms (74% of its 0.166 ms bound)
+// against forced fma's 1.631 and F.conv2d's fp32 1.072 in the same run,
+// bit-equal to fma.
 //
 // conv_last reads 64 channels and writes 3 per pixel: at 4320x7680 that is
 // 4.25 GB in (1.27 ms) and 57.3 G useful FMAs (1.71 ms at the fp32 peak),
@@ -48,7 +60,8 @@
 // 3 couts (24 accumulators, no padded lanes): per 8 channels it reads its
 // 4 x 6 window pixels as 16 bytes apiece, and per channel the 9 taps'
 // weights (fp32 float4s, broadcasts) once for both rows, 216 FMAs for
-// them. Persistent blocks.
+// them. Persistent blocks. fp32 conv_last is not built here: its 64-byte
+// stages would double (conv3x3.cu takes it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,16 +73,22 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-struct NarrowArgs {
-  const bf16* x;      // (B, H, W, >=cin), pixel stride xs
-  const bf16* w;      // (3, 3, cin, cout) contiguous
-  const bf16* b;      // (cout,)
-  const bf16* alpha;  // (cout,) for PReLU, else null
-  bf16* y;            // (B, H, W, >=cout), pixel stride ys
+// T: bf16 or float, every operand in it
+template <typename T>
+struct NarrowArgsT {
+  const T* x;      // (B, H, W, >=cin), pixel stride xs
+  const T* w;      // (3, 3, cin, cout) contiguous
+  const T* b;      // (cout,)
+  const T* alpha;  // (cout,) for PReLU, else null
+  T* y;            // (B, H, W, >=cout), pixel stride ys
   int B, H, W;
   long long xs, ys;
   int act;  // 0 none, 1 lrelu(0.2), 2 prelu
 };
+using NarrowArgs = NarrowArgsT<bf16>;
+
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
 
 // bf16 bit patterns as fp32 (exact)
 __device__ __forceinline__ float bf_lo(uint32_t v) { return __uint_as_float(v << 16); }
@@ -120,41 +139,73 @@ struct Shape {
   static constexpr int WTS = 9 * CIN * COUT;
 };
 
+// A thread's couts: cout_of(g, q) for q = 0 .. 7, and where cout co lies in
+// a tap's row of s_w: at pos(co), so that the thread reads q = 0 .. 3 as
+// one float4 at 4 g and q = 4 .. 7 as one at 32 + 4 g. bf16: couts 8 g .. 8
+// g + 7 (cout 8 g + 4 h + j at 32 h + 4 g + j), whose 16 output bytes are
+// one store; fp32: 4 g + j and 32 + 4 g + j in place, whose 32 output bytes
+// are two stores, each of a warp's eight groups one contiguous 128 bytes.
+template <typename T>
+struct Couts {
+  static __device__ __forceinline__ int cout_of(int g, int q) { return 8 * g + q; }
+  static __device__ __forceinline__ int pos(int co) {
+    return ((co >> 2) & 1) * 32 + (co >> 3) * 4 + (co & 3);
+  }
+};
+template <>
+struct Couts<float> {
+  static __device__ __forceinline__ int cout_of(int g, int q) {
+    return (q >> 2) * 32 + 4 * g + (q & 3);
+  }
+  static __device__ __forceinline__ int pos(int co) { return co; }
+};
+
+// the raw bits a thread prefetches of each patch value (bf16: 16, fp32: 32)
+template <typename T>
+struct Raw {
+  using type = unsigned short;
+  static __device__ __forceinline__ float f(type v) { return __uint_as_float((uint32_t)v << 16); }
+};
+template <>
+struct Raw<float> {
+  using type = float;
+  static __device__ __forceinline__ float f(type v) { return v; }
+};
+
 // cin 12 holds 16 prefetched values a thread: one block per SM, no spills
-template <int CIN>
+template <typename T, int CIN>
 __global__ void __launch_bounds__(kThreads, CIN <= 3 ? 2 : 1)
-    stem_kernel(const NarrowArgs a, int tiles_x, int per_image, int tiles) {
+    stem_kernel(const NarrowArgsT<T> a, int tiles_x, int per_image, int tiles) {
   using S = Shape<CIN>;
+  using C = Couts<T>;
+  using R = Raw<T>;
   __shared__ __align__(16) float s_in[CIN * PH * PITCH];  // [ci][row][col]
-  __shared__ __align__(16) float s_w[S::WTS];             // [tap][ci][cout']
+  __shared__ __align__(16) float s_w[S::WTS];             // [tap][ci][pos(cout)]
   __shared__ float s_b[COUT], s_a[COUT];
 
   const int tid = threadIdx.x;
-  // cout 8g + 4h + j at 32h + 4g + j: the 16-byte weight reads of a warp's
-  // eight cout groups are one contiguous 128 bytes
   for (int i = tid; i < S::WTS; i += kThreads) {
     const int co = i & (COUT - 1);
-    s_w[(i - co) + ((co >> 2) & 1) * 32 + (co >> 3) * 4 + (co & 3)] =
-        __bfloat162float(a.w[i]);
+    s_w[(i - co) + C::pos(co)] = to_f(a.w[i]);
   }
   if (tid < COUT) {
-    s_b[tid] = __bfloat162float(a.b[tid]);
-    s_a[tid] = a.alpha ? __bfloat162float(a.alpha[tid]) : 0.f;
+    s_b[tid] = to_f(a.b[tid]);
+    s_a[tid] = a.alpha ? to_f(a.alpha[tid]) : 0.f;
   }
 
   const int cg = tid & 7, pg = tid >> 3;
   const int prow = pg >> 2, pcol = (pg & 3) * 8;
-  const unsigned short* __restrict__ xr = reinterpret_cast<const unsigned short*>(a.x);
+  const typename R::type* __restrict__ xr = reinterpret_cast<const typename R::type*>(a.x);
 
   // the patch, element e = (row * PW + px) * CIN + ci: each patch row is one
   // run of PW * CIN values, contiguous in memory when the pixel stride is cin
-  unsigned short pre[S::PER_THREAD];
+  typename R::type pre[S::PER_THREAD];
   auto fetch = [&](int tile) {
     const TileAt t = tile_at(tile, tiles_x, per_image, TH, TW);
 #pragma unroll
     for (int k = 0; k < S::PER_THREAD; ++k) {
       const int e = tid + k * kThreads;
-      unsigned short v = 0;
+      typename R::type v = 0;
 #ifndef VR_PROBE_NO_LOAD
       if (e < S::ELEMS) {
         const int row = e / (PW * CIN);
@@ -176,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, CIN <= 3 ? 2 : 1)
         const int row = e / (PW * CIN);
         const int rem = e - row * (PW * CIN);
         const int px = rem / CIN, ci = rem - px * CIN;
-        s_in[(ci * PH + row) * PITCH + px] = __uint_as_float((uint32_t)pre[k] << 16);
+        s_in[(ci * PH + row) * PITCH + px] = R::f(pre[k]);
       }
     }
   };
@@ -227,17 +278,28 @@ __global__ void __launch_bounds__(kThreads, CIN <= 3 ? 2 : 1)
       for (int p = 0; p < 8; ++p) {
         const int ox = t.ox0 + pcol + p;
         if (ox >= a.W) continue;
-        uint32_t packed[4];
+        float v[8];
 #pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          const int co = cg * 8 + 2 * h;
-          const float v0 = epilogue(acc[p][2 * h], s_b[co], s_a[co], a.act);
-          const float v1 = epilogue(acc[p][2 * h + 1], s_b[co + 1], s_a[co + 1], a.act);
-          const __nv_bfloat162 pr = __floats2bfloat162_rn(v0, v1);
-          packed[h] = *reinterpret_cast<const uint32_t*>(&pr);
+        for (int q = 0; q < 8; ++q) {
+          const int co = C::cout_of(cg, q);
+          v[q] = epilogue(acc[p][q], s_b[co], s_a[co], a.act);
         }
-        *reinterpret_cast<uint4*>(a.y + (row0 + ox) * a.ys + cg * 8) =
-            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        T* dst = a.y + (row0 + ox) * a.ys;
+        if constexpr (sizeof(T) == 2) {
+          uint32_t packed[4];
+#pragma unroll
+          for (int h = 0; h < 4; ++h) {
+            const __nv_bfloat162 pr = __floats2bfloat162_rn(v[2 * h], v[2 * h + 1]);
+            packed[h] = *reinterpret_cast<const uint32_t*>(&pr);
+          }
+          *reinterpret_cast<uint4*>(dst + C::cout_of(cg, 0)) =
+              make_uint4(packed[0], packed[1], packed[2], packed[3]);
+        } else {
+          *reinterpret_cast<float4*>(dst + C::cout_of(cg, 0)) =
+              make_float4(v[0], v[1], v[2], v[3]);
+          *reinterpret_cast<float4*>(dst + C::cout_of(cg, 4)) =
+              make_float4(v[4], v[5], v[6], v[7]);
+        }
       }
     }
   }
@@ -424,8 +486,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // a persistent grid: as many blocks as fit on the card at once, at most one
 // per tile
-template <typename K>
-cudaError_t launch(K kernel, int threads, int smem, const NarrowArgs& a, int TH, int TW,
+template <typename K, typename A>
+cudaError_t launch(K kernel, int threads, int smem, const A& a, int TH, int TW,
                    cudaStream_t stream) {
   const int tiles_x = (a.W + TW - 1) / TW;
   const int per_image = tiles_x * ((a.H + TH - 1) / TH);
@@ -453,19 +515,41 @@ cudaError_t launch(K kernel, int threads, int smem, const NarrowArgs& a, int TH,
 
 extern "C" {
 
-// bf16 only; the arguments of vr_conv3x3_mma. Takes the stems (cin 3 or 12,
-// cout 64, y 16-byte aligned with a pixel stride that is a multiple of 8)
-// and conv_last (cin 64, cout 3, x 16-byte aligned with such a stride),
-// without residuals or upsampling; returns cudaErrorInvalidValue for any
-// other call. Returns the cudaError_t of the launch.
-int vr_conv3x3_narrow(const void* x, const void* w, const void* b, const void* alpha,
-                      const void* r1, const void* r2, void* y, int B, int H, int W,
-                      int cin, int cout, long long xs, long long ys, long long r1s,
-                      long long r2s, int act, int up2, float s1, float s2,
-                      void* stream) {
+// dtype: 0 = float32, 1 = bfloat16, then the arguments of vr_conv3x3_mma
+// (vr_conv3x3's). Takes the stems (cin 3 or 12, cout 64, y 16-byte aligned
+// with a pixel stride of whole 16-byte pieces: a multiple of 8 elements in
+// bf16, of 4 in fp32) in either type, and bf16 conv_last (cin 64, cout 3,
+// x 16-byte aligned with a pixel stride that is a multiple of 8), without
+// residuals or upsampling; returns cudaErrorInvalidValue for any other
+// call. Returns the cudaError_t of the launch.
+int vr_conv3x3_narrow(int dtype, const void* x, const void* w, const void* b,
+                      const void* alpha, const void* r1, const void* r2, void* y, int B, int H,
+                      int W, int cin, int cout, long long xs, long long ys, long long r1s,
+                      long long r2s, int act, int up2, float s1, float s2, void* stream) {
   (void)r1s; (void)r2s; (void)s1; (void)s2;
-  if (r1 || r2 || up2 || act < 0 || act > 2 || (act == 2 && !alpha))
+  if ((dtype != 0 && dtype != 1) || r1 || r2 || up2 || act < 0 || act > 2 ||
+      (act == 2 && !alpha))
     return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool stem_call = cout == stem::COUT && (cin == 3 || cin == 12);
+  if (dtype == 0) {
+    // fp32: the stems only
+    if (!stem_call || reinterpret_cast<uintptr_t>(y) % 16 || ys % 4 || xs < cin)
+      return cudaErrorInvalidValue;
+    NarrowArgsT<float> a;
+    a.x = static_cast<const float*>(x);
+    a.w = static_cast<const float*>(w);
+    a.b = static_cast<const float*>(b);
+    a.alpha = static_cast<const float*>(alpha);
+    a.y = static_cast<float*>(y);
+    a.B = B; a.H = H; a.W = W;
+    a.xs = xs; a.ys = ys;
+    a.act = act;
+    return cin == 3
+               ? launch(stem::stem_kernel<float, 3>, stem::kThreads, 0, a, stem::TH, stem::TW, s)
+               : launch(stem::stem_kernel<float, 12>, stem::kThreads, 0, a, stem::TH, stem::TW,
+                        s);
+  }
   NarrowArgs a;
   a.x = static_cast<const bf16*>(x);
   a.w = static_cast<const bf16*>(w);
@@ -475,12 +559,12 @@ int vr_conv3x3_narrow(const void* x, const void* w, const void* b, const void* a
   a.B = B; a.H = H; a.W = W;
   a.xs = xs; a.ys = ys;
   a.act = act;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cout == stem::COUT && (cin == 3 || cin == 12)) {
+  if (stem_call) {
     if (reinterpret_cast<uintptr_t>(y) % 16 || ys % 8 || xs < cin) return cudaErrorInvalidValue;
     return cin == 3
-               ? launch(stem::stem_kernel<3>, stem::kThreads, 0, a, stem::TH, stem::TW, s)
-               : launch(stem::stem_kernel<12>, stem::kThreads, 0, a, stem::TH, stem::TW, s);
+               ? launch(stem::stem_kernel<bf16, 3>, stem::kThreads, 0, a, stem::TH, stem::TW, s)
+               : launch(stem::stem_kernel<bf16, 12>, stem::kThreads, 0, a, stem::TH, stem::TW,
+                        s);
   }
   if (cin == last::CIN && cout == last::COUT) {
     if (reinterpret_cast<uintptr_t>(x) % 16 || xs % 8 || ys < cout) return cudaErrorInvalidValue;

@@ -27,8 +27,10 @@
 // slice in shared memory as fp32, 16 input channels at a time (every warp
 // reads one patch row, so the patch loads are conflict-free and the weight
 // loads are broadcasts); the epilogue writes each pixel's r x r x 3 fine
-// block, r runs of 3r contiguous values. Tensor cores and reading the
-// body's output as it is produced are later work.
+// block, r runs of 3r contiguous values. The tensor-core kernels,
+// srvgg_up_mma.cu (bf16) and srvgg_up_bf16x3.cu (fp32), take the zoo's
+// widths; this one takes the rest (ops/srvgg.py::srvgg_up_route) and the
+// calls forced onto it, the side-by-side yardstick.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -10,7 +10,8 @@
 // video_restore_tpu/ops/pallas_srvgg.py srvgg_up_fused_raw (full frame) and
 // srvgg_up_fused (tiles), for the calls whose widths feed the tensor cores
 // (ops/srvgg.py::srvgg_up_route): bf16, cin a multiple of 16 up to 64, r 2
-// or 4. fp32 stays on srvgg_up.cu.
+// or 4. fp32 at those widths takes srvgg_up_bf16x3.cu (Hopper `wgmma` on
+// three bf16 parts a value).
 //
 // What bounds it on the H100: at the config-4 frame (1080x1920, cin 64, r 4)
 // it moves ~477 MB (265 MB of feat read, 199 MB of output written) = 0.14 ms

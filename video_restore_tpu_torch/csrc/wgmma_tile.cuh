@@ -2,8 +2,9 @@
 // conv3x3_wgmma.cu, K5's rdb_fused_wgmma.cu, the tail's
 // tail_fused_wgmma.cu): `mbarrier`s with a watchdog, TMA tensor loads, the
 // `cp.async` copies and swizzled addresses of the nearest-2x producers,
-// shared-memory matrix descriptors, bf16 `wgmma` m64nNk16
-// with fp32 accumulators, int8 `wgmma` m64nNk32 with s32 accumulators (K4's
+// shared-memory matrix descriptors, bf16 `wgmma` m64nNk16 with fp32
+// accumulators (N 64 and 32 with B N-major, 48 and 16 with B K-major: K3's
+// srvgg_up_bf16x3.cu), int8 `wgmma` m64nNk32 with s32 accumulators (K4's
 // conv3x3_i8_wgmma.cu), and the host-side tensor-map encoding
 // (cuTensorMapEncodeTiled, got through cudaGetDriverEntryPointByVersion: no
 // link flag). Built for sm_90a only.
@@ -175,9 +176,10 @@ __device__ __forceinline__ void fence_acc(int (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-// d (+)= A (64 x 16, K-major) * B (16 x N, N-major: the transpose bit);
-// scale_d 0 overwrites d.
-template <int N>
+// d (+)= A (64 x 16, K-major) * B (16 x N, N-major: the transpose bit;
+// KMAJOR_B: K-major, no transpose, as K3's N 48 and 16 read it,
+// srvgg_up_bf16x3.cu); scale_d 0 overwrites d.
+template <int N, bool KMAJOR_B = false>
 struct Wgmma;
 
 template <>
@@ -212,6 +214,38 @@ struct Wgmma<32> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<48, true> {
+  static __device__ __forceinline__ void run(float (&d)[24], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+          "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+          "+f"(d[22]), "+f"(d[23])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<16, true> {
+  static __device__ __forceinline__ void run(float (&d)[8], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };

@@ -98,8 +98,9 @@ class SRVGGNet(nn.Module):
         ``precision="int8"`` the body also quantises its cast weights into
         the buffers ``wq`` (int8), ``sw`` (fp32 (num_conv, nf)) and ``wp``
         (each conv's ``wq`` packed for K4's ``"mma"`` route). Where
-        K3's tensor-core route reads conv_out with padded output columns
-        (r 2: 12 -> 16), the padded copy is made here, once, as the buffer
+        K3's tensor-core routes (``"mma"`` in bf16, ``"bf16x3"`` in fp32)
+        read conv_out with padded output columns (r 2: 12 -> 16), the
+        padded copy is made here, once, as the buffer
         ``w_up`` (``ops/srvgg.py::srvgg_up_weights``). ``precision`` None:
         ``rrdbnet.default_precision`` (``VRT_PRECISION``, as JAX
         ``srvgg.py:301-304``). Returns self."""
@@ -110,7 +111,7 @@ class SRVGGNet(nn.Module):
         w = self.conv_out.w
         r = self.spec.scale
         if (
-            srvgg_up_route(dtype, w.shape[-2], r) == "mma"
+            srvgg_up_route(dtype, w.shape[-2], r) in ("mma", "bf16x3")
             and up_width(r, self.spec.num_out_ch) != w.shape[-1]
         ):
             self.register_buffer("w_up", srvgg_up_weights(w, r), persistent=False)

@@ -36,7 +36,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = (
     "conv3x3.cu", "conv3x3_mma.cu", "conv3x3_wgmma.cu", "conv3x3_bf16x3_wgmma.cu",
     "conv3x3_narrow.cu", "unsharp.cu",
-    "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu", "conv3x3_i8.cu",
+    "unsharp_rows.cu", "unsharp_rows_bf16.cu", "srvgg_up.cu", "srvgg_up_mma.cu",
+    "srvgg_up_bf16x3.cu", "conv3x3_i8.cu",
     "conv3x3_i8_mma.cu", "conv3x3_i8_wgmma.cu", "rdb_fused.cu", "rdb_fused_f32.cu",
     "rdb_fused_bf16.cu", "rdb_fused_narrow.cu", "rdb_fused_mma.cu", "rdb_fused_wgmma.cu",
     "rdb_fused_bf16x3.cu",
@@ -191,7 +192,8 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3_bf16x3.restype = _I
             lib.vr_conv3x3_bf16x3_config.argtypes = [ctypes.POINTER(_I)]
             lib.vr_conv3x3_bf16x3_config.restype = _I
-            lib.vr_conv3x3_narrow.argtypes = lib.vr_conv3x3.argtypes[1:]
+            # dtype, then the mma arguments
+            lib.vr_conv3x3_narrow.argtypes = lib.vr_conv3x3.argtypes
             lib.vr_conv3x3_narrow.restype = _I
             lib.vr_unsharp.argtypes = [
                 _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _F, _F, _P,
@@ -212,6 +214,14 @@ def load() -> ctypes.CDLL:
             # r, x, w, b, skip, y, B, H, W, cin, stream
             lib.vr_srvgg_up_mma.argtypes = lib.vr_srvgg_up.argtypes[1:]
             lib.vr_srvgg_up_mma.restype = _I
+            # fp32: the same (w the K-major split parts), then the plan
+            # (ops/srvgg.py::srvgg_up_x3_plan)
+            lib.vr_srvgg_up_bf16x3.argtypes = lib.vr_srvgg_up_mma.argtypes + [
+                ctypes.POINTER(_L), _I,
+            ]
+            lib.vr_srvgg_up_bf16x3.restype = _I
+            lib.vr_srvgg_up_bf16x3_config.argtypes = [ctypes.POINTER(_I)]
+            lib.vr_srvgg_up_bf16x3_config.restype = _I
             lib.vr_conv3x3_i8.argtypes = [
                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                 _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,

@@ -24,13 +24,19 @@ Port of ``video_restore_tpu/ops/pallas_srvgg.py``:
 - :func:`srvgg_up_fused` replaces ``srvgg_up_fused_raw`` (``:1025``) and
   ``srvgg_up_fused`` (``:854``): ``pixel_shuffle(conv3x3(feat) + b, r) +
   upsample_nearest(x_in, r)`` in one launch of K3, fp32 until one final
-  rounding. K3 is two hand-written kernels of one function, and
+  rounding. K3 is three hand-written kernels of one function, and
   :func:`srvgg_up_route` says which a call takes: ``"mma"``
   (``csrc/srvgg_up_mma.cu``: bf16 ``mma.sync`` on the tile routines of
   ``csrc/mma_tile.cuh``) for bf16 with cin a multiple of 16 up to 64,
-  ``"fma"`` (``csrc/srvgg_up.cu``: fp32 FMAs) for the rest. The ``"mma"``
-  kernel reads cout padded to a multiple of 16 (r 2: 12 -> 16 zero
-  columns), which :func:`srvgg_up_weights` prepares once.
+  ``"bf16x3"`` (``csrc/srvgg_up_bf16x3.cu``: Hopper's bf16 ``wgmma`` on
+  the three bf16 parts of each fp32 value, six products a MAC summed in
+  fp32, K1 ``"bf16x3"``'s producer warpgroup; its tensor maps from
+  :func:`srvgg_up_x3_plan`) for fp32 at the same widths, ``"fma"``
+  (``csrc/srvgg_up.cu``: fp32 FMAs) for the rest and forced calls. The
+  tensor-core kernels read cout padded to a multiple of 16 (r 2: 12 -> 16
+  zero columns), which :func:`srvgg_up_weights` prepares once; the
+  ``"bf16x3"`` kernel reads its split parts K-major
+  (``ops/tail.py::weight_parts(k_major=True)``, split once a weight).
 
 Each wrapper has its plain PyTorch version beside it (``*_plain``). A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -39,7 +45,8 @@ launches its kernel or raises.
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -55,39 +62,145 @@ from video_restore_tpu_torch.ops.quant import (
     conv3x3_i8,
     conv3x3_i8_plain,
 )
-from video_restore_tpu_torch.ops.tail import _DTYPES, PAIR_ROUTES as ROUTES, conv3x3, conv3x3_plain, forced_route
+from video_restore_tpu_torch.ops.tail import (
+    _DTYPES,
+    _TMA_STRIDE_MAX,
+    _sm_count,
+    conv3x3,
+    conv3x3_plain,
+    forced_route,
+    weight_parts,
+)
 
 UP_SCALES = (2, 4)  # the scales the JAX model sends to its fused upsampler
 UP_MMA_MAX_CIN = 64  # the whole patch and weights of a block in shared memory
+ROUTES = ("mma", "bf16x3", "fma")  # K3's kernels; "fma" takes every call
+_UP_TAKES = {"mma": "bf16 with cin 16..64", "bf16x3": "fp32 with cin 16..64"}
 
 
 def srvgg_up_route(dtype: torch.dtype, cin: int, r: int) -> str:
-    """Which of K3's two kernels a call on a CUDA tensor launches: a pure
-    function of the call. ``"mma"`` (tensor cores) takes bf16 with cin a
-    multiple of 16 (one k16 step per 16 input channels) up to
-    :data:`UP_MMA_MAX_CIN`, at a scale of :data:`UP_SCALES`; ``"fma"``
-    takes every other call: fp32, and widths the kernel is not built for."""
-    if (
-        dtype == torch.bfloat16 and cin % 16 == 0 and 0 < cin <= UP_MMA_MAX_CIN
-        and r in UP_SCALES
-    ):
-        return "mma"
+    """Which of K3's three kernels a call on a CUDA tensor launches: a pure
+    function of the call. The tensor-core widths are cin a multiple of 16
+    (one k16 step per 16 input channels) up to :data:`UP_MMA_MAX_CIN`, at a
+    scale of :data:`UP_SCALES`: ``"mma"`` takes them in bf16, ``"bf16x3"``
+    in fp32; ``"fma"`` takes every other call: widths the tensor-core
+    kernels are not built for."""
+    if cin % 16 == 0 and 0 < cin <= UP_MMA_MAX_CIN and r in UP_SCALES:
+        if dtype == torch.bfloat16:
+            return "mma"
+        if dtype == torch.float32:
+            return "bf16x3"
     return "fma"
 
 
 def up_width(r: int, colours: int = 3) -> int:
-    """conv_out's width as the ``"mma"`` kernel reads it: ``colours * r^2``
-    padded to a multiple of 16 (r 4: 48; r 2: 16)."""
+    """conv_out's width as the tensor-core kernels read it: ``colours *
+    r^2`` padded to a multiple of 16 (r 4: 48; r 2: 16)."""
     return -(-colours * r * r // 16) * 16
 
 
 def srvgg_up_weights(w_out: torch.Tensor, r: int) -> torch.Tensor:
     """conv_out's HWIO weight (3, 3, nf, 3 r^2) padded with zero output
-    columns to :func:`up_width`, contiguous: what the ``"mma"`` kernel
-    reads. A pure function, for the model to call once; the conv of the
-    padded weight is the conv of ``w_out`` in its first 3 r^2 channels."""
+    columns to :func:`up_width`, contiguous: what the tensor-core kernels
+    read (``"bf16x3"`` its split parts). A pure function, for the model to
+    call once; the conv of the padded weight is the conv of ``w_out`` in
+    its first 3 r^2 channels."""
     pad = up_width(r, w_out.shape[-1] // (r * r)) - w_out.shape[-1]
     return torch.nn.functional.pad(w_out, (0, pad)).contiguous()
+
+
+# srvgg_up_bf16x3.cu's geometry: tile rows at r 2 and r 4, pixels of a tile
+# row, input channels a stage (the launcher refuses a plan that does not
+# match its build: vr_srvgg_up_bf16x3_config)
+UP_X3 = dict(th2=8, th4=4, tw=64, kc=16)
+UP_X3_PLAN_LEN = 26
+
+
+def _pad1k(v: int) -> int:
+    return -(-v // 1024) * 1024
+
+
+def srvgg_up_x3_smem(r: int) -> int:
+    """Dynamic shared memory bytes of a block of ``srvgg_up_bf16x3.cu`` at
+    scale ``r`` (tiles of th rows, tw pixels, kc channels a stage:
+    :data:`UP_X3`): 1024 bytes of alignment, two stages (the three weight
+    parts, 9 taps x kc x :func:`up_width` bf16 each, then from the next 1024
+    bytes the three window parts, (th + 2) x (tw + 2) pixels of kc bf16,
+    each on 1024 bytes), one raw fp32 window, the five barriers, then from
+    the next 128 bytes each of the 8 consumer warps' staging: r fine rows of
+    16 pixels' r x 3 fp32 values."""
+    n = up_width(r)
+    th = UP_X3["th4"] if r == 4 else UP_X3["th2"]
+    kc, tw = UP_X3["kc"], UP_X3["tw"]
+    ph, pw = th + 2, tw + 2
+    w_part = 9 * kc * n * 2
+    stage = _pad1k(3 * w_part) + 3 * _pad1k(ph * pw * kc * 2)
+    bars = 2 * stage + ph * pw * kc * 4
+    staging = -(-(bars + 5 * 8) // 128) * 128
+    return 1024 + staging + 8 * r * 16 * r * 3 * 4
+
+
+class UpX3Plan(NamedTuple):
+    """What ``vr_srvgg_up_bf16x3`` checks, encodes and launches: feat's fp32
+    4-D tensor map over (cin, W, H, B) (dims, the byte strides of dims 1-3,
+    the box: kc channels of a (TH + 2) x (TW + 2) window, no swizzle), the
+    K-major split weights' bf16 4-D map over (cin, N, 9, 3) (a box of one
+    stage's kc input channels of every cout, tap and part, in the 32-byte
+    swizzle), the persistent grid, the tile and the block's shared memory;
+    ``tiles`` is kept for the checks and not sent."""
+
+    a_dims: Tuple[int, int, int, int]
+    a_strides: Tuple[int, int, int]
+    a_box: Tuple[int, int, int, int]
+    w_dims: Tuple[int, int, int, int]
+    w_strides: Tuple[int, int, int]
+    w_box: Tuple[int, int, int, int]
+    grid: int
+    tiles: int
+    tile: Tuple[int, int]
+    smem: int
+
+    def array(self) -> ctypes.Array:
+        """The plan as the C launcher reads it (:data:`UP_X3_PLAN_LEN` int64
+        values)."""
+        vals = (*self.a_dims, *self.a_strides, *self.a_box, *self.w_dims, *self.w_strides,
+                *self.w_box, self.grid, *self.tile, self.smem)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def srvgg_up_x3_plan(shape: Sequence[int], r: int, *, sms: int) -> UpX3Plan:
+    """The ``"bf16x3"`` route's tensor maps, grid and shared memory for an
+    fp32 upsampler call: a pure function of feat's shape (B, H, W, cin) (a
+    contiguous tensor), the scale r and the card's SM count, on
+    :data:`UP_X3`'s tiles (``th2`` rows at r 2 and ``th4`` at r 4, ``tw`` LR
+    pixels wide, ``kc`` channels a stage). Raises ValueError for a call the
+    kernel cannot take: an empty shape, r not in :data:`UP_SCALES`, cin not
+    a multiple of kc, 2^31 pixels or more, a byte stride over TMA's limit."""
+    bsz, h, w, cin = (int(v) for v in shape)
+    kc, tw = UP_X3["kc"], UP_X3["tw"]
+    if min(bsz, h, w, cin) <= 0:
+        raise ValueError(f"srvgg_up_x3_plan: empty shape {tuple(shape)}")
+    if r not in UP_SCALES:
+        raise ValueError(f"srvgg_up_x3_plan: r {r} (one of {UP_SCALES})")
+    if cin % kc:
+        raise ValueError(f"srvgg_up_x3_plan: cin {cin} (a multiple of {kc})")
+    if bsz * h * w >= 1 << 31:
+        raise ValueError(f"srvgg_up_x3_plan: {bsz * h * w} pixels (fewer than 2^31)")
+    n = up_width(r)
+    th = UP_X3["th4"] if r == 4 else UP_X3["th2"]
+    a_strides = (cin * 4, w * cin * 4, h * w * cin * 4)
+    a_box = (kc, tw + 2, th + 2, 1)
+    w_strides = (cin * 2, n * cin * 2, 9 * n * cin * 2)
+    w_box = (kc, n, 9, 3)
+    for st in a_strides + w_strides:
+        if st >= _TMA_STRIDE_MAX:
+            raise ValueError(f"srvgg_up_x3_plan: byte stride {st} (< 2^40)")
+    tiles = bsz * -(-h // th) * -(-w // tw)
+    return UpX3Plan(
+        a_dims=(cin, w, h, bsz), a_strides=a_strides, a_box=a_box,
+        w_dims=(cin, n, 9, 3), w_strides=w_strides, w_box=w_box,
+        grid=min(tiles, sms), tiles=tiles, tile=(th, tw), smem=srvgg_up_x3_smem(r),
+    )
 
 
 def _check_body(w, b, alpha):
@@ -218,8 +331,8 @@ def srvgg_up_fused(
     rW, 3), all in feat's dtype (fp32 or bf16); r in {2, 4}. One K3 launch
     on CUDA, the plain version on the CPU. ``route``: None for
     :func:`srvgg_up_route`'s kernel, ``"fma"`` to force the fp32-FMA kernel
-    (a side-by-side timing). The launch is counted under ``srvgg_up_fused``
-    and ``srvgg_up_fused:<route>``."""
+    (a side-by-side timing), or the call's own route. The launch is counted
+    under ``srvgg_up_fused`` and ``srvgg_up_fused:<route>``."""
     if feat.device.type == "cpu":
         return srvgg_up_fused_plain(feat, w_out, b_out, x_in, r)
     if feat.device.type != "cuda":
@@ -240,12 +353,13 @@ def srvgg_up_fused(
             raise ValueError(f"srvgg_up_fused: {name} must be contiguous")
     bsz, h, w, nf = feat.shape
     route = forced_route("srvgg_up_fused", srvgg_up_route(dt, nf, r), route,
-                         "bf16 with cin 16..64")
+                         _UP_TAKES.get(route, ""), routes=ROUTES)
     # each kernel's weight width: a direct caller's unpadded r-2 weight is
     # padded here, off the model's path
-    width = up_width(r) if route == "mma" else 3 * r * r
+    padded = route in ("mma", "bf16x3")
+    width = up_width(r) if padded else 3 * r * r
     if w_out.shape[-1] != width:
-        w_out = (srvgg_up_weights(w_out, r) if route == "mma"
+        w_out = (srvgg_up_weights(w_out, r) if padded
                  else w_out[..., :width].contiguous())
     out = torch.empty((bsz, r * h, r * w, cout), dtype=dt, device=feat.device)
     lib = _build.load()
@@ -257,6 +371,12 @@ def srvgg_up_fused(
     with torch.cuda.device(feat.device):
         if route == "mma":
             code = lib.vr_srvgg_up_mma(*args)
+        elif route == "bf16x3":
+            plan = srvgg_up_x3_plan(feat.shape, r, sms=_sm_count(feat.device)).array()
+            code = lib.vr_srvgg_up_bf16x3(
+                r, feat.data_ptr(), weight_parts(w_out, k_major=True).data_ptr(),
+                *args[3:], plan, len(plan),
+            )
         else:
             code = lib.vr_srvgg_up(_DTYPES[dt], *args)
     _build.check(lib, code, f"srvgg_up kernel ({route})")

@@ -54,9 +54,9 @@ summed in fp32, :func:`split3`; its plan from :func:`bf16x3_plan`) for the
 fp32 calls of those widths, ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`` fed by
 ``ldmatrix`` from shared memory that ``cp.async`` fills), forced beside
 ``"wgmma"`` for side-by-side runs, ``"narrow"`` (``csrc/conv3x3_narrow.cu``:
-fp32 FMAs in ``conv3x3.cu``'s order, one kernel for the bf16 stems, cin 3
-or 12 -> 64, and one for ``conv_last``, 64 -> 3), ``"fma"``
-(``csrc/conv3x3.cu``: fp32 FMAs) for the rest: the fp32 stems and
+fp32 FMAs in ``conv3x3.cu``'s order, one kernel for the stems, cin 3 or 12
+-> 64, in bf16 and fp32, and one for the bf16 ``conv_last``, 64 -> 3),
+``"fma"`` (``csrc/conv3x3.cu``: fp32 FMAs) for the rest: the fp32
 conv_last, and the narrow test widths. The one-launch tail is four kernels the same way, chosen by
 :func:`tail_fused_route`: ``"wgmma"`` (``csrc/tail_fused_wgmma.cu``, on the
 launch plan of :func:`tail_wgmma_plan`) for bf16 at nf 64, ``"bf16x3"``
@@ -96,14 +96,15 @@ _TAIL_TAKES = {"wgmma": "bf16 at nf 64 with aligned operands",
                "mma": "bf16 at nf 64 with aligned operands",
                "bf16x3": "fp32 at nf 64 with aligned operands"}
 _MMA_COUT = (32, 64)  # the widths of conv3x3_mma.cu, conv3x3_wgmma.cu and the bf16x3 kernel
-# (cin, cout) of conv3x3_narrow.cu's kernels: the stems and conv_last
-_NARROW = ((3, 64), (12, 64), (64, 3))
+# (cin, cout) of conv3x3_narrow.cu's kernels by dtype: the stems (bf16 and
+# fp32) and conv_last (bf16 only: fp32 conv_last stays on conv3x3.cu)
+_NARROW = {torch.bfloat16: ((3, 64), (12, 64), (64, 3)), torch.float32: ((3, 64), (12, 64))}
 _K1_TAKES = {
     "wgmma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
     "bf16x3": "fp32 with cin a multiple of 16, cout 32 or 64 and aligned operands",
     "mma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
-    "narrow": "bf16 stems (cin 3 or 12 -> 64) and conv_last (64 -> 3) without residuals "
-              "or upsample2, with operands it can load",
+    "narrow": "stems (cin 3 or 12 -> 64, bf16 or fp32) and bf16 conv_last (64 -> 3) "
+              "without residuals or upsample2, with operands it can load",
 }
 
 
@@ -120,47 +121,49 @@ def conv3x3_route(
     (``upsample2``: up1 and upconv2, whose windows its producer copies at
     the fine grid); ``"bf16x3"`` takes the same widths in fp32 (the fp32
     flagship's dense-block convs, conv_body, up1, upconv2 and conv_hr, the
-    SRVGG body), read through nearest 2x or not; ``"narrow"`` takes bf16
-    stems (cin 3 or 12 -> cout 64) and
-    ``conv_last`` (cin 64 -> cout 3) where ``narrow`` says the rest of the
+    SRVGG body), read through nearest 2x or not; ``"narrow"`` takes the
+    stems (cin 3 or 12 -> cout 64) in bf16 and fp32, and the bf16
+    ``conv_last`` (cin 64 -> cout 3), where ``narrow`` says the rest of the
     call suits it (:func:`narrow_operands`); ``"fma"`` takes every other
-    call (the fp32 stems and conv_last among them)."""
+    call (the fp32 conv_last among them)."""
     if cin % 16 == 0 and cout in _MMA_COUT and aligned:
         if dtype == torch.bfloat16:
             return "wgmma"
         if dtype == torch.float32:
             return "bf16x3"
-    if dtype == torch.bfloat16 and (cin, cout) in _NARROW and narrow:
+    if narrow and (cin, cout) in _NARROW.get(dtype, ()):
         return "narrow"
     return "fma"
 
 
-def operands_aligned(*tensors: Optional[torch.Tensor]) -> bool:
+def operands_aligned(*tensors: Optional[torch.Tensor], piece_elems: int = 8) -> bool:
     """Whether every given tensor (None is skipped) starts on a 16-byte
     boundary and, where it is NHWC, has a pixel stride that is a multiple of
-    8 elements: what the tensor-core routes' 16-byte copies and TMA boxes
-    need."""
+    ``piece_elems`` elements: at 8, what the tensor-core routes' 16-byte
+    copies and TMA boxes need."""
     for t in tensors:
         if t is None:
             continue
         if t.data_ptr() % 16:
             return False
-        if t.dim() == 4 and t.stride(2) % 8:
+        if t.dim() == 4 and t.stride(2) % piece_elems:
             return False
     return True
 
 
 def narrow_operands(x, cout, out=None, r1=None, r2=None, upsample2=False) -> bool:
     """Whether a call of the narrow widths suits ``"narrow"``'s kernels: no
-    residuals and no ``upsample2``; ``conv_last`` (cout 3) reads x 16 bytes
-    (8 channels) at a time, so x must be :func:`operands_aligned`; a stem
-    writes ``out`` 16 bytes (8 couts) at a time, so ``out`` (None: a fresh
-    contiguous tensor) must be, while its x is read 2 bytes at a time at any
-    pixel stride (cin 3: 3). Weights, bias and alpha are read 2 bytes at a
-    time."""
+    residuals and no ``upsample2``; ``conv_last`` (cout 3, bf16) reads x 16
+    bytes (8 channels) at a time, so x must start on 16 bytes with a pixel
+    stride of whole 16-byte pieces; a stem writes ``out`` 16 bytes (8 bf16
+    or 4 fp32 couts) at a time, so ``out`` (None: a fresh contiguous tensor)
+    must (a pixel stride that is a multiple of 8 elements in bf16, of 4 in
+    fp32), while its x is read one value at a time at any pixel stride (cin
+    3: 3). Weights, bias and alpha are read one value at a time."""
     if upsample2 or r1 is not None or r2 is not None:
         return False
-    return operands_aligned(x if cout == 3 else out)
+    t = x if cout == 3 else out
+    return t is None or operands_aligned(t, piece_elems=16 // t.element_size())
 
 
 def conv3x3_call_route(x, w, b, alpha=None, out=None, r1=None, r2=None, upsample2=False) -> str:
@@ -313,26 +316,36 @@ def split3(t: torch.Tensor) -> torch.Tensor:
     return torch.stack([p0, p1, p2]).contiguous()
 
 
-# weight -> {(offset, shape, strides, address, version): its split3 parts};
-# keyed on the tensor that owns the storage, so that a view taken anew at
-# every call (an SRVGG body conv's w[i]) finds the parts of the last one
+# weight -> {(layout, offset, shape, strides, address, version): its split3
+# parts}; keyed on the tensor that owns the storage, so that a view taken
+# anew at every call (an SRVGG body conv's w[i]) finds the parts of the last
+# one
 _PARTS = WeakIdKeyDictionary()
 
 
-def weight_parts(w: torch.Tensor) -> torch.Tensor:
+def _parts(w: torch.Tensor, k_major: bool) -> torch.Tensor:
+    p = split3(w)
+    return p.transpose(-1, -2).contiguous() if k_major else p
+
+
+def weight_parts(w: torch.Tensor, k_major: bool = False) -> torch.Tensor:
     """:func:`split3` of K1 weights, split once: kept beside the tensor
     that owns ``w``'s storage for as long as that tensor lives, and split
     again when ``w`` was written in place (its version counter moved) or
     now lies elsewhere. An inference-mode tensor has no version counter,
-    so its parts are split at every call."""
+    so its parts are split at every call. ``k_major``: the parts with
+    their last two axes swapped, (3, 3, 3, cout, cin) contiguous, the
+    K-major B operand that K3's ``"bf16x3"`` kernel reads
+    (``ops/srvgg.py``), kept beside the N-major ones."""
     if w.is_inference():
-        return split3(w)
+        return _parts(w, k_major)
     base = w if w._base is None else w._base
-    key = (w.storage_offset(), tuple(w.shape), w.stride(), w.data_ptr(), w._version)
+    key = (bool(k_major), w.storage_offset(), tuple(w.shape), w.stride(), w.data_ptr(),
+           w._version)
     kept = _PARTS.get(base)
     if kept is None or key not in kept:
-        kept = _PARTS[base] = {k: v for k, v in (kept or {}).items() if k[:3] != key[:3]}
-        kept[key] = split3(w)
+        kept = _PARTS[base] = {k: v for k, v in (kept or {}).items() if k[:4] != key[:4]}
+        kept[key] = _parts(w, k_major)
     return kept[key]
 
 
@@ -580,7 +593,8 @@ def conv3x3(
     under its route, ``conv3x3:wgmma``, ``conv3x3:bf16x3``, ``conv3x3:mma``,
     ``conv3x3:narrow`` or ``conv3x3:fma``
     (:func:`conv3x3_route`), and a narrow one under its kernel,
-    ``conv3x3:narrow stem`` or ``conv3x3:narrow conv_last``. ``route``:
+    ``conv3x3:narrow stem`` or ``conv3x3:narrow conv_last`` (an fp32 stem
+    also under ``conv3x3:narrow stem:fp32``). ``route``:
     None for :func:`conv3x3_route`'s kernel, or a route forced where its
     kernel takes the call (``"mma"`` takes every call of ``"wgmma"``,
     ``"fma"`` every call: side-by-side timings; :func:`forced_route`)."""
@@ -661,14 +675,17 @@ def conv3x3(
         elif route == "mma":
             code = lib.vr_conv3x3_mma(*args)
         elif route == "narrow":
-            code = lib.vr_conv3x3_narrow(*args)
+            code = lib.vr_conv3x3_narrow(_DTYPES[dt], *args)
         else:
             code = lib.vr_conv3x3(_DTYPES[dt], *args)
     _build.check(lib, code, f"conv3x3 kernel ({route})")
     _build.count_launch(counter)
     _build.count_launch(f"conv3x3:{route}")
     if route == "narrow":
-        _build.count_launch("conv3x3:narrow " + ("conv_last" if cout == 3 else "stem"))
+        kind = "conv3x3:narrow " + ("conv_last" if cout == 3 else "stem")
+        _build.count_launch(kind)
+        if dt == torch.float32:
+            _build.count_launch(kind + ":fp32")
     return out
 
 

@@ -61,7 +61,7 @@ def build_all():
             if "registers" in line or "spill" in line:
                 print(f"[build] {SOURCE} {name}: {line.split(':', 1)[-1].strip()}", flush=True)
         lib = ctypes.CDLL(str(so))
-        lib.vr_conv3x3_narrow.argtypes = [P] * 7 + [I] * 5 + [L] * 4 + [I, I, F, F, P]
+        lib.vr_conv3x3_narrow.argtypes = [I] + [P] * 7 + [I] * 5 + [L] * 4 + [I, I, F, F, P]
         lib.vr_conv3x3_narrow.restype = I
         libs[name] = lib
     return libs
@@ -105,7 +105,7 @@ def probe(reps: int = 10) -> None:
 
         def conv(lib):
             code = lib.vr_conv3x3_narrow(
-                x.data_ptr(), wt.data_ptr(), bias.data_ptr(), None, None, None, y.data_ptr(),
+                1, x.data_ptr(), wt.data_ptr(), bias.data_ptr(), None, None, None, y.data_ptr(),
                 b, h, w, cin, cout, cin, cout, 0, 0, 0, 0, 1.0, 1.0, stream)
             if code != 0:
                 raise RuntimeError(f"vr_conv3x3_narrow: CUDA error {code}")
