@@ -74,24 +74,24 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    RDB per conv (share of six bf16 products a MAC at 989 TFLOP/s) and whole
    on ``bf16x3``, forced ``fma`` and cuDNN's fp32 chain (TF32 off),
    ``bf16x3`` at most half of ``fma``'s time; then ``[kernel32]``: conv_body,
-   an SRVGG conv, up1, upconv2 and conv_hr on ``bf16x3``, the fp32 stem on
-   ``narrow`` (``torch.equal`` to forced ``fma``), conv_last on ``fma``, K3
+   an SRVGG conv, up1, upconv2 and conv_hr on ``bf16x3``, the fp32 stem
+   and conv_last on ``narrow`` (each ``torch.equal`` to forced ``fma``), K3
    on ``srvgg_up_bf16x3.cu``, K5's RRDB on
    ``rdb_fused_bf16x3.cu`` (``VRT_PALLAS=1``) and the tail on
    ``tail_fused_bf16x3.cu`` (``VRT_TAIL_Q=1``) at the paths' shapes, each
    against plain with its plain, cuDNN fp32 and bound times (the
-   ``bf16x3`` ones and the stem also against forced ``fma``; K5's, the
-   tail's, K3's and the stem's at most half of its time, K3 and the stem
-   under the library call). K1's narrow
+   ``bf16x3`` ones, the stem and conv_last also against forced ``fma``;
+   K5's, the tail's, K3's and the stem's at most half of its time, K3, the
+   stem and conv_last under the library call). K1's narrow
    route (``conv3x3:narrow``): the stems in bf16 and fp32 (cin 3 and 12 -> 64, act none,
    PReLU and lrelu, odd shapes, a frame of one pixel, a strided cin-3 view,
-   the flagship frame and the tile batch) and ``conv_last`` (64 -> 3, odd
-   shapes, a prefix view of a wider buffer, the flagship's 1x4320x7680x64
-   and the tile batch's 6x1504x1792x64), each ``torch.equal`` to the
-   forced ``fma`` route and within ``compare``'s bound of plain, each
-   launch counted under its kernel; then the old kernel, the new one and
-   ``F.conv2d`` side by side at both flagship shapes, the new one at least
-   3x the old. K2's rows route (``unsharp_fused:rows``) in fp32: odd
+   the flagship frame and the tile batch) and ``conv_last`` in bf16 and
+   fp32 (64 -> 3, odd shapes, a prefix view of a wider buffer, the
+   flagship's 1x4320x7680x64 and the tile batch's 6x1504x1792x64), each
+   ``torch.equal`` to the forced ``fma`` route and within ``compare``'s
+   bound of plain, each launch counted under its kernel; then the old
+   kernel, the new one and ``F.conv2d`` side by side at both flagship
+   shapes and at the fp32 conv_last's, the new one at least 3x the old. K2's rows route (``unsharp_fused:rows``) in fp32: odd
    shapes (B = 2 at W*C % 4 != 0, frames smaller than the halo, 4 rows over
    9 strips, a 2x1037x1283 frame whose runs cross strips and frames, an x
    4 bytes off a 16-byte boundary), radius 0, 1, 4 and 16, thresholds 0 and
@@ -149,7 +149,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (``tail_fused_q:bf16x3``, ``[k6] fp32``) at the same odd shapes and the
    flagship's 1x2160x3840x64: ``torch.equal`` to the fp32 three-launch
    chain (the default fp32 ``tail_fused``: upconv2 and conv_hr on K1
-   ``bf16x3``, conv_last on ``fma``), within ``compare``'s fp32 bound of
+   ``bf16x3``, conv_last on ``narrow``), within ``compare``'s fp32 bound of
    plain; at the flagship shape it, the chain, forced K6 ``fma``, cuDNN's
    fp32 chain and plain in turns, each one's device memory: at most half
    of ``fma``'s time. K4's Hopper route (``conv3x3_i8:wgmma``),
@@ -261,9 +261,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
     (seamless, 12 tiles), 2 frames, with the checks of phases 4 and 5;
 10e. ``[main_fp32]`` and ``[config4_fp32]``: the flagship flags and config
     4 at ``--precision fp32``, 2 frames each, with the checks of phases 4
-    and 5 at 60 dB (K1 by route: 349 ``conv3x3:bf16x3``, 1 ``conv3x3:fma``
-    (conv_last) and the stem once on ``conv3x3:narrow stem`` per flagship
-    frame, the tail as three K1 launches; 32 ``bf16x3`` and the narrow stem
+    and 5 at 60 dB (K1 by route: 349 ``conv3x3:bf16x3``, the stem once on
+    ``conv3x3:narrow stem`` and conv_last once on ``conv3x3:narrow
+    conv_last:fp32``, no ``conv3x3:fma``, per flagship frame, the tail as
+    three K1 launches; 32 ``bf16x3`` and the narrow stem
     per config-4 frame and K3 once on ``srvgg_up_fused:bf16x3``),
     the peak memory beside ``auto_full_frame``'s estimate at 4 bytes a
     feature value, and the bf16 kernel path's frames beside them (>= 35
@@ -401,6 +402,9 @@ PEAK_FP32_UNFUSED = PEAK_FP32 / 2
 # K2's bf16 rows instance at 1x4320x7680x3, r = 4, before its H100
 # redesign (8 values a thread, one block an SM; NVIDIA H100 80GB HBM3, 700 W)
 K2_BF16_BEFORE_MS = (0.482, 0.490)
+# the launch counts of one fp32 conv_last on K1's narrow route
+LAST32 = {"conv3x3:narrow": 1, "conv3x3:narrow conv_last": 1,
+          "conv3x3:narrow conv_last:fp32": 1}
 # K1 bf16x3: most error of an fp32 sum over cin channels, as a share of the
 # sum's largest value against float64, per input channel (read on an H100 at
 # 6.9e-8 - 7.4e-8 x cin for cin 16, 64 and 192; cuDNN fp32 0.9e-8 - 2.8e-8 x cin)
@@ -464,6 +468,10 @@ PALLAS = {
     # K1's fp32 stem on the narrow route: #1 conv3x3_fused in its stem form
     # at --precision fp32
     "conv3x3:narrow stem:fp32": "video_restore_tpu/ops/pallas_tail.py:767",
+    # K1's fp32 conv_last on the narrow route: the conv_last stage of #6
+    # tail_fused_raw (pallas_tail.py:209-212), and #7 tail_fused (:425), in
+    # the fp32 chain tail
+    "conv3x3:narrow conv_last:fp32": "video_restore_tpu/ops/pallas_tail.py:266",
     # K3 at --precision fp32: #17 srvgg_up_fused_raw, and #18 srvgg_up_fused
     # (pallas_srvgg.py:854)
     "srvgg_up_fused:bf16x3": "video_restore_tpu/ops/pallas_srvgg.py:1025",
@@ -480,6 +488,7 @@ CUDA_ROUTE = {
     "tail_fused_q": "wgmma", "rdb_fused_i8": "wgmma", "srvgg_body_i8": "wgmma",
     "rdb_fused_i8 static": "wgmma", "conv3x3:bf16x3": "bf16x3", "rrdb_fused:bf16x3": "bf16x3",
     "tail_fused_q:bf16x3": "bf16x3", "conv3x3:narrow stem:fp32": "narrow",
+    "conv3x3:narrow conv_last:fp32": "narrow",
     "srvgg_up_fused:bf16x3": "bf16x3",
     "unsharp_fused": "rows", "unsharp_fused:rows:bf16": "rows",
 }
@@ -518,6 +527,8 @@ SOURCE = {
     # (ops/srvgg.py::srvgg_up_route)
     "conv3x3:narrow stem:fp32": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
     "srvgg_up_fused:bf16x3": "video_restore_tpu_torch/csrc/srvgg_up_bf16x3.cu",
+    # the fp32 conv_last (ops/tail.py::conv3x3_route), TMA-fed
+    "conv3x3:narrow conv_last:fp32": "video_restore_tpu_torch/csrc/conv3x3_narrow.cu",
 }
 PATH_TAGS = (
     "main", "config4", "tiled_x4plus", "tiled_x4_v3", "main_int8",
@@ -1196,7 +1207,7 @@ def main(argv=None) -> int:
         del xb
 
         # the other bf16x3 shapes of the paths, and the fp32 instances of the
-        # other kernels they launch (the stem and conv_last on fma, K3) or
+        # other kernels they launch (the stem and conv_last on narrow, K3) or
         # that their knobs select (K5 at VRT_PALLAS=1, K6 at VRT_TAIL_Q=1)
         table = st.setdefault("rows", {})
 
@@ -1293,11 +1304,13 @@ def main(argv=None) -> int:
               lambda: F.conv2d(nchw(x8), oihw(wc), bc, padding=1),
               16 * H * W * NF * 4 * 2, 16 * 2 * H * W * 9 * NF * NF, True, "1 a flagship frame")
         del hr_out
-        row32("conv_last (fma)", f"1x{4 * H}x{4 * W}x64 -> 3",
-              lambda: tail.conv3x3(x8, wl, bl, counter="check"),
+        row32("conv_last (narrow)", f"1x{4 * H}x{4 * W}x64 -> 3",
+              lambda r: tail.conv3x3(x8, wl, bl, route=r, counter="check"),
               lambda: tail.conv3x3_plain(x8, wl, bl),
               lambda: F.conv2d(nchw(x8), oihw(wl), bl, padding=1),
-              16 * H * W * (NF + 3) * 4, 16 * 2 * H * W * 9 * NF * 3, False, "1 a flagship frame")
+              16 * H * W * (NF + 3) * 4, 16 * 2 * H * W * 9 * NF * 3, False, "1 a flagship frame",
+              5, vs_fma=True, bit_equal=True, under_library=True,
+              json_row="conv3x3:narrow conv_last:fp32")
         del x8, up2_out
         xs3 = rf(1, H, W, 3)
         wsm, bsm = rf(3, 3, 3, NF, scale=0.2), rf(NF, scale=0.1)
@@ -1355,12 +1368,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
 
     def phase_k1n():
-        """K1's narrow route (``conv3x3_narrow.cu``): the stems (bf16 and
-        fp32) and conv_last (bf16) at odd shapes and at the paths' shapes,
-        each ``torch.equal`` to the forced fma route (both sum in one order)
-        and within compare's bound of plain in its dtype; then the old kernel
+        """K1's narrow route (``conv3x3_narrow.cu``): the stems and conv_last,
+        each in bf16 and fp32, at odd shapes and at the paths' shapes, each
+        ``torch.equal`` to the forced fma route (both sum in one order) and
+        within compare's bound of plain in its dtype; then the old kernel
         (fma forced), the new one and ``F.conv2d`` side by side at the
-        flagship's two shapes (the fp32 stem's times: ``[kernel32]``)."""
+        flagship's two shapes and at the fp32 conv_last's, the new one at
+        most a third of the old (the fp32 stem's times: ``[kernel32]``)."""
         def held(tag, x, wt, bias, kind, **kw):
             _build.reset_launches()
             k = tail.conv3x3(x, wt, bias, counter="k1n", **kw)
@@ -1439,21 +1453,35 @@ def main(argv=None) -> int:
         held("fp32 stem 12->64 (1, 540, 960) none", rnd(1, 540, 960, 12, dt=f32),
              rnd(3, 3, 12, NF, scale=0.2, dt=f32), bias, "stem")
         torch.cuda.empty_cache()
+        # the fp32 conv_last (the fp32 chain tail's, TMA-fed): odd shapes, a
+        # 64-channel prefix of a 72-channel buffer (pixel stride 288 bytes),
+        # the paths' shapes (the flagship's 8K frame, the tile batch)
+        wl, bl = rnd(3, 3, NF, 3, scale=0.05, dt=f32), rnd(3, scale=0.1, dt=f32)
+        for shp in ((2, 37, 53), (1, 5, 7), (2, 100, 150)):
+            held(f"fp32 conv_last 64->3 {shp}", rnd(*shp, NF, dt=f32), wl, bl, "conv_last")
+        held("fp32 conv_last 64->3 (2, 37, 53) x a prefix of 72",
+             rnd(2, 37, 53, 72, dt=f32)[..., :NF], wl, bl, "conv_last")
+        for shp in ((1, 4 * H, 4 * W), (6, 1504, 1792)):
+            held(f"fp32 conv_last 64->3 {shp}", rnd(*shp, NF, dt=f32), wl, bl, "conv_last")
+            torch.cuda.empty_cache()
 
-        # old, new and cuDNN at the flagship's shapes
-        for tag, cin, cout, shp, reps in (("stem", 3, NF, (1, H, W), 20),
-                                          ("conv_last", NF, 3, (1, 4 * H, 4 * W), 5)):
-            x = rnd(*shp, cin)
-            wt, bias = rnd(3, 3, cin, cout, scale=0.05), rnd(cout, scale=0.1)
+        # old, new and cuDNN at the flagship's shapes (bf16), and at the fp32
+        # chain tail's conv_last (its floors in fp32 bytes)
+        for tag, cin, cout, shp, reps, dt in (
+                ("stem", 3, NF, (1, H, W), 20, bf),
+                ("conv_last", NF, 3, (1, 4 * H, 4 * W), 5, bf),
+                ("conv_last_fp32", NF, 3, (1, 4 * H, 4 * W), 5, f32)):
+            x = rnd(*shp, cin, dt=dt)
+            wt, bias = rnd(3, 3, cin, cout, scale=0.05, dt=dt), rnd(cout, scale=0.1, dt=dt)
             new_ms = timed(lambda: tail.conv3x3(x, wt, bias, counter="k1n"), reps)
             old_ms = timed(lambda: tail.conv3x3(x, wt, bias, counter="k1n", route="fma"), max(2, reps // 4))
             x_nchw, w_oihw = x.permute(0, 3, 1, 2), wt.permute(3, 2, 0, 1).contiguous()
             lib_ms = timed(lambda: F.conv2d(x_nchw, w_oihw, bias, padding=1), reps)
             npx = shp[0] * shp[1] * shp[2]
             fmas = npx * 9 * cin * cout
-            nbytes = (npx * (cin + cout) + 9 * cin * cout + cout) * 2
+            nbytes = (npx * (cin + cout) + 9 * cin * cout + cout) * x.element_size()
             log(
-                f"[k1n] {tag} {shp}x{cin}->{cout} bf16: fma (old kernel) {old_ms:.3f} ms, narrow (new "
+                f"[k1n] {tag} {shp}x{cin}->{cout} {'fp32' if dt == f32 else 'bf16'}: fma (old kernel) {old_ms:.3f} ms, narrow (new "
                 f"kernel) {new_ms:.3f} ms ({old_ms / new_ms:.2f}x; {2 * fmas / new_ms / 1e9:.1f} TFLOP/s "
                 f"of fp32 FMAs, {nbytes / new_ms / 1e9:.2f} TB/s), library (F.conv2d, channels_last) "
                 f"{lib_ms:.3f} ms; floors: FMAs {2 * fmas / PEAK_FP32 * 1e3:.3f} ms, bytes "
@@ -2374,14 +2402,14 @@ def main(argv=None) -> int:
         blocks) and at the flagship's 1x2160x3840x64, ``tail_fused_q``
         launches it once and it is ``torch.equal`` to the fp32 three-launch
         chain (upconv2 and conv_hr on K1 ``"bf16x3"``, conv_last on K1
-        ``"fma"``; the default fp32 ``tail_fused``), within compare's fp32
+        ``"narrow"``; the default fp32 ``tail_fused``), within compare's fp32
         bound of plain; then at the flagship shape the new route, the chain,
         forced K6 ``"fma"``, cuDNN's fp32 chain (TF32 off) and plain in
         turns, with each one's peak device memory: the new route at most
         half of fma's time."""
         f32 = torch.float32
         tw = tail_weights(NF, f32)
-        chain_launches = {"tail_fused": 3, "conv3x3:bf16x3": 2, "conv3x3:fma": 1}
+        chain_launches = {"tail_fused": 3, "conv3x3:bf16x3": 2, **LAST32}
         st = k6_stats.setdefault("fp32", {"cases": 0, "max_err": 0.0})
         for shp in ((2, 37, 53), (1, 5, 7), (1, 9, 13), (2, 100, 150), (1, 1, 61), (3, 7, 200),
                     (1, 2 * H, 2 * W)):
@@ -3458,11 +3486,12 @@ def main(argv=None) -> int:
     }
     # the fp32 flagship: every wide conv on K1's bf16x3 route (345 dense-block
     # convs, conv_body, up1, the chain tail's upconv2 and conv_hr), the stem
-    # on narrow, conv_last on fma, the tail as three K1 launches
+    # and conv_last on narrow's fp32 instances, the tail as three K1
+    # launches; no K1 launch on fma
     STEM32 = {"conv3x3:narrow": 1, "conv3x3:narrow stem": 1, "conv3x3:narrow stem:fp32": 1}
     rrdb_fp32_call = {
         "conv3x3_fused": 2, "rdb_fused": n_rdb, "up1_fused": 1, "tail_fused": 3,
-        "conv3x3:bf16x3": n_rdb + 4, "conv3x3:fma": 1, **STEM32,
+        "conv3x3:bf16x3": n_rdb + 4, **STEM32, **LAST32, "conv3x3:narrow": 2,
     }
     # K2 of an enhanced frame: the sharpen stage on the rows route
     K2_ROWS = {"unsharp_fused": 1, "unsharp_fused:rows": 1, "unsharp_fused:rows:fp32": 1}

@@ -8,8 +8,8 @@ producer warpgroup's copies at the fine grid), ``"bf16x3"``
 (``csrc/conv3x3_bf16x3_wgmma.cu``: the same widths in fp32, on three bf16
 parts a value), ``"mma"``
 (``csrc/conv3x3_mma.cu``, ``mma.sync``: forced beside it), ``"narrow"``
-(``csrc/conv3x3_narrow.cu``: the stems in bf16 and fp32, the bf16
-conv_last) and ``"fma"``
+(``csrc/conv3x3_narrow.cu``: the stems and conv_last, in bf16 and fp32)
+and ``"fma"``
 (``csrc/conv3x3.cu``, fp32 FMAs). ``ops/tail.py::conv3x3_route`` chooses
 from the call alone (dtype, widths, alignment, upsample2), so the choice is
 tested here, on the CPU, without a kernel: every model runs at full width on
@@ -17,8 +17,8 @@ a tiny frame in bf16 through the plain versions while a recorder asks the
 route of each K1 call. The numbers of the split are the ones the chip smoke
 test asserts on the card (347 ``wgmma`` + 1 ``narrow`` per flagship frame,
 no ``mma``, no ``fma``; the tail is one launch of its own kernel,
-``tests/test_torch_k6_route.py``; at fp32 349 ``bf16x3``, the stem on
-``narrow`` and conv_last on ``fma``, with the tail as three K1 launches).
+``tests/test_torch_k6_route.py``; at fp32 349 ``bf16x3``, the stem and
+conv_last on ``narrow``, no ``fma``, with the tail as three K1 launches).
 
 ``auto_full_frame``: equal to the JAX function at its default (held in
 ``test_torch_tiles.py``); with ``tail_in_memory`` it also counts the two
@@ -59,7 +59,7 @@ BF, F32 = torch.bfloat16, torch.float32
         (F32, 192, 64, True, "bf16x3"),  # fp32 RDB conv5
         (F32, 3, 64, True, "narrow"),  # the fp32 stem: the narrow kernel's fp32 instance
         (F32, 12, 64, True, "narrow"),
-        (F32, 64, 3, True, "fma"),     # the fp32 conv_last
+        (F32, 64, 3, True, "narrow"),  # the fp32 conv_last: the narrow kernel's TMA-fed instance
         (F32, 16, 8, True, "fma"),     # fp32 nf 16 / gc 8: the checks' widths
         (F32, 48, 16, True, "fma"),
         (F32, 64, 48, True, "fma"),
@@ -231,13 +231,14 @@ def _full_width_fp32_routes(monkeypatch):
 
 def test_full_width_fp32_stays_on_fma(monkeypatch):
     """At full width in fp32 of the convs the tensor cores cannot take,
-    conv_last (cout 3) stays on ``"fma"`` and the stem (cin 3) takes the
-    narrow stem kernel's fp32 instance, 1 a frame each; no fp32 call takes
-    a bf16 route."""
+    none stays on ``"fma"`` (the test's name is from before the fp32
+    conv_last's kernel): the stem (cin 3) and conv_last (cout 3) take the
+    narrow kernels' fp32 instances, 1 a frame each; no fp32 call takes a
+    bf16 route."""
     calls = _full_width_fp32_routes(monkeypatch)
-    assert _split(calls) == (0, 1, 1)
-    assert [c for c, r in calls if r == "fma"] == ["tail_fused"]
-    assert [c for c, r in calls if r == "narrow"] == ["conv3x3_fused"]
+    assert _split(calls) == (0, 2, 0)
+    assert [c for c, r in calls if r == "fma"] == []
+    assert [c for c, r in calls if r == "narrow"] == ["conv3x3_fused", "tail_fused"]
 
 
 def test_full_width_fp32_takes_bf16x3_but_stem_and_conv_last(monkeypatch):
@@ -254,16 +255,16 @@ def test_full_width_fp32_takes_bf16x3_but_stem_and_conv_last(monkeypatch):
 def test_the_fp32_paths_launch_bf16x3_per_frame(monkeypatch, name, n_x3):
     """The counts the chip smoke test asserts on its fp32 paths: 349
     ``bf16x3`` launches per flagship frame (345 dense-block convs, conv_body,
-    up1, upconv2, conv_hr), 1 ``narrow`` (the stem) and 1 ``fma``
-    (conv_last); 32 per config-4 frame (the body) and 1 ``narrow`` (the
+    up1, upconv2, conv_hr), 2 ``narrow`` (the stem, conv_last) and no
+    ``fma``; 32 per config-4 frame (the body) and 1 ``narrow`` (the
     stem)."""
     spec = MODEL_ZOO[name].spec
     net = (RRDBNet if isinstance(spec, RRDBNetSpec) else SRVGGNet)(spec).prepare(F32, "cpu")
     calls = _record_routes(monkeypatch)
     net(torch.rand(1, 4, 4, 3))
     n = {r: sum(1 for _, r_ in calls if r_ == r) for r in tail.ROUTES}
-    assert n == {"wgmma": 0, "bf16x3": n_x3, "mma": 0, "narrow": 1,
-                 "fma": 1 if isinstance(spec, RRDBNetSpec) else 0}
+    assert n == {"wgmma": 0, "bf16x3": n_x3, "mma": 0,
+                 "narrow": 2 if isinstance(spec, RRDBNetSpec) else 1, "fma": 0}
 
 
 # ---- auto_full_frame with the chain tail's intermediates ---------------------

@@ -4,11 +4,12 @@ against the JAX conv at the route's exact widths.
 
 ``"narrow"`` (``csrc/conv3x3_narrow.cu``) is a route of K1
 (``ops/tail.py::conv3x3_route``): one kernel for the stems in bf16 and fp32
-(cin 3 or 12 -> cout 64, act none, lrelu or PReLU) and one for the bf16
-``conv_last`` (cin 64 -> cout 3), both summing in ``csrc/conv3x3.cu``'s
-order, so a forced ``"fma"`` gives their outputs bit for bit (held on the
-card by ``chip_smoke.py --only k1n``; the fp32 conv_last stays on
-``"fma"``). The choice is a pure function of the call, tested here on the
+(cin 3 or 12 -> cout 64, act none, lrelu or PReLU), one for the bf16
+``conv_last`` (cin 64 -> cout 3) and one for the fp32 ``conv_last`` (fed by
+TMA: ``tests/test_torch_last_f32.py``), each summing in
+``csrc/conv3x3.cu``'s order, so a forced ``"fma"`` gives their outputs bit
+for bit (held on the card by ``chip_smoke.py --only k1n``). The choice is a
+pure function of the call, tested here on the
 CPU without a kernel: every model runs at full width on a tiny frame
 through the plain versions while a recorder asks the route of each K1 call.
 The per-frame numbers are the ones the chip smoke test asserts on the card.
@@ -91,22 +92,24 @@ def _view(c_buf, lo, hi, offset=0, h=4, w=5, dt=BF):
 
 @pytest.mark.parametrize(
     "case",
-    ["fp32 stem", "fp32 conv_last", "upsample2", "stem r1", "conv_last r2", "cout 48",
+    ["fp32 stem", "upsample2", "stem r1", "conv_last r2", "cout 48",
      "cin 3 cout 32", "nf 16 stem", "nf 16 conv_last", "stem out misaligned",
      "stem out pixel stride 68", "conv_last x misaligned", "conv_last x pixel stride 68",
-     "fp32 stem out misaligned", "fp32 stem r1", "fp32 stem upsample2", "fp32 nf 16 stem"],
+     "fp32 stem out misaligned", "fp32 stem r1", "fp32 stem upsample2", "fp32 nf 16 stem",
+     "fp32 conv_last x off 16 bytes", "fp32 conv_last x pixel stride 66", "fp32 conv_last r2",
+     "fp32 conv_last upsample2"],
 )
 def test_the_rest_stays_off_the_narrow_route(case):
-    """The fp32 conv_last, residuals, ``upsample2``, other widths, and
-    operands the narrow kernels cannot load take the fma kernel: an fp32
-    stem's ``out`` too must be written in whole 16-byte pieces (pixel stride
-    66: 264 bytes)."""
+    """Residuals, ``upsample2``, other widths, and operands the narrow
+    kernels cannot load take the fma kernel: an fp32 stem's ``out`` too must
+    be written in whole 16-byte pieces (pixel stride 66: 264 bytes), and
+    the fp32 conv_last's x read in them by TMA (a start 8 bytes off, a pixel
+    stride of 66: 264 bytes)."""
     x3, w3, b3 = _ops(3, 64)
     x64, wl, bl = _ops(64, 3)
-    s3 = _ops(3, 64, F32)
+    s3, l32 = _ops(3, 64, F32), _ops(64, 3, F32)
     route = {
         "fp32 stem": lambda: _route(*s3, out=_view(66, 0, 64, dt=F32)),
-        "fp32 conv_last": lambda: _route(*_ops(64, 3, F32)),
         "upsample2": lambda: _route(x3, w3, b3, upsample2=True),
         "stem r1": lambda: _route(x3, w3, b3, r1=torch.zeros(1, 4, 5, 64, dtype=BF)),
         "conv_last r2": lambda: _route(x64, wl, bl, r2=torch.zeros(1, 4, 5, 3, dtype=BF)),
@@ -122,6 +125,10 @@ def test_the_rest_stays_off_the_narrow_route(case):
         "fp32 stem r1": lambda: _route(*s3, r1=torch.zeros(1, 4, 5, 64)),
         "fp32 stem upsample2": lambda: _route(*s3, upsample2=True),
         "fp32 nf 16 stem": lambda: _route(*_ops(3, 16, F32)),
+        "fp32 conv_last x off 16 bytes": lambda: _route(_view(72, 2, 66, dt=F32), *l32[1:]),
+        "fp32 conv_last x pixel stride 66": lambda: _route(_view(66, 0, 64, dt=F32), *l32[1:]),
+        "fp32 conv_last r2": lambda: _route(*l32, r2=torch.zeros(1, 4, 5, 3)),
+        "fp32 conv_last upsample2": lambda: _route(*l32, upsample2=True),
     }[case]()
     assert route == "fma"
 
@@ -131,18 +138,20 @@ def test_the_rest_stays_off_the_narrow_route(case):
     ["cin 3 pixel stride 3", "cin 3 pixel stride 4", "cin 3 off 16 bytes",
      "stem out a slice", "stem alpha off 16 bytes", "conv_last x a prefix of 72",
      "conv_last out off 16 bytes", "fp32 cin 3 pixel stride 3", "fp32 cin 3 off 16 bytes",
-     "fp32 stem out a slice of stride 68", "fp32 stem out a slice of stride 132"],
+     "fp32 stem out a slice of stride 68", "fp32 stem out a slice of stride 132",
+     "fp32 conv_last", "fp32 conv_last x a prefix of 72", "fp32 conv_last x a slice of stride 68",
+     "fp32 conv_last out off 16 bytes"],
 )
 def test_the_narrow_operand_rule(case):
     """The narrow route has its own operand rule: a stem's x is read one
     value at a time (any pixel stride, any start) and its out written 16
     bytes at a time (8 bf16 or 4 fp32 couts: a pixel stride that is a
     multiple of 8 or of 4 elements); conv_last's x is read 16 bytes at a
-    time and its out 2 bytes at a time. ``operands_aligned``, the mma rule,
-    is False for every cin-3 x."""
+    time (8 bf16 or, by TMA, 4 fp32 channels) and its out one value at a
+    time. ``operands_aligned``, the mma rule, is False for every cin-3 x."""
     x3, w3, b3 = _ops(3, 64)
     x64, wl, bl = _ops(64, 3)
-    s3 = _ops(3, 64, F32)
+    s3, l32 = _ops(3, 64, F32), _ops(64, 3, F32)
     assert not tail.operands_aligned(x3)
     xs = {
         "cin 3 pixel stride 3": lambda: _route(x3, w3, b3),
@@ -158,6 +167,11 @@ def test_the_narrow_operand_rule(case):
         "fp32 stem out a slice of stride 68": lambda: _route(*s3, out=_view(68, 4, 68, dt=F32)),
         "fp32 stem out a slice of stride 132": lambda: _route(
             *s3, out=_view(132, 64, 128, dt=F32)),
+        "fp32 conv_last": lambda: _route(*l32),
+        "fp32 conv_last x a prefix of 72": lambda: _route(_view(72, 0, 64, dt=F32), *l32[1:]),
+        "fp32 conv_last x a slice of stride 68": lambda: _route(
+            _view(68, 4, 68, dt=F32), *l32[1:]),
+        "fp32 conv_last out off 16 bytes": lambda: _route(*l32, out=_view(4, 1, 4, dt=F32)),
     }
     assert xs[case]() == "narrow"
 
@@ -201,12 +215,16 @@ def test_a_forced_route_is_checked():
         _pick(_ops(3, 64, F32), "bf16x3")
     with pytest.raises(ValueError, match="the narrow kernel takes stems"):
         _pick(wide, "narrow")
-    # the fp32 stems: their own route is narrow, fma forced beside it
+    # the fp32 stems and conv_last: their own route is narrow, fma forced
+    # beside it
     assert _pick(_ops(3, 64, F32), "narrow") == "narrow"
     assert _pick(_ops(12, 64, F32), None) == "narrow"
     assert _pick(_ops(3, 64, F32), "fma") == "fma"
+    assert _pick(_ops(64, 3, F32), None) == "narrow"
+    assert _pick(_ops(64, 3, F32), "narrow") == "narrow"
+    assert _pick(_ops(64, 3, F32), "fma") == "fma"
     with pytest.raises(ValueError, match="the narrow kernel takes"):
-        _pick(_ops(64, 3, F32), "narrow")
+        _pick((_view(66, 0, 64, dt=F32), *_ops(64, 3, F32)[1:]), "narrow")
     with pytest.raises(ValueError, match="the narrow kernel takes"):
         _pick(stem, "narrow", upsample2=True)
     with pytest.raises(ValueError, match="the narrow kernel takes"):
@@ -265,9 +283,11 @@ def _record(monkeypatch):
         # the VRT_TAIL_Q=1 tail: the same one launch
         ("RealESRGAN_x4plus", "bf16", "q", (347, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
         # fp32: the wide convs on bf16x3 (counted first in ``split``), the
-        # stem on narrow's fp32 instance, conv_last of the chain tail on fma
-        ("RealESRGAN_x4plus", "fp32", "chain", (349, 0, 1, 1), [("conv3x3_fused", (3, 64))]),
-        ("RealESRGAN_x2plus", "fp32", "chain", (349, 0, 1, 1), [("conv3x3_fused", (12, 64))]),
+        # stem and the chain tail's conv_last on narrow's fp32 instances
+        ("RealESRGAN_x4plus", "fp32", "chain", (349, 0, 2, 0),
+         [("conv3x3_fused", (3, 64)), ("tail_fused", (64, 3))]),
+        ("RealESRGAN_x2plus", "fp32", "chain", (349, 0, 2, 0),
+         [("conv3x3_fused", (12, 64)), ("tail_fused", (64, 3))]),
         ("RealESRGAN_x4_v3", "fp32", None, (32, 0, 1, 0), [("conv3x3_fused", (3, 64))]),
         # the VRT_TAIL_Q=1 fp32 tail: one launch, conv_last inside it
         ("RealESRGAN_x4plus", "fp32", "q", (347, 0, 1, 0), [("conv3x3_fused", (3, 64))]),

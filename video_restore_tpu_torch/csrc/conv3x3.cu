@@ -28,10 +28,9 @@
 // K1 has five routes behind one wrapper (ops/tail.py::conv3x3_route). This
 // kernel, the "fma" route, takes what the tensor-core routes
 // (conv3x3_wgmma.cu, conv3x3_bf16x3_wgmma.cu, conv3x3_mma.cu) and the narrow
-// route (conv3x3_narrow.cu: the stems, cin 3 or 12 -> 64, in bf16 and fp32,
-// and the bf16 conv_last, 64 -> 3) do not: the fp32 conv_last, the narrow
-// test widths, cout 48, and operands the other kernels cannot load; and any
-// call forced onto it. The narrow route sums in this kernel's order, so a
+// route (conv3x3_narrow.cu: the stems, cin 3 or 12 -> 64, and conv_last, 64
+// -> 3, each in bf16 and fp32) do not: the narrow test widths, cout 48, and
+// operands the other kernels cannot load; and any call forced onto it. The narrow route sums in this kernel's order, so a
 // call forced onto this kernel gives the narrow kernels' outputs bit for
 // bit.
 //

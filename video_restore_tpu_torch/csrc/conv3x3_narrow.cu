@@ -6,10 +6,13 @@
 //                 conv_first (cin 12 after x2plus's pixel unshuffle) and
 //                 SRVGG's conv_in, at --precision bf16 / int8 and fp32
 //   last_kernel   cin 64 -> cout 3, bf16: RRDBNet's conv_last, after conv_hr
+//   last32_kernel cin 64 -> cout 3, fp32, fed by TMA: RRDBNet's conv_last at
+//                 --precision fp32 (the chain tail's third launch)
 //
 // Replaces, for these calls, the Pallas convs of video_restore_tpu/ops:
-//   pallas_tail.py conv3x3_fused (the stem form of the conv)
-//   pallas_tail.py tail_fused_raw / tail_fused (their conv_last stage)
+//   pallas_tail.py conv3x3_fused (the stem form of the conv; :767)
+//   pallas_tail.py tail_fused_raw / tail_fused (their conv_last stage,
+//   :209-212; :266, :425)
 // Neither the tensor-core route (conv3x3_mma.cu: cin a multiple of 16,
 // cout 32 or 64) nor the wide fp32 tile of conv3x3.cu suits them: cin 3
 // pads 13 of 16 channels and cout 3 pads 5 of 8 lanes there.
@@ -21,7 +24,10 @@
 // round-to-nearest to bf16 (in fp32 nothing is rounded after the sum).
 // That is conv3x3.cu's order for any chunking of ci, so the outputs equal
 // the fp32-FMA kernel's bit for bit in either type, and conv_last's equal
-// K6's conv_last stage (tail_fused_mma.cu sums in the same order).
+// K6's conv_last stage (tail_fused_mma.cu sums in the same order) and, in
+// fp32, the one-launch tail's (tail_fused_bf16x3.cu). For this reason no
+// conv_last runs on the tensor cores: 3 couts pad to n8, and a wgmma or
+// bf16x3 form would change the bits of every fp32 RRDBNet frame.
 //
 // What bounds them on the H100. A stem does 27 (cin 12: 108) FMAs per
 // output value and writes 128 bytes per pixel in bf16, 256 in fp32: at
@@ -60,14 +66,49 @@
 // 3 couts (24 accumulators, no padded lanes): per 8 channels it reads its
 // 4 x 6 window pixels as 16 bytes apiece, and per channel the 9 taps'
 // weights (fp32 float4s, broadcasts) once for both rows, 216 FMAs for
-// them. Persistent blocks. fp32 conv_last is not built here: its 64-byte
-// stages would double (conv3x3.cu takes it).
+// them. Persistent blocks.
+//
+// The fp32 conv_last reads twice the bytes: 8.49 GB in and 0.40 GB out at
+// 4320x7680, 2.654 ms at 3.35 TB/s, above its 1.71 ms of FMAs, so the bytes
+// bound it. The bf16 kernel's stages would double (two of 32 fp32 channels
+// are 148 KB). Its design:
+//  - Stages of 16 channels, 64 bytes a pixel, four a tile, copied by TMA: a
+//    4-D map over x (C, W, H, B) at x's pixel stride, a (16, 35, 34, 1) box
+//    from (oy0 - 1, ox0 - 1), whose zero fill outside the frame is the SAME
+//    padding. No thread computes an input address.
+//  - The box lands in the 64-byte swizzle (bits 4-5 of the address XOR bits
+//    7-8), which makes the bank group of a 16-byte piece a function of its
+//    pixel's index mod 8. A thread owns 1 row x 8 pixels x the 3 couts (24
+//    accumulators, no padded lanes), a quarter warp 8 consecutive rows; the
+//    box is 35 pixels wide (one more than the patch) so that the row pitch
+//    is odd and those rows fall on 8 different bank groups: the window reads
+//    are free of conflicts. A thread keeps its 24 swizzled window offsets
+//    and per chunk XORs in the chunk's index.
+//  - Two slots of 76 KB and a producer warp: one thread issues each stage's
+//    copy as soon as the four consumer warps release its slot (an mbarrier
+//    pair a slot), so the next stage is in flight while this one is summed.
+//    One block an SM (161,856 bytes; a third slot does not fit).
+//  - Per chunk of 4 channels a thread reads its 3 x 10 window as 16-byte
+//    pieces, and per channel its 27 weights as 7 broadcast float4s (resident,
+//    7 KB): 216 FMAs a channel for 7.5 window and 7 weight reads.
+//  - Each thread writes its 24 consecutive output floats as six 16-byte
+//    stores where the output is a contiguous 3-channel tensor.
+// 161,856 bytes of shared memory, 1 block an SM. Measured (NVIDIA H100 80GB
+// HBM3, 700.00 W; chip_smoke.py [k1n], [kernel32]): 3.332-3.359 ms at
+// 1x4320x7680 (80% of the 2.654 ms bound) against forced fma's
+// 23.659-24.040 and F.conv2d's 48.863-49.263, bit-equal to fma. What holds
+// it is device memory (tools/probe_k1n.py): with every copy served from L2
+// it takes the FMAs' time (2.80 against 2.75 ms without copies), and the
+// copies alone take as long as the whole kernel. An L2 prefetch of the next
+// tile's whole pixels, an L2 promotion of 64 or 256 bytes in place of 128,
+// and walking the tiles in bands of 2-8 tile rows were each slower.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -484,6 +525,236 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 }  // namespace last
 
+// ---- conv_last in fp32: cin 64 -> cout 3, fed by TMA ----------------------
+
+namespace last32 {
+
+constexpr int kConsumers = 128;            // 4 warps; a thread: 1 row x 8 pixels
+constexpr int kThreads = kConsumers + 32;  // and a producer warp (one thread copies)
+constexpr int CIN = 64, COUT = 3;
+constexpr int TW = 32, TH = 32, P = 8;
+constexpr int PH = TH + 2;  // patch rows
+// pixels a box row: the 34 of the patch and one more, so that the row pitch
+// (35 pixels of 64 bytes) is odd and eight rows fall on eight bank groups
+constexpr int BW = TW + 3;
+constexpr int CS = 16;     // channels a stage: 64 bytes a pixel
+constexpr int DEPTH = 2;   // stages held: a third does not fit
+constexpr int BOX_BYTES = CS * 4 * BW * PH;             // 76,160
+constexpr int SLOT = (BOX_BYTES + 1023) / 1024 * 1024;  // 76,800
+constexpr int WPC = 28;  // fp32 weights a channel: [ky][kx][co], one pad
+constexpr int W_OFF = DEPTH * SLOT;
+constexpr int BA_OFF = W_OFF + CIN * WPC * 4;  // bias, alpha as float4
+constexpr int BAR_OFF = BA_OFF + 2 * 16;       // full[DEPTH], empty[DEPTH]
+constexpr int SMEM = 1024 + BAR_OFF + 2 * DEPTH * 8;  // 1024: the alignment
+// the launch plan ops/tail.py::last32_plan sends: x's 4-D map (dims, byte
+// strides of dims 1-3, box), the grid, the tile
+constexpr int PLAN_LEN = 4 + 3 + 4 + 1 + 2;
+
+__global__ void __launch_bounds__(kThreads, 1)
+    last32_kernel(const __grid_constant__ CUtensorMap tm_x, const NarrowArgsT<float> a,
+                  int tiles_x, int per_image, int tiles) {
+  using namespace wgmma_tile;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the slots on 1024 bytes
+  unsigned char* smem = smem_raw + (base - raw);
+  float* s_w = reinterpret_cast<float*>(smem + W_OFF);
+  float4* s_ba = reinterpret_cast<float4*>(smem + BA_OFF);
+  const uint32_t full0 = base + BAR_OFF, empty0 = full0 + DEPTH * 8;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  for (int i = tid; i < CIN * WPC; i += kThreads) {
+    const int ci = i / WPC, k = i - ci * WPC;  // k = (ky * 3 + kx) * 3 + co
+    s_w[i] = k < 27 ? a.w[((k / 3) * CIN + ci) * COUT + k % 3] : 0.f;
+  }
+  if (tid < 2) {
+    const float* v = tid == 0 ? a.b : a.alpha;
+    s_ba[tid] = v ? make_float4(v[0], v[1], v[2], 0.f) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  if (tid == 0) {
+    for (int s = 0; s < DEPTH; ++s) {
+      mbar_init(full0 + 8 * s, 1);                 // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, kConsumers / 32);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // ---- producer: one thread copies each stage, channels [16 k, 16 k + 16)
+    // of a tile's patch, (oy0 - 1, ox0 - 1) on; the map's zero fill outside
+    // the frame is the SAME padding ----
+    if (lane == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+#ifdef VR_PROBE_L2  // tools/probe_k1n.py: every copy reads one of the first 64
+                    // tiles' patches, which stay in L2 (no valid output)
+        const TileAt t = tile_at(tile % 64, tiles_x, per_image, TH, TW);
+#else
+        const TileAt t = tile_at(tile, tiles_x, per_image, TH, TW);
+#endif
+        for (int k = 0; k < CIN / CS; ++k) {
+          mbar_wait(empty0 + 8 * s, ph ^ 1);
+#ifdef VR_PROBE_NO_LOAD  // tools/probe_k1n.py: the stages arrive unfilled
+          mbar_arrive(full0 + 8 * s);
+#else
+          mbar_expect_tx(full0 + 8 * s, BOX_BYTES);
+          tma_load_4d(base + s * SLOT, &tm_x, full0 + 8 * s, k * CS, t.ox0 - 1, t.oy0 - 1,
+                      t.n);
+#endif
+          if (++s == DEPTH) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: output row orow of the tile, pixels col0 .. col0 + 7; a
+  // quarter warp is eight rows, which the odd pitch puts on eight 16-byte
+  // bank groups ----
+  const int orow = warp * 8 + (lane & 7), col0 = (lane >> 3) * P;
+  // the window's 16-byte pieces at slot 0, chunk 0, as offsets from base:
+  // patch pixel (orow + ky, col0 + j) in the 64-byte swizzle TMA writes
+  // (bits 4-5 of the address XOR bits 7-8; base is on 1024 bytes); chunk g
+  // of slot s lies at (at + s * SLOT) ^ (g << 4), pixel j + 8 512 bytes past
+  // pixel j
+  uint32_t at[3][8];
+#pragma unroll
+  for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      at[ky][j] = swizzle<64>((uint32_t)(((orow + ky) * BW + col0 + j) * 64));
+
+  float acc[P][COUT];
+  int s = 0;
+  uint32_t ph = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int q = 0; q < COUT; ++q) acc[p][q] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < CIN / CS; ++k) {
+      mbar_wait(full0 + 8 * s, ph);
+#ifndef VR_PROBE_NO_FMA
+      const uint32_t off = s * SLOT;
+      // four chunks of 4 channels: each chunk's 3 x 10 window pieces (16
+      // bytes, 4 channels, apiece), then per channel its 27 weights (7
+      // broadcast float4s) and 216 FMAs, in conv3x3.cu's order (ci, ky, kx)
+#pragma unroll 1
+      for (int g = 0; g < CS / 4; ++g) {
+        const uint32_t gx = (uint32_t)g << 4;
+        float4 win[3][P + 2];
+#pragma unroll
+        for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+          for (int j = 0; j < P + 2; ++j) {
+            const uint32_t ad = ((at[ky][j & 7] + off) ^ gx) + (j >> 3) * 512;
+            win[ky][j] = *reinterpret_cast<const float4*>(smem + ad);
+          }
+        const float4* wg = reinterpret_cast<const float4*>(s_w + (k * CS + 4 * g) * WPC);
+#pragma unroll
+        for (int cl = 0; cl < 4; ++cl) {
+          float wv[WPC];
+#pragma unroll
+          for (int i = 0; i < WPC / 4; ++i) {
+            const float4 v = wg[cl * (WPC / 4) + i];
+            wv[4 * i] = v.x;
+            wv[4 * i + 1] = v.y;
+            wv[4 * i + 2] = v.z;
+            wv[4 * i + 3] = v.w;
+          }
+#pragma unroll
+          for (int ky = 0; ky < 3; ++ky)
+#pragma unroll
+            for (int kx = 0; kx < 3; ++kx)
+#pragma unroll
+              for (int p = 0; p < P; ++p) {
+                const float4& v = win[ky][p + kx];
+                const float xv = cl == 0 ? v.x : cl == 1 ? v.y : cl == 2 ? v.z : v.w;
+#pragma unroll
+                for (int q = 0; q < COUT; ++q)
+                  acc[p][q] = fmaf(xv, wv[(ky * 3 + kx) * 3 + q], acc[p][q]);
+              }
+        }
+      }
+#endif
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);  // this warp is done with the slot
+      if (++s == DEPTH) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+
+    const TileAt t = tile_at(tile, tiles_x, per_image, TH, TW);
+    const int oy = t.oy0 + orow, ox = t.ox0 + col0;
+    if (oy >= a.H) continue;
+    const float4 bias = s_ba[0], alpha = s_ba[1];
+    float v[P * COUT];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      v[3 * p] = epilogue(acc[p][0], bias.x, alpha.x, a.act);
+      v[3 * p + 1] = epilogue(acc[p][1], bias.y, alpha.y, a.act);
+      v[3 * p + 2] = epilogue(acc[p][2], bias.z, alpha.z, a.act);
+    }
+    float* dst = a.y + (((long long)t.n * a.H + oy) * a.W + ox) * a.ys;
+    if (a.ys == COUT && ox + P <= a.W && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      // 24 consecutive floats: six 16-byte stores
+#pragma unroll
+      for (int i = 0; i < P * COUT / 4; ++i)
+        reinterpret_cast<float4*>(dst)[i] =
+            make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        if (ox + p >= a.W) break;
+        dst[p * a.ys] = v[3 * p];
+        dst[p * a.ys + 1] = v[3 * p + 1];
+        dst[p * a.ys + 2] = v[3 * p + 2];
+      }
+    }
+  }
+}
+
+// The fp32 conv_last on the plan of ops/tail.py::last32_plan. Returns
+// cudaErrorInvalidValue for a plan that does not describe this call and
+// this build, cudaErrorNotSupported when the tensor map cannot be encoded.
+cudaError_t launch_last32(const NarrowArgsT<float>& a, int cin, const long long* plan,
+                          int plan_len, cudaStream_t stream) {
+  using namespace wgmma_tile;
+  if (plan == nullptr || plan_len != PLAN_LEN) return cudaErrorInvalidValue;
+  const long long *dims = plan, *strides = plan + 4, *box = plan + 7;
+  const long long grid = plan[11];
+  const long long xs = a.xs;
+  if (dims[0] != cin || dims[1] != a.W || dims[2] != a.H || dims[3] != a.B ||
+      strides[0] != xs * 4 || strides[1] != a.W * xs * 4 || strides[2] != a.H * a.W * xs * 4 ||
+      box[0] != CS || box[1] != BW || box[2] != PH || box[3] != 1 || plan[12] != TH ||
+      plan[13] != TW || grid <= 0 || grid > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  const long long tiles_x = (a.W + TW - 1) / TW;
+  const long long per_image = tiles_x * ((a.H + TH - 1) / TH);
+  const long long tiles = per_image * a.B;
+  if (tiles == 0) return cudaSuccess;
+  if (tiles > 0x7fffffffLL || grid > tiles) return cudaErrorInvalidValue;
+  CUtensorMap tm;
+  if (!encode(&tm, a.x, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B,
+              CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return cudaErrorNotSupported;
+  cudaError_t e = cudaFuncSetAttribute(last32_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (e != cudaSuccess) return e;
+  last32_kernel<<<(int)grid, kThreads, SMEM, stream>>>(tm, a, (int)tiles_x, (int)per_image,
+                                                       (int)tiles);
+  return cudaGetLastError();
+}
+
+}  // namespace last32
+
 // a persistent grid: as many blocks as fit on the card at once, at most one
 // per tile
 template <typename K, typename A>
@@ -516,26 +787,29 @@ cudaError_t launch(K kernel, int threads, int smem, const A& a, int TH, int TW,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16, then the arguments of vr_conv3x3_mma
-// (vr_conv3x3's). Takes the stems (cin 3 or 12, cout 64, y 16-byte aligned
+// (vr_conv3x3's), then the plan of the fp32 conv_last (null and 0 for any
+// other call). Takes the stems (cin 3 or 12, cout 64, y 16-byte aligned
 // with a pixel stride of whole 16-byte pieces: a multiple of 8 elements in
-// bf16, of 4 in fp32) in either type, and bf16 conv_last (cin 64, cout 3,
-// x 16-byte aligned with a pixel stride that is a multiple of 8), without
-// residuals or upsampling; returns cudaErrorInvalidValue for any other
-// call. Returns the cudaError_t of the launch.
+// bf16, of 4 in fp32) in either type, and conv_last (cin 64, cout 3, x
+// 16-byte aligned with a pixel stride of whole 16-byte pieces) in either
+// type, fp32 on last32::PLAN_LEN values of ops/tail.py::last32_plan,
+// without residuals or upsampling; returns cudaErrorInvalidValue for any
+// other call or a plan that does not describe it, cudaErrorNotSupported
+// when the fp32 conv_last's tensor map cannot be encoded. Returns the
+// cudaError_t of the launch.
 int vr_conv3x3_narrow(int dtype, const void* x, const void* w, const void* b,
                       const void* alpha, const void* r1, const void* r2, void* y, int B, int H,
                       int W, int cin, int cout, long long xs, long long ys, long long r1s,
-                      long long r2s, int act, int up2, float s1, float s2, void* stream) {
+                      long long r2s, int act, int up2, float s1, float s2, void* stream,
+                      const long long* plan, int plan_len) {
   (void)r1s; (void)r2s; (void)s1; (void)s2;
   if ((dtype != 0 && dtype != 1) || r1 || r2 || up2 || act < 0 || act > 2 ||
       (act == 2 && !alpha))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool stem_call = cout == stem::COUT && (cin == 3 || cin == 12);
+  const bool last_call = cin == last::CIN && cout == last::COUT;
   if (dtype == 0) {
-    // fp32: the stems only
-    if (!stem_call || reinterpret_cast<uintptr_t>(y) % 16 || ys % 4 || xs < cin)
-      return cudaErrorInvalidValue;
     NarrowArgsT<float> a;
     a.x = static_cast<const float*>(x);
     a.w = static_cast<const float*>(w);
@@ -545,6 +819,13 @@ int vr_conv3x3_narrow(int dtype, const void* x, const void* w, const void* b,
     a.B = B; a.H = H; a.W = W;
     a.xs = xs; a.ys = ys;
     a.act = act;
+    if (last_call) {
+      if (reinterpret_cast<uintptr_t>(x) % 16 || xs % 4 || xs < cin || ys < cout)
+        return cudaErrorInvalidValue;
+      return last32::launch_last32(a, cin, plan, plan_len, s);
+    }
+    if (!stem_call || reinterpret_cast<uintptr_t>(y) % 16 || ys % 4 || xs < cin)
+      return cudaErrorInvalidValue;
     return cin == 3
                ? launch(stem::stem_kernel<float, 3>, stem::kThreads, 0, a, stem::TH, stem::TW, s)
                : launch(stem::stem_kernel<float, 12>, stem::kThreads, 0, a, stem::TH, stem::TW,
@@ -566,7 +847,7 @@ int vr_conv3x3_narrow(int dtype, const void* x, const void* w, const void* b,
                : launch(stem::stem_kernel<bf16, 12>, stem::kThreads, 0, a, stem::TH, stem::TW,
                         s);
   }
-  if (cin == last::CIN && cout == last::COUT) {
+  if (last_call) {
     if (reinterpret_cast<uintptr_t>(x) % 16 || xs % 8 || ys < cout) return cudaErrorInvalidValue;
     return launch(last::last_kernel, last::kThreads, last::SMEM, a, last::TH, last::TW, s);
   }

@@ -15,14 +15,17 @@
 // contiguous operands), pallas_tail.py:1018 tail_fused_q (VRT_TAIL_Q=1,
 // ops/tail.py::tail_fused_q). The default tail's entry points
 // (pallas_tail.py:266 tail_fused_raw, :425 tail_fused) stay the fp32 chain at
-// fp32 (ops/tail.py::default_tail_route): this kernel measured 1.04x its time.
+// fp32 (ops/tail.py::default_tail_route): this kernel measured 1.04x its time,
+// and 1.43x since the chain's conv_last runs on conv3x3_narrow.cu.
 //
 // Sums: upconv2 and conv_hr in K1 "bf16x3"'s order (per 16 input channels,
 // the nine taps in order, the six products a2 w0, a1 w1, a0 w2, a1 w0, a0 w1,
 // a0 w0 into one fp32 accumulator from zero, then bias and lrelu); conv_last
 // on fp32 FMAs in conv3x3.cu's order (input channel, then ky, kx, from zero),
-// then the bias. So the kernel equals the fp32 three-launch chain (upconv2
-// and conv_hr on K1 "bf16x3", conv_last on K1 "fma") bit for bit.
+// then the bias, which is also the order of K1's narrow fp32 conv_last
+// (conv3x3_narrow.cu, last32_kernel). So the kernel equals the fp32
+// three-launch chain (upconv2 and conv_hr on K1 "bf16x3", conv_last on K1
+// "narrow", or forced "fma") bit for bit.
 //
 // What bounds it on the H100: at 7680x4320 the two wide convs are 4.89e12
 // useful operations, six bf16 products a MAC at 989 TFLOP/s: 29.7 ms;

@@ -192,8 +192,9 @@ def load() -> ctypes.CDLL:
             lib.vr_conv3x3_bf16x3.restype = _I
             lib.vr_conv3x3_bf16x3_config.argtypes = [ctypes.POINTER(_I)]
             lib.vr_conv3x3_bf16x3_config.restype = _I
-            # dtype, then the mma arguments
-            lib.vr_conv3x3_narrow.argtypes = lib.vr_conv3x3.argtypes
+            # dtype, then the mma arguments, then the fp32 conv_last's plan
+            # (ops/tail.py::last32_plan; null and 0 for the other calls)
+            lib.vr_conv3x3_narrow.argtypes = lib.vr_conv3x3.argtypes + [ctypes.POINTER(_L), _I]
             lib.vr_conv3x3_narrow.restype = _I
             lib.vr_unsharp.argtypes = [
                 _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_F), _F, _F, _P,

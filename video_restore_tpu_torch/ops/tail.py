@@ -55,13 +55,14 @@ fp32 calls of those widths, ``"mma"`` (``csrc/conv3x3_mma.cu``: bf16 ``mma.sync`
 ``ldmatrix`` from shared memory that ``cp.async`` fills), forced beside
 ``"wgmma"`` for side-by-side runs, ``"narrow"`` (``csrc/conv3x3_narrow.cu``:
 fp32 FMAs in ``conv3x3.cu``'s order, one kernel for the stems, cin 3 or 12
--> 64, in bf16 and fp32, and one for the bf16 ``conv_last``, 64 -> 3),
-``"fma"`` (``csrc/conv3x3.cu``: fp32 FMAs) for the rest: the fp32
-conv_last, and the narrow test widths. The one-launch tail is four kernels the same way, chosen by
+-> 64, in bf16 and fp32, one for the bf16 ``conv_last``, 64 -> 3, and one
+for the fp32 ``conv_last``, fed by TMA on the plan of :func:`last32_plan`),
+``"fma"`` (``csrc/conv3x3.cu``: fp32 FMAs) for the rest: the narrow test
+widths and operands the other kernels cannot load. The one-launch tail is four kernels the same way, chosen by
 :func:`tail_fused_route`: ``"wgmma"`` (``csrc/tail_fused_wgmma.cu``, on the
 launch plan of :func:`tail_wgmma_plan`) for bf16 at nf 64, ``"bf16x3"``
 (``csrc/tail_fused_bf16x3.cu``, on :func:`tail_x3_plan`; upconv2 and
-conv_hr as K1's ``"bf16x3"`` convs, conv_last as its ``"fma"``) for fp32 at
+conv_hr as K1's ``"bf16x3"`` convs, conv_last as its ``"narrow"``) for fp32 at
 nf 64, ``"fma"`` (K6's ``csrc/tail_fused.cu``) for nf 16 and forced calls,
 and K6's ``"mma"`` (``csrc/tail_fused_mma.cu``) where a caller forces it
 beside ``"wgmma"``.
@@ -96,14 +97,15 @@ _TAIL_TAKES = {"wgmma": "bf16 at nf 64 with aligned operands",
                "mma": "bf16 at nf 64 with aligned operands",
                "bf16x3": "fp32 at nf 64 with aligned operands"}
 _MMA_COUT = (32, 64)  # the widths of conv3x3_mma.cu, conv3x3_wgmma.cu and the bf16x3 kernel
-# (cin, cout) of conv3x3_narrow.cu's kernels by dtype: the stems (bf16 and
-# fp32) and conv_last (bf16 only: fp32 conv_last stays on conv3x3.cu)
-_NARROW = {torch.bfloat16: ((3, 64), (12, 64), (64, 3)), torch.float32: ((3, 64), (12, 64))}
+# (cin, cout) of conv3x3_narrow.cu's kernels by dtype: the stems and
+# conv_last, each in bf16 and fp32
+_NARROW = {torch.bfloat16: ((3, 64), (12, 64), (64, 3)),
+           torch.float32: ((3, 64), (12, 64), (64, 3))}
 _K1_TAKES = {
     "wgmma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
     "bf16x3": "fp32 with cin a multiple of 16, cout 32 or 64 and aligned operands",
     "mma": "bf16 with cin a multiple of 16, cout 32 or 64 and aligned operands",
-    "narrow": "stems (cin 3 or 12 -> 64, bf16 or fp32) and bf16 conv_last (64 -> 3) "
+    "narrow": "stems (cin 3 or 12 -> 64) and conv_last (64 -> 3), bf16 or fp32, "
               "without residuals or upsample2, with operands it can load",
 }
 
@@ -122,10 +124,10 @@ def conv3x3_route(
     the fine grid); ``"bf16x3"`` takes the same widths in fp32 (the fp32
     flagship's dense-block convs, conv_body, up1, upconv2 and conv_hr, the
     SRVGG body), read through nearest 2x or not; ``"narrow"`` takes the
-    stems (cin 3 or 12 -> cout 64) in bf16 and fp32, and the bf16
-    ``conv_last`` (cin 64 -> cout 3), where ``narrow`` says the rest of the
-    call suits it (:func:`narrow_operands`); ``"fma"`` takes every other
-    call (the fp32 conv_last among them)."""
+    stems (cin 3 or 12 -> cout 64) and ``conv_last`` (cin 64 -> cout 3),
+    each in bf16 and fp32, where ``narrow`` says the rest of the call suits
+    it (:func:`narrow_operands`); ``"fma"`` takes every other call (the
+    narrow test widths, operands the other kernels cannot load)."""
     if cin % 16 == 0 and cout in _MMA_COUT and aligned:
         if dtype == torch.bfloat16:
             return "wgmma"
@@ -153,9 +155,10 @@ def operands_aligned(*tensors: Optional[torch.Tensor], piece_elems: int = 8) -> 
 
 def narrow_operands(x, cout, out=None, r1=None, r2=None, upsample2=False) -> bool:
     """Whether a call of the narrow widths suits ``"narrow"``'s kernels: no
-    residuals and no ``upsample2``; ``conv_last`` (cout 3, bf16) reads x 16
-    bytes (8 channels) at a time, so x must start on 16 bytes with a pixel
-    stride of whole 16-byte pieces; a stem writes ``out`` 16 bytes (8 bf16
+    residuals and no ``upsample2``; ``conv_last`` (cout 3) reads x 16 bytes
+    (8 bf16 channels; in fp32 4, by TMA) at a time, so x must start on 16
+    bytes with a pixel stride of whole 16-byte pieces (a multiple of 8
+    elements in bf16, of 4 in fp32); a stem writes ``out`` 16 bytes (8 bf16
     or 4 fp32 couts) at a time, so ``out`` (None: a fresh contiguous tensor)
     must (a pixel stride that is a multiple of 8 elements in bf16, of 4 in
     fp32), while its x is read one value at a time at any pixel stride (cin
@@ -473,6 +476,68 @@ def bf16x3_call_plan(x: torch.Tensor, w: torch.Tensor, **kw) -> Bf16x3Plan:
     return bf16x3_plan(x.shape, _pixel_stride(x, "x"), w.shape[-1], **kw)
 
 
+# conv3x3_narrow.cu's fp32 conv_last as shipped (its launcher refuses a
+# plan of another geometry): tile rows and pixels, input channels a stage
+# (64 bytes a pixel), box pixels a patch row (the tile's 34 and one more: an
+# odd row pitch of 64-byte pixels); one block an SM
+LAST32 = dict(th=32, tw=32, cs=16, bw=35)
+_LAST32_PLAN_LEN = 14
+
+
+class Last32Plan(NamedTuple):
+    """What ``vr_conv3x3_narrow`` encodes and launches for the fp32
+    conv_last: x's fp32 4-D tensor map over (channels, W, H, B) (dims, the
+    byte strides of dims 1-3, the box: cs channels, 64 bytes, of bw pixels
+    x (th + 2) rows, in the 64-byte swizzle; the map's zero fill outside
+    the frame is the SAME padding), the persistent grid and the tile;
+    ``tiles`` is kept for the checks and not sent."""
+
+    a_dims: Tuple[int, int, int, int]
+    a_strides: Tuple[int, int, int]
+    a_box: Tuple[int, int, int, int]
+    grid: int
+    tiles: int
+    tile: Tuple[int, int]
+
+    def array(self) -> ctypes.Array:
+        """The plan as the C launcher reads it (14 int64 values)."""
+        vals = (*self.a_dims, *self.a_strides, *self.a_box, self.grid, *self.tile)
+        return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def last32_plan(shape: Sequence[int], xs: int, *, sms: int) -> Last32Plan:
+    """The fp32 conv_last's tensor map and grid: a pure function of x's
+    shape (B, H, W, 64), its pixel stride ``xs`` in elements (a
+    channel-prefix view of a wider buffer has xs > 64) and the card's SM
+    count. A tile is th x tw output pixels (:data:`LAST32`); a stage copies
+    its (th + 2)-row patch from (oy0 - 1, ox0 - 1) on, bw pixels a row, cs
+    channels at a time; block b walks tiles b, b + grid, ... in row-major
+    order. Raises ValueError for a call the kernel cannot take: an empty
+    shape, cin other than 64, a pixel stride that is not a multiple of 4
+    elements (16 bytes) or is below cin."""
+    bsz, h, w, cin = (int(v) for v in shape)
+    th, tw, cs, bw = (LAST32[k] for k in ("th", "tw", "cs", "bw"))
+    if min(bsz, h, w, cin) <= 0:
+        raise ValueError(f"last32_plan: empty shape {tuple(shape)}")
+    if cin != 64:
+        raise ValueError(f"last32_plan: cin {cin} (64)")
+    if xs % 4:
+        raise ValueError(f"last32_plan: pixel stride {xs} is not a multiple of 4 elements")
+    if xs < cin:
+        raise ValueError(f"last32_plan: pixel stride {xs} < cin {cin}")
+    tiles = bsz * -(-h // th) * -(-w // tw)
+    return Last32Plan(
+        a_dims=(cin, w, h, bsz), a_strides=(xs * 4, w * xs * 4, h * w * xs * 4),
+        a_box=(cs, bw, th + 2, 1), grid=min(tiles, sms), tiles=tiles, tile=(th, tw),
+    )
+
+
+def last32_call_plan(x: torch.Tensor, **kw) -> Last32Plan:
+    """:func:`last32_plan` of one call's x (a tensor or a channel-prefix
+    view of a wider NHWC buffer); ``kw`` as there."""
+    return last32_plan(x.shape, _pixel_stride(x, "x"), **kw)
+
+
 def launch_args(x, w, b, alpha, out, r1, r2, act, upsample2, s1, s2) -> tuple:
     """The arguments every K1 kernel takes but the stream: the operands'
     addresses (None for an absent one), x's shape, cin and cout, the pixel
@@ -593,8 +658,9 @@ def conv3x3(
     under its route, ``conv3x3:wgmma``, ``conv3x3:bf16x3``, ``conv3x3:mma``,
     ``conv3x3:narrow`` or ``conv3x3:fma``
     (:func:`conv3x3_route`), and a narrow one under its kernel,
-    ``conv3x3:narrow stem`` or ``conv3x3:narrow conv_last`` (an fp32 stem
-    also under ``conv3x3:narrow stem:fp32``). ``route``:
+    ``conv3x3:narrow stem`` or ``conv3x3:narrow conv_last`` (in fp32 also
+    under ``conv3x3:narrow stem:fp32`` or ``conv3x3:narrow conv_last:fp32``).
+    ``route``:
     None for :func:`conv3x3_route`'s kernel, or a route forced where its
     kernel takes the call (``"mma"`` takes every call of ``"wgmma"``,
     ``"fma"`` every call: side-by-side timings; :func:`forced_route`)."""
@@ -675,7 +741,11 @@ def conv3x3(
         elif route == "mma":
             code = lib.vr_conv3x3_mma(*args)
         elif route == "narrow":
-            code = lib.vr_conv3x3_narrow(_DTYPES[dt], *args)
+            plan = None
+            if dt == torch.float32 and cout == 3:  # conv_last: its TMA map
+                plan = last32_call_plan(x, sms=_sm_count(x.device)).array()
+            code = lib.vr_conv3x3_narrow(_DTYPES[dt], *args, plan,
+                                         0 if plan is None else len(plan))
         else:
             code = lib.vr_conv3x3(_DTYPES[dt], *args)
     _build.check(lib, code, f"conv3x3 kernel ({route})")
@@ -956,7 +1026,7 @@ def tail_fused_route(dtype: torch.dtype, nf: int, aligned: bool = True) -> str:
     summing in K1's order) takes bf16 and ``"bf16x3"``
     (``csrc/tail_fused_bf16x3.cu``: the same tensor cores on three bf16
     parts a value, summing as K1's ``"bf16x3"`` route, conv_last as K1's
-    ``"fma"``) takes fp32; ``"fma"`` (K6's ``csrc/tail_fused.cu``: fp32
+    ``"narrow"`` and ``"fma"``) takes fp32; ``"fma"`` (K6's ``csrc/tail_fused.cu``: fp32
     FMAs) takes the rest (the narrow nf 16 of the checks) and every forced
     call. K6's ``"mma"`` (``csrc/tail_fused_mma.cu``) takes the calls of
     ``"wgmma"`` when :func:`tail_fused_q`'s caller forces it."""

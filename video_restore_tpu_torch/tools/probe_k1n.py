@@ -2,23 +2,30 @@
 
 The card's machine has no kernel profiler, so this builds
 ``csrc/conv3x3_narrow.cu`` alone (seconds; the whole library takes about two
-minutes) three times:
+minutes) four times:
 
 - ``full``: the kernels as shipped (checked against the plain version);
 - ``no_fma``: ``-DVR_PROBE_NO_FMA``, the loads, the shared-memory stores,
   the barriers and the epilogue without the FMAs (no valid output);
 - ``no_load``: ``-DVR_PROBE_NO_LOAD``, everything but the global loads of
-  the input (no valid output);
+  the input (the fp32 conv_last's stages arrive unfilled; no valid
+  output);
+- ``l2``: ``-DVR_PROBE_L2``, the fp32 conv_last with every copy reading one
+  of the first 64 tiles' patches, 19.5 MB that stay in L2 (no valid
+  output; the bf16 kernels ignore it);
 
 and times each build on the stem, 1x1080x1920x3 -> 64, and on conv_last,
-1x4320x7680x64 -> 3 and 6x1504x1792x64 -> 3, in bf16. ``full`` minus
-``no_fma`` is what the FMAs add on top of the rest; ``full`` minus
-``no_load`` is what the input's loads add.
+1x4320x7680x64 -> 3 and 6x1504x1792x64 -> 3, in bf16, then on conv_last at
+the same shapes in fp32 (its TMA-fed instance). ``full`` minus ``no_fma``
+is what the FMAs add on top of the rest; ``full`` minus ``no_load`` is what
+the input's loads add; ``full`` against ``l2`` is what reading device
+memory adds.
 
     python -m video_restore_tpu_torch.tools.probe_k1n [--reps N]
 
 Needs a CUDA device and ``nvcc``. Prints the card's ``nvidia-smi`` line and
-each build's ms and fp32 TFLOP/s (useful FMAs x 2).
+each build's ms, fp32 TFLOP/s (useful FMAs x 2) and TB/s (each input byte
+read once, each output byte written once).
 """
 
 from __future__ import annotations
@@ -31,11 +38,15 @@ from typing import Optional, Sequence
 
 import torch
 
-BUILDS = (("full", ()), ("no_fma", ("-DVR_PROBE_NO_FMA",)), ("no_load", ("-DVR_PROBE_NO_LOAD",)))
+BUILDS = (("full", ()), ("no_fma", ("-DVR_PROBE_NO_FMA",)), ("no_load", ("-DVR_PROBE_NO_LOAD",)),
+          ("l2", ("-DVR_PROBE_L2",)))
 SOURCE = "conv3x3_narrow.cu"
-# (tag, B, H, W, cin, cout)
-CASES = (("stem", 1, 1080, 1920, 3, 64), ("conv_last", 1, 4320, 7680, 64, 3),
-         ("conv_last tiles", 6, 1504, 1792, 64, 3))
+# (tag, B, H, W, cin, cout, dtype)
+CASES = (("stem", 1, 1080, 1920, 3, 64, torch.bfloat16),
+         ("conv_last", 1, 4320, 7680, 64, 3, torch.bfloat16),
+         ("conv_last tiles", 6, 1504, 1792, 64, 3, torch.bfloat16),
+         ("conv_last fp32", 1, 4320, 7680, 64, 3, torch.float32),
+         ("conv_last tiles fp32", 6, 1504, 1792, 64, 3, torch.float32))
 
 
 def build_all():
@@ -61,7 +72,8 @@ def build_all():
             if "registers" in line or "spill" in line:
                 print(f"[build] {SOURCE} {name}: {line.split(':', 1)[-1].strip()}", flush=True)
         lib = ctypes.CDLL(str(so))
-        lib.vr_conv3x3_narrow.argtypes = [I] + [P] * 7 + [I] * 5 + [L] * 4 + [I, I, F, F, P]
+        lib.vr_conv3x3_narrow.argtypes = ([I] + [P] * 7 + [I] * 5 + [L] * 4 + [I, I, F, F, P]
+                                          + [ctypes.POINTER(L), I])
         lib.vr_conv3x3_narrow.restype = I
         libs[name] = lib
     return libs
@@ -70,9 +82,9 @@ def build_all():
 def probe(reps: int = 10) -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device available: this probe times the card")
-    from video_restore_tpu_torch.ops.tail import conv3x3_plain
+    from video_restore_tpu_torch.ops.tail import conv3x3_plain, last32_plan
 
-    dev, bf = torch.device("cuda", 0), torch.bfloat16
+    dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -82,8 +94,8 @@ def probe(reps: int = 10) -> None:
     libs = build_all()
     gen = torch.Generator().manual_seed(0)
 
-    def rnd(*shape, scale=1.0):
-        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).to(dev, bf)
+    def rnd(*shape, scale=1.0, dt=torch.bfloat16):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).to(dev, dt)
 
     def timed(fn):
         fn()
@@ -98,15 +110,19 @@ def probe(reps: int = 10) -> None:
         return e0.elapsed_time(e1) / reps
 
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for tag, b, h, w, cin, cout in CASES:
-        x = rnd(b, h, w, cin)
-        wt, bias = rnd(3, 3, cin, cout, scale=0.05), rnd(cout, scale=0.1)
-        y = torch.empty(b, h, w, cout, dtype=bf, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tag, b, h, w, cin, cout, dt in CASES:
+        x = rnd(b, h, w, cin, dt=dt)
+        wt, bias = rnd(3, 3, cin, cout, scale=0.05, dt=dt), rnd(cout, scale=0.1, dt=dt)
+        y = torch.empty(b, h, w, cout, dtype=dt, device=dev)
+        f32 = dt == torch.float32
+        plan = last32_plan(x.shape, cin, sms=sms).array() if f32 else None
 
         def conv(lib):
             code = lib.vr_conv3x3_narrow(
-                1, x.data_ptr(), wt.data_ptr(), bias.data_ptr(), None, None, None, y.data_ptr(),
-                b, h, w, cin, cout, cin, cout, 0, 0, 0, 0, 1.0, 1.0, stream)
+                0 if f32 else 1, x.data_ptr(), wt.data_ptr(), bias.data_ptr(), None, None, None,
+                y.data_ptr(), b, h, w, cin, cout, cin, cout, 0, 0, 0, 0, 1.0, 1.0, stream,
+                plan, 0 if plan is None else len(plan))
             if code != 0:
                 raise RuntimeError(f"vr_conv3x3_narrow: CUDA error {code}")
 
@@ -116,13 +132,15 @@ def probe(reps: int = 10) -> None:
         err = (y.float() - ref.float()).abs().max().item()
         scale = max(1.0, ref.float().abs().max().item())
         del ref
-        if err > 2e-2 * scale:
+        if err > (1e-4 if f32 else 2e-2) * scale:
             raise RuntimeError(f"{tag}: max |kernel - plain| {err:.3g}")
         flops = 2 * b * h * w * 9 * cin * cout
-        line = f"[probe] {tag} {b}x{h}x{w}x{cin}->{cout} (err {err:.3g}):"
+        nbytes = (b * h * w * (cin + cout) + 9 * cin * cout + cout) * x.element_size()
+        line = f"[probe] {tag} {b}x{h}x{w}x{cin}->{cout} (err {err:.3g}; bytes {nbytes / 3.35e9:.3f} ms):"
         for build, _ in BUILDS:
             ms = timed(lambda: conv(libs[build]))
-            line += f" {build} {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s)"
+            line += (f" {build} {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                     f"{nbytes / ms / 1e9:.2f} TB/s)")
         print(line, flush=True)
         del x, y
         torch.cuda.empty_cache()
